@@ -21,7 +21,24 @@ Phases (any failure exits non-zero and prints no result line):
    and timestamps exact, floats rtol 1e-5), and each on-path kernel's
    launch counter non-zero; then the query step alone over the same
    rounds (device batches prepared beforehand) and the places where one
-   step syncs with the host.
+   step syncs with the host;
+6. the sliding-window kernels: each K2b entry point of the packed ring
+   (pack-compact, fetch, append across the ring's end, gather), each K5b
+   scan (grouped sum/min/max and ungrouped with and without resets, int64
+   and float32) and the K5 scan without GROUP BY (three components)
+   against its plain version at the sliding apps' shapes (B = E = C =
+   131072, W = 6 words; L = 262144 lanes, K = 2^20): K2b, integer scans
+   and min/max bit for bit, float32 sums within rtol 1e-5 of the largest
+   running value; with the same timings; and the torch routes K2a, K6 and
+   the K7 merge timed at their shapes;
+7. app C, BASELINE config 3 (time(60 sec) distinctCount(symbol) over
+   100,000 symbols, in playback), app D (length(100000) sum/count grouped
+   by 1,000,000 symbols), app E (time(60 sec) distinctCount(volume)
+   grouped by 1,000 symbols) and app F (length(100000) sum/sum/count
+   without GROUP BY), 1,048,576 events each, every output event against
+   an independent numpy oracle (counts and long sums exact, float sums
+   rtol 1e-5 plus atol 1e-3 for the float32 residues of removal), with
+   the same per-app numbers as apps A and B.
 
 The second-to-last lines are the kernel table as one JSON object and the
 card's name and power limit; the last line is
@@ -68,15 +85,77 @@ group by account
 insert into SummaryStream;
 """
 
+# BASELINE config 3 as bench.py writes it, with @app:playback so that the
+# window follows event time (wall-clock `now` would expire every event at
+# the end of its own batch)
+APP_C = """
+@app:playback
+define stream TradeStream (symbol string, price double, volume long);
+@info(name = 'bench')
+from TradeStream#window.time(60 sec)
+select distinctCount(symbol) as distinctSymbols
+insert into OutStream;
+"""
+
+# the north star: a sliding group-by; EXPIRED lanes feed K5 negative deltas
+APP_D = """
+define stream TradeStream (symbol string, price double, volume long);
+@info(name = 'bench')
+from TradeStream#window.length(100000)
+select symbol, sum(price) as total, count() as n
+group by symbol
+insert into OutStream;
+"""
+
+# exact grouped distinctCount on the (symbol, volume) pair table
+APP_E = """
+@app:playback
+define stream TradeStream (symbol string, price double, volume long);
+@info(name = 'bench')
+from TradeStream#window.time(60 sec)
+select symbol, distinctCount(volume) as n
+group by symbol
+insert into OutStream;
+"""
+
+# a sliding sum without GROUP BY: the ungrouped K5 scan, EXPIRED lanes
+# negative
+APP_F = """
+define stream TradeStream (symbol string, price double, volume long);
+@info(name = 'bench')
+from TradeStream#window.length(100000)
+select sum(price) as total, sum(volume) as vol, count() as n
+insert into OutStream;
+"""
+
+TIME_WINDOW_MS = 60_000
+LENGTH_D = 100_000
+C_SYMBOLS = 100_000
+E_SYMBOLS = 1_000
+ATOL_SLIDING = 1e-3  # float32 residues of removal in sliding sums
+
+WINDOWS = "siddhi_tpu/ops/windows.py"
+GROUPBY = "siddhi_tpu/ops/groupby.py"
+K5_SRC = "siddhi_tpu_torch/csrc/k5_grouped_scan.cu"
+K2B_SRC = "siddhi_tpu_torch/csrc/k2b_packed_ring.cu"
+
+#: launch-counter key -> (function, source, TPU-side function replaced)
 KERNELS = {
     "K1": ("stable_partition_order", "siddhi_tpu_torch/csrc/k1_partition.cu",
            "siddhi_tpu/ops/search.py:20"),
     "K3": ("hash_columns", "siddhi_tpu_torch/csrc/k3_hash.cu",
-           "siddhi_tpu/ops/groupby.py:576"),
+           f"{GROUPBY}:576"),
     "K4": ("key_lookup_or_insert", "siddhi_tpu_torch/csrc/k4_keytable.cu",
-           "siddhi_tpu/ops/groupby.py:362"),
-    "K5": ("grouped_scan_fused", "siddhi_tpu_torch/csrc/k5_grouped_scan.cu",
-           "siddhi_tpu/ops/groupby.py:171"),
+           f"{GROUPBY}:362"),
+    "K5": ("grouped_scan_fused", K5_SRC, f"{GROUPBY}:171"),
+    "K5 ungrouped": ("ungrouped_scan_fused", K5_SRC, f"{GROUPBY}:240"),
+    "K2b pack": ("_pack_rows + compact_packed", K2B_SRC, f"{WINDOWS}:295"),
+    "K2b fetch": ("_fetch_rel_packed", K2B_SRC, f"{WINDOWS}:374"),
+    "K2b append": ("_append_packed", K2B_SRC, f"{WINDOWS}:354"),
+    "K2b gather": ("_gather_chunk_packed", K2B_SRC, f"{WINDOWS}:400"),
+    "K5b grouped": ("grouped_scan + _scan_component", K5_SRC,
+                    f"{GROUPBY}:61"),
+    "K5b ungrouped": ("ungrouped_scan", K5_SRC, f"{GROUPBY}:207"),
 }
 
 
@@ -120,7 +199,15 @@ def time_ms(torch, fn, reset=None, iters=20, warmup=3) -> float:
 
 
 def check_equal(name, a, b) -> None:
-    if a.shape != b.shape or a.dtype != b.dtype or not bool((a == b).all()):
+    """Bit for bit (floats compared as their bits, so NaN words match)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise Failure(f"{name}: kernel and plain version differ in shape or "
+                      "type")
+    if a.dtype.is_floating_point:
+        bits = {4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.view(bits), b.view(bits)
+    if not bool((a == b).all()):
         raise Failure(f"{name}: kernel and plain version differ")
 
 
@@ -289,6 +376,320 @@ def kernel_phase(torch, rng, chunk_width_a: int) -> dict:
     return res
 
 
+def _err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def check_float_scan(name, a, b) -> float:
+    """A float32 sum scan against its plain version: the two add in other
+    orders, so they differ by rounding of the running sums, not of each
+    lane's value (a lane near a zero crossing holds far less than the sums
+    it came from). Tolerance: rtol 1e-5 of the largest running value."""
+    err = _err(a, b)
+    scale = max(float(b.double().abs().max()), 1.0)
+    if err > RTOL * scale:
+        raise Failure(f"{name}: off by {err} (> {RTOL} x {scale})")
+    return err
+
+
+def _timed(torch, fn, plain, library=None, reset=None) -> dict:
+    return dict(ms=time_ms(torch, fn, reset=reset),
+                plain_ms=time_ms(torch, plain, reset=reset),
+                library_ms=(time_ms(torch, library, reset=reset)
+                            if library is not None else None))
+
+
+def sliding_kernel_phase(torch, rng) -> tuple[dict, dict]:
+    """K2b and K5b against their plain versions at the sliding apps'
+    shapes; then the torch routes K2a, K6 and the K7 merge timed at their
+    shapes. Returns (kernel results, torch-route results)."""
+    from siddhi_tpu_torch.core.event import EventBatch
+    from siddhi_tpu_torch.ops import groupby, search
+    from siddhi_tpu_torch.ops import windows as w
+
+    dev = torch.device("cuda")
+    res, routes = {}, {}
+    B = E = C = BATCH
+    layout = {"symbol": torch.int32, "price": torch.float32,
+              "volume": torch.int64}
+    W = w._layout_words(layout)  # 6 words for TradeStream
+    cols = {"symbol": torch.from_numpy(rng.integers(1, C_SYMBOLS, B).astype(
+                np.int32)).to(dev),
+            "price": torch.from_numpy(rng.uniform(1, 100, B).astype(
+                np.float32)).to(dev),
+            "volume": torch.from_numpy(rng.integers(1, 1000, B)).to(dev)}
+    ts = torch.arange(B, dtype=torch.int64, device=dev) + 1_700_000_000_000
+    live = torch.from_numpy(rng.random(B) < 0.9).to(dev)
+    order = search.stable_partition_order(live)
+    n_live = int(live.sum())
+
+    # pack-compact: read the typed columns, ts and K1's order, write [W, B]
+    got = w.pack_compact(cols, ts, layout, order)
+    check_equal("K2b pack", got, w.pack_compact_plain(cols, ts, layout,
+                                                      order))
+    res["K2b pack"] = dict(
+        _timed(torch, lambda: w.pack_compact(cols, ts, layout, order),
+               lambda: w.pack_compact_plain(cols, ts, layout, order)),
+        bound_ms=bound_ms(B * (4 + 4 + 8 + 8 + 4) + W * 4 * B),
+        max_abs_err=0, bound_by="bytes")
+    comp = got
+
+    # fetch at app C's steady state: the window holds 60000 rows of the
+    # ring; the other candidates come from the batch (rel0 = 60000)
+    ring0 = torch.from_numpy(rng.integers(-(2**31), 2**31, (W, C)).astype(
+        np.int32)).to(dev)
+    expired = torch.tensor(1_000_000, device=dev)
+    appended = torch.tensor(1_000_000 + TIME_WINDOW_MS, device=dev)
+    # the append lands across the ring's end: 1,120,000 % C + n_live > C
+    append_at = torch.tensor(1_000_000 + 120_000, device=dev)
+    if int(append_at) % C + n_live <= C:
+        raise Failure("K2b append: the test position does not wrap")
+    n_valid = torch.tensor(n_live, dtype=torch.int32, device=dev)
+    check_equal("K2b fetch", w._fetch_rel_packed(ring0, comp, expired,
+                                                 appended, E),
+                w._fetch_rel_packed_plain(ring0, comp, expired, appended, E))
+    ring_idx = torch.remainder(expired + torch.arange(E, device=dev), C)
+    res["K2b fetch"] = dict(
+        _timed(torch,
+               lambda: w._fetch_rel_packed(ring0, comp, expired, appended,
+                                           E),
+               lambda: w._fetch_rel_packed_plain(ring0, comp, expired,
+                                                 appended, E),
+               library=lambda: ring0[:, ring_idx]),
+        bound_ms=bound_ms(2 * W * 4 * E), max_abs_err=0, bound_by="bytes")
+
+    # append at a wrapping position
+    ring = ring0.clone()
+    want = w._append_packed_plain(ring0, comp, append_at, n_valid)
+    check_equal("K2b append", w._append_packed(ring, comp, append_at,
+                                               n_valid), want)
+    dest = torch.remainder(append_at + torch.arange(n_live, device=dev), C)
+    comp_v = comp[:, :n_live].contiguous()
+
+    def lib_append():
+        ring[:, dest] = comp_v
+
+    res["K2b append"] = dict(
+        _timed(torch,
+               lambda: w._append_packed(ring, comp, append_at, n_valid),
+               lambda: w._append_packed_plain(ring, comp, append_at,
+                                              n_valid),
+               library=lib_append),
+        bound_ms=bound_ms(2 * W * 4 * n_live), max_abs_err=0,
+        bound_by="bytes")
+
+    # chunk gather over E + B lanes by a permutation (random: no locality)
+    L = E + B
+    payload = torch.cat([ring0, comp], dim=1)
+    perm = torch.from_numpy(rng.permutation(L).astype(np.int32)).to(dev)
+    emit = torch.arange(L, dtype=torch.int64, device=dev)
+    valid = torch.from_numpy(rng.random(L) < 0.5).to(dev)
+    types = torch.from_numpy(rng.integers(0, 2, L).astype(np.int8)).to(dev)
+    args = (perm, payload, emit, valid, types, layout)
+    kb = w._gather_chunk_packed(*args)
+    pb = w._gather_chunk_packed_plain(*args)
+    for nm in ("ts", "valid", "types"):
+        check_equal(f"K2b gather {nm}", getattr(kb, nm), getattr(pb, nm))
+    for k in layout:
+        check_equal(f"K2b gather {k}", kb.cols[k], pb.cols[k])
+    perm64 = perm.long()
+    res["K2b gather"] = dict(
+        _timed(torch, lambda: w._gather_chunk_packed(*args),
+               lambda: w._gather_chunk_packed_plain(*args),
+               library=lambda: torch.index_select(payload, 1, perm64)),
+        # order, the column words, emit ts, valid, type in; typed columns,
+        # ts, valid, type out
+        bound_ms=bound_ms(L * (4 + (W - 2) * 4 + 8 + 1 + 1)
+                          + L * (4 + 4 + 8 + 8 + 1 + 1)),
+        max_abs_err=0, bound_by="bytes")
+    for k in ("K2b pack", "K2b fetch", "K2b append", "K2b gather"):
+        print(f"{k} B=E=C={B} W={W}: {res[k]}")
+
+    # K5b at the chunk width of the sliding apps, K = 2^20
+    L, K = 2 * BATCH, GROUP_CAP
+    slots = torch.from_numpy(rng.integers(0, K, L).astype(np.int32)).to(dev)
+    valid = torch.from_numpy(rng.random(L) < 0.9).to(dev)
+    resets = torch.zeros(L, dtype=torch.bool, device=dev)
+    resets[torch.from_numpy(rng.choice(L, 3, replace=False)).to(dev)] = True
+    valid &= ~resets
+    no_resets = torch.zeros(L, dtype=torch.bool, device=dev)
+    cur = torch.tensor(5, dtype=torch.int32, device=dev)
+    deltas = {torch.int64: torch.from_numpy(rng.choice([-1, 1], L)).to(dev),
+              torch.float32: torch.from_numpy(rng.uniform(
+                  -100, 100, L).astype(np.float32)).to(dev)}
+    epochs0 = torch.from_numpy(rng.integers(3, 7, K).astype(np.int32)).to(dev)
+    grouped, ungrouped = {}, {}
+    for dt, d in deltas.items():
+        values0 = torch.from_numpy(rng.integers(0, 50, K)).to(dev).to(dt)
+        for op in ("sum", "min", "max"):
+            st = groupby.GroupState(values0.clone(), epochs0.clone())
+
+            def restore(st=st, v0=values0):
+                st.values.copy_(v0)
+                st.epoch.copy_(epochs0)
+
+            ps, po = groupby.grouped_scan_plain(
+                groupby.GroupState(values0.clone(), epochs0.clone()), slots,
+                d, valid, resets, cur, op)
+            ks, ko = groupby.grouped_scan(st, slots, d, valid, resets, cur,
+                                          op)
+            check_equal(f"K5b grouped {op} {dt} epoch", ks.epoch, ps.epoch)
+            err = 0.0
+            for a, b in ((ks.values, ps.values), (ko, po)):
+                if dt == torch.int64 or op != "sum":
+                    check_equal(f"K5b grouped {op} {dt}", a, b)
+                else:
+                    err = max(err, check_float_scan(
+                        f"K5b grouped {op} {dt}", a, b))
+            grouped[(op, dt)] = dict(_timed(
+                torch,
+                lambda st=st, d=d, op=op: groupby.grouped_scan(
+                    st, slots, d, valid, resets, cur, op),
+                lambda st=st, d=d, op=op: groupby.grouped_scan_plain(
+                    st, slots, d, valid, resets, cur, op),
+                reset=restore), max_abs_err=err)
+        for rs_name, rs in (("resets", resets), ("no resets", no_resets)):
+            for op in ("sum", "max"):
+                cell0 = values0[:1].clone()
+                ep0 = torch.tensor([5], dtype=torch.int32, device=dev)
+                st = groupby.GroupState(cell0.clone(), ep0.clone())
+
+                def restore(st=st, c0=cell0, e0=ep0):
+                    st.values.copy_(c0)
+                    st.epoch.copy_(e0)
+
+                ps, po = groupby.ungrouped_scan_plain(
+                    groupby.GroupState(cell0.clone(), ep0.clone()), d, valid,
+                    rs, cur, op)
+                ks, ko = groupby.ungrouped_scan(st, d, valid, rs, cur, op)
+                check_equal(f"K5b ungrouped {op} {rs_name} epoch", ks.epoch,
+                            ps.epoch)
+                err = 0.0
+                for a, b in ((ks.values, ps.values), (ko, po)):
+                    if dt == torch.int64 or op != "sum":
+                        check_equal(f"K5b ungrouped {op} {dt} {rs_name}", a,
+                                    b)
+                    else:
+                        err = max(err, check_float_scan(
+                            f"K5b ungrouped {op} {dt} {rs_name}", a, b))
+                lib = (lambda d=d: torch.cumsum(d, 0)) \
+                    if (op == "sum" and rs is no_resets) else None
+                ungrouped[(op, dt, rs_name)] = dict(_timed(
+                    torch,
+                    lambda st=st, d=d, rs=rs, op=op: groupby.ungrouped_scan(
+                        st, d, valid, rs, cur, op),
+                    lambda st=st, d=d, rs=rs, op=op:
+                        groupby.ungrouped_scan_plain(st, d, valid, rs, cur,
+                                                     op),
+                    library=lib, reset=restore), max_abs_err=err)
+    for (op, dt), r in grouped.items():
+        print(f"K5b grouped_scan op={op} {dt} L={L} K={K}: {r}")
+    for (op, dt, rs), r in ungrouped.items():
+        print(f"K5b ungrouped_scan op={op} {dt} {rs} L={L}: {r}")
+    # the path's instantiations: int64 sums (distinctCount's counts)
+    touched = int(torch.unique(torch.where(valid, slots, -1)).numel()) - 1
+    res["K5b grouped"] = dict(
+        grouped[("sum", torch.int64)], bound_by="bytes",
+        # slots, valid, resets, deltas in, outputs out; per touched slot
+        # one value and one epoch read and written
+        bound_ms=bound_ms(L * (4 + 1 + 1 + 8 + 8) + touched * (8 + 8 + 8)))
+    res["K5b ungrouped"] = dict(
+        ungrouped[("sum", torch.int64, "no resets")], bound_by="bytes",
+        bound_ms=bound_ms(L * (1 + 1 + 8 + 8)))
+    res["K5b ungrouped"]["max_abs_err"] = max(
+        r["max_abs_err"] for r in ungrouped.values())
+    res["K5b grouped"]["max_abs_err"] = max(
+        r["max_abs_err"] for r in grouped.values())
+
+    # K5 without GROUP BY at the same width: app F's three components
+    # (float32 sum, int64 sum, int64 count) over one plan, no sort
+    comps = [deltas[torch.float32], deltas[torch.int64] * 7,
+             deltas[torch.int64]]
+    cells0 = [torch.tensor([v], dtype=c.dtype, device=dev)
+              for v, c in zip((1234.5, 999, 40), comps)]
+    ep_cell0 = torch.tensor([5], dtype=torch.int32, device=dev)
+    u_vals = [c.clone() for c in cells0]
+    u_ep = ep_cell0.clone()
+
+    def restore_u():
+        for v, v0 in zip(u_vals, cells0):
+            v.copy_(v0)
+        u_ep.copy_(ep_cell0)
+
+    err = 0.0
+    for rs_name, rs in (("resets", resets), ("no resets", no_resets)):
+        restore_u()
+        kv, ke, ko = groupby.ungrouped_scan_fused(u_vals, u_ep, comps, valid,
+                                                  rs, cur)
+        pv, pe, po = groupby.ungrouped_scan_fused_plain(
+            [v.clone() for v in cells0], ep_cell0.clone(), comps, valid, rs,
+            cur)
+        check_equal(f"K5 ungrouped {rs_name} epoch", ke, pe)
+        for c in range(len(comps)):
+            for a, b in ((kv[c], pv[c]), (ko[c], po[c])):
+                if a.dtype == torch.int64:
+                    check_equal(f"K5 ungrouped {rs_name} component {c}", a,
+                                b)
+                else:
+                    err = max(err, check_float_scan(
+                        f"K5 ungrouped {rs_name} component {c}", a, b))
+    res["K5 ungrouped"] = dict(
+        _timed(torch,
+               lambda: groupby.ungrouped_scan_fused(u_vals, u_ep, comps,
+                                                    valid, no_resets, cur),
+               lambda: groupby.ungrouped_scan_fused_plain(
+                   u_vals, u_ep, comps, valid, no_resets, cur),
+               reset=restore_u),
+        # valid and resets in; per component the deltas in, outputs out
+        bound_ms=bound_ms(L * (1 + 1) + sum(2 * L * c.element_size()
+                                            for c in comps)),
+        max_abs_err=err, bound_by="bytes")
+    print(f"K5 ungrouped_scan_fused L={L} comps={len(comps)}: "
+          f"{res['K5 ungrouped']}")
+
+    # torch routes: K2a ring ops at app A's shapes
+    N = WINDOW
+    Ca = 2 * N + BATCH
+    ring_cols = {k: torch.zeros(Ca + 1, dtype=v.dtype, device=dev)
+                 for k, v in cols.items()}
+    ring_ts = torch.zeros(Ca + 1, dtype=torch.int64, device=dev)
+    offs = torch.arange(BATCH + N, dtype=torch.int32, device=dev)
+    base = torch.tensor(5 * N, device=dev)
+    app0 = torch.tensor(5 * N + 3 * N // 2, device=dev)
+    nv = torch.tensor(BATCH, dtype=torch.int32, device=dev)
+    row = 4 + 4 + 8 + 8  # symbol, price, volume, ts
+    routes["K2a _gather_rel"] = dict(
+        ms=time_ms(torch, lambda: w._gather_rel(
+            ring_cols, ring_ts, cols, ts, app0, base, offs)),
+        bound_ms=bound_ms(2 * (BATCH + N) * row), shape=f"L={BATCH + N}")
+    routes["K2a _scatter_append"] = dict(
+        ms=time_ms(torch, lambda: w._scatter_append(
+            ring_cols, ring_ts, cols, ts, app0, nv)),
+        bound_ms=bound_ms(2 * BATCH * row), shape=f"B={BATCH} C={Ca}")
+    # K6 at app C's shapes: the expiry trigger and the K5 sort
+    sorted_ts = ts.contiguous()
+    deadline = ts + 30_000
+    routes["K6 searchsorted32"] = dict(
+        ms=time_ms(torch, lambda: search.searchsorted32(sorted_ts, deadline)),
+        bound_ms=bound_ms(BATCH * (8 + 8 + 4)), shape=f"{BATCH} into {BATCH}")
+    sk = torch.where(valid, slots, K)
+    routes["K6 stable_argsort_bounded"] = dict(
+        ms=time_ms(torch, lambda: search.stable_argsort_bounded(sk)),
+        bound_ms=bound_ms(L * (4 + 8)), shape=f"L={L}")
+    # K7 merge of the sliding chunk: E expired + B current lanes
+    pe = torch.arange(E, dtype=torch.int32, device=dev)
+    pb = torch.arange(B, dtype=torch.int32, device=dev)
+    keys = [(torch.clamp(pe * 2, 0, B) * 4, pe), (pb * 4 + 2, pb)]
+    valids = [pe < E // 2 + 7000, pb < n_live]
+    routes["K7 _merge_order"] = dict(
+        ms=time_ms(torch, lambda: w._merge_order(keys, valids)),
+        bound_ms=bound_ms((E + B) * (4 + 4 + 1 + 4)), shape=f"E={E} B={B}")
+    for k, r in routes.items():
+        print(f"{k}: {r}")
+    torch.cuda.synchronize()
+    return res, routes
+
+
 # --------------------------------------------------------------------------- #
 # phases 3-5: the apps and the oracle
 # --------------------------------------------------------------------------- #
@@ -333,32 +734,32 @@ def oracle(key, price32, ts, passed):
     return sel, total, total / cnt, ts[sel]
 
 
-def run_app(torch, text: str, key, price, volume, ts, long_key: bool):
+def run_app(torch, text: str, columns: dict, ts,
+            out_stream: str = "SummaryStream"):
+    """Feed ROUNDS sends of BATCH events (send_columns + flush each) and
+    collect the output stream's events."""
     from siddhi_tpu_torch import SiddhiManager
     from siddhi_tpu_torch import kernels
 
     rt = SiddhiManager().create_siddhi_app_runtime(
         text, batch_size=BATCH, group_capacity=GROUP_CAP)
     got = []
-    rt.add_callback("SummaryStream", got.extend)
+    rt.add_callback(out_stream, got.extend)
     h = rt.get_input_handler("TradeStream")
-    key_col = key if long_key else np.array(
-        [f"S{k}" for k in key], dtype=object)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     for r in range(ROUNDS):
         s = slice(r * BATCH, (r + 1) * BATCH)
-        h.send_columns({("account" if long_key else "symbol"): key_col[s],
-                        "price": price[s], "volume": volume[s]},
+        h.send_columns({k: v[s] for k, v in columns.items()},
                        timestamps=ts[s])
         rt.flush()
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    return rt, got, launches, elapsed, peak, key_col
+    return rt, got, launches, elapsed, peak
 
 
 def check_app(name, got, key_col, key, price, ts, passed, long_key):
@@ -383,23 +784,162 @@ def check_app(name, got, key_col, key, price, ts, passed, long_key):
     return len(got)
 
 
-def measure_steps(torch, rt, key_col, price, volume, ts, long_key):
+# ---- the sliding apps' data and oracles ------------------------------------
+
+
+def symbols(n_pool: int) -> np.ndarray:
+    return np.array([f"S{k}" for k in range(1, n_pool + 1)], dtype=object)
+
+
+def sliding_events(rng, n_symbols: int):
+    """symbol index uniform over n_symbols, price 1-100, volume 1-999,
+    timestamps 1 ms apart."""
+    n = BATCH * ROUNDS
+    sym = rng.integers(0, n_symbols, n)
+    price = rng.uniform(1.0, 100.0, n)
+    volume = rng.integers(1, 1000, n).astype(np.int64)
+    ts = 1_700_000_000_000 + np.arange(n, dtype=np.int64)
+    return sym, price, volume, ts
+
+
+def next_same(key: np.ndarray) -> np.ndarray:
+    """Index of the next event with the same key (n where there is none)."""
+    n = key.shape[0]
+    order = np.argsort(key, kind="stable")
+    nxt = np.full(n, n, dtype=np.int64)
+    same = key[order[1:]] == key[order[:-1]]
+    nxt[order[:-1][same]] = order[1:][same]
+    return nxt
+
+
+def distinct_in_window(key: np.ndarray, span: int) -> np.ndarray:
+    """Per event i, the distinct keys among events [i - span + 1, i]: event
+    j counts for i in [j, min(next_same(j), j + span)) as its key's last
+    occurrence in the window."""
+    n = key.shape[0]
+    end = np.minimum(next_same(key), np.arange(n) + span)
+    diff = (np.bincount(np.arange(n), minlength=n + 1)
+            - np.bincount(end, minlength=n + 1))
+    return np.cumsum(diff)[:n]
+
+
+def oracle_c(sym: np.ndarray) -> np.ndarray:
+    return distinct_in_window(sym, TIME_WINDOW_MS)
+
+
+def oracle_d(sym: np.ndarray, price32: np.ndarray):
+    """Per event, the running sum and count of its symbol over the last
+    LENGTH_D events, inclusive (float64)."""
+    n = sym.shape[0]
+    idx = np.arange(n, dtype=np.int64)
+    order = np.lexsort((idx, sym))
+    ks = sym[order].astype(np.int64)
+    comb = ks * n + idx[order]
+    cs = np.cumsum(price32[order].astype(np.float64))
+    lo = np.maximum(np.searchsorted(comb, comb - LENGTH_D, side="right"),
+                    np.searchsorted(comb, ks * n, side="left"))
+    q = np.arange(n)
+    total = cs - np.where(lo > 0, cs[np.maximum(lo - 1, 0)], 0.0)
+    count = q - lo + 1
+    out_t = np.empty(n)
+    out_c = np.empty(n, dtype=np.int64)
+    out_t[order] = total
+    out_c[order] = count
+    return out_t, out_c
+
+
+def oracle_f(price32: np.ndarray, volume: np.ndarray):
+    """Per event, the sum of price (float64), the sum of volume and the
+    count over the last LENGTH_D events, inclusive."""
+    n = price32.shape[0]
+    lo = np.maximum(np.arange(n) - LENGTH_D, -1)
+
+    def window_sum(x):
+        cs = np.concatenate([[0], np.cumsum(x)])
+        return cs[1:] - cs[lo + 1]
+
+    return (window_sum(price32.astype(np.float64)), window_sum(volume),
+            np.arange(n) - lo)
+
+
+def oracle_e(sym: np.ndarray, volume: np.ndarray) -> np.ndarray:
+    """Per event, the distinct volumes of its symbol among the events of
+    the last TIME_WINDOW_MS ms: pair (symbol, volume) j counts for the
+    symbol's events in [j, min(next pair j, j + span)), counted along the
+    symbol's own event list."""
+    n = sym.shape[0]
+    idx = np.arange(n, dtype=np.int64)
+    pair = sym.astype(np.int64) * 1000 + volume
+    end = np.minimum(next_same(pair), idx + TIME_WINDOW_MS)
+    order = np.lexsort((idx, sym))
+    comb = sym[order].astype(np.int64) * n + idx[order]
+    pos = np.empty(n, dtype=np.int64)
+    pos[order] = np.arange(n)
+    end_pos = np.searchsorted(comb, sym.astype(np.int64) * n + end,
+                              side="left")
+    # a -1 landing on the next symbol's first position cancels against the
+    # surplus of this symbol's open intervals, so one global cumsum serves
+    diff = (np.bincount(pos, minlength=n + 1)
+            - np.bincount(end_pos, minlength=n + 1))
+    out = np.empty(n, dtype=np.int64)
+    out[order] = np.cumsum(diff)[:n]
+    return out
+
+
+def check_sliding(name: str, got, ts, expect_cols: list) -> int:
+    """Every output event against the oracle: timestamps and the columns
+    in `expect_cols` ((what, values, float?)), in arrival order."""
+    n = ts.shape[0]
+    if len(got) != n:
+        raise Failure(f"app {name}: {len(got)} events out, expected {n}")
+    g_ts = np.fromiter((e.timestamp for e in got), np.int64, n)
+    if not np.array_equal(g_ts, ts):
+        raise Failure(f"app {name}: timestamps differ from the oracle")
+    for i, (what, want, is_float) in enumerate(expect_cols):
+        if isinstance(want, list):
+            if [e.data[i] for e in got] != want:
+                raise Failure(f"app {name}: {what} differs from the oracle")
+            continue
+        g = np.fromiter((e.data[i] for e in got),
+                        np.float64 if is_float else np.int64, n)
+        if is_float:
+            ok = np.isclose(g, want, rtol=RTOL, atol=ATOL_SLIDING)
+        else:
+            ok = g == want
+        if not ok.all():
+            j = int(np.argmin(ok))
+            raise Failure(f"app {name}: {what} of event {j} is {g[j]}, the "
+                          f"oracle says {want[j]}")
+    return n
+
+
+def measure_steps(torch, rt, columns: dict, ts, fresh: bool = False):
     """The query step alone (no ingest, no output decode) over the app's
-    rounds, as device batches prepared beforehand. Returns (where one step
-    syncs with the host under torch.cuda.set_sync_debug_mode('warn'), one
-    "file:line" per synchronizing call; mean ms per step)."""
+    rounds, as device batches prepared beforehand, each at its round's
+    event time. `fresh` restarts from the query's initial state, so a
+    sliding window sees the same traffic as in the app run. Returns (where
+    one step syncs with the host under torch.cuda.set_sync_debug_mode(
+    'warn'), one "file:line" per synchronizing call; mean ms per step)."""
     from siddhi_tpu_torch.core.event import EventBatch
 
     qr = rt.query_runtimes["bench"]
     j = rt.junctions["TradeStream"]
-    batches = []
+    batches, nows = [], []
     for r in range(ROUNDS):
         s = slice(r * BATCH, (r + 1) * BATCH)
-        cols = j.codec.encode_columns(
-            {("account" if long_key else "symbol"): key_col[s],
-             "price": price[s], "volume": volume[s]}, BATCH)
+        cols = j.codec.encode_columns({k: v[s] for k, v in columns.items()},
+                                      BATCH)
         batches.append(EventBatch.from_numpy(ts[s], cols, BATCH,
                                              j.ctx.device))
+        nows.append(int(ts[s].max()))
+    dev = j.ctx.device
+
+    def restart():
+        qr.state = (qr.window.init_state(dev), qr.selector.init_state(dev),
+                    qr.rate_limiter.init_state(dev))
+
+    if fresh:
+        restart()
     syncs = []
 
     def on_warning(message, category, filename, lineno, file=None,
@@ -423,15 +963,74 @@ def measure_steps(torch, rt, key_col, price, volume, ts, long_key):
         warnings.showwarning = on_warning
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            qr.state, _ = qr.step(qr.state, batches[0], 0)
+            qr.state, _ = qr.step(qr.state, batches[0], nows[0])
         finally:
             torch.cuda.set_sync_debug_mode("default")
+    if fresh:
+        restart()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for b in batches:
-        qr.state, _ = qr.step(qr.state, b, 0)
+    for b, now in zip(batches, nows):
+        qr.state, _ = qr.step(qr.state, b, now)
     torch.cuda.synchronize()
     return syncs, (time.perf_counter() - t0) / ROUNDS * 1e3
+
+
+def report_app(name, n_in, n_out, elapsed, step_ms, peak, launches, syncs,
+               card) -> None:
+    print(f"app {name}: {n_in} events in, {n_out} out, matches the oracle; "
+          f"{n_in / elapsed:.1f} events/s end to end "
+          f"({elapsed * 1e3 / ROUNDS:.3f} ms per {BATCH}-event round); "
+          f"query step alone {step_ms:.3f} ms per round; peak device memory "
+          f"{peak / 2**20:.1f} MiB; kernel launches "
+          f"{ {k: v for k, v in launches.items() if v} }; host syncs in one "
+          f"step: {len(syncs)} {syncs} [{card}]")
+
+
+def sliding_apps(torch, rng, card: str) -> dict:
+    """Apps C, D, E and F against their oracles; returns their
+    launches."""
+    k2b = ("K2b pack", "K2b fetch", "K2b append", "K2b gather")
+    on_path = {"C": ("K1", *k2b, "K5b grouped", "K5b ungrouped"),
+               "D": ("K1", *k2b, "K5"),
+               "E": ("K1", *k2b, "K3", "K4", "K5b grouped"),
+               "F": ("K1", *k2b, "K5 ungrouped")}
+    total = {}
+    for name, text, n_sym in (("C", APP_C, C_SYMBOLS),
+                              ("D", APP_D, N_KEYS),
+                              ("E", APP_E, E_SYMBOLS),
+                              ("F", APP_F, E_SYMBOLS)):
+        sym, price, volume, ts = sliding_events(rng, n_sym)
+        pool = symbols(n_sym)
+        columns = {"symbol": pool[sym], "price": price, "volume": volume}
+        rt, got, launches, elapsed, peak = run_app(torch, text, columns, ts,
+                                                   out_stream="OutStream")
+        if name == "C":
+            expect = [("distinctSymbols", oracle_c(sym), False)]
+        elif name == "D":
+            total_d, count_d = oracle_d(sym, price.astype(np.float32))
+            expect = [("symbol", columns["symbol"].tolist(), False),
+                      ("total", total_d, True), ("n", count_d, False)]
+        elif name == "E":
+            expect = [("symbol", columns["symbol"].tolist(), False),
+                      ("n", oracle_e(sym, volume), False)]
+        else:
+            total_f, vol_f, count_f = oracle_f(price.astype(np.float32),
+                                               volume)
+            expect = [("total", total_f, True), ("vol", vol_f, False),
+                      ("n", count_f, False)]
+        n_out = check_sliding(name, got, ts, expect)
+        del got
+        for k in on_path[name]:
+            if launches[k] == 0:
+                raise Failure(f"app {name}: kernel {k} never launched")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        syncs, step_ms = measure_steps(torch, rt, columns, ts, fresh=True)
+        report_app(name, ts.shape[0], n_out, elapsed, step_ms, peak,
+                   launches, syncs, card)
+        del rt
+    return total
 
 
 def main(argv=None) -> int:
@@ -473,8 +1072,12 @@ def main(argv=None) -> int:
         on_path = {"A": ("K1", "K5"), "B": ("K1", "K3", "K4", "K5")}
         for name, text, long_key in (("A", APP_A, False), ("B", APP_B, True)):
             key, price, volume, ts = make_events(rng, long_key)
-            rt, got, app_launches, elapsed, peak, key_col = run_app(
-                torch, text, key, price, volume, ts, long_key)
+            key_col = key if long_key else np.array(
+                [f"S{k}" for k in key], dtype=object)
+            columns = {("account" if long_key else "symbol"): key_col,
+                       "price": price, "volume": volume}
+            rt, got, app_launches, elapsed, peak = run_app(
+                torch, text, columns, ts)
             passed = (price.astype(np.float32) > np.float32(20.0)
                       if long_key else np.ones(key.shape[0], bool))
             n_out = check_app(name, got, key_col, key, price, ts, passed,
@@ -484,16 +1087,16 @@ def main(argv=None) -> int:
                     raise Failure(f"app {name}: kernel {k} never launched")
             for k in launches:
                 launches[k] += app_launches[k]
-            syncs, step_ms = measure_steps(torch, rt, key_col, price,
-                                           volume, ts, long_key)
-            print(f"app {name}: {key.shape[0]} events in, {n_out} out, "
-                  f"matches the oracle; {key.shape[0] / elapsed:.1f} "
-                  f"events/s end to end ({elapsed * 1e3 / ROUNDS:.3f} ms "
-                  f"per {BATCH}-event round); query step alone "
-                  f"{step_ms:.3f} ms per round; peak device memory "
-                  f"{peak / 2**20:.1f} MiB; kernel launches {app_launches}; "
-                  f"host syncs in one step: {len(syncs)} {syncs} [{card}]")
+            syncs, step_ms = measure_steps(torch, rt, columns, ts)
+            report_app(name, key.shape[0], n_out, elapsed, step_ms, peak,
+                       app_launches, syncs, card)
             del rt, got
+
+        sres, routes = sliding_kernel_phase(torch, rng)
+        kres.update(sres)
+        print("torch routes: " + json.dumps(routes))
+        for k, v in sliding_apps(torch, rng, card).items():
+            launches[k] += v
 
         table = []
         for k, (fn, src, replaces) in KERNELS.items():

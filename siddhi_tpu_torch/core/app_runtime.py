@@ -1,7 +1,7 @@
 """SiddhiAppRuntime (counterpart of siddhi_tpu/core/app_runtime.py, reduced
-to streams and single-input queries). Lint, admission control, sharding,
-supersteps, persistence, tables, windows, triggers, aggregations and
-partitions are not yet ported; an app that declares them is refused."""
+to streams, single-input queries and heartbeats). Lint, admission control,
+sharding, supersteps, persistence, tables, windows, triggers, aggregations
+and partitions are not yet ported; an app that declares them is refused."""
 
 from __future__ import annotations
 
@@ -13,7 +13,11 @@ from ..errors import DefinitionNotExistError, SiddhiAppCreationError
 from ..extension.registry import Registry
 from ..query_api import SiddhiApp
 from ..query_api.execution import OutputAction, Query
-from .context import SiddhiAppContext, TimestampGenerator
+from .context import (
+    SiddhiAppContext,
+    TimestampGenerator,
+    parse_annotation_time,
+)
 from .query_runtime import FunctionQueryCallback, QueryCallback, QueryRuntime
 from .stream import FunctionStreamCallback, InputHandler, StreamCallback, StreamJunction
 
@@ -33,10 +37,19 @@ class SiddhiAppRuntime:
                     f"{what} definitions are not yet ported to "
                     "siddhi_tpu_torch")
         self.app = app
+        playback = app.annotation("app:playback")
+        increment_ms = 0
+        if playback is not None:
+            # @app:playback(idle.time=..., increment=...): idle.time alone
+            # bumps by itself
+            text = (playback.element("increment")
+                    or playback.element("idle.time"))
+            increment_ms = parse_annotation_time(text) if text else 0
         self.ctx = SiddhiAppContext(
             name=app.name, registry=registry,
             timestamp_generator=TimestampGenerator(
-                playback=app.annotation("app:playback") is not None),
+                playback=playback is not None,
+                playback_increment_ms=increment_ms),
             device=device, batch_size=batch_size,
             group_capacity=group_capacity)
         self.junctions: dict[str, StreamJunction] = {}
@@ -106,6 +119,24 @@ class SiddhiAppRuntime:
         """Drive every staged batch through the pipeline."""
         for j in list(self.junctions.values()):
             j.flush(now)
+
+    def heartbeat(self, now: Optional[int] = None) -> None:
+        """Advance time: flush, then deliver an empty timer batch to every
+        junction that feeds a query with a time-driven window, so its
+        expirations fire with no data. In playback mode a bare heartbeat()
+        bumps the virtual clock by the @app:playback increment."""
+        tg = self.ctx.timestamp_generator
+        if now is None and tg.playback and tg.playback_increment_ms:
+            t = tg.advance_idle()
+        else:
+            t = now if now is not None else tg.current_time()
+        self.flush(t)
+        seen: set[int] = set()
+        for qr in self.query_runtimes.values():
+            j = qr.input_junction
+            if qr.has_time_semantics and id(j) not in seen:
+                seen.add(id(j))
+                j.heartbeat(t)
 
     def shutdown(self) -> None:
         """Deliver what is still staged; nothing else holds resources."""

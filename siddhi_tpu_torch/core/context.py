@@ -10,17 +10,42 @@ from typing import Optional
 
 import torch
 
+from ..errors import SiddhiAppCreationError
 from ..extension.registry import Registry
 from . import dtypes
 from .event import StringTable
 
 
+_TIME_UNITS_MS = {
+    "millisecond": 1, "milliseconds": 1, "ms": 1,
+    "second": 1000, "seconds": 1000, "sec": 1000,
+    "minute": 60_000, "minutes": 60_000, "min": 60_000,
+    "hour": 3_600_000, "hours": 3_600_000,
+    "day": 86_400_000, "days": 86_400_000,
+}
+
+
+def parse_annotation_time(text: str) -> int:
+    """Annotation time strings like '1 hour', '10 sec', '5000' -> ms."""
+    parts = text.strip().lower().split()
+    if len(parts) == 1:
+        return int(parts[0])
+    if len(parts) % 2 != 0 or any(u not in _TIME_UNITS_MS
+                                  for u in parts[1::2]):
+        raise SiddhiAppCreationError(f"bad time literal {text!r}")
+    return sum(int(v) * _TIME_UNITS_MS[u]
+               for v, u in zip(parts[::2], parts[1::2]))
+
+
 class TimestampGenerator:
     """Wall-clock time by default; in playback mode the clock follows the
-    largest event timestamp seen."""
+    largest event timestamp seen, and `advance_idle()` bumps it by the
+    @app:playback increment (a heartbeat on an idle stream)."""
 
-    def __init__(self, playback: bool = False) -> None:
+    def __init__(self, playback: bool = False,
+                 playback_increment_ms: int = 0) -> None:
         self.playback = playback
+        self.playback_increment_ms = playback_increment_ms
         self._lock = threading.Lock()
         self._last_event_ts: Optional[int] = None
 
@@ -34,6 +59,13 @@ class TimestampGenerator:
         with self._lock:
             if self._last_event_ts is None or ts > self._last_event_ts:
                 self._last_event_ts = ts
+
+    def advance_idle(self) -> int:
+        """Playback idle bump: virtual clock += increment; the new time."""
+        with self._lock:
+            if self.playback and self._last_event_ts is not None:
+                self._last_event_ts += self.playback_increment_ms
+        return self.current_time()
 
 
 @dataclass

@@ -32,6 +32,8 @@ class _Config:
     double_dtype = torch.float32
     #: default micro-batch capacity per stream (events)
     default_batch_size = 8192
+    #: default sliding-window ring capacity when not statically inferable
+    default_window_capacity = 1 << 16
     #: default max distinct group-by keys tracked on device per query
     default_group_capacity = 1 << 20
 

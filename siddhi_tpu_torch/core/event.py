@@ -175,6 +175,20 @@ class EventBatch:
         return self.ts.shape[0]
 
     @staticmethod
+    def empty(definition: StreamDefinition, capacity: int,
+              device) -> "EventBatch":
+        """A batch with no valid lane (heartbeats)."""
+        return EventBatch(
+            ts=torch.zeros(capacity, dtype=dtypes.TS_DTYPE, device=device),
+            cols={a.name: torch.zeros(capacity,
+                                      dtype=dtypes.device_dtype(a.type),
+                                      device=device)
+                  for a in definition.attributes
+                  if a.type != AttributeType.OBJECT},
+            valid=torch.zeros(capacity, dtype=torch.bool, device=device),
+            types=torch.zeros(capacity, dtype=torch.int8, device=device))
+
+    @staticmethod
     def from_numpy(ts: np.ndarray, cols: dict, n_valid: int,
                    device) -> "EventBatch":
         """Host columns (already padded to the batch capacity) -> device."""

@@ -13,15 +13,23 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Optional
 
 from ..errors import SiddhiAppCreationError
 from ..extension.registry import ExtensionKind, Registry
 from ..ops.expr_compile import Scope, TypeResolver, compile_expression
+from ..ops.aggregators import compact_distinct_state
+from ..ops.groupby import GroupState, KeyTable
 from ..ops.ratelimit import make_rate_limiter
 from ..ops.selector import CompiledSelector
 from ..ops.window_factories import WindowFactory
-from ..ops.windows import PassThroughWindow, WindowOp
+from ..ops.windows import (
+    PassThroughWindow,
+    WindowOp,
+    make_layout,
+    window_has_time_semantics,
+)
 from ..query_api.definition import Attribute, AttributeType, StreamDefinition
 from ..query_api.execution import (
     OutputAction,
@@ -29,8 +37,7 @@ from ..query_api.execution import (
     Query,
     SingleInputStream,
 )
-from ..query_api.expression import Constant, Expression
-from . import dtypes
+from ..query_api.expression import Constant, Expression, Variable
 from .context import SiddhiAppContext
 from .event import EventBatch, EventType, StreamCodec
 from .stream import Receiver, StreamJunction
@@ -52,10 +59,13 @@ class FunctionQueryCallback(QueryCallback):
 
 
 def eval_constant(expr: Expression):
-    """A compile-time-constant window parameter (attribute parameters
-    belong to windows not yet ported)."""
+    """Evaluate a compile-time-constant window parameter (sizes, periods).
+    Variables pass through as AST nodes: some windows take attribute
+    references (externalTime's timestamp attribute)."""
     if isinstance(expr, Constant):
         return expr.value
+    if isinstance(expr, Variable):
+        return expr
     raise SiddhiAppCreationError(f"expected a constant parameter, got {expr!r}")
 
 
@@ -102,7 +112,7 @@ class QueryRuntime(Receiver):
                 raise SiddhiAppCreationError("filter must be boolean")
 
         batch_cap = input_junction.batch_size
-        layout = {n: dtypes.device_dtype(t) for n, t in attr_types.items()}
+        layout = make_layout(attr_types)
         # batch windows materialise EXPIRED lanes only when the output
         # wants them
         expired_on = query.output_stream.event_type != OutputEventType.CURRENT
@@ -135,6 +145,15 @@ class QueryRuntime(Receiver):
         self.state = (self.window.init_state(dev),
                       self.selector.init_state(dev),
                       self.rate_limiter.init_state(dev))
+        self._has_custom_aggs = any(
+            spec.custom_scan is not None
+            for _, spec, _ in self.selector.agg_specs)
+        self._batches_seen = 0
+        self._capacity_warned = False
+        self._capacity_pressure = False
+        self._last_compacted_live: dict[int, int] = {}
+        #: time-driven windows need heartbeats to flush expirations
+        self.has_time_semantics = window_has_time_semantics(self.window)
 
     def step(self, state, batch: EventBatch, now: int):
         """One micro-batch through filter -> window -> selector -> limiter."""
@@ -163,6 +182,74 @@ class QueryRuntime(Receiver):
         self._distribute(out, now)
         self.ctx.statistics.track_latency(self.name,
                                           time.perf_counter_ns() - t0)
+        self._post_step_maintenance()
+
+    def _post_step_maintenance(self) -> None:
+        """Per-batch housekeeping after the step: the custom-aggregate
+        compaction cadence (batches 1, 16, 64, then every 256, or every 4
+        while a table runs hot). Each check reads a few scalars back from
+        the device; the step itself never does."""
+        self._batches_seen += 1
+        interval = 4 if self._capacity_pressure else 256
+        if (self._has_custom_aggs
+                and (self._batches_seen in (1, 16, 64)
+                     or self._batches_seen % interval == 0)):
+            self._check_custom_agg_capacity()
+
+    def _check_custom_agg_capacity(self) -> None:
+        """distinctCount's (group, value) pair table only grows inside a
+        step. Past 85% occupancy (or past 50% with 20% of the capacity new
+        since the last rebuild) the monitor compacts it to its live pairs
+        (ops/aggregators.py compact_distinct_state) and warns only if the
+        live pairs alone still exceed 85%."""
+        pressure = False
+        for gi, g in enumerate(self.state[1].groups):
+            if not (isinstance(g, tuple) and g):
+                continue
+            if isinstance(g[0], KeyTable):
+                kt = g[0]
+                cap = kt.keys.shape[0] // 2  # hash array is 2x id capacity
+                count = int(kt.count)
+                pressure = pressure or count > int(0.5 * cap)
+                grown = count - self._last_compacted_live.get(gi, 0)
+                if (count > int(0.85 * cap)
+                        or (count > int(0.5 * cap)
+                            and grown > int(0.2 * cap))):
+                    sstate = self.state[1]
+                    new_g = compact_distinct_state(g, int(sstate.epoch))
+                    groups = list(sstate.groups)
+                    groups[gi] = new_g
+                    self.state = (self.state[0],
+                                  dataclasses.replace(sstate, groups=groups),
+                                  self.state[2])
+                    live = int(new_g[0].count)
+                    self._last_compacted_live[gi] = live
+                    if live > int(0.85 * cap) and not self._capacity_warned:
+                        warnings.warn(
+                            f"query {self.name!r}: distinctCount pair table "
+                            f"still at {live}/{cap} live (group,value) pairs "
+                            "after compaction; counts will corrupt past "
+                            "capacity — raise group_capacity", stacklevel=2)
+                        self._capacity_warned = True
+                elif int(kt.misses) > 0 and not self._capacity_warned:
+                    warnings.warn(
+                        f"query {self.name!r}: {int(kt.misses)} key lookups "
+                        "could not be placed and their events were dropped "
+                        "from the aggregate — raise group_capacity",
+                        stacklevel=2)
+                    self._capacity_warned = True
+            elif isinstance(g[0], GroupState) and len(g) == 2:
+                # string-code fast path: pair table indexed by interning code
+                cap = g[0].values.shape[0]
+                n_codes = len(self.ctx.global_strings)
+                if n_codes > int(0.85 * cap) and not self._capacity_warned:
+                    warnings.warn(
+                        f"query {self.name!r}: distinctCount code table at "
+                        f"{n_codes}/{cap} interned strings; codes past "
+                        "capacity are dropped from the count — raise "
+                        "group_capacity", stacklevel=2)
+                    self._capacity_warned = True
+        self._capacity_pressure = pressure
 
     def _distribute(self, out: EventBatch, now: int) -> None:
         action = self.query.output_stream.action

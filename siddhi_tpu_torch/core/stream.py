@@ -1,7 +1,7 @@
 """Stream junctions, input handlers and stream callbacks (counterpart of
-siddhi_tpu/core/stream.py; synchronous staging and flush only — the async
-decoder, the wire packing, parallel ingress, WAL and breakers are not yet
-ported).
+siddhi_tpu/core/stream.py; synchronous staging, flush and heartbeats only —
+the async decoder, the wire packing, parallel ingress, WAL and breakers are
+not yet ported).
 
 `send` / `send_batch` stage host rows; a full batch or `flush()` encodes
 them into a fixed-capacity columnar batch on the app's device and delivers
@@ -134,6 +134,17 @@ class StreamJunction:
                 self._deliver(self._batch(np.asarray(tss[start:start + m],
                                                      dtype=np.int64),
                                           cols, m), now)
+
+    def heartbeat(self, now: int) -> None:
+        """Advance time with no data: flush staged rows, then deliver an
+        empty batch so time-window expirations fire (the reference
+        Scheduler's TIMER events). The smallest lane bucket keeps idle
+        heartbeats off the full-capacity kernels."""
+        with self.ctx.controller_lock:
+            self.flush(now)
+            self._deliver(EventBatch.empty(
+                self.definition, dtypes.bucket_capacity(0, self.batch_size),
+                self.ctx.device), now)
 
     def _deliver(self, batch: EventBatch, now: int) -> None:
         self.ctx.statistics.track_batch(self.definition.id)

@@ -2,14 +2,16 @@
 //
 // Replaces siddhi_tpu/ops/groupby.py `key_lookup_or_insert` and reproduces
 // its table state, not only its ids: H = 2K int64 slots (INT64_MAX = empty),
-// a 16-slot double-hashed probe window per key
+// a double-hashed probe window per key (32 slots: the JAX window's 16 and 16
+// more, used only by keys whose first 16 slots are all taken, which the JAX
+// table drops)
 //   h32 = (lo ^ hi) * 0x9E3779B9 (u32),  base = h32 % H,
 //   stride = 1 + 2 * ((h32 >> 16) & 7),
 // the first match and the first empty slot in window order, five claim
 // waves in which the smaller key wins a contested slot (the JAX scatter-min),
 // dense ids ranked in slot order, and the overflow revert with `misses`.
 //
-// Bound on the H100: bytes, in random 8-byte gathers. A probe reads up to 16
+// Bound on the H100: bytes, in random 8-byte gathers. A probe reads up to 32
 // table words per lane from a 16 MB table (H = 2^21), which the 50 MB L2
 // mostly holds, so the cost is L2 latency and one launch per wave. Design:
 // one thread per lane per launch; each claim wave is one launch of
@@ -25,7 +27,7 @@
 namespace {
 
 constexpr int BLOCK = 256;
-constexpr int DEPTH = 16;
+constexpr int DEPTH = 32;
 constexpr long long KEY_PAD = 0x7FFFFFFFFFFFFFFFll;
 
 __device__ __forceinline__ long long load_key(const long long* keys, int i) {

@@ -20,9 +20,9 @@ import torch
 
 from .core.app_runtime import SiddhiAppRuntime
 from .core.query_runtime import QueryRuntime
-from .ops.groupby import KeyTable
+from .ops.groupby import GroupState, KeyTable
 from .ops.selector import SelectorState
-from .ops.windows import BatchState
+from .ops.windows import BatchState, SlidingState
 
 
 def _field(obj, name: str):
@@ -50,6 +50,13 @@ def _ring(a, like: torch.Tensor) -> torch.Tensor:
 def window_state(window_np, like):
     if like == ():  # pass-through window
         return ()
+    if isinstance(like, SlidingState):
+        # JAX's uint32 ring words, bit for bit, as the port's int32 words
+        ring = np.ascontiguousarray(_field(window_np, "ring")).view(np.int32)
+        return SlidingState(
+            ring=_tensor(ring, like.ring),
+            **{f: _tensor(_field(window_np, f), getattr(like, f))
+               for f in SlidingState._fields if f != "ring"})
     if not isinstance(like, BatchState):
         raise ValueError(f"window state {type(like).__name__} is not "
                          "ported by interop")
@@ -59,6 +66,20 @@ def window_state(window_np, like):
         ring_ts=_ring(_field(window_np, "ring_ts"), like.ring_ts),
         **{f: _tensor(_field(window_np, f), getattr(like, f))
            for f in BatchState._fields if f not in ("ring_cols", "ring_ts")})
+
+
+def _group(g_np, like):
+    """One aggregate's state: a sum component's [K] values, or a custom
+    aggregator's tuple of KeyTable / GroupState (distinctCount)."""
+    if isinstance(like, (KeyTable, GroupState)):
+        return type(like)(*[_tensor(_field(g_np, f), getattr(like, f))
+                            for f in like._fields])
+    if isinstance(like, tuple):
+        if len(g_np) != len(like):
+            raise ValueError(f"aggregate state of {len(g_np)} parts, the "
+                             f"port's has {len(like)}")
+        return tuple(_group(a, b) for a, b in zip(g_np, like))
+    return _tensor(g_np, like)
 
 
 def selector_state(sel_np, like: SelectorState) -> SelectorState:
@@ -75,7 +96,7 @@ def selector_state(sel_np, like: SelectorState) -> SelectorState:
                         for f in KeyTable._fields])
     shared = _field(sel_np, "shared_epoch")
     return SelectorState(
-        groups=[_tensor(g, lg) for g, lg in zip(groups, like.groups)],
+        groups=[_group(g, lg) for g, lg in zip(groups, like.groups)],
         key_table=kt,
         epoch=_tensor(_field(sel_np, "epoch"), like.epoch),
         shared_epoch=(None if shared is None

@@ -24,13 +24,16 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_kernel_build"
-SOURCES = ("k1_partition", "k3_hash", "k4_keytable", "k5_grouped_scan")
+SOURCES = ("k1_partition", "k2b_packed_ring", "k3_hash", "k4_keytable",
+           "k5_grouped_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: launches per kernel family, counted where the wrapper launches them;
-#: chip_smoke.py zeroes them before driving the main path
-LAUNCHES = {"K1": 0, "K3": 0, "K4": 0, "K5": 0}
+#: launches per kernel entry point, counted where the wrapper launches
+#: them; chip_smoke.py zeroes them before driving the main path
+LAUNCHES = {"K1": 0, "K2b pack": 0, "K2b fetch": 0, "K2b append": 0,
+            "K2b gather": 0, "K3": 0, "K4": 0, "K5": 0, "K5 ungrouped": 0,
+            "K5b grouped": 0, "K5b ungrouped": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,25 +1,30 @@
 """Group-by on device (counterpart of siddhi_tpu/ops/groupby.py).
 
-Three kernels live here, each beside its plain PyTorch version:
+Four kernels live here, each beside its plain PyTorch version:
 
 - K3 `hash_columns`: 64-bit mix of the key columns (csrc/k3_hash.cu);
 - K4 `key_lookup_or_insert`: open-addressing key table, keys -> dense ids
   (csrc/k4_keytable.cu);
-- K5 `grouped_scan_fused`: sort by slot, segmented scan with carry-in,
-  state scatter (csrc/k5_grouped_scan.cu).
+- K5 `grouped_scan_fused` / `ungrouped_scan_fused`: N sum components over
+  one plan (sort by slot, or lanes in order without GROUP BY), segmented
+  scan with carry-in, state scatter (csrc/k5_grouped_scan.cu);
+- K5b `grouped_scan` / `ungrouped_scan`: one component under sum, min or
+  max with its own epoch table, on the K5 plan and scan entry points
+  (csrc/k5_grouped_scan.cu).
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors; it never falls back from one to the other. Semantics
-follow the JAX functions bit for bit (floats within the numeric-parity
-tolerance for K5). Where the JAX code returns new arrays, the CUDA paths
-update the state tensors in place — the counterpart of JAX's buffer
+follow the JAX functions bit for bit (float sums within the numeric-parity
+tolerance), except that K4 places keys the JAX table drops
+(`_PROBE_DEPTH`). Where the JAX code returns new arrays, the CUDA paths update
+the state tensors in place — the counterpart of JAX's buffer
 donation — and return them.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -27,7 +32,14 @@ from .. import kernels
 from .search import stable_argsort_bounded
 
 _KEY_PAD = (1 << 63) - 1  # INT64_MAX marks an empty slot
-_PROBE_DEPTH = 16
+#: probe window per key. The JAX key table probes 16 slots with short odd
+#: strides, so windows overlap in runs and fill up long before the table
+#: does: it leaves new keys unplaced from about 57% of its id capacity K on
+#: (tools/probe_depth_load.py). 32 slots give the same slots, ids and table
+#: state wherever a 16-slot window had room, and place no key short of
+#: about 87% of K; the capacity monitor compacts at 85% (ROADMAP.md,
+#: Queue 3).
+_PROBE_DEPTH = 32
 _INSERT_ROUNDS = 6
 _MASK32 = 0xFFFFFFFF
 
@@ -276,20 +288,55 @@ def key_lookup_or_insert(table: KeyTable, keys: torch.Tensor,
 
 
 # --------------------------------------------------------------------------- #
-# K5: grouped segmented scan
+# K5 / K5b: segmented scans with carry-in
 # --------------------------------------------------------------------------- #
 
 
-def segmented_cumsum(vals: torch.Tensor, seg_start: torch.Tensor) -> torch.Tensor:
-    """Inclusive scan restarting at each segment start, as log2(L)
-    shifted-combine passes (the same conditional-sum operator as the JAX
-    associative_scan)."""
+class GroupState(NamedTuple):
+    """Per-key accumulator table of a component scanned on its own
+    (`grouped_scan` / `ungrouped_scan`): values [K] and the epoch of each
+    slot's last write; a value whose epoch is stale reads as the op's
+    identity."""
+
+    values: torch.Tensor
+    epoch: torch.Tensor  # int32[K]
+
+
+def init_group_state(capacity: int, dtype, device) -> GroupState:
+    return GroupState(
+        values=torch.zeros(capacity, dtype=dtype, device=device),
+        epoch=torch.zeros(capacity, dtype=torch.int32, device=device))
+
+
+def _op_sum(dtype):
+    return torch.add, 0
+
+
+def _op_min(dtype):
+    return torch.minimum, (float("inf") if dtype.is_floating_point
+                           else torch.iinfo(dtype).max)
+
+
+def _op_max(dtype):
+    return torch.maximum, (float("-inf") if dtype.is_floating_point
+                           else torch.iinfo(dtype).min)
+
+
+#: op -> (combine, identity) for a dtype
+_OPS = {"sum": _op_sum, "min": _op_min, "max": _op_max}
+
+
+def _segmented_scan(vals: torch.Tensor, seg_start: torch.Tensor,
+                    combine) -> torch.Tensor:
+    """Inclusive scan under `combine` restarting at each segment start, as
+    log2(L) shifted-combine passes (the same conditional operator as the
+    JAX associative_scan)."""
     s, f = vals, seg_start
     L = vals.shape[0]
     off = 1
     while off < L:
         s = torch.cat([s[:off], torch.where(f[off:], s[off:],
-                                            s[:-off] + s[off:])])
+                                            combine(s[:-off], s[off:]))])
         f = torch.cat([f[:off], f[off:] | f[:-off]])
         off *= 2
     return s
@@ -309,11 +356,31 @@ def _shift(x: torch.Tensor, fill: int, forward: bool) -> torch.Tensor:
     return torch.cat([pad, x[:-1]]) if forward else torch.cat([x[1:], pad])
 
 
-def grouped_scan_fused_plain(values_list, shared_epoch, slots, deltas_list,
-                             valid, resets, current_epoch):
-    """Plain PyTorch K5 (the JAX `_segment_plan` + `grouped_scan_fused`).
-    Returns (new_values_list, new_shared_epoch, per-lane outputs)."""
-    K = shared_epoch.shape[0]
+def _scatter_drop(table: torch.Tensor, idx: torch.Tensor,
+                  vals: torch.Tensor) -> torch.Tensor:
+    """table.at[idx].set(vals, mode="drop") for idx in [0, K]: index K
+    lands in a spare row that is cut off."""
+    ext = torch.cat([table, table.new_zeros(1)])
+    ext[idx] = vals
+    return ext[:-1]
+
+
+class _SegmentPlan(NamedTuple):
+    """Per-batch segment structure shared by every component scanned over
+    the same (slots, valid, resets). `order` is None for the ungrouped plan:
+    its lanes are already in scan order."""
+
+    order: Optional[torch.Tensor]
+    s_slots: torch.Tensor
+    s_epochs: torch.Tensor
+    seg_start: torch.Tensor
+    safe_slots: torch.Tensor
+    epoch_ok_slots: torch.Tensor  # s_slots < K
+    write_slot: torch.Tensor
+    start_idx: torch.Tensor
+
+
+def _segment_plan(slots, valid, resets, current_epoch, K) -> _SegmentPlan:
     slots_v = torch.where(valid, slots, K).to(torch.int32)
     lane_epoch = _lane_epochs(resets, current_epoch)
     order = stable_argsort_bounded(slots_v)
@@ -321,30 +388,234 @@ def grouped_scan_fused_plain(values_list, shared_epoch, slots, deltas_list,
     s_epochs = lane_epoch[order]
     seg_start = ((s_slots != _shift(s_slots, -1, True))
                  | (s_epochs != _shift(s_epochs, -1, True)))
-    safe = torch.clamp(s_slots, max=K - 1).long()
-    is_slot_end = s_slots != _shift(s_slots, -1, False)
     ok = s_slots < K
-    write_slot = torch.where(ok & is_slot_end, s_slots, K).long()
-    start_idx = _segment_starts_index(seg_start)
-    epoch_live = ok & (shared_epoch[safe] == s_epochs)
+    is_slot_end = s_slots != _shift(s_slots, -1, False)
+    return _SegmentPlan(
+        order=order, s_slots=s_slots, s_epochs=s_epochs, seg_start=seg_start,
+        safe_slots=torch.clamp(s_slots, max=K - 1).long(),
+        epoch_ok_slots=ok,
+        write_slot=torch.where(ok & is_slot_end, s_slots, K).long(),
+        start_idx=_segment_starts_index(seg_start))
+
+
+def _ungrouped_plan(resets, current_epoch) -> _SegmentPlan:
+    """The plan of one slot (K = 1) in arrival order: a segment starts at
+    lane 0 and at each lane-epoch change; the last lane writes the cell."""
+    lane_epoch = _lane_epochs(resets, current_epoch)
+    L = lane_epoch.shape[0]
+    dev = lane_epoch.device
+    seg_start = lane_epoch != _shift(lane_epoch, -1, True)
+    lane = torch.arange(L, device=dev)
+    return _SegmentPlan(
+        order=None, s_slots=torch.zeros(L, dtype=torch.int32, device=dev),
+        s_epochs=lane_epoch, seg_start=seg_start,
+        safe_slots=torch.zeros(L, dtype=torch.int64, device=dev),
+        epoch_ok_slots=torch.ones(L, dtype=torch.bool, device=dev),
+        write_slot=torch.where(lane == L - 1, 0, 1),
+        start_idx=_segment_starts_index(seg_start))
+
+
+def _unsort(s_out: torch.Tensor, order: Optional[torch.Tensor]):
+    if order is None:
+        return s_out
+    out = torch.empty_like(s_out)
+    out[order] = s_out
+    return out
+
+
+def _scan_component(values, epoch_table, deltas, valid, plan: _SegmentPlan,
+                    op: str):
+    """One component's segmented scan + carry + state write over a plan.
+    Returns (new_values, sorted-order outputs)."""
+    combine, identity = _OPS[op](deltas.dtype)
+    s_deltas = torch.where(valid, deltas, identity)
+    if plan.order is not None:
+        s_deltas = s_deltas[plan.order]
+    within = _segmented_scan(s_deltas, plan.seg_start, combine)
+    stored_vals = values[plan.safe_slots]
+    stored_epoch = epoch_table[plan.safe_slots]
+    carry = torch.where(plan.epoch_ok_slots & (stored_epoch == plan.s_epochs),
+                        stored_vals, identity)
+    s_out = combine(carry[plan.start_idx], within)
+    new_values = _scatter_drop(values, plan.write_slot,
+                               s_out.to(values.dtype))
+    return new_values, s_out
+
+
+def _scan_plain(plan: _SegmentPlan, values_list, epoch_table, deltas_list,
+                valid, op: str):
+    """Every component against one epoch table over one plan (plain K5 and
+    K5b). Returns (new_values_list, new_epoch_table, lane-order outputs)."""
     new_values, outs = [], []
     for values, deltas in zip(values_list, deltas_list):
-        sd = torch.where(valid, deltas, torch.zeros((), dtype=deltas.dtype))[order]
-        within = segmented_cumsum(sd, seg_start)
-        carry = torch.where(epoch_live, values[safe], torch.zeros((), dtype=values.dtype))
-        s_out = carry[start_idx] + within.to(values.dtype)
-        ext = torch.cat([values, values.new_zeros(1)])
-        ext[write_slot] = s_out
-        new_values.append(ext[:K])
-        out = torch.empty_like(s_out)
-        out[order] = s_out
-        outs.append(out)
-    ext = torch.cat([shared_epoch, shared_epoch.new_zeros(1)])
-    ext[write_slot] = s_epochs.to(shared_epoch.dtype)
-    return new_values, ext[:K], outs
+        v, s_out = _scan_component(values, epoch_table, deltas, valid, plan,
+                                   op)
+        new_values.append(v)
+        outs.append(_unsort(s_out, plan.order))
+    new_epoch = _scatter_drop(epoch_table, plan.write_slot,
+                              plan.s_epochs.to(epoch_table.dtype))
+    return new_values, new_epoch, outs
+
+
+def grouped_scan_fused_plain(values_list, shared_epoch, slots, deltas_list,
+                             valid, resets, current_epoch):
+    """Plain PyTorch K5 (the JAX `_segment_plan` + `grouped_scan_fused`).
+    Returns (new_values_list, new_shared_epoch, per-lane outputs)."""
+    plan = _segment_plan(slots, valid, resets, current_epoch,
+                         shared_epoch.shape[0])
+    return _scan_plain(plan, values_list, shared_epoch, deltas_list, valid,
+                       "sum")
+
+
+def ungrouped_scan_fused_plain(values_list, shared_epoch, deltas_list, valid,
+                               resets, current_epoch):
+    """Plain PyTorch K5 without GROUP BY (the JAX `ungrouped_scan_fused`)."""
+    return _scan_plain(_ungrouped_plan(resets, current_epoch), values_list,
+                       shared_epoch, deltas_list, valid, "sum")
+
+
+def grouped_scan_plain(state: GroupState, slots, deltas, valid, resets,
+                       current_epoch, op: str = "sum"):
+    """Plain PyTorch K5b (the JAX `grouped_scan`): the one-component case."""
+    plan = _segment_plan(slots, valid, resets, current_epoch,
+                         state.values.shape[0])
+    (v,), e, (out,) = _scan_plain(plan, [state.values], state.epoch,
+                                  [deltas], valid, op)
+    return GroupState(v, e), out
+
+
+def ungrouped_scan_plain(state: GroupState, deltas, valid, resets,
+                         current_epoch, op: str = "sum"):
+    """Plain PyTorch K5b without GROUP BY (the JAX `ungrouped_scan`): lanes
+    in arrival order, segments at reset boundaries, one state cell."""
+    (v,), e, (out,) = _scan_plain(_ungrouped_plan(resets, current_epoch),
+                                  [state.values], state.epoch, [deltas],
+                                  valid, op)
+    return GroupState(v, e), out
 
 
 _K5_DTYPES = {torch.float32: 0, torch.float64: 1, torch.int64: 2}
+_K5_OPS = {"sum": 0, "min": 1, "max": 2}
+
+
+class _CudaPlan(NamedTuple):
+    order: Optional[torch.Tensor]  # int64[n]; None: lanes in order
+    s_slot: torch.Tensor
+    s_epoch: torch.Tensor
+    seg_start: torch.Tensor
+    write_slot: torch.Tensor
+    epoch_live: torch.Tensor
+
+
+def _plan_buffers(n: int, dev):
+    i32 = dict(dtype=torch.int32, device=dev)
+    u8 = dict(dtype=torch.uint8, device=dev)
+    return (torch.empty(n, **i32), torch.empty(n, **i32),
+            torch.empty(n, **u8), torch.empty(n, **i32), torch.empty(n, **u8))
+
+
+def _k5_plan_cuda(slots, valid, resets, current_epoch, epoch_table,
+                  family: str) -> _CudaPlan:
+    """torch.sort of the sentinel-masked slots, then the plan kernel."""
+    K = epoch_table.shape[0]
+    n = slots.shape[0]
+    slots_v = torch.where(valid, slots, K).to(torch.int32)
+    lane_epoch = _lane_epochs(resets, current_epoch).to(torch.int32)
+    order = torch.sort(slots_v, stable=True).indices
+    bufs = _plan_buffers(n, slots.device)
+    P = ctypes.c_void_p
+    plan = kernels.bind("k5_grouped_scan", "k5_segment_plan",
+                        [P] * 4 + [ctypes.c_int, ctypes.c_int] + [P] * 6)
+    rc = plan(slots_v.data_ptr(), lane_epoch.data_ptr(), order.data_ptr(),
+              epoch_table.data_ptr(), K, n, *[b.data_ptr() for b in bufs],
+              kernels.stream())
+    kernels.check("k5_grouped_scan", f"{family} (plan)", rc)
+    kernels.LAUNCHES[family] += 1
+    return _CudaPlan(order, *bufs)
+
+
+def _k5_ungrouped_plan_cuda(resets, current_epoch, epoch_cell,
+                            family: str) -> _CudaPlan:
+    n = resets.shape[0]
+    lane_epoch = _lane_epochs(resets, current_epoch).to(torch.int32)
+    bufs = _plan_buffers(n, resets.device)
+    P = ctypes.c_void_p
+    plan = kernels.bind("k5_grouped_scan", "k5_ungrouped_segment_plan",
+                        [P, P, ctypes.c_int] + [P] * 6)
+    rc = plan(lane_epoch.data_ptr(), epoch_cell.data_ptr(), n,
+              *[b.data_ptr() for b in bufs], kernels.stream())
+    kernels.check("k5_grouped_scan", f"{family} (plan)", rc)
+    kernels.LAUNCHES[family] += 1
+    return _CudaPlan(None, *bufs)
+
+
+def _k5_scan_cuda(plan: _CudaPlan, op: str, values, deltas, valid,
+                  epoch_table, family: str) -> torch.Tensor:
+    """One component over a plan: values (and epoch_table, unless None)
+    updated in place; returns the per-lane outputs in lane order."""
+    n = deltas.shape[0]
+    K = values.shape[0]
+    out = torch.empty_like(deltas)
+    block = kernels.library("k5_grouped_scan").k5_block_size()
+    nb = -(-n // block)
+    scratch = torch.empty((2 * n + 2 * nb) * deltas.element_size()
+                          + 4 * nb + n, dtype=torch.uint8,
+                          device=deltas.device)
+    P = ctypes.c_void_p
+    scan = kernels.bind("k5_grouped_scan", "k5_scan_component",
+                        [ctypes.c_int, ctypes.c_int] + [P] * 12
+                        + [ctypes.c_int, ctypes.c_int, P])
+    rc = scan(_K5_OPS[op], _K5_DTYPES[deltas.dtype], deltas.data_ptr(),
+              valid.data_ptr(),
+              plan.order.data_ptr() if plan.order is not None else None,
+              plan.s_slot.data_ptr(), plan.seg_start.data_ptr(),
+              plan.epoch_live.data_ptr(), plan.write_slot.data_ptr(),
+              plan.s_epoch.data_ptr(), values.data_ptr(),
+              epoch_table.data_ptr() if epoch_table is not None else None,
+              out.data_ptr(), scratch.data_ptr(), K, n, kernels.stream())
+    kernels.check("k5_grouped_scan", f"{family} (scan)", rc)
+    kernels.LAUNCHES[family] += 3
+    return out
+
+
+def _scan_cuda(plan: _CudaPlan, op: str, values_list, epoch_table,
+               deltas_list, valid, family: str) -> list:
+    """Every component over one plan; the last one writes the epochs (the
+    plan read them before any write). Returns the lane-order outputs."""
+    last = len(values_list) - 1
+    return [_k5_scan_cuda(plan, op, v, d, valid,
+                          epoch_table if c == last else None, family)
+            for c, (v, d) in enumerate(zip(values_list, deltas_list))]
+
+
+def _check_component(what, values, deltas, n):
+    if values.dtype != deltas.dtype or values.dtype not in _K5_DTYPES:
+        raise ValueError(f"{what}: values and deltas share one of "
+                         "float32/float64/int64, got "
+                         f"{values.dtype}/{deltas.dtype}")
+    if values.dim() != 1 or deltas.shape != (n,):
+        raise ValueError(f"{what}: values [K], deltas [L]")
+
+
+def _check_lanes(what, n, valid, resets, current_epoch, slots=None):
+    if (valid.shape != (n,) or resets.shape != (n,)
+            or current_epoch.dim() != 0
+            or (slots is not None and slots.dtype != torch.int32)):
+        raise ValueError(f"{what}: int32 slots and valid/resets [L], "
+                         "scalar epoch")
+
+
+def _check_state(what, values_list, epoch_table, deltas_list, n,
+                 cell: bool) -> None:
+    if epoch_table.dtype != torch.int32:
+        raise ValueError(f"{what}: int32 epoch table")
+    if len(values_list) != len(deltas_list) or not values_list:
+        raise ValueError(f"{what}: one deltas [L] per values [K]")
+    for v, d in zip(values_list, deltas_list):
+        _check_component(what, v, d, n)
+        if v.shape != epoch_table.shape or (cell and v.shape != (1,)):
+            raise ValueError(f"{what}: values shaped like the epoch table"
+                             + (" [1]" if cell else ""))
 
 
 def grouped_scan_fused_cuda(values_list, shared_epoch, slots, deltas_list,
@@ -354,66 +625,77 @@ def grouped_scan_fused_cuda(values_list, shared_epoch, slots, deltas_list,
     place."""
     kernels.require_cuda("grouped_scan_fused", shared_epoch, slots, valid,
                          resets, current_epoch, *values_list, *deltas_list)
-    if shared_epoch.dtype != torch.int32 or slots.dtype != torch.int32:
-        raise ValueError("grouped_scan_fused: int32 slots and epoch table")
-    K = shared_epoch.shape[0]
     n = slots.shape[0]
-    if (len(values_list) != len(deltas_list) or not values_list
-            or valid.shape != slots.shape or resets.shape != slots.shape
-            or current_epoch.dim() != 0):
-        raise ValueError("grouped_scan_fused: slots/valid/resets [L], one "
-                         "deltas [L] per values [K], scalar epoch")
-    for v, d in zip(values_list, deltas_list):
-        if v.shape != (K,) or d.shape != (n,):
-            raise ValueError("grouped_scan_fused: values [K], deltas [L]")
-        if v.dtype != d.dtype or v.dtype not in _K5_DTYPES:
-            raise ValueError("grouped_scan_fused: each component's values "
-                             "and deltas share one of float32/float64/int64, "
-                             f"got {v.dtype}/{d.dtype}")
-    dev = slots.device
-    outs = [torch.empty_like(d) for d in deltas_list]
+    _check_lanes("grouped_scan_fused", n, valid, resets, current_epoch, slots)
+    _check_state("grouped_scan_fused", values_list, shared_epoch, deltas_list,
+                 n, cell=False)
     if n == 0:
-        return list(values_list), shared_epoch, outs
-    slots_v = torch.where(valid, slots, K).to(torch.int32)
-    lane_epoch = _lane_epochs(resets, current_epoch).to(torch.int32)
-    order = torch.sort(slots_v, stable=True).indices
-    s_slot = torch.empty(n, dtype=torch.int32, device=dev)
-    s_epoch = torch.empty(n, dtype=torch.int32, device=dev)
-    seg_start = torch.empty(n, dtype=torch.uint8, device=dev)
-    write_slot = torch.empty(n, dtype=torch.int32, device=dev)
-    epoch_live = torch.empty(n, dtype=torch.uint8, device=dev)
-    P = ctypes.c_void_p
-    plan = kernels.bind("k5_grouped_scan", "k5_segment_plan",
-                        [P] * 4 + [ctypes.c_int, ctypes.c_int] + [P] * 6)
-    rc = plan(slots_v.data_ptr(), lane_epoch.data_ptr(),
-              order.data_ptr(), shared_epoch.data_ptr(), K, n,
-              s_slot.data_ptr(), s_epoch.data_ptr(),
-              seg_start.data_ptr(), write_slot.data_ptr(),
-              epoch_live.data_ptr(), kernels.stream())
-    kernels.check("k5_grouped_scan", "grouped_scan_fused (plan)", rc)
-    kernels.LAUNCHES["K5"] += 1
-    scan = kernels.bind("k5_grouped_scan", "k5_scan_component",
-                        [ctypes.c_int] + [P] * 12
-                        + [ctypes.c_int, ctypes.c_int, P])
-    block = kernels.library("k5_grouped_scan").k5_block_size()
-    nb = -(-n // block)
-    last = len(values_list) - 1
-    for c, (values, deltas, out) in enumerate(zip(values_list, deltas_list,
-                                                  outs)):
-        item = deltas.element_size()
-        scratch = torch.empty((2 * n + 2 * nb) * item + 4 * nb + n,
-                              dtype=torch.uint8, device=dev)
-        rc = scan(_K5_DTYPES[deltas.dtype], deltas.data_ptr(),
-                  valid.data_ptr(), order.data_ptr(),
-                  s_slot.data_ptr(), seg_start.data_ptr(),
-                  epoch_live.data_ptr(), write_slot.data_ptr(),
-                  s_epoch.data_ptr(), values.data_ptr(),
-                  shared_epoch.data_ptr() if c == last else None,
-                  out.data_ptr(), scratch.data_ptr(), K, n,
-                  kernels.stream())
-        kernels.check("k5_grouped_scan", "grouped_scan_fused (scan)", rc)
-        kernels.LAUNCHES["K5"] += 3
+        return (list(values_list), shared_epoch,
+                [torch.empty_like(d) for d in deltas_list])
+    plan = _k5_plan_cuda(slots, valid, resets, current_epoch, shared_epoch,
+                         "K5")
+    outs = _scan_cuda(plan, "sum", values_list, shared_epoch, deltas_list,
+                      valid, "K5")
     return list(values_list), shared_epoch, outs
+
+
+def ungrouped_scan_fused_cuda(values_list, shared_epoch, deltas_list, valid,
+                              resets, current_epoch):
+    """K5 without GROUP BY on the card: the ungrouped plan over lanes in
+    order (no sort), then three scan launches per component. Updates the
+    state cells in place."""
+    kernels.require_cuda("ungrouped_scan_fused", shared_epoch, valid, resets,
+                         current_epoch, *values_list, *deltas_list)
+    n = valid.shape[0]
+    _check_lanes("ungrouped_scan_fused", n, valid, resets, current_epoch)
+    _check_state("ungrouped_scan_fused", values_list, shared_epoch,
+                 deltas_list, n, cell=True)
+    if n == 0:
+        return (list(values_list), shared_epoch,
+                [torch.empty_like(d) for d in deltas_list])
+    plan = _k5_ungrouped_plan_cuda(resets, current_epoch, shared_epoch,
+                                   "K5 ungrouped")
+    outs = _scan_cuda(plan, "sum", values_list, shared_epoch, deltas_list,
+                      valid, "K5 ungrouped")
+    return list(values_list), shared_epoch, outs
+
+
+def grouped_scan_cuda(state: GroupState, slots, deltas, valid, resets,
+                      current_epoch, op: str = "sum"):
+    """K5b on the card: the K5 sort and plan against this component's own
+    epoch table, then one op-templated scan. Updates the state in place."""
+    kernels.require_cuda("grouped_scan", state.values, state.epoch, slots,
+                         deltas, valid, resets, current_epoch)
+    n = slots.shape[0]
+    _check_lanes("grouped_scan", n, valid, resets, current_epoch, slots)
+    _check_state("grouped_scan", [state.values], state.epoch, [deltas], n,
+                 cell=False)
+    if n == 0:
+        return state, torch.empty_like(deltas)
+    plan = _k5_plan_cuda(slots, valid, resets, current_epoch, state.epoch,
+                         "K5b grouped")
+    (out,) = _scan_cuda(plan, op, [state.values], state.epoch, [deltas],
+                        valid, "K5b grouped")
+    return state, out
+
+
+def ungrouped_scan_cuda(state: GroupState, deltas, valid, resets,
+                        current_epoch, op: str = "sum"):
+    """K5b without GROUP BY on the card: the ungrouped plan, then the
+    op-templated scan. Updates the state cell in place."""
+    kernels.require_cuda("ungrouped_scan", state.values, state.epoch, deltas,
+                         valid, resets, current_epoch)
+    n = deltas.shape[0]
+    _check_lanes("ungrouped_scan", n, valid, resets, current_epoch)
+    _check_state("ungrouped_scan", [state.values], state.epoch, [deltas], n,
+                 cell=True)
+    if n == 0:
+        return state, torch.empty_like(deltas)
+    plan = _k5_ungrouped_plan_cuda(resets, current_epoch, state.epoch,
+                                   "K5b ungrouped")
+    (out,) = _scan_cuda(plan, op, [state.values], state.epoch, [deltas],
+                        valid, "K5b ungrouped")
+    return state, out
 
 
 def grouped_scan_fused(values_list, shared_epoch, slots, deltas_list, valid,
@@ -429,22 +711,34 @@ def grouped_scan_fused(values_list, shared_epoch, slots, deltas_list, valid,
                                     deltas_list, valid, resets, current_epoch)
 
 
+def grouped_scan(state: GroupState, slots, deltas, valid, resets,
+                 current_epoch, op: str = "sum"):
+    """One component per key under `op` (sum/min/max) with its own epoch
+    table (K5b). Returns (new_state, per-lane post-update values)."""
+    if slots.is_cuda:
+        return grouped_scan_cuda(state, slots, deltas, valid, resets,
+                                 current_epoch, op)
+    return grouped_scan_plain(state, slots, deltas, valid, resets,
+                              current_epoch, op)
+
+
+def ungrouped_scan(state: GroupState, deltas, valid, resets, current_epoch,
+                   op: str = "sum"):
+    """`grouped_scan` for one group: no sort, segments at resets (K5b)."""
+    if deltas.is_cuda:
+        return ungrouped_scan_cuda(state, deltas, valid, resets,
+                                   current_epoch, op)
+    return ungrouped_scan_plain(state, deltas, valid, resets, current_epoch,
+                                op)
+
+
 def ungrouped_scan_fused(values_list, shared_epoch, deltas_list, valid,
                          resets, current_epoch):
     """`grouped_scan_fused` without GROUP BY: one slot, reset segmentation
-    only, scalar state cells. Plain PyTorch on every device."""
-    lane_epoch = _lane_epochs(resets, current_epoch)
-    seg_start = lane_epoch != _shift(lane_epoch, -1, True)
-    epoch_ok = shared_epoch[0] == lane_epoch
-    start_idx = _segment_starts_index(seg_start)
-    new_values, outs = [], []
-    for values, deltas in zip(values_list, deltas_list):
-        zero = torch.zeros((), dtype=deltas.dtype, device=deltas.device)
-        within = segmented_cumsum(torch.where(valid, deltas, zero), seg_start)
-        carry_lane = torch.where(epoch_ok, values[0], zero)
-        carry_at_start = torch.where(seg_start, carry_lane, zero)
-        s_out = carry_at_start[start_idx] + within
-        new_values.append(s_out[-1:].to(values.dtype).clone())
-        outs.append(s_out)
-    new_epoch = lane_epoch[-1:].to(shared_epoch.dtype).clone()
-    return new_values, new_epoch, outs
+    only, scalar state cells (K5, no sort)."""
+    if valid.is_cuda:
+        return ungrouped_scan_fused_cuda(values_list, shared_epoch,
+                                         deltas_list, valid, resets,
+                                         current_epoch)
+    return ungrouped_scan_fused_plain(values_list, shared_epoch, deltas_list,
+                                      valid, resets, current_epoch)

@@ -1,7 +1,8 @@
 """Compiled SELECT (counterpart of siddhi_tpu/ops/selector.py; this slice
 ports the projection path, the grouped path keyed by one string code, the
-hashed grouped path (K3 -> K4 -> K5), aggregates without GROUP BY, and
-HAVING). ORDER BY / LIMIT / OFFSET raise "not yet ported".
+hashed grouped path (K3 -> K4 -> K5), aggregates without GROUP BY, custom
+aggregators with their own state (distinctCount), and HAVING). ORDER BY /
+LIMIT / OFFSET raise "not yet ported".
 
 Consumes window chunks (CURRENT / EXPIRED / RESET lanes) and produces the
 output batch, reproducing per-event semantics: each aggregate component
@@ -73,9 +74,10 @@ def _rewrite_aggregators(expr: Expression, registry: Registry, found: list):
 
 @dataclass
 class SelectorState:
-    """Selector state: one [K] value tensor per aggregate component (they
-    share `shared_epoch`), the key table of the hashed path, and the RESET
-    epoch counter."""
+    """Selector state: per aggregate, in select order, one [K] value tensor
+    per sum component (they share `shared_epoch`) or a custom aggregator's
+    state tuple; the key table of the hashed path; the RESET epoch
+    counter."""
 
     groups: list
     key_table: Optional[KeyTable]
@@ -141,15 +143,24 @@ class CompiledSelector:
 
     def init_state(self, device) -> SelectorState:
         K = self.group_capacity if self.group_vars else 1
-        groups = [torch.zeros(K, dtype=comp.dtype, device=device)
-                  for _, spec, _ in self.agg_specs for comp in spec.components]
+        groups = []
+        any_fused = False
+        for _, spec, _ in self.agg_specs:
+            if spec.custom_scan is not None:
+                groups.append(spec.init_custom(
+                    self.group_capacity, device,
+                    grouped=bool(self.group_vars)))
+                continue
+            for comp in spec.components:
+                groups.append(torch.zeros(K, dtype=comp.dtype, device=device))
+                any_fused = True
         return SelectorState(
             groups=groups,
             key_table=(init_key_table(K, device) if self.needs_key_table
                        else None),
             epoch=torch.zeros((), dtype=torch.int32, device=device),
             shared_epoch=(torch.zeros(K, dtype=torch.int32, device=device)
-                          if groups else None))
+                          if any_fused else None))
 
     def step(self, state: SelectorState, chunk: EventBatch,
              scope: Scope) -> tuple[SelectorState, EventBatch]:
@@ -174,30 +185,49 @@ class CompiledSelector:
             slots = torch.where(kres, slots, self.group_capacity).to(
                 torch.int32)
         else:
-            slots = None
+            slots = torch.zeros(L, dtype=torch.int32, device=dev)
 
         groups, shared_epoch = list(state.groups), state.shared_epoch
         agg_values: dict[str, torch.Tensor] = {}
         if self.agg_specs:
             sign = torch.where(is_expired, -1, 1).to(torch.int32)
-            deltas = []
-            for _, spec, args in self.agg_specs:
-                arg = args[0](scope) if args else None
-                deltas += [comp.delta(arg, sign).contiguous()
-                           for comp in spec.components]
-            if slots is not None:
-                groups, shared_epoch, outs = grouped_scan_fused(
-                    groups, shared_epoch, slots, deltas, data_valid,
-                    is_reset, state.epoch)
-            else:
-                groups, shared_epoch, outs = ungrouped_scan_fused(
-                    groups, shared_epoch, deltas, data_valid, is_reset,
-                    state.epoch)
-            i = 0
-            for slot_name, spec, _ in self.agg_specs:
-                n = len(spec.components)
-                agg_values[slot_name] = spec.finalize(outs[i:i + n])
-                i += n
+            results: dict[int, torch.Tensor] = {}
+            pending = []
+            fused_idx, fused_deltas = [], []
+            gi = 0
+            for slot_name, spec, args in self.agg_specs:
+                arg_vals = [a(scope) for a in args] if args else [None]
+                if spec.custom_scan is not None:
+                    groups[gi], results[gi] = spec.custom_scan(
+                        state.groups[gi], slots, arg_vals, sign, data_valid,
+                        is_reset, state.epoch, grouped=bool(self.group_vars))
+                    pending.append((slot_name, spec, [gi]))
+                    gi += 1
+                    continue
+                comp_gis = []
+                for comp in spec.components:
+                    fused_idx.append(gi)
+                    fused_deltas.append(comp.delta(arg_vals[0],
+                                                   sign).contiguous())
+                    comp_gis.append(gi)
+                    gi += 1
+                pending.append((slot_name, spec, comp_gis))
+            if fused_idx:
+                fused_vals = [state.groups[i] for i in fused_idx]
+                if self.group_vars:
+                    fused_vals, shared_epoch, outs = grouped_scan_fused(
+                        fused_vals, shared_epoch, slots, fused_deltas,
+                        data_valid, is_reset, state.epoch)
+                else:
+                    fused_vals, shared_epoch, outs = ungrouped_scan_fused(
+                        fused_vals, shared_epoch, fused_deltas, data_valid,
+                        is_reset, state.epoch)
+                for i, v, o in zip(fused_idx, fused_vals, outs):
+                    groups[i] = v
+                    results[i] = o
+            for slot_name, spec, comp_gis in pending:
+                agg_values[slot_name] = spec.finalize(
+                    [results[i] for i in comp_gis])
             scope.frames[AGG_FRAME] = agg_values
             scope.valids[AGG_FRAME] = data_valid
             scope.ts[AGG_FRAME] = chunk.ts

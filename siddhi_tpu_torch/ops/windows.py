@@ -1,21 +1,33 @@
 """Window operators as `(state, batch) -> (state, chunk)` tensor functions
-(counterpart of siddhi_tpu/ops/windows.py; this slice ports lengthBatch and
-the pass-through window).
+(counterpart of siddhi_tpu/ops/windows.py; this slice ports lengthBatch, the
+sliding windows — length, time, timeLength, delay, externalTime — on the
+packed ring, and the pass-through window).
 
 A step consumes a fixed-capacity micro-batch and emits a typed chunk
 (CURRENT / EXPIRED / RESET lanes) in the reference's emission order. Window
 contents live in a ring addressed by 64-bit arrival indices; per-lane index
-math is int32 relative to int64 scalars, as in the JAX code. The rings carry
-one extra row past capacity that takes the writes the JAX scatters drop
-(`mode="drop"`); it is never read. Ring tensors are updated in place.
+math is int32 relative to int64 scalars, as in the JAX code. The lengthBatch
+rings carry one extra row past capacity that takes the writes the JAX
+scatters drop (`mode="drop"`); it is never read. Ring tensors are updated in
+place.
+
+The sliding windows keep one packed ring: every row is W 32-bit words in a
+word-major [W, C] matrix (columns in layout order, 8-byte values low word
+first, the timestamp last), so each word row is contiguous and loads
+coalesce. Its four memory passes are kernel K2b (csrc/k2b_packed_ring.cu):
+pack-compact, ring fetch, ring append and the chunk gather. The words are
+stored as torch.int32 holding the bits of JAX's uint32 words: torch.uint32
+lacks most indexing and `where` ops on the CPU and on CUDA.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
+from .. import kernels
 from ..core import dtypes
 from ..core.event import EventBatch, EventType
 from ..errors import SiddhiAppCreationError
@@ -135,6 +147,323 @@ def _merge_sorted_chunks(keys, colss, tss, valids, types, width):
 def _empty_like_cols(layout: dict, n: int, device) -> dict:
     return {k: torch.zeros(n, dtype=dt, device=device)
             for k, dt in layout.items()}
+
+
+class TypedLayout(dict):
+    """Column layout (name -> device dtype) carrying the AttributeTypes
+    behind it, for window factories that must tell STRING codes from raw
+    ints (both int32 on device). Build with `make_layout`."""
+
+    attr_types: dict
+
+
+def make_layout(attr_types: dict) -> TypedLayout:
+    """attr_types: name -> AttributeType (OBJECT already excluded)."""
+    lo = TypedLayout({n: dtypes.device_dtype(t)
+                      for n, t in attr_types.items()})
+    lo.attr_types = dict(attr_types)
+    return lo
+
+
+# --------------------------------------------------------------------------- #
+# K2b: the packed ring. Rows are [W, L] int32 words: every column in layout
+# order (bool and 4-byte types one word, 8-byte types two, low word first),
+# then the int64 timestamp as two words.
+# --------------------------------------------------------------------------- #
+
+#: word kind of a column for the K2b kernels: 4-byte, 8-byte, bool
+_KIND_4, _KIND_8, _KIND_BOOL = 0, 1, 2
+
+
+def _word_kind(dt: torch.dtype) -> int:
+    if dt == torch.bool:
+        return _KIND_BOOL
+    if dt.itemsize == 8:
+        return _KIND_8
+    if dt.itemsize == 4:
+        return _KIND_4
+    raise ValueError(f"packed ring: no word layout for {dt}")
+
+
+def _layout_words(layout: dict) -> int:
+    """Words per packed row: the columns in layout order, then 2 ts words."""
+    return sum(2 if _word_kind(dt) == _KIND_8 else 1
+               for dt in layout.values()) + 2
+
+
+def _words_to(lo: torch.Tensor, hi: torch.Tensor, dt) -> torch.Tensor:
+    """Two word rows (low, high) as one 8-byte column."""
+    return torch.stack([lo, hi], dim=-1).view(dt).squeeze(-1)
+
+
+def _pack_rows(cols: dict, ts: torch.Tensor, layout: dict) -> torch.Tensor:
+    """Columns + ts as a [W, L] int32 word matrix."""
+    words = []
+    for name in layout:
+        a = cols[name]
+        kind = _word_kind(a.dtype)
+        if kind == _KIND_BOOL:
+            words.append(a.to(torch.int32))
+        elif kind == _KIND_8:
+            w = a.contiguous().view(torch.int32).view(-1, 2)
+            words += [w[:, 0], w[:, 1]]
+        else:
+            words.append(a.contiguous().view(torch.int32))
+    w = ts.to(torch.int64).contiguous().view(torch.int32).view(-1, 2)
+    words += [w[:, 0], w[:, 1]]
+    return torch.stack(words)
+
+
+def _unpack_rows(mat: torch.Tensor, layout: dict):
+    """[W, L] words -> (cols, ts)."""
+    cols = {}
+    i = 0
+    for name, dt in layout.items():
+        kind = _word_kind(dt)
+        if kind == _KIND_BOOL:
+            cols[name] = mat[i] != 0
+            i += 1
+        elif kind == _KIND_8:
+            cols[name] = _words_to(mat[i], mat[i + 1], dt)
+            i += 2
+        else:
+            cols[name] = mat[i].view(dt)
+            i += 1
+    return cols, _words_to(mat[i], mat[i + 1], torch.int64)
+
+
+def _packed_ts(mat: torch.Tensor) -> torch.Tensor:
+    """The ts payload (last two words) of packed rows, as int64."""
+    return _words_to(mat[-2], mat[-1], torch.int64)
+
+
+def pack_compact_plain(cols: dict, ts: torch.Tensor, layout: dict,
+                       order: torch.Tensor) -> torch.Tensor:
+    """Plain K2b pack-compact: `_pack_rows`, then the gather by K1's order."""
+    return _pack_rows(cols, ts, layout)[:, order.long()]
+
+
+def _k2b(fn: str, argtypes: list):
+    return kernels.bind("k2b_packed_ring", fn, argtypes)
+
+
+def _c_array(ctype, values):
+    return (ctype * len(values))(*values)
+
+
+def _col_chunks(kinds: list):
+    """(first column, end column, first word row) of each K2b launch: the
+    kernels take at most k2b_max_cols() columns a launch."""
+    step = kernels.library("k2b_packed_ring").k2b_max_cols()
+    word = 0
+    for c0 in range(0, len(kinds), step):
+        c1 = min(c0 + step, len(kinds))
+        yield c0, c1, word
+        word += sum(2 if k == _KIND_8 else 1 for k in kinds[c0:c1])
+
+
+def pack_compact_cuda(cols: dict, ts: torch.Tensor, layout: dict,
+                      order: torch.Tensor) -> torch.Tensor:
+    """K2b pack-compact on the card: writes the [W, B] words straight in
+    K1's order from the typed columns, one launch per chunk of columns."""
+    srcs = [cols[n].contiguous() for n in layout] + [ts.contiguous()]
+    order = order.to(torch.int32).contiguous()
+    kernels.require_cuda("pack_compact", order, *srcs)
+    if ts.dtype != torch.int64 or order.shape != ts.shape:
+        raise ValueError("pack_compact: int64 ts [B] and an int32 order [B]")
+    B = ts.shape[0]
+    kinds = [_word_kind(s.dtype) for s in srcs]
+    W = _layout_words(layout)
+    out = torch.empty((W, B), dtype=torch.int32, device=ts.device)
+    P = ctypes.c_void_p
+    fn = _k2b("k2b_pack_compact", [P, P, ctypes.c_int, ctypes.c_int, P,
+                                   ctypes.c_int, P, P])
+    for c0, c1, word0 in _col_chunks(kinds):
+        rc = fn(_c_array(P, [s.data_ptr() for s in srcs[c0:c1]]),
+                _c_array(ctypes.c_int, kinds[c0:c1]), c1 - c0, word0,
+                order.data_ptr(), B, out.data_ptr(), kernels.stream())
+        kernels.check("k2b_packed_ring", "pack_compact", rc)
+        kernels.LAUNCHES["K2b pack"] += 1
+    return out
+
+
+def pack_compact(cols: dict, ts: torch.Tensor, layout: dict,
+                 order: torch.Tensor) -> torch.Tensor:
+    if ts.is_cuda:
+        return pack_compact_cuda(cols, ts, layout, order)
+    return pack_compact_plain(cols, ts, layout, order)
+
+
+def compact_packed(batch: EventBatch, layout: dict):
+    """compact() producing one packed matrix: (mat [W, B], n_valid int32).
+    Lanes >= n_valid hold other lanes' words."""
+    live = batch.valid & (batch.types == int(EventType.CURRENT))
+    order = stable_partition_order(live)
+    return (pack_compact(batch.cols, batch.ts, layout, order),
+            live.sum(dtype=torch.int32))
+
+
+def _append_packed_plain(ring, comp_mat, appended0, n_valid32):
+    """Plain K2b ring append: the first n_valid columns of comp_mat at ring
+    column (appended0 + p) % C (B <= C: at most one wrap); the rest of the
+    ring unchanged. Returns a new ring."""
+    W, C = ring.shape
+    B = comp_mat.shape[1]
+    p = torch.arange(B, dtype=torch.int64, device=ring.device)
+    dest = torch.where(p < n_valid32, torch.remainder(appended0 + p, C), C)
+    ext = torch.cat([ring, ring.new_zeros((W, 1))], dim=1)
+    ext[:, dest] = comp_mat
+    return ext[:, :C]
+
+
+def _append_packed_cuda(ring, comp_mat, appended0, n_valid32):
+    """K2b ring append on the card, in place."""
+    kernels.require_cuda("append_packed", ring, comp_mat, appended0,
+                         n_valid32)
+    W, C = ring.shape
+    B = comp_mat.shape[1]
+    if (comp_mat.shape[0] != W or B > C or appended0.dtype != torch.int64
+            or n_valid32.dtype != torch.int32):
+        raise ValueError("append_packed: ring [W, C], batch [W, B <= C], "
+                         "int64 appended0, int32 n_valid")
+    P = ctypes.c_void_p
+    fn = _k2b("k2b_append", [P, ctypes.c_int, P, ctypes.c_int, ctypes.c_int,
+                             P, P, P])
+    rc = fn(ring.data_ptr(), C, comp_mat.data_ptr(), B, W,
+            appended0.data_ptr(), n_valid32.data_ptr(), kernels.stream())
+    kernels.check("k2b_packed_ring", "append_packed", rc)
+    kernels.LAUNCHES["K2b append"] += 1
+    return ring
+
+
+def _append_packed(ring, comp_mat, appended0, n_valid32):
+    if ring.is_cuda:
+        return _append_packed_cuda(ring, comp_mat, appended0, n_valid32)
+    return _append_packed_plain(ring, comp_mat, appended0, n_valid32)
+
+
+def _fetch_rel_packed_plain(ring, comp_mat, base_idx, appended0, E: int):
+    """Plain K2b ring fetch: rows at overall indices base_idx + [0, E),
+    from the ring for pre-batch rows and from the compacted batch for this
+    batch's arrivals; batch lanes past the batch read zeros, as the JAX
+    function's padding gives them."""
+    W, C = ring.shape
+    B = comp_mat.shape[1]
+    dev = ring.device
+    offs = torch.arange(E, dtype=torch.int32, device=dev)
+    cand = ring[:, torch.remainder(base_idx + offs, C)]
+    rel0 = (appended0 - base_idx).to(torch.int32)
+    start = torch.clamp(E - rel0, 0, E)
+    p = start + offs - E
+    bat = torch.where((p >= 0) & (p < B),
+                      comp_mat[:, torch.clamp(p, 0, B - 1).long()], 0)
+    return torch.where(offs >= rel0, bat, cand)
+
+
+def _fetch_rel_packed_cuda(ring, comp_mat, base_idx, appended0, E: int):
+    kernels.require_cuda("fetch_rel_packed", ring, comp_mat, base_idx,
+                         appended0)
+    W, C = ring.shape
+    B = comp_mat.shape[1]
+    if (comp_mat.shape[0] != W or E > C or base_idx.dtype != torch.int64
+            or appended0.dtype != torch.int64):
+        raise ValueError("fetch_rel_packed: ring [W, C >= E], batch [W, B], "
+                         "int64 scalars")
+    out = torch.empty((W, E), dtype=torch.int32, device=ring.device)
+    P = ctypes.c_void_p
+    fn = _k2b("k2b_fetch", [P, ctypes.c_int, P] + [ctypes.c_int] * 3
+              + [P, P, P, P])
+    rc = fn(ring.data_ptr(), C, comp_mat.data_ptr(), B, W, E,
+            base_idx.data_ptr(), appended0.data_ptr(), out.data_ptr(),
+            kernels.stream())
+    kernels.check("k2b_packed_ring", "fetch_rel_packed", rc)
+    kernels.LAUNCHES["K2b fetch"] += 1
+    return out
+
+
+def _fetch_rel_packed(ring, comp_mat, base_idx, appended0, E: int):
+    if ring.is_cuda:
+        return _fetch_rel_packed_cuda(ring, comp_mat, base_idx, appended0, E)
+    return _fetch_rel_packed_plain(ring, comp_mat, base_idx, appended0, E)
+
+
+def _gather_chunk_packed_plain(order, payload_mat, emit_ts, valid, types,
+                               layout: dict) -> EventBatch:
+    """Plain K2b chunk gather: payload + emit ts + (valid, type) meta ride
+    one [W + 3, L] matrix through one permutation gather."""
+    ets = emit_ts.to(torch.int64).contiguous().view(torch.int32).view(-1, 2)
+    meta = valid.to(torch.int32) | (types.to(torch.int32) << 1)
+    W = payload_mat.shape[0]
+    full = torch.cat([payload_mat, ets.T, meta[None, :]])[:, order.long()]
+    cols, _stored_ts = _unpack_rows(full[:W], layout)
+    m = full[W + 2]
+    return EventBatch(ts=_words_to(full[W], full[W + 1], torch.int64),
+                      cols=cols, valid=(m & 1) != 0,
+                      types=(m >> 1).to(torch.int8))
+
+
+def _gather_chunk_packed_cuda(order, payload_mat, emit_ts, valid, types,
+                              layout: dict) -> EventBatch:
+    order = order.to(torch.int32).contiguous()
+    kernels.require_cuda("gather_chunk_packed", order, payload_mat, emit_ts,
+                         valid, types)
+    W, L = payload_mat.shape
+    if (W != _layout_words(layout) or emit_ts.shape != (L,)
+            or valid.shape != (L,) or types.shape != (L,)
+            or emit_ts.dtype != torch.int64 or valid.dtype != torch.bool
+            or types.dtype != torch.int8):
+        raise ValueError("gather_chunk_packed: payload [W, L], int64 emit "
+                         "ts, bool valid and int8 types [L]")
+    width = order.shape[0]
+    dev = payload_mat.device
+    cols = {n: torch.empty(width, dtype=dt, device=dev)
+            for n, dt in layout.items()}
+    ts = torch.empty(width, dtype=torch.int64, device=dev)
+    valid_out = torch.empty(width, dtype=torch.bool, device=dev)
+    types_out = torch.empty(width, dtype=torch.int8, device=dev)
+    outs = list(cols.values())
+    kinds = [_word_kind(dt) for dt in layout.values()]
+    P = ctypes.c_void_p
+    fn = _k2b("k2b_gather", [P, P] + [ctypes.c_int] * 3 + [P, ctypes.c_int,
+                                                           P, ctypes.c_int]
+              + [P] * 7)
+    # a layout of no columns still takes one launch, for ts/valid/type
+    chunks = list(_col_chunks(kinds)) or [(0, 0, 0)]
+    for i, (c0, c1, word0) in enumerate(chunks):
+        rc = fn(_c_array(P, [c.data_ptr() for c in outs[c0:c1]]),
+                _c_array(ctypes.c_int, kinds[c0:c1]), c1 - c0, word0,
+                int(i == 0), order.data_ptr(), width, payload_mat.data_ptr(),
+                L, emit_ts.data_ptr(), valid.data_ptr(), types.data_ptr(),
+                ts.data_ptr(), valid_out.data_ptr(), types_out.data_ptr(),
+                kernels.stream())
+        kernels.check("k2b_packed_ring", "gather_chunk_packed", rc)
+        kernels.LAUNCHES["K2b gather"] += 1
+    return EventBatch(ts=ts, cols=cols, valid=valid_out, types=types_out)
+
+
+def _gather_chunk_packed(order, payload_mat, emit_ts, valid, types,
+                         layout: dict) -> EventBatch:
+    """Apply an emission permutation to packed rows and unpack them."""
+    if payload_mat.is_cuda:
+        return _gather_chunk_packed_cuda(order, payload_mat, emit_ts, valid,
+                                         types, layout)
+    return _gather_chunk_packed_plain(order, payload_mat, emit_ts, valid,
+                                      types, layout)
+
+
+def _ring_live_mask(ring_len: int, lo: torch.Tensor, hi: torch.Tensor):
+    """Valid-slot mask for a ring holding overall indices [lo, hi): slot
+    s's most recent write is idx = hi-1 - ((hi-1-s) % C); live iff >= lo."""
+    s = torch.arange(ring_len, dtype=torch.int64, device=lo.device)
+    last_written = hi - 1 - torch.remainder(hi - 1 - s, ring_len)
+    return (last_written >= 0) & (last_written >= lo) & (last_written < hi)
+
+
+def window_has_time_semantics(window: "WindowOp") -> bool:
+    """True if the window needs heartbeats (empty timer batches) to emit
+    expirations when no data arrives (the reference Scheduler's TIMER
+    events). Of the ported windows, the time-bound sliding ones."""
+    return getattr(window, "time_ms", None) is not None
 
 
 class WindowOp:
@@ -285,3 +614,183 @@ class PassThroughWindow(WindowOp):
 
     def step(self, state, batch: EventBatch, now):
         return state, batch
+
+
+# --------------------------------------------------------------------------- #
+# sliding windows (length, time, timeLength, delay, externalTime)
+# --------------------------------------------------------------------------- #
+
+
+class SlidingState(NamedTuple):
+    ring: torch.Tensor  # int32[W, C] packed rows (all columns + ts words)
+    appended: torch.Tensor  # int64 total valid arrivals ever
+    expired: torch.Tensor  # int64 total expirations ever
+    wm: torch.Tensor  # int64 external-time watermark (externalTime only)
+    overflow: torch.Tensor  # int64 lifetime live rows overwritten past C
+
+
+class SlidingWindow(WindowOp):
+    """Unified FIFO sliding window: length(N), time(W), timeLength(W, N),
+    delay(W) and externalTime(attr, W) are one machine with different
+    expiry rules. Events expire in arrival order (timestamps are monotone
+    per junction), so the window is the contiguous range [expired,
+    appended) of overall indices, held in the packed ring."""
+
+    shape_polymorphic = True  # step() reads B from the batch (buckets)
+
+    def __init__(self, layout: dict, batch_cap: int, *,
+                 length: Optional[int] = None,
+                 time_ms: Optional[int] = None,
+                 capacity: Optional[int] = None,
+                 max_expired: Optional[int] = None,
+                 is_delay: bool = False,
+                 ts_attr: Optional[str] = None):
+        self.layout = layout
+        self.B = batch_cap
+        self.length = length
+        self.time_ms = time_ms
+        self.is_delay = is_delay
+        #: externalTime(tsAttr, W): expiry follows an event attribute clock
+        self.ts_attr = ts_attr
+        # the packed FIFO append requires B <= C
+        if length is not None and time_ms is None:
+            self.C = max(length, batch_cap, 1)
+        else:
+            self.C = max(capacity or dtypes.config.default_window_capacity,
+                         batch_cap)
+        self.E = max_expired if max_expired is not None else (
+            batch_cap if (length is not None and time_ms is None)
+            else max(batch_cap, 1024))
+        # the candidate fetch reads E rows from the ring: C >= E
+        self.C = max(self.C, self.E)
+        self.chunk_width = self.B + self.E
+        self.W = _layout_words(layout)
+
+    def init_state(self, device) -> SlidingState:
+        def i64(v):
+            return torch.tensor(v, dtype=torch.int64, device=device)
+
+        return SlidingState(
+            ring=torch.zeros((self.W, self.C), dtype=torch.int32,
+                             device=device),
+            appended=i64(0), expired=i64(0), wm=i64(-(2**62)),
+            overflow=i64(0))
+
+    def step(self, state: SlidingState, batch: EventBatch, now):
+        # B is the incoming batch's capacity (<= self.B for bucketed
+        # batches); E and C stay fixed
+        B, E, C = batch.capacity, self.E, self.C
+        dev = batch.ts.device
+        comp_mat, n_valid32 = compact_packed(batch, self.layout)
+        n_valid = n_valid32.to(torch.int64)
+        lane_b = torch.arange(B, dtype=torch.int32, device=dev)
+
+        if self.ts_attr is not None:
+            # the attribute clock replaces the packed ts words, so ring rows
+            # carry the expiry-relevant time; the watermark is the largest
+            # attribute value seen
+            tcols, _ = _unpack_rows(comp_mat, self.layout)
+            comp_ts = tcols[self.ts_attr].to(torch.int64)
+            w = comp_ts.contiguous().view(torch.int32).view(-1, 2)
+            comp_mat[-2] = w[:, 0]
+            comp_mat[-1] = w[:, 1]
+            mx = torch.where(lane_b < n_valid32, comp_ts, -(2**62)).max()
+            wm = torch.maximum(state.wm, mx)
+            now = wm
+        else:
+            comp_ts = _packed_ts(comp_mat)
+            wm = state.wm
+
+        appended1 = state.appended + n_valid
+
+        # expiry candidates: the E oldest in-window events
+        pe = torch.arange(E, dtype=torch.int32, device=dev)
+        win_len1 = (appended1 - state.expired).to(torch.int32)
+        cand_exists = pe < win_len1
+        cand_mat = _fetch_rel_packed(state.ring, comp_mat, state.expired,
+                                     state.appended, E)
+        cand_ts = _packed_ts(cand_mat)
+
+        if self.time_ms is not None:
+            # a candidate expires once now >= ts + W, before the first
+            # arrival with ts >= its deadline (ties expire first), or at the
+            # end of the batch when only the final time covers it
+            deadline = cand_ts + self.time_ms
+            trig_time = searchsorted32(
+                torch.where(lane_b < n_valid32, comp_ts, BIG), deadline,
+                side="left")
+            time_fires = deadline <= now
+        if self.length is not None:
+            # length(N): candidate o leaves at the arrival with overall
+            # index o + N; its position in this batch, relative -> int32
+            rel = (state.expired + self.length
+                   - state.appended).to(torch.int32)
+            trig_len = pe + rel
+            len_fires = trig_len < n_valid32
+
+        if self.length is None:
+            trig, expires, emit_ts = trig_time, cand_exists & time_fires, \
+                deadline
+        elif self.time_ms is None:
+            trig = trig_len
+            expires = cand_exists & len_fires
+            # evicted events carry the current time (the evicting arrival's)
+            emit_ts = comp_ts[torch.clamp(trig, 0, B - 1).long()]
+        else:
+            # timeLength(W, N): whichever rule fires first
+            trig = torch.where(
+                time_fires & len_fires, torch.minimum(trig_time, trig_len),
+                torch.where(time_fires, trig_time, trig_len))
+            expires = cand_exists & (time_fires | len_fires)
+            emit_ts = torch.where(
+                time_fires & (trig_time <= trig_len), deadline,
+                comp_ts[torch.clamp(trig, 0, B - 1).long()])
+
+        n_expired_new = expires.sum(dtype=torch.int64)
+
+        # chunk: E expired lanes + B current lanes, rank-merged
+        cur_valid = lane_b < n_valid32
+        keys_exp = torch.clamp(trig, 0, B) * 4 + KIND_EXPIRED
+        keys_cur = lane_b * 4 + KIND_CURRENT
+        all_mat = torch.cat([cand_mat, comp_mat], dim=1)
+        all_emit = torch.cat([emit_ts, comp_ts])
+        if self.is_delay:
+            # delay(W): expired lanes re-emit as CURRENT after the delay;
+            # arrivals are swallowed
+            cur_v = torch.zeros(B, dtype=torch.bool, device=dev)
+            all_types = torch.full((E + B,), int(EventType.CURRENT),
+                                   dtype=torch.int8, device=dev)
+        else:
+            cur_v = cur_valid
+            all_types = torch.cat([
+                torch.full((E,), int(EventType.EXPIRED), dtype=torch.int8,
+                           device=dev),
+                torch.full((B,), int(EventType.CURRENT), dtype=torch.int8,
+                           device=dev)])
+        all_valid = torch.cat([expires, cur_v])
+        order = _merge_order([(keys_exp, pe), (keys_cur, lane_b)],
+                             [expires, cur_v])
+        chunk = _gather_chunk_packed(order, all_mat, all_emit, all_valid,
+                                     all_types, self.layout)
+
+        # the ring append comes after the fetch, whose range it can overlap
+        ring = _append_packed(state.ring, comp_mat, state.appended, n_valid32)
+
+        # live rows overwritten by the ring wrap (a time window holding more
+        # than C rows): the new excess of this step
+        expired1 = state.expired + n_expired_new
+        over0 = torch.clamp(state.appended - state.expired - C, min=0)
+        over1 = torch.clamp(appended1 - expired1 - C, min=0)
+        new_state = SlidingState(
+            ring=ring, appended=appended1, expired=expired1, wm=wm,
+            overflow=state.overflow + torch.clamp(over1 - over0, min=0))
+        return new_state, chunk
+
+    def contents(self, state: SlidingState, now):
+        """In-window rows as (cols, ts, live) over the ring, for probes."""
+        ring_cols, ring_ts = _unpack_rows(state.ring, self.layout)
+        live = _ring_live_mask(self.C, state.expired, state.appended)
+        if self.time_ms is not None:
+            # rows past their deadline are out even before a batch flushes
+            live = live & (ring_ts + self.time_ms > now)
+        return ring_cols, ring_ts, live
