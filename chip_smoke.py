@@ -38,7 +38,21 @@ Phases (any failure exits non-zero and prints no result line):
    without GROUP BY), 1,048,576 events each, every output event against
    an independent numpy oracle (counts and long sums exact, float sums
    rtol 1e-5 plus atol 1e-3 for the float32 residues of removal), with
-   the same per-app numbers as apps A and B.
+   the same per-app numbers as apps A and B;
+8. the join kernels against their plain versions at app G's shapes, bit
+   for bit: K3b (one int key column of B = 8192 lanes, with and without
+   the validity mask), K10 append (the whole multimap state after a
+   sequence of batches that wraps a C = 100000 ring more than twice, H =
+   2^18 buckets), K10 probe (k_max = 16; once more on a state whose
+   arrival tags cross 2^32, so the u32 ages wrap) and K10 compact (P =
+   131072 candidates into pair_cap = 32768, at app G's density and with
+   more valid lanes than pair_cap); with the same timings;
+9. app G, BASELINE config 5 as bench.py writes it: a stream-stream equi
+   join over two length(100000) windows, 64 rounds of 8192 events on each
+   side (1,048,576 events), keys uniform over 1..100000; every output
+   event against an independent numpy oracle (keys, timestamps and the
+   stored float32 values exact), no dropped pair, the same per-app
+   numbers.
 
 The second-to-last lines are the kernel table as one JSON object and the
 card's name and power limit; the last line is
@@ -128,6 +142,24 @@ select sum(price) as total, sum(volume) as vol, count() as n
 insert into OutStream;
 """
 
+# BASELINE config 5 as bench.py writes it (bench_join)
+APP_G = """
+define stream LeftStream (k int, v double);
+define stream RightStream (k int, v double);
+@info(name = 'bench')
+from LeftStream#window.length(100000) as a
+join RightStream#window.length(100000) as b
+on a.k == b.k
+select a.k as k, a.v as lv, b.v as rv
+insert into OutStream;
+"""
+BATCH_G = 8192  # bench.py's join batch
+ROUNDS_G = 64
+LENGTH_G = 100_000
+K_MAX = 16
+BUCKETS_G = 1 << 18  # multimap_buckets(100000)
+PAIR_CAP_G = 32768  # min(B * k_max, max(4 * B, 32768))
+
 TIME_WINDOW_MS = 60_000
 LENGTH_D = 100_000
 C_SYMBOLS = 100_000
@@ -138,6 +170,8 @@ WINDOWS = "siddhi_tpu/ops/windows.py"
 GROUPBY = "siddhi_tpu/ops/groupby.py"
 K5_SRC = "siddhi_tpu_torch/csrc/k5_grouped_scan.cu"
 K2B_SRC = "siddhi_tpu_torch/csrc/k2b_packed_ring.cu"
+K10_SRC = "siddhi_tpu_torch/csrc/k10_join.cu"
+JOIN = "siddhi_tpu/ops/join.py"
 
 #: launch-counter key -> (function, source, TPU-side function replaced)
 KERNELS = {
@@ -156,6 +190,11 @@ KERNELS = {
     "K5b grouped": ("grouped_scan + _scan_component", K5_SRC,
                     f"{GROUPBY}:61"),
     "K5b ungrouped": ("ungrouped_scan", K5_SRC, f"{GROUPBY}:207"),
+    "K3b": ("hash_columns32 + _hash_exprs",
+            "siddhi_tpu_torch/csrc/k3_hash.cu", f"{GROUPBY}:555"),
+    "K10 append": ("multimap_append", K10_SRC, f"{JOIN}:227"),
+    "K10 probe": ("multimap_probe", K10_SRC, f"{JOIN}:275"),
+    "K10 compact": ("compact_pairs", K10_SRC, f"{JOIN}:165"),
 }
 
 
@@ -977,10 +1016,10 @@ def measure_steps(torch, rt, columns: dict, ts, fresh: bool = False):
 
 
 def report_app(name, n_in, n_out, elapsed, step_ms, peak, launches, syncs,
-               card) -> None:
+               card, rounds=ROUNDS, batch=BATCH) -> None:
     print(f"app {name}: {n_in} events in, {n_out} out, matches the oracle; "
           f"{n_in / elapsed:.1f} events/s end to end "
-          f"({elapsed * 1e3 / ROUNDS:.3f} ms per {BATCH}-event round); "
+          f"({elapsed * 1e3 / rounds:.3f} ms per {batch}-event round); "
           f"query step alone {step_ms:.3f} ms per round; peak device memory "
           f"{peak / 2**20:.1f} MiB; kernel launches "
           f"{ {k: v for k, v in launches.items() if v} }; host syncs in one "
@@ -1031,6 +1070,347 @@ def sliding_apps(torch, rng, card: str) -> dict:
                    launches, syncs, card)
         del rt
     return total
+
+
+# --------------------------------------------------------------------------- #
+# phases 8-9: the join kernels and app G
+# --------------------------------------------------------------------------- #
+
+
+def _check_state(name, a, b) -> None:
+    for f, x, y in zip(a._fields, a, b):
+        check_equal(f"{name} {f}", x, y)
+
+
+def _build_multimap(torch, rng, start: int, n_batches: int):
+    """A K10 multimap over a LENGTH_G ring after n_batches app-G batches
+    (97% live) from overall index `start`, by the kernel and by the plain
+    version, checked bit for bit after every batch. Returns (state, its
+    plain twin, next overall index, the last batch's inputs)."""
+    from siddhi_tpu_torch.ops import groupby, join
+
+    dev = torch.device("cuda")
+    kmm = join.multimap_init(LENGTH_G, BUCKETS_G, dev)
+    pmm = join.multimap_init(LENGTH_G, BUCKETS_G, dev)
+    appended = start
+    for i in range(n_batches):
+        keys = torch.from_numpy(rng.integers(1, LENGTH_G + 1, BATCH_G).astype(
+            np.int32)).to(dev)
+        hashes = groupby.hash_columns32_plain([keys], remap=True)
+        live = torch.from_numpy(rng.random(BATCH_G) < 0.97).to(dev)
+        a0 = torch.tensor(appended, device=dev)
+        if i == n_batches - 1:
+            last = (hashes, live, a0, [t.clone() for t in kmm])
+        kmm = join.multimap_append(kmm, hashes, live, a0)
+        pmm = join.multimap_append_plain(pmm, hashes, live, a0)
+        _check_state(f"K10 append (batch {i})", kmm, pmm)
+        appended += int(live.sum())
+    return kmm, pmm, appended, last
+
+
+def _probe_walk(torch, mm, hashes, valid, appended, wlen, k_max):
+    """(chain entries a probe reads, lanes) for the byte bound: the entries
+    each lane's walk visits, truncation probe included."""
+    H = mm.heads.shape[0]
+    app32 = int(appended) & 0xFFFFFFFF
+    seq = mm.slot_seq.to(torch.int64) & 0xFFFFFFFF
+    pos = torch.where(valid, mm.heads[(hashes & (H - 1)).long()], -1)
+    alive = valid.clone()
+    prev = torch.zeros(pos.shape, dtype=torch.int64, device=pos.device)
+    visited = 0
+    for _ in range(k_max + 1):
+        ok = alive & (pos >= 0)
+        visited += int(ok.sum())
+        p = torch.where(ok, pos, 0).long()
+        age = (app32 - seq[p]) & 0xFFFFFFFF
+        alive = ok & (age > prev) & (age <= wlen)
+        prev = age
+        pos = mm.nexts[p]
+    return visited
+
+
+def join_kernel_phase(torch, rng) -> dict:
+    """K3b and the three K10 kernels against their plain versions at app
+    G's shapes, bit for bit, with their timings."""
+    from siddhi_tpu_torch.ops import groupby, join
+
+    dev = torch.device("cuda")
+    res = {}
+    B, C, H, K = BATCH_G, LENGTH_G, BUCKETS_G, K_MAX
+    P = B * K
+
+    # K3b: app G's key column, as _hash_exprs hashes it (remap), and with
+    # the build side's validity mask
+    keys = torch.from_numpy(rng.integers(1, C + 1, B).astype(np.int32)).to(
+        dev)
+    valid = torch.from_numpy(rng.random(B) < 0.9).to(dev)
+    sentinel = torch.tensor([0x96825014 - 2**32], dtype=torch.int32,
+                            device=dev)  # mixes to 0xFFFFFFFF
+    for args in (([keys], True, None), ([keys], True, valid),
+                 ([keys], False, None), ([sentinel], True, None)):
+        check_equal("K3b", groupby.hash_columns32(*args),
+                    groupby.hash_columns32_plain(*args))
+    res["K3b"] = dict(
+        _timed(torch, lambda: groupby.hash_columns32([keys], True),
+               lambda: groupby.hash_columns32_plain([keys], True)),
+        bound_ms=bound_ms(B * 4 + B * 4), max_abs_err=0, bound_by="bytes")
+    print(f"K3b hash_columns32 n={B}, one int column: {res['K3b']}")
+
+    # K10 append: 30 batches wrap the 100000-slot ring more than twice
+    n_batches = 30
+    kmm, pmm, appended, (h, live, a0, before) = _build_multimap(
+        torch, rng, 0, n_batches)
+    if appended < 2 * C + B:
+        raise Failure("K10 append: the ring did not wrap twice")
+    state = [t.clone() for t in before]
+    mm = join.MultimapState(*state)
+
+    def restore():
+        for t, t0 in zip(state, before):
+            t.copy_(t0)
+
+    n_live = int(live.sum())
+    runs = int(torch.unique(h[live] & (H - 1)).numel())
+    res["K10 append"] = dict(
+        _timed(torch, lambda: join.multimap_append(mm, h, live, a0),
+               lambda: join.multimap_append_plain(mm, h, live, a0),
+               reset=restore),
+        # hashes and live in; three words out per live row; one old head
+        # read and one head written per bucket run
+        bound_ms=bound_ms(B * (4 + 1) + n_live * 12 + runs * 8),
+        max_abs_err=0, bound_by="bytes")
+    print(f"K10 multimap_append B={B} C={C} H={H} (ring wrapped "
+          f"{appended // C} times): {res['K10 append']}")
+
+    # K10 probe: app G's probe batch against the full window; then against
+    # a state whose tags cross 2^32 (the u32 ages wrap)
+    pkeys = torch.from_numpy(rng.integers(1, C + 1, B).astype(np.int32)).to(
+        dev)
+    ph = groupby.hash_columns32([pkeys], True)
+    pvalid = torch.from_numpy(rng.random(B) < 0.99).to(dev)
+    app_t = torch.tensor(appended, device=dev)
+    wlen = torch.tensor(C, device=dev)
+    # start so that the last tags pass 2^32 by about half a window
+    wstart = 2**32 - n_batches * B * 97 // 100 + C // 2
+    wmm, _, wapp, _ = _build_multimap(torch, rng, wstart, n_batches)
+    if not 2**32 < wapp < 2**32 + C:
+        raise Failure("K10 probe: the tags do not cross 2^32")
+    cases = ((kmm, app_t, "appended < 2^32"),
+             (wmm, torch.tensor(wapp, device=dev), "appended past 2^32"))
+    for m, a, what in cases:
+        for wl in (wlen, torch.tensor(C // 3, device=dev)):
+            got = join.multimap_probe(m, ph, pvalid, a, wl, K)
+            want = join.multimap_probe_plain(m, ph, pvalid, a, wl, K)
+            for nm, x, y in zip(("cand_pos", "cand_ok", "truncated"), got,
+                                want):
+                check_equal(f"K10 probe {what} {nm}", x, y)
+    n_cand = int(join.multimap_probe(kmm, ph, pvalid, app_t, wlen,
+                                     K)[1].sum())
+    visited = _probe_walk(torch, kmm, ph, pvalid, app_t, C, K)
+    res["K10 probe"] = dict(
+        _timed(torch, lambda: join.multimap_probe(kmm, ph, pvalid, app_t,
+                                                  wlen, K),
+               lambda: join.multimap_probe_plain(kmm, ph, pvalid, app_t,
+                                                 wlen, K)),
+        # hash, valid and a head per lane; 12 bytes per chain entry the
+        # walks visit; the [B, K] candidates out
+        bound_ms=bound_ms(B * (4 + 1 + 4) + visited * 12 + P * (4 + 1)),
+        max_abs_err=0, bound_by="bytes")
+    print(f"K10 multimap_probe B={B} k_max={K}: {n_cand} candidates, "
+          f"{visited} chain entries read: {res['K10 probe']}")
+
+    # K10 compact: P candidates into pair_cap, at app G's density (~1
+    # match a probe) and past pair_cap
+    lane = torch.arange(B, dtype=torch.int32, device=dev)[:, None].expand(
+        B, K).reshape(-1)
+    row = torch.from_numpy(rng.integers(0, C, P).astype(np.int32)).to(dev)
+    dense = torch.from_numpy(rng.random(P) < 0.4).to(dev)
+    if int(dense.sum()) <= PAIR_CAP_G:
+        raise Failure("K10 compact: the overflow case does not overflow")
+    sparse = torch.from_numpy(rng.random(P) < 1 / K).to(dev)
+    for nm, pv in (("past pair_cap", dense), ("app G density", sparse)):
+        got = join.compact_pairs(lane, row, pv, PAIR_CAP_G)
+        want = join.compact_pairs_plain(lane, row, pv, PAIR_CAP_G)
+        for part, x, y in zip(("lane", "row", "valid"), got, want):
+            check_equal(f"K10 compact {nm} {part}", x, y)
+    kept = min(int(sparse.sum()), PAIR_CAP_G)
+
+    def library():
+        idx = sparse.nonzero().squeeze(1)[:PAIR_CAP_G]
+        return lane.index_select(0, idx), row.index_select(0, idx)
+
+    res["K10 compact"] = dict(
+        _timed(torch,
+               lambda: join.compact_pairs(lane, row, sparse, PAIR_CAP_G),
+               lambda: join.compact_pairs_plain(lane, row, sparse,
+                                                PAIR_CAP_G),
+               library=library),
+        # lanes, rows and valid in; pair_cap lanes, rows and valid out
+        bound_ms=bound_ms(P * (4 + 4 + 1) + PAIR_CAP_G * (4 + 4 + 1)),
+        max_abs_err=0, bound_by="bytes")
+    print(f"K10 compact_pairs P={P} pair_cap={PAIR_CAP_G} kept={kept}: "
+          f"{res['K10 compact']}")
+    torch.cuda.synchronize()
+    return res
+
+
+def join_events(rng):
+    """App G's feed: per side, keys uniform over 1..LENGTH_G, values
+    uniform on [1, 100); round r's left batch then its right batch, 1 ms
+    apart."""
+    n = BATCH_G * ROUNDS_G
+    k = {s: rng.integers(1, LENGTH_G + 1, n).astype(np.int32)
+         for s in ("L", "R")}
+    v = {s: rng.uniform(1.0, 100.0, n) for s in ("L", "R")}
+    base = 1_700_000_000_000
+    r = np.arange(n) // BATCH_G
+    i = np.arange(n) % BATCH_G
+    ts = {"L": base + (2 * r) * BATCH_G + i,
+          "R": base + (2 * r + 1) * BATCH_G + i}
+    return k, v, {s: t.astype(np.int64) for s, t in ts.items()}
+
+
+def oracle_g(k, v, ts):
+    """Per probe event in arrival order, the equal-key rows among the
+    other side's last LENGTH_G arrivals, oldest first: (k, lv, rv, ts) as
+    the port stores the values (float32), and the largest match count."""
+    v32 = {s: v[s].astype(np.float32).astype(np.float64) for s in v}
+    out_k, out_lv, out_rv, out_ts = [], [], [], []
+    most = 0
+    for r in range(ROUNDS_G):
+        for probe, build in (("L", "R"), ("R", "L")):
+            lo = r * BATCH_G
+            n_build = lo + (BATCH_G if probe == "R" else 0)
+            start = max(0, n_build - LENGTH_G)
+            wk = k[build][start:n_build]
+            order = np.argsort(wk, kind="stable")
+            sk = wk[order]
+            pk = k[probe][lo:lo + BATCH_G]
+            a = np.searchsorted(sk, pk, side="left")
+            cnt = np.searchsorted(sk, pk, side="right") - a
+            most = max(most, int(cnt.max()) if cnt.size else 0)
+            rep = np.repeat(np.arange(BATCH_G), cnt)
+            offs = np.arange(rep.size) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+            brow = start + order[a[rep] + offs]
+            prow = lo + rep
+            out_k.append(pk[rep])
+            out_ts.append(ts[probe][prow])
+            pv, bv = v32[probe][prow], v32[build][brow]
+            out_lv.append(pv if probe == "L" else bv)
+            out_rv.append(bv if probe == "L" else pv)
+    cat = np.concatenate
+    return cat(out_k), cat(out_lv), cat(out_rv), cat(out_ts), most
+
+
+def run_join_app(torch, k, v, ts):
+    from siddhi_tpu_torch import SiddhiManager, kernels
+
+    rt = SiddhiManager().create_siddhi_app_runtime(APP_G, batch_size=BATCH_G)
+    got = []
+    rt.add_callback("OutStream", got.extend)
+    hs = {"L": rt.get_input_handler("LeftStream"),
+          "R": rt.get_input_handler("RightStream")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in range(ROUNDS_G):
+        s = slice(r * BATCH_G, (r + 1) * BATCH_G)
+        for side in ("L", "R"):
+            hs[side].send_columns({"k": k[side][s], "v": v[side][s]},
+                                  timestamps=ts[side][s])
+            rt.flush()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    return rt, got, launches, elapsed, peak
+
+
+def measure_join_steps(torch, rt, k, v, ts):
+    """Both join steps alone over app G's rounds from a fresh state, as
+    device batches prepared beforehand; (host syncs in one left and one
+    right step, mean ms per round)."""
+    from siddhi_tpu_torch.core.event import EventBatch
+
+    jr = rt.query_runtimes["bench"]
+    codecs = {"L": rt.junctions["LeftStream"].codec,
+              "R": rt.junctions["RightStream"].codec}
+    dev = torch.device("cuda")
+    rounds = []
+    for r in range(ROUNDS_G):
+        s = slice(r * BATCH_G, (r + 1) * BATCH_G)
+        rounds.append([
+            (EventBatch.from_numpy(ts[side][s], codecs[side].encode_columns(
+                {"k": k[side][s], "v": v[side][s]}, BATCH_G), BATCH_G, dev),
+             int(ts[side][s].max()))
+            for side in ("L", "R")])
+    syncs = []
+
+    def on_warning(message, category, filename, lineno, file=None,
+                   line=None):
+        if "synchroniz" in str(message):
+            syncs.append(f"{filename.rsplit('/', 1)[-1]}:{lineno}")
+
+    torch.cuda.set_sync_debug_mode("warn")
+    torch.cuda.set_sync_debug_mode("default")
+    jr.state = jr.init_state()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = on_warning
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for (b, now), step in zip(rounds[0], (jr._step_left,
+                                                  jr._step_right)):
+                jr.state, _, _ = step(jr.state, b, now)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    jr.state = jr.init_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for (bl, nl), (br, nr) in rounds:
+        jr.state, _, _ = jr._step_left(jr.state, bl, nl)
+        jr.state, _, _ = jr._step_right(jr.state, br, nr)
+    torch.cuda.synchronize()
+    return syncs, (time.perf_counter() - t0) / ROUNDS_G * 1e3
+
+
+def join_app(torch, rng, card: str) -> dict:
+    """App G against its oracle; returns its launches."""
+    k, v, ts = join_events(rng)
+    want_k, want_lv, want_rv, want_ts, most = oracle_g(k, v, ts)
+    if most > K_MAX:
+        raise Failure(f"app G: a probe has {most} matches, past k_max")
+    rt, got, launches, elapsed, peak = run_join_app(torch, k, v, ts)
+    n = want_ts.shape[0]
+    if len(got) != n:
+        raise Failure(f"app G: {len(got)} events out, the oracle expects {n}")
+    g_ts = np.fromiter((e.timestamp for e in got), np.int64, n)
+    g = [np.fromiter((e.data[i] for e in got),
+                     np.int64 if i == 0 else np.float64, n) for i in range(3)]
+    del got
+    for what, a, b in (("timestamp", g_ts, want_ts), ("k", g[0], want_k),
+                       ("lv", g[1], want_lv), ("rv", g[2], want_rv)):
+        bad = np.nonzero(a != b)[0]
+        if bad.size:
+            j = int(bad[0])
+            raise Failure(f"app G: {what} of event {j} is {a[j]}, the oracle "
+                          f"says {b[j]}")
+    dropped = rt.query_runtimes["bench"]._dropped_dev
+    if dropped is not None and int(dropped) != 0:
+        raise Failure(f"app G: {int(dropped)} pairs dropped")
+    for kname in ("K1", "K2b pack", "K2b fetch", "K2b append", "K2b gather",
+                  "K3b", "K10 append", "K10 probe", "K10 compact"):
+        if launches[kname] == 0:
+            raise Failure(f"app G: kernel {kname} never launched")
+    syncs, step_ms = measure_join_steps(torch, rt, k, v, ts)
+    report_app("G", 2 * BATCH_G * ROUNDS_G, n, elapsed, step_ms, peak,
+               launches, syncs, card, rounds=ROUNDS_G,
+               batch=f"2 x {BATCH_G}")
+    if syncs:
+        raise Failure(f"app G: the join step syncs with the host: {syncs}")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -1096,6 +1476,10 @@ def main(argv=None) -> int:
         kres.update(sres)
         print("torch routes: " + json.dumps(routes))
         for k, v in sliding_apps(torch, rng, card).items():
+            launches[k] += v
+
+        kres.update(join_kernel_phase(torch, rng))
+        for k, v in join_app(torch, rng, card).items():
             launches[k] += v
 
         table = []

@@ -1,5 +1,5 @@
 """SiddhiAppRuntime (counterpart of siddhi_tpu/core/app_runtime.py, reduced
-to streams, single-input queries and heartbeats). Lint, admission control,
+to streams, single-input queries, stream-stream joins and heartbeats). Lint, admission control,
 sharding, supersteps, persistence, tables, windows, triggers, aggregations
 and partitions are not yet ported; an app that declares them is refused."""
 
@@ -12,12 +12,13 @@ import torch
 from ..errors import DefinitionNotExistError, SiddhiAppCreationError
 from ..extension.registry import Registry
 from ..query_api import SiddhiApp
-from ..query_api.execution import OutputAction, Query
+from ..query_api.execution import JoinInputStream, OutputAction, Query
 from .context import (
     SiddhiAppContext,
     TimestampGenerator,
     parse_annotation_time,
 )
+from .join_runtime import JoinQueryRuntime, _JoinSideReceiver
 from .query_runtime import FunctionQueryCallback, QueryCallback, QueryRuntime
 from .stream import FunctionStreamCallback, InputHandler, StreamCallback, StreamJunction
 
@@ -62,13 +63,22 @@ class SiddhiAppRuntime:
 
     def _add_query(self, query: Query, default_name: str) -> None:
         name = query.name or default_name
-        sid = getattr(query.input_stream, "stream_id", None)
-        junction = self.junctions.get(sid)
-        if junction is None:
-            raise DefinitionNotExistError(f"stream {sid!r} is not defined")
-        qr = QueryRuntime(query, self.ctx, junction, self.ctx.registry,
-                          name=name)
-        junction.subscribe(qr)
+        if isinstance(query.input_stream, JoinInputStream):
+            qr = JoinQueryRuntime(query, self.ctx, self.junctions,
+                                  self.ctx.registry, name)
+            # left first: with both sides on one stream, the left direction
+            # probes before the right one, as in the JAX package
+            qr.left.junction.subscribe(_JoinSideReceiver(qr, True))
+            qr.right.junction.subscribe(_JoinSideReceiver(qr, False))
+        else:
+            sid = getattr(query.input_stream, "stream_id", None)
+            junction = self.junctions.get(sid)
+            if junction is None:
+                raise DefinitionNotExistError(
+                    f"stream {sid!r} is not defined")
+            qr = QueryRuntime(query, self.ctx, junction, self.ctx.registry,
+                              name=name)
+            junction.subscribe(qr)
         self.query_runtimes[name] = qr
         out = query.output_stream
         if out.action != OutputAction.INSERT or out.is_fault:
@@ -133,10 +143,16 @@ class SiddhiAppRuntime:
         self.flush(t)
         seen: set[int] = set()
         for qr in self.query_runtimes.values():
-            j = qr.input_junction
-            if qr.has_time_semantics and id(j) not in seen:
-                seen.add(id(j))
-                j.heartbeat(t)
+            if not qr.has_time_semantics:
+                continue
+            # a join's time window also expires at probe time; the
+            # heartbeat steps both of its sides' windows
+            js = (qr.side_junctions() if isinstance(qr, JoinQueryRuntime)
+                  else [qr.input_junction])
+            for j in js:
+                if id(j) not in seen:
+                    seen.add(id(j))
+                    j.heartbeat(t)
 
     def shutdown(self) -> None:
         """Deliver what is still staged; nothing else holds resources."""

@@ -36,6 +36,11 @@ class _Config:
     default_window_capacity = 1 << 16
     #: default max distinct group-by keys tracked on device per query
     default_group_capacity = 1 << 20
+    #: max matched build rows per probe event in joins (static join fan-out)
+    join_max_matches = 16
+    #: compacted pair-block width as a multiple of the probe batch size;
+    #: total matches per step beyond factor*B are dropped (bounded fan-out)
+    join_pair_cap_factor = 4
 
 
 config = _Config()

@@ -2,7 +2,8 @@
 
 The JAX query state, after `jax.device_get`, is a tuple (window state,
 selector state, limiter state) of NamedTuples and dataclasses holding numpy
-arrays. The functions here take that state — or the same fields as plain
+arrays; a join query's is (left window, right window, left multimap, right
+multimap, selector state). The functions here take that state — or the same fields as plain
 dicts — and load it into a port runtime built from the same app text, so
 the next batches continue where the JAX runtime stopped. They read fields
 by name and import nothing of the JAX package.
@@ -19,8 +20,10 @@ import numpy as np
 import torch
 
 from .core.app_runtime import SiddhiAppRuntime
+from .core.join_runtime import JoinQueryRuntime
 from .core.query_runtime import QueryRuntime
 from .ops.groupby import GroupState, KeyTable
+from .ops.join import MultimapState
 from .ops.selector import SelectorState
 from .ops.windows import BatchState, SlidingState
 
@@ -112,6 +115,27 @@ def load_query_state(qr: QueryRuntime, state) -> None:
     qr.state = (window_state(w_np, w_like), selector_state(s_np, s_like), ())
 
 
+def multimap_state(mm_np, like):
+    """A join side's multimap: heads and nexts as they are, the u32 hash and
+    arrival-tag arrays bit for bit as the port's int32 patterns."""
+    if like == ():
+        return ()
+    return MultimapState(**{
+        f: _tensor(np.ascontiguousarray(_field(mm_np, f)).view(np.int32),
+                   getattr(like, f))
+        for f in MultimapState._fields})
+
+
+def load_join_state(jr: JoinQueryRuntime, state) -> None:
+    """Load one join query's (left window, right window, left multimap,
+    right multimap, selector) state."""
+    wl, wr, mml, mmr, sel = state
+    lwl, lwr, lmml, lmmr, lsel = jr.state
+    jr.state = (window_state(wl, lwl), window_state(wr, lwr),
+                multimap_state(mml, lmml), multimap_state(mmr, lmmr),
+                selector_state(sel, lsel))
+
+
 def load_strings(rt: SiddhiAppRuntime, strings: Sequence[Optional[str]]) -> None:
     """Load the app-global string table (code i -> strings[i], 0 = null)."""
     rt.ctx.global_strings.restore(strings)
@@ -121,5 +145,9 @@ def load_app_state(rt: SiddhiAppRuntime, query_states: dict,
                    strings: Sequence[Optional[str]]) -> None:
     """Load every named query's state and the string table."""
     for name, state in query_states.items():
-        load_query_state(rt.query_runtimes[name], state)
+        qr = rt.query_runtimes[name]
+        if isinstance(qr, JoinQueryRuntime):
+            load_join_state(qr, state)
+        else:
+            load_query_state(qr, state)
     load_strings(rt, strings)

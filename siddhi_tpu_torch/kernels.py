@@ -25,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_kernel_build"
 SOURCES = ("k1_partition", "k2b_packed_ring", "k3_hash", "k4_keytable",
-           "k5_grouped_scan")
+           "k5_grouped_scan", "k10_join")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: them; chip_smoke.py zeroes them before driving the main path
 LAUNCHES = {"K1": 0, "K2b pack": 0, "K2b fetch": 0, "K2b append": 0,
             "K2b gather": 0, "K3": 0, "K4": 0, "K5": 0, "K5 ungrouped": 0,
-            "K5b grouped": 0, "K5b ungrouped": 0}
+            "K5b grouped": 0, "K5b ungrouped": 0, "K3b": 0, "K10 append": 0,
+            "K10 probe": 0, "K10 compact": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

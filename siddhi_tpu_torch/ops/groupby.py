@@ -1,8 +1,11 @@
 """Group-by on device (counterpart of siddhi_tpu/ops/groupby.py).
 
-Four kernels live here, each beside its plain PyTorch version:
+Five kernels live here, each beside its plain PyTorch version:
 
 - K3 `hash_columns`: 64-bit mix of the key columns (csrc/k3_hash.cu);
+- K3b `hash_columns32`: 32-bit mix of the key columns for join probes,
+  with the join's sentinel remap and validity mask fused
+  (csrc/k3_hash.cu);
 - K4 `key_lookup_or_insert`: open-addressing key table, keys -> dense ids
   (csrc/k4_keytable.cu);
 - K5 `grouped_scan_fused` / `ungrouped_scan_fused`: N sum components over
@@ -106,6 +109,115 @@ def hash_columns(cols: list) -> torch.Tensor:
     if cols[0].is_cuda:
         return hash_columns_cuda(cols)
     return hash_columns_plain(cols)
+
+
+# --------------------------------------------------------------------------- #
+# K3b: hash_columns32. u32 values are stored as int32 bit patterns, as the
+# packed ring stores its words: torch.uint32 lacks most ops on the CPU.
+# --------------------------------------------------------------------------- #
+
+#: the join's invalid-row hash (u32 0xFFFFFFFF) and the value a real key
+#: hashing to it is moved to (0xFFFFFFFE), as int32 bits
+BIGKEY32 = -1
+BIGKEY32_REMAP = -2
+_FNV32 = 0x811C9DC5
+_PRIME32 = 0x01000193
+#: K3b word kinds, as the kernel reads them: 4-byte, 8-byte, bool
+_K3B_4, _K3B_8, _K3B_BOOL = 0, 1, 2
+
+
+def _k3b_kind(dt: torch.dtype) -> int:
+    if dt == torch.bool:
+        return _K3B_BOOL
+    if dt.itemsize in (4, 8):
+        return _K3B_8 if dt.itemsize == 8 else _K3B_4
+    raise ValueError(f"hash_columns32: no word layout for {dt}")
+
+
+def _words32(c: torch.Tensor) -> list:
+    """The u32 words of one column as the JAX function takes them, as int64
+    values in [0, 2^32): floats by their bits, 8-byte values low word
+    first, bools and 4-byte values as one int32 word."""
+    kind = _k3b_kind(c.dtype)
+    if kind == _K3B_BOOL:
+        return [c.to(torch.int64)]
+    if kind == _K3B_8:
+        w = c.contiguous().view(torch.int32).view(*c.shape, 2)
+        return [w[..., 0].to(torch.int64) & _MASK32,
+                w[..., 1].to(torch.int64) & _MASK32]
+    return [c.contiguous().view(torch.int32).to(torch.int64) & _MASK32]
+
+
+def to_u32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) as int32 bit patterns."""
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def hash_columns32_plain(cols: list, remap: bool = False,
+                         valid: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Plain PyTorch K3b in int64 masked to 32 bits (a logical shift):
+    h = (h ^ x) * 0x01000193; h ^= h >> 15 per word from 0x811C9DC5.
+    `remap` moves a hash of 0xFFFFFFFF to 0xFFFFFFFE; `valid` (after the
+    remap) sets invalid lanes to 0xFFFFFFFF. int32 bit patterns out."""
+    cols = torch.broadcast_tensors(*cols)
+    h = torch.full(cols[0].shape, _FNV32, dtype=torch.int64,
+                   device=cols[0].device)
+    for c in cols:
+        for x in _words32(c):
+            h = ((h ^ x) * _PRIME32) & _MASK32
+            h = h ^ (h >> 15)
+    h = to_u32_bits(h)
+    if remap:
+        h = torch.where(h == BIGKEY32, BIGKEY32_REMAP, h)
+    if valid is not None:
+        h = torch.where(valid, h, BIGKEY32)
+    return h
+
+
+def hash_columns32_cuda(cols: list, remap: bool = False,
+                        valid: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """K3b on the card: one thread per lane, the column pointers and kinds
+    in the parameter block (at most k3b_max_cols() a launch; a wider key
+    carries the running hash from one launch to the next)."""
+    cols = [c.contiguous() for c in torch.broadcast_tensors(*cols)]
+    extra = [valid.contiguous()] if valid is not None else []
+    kernels.require_cuda("hash_columns32", *cols, *extra)
+    if valid is not None and (valid.dtype != torch.bool
+                              or valid.shape != cols[0].shape):
+        raise ValueError("hash_columns32: valid must be bool of the lanes' "
+                         "shape")
+    n = cols[0].numel()
+    out = torch.empty(cols[0].shape, dtype=torch.int32,
+                      device=cols[0].device)
+    kinds = [_k3b_kind(c.dtype) for c in cols]
+    P = ctypes.c_void_p
+    fn = kernels.bind("k3_hash", "k3b_hash_columns32",
+                      [P, P, ctypes.c_int, ctypes.c_longlong, P, P,
+                       ctypes.c_int, P, P])
+    step = kernels.library("k3_hash").k3b_max_cols()
+    for c0 in range(0, len(cols), step):
+        c1 = min(c0 + step, len(cols))
+        last = c1 == len(cols)
+        rc = fn((P * (c1 - c0))(*[c.data_ptr() for c in cols[c0:c1]]),
+                (ctypes.c_int * (c1 - c0))(*kinds[c0:c1]), c1 - c0, n,
+                out.data_ptr() if c0 else None,
+                valid.data_ptr() if (last and valid is not None) else None,
+                int(last and remap), out.data_ptr(), kernels.stream())
+        kernels.check("k3_hash", "hash_columns32", rc)
+        kernels.LAUNCHES["K3b"] += 1
+    return out
+
+
+def hash_columns32(cols: list, remap: bool = False,
+                   valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """32-bit mix of key columns (K3b), int32 bit patterns of the u32
+    hash. Collisions only cost re-verified candidates: joins re-check the
+    exact condition."""
+    if cols[0].is_cuda:
+        return hash_columns32_cuda(cols, remap, valid)
+    return hash_columns32_plain(cols, remap, valid)
 
 
 # --------------------------------------------------------------------------- #

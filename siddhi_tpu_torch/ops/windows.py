@@ -598,6 +598,13 @@ class LengthBatchWindow(WindowOp):
             prev_start=(f_now - 1) * N)
         return new_state, chunk
 
+    def contents(self, state: BatchState, now):
+        """Joins see the accumulating (unflushed) bucket: ring rows
+        [flushed, appended), without the spare row."""
+        live = _ring_live_mask(self.C, state.flushed, state.appended)
+        return ({k: v[:self.C] for k, v in state.ring_cols.items()},
+                state.ring_ts[:self.C], live)
+
 
 class PassThroughWindow(WindowOp):
     """No window: batch lanes flow through as CURRENT."""
@@ -614,6 +621,14 @@ class PassThroughWindow(WindowOp):
 
     def step(self, state, batch: EventBatch, now):
         return state, batch
+
+    def contents(self, state, now, device=None):
+        """A windowless join side holds nothing: only the arriving event
+        matches. The state is empty, so the caller names the device."""
+        dev = torch.device("cpu") if device is None else device
+        return (_empty_like_cols(self.layout, 1, dev),
+                torch.zeros(1, dtype=dtypes.TS_DTYPE, device=dev),
+                torch.zeros(1, dtype=torch.bool, device=dev))
 
 
 # --------------------------------------------------------------------------- #

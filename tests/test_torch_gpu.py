@@ -291,3 +291,142 @@ def test_k4_kernel_places_key_past_a_full_window(cuda):
     for a, b in zip(kt, pt):
         assert torch.equal(a.cpu(), b)
     assert torch.equal(kids.cpu(), pids) and bool(kres[0]) and bool(pres[0])
+
+
+# copies: 12 gives 36 key columns, past the 32 a K3b launch takes
+@pytest.mark.parametrize("copies", [1, 12])
+def test_k3b_kernel_matches_plain(cuda, copies):
+    from siddhi_tpu_torch.ops import groupby
+    rng = np.random.default_rng(8)
+    n = 3000
+    base = [torch.from_numpy(rng.integers(-(2**31), 2**31, n).astype(
+                np.int32)),
+            torch.from_numpy(rng.integers(-(2**62), 2**62, n)),
+            torch.from_numpy(rng.normal(size=n).astype(np.float32)),
+            torch.from_numpy(rng.normal(size=n)),
+            torch.from_numpy(rng.random(n) < 0.5)]
+    cols = [c.to(cuda) for c in base[:3]] * copies + \
+        [c.to(cuda) for c in base[3:]]
+    valid = torch.from_numpy(rng.random(n) < 0.7).to(cuda)
+    # the int32 key 0x96825014 mixes to 0xFFFFFFFF: the remap moves it
+    sentinel = torch.tensor([0x96825014 - 2**32, 5], dtype=torch.int32,
+                            device=cuda)
+    for args in ((cols, False, None), (cols, True, valid),
+                 ([sentinel], True, None), ([sentinel], False, None)):
+        got = groupby.hash_columns32(*args)
+        want = groupby.hash_columns32_plain(*args)
+        assert torch.equal(got, want)
+    assert int(groupby.hash_columns32([sentinel], True)[0]) == -2
+
+
+def _mm_sequence(cuda, C, H, B, n_batches, n_keys, start, seed):
+    """The same batches through the K10 append kernel and its plain
+    version; the state must agree bit for bit after every batch."""
+    from siddhi_tpu_torch.ops import groupby, join
+    rng = np.random.default_rng(seed)
+    kmm = join.multimap_init(C, H, cuda)
+    pmm = join.multimap_init(C, H, cuda)
+    appended = start
+    for _ in range(n_batches):
+        keys = torch.from_numpy(rng.integers(0, n_keys, B).astype(
+            np.int32)).to(cuda)
+        hashes = groupby.hash_columns32_plain([keys], remap=True)
+        live = torch.from_numpy(rng.random(B) < 0.8).to(cuda)
+        a0 = torch.tensor(appended, device=cuda)
+        kmm = join.multimap_append(kmm, hashes, live, a0)
+        pmm = join.multimap_append_plain(pmm, hashes, live, a0)
+        for a, b in zip(kmm, pmm):
+            assert torch.equal(a, b)
+        appended += int(live.sum())
+    return kmm, appended
+
+
+@pytest.mark.parametrize("C,H,B,n_batches,n_keys,start", [
+    (100, 256, 64, 9, 50, 0),  # the ring wraps five times
+    (64, 8, 64, 4, 4, 2**32 - 150),  # long shared chains; tags wrap 2^32
+])
+def test_k10_append_and_probe_kernels_match_plain(cuda, C, H, B, n_batches,
+                                                  n_keys, start):
+    from siddhi_tpu_torch.ops import groupby, join
+    mm, appended = _mm_sequence(cuda, C, H, B, n_batches, n_keys, start,
+                                seed=C + n_keys)
+    rng = np.random.default_rng(C)
+    keys = torch.from_numpy(rng.integers(0, n_keys + 3, 200).astype(
+        np.int32)).to(cuda)
+    hashes = groupby.hash_columns32([keys], remap=True)
+    valid = torch.from_numpy(rng.random(200) < 0.9).to(cuda)
+    app = torch.tensor(appended, device=cuda)
+    truncated = 0
+    for wlen in (C, C // 3, 1):
+        w = torch.tensor(wlen, device=cuda)
+        got = join.multimap_probe(mm, hashes, valid, app, w, 4)
+        want = join.multimap_probe_plain(mm, hashes, valid, app, w, 4)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        truncated += int(got[2])
+    assert truncated > 0 or n_keys > 4
+
+
+@pytest.mark.parametrize("P,cap,p_valid", [(5000, 1024, 0.5),
+                                           (5000, 4096, 0.3),
+                                           (2048, 2048, 1.0),
+                                           (3000, 100, 0.0)])
+def test_k10_compact_kernel_matches_plain(cuda, P, cap, p_valid):
+    from siddhi_tpu_torch.ops import join
+    rng = np.random.default_rng(P + cap)
+    lane = torch.arange(P, dtype=torch.int32, device=cuda) // 16
+    row = torch.from_numpy(rng.integers(0, 10**5, P).astype(np.int32)).to(
+        cuda)
+    pv = torch.from_numpy(rng.random(P) < p_valid).to(cuda)
+    got = join.compact_pairs(lane, row, pv, cap)
+    want = join.compact_pairs_plain(lane, row, pv, cap)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+# the multimap path (both sides sliding), the sort-merge probe into a
+# lengthBatch side, and the cross probe of an ON without an equality
+JOINS_ON_CARD = {
+    "multimap": ("L#window.length(300) as a left outer join "
+                 "R#window.length(300) as b on a.k == b.k",
+                 ("K3b", "K10 append", "K10 probe")),
+    "sort_merge": ("L#window.lengthBatch(100) as a join "
+                   "R#window.length(300) as b on a.k == b.k",
+                   ("K3b", "K10 append", "K10 probe")),
+    "cross": ("L#window.length(4) as a join R#window.length(4) as b "
+              "on a.k < b.k", ("K1",)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(JOINS_ON_CARD))
+def test_join_app_on_card_matches_cpu(cuda, name):
+    from siddhi_tpu_torch import SiddhiManager, kernels
+    join, on_path = JOINS_ON_CARD[name]
+    app = f"""
+    define stream L (k int, v double);
+    define stream R (k int, v double);
+    @info(name = 'bench')
+    from {join}
+    select a.k as k, a.v as lv, b.v as rv
+    insert into OutStream;
+    """
+    rng = np.random.default_rng(9)
+    feeds = [(sid, {"k": rng.integers(0, 60, 128).astype(np.int32),
+                    "v": rng.uniform(1, 100, 128)})
+             for _ in range(6) for sid in ("L", "R")]
+    outs = []
+    kernels.reset_launch_counts()
+    for dev in ("cuda", "cpu"):
+        rt = SiddhiManager(device=dev).create_siddhi_app_runtime(
+            app, batch_size=128)
+        got = []
+        rt.add_callback("OutStream", lambda evs, g=got: g.extend(
+            (e.timestamp, e.data) for e in evs))
+        for i, (sid, cols) in enumerate(feeds):
+            rt.get_input_handler(sid).send_columns(
+                cols, timestamps=np.arange(128) + 128 * i)
+            rt.flush()
+        outs.append(got)
+    assert outs[0] == outs[1] and len(outs[0]) > 300
+    for k in on_path:
+        assert kernels.LAUNCHES[k] > 0
