@@ -52,7 +52,21 @@ Phases (any failure exits non-zero and prints no result line):
    side (1,048,576 events), keys uniform over 1..100000; every output
    event against an independent numpy oracle (keys, timestamps and the
    stored float32 values exact), no dropped pair, the same per-app
-   numbers.
+   numbers; and the two join probes that are compositions (the sort-merge
+   `probe_equi` and `probe_cross`) timed at app G's probe batch;
+10. the pattern kernels against their plain versions at app I's shapes
+   (B = 32768 arrivals, a P = 131072-slot pending table 45% full in
+   scattered slots), bit for bit: K11a first_match in pattern and in
+   sequence mode, each with and without a residual mask, and K11b
+   pending_insert (the whole table and the drop count), once into free
+   slots and once overflowing them; with the same timings;
+11. app H, BASELINE config 4 as bench.py writes it (`every a=StreamA ->
+   b=StreamB[b.val == a.val] within 5 sec`, batch_size 32768, pending
+   capacity 131072, @app:playback), and app I, the same query on uniform
+   values where `within` and the first match decide: 16 rounds of one A
+   and one B batch (1,048,576 events) each, every output event in order
+   against a numpy oracle that models the pending table's slots, no
+   dropped partial match, the same per-app numbers.
 
 The second-to-last lines are the kernel table as one JSON object and the
 card's name and power limit; the last line is
@@ -160,6 +174,25 @@ K_MAX = 16
 BUCKETS_G = 1 << 18  # multimap_buckets(100000)
 PAIR_CAP_G = 32768  # min(B * k_max, max(4 * B, 32768))
 
+# BASELINE config 4 as bench.py writes it (bench_pattern), with
+# @app:playback so that `within` follows event time
+APP_H = """
+@app:playback
+define stream StreamA (val int);
+define stream StreamB (val int);
+@info(name = 'bench')
+from every a=StreamA -> b=StreamB[b.val == a.val] within 5 sec
+select a.val as aVal, b.val as bVal
+insert into OutStream;
+"""
+BATCH_P = 32768  # bench.py's accelerator e2e batch for config 4
+ROUNDS_P = 16
+PENDING_P = 4 * BATCH_P
+WITHIN_P = 5000
+#: app I's values are uniform over 1..VALUES_I at BATCH_P lanes (scaled
+#: with the batch, so a smaller run keeps the match rate)
+VALUES_I = 100_000
+
 TIME_WINDOW_MS = 60_000
 LENGTH_D = 100_000
 C_SYMBOLS = 100_000
@@ -172,6 +205,8 @@ K5_SRC = "siddhi_tpu_torch/csrc/k5_grouped_scan.cu"
 K2B_SRC = "siddhi_tpu_torch/csrc/k2b_packed_ring.cu"
 K10_SRC = "siddhi_tpu_torch/csrc/k10_join.cu"
 JOIN = "siddhi_tpu/ops/join.py"
+K11_SRC = "siddhi_tpu_torch/csrc/k11_pattern.cu"
+PATTERN = "siddhi_tpu/core/pattern_runtime.py"
 
 #: launch-counter key -> (function, source, TPU-side function replaced)
 KERNELS = {
@@ -195,6 +230,8 @@ KERNELS = {
     "K10 append": ("multimap_append", K10_SRC, f"{JOIN}:227"),
     "K10 probe": ("multimap_probe", K10_SRC, f"{JOIN}:275"),
     "K10 compact": ("compact_pairs", K10_SRC, f"{JOIN}:165"),
+    "K11a": ("first_match", K11_SRC, f"{PATTERN}:1189"),
+    "K11b": ("pending_insert", K11_SRC, f"{PATTERN}:1460"),
 }
 
 
@@ -952,6 +989,39 @@ def check_sliding(name: str, got, ts, expect_cols: list) -> int:
     return n
 
 
+def syncs_in(torch, fn) -> list:
+    """Where fn() syncs with the host under torch.cuda.set_sync_debug_mode(
+    'warn'): one "file:line" per synchronizing call, with the port's own
+    frame that made it."""
+    syncs = []
+
+    def on_warning(message, category, filename, lineno, file=None,
+                   line=None):
+        if "synchroniz" in str(message):
+            ours = [f for f in traceback.extract_stack()
+                    if "siddhi_tpu_torch" in f.filename]
+            site = f"{filename.rsplit('/', 1)[-1]}:{lineno}"
+            if ours:
+                site += (f" from {ours[-1].filename.rsplit('/', 1)[-1]}:"
+                         f"{ours[-1].lineno}")
+            syncs.append(site)
+
+    # switch the mode once outside the capture: the first switch in a
+    # process syncs by itself, outside any step
+    torch.cuda.set_sync_debug_mode("warn")
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = on_warning
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return syncs
+
+
 def measure_steps(torch, rt, columns: dict, ts, fresh: bool = False):
     """The query step alone (no ingest, no output decode) over the app's
     rounds, as device batches prepared beforehand, each at its round's
@@ -979,32 +1049,11 @@ def measure_steps(torch, rt, columns: dict, ts, fresh: bool = False):
 
     if fresh:
         restart()
-    syncs = []
 
-    def on_warning(message, category, filename, lineno, file=None,
-                   line=None):
-        if "synchroniz" in str(message):
-            ours = [f for f in traceback.extract_stack()
-                    if "siddhi_tpu_torch" in f.filename]
-            site = f"{filename.rsplit('/', 1)[-1]}:{lineno}"
-            if ours:
-                site += (f" from {ours[-1].filename.rsplit('/', 1)[-1]}:"
-                         f"{ours[-1].lineno}")
-            syncs.append(site)
+    def one_step():
+        qr.state, _ = qr.step(qr.state, batches[0], nows[0])
 
-    # switch the mode once outside the capture: the first switch in a
-    # process syncs by itself, outside any step
-    torch.cuda.set_sync_debug_mode("warn")
-    torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = on_warning
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            qr.state, _ = qr.step(qr.state, batches[0], nows[0])
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    syncs = syncs_in(torch, one_step)
     if fresh:
         restart()
     torch.cuda.synchronize()
@@ -1250,6 +1299,34 @@ def join_kernel_phase(torch, rng) -> dict:
         max_abs_err=0, bound_by="bytes")
     print(f"K10 compact_pairs P={P} pair_cap={PAIR_CAP_G} kept={kept}: "
           f"{res['K10 compact']}")
+
+    # the two probes that are compositions: app G's probe batch (B = 8192,
+    # k_max = 16) against a C = 100000-row build side, 90% valid
+    from siddhi_tpu_torch.ops.expr_compile import CompiledExpr, Scope
+    from siddhi_tpu_torch.query_api.definition import AttributeType
+    bkeys = torch.from_numpy(rng.integers(1, C + 1, C).astype(np.int32)).to(
+        dev)
+    bvalid = torch.from_numpy(rng.random(C) < 0.9).to(dev)
+    bts = torch.arange(C, dtype=torch.int64, device=dev)
+    plan = join.JoinPlan(
+        [CompiledExpr(lambda s: s.col("p", "k"), AttributeType.INT)],
+        [CompiledExpr(lambda s: s.col("b", "k"), AttributeType.INT)], None)
+    pscope = Scope()
+    pscope.add_frame("p", {"k": pkeys}, torch.zeros(B, dtype=torch.int64,
+                                                     device=dev), pvalid)
+    compositions = {
+        "probe_equi": dict(
+            ms=time_ms(torch, lambda: join.probe_equi(
+                plan, pscope, pvalid, {"k": bkeys}, bts, bvalid, "b", K)),
+            # probe and build keys and valid in; the [B, k_max] lanes, rows
+            # and valid out
+            bound_ms=bound_ms(B * (4 + 1) + C * (4 + 1) + P * (4 + 4 + 1)),
+            bound_by="bytes", shape=f"B={B} into C={C}, k_max={K}"),
+        "probe_cross": dict(
+            ms=time_ms(torch, lambda: join.probe_cross(pvalid, bvalid, K)),
+            bound_ms=bound_ms(B + C + P * (4 + 4 + 1)), bound_by="bytes",
+            shape=f"B={B} against C={C}, k_max={K}")}
+    print("join compositions: " + json.dumps(compositions))
     torch.cuda.synchronize()
     return res
 
@@ -1345,27 +1422,14 @@ def measure_join_steps(torch, rt, k, v, ts):
                 {"k": k[side][s], "v": v[side][s]}, BATCH_G), BATCH_G, dev),
              int(ts[side][s].max()))
             for side in ("L", "R")])
-    syncs = []
-
-    def on_warning(message, category, filename, lineno, file=None,
-                   line=None):
-        if "synchroniz" in str(message):
-            syncs.append(f"{filename.rsplit('/', 1)[-1]}:{lineno}")
-
-    torch.cuda.set_sync_debug_mode("warn")
-    torch.cuda.set_sync_debug_mode("default")
     jr.state = jr.init_state()
-    torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = on_warning
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            for (b, now), step in zip(rounds[0], (jr._step_left,
-                                                  jr._step_right)):
-                jr.state, _, _ = step(jr.state, b, now)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+
+    def first_round():
+        for (b, now), step in zip(rounds[0], (jr._step_left,
+                                              jr._step_right)):
+            jr.state, _, _ = step(jr.state, b, now)
+
+    syncs = syncs_in(torch, first_round)
     jr.state = jr.init_state()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1411,6 +1475,368 @@ def join_app(torch, rng, card: str) -> dict:
     if syncs:
         raise Failure(f"app G: the join step syncs with the host: {syncs}")
     return launches
+
+
+# --------------------------------------------------------------------------- #
+# phases 10-11: the pattern kernels, apps H and I
+# --------------------------------------------------------------------------- #
+
+
+def pattern_events(rng, app: str, rounds: int = ROUNDS_P,
+                   batch: int = BATCH_P):
+    """Apps H and I's feed: {"A": (val int32, ts int64), "B": ...}, round r
+    one A batch then one B batch. H is bench.py's: val = arange(v0, v0 +
+    batch) on both streams, v0 growing each round; A at 10000 r + i // 64
+    ms, B 1000 ms later. I: values uniform over 1..VALUES_I (scaled with
+    the batch) on each stream, A at 3000 r + i // 64, B 1000 ms later."""
+    n = rounds * batch
+    r = np.arange(n) // batch
+    i = np.arange(n) % batch
+    if app == "H":
+        va = vb = np.arange(n, dtype=np.int32)
+        period = 10_000
+    else:
+        hi = max(1, round(VALUES_I * batch / BATCH_P))
+        va = rng.integers(1, hi + 1, n).astype(np.int32)
+        vb = rng.integers(1, hi + 1, n).astype(np.int32)
+        period = 3_000
+    ta = (period * r + i // 64).astype(np.int64)
+    return {"A": (va, ta), "B": (vb, ta + 1000)}
+
+
+def pattern_nows(data, rounds: int, batch: int) -> list:
+    """The playback clock at each step (A then B per round): the largest
+    event timestamp seen so far."""
+    nows, now = [], -(2**62)
+    for r in range(rounds):
+        for side in ("A", "B"):
+            now = max(now, int(data[side][1][r * batch:(r + 1) * batch].max()))
+            nows.append(now)
+    return nows
+
+
+def oracle_pattern(data, rounds: int, batch: int, pending: int,
+                   within: int = WITHIN_P):
+    """`every a=A -> b=B[b.val == a.val] within` step by step on a model of
+    the pending table: at each step, entries with now - start > within
+    expire; an A batch's arrivals take the free slots in ascending slot
+    order (past them they are dropped); a B batch consumes each live entry
+    with its first equal-valued arrival inside `within`, emitted in slot
+    order. Returns (ts, aVal, bVal) arrays and the dropped count."""
+    (va, ta), (vb, tb) = data["A"], data["B"]
+    live = np.zeros(pending, bool)
+    sval = np.zeros(pending, np.int32)
+    sts = np.zeros(pending, np.int64)
+    out_ts, out_a, out_b = [], [], []
+    dropped = 0
+    nows = iter(pattern_nows(data, rounds, batch))
+    for r in range(rounds):
+        s = slice(r * batch, (r + 1) * batch)
+        live &= next(nows) - sts <= within
+        free = np.flatnonzero(~live)
+        k = min(free.size, batch)
+        dropped += batch - k
+        live[free[:k]] = True
+        sval[free[:k]] = va[s][:k]
+        sts[free[:k]] = ta[s][:k]
+        live &= next(nows) - sts <= within
+        bv, bt = vb[s], tb[s]
+        order = np.argsort(bv, kind="stable")
+        first = np.searchsorted(bv[order], sval, side="left")
+        lane = order[np.minimum(first, batch - 1)]
+        hit = (live & (first < batch) & (bv[lane] == sval)
+               & (bt[lane] - sts <= within))
+        slots = np.flatnonzero(hit)  # ascending: the emission order
+        out_ts.append(bt[lane[slots]])
+        out_a.append(sval[slots])
+        out_b.append(bv[lane[slots]])
+        live[slots] = False
+    cat = np.concatenate
+    return cat(out_ts), cat(out_a), cat(out_b), dropped
+
+
+def check_no_tie(data, rounds: int, batch: int, within: int = WITHIN_P):
+    """No A timestamp lies exactly `within` before a B timestamp or a step's
+    clock, so the oracle's `<=` never meets a tie."""
+    ta, tb = data["A"][1], data["B"][1]
+    edges = np.concatenate([tb, np.asarray(pattern_nows(data, rounds, batch))])
+    if np.isin(ta + within, edges).any():
+        raise Failure("pattern data: a timestamp difference equals within")
+
+
+def _pattern_batch(torch, rng, B, P, seq0, valid_p=0.97, fill=0.45):
+    """A K11a case at app I's shapes: a batch of B arrivals (valid_p of
+    them valid, values uniform, ts as app I's B side) and a P-slot pending
+    table `fill` full in scattered slots, with last_seq mostly before the
+    batch and some inside it, and start_ts so that `within` cuts some."""
+    dev = torch.device("cuda")
+    hi = VALUES_I
+    valid = rng.random(B) < valid_p
+    rank = np.cumsum(valid) - 1
+    arr_seq = np.where(valid, seq0 + rank, 2**62).astype(np.int64)
+    ts = (3000 * 7 + 1000 + np.arange(B) // 64).astype(np.int64)
+    bval = rng.integers(1, hi + 1, B).astype(np.int32)
+    pend_valid = rng.random(P) < fill
+    inside = rng.random(P) < 0.1
+    last_seq = np.where(inside, seq0 + rng.integers(-1, B, P),
+                        seq0 - 1 - rng.integers(0, 10**6, P))
+    start_ts = ts[0] - rng.integers(0, 5600, P)
+    eval_ = rng.integers(1, hi + 1, P).astype(np.int32)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in (
+        ("valid", valid), ("arr_seq", arr_seq), ("ts", ts), ("bval", bval),
+        ("pend_valid", pend_valid), ("last_seq", last_seq.astype(np.int64)),
+        ("start_ts", start_ts.astype(np.int64)), ("eval", eval_))}
+    t["seq0"] = torch.tensor(seq0, dtype=torch.int64, device=dev)
+    t["lane_ok"] = t["valid"] & (t["bval"] % 11 != 0)
+    return t
+
+
+def pattern_kernel_phase(torch, rng) -> dict:
+    """K11a and K11b against their plain versions at app I's shapes, bit
+    for bit, with their timings."""
+    from siddhi_tpu_torch.ops import pattern
+
+    dev = torch.device("cuda")
+    res = {}
+    B, P = BATCH_P, PENDING_P
+    t = _pattern_batch(torch, rng, B, P, seq0=5_000_000)
+
+    def resid(p0, p1):
+        return (t["bval"][:, None] + t["eval"][None, p0:p1]) % 3 != 0
+
+    # sequence mode compares values over 1..4, so a quarter of the next
+    # lanes match
+    small = {"bval": (t["bval"] % 4).contiguous(),
+             "eval": (t["eval"] % 4).contiguous()}
+
+    def args(sequence, residual, lane_ok):
+        v = small if sequence else t
+        return ((t["arr_seq"], t["ts"], t["valid"], lane_ok,
+                 [(v["bval"], v["eval"])], t["pend_valid"], t["last_seq"],
+                 t["start_ts"], WITHIN_P, sequence),
+                dict(seq0=t["seq0"], residual=residual))
+
+    # sequence mode: move most live entries' last_seq next to a lane
+    seq_last = torch.where(
+        torch.from_numpy(rng.random(P) < 0.8).to(dev),
+        t["seq0"] - 1 + torch.from_numpy(rng.integers(-3, B + 3, P)).to(dev),
+        t["last_seq"])
+    n_hits = {}
+    for sequence in (False, True):
+        for residual in (None, resid):
+            a, kw = args(sequence, residual, t["lane_ok"])
+            if sequence:
+                a = a[:6] + (seq_last,) + a[7:]
+            got = pattern.first_match(*a, **kw)
+            want = pattern.first_match_plain(*a, **kw)
+            what = (f"K11a {'sequence' if sequence else 'pattern'} "
+                    f"{'with' if residual else 'without'} residual")
+            for nm, x, y in zip(("b_star", "matched", "killed"), got, want):
+                check_equal(f"{what} {nm}", x, y)
+            n_hits[what] = (int(got[1].sum()), int(got[2].sum()))
+    print(f"K11a checks (matched, killed): {n_hits}")
+    a, kw = args(False, None, t["valid"])  # the path's case: no lane mask
+    got = pattern.first_match(*a, **kw)
+    for nm, x, y in zip(("b_star", "matched", "killed"), got,
+                        pattern.first_match_plain(*a, **kw)):
+        check_equal(f"K11a app I shape {nm}", x, y)
+    res["K11a"] = dict(
+        _timed(torch, lambda: pattern.first_match(*a, **kw),
+               lambda: pattern.first_match_plain(*a, **kw)),
+        # lanes: arr_seq, ts, valid, lane_ok, value; entries: valid,
+        # last_seq, start_ts, value in, b_star, matched, killed out
+        bound_ms=bound_ms(B * (8 + 8 + 1 + 1 + 4) + P * (1 + 8 + 8 + 4)
+                          + P * (8 + 1 + 1)),
+        max_abs_err=0, bound_by="bytes")
+    print(f"K11a first_match B={B} P={P} ({int(t['pend_valid'].sum())} live"
+          f", {int(got[1].sum())} matched): {res['K11a']}")
+
+    # K11b: app I's candidates (one A batch) into position 1's table
+    def table(fill):
+        live = torch.from_numpy(rng.random(P) < fill).to(dev)
+        z = torch.zeros(P, dtype=torch.int64, device=dev)
+        r64 = torch.from_numpy(rng.integers(0, 2**40, P)).to(dev)
+        return pattern.PendingTable(
+            frames={"a": {"val": torch.from_numpy(rng.integers(
+                1, VALUES_I, P).astype(np.int32)).to(dev)}},
+            frame_valid={"a": live.clone()}, frame_ts={"a": r64.clone()},
+            start_ts=r64.clone(), last_seq=r64 + 7, armed_ts=z + 3,
+            valid=live,
+            leg_done=torch.from_numpy(rng.random((P, 2)) < 0.1).to(dev),
+            origin=torch.full((P,), -1, dtype=torch.int32, device=dev))
+
+    m = torch.from_numpy(rng.random(B) < 0.97).to(dev)
+    cand = ({"a": {"val": t["bval"]}}, {"a": m}, {"a": t["ts"]}, t["ts"],
+            t["arr_seq"], t["ts"], m)
+    drops = {}
+    for name, fill in (("45% full", 0.45), ("overflow", 0.9)):
+        dst = table(fill)
+        clone = pattern.PendingTable(
+            {"a": {"val": dst.frames["a"]["val"].clone()}},
+            {"a": dst.frame_valid["a"].clone()},
+            {"a": dst.frame_ts["a"].clone()},
+            *[x.clone() for x in dst[3:]])
+        want, wdrop = pattern.pending_insert_plain(dst, *cand)
+        got, gdrop = pattern.pending_insert(clone, *cand)
+        check_equal(f"K11b {name} n_drop", gdrop, wdrop)
+        check_equal(f"K11b {name} val", got.frames["a"]["val"],
+                    want.frames["a"]["val"])
+        check_equal(f"K11b {name} frame_valid", got.frame_valid["a"],
+                    want.frame_valid["a"])
+        check_equal(f"K11b {name} frame_ts", got.frame_ts["a"],
+                    want.frame_ts["a"])
+        for f in ("start_ts", "last_seq", "armed_ts", "valid", "leg_done",
+                  "origin"):
+            check_equal(f"K11b {name} {f}", getattr(got, f),
+                        getattr(want, f))
+        drops[name] = int(gdrop)
+        if name == "45% full":
+            saved = [x.clone() for x in (dst.frames["a"]["val"],
+                                         dst.frame_valid["a"],
+                                         dst.frame_ts["a"], *dst[3:])]
+            work = clone
+            n_fit = int(m.sum())
+    if drops["overflow"] == 0 or drops["45% full"] != 0:
+        raise Failure(f"K11b: drop counts {drops}")
+
+    def restore():
+        for x, x0 in zip((work.frames["a"]["val"], work.frame_valid["a"],
+                          work.frame_ts["a"], *work[3:]), saved):
+            x.copy_(x0)
+
+    res["K11b"] = dict(
+        _timed(torch, lambda: pattern.pending_insert(work, *cand),
+               lambda: pattern.pending_insert_plain(work, *cand),
+               reset=restore),
+        # candidate valid and the table's valid read; per fitting
+        # candidate its val, ts, start/last/armed read and val, frame
+        # valid and ts, start/last/armed, valid, leg_done, origin written
+        bound_ms=bound_ms(B + P + n_fit * (4 + 8 + 3 * 8)
+                          + n_fit * (4 + 1 + 8 + 3 * 8 + 1 + 2 + 4)),
+        max_abs_err=0, bound_by="bytes")
+    print(f"K11b pending_insert W={B} into P={P} (drops {drops}): "
+          f"{res['K11b']}")
+    torch.cuda.synchronize()
+    return res
+
+
+def run_pattern_app(torch, text: str, data, rounds: int = ROUNDS_P,
+                    batch: int = BATCH_P, pending: int = PENDING_P):
+    """Feed `rounds` of one A and one B batch (send_columns + flush each)
+    and collect OutStream's events."""
+    from siddhi_tpu_torch import SiddhiManager, kernels
+    from siddhi_tpu_torch.core import dtypes
+
+    prev = dtypes.config.pattern_pending_capacity
+    dtypes.config.pattern_pending_capacity = pending
+    try:
+        rt = SiddhiManager().create_siddhi_app_runtime(text, batch_size=batch)
+    finally:
+        dtypes.config.pattern_pending_capacity = prev
+    got = []
+    rt.add_callback("OutStream", got.extend)
+    hs = {s: rt.get_input_handler(f"Stream{s}") for s in ("A", "B")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in range(rounds):
+        sl = slice(r * batch, (r + 1) * batch)
+        for side in ("A", "B"):
+            val, ts = data[side]
+            hs[side].send_columns({"val": val[sl]}, timestamps=ts[sl])
+            rt.flush()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    return rt, got, launches, elapsed, peak
+
+
+def measure_pattern_steps(torch, rt, data, rounds: int = ROUNDS_P,
+                          batch: int = BATCH_P):
+    """Both pattern steps alone over the rounds from a fresh state, as
+    device batches prepared beforehand, at each step's playback clock;
+    (host syncs in one A and one B step, mean ms per round)."""
+    from siddhi_tpu_torch.core.event import EventBatch
+
+    qr = rt.query_runtimes["bench"]
+    dev = torch.device("cuda")
+    nows = pattern_nows(data, rounds, batch)
+    steps = []
+    for r in range(rounds):
+        sl = slice(r * batch, (r + 1) * batch)
+        for k, side in enumerate(("A", "B")):
+            val, ts = data[side]
+            steps.append((qr._steps[f"Stream{side}"], EventBatch.from_numpy(
+                ts[sl], {"val": val[sl]}, batch, dev), nows[2 * r + k]))
+    qr.state = qr.init_state()
+
+    def first_round():
+        for step, b, now in steps[:2]:
+            qr.state, _ = step(qr.state, b, now)
+
+    syncs = syncs_in(torch, first_round)
+    qr.state = qr.init_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step, b, now in steps:
+        qr.state, _ = step(qr.state, b, now)
+    torch.cuda.synchronize()
+    return syncs, (time.perf_counter() - t0) / rounds * 1e3
+
+
+def check_pattern_app(name: str, got, want) -> int:
+    """Every output event, in order, against the oracle's (ts, aVal,
+    bVal)."""
+    w_ts, w_a, w_b, _ = want
+    n = w_ts.shape[0]
+    if len(got) != n:
+        raise Failure(f"app {name}: {len(got)} events out, the oracle "
+                      f"expects {n}")
+    g_ts = np.fromiter((e.timestamp for e in got), np.int64, n)
+    g_a = np.fromiter((e.data[0] for e in got), np.int64, n)
+    g_b = np.fromiter((e.data[1] for e in got), np.int64, n)
+    for what, x, y in (("timestamp", g_ts, w_ts), ("aVal", g_a, w_a),
+                       ("bVal", g_b, w_b)):
+        bad = np.nonzero(x != y)[0]
+        if bad.size:
+            j = int(bad[0])
+            raise Failure(f"app {name}: {what} of event {j} is {x[j]}, the "
+                          f"oracle says {y[j]}")
+    return n
+
+
+def pattern_apps(torch, rng, card: str) -> dict:
+    """Apps H and I against their oracles; returns their launches."""
+    total = {}
+    for name in ("H", "I"):  # one query, two feeds
+        data = pattern_events(rng, name)
+        check_no_tie(data, ROUNDS_P, BATCH_P)
+        want = oracle_pattern(data, ROUNDS_P, BATCH_P, PENDING_P)
+        if want[3]:
+            raise Failure(f"app {name}: the oracle drops {want[3]} entries")
+        rt, got, launches, elapsed, peak = run_pattern_app(torch, APP_H,
+                                                           data)
+        n = check_pattern_app(name, got, want)
+        del got
+        dropped = int(rt.query_runtimes["bench"].state.dropped)
+        if dropped:
+            raise Failure(f"app {name}: {dropped} partial matches dropped")
+        for k in ("K1", "K11a", "K11b"):
+            if launches[k] == 0:
+                raise Failure(f"app {name}: kernel {k} never launched")
+        syncs, step_ms = measure_pattern_steps(torch, rt, data)
+        report_app(name, 2 * BATCH_P * ROUNDS_P, n, elapsed, step_ms, peak,
+                   launches, syncs, card, rounds=ROUNDS_P,
+                   batch=f"2 x {BATCH_P}")
+        if syncs:
+            raise Failure(f"app {name}: the pattern step syncs with the "
+                          f"host: {syncs}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del rt
+    return total
 
 
 def main(argv=None) -> int:
@@ -1480,6 +1906,10 @@ def main(argv=None) -> int:
 
         kres.update(join_kernel_phase(torch, rng))
         for k, v in join_app(torch, rng, card).items():
+            launches[k] += v
+
+        kres.update(pattern_kernel_phase(torch, rng))
+        for k, v in pattern_apps(torch, rng, card).items():
             launches[k] += v
 
         table = []

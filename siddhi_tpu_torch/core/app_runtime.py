@@ -1,5 +1,6 @@
 """SiddhiAppRuntime (counterpart of siddhi_tpu/core/app_runtime.py, reduced
-to streams, single-input queries, stream-stream joins and heartbeats). Lint, admission control,
+to streams, single-input queries, stream-stream joins, patterns and
+single-stream sequences, and heartbeats). Lint, admission control,
 sharding, supersteps, persistence, tables, windows, triggers, aggregations
 and partitions are not yet ported; an app that declares them is refused."""
 
@@ -12,13 +13,15 @@ import torch
 from ..errors import DefinitionNotExistError, SiddhiAppCreationError
 from ..extension.registry import Registry
 from ..query_api import SiddhiApp
-from ..query_api.execution import JoinInputStream, OutputAction, Query
+from ..query_api.execution import (JoinInputStream, OutputAction, Query,
+                                   StateInputStream)
 from .context import (
     SiddhiAppContext,
     TimestampGenerator,
     parse_annotation_time,
 )
 from .join_runtime import JoinQueryRuntime, _JoinSideReceiver
+from .pattern_runtime import PatternQueryRuntime, _PatternSideReceiver
 from .query_runtime import FunctionQueryCallback, QueryCallback, QueryRuntime
 from .stream import FunctionStreamCallback, InputHandler, StreamCallback, StreamJunction
 
@@ -70,6 +73,12 @@ class SiddhiAppRuntime:
             # probes before the right one, as in the JAX package
             qr.left.junction.subscribe(_JoinSideReceiver(qr, True))
             qr.right.junction.subscribe(_JoinSideReceiver(qr, False))
+        elif isinstance(query.input_stream, StateInputStream):
+            qr = PatternQueryRuntime(query, self.ctx, self.junctions,
+                                     self.ctx.registry, name)
+            # one receiver per source junction, in position order
+            for sid, junction in qr.junctions.items():
+                junction.subscribe(_PatternSideReceiver(qr, sid))
         else:
             sid = getattr(query.input_stream, "stream_id", None)
             junction = self.junctions.get(sid)
@@ -133,7 +142,8 @@ class SiddhiAppRuntime:
     def heartbeat(self, now: Optional[int] = None) -> None:
         """Advance time: flush, then deliver an empty timer batch to every
         junction that feeds a query with a time-driven window, so its
-        expirations fire with no data. In playback mode a bare heartbeat()
+        expirations fire with no data; a pattern with `within` steps
+        itself. In playback mode a bare heartbeat()
         bumps the virtual clock by the @app:playback increment."""
         tg = self.ctx.timestamp_generator
         if now is None and tg.playback and tg.playback_increment_ms:
@@ -144,6 +154,9 @@ class SiddhiAppRuntime:
         seen: set[int] = set()
         for qr in self.query_runtimes.values():
             if not qr.has_time_semantics:
+                continue
+            if isinstance(qr, PatternQueryRuntime):
+                qr.heartbeat(t)  # pattern runtimes drive themselves
                 continue
             # a join's time window also expires at probe time; the
             # heartbeat steps both of its sides' windows

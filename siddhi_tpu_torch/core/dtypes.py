@@ -41,6 +41,14 @@ class _Config:
     #: compacted pair-block width as a multiple of the probe batch size;
     #: total matches per step beyond factor*B are dropped (bounded fan-out)
     join_pair_cap_factor = 4
+    #: max concurrent partial matches per pattern position
+    pattern_pending_capacity = 1024
+    #: expansion bound for unbounded pattern counts `<m:>`
+    pattern_unbounded_count_extra = 8
+    #: mid-pattern `every` (sticky positions): qualifying arrivals advanced
+    #: per entry per batch (sticky positions are not yet ported; kept so the
+    #: configuration matches the JAX package's)
+    pattern_sticky_passes = 4
 
 
 config = _Config()

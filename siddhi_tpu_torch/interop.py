@@ -3,7 +3,9 @@
 The JAX query state, after `jax.device_get`, is a tuple (window state,
 selector state, limiter state) of NamedTuples and dataclasses holding numpy
 arrays; a join query's is (left window, right window, left multimap, right
-multimap, selector state). The functions here take that state — or the same fields as plain
+multimap, selector state); a pattern query's is a PatternState (its
+pending tables, active0, seq, dropped, armed0_ts, gate0_seq and the
+selector state). The functions here take that state — or the same fields as plain
 dicts — and load it into a port runtime built from the same app text, so
 the next batches continue where the JAX runtime stopped. They read fields
 by name and import nothing of the JAX package.
@@ -21,9 +23,11 @@ import torch
 
 from .core.app_runtime import SiddhiAppRuntime
 from .core.join_runtime import JoinQueryRuntime
+from .core.pattern_runtime import PatternQueryRuntime, PatternState
 from .core.query_runtime import QueryRuntime
 from .ops.groupby import GroupState, KeyTable
 from .ops.join import MultimapState
+from .ops.pattern import PendingTable
 from .ops.selector import SelectorState
 from .ops.windows import BatchState, SlidingState
 
@@ -136,6 +140,45 @@ def load_join_state(jr: JoinQueryRuntime, state) -> None:
                 selector_state(sel, lsel))
 
 
+def pending_table(tbl_np, like: PendingTable) -> PendingTable:
+    """One position's pending table, field by field."""
+    def cols(name):
+        src = _field(tbl_np, name)
+        return {ref: _tensor(src[ref], t) for ref, t in
+                getattr(like, name).items()}
+
+    frames_np = _field(tbl_np, "frames")
+    return PendingTable(
+        frames={ref: {n: _tensor(frames_np[ref][n], t)
+                      for n, t in cs.items()}
+                for ref, cs in like.frames.items()},
+        frame_valid=cols("frame_valid"), frame_ts=cols("frame_ts"),
+        **{f: _tensor(_field(tbl_np, f), getattr(like, f))
+           for f in PendingTable._fields[3:]})
+
+
+def pattern_state(state_np, like: PatternState) -> PatternState:
+    """A pattern query's PatternState: its pending tables, scalars and
+    selector state."""
+    pending = _field(state_np, "pending")
+    if len(pending) != len(like.pending):
+        raise ValueError(f"{len(pending)} pending tables in the state, the "
+                         f"port's pattern has {len(like.pending)}")
+    return PatternState(
+        pending=tuple(pending_table(t, lt)
+                      for t, lt in zip(pending, like.pending)),
+        sel_state=selector_state(_field(state_np, "sel_state"),
+                                 like.sel_state),
+        **{f: _tensor(_field(state_np, f), getattr(like, f))
+           for f in ("active0", "seq", "dropped", "armed0_ts",
+                     "gate0_seq")})
+
+
+def load_pattern_state(pr: PatternQueryRuntime, state) -> None:
+    """Load one pattern query's state."""
+    pr.state = pattern_state(state, pr.state)
+
+
 def load_strings(rt: SiddhiAppRuntime, strings: Sequence[Optional[str]]) -> None:
     """Load the app-global string table (code i -> strings[i], 0 = null)."""
     rt.ctx.global_strings.restore(strings)
@@ -148,6 +191,8 @@ def load_app_state(rt: SiddhiAppRuntime, query_states: dict,
         qr = rt.query_runtimes[name]
         if isinstance(qr, JoinQueryRuntime):
             load_join_state(qr, state)
+        elif isinstance(qr, PatternQueryRuntime):
+            load_pattern_state(qr, state)
         else:
             load_query_state(qr, state)
     load_strings(rt, strings)

@@ -1,6 +1,7 @@
 """Expression AST -> column functions over torch tensors (counterpart of
 siddhi_tpu/ops/expr_compile.py; this slice ports variables, constants,
-comparisons, arithmetic, and/or/not and `is null`).
+comparisons, arithmetic, and/or/not, `is null` and the one function the
+pattern rewrite needs, `ifThenElse`).
 
 Every node gets a static AttributeType; math promotes int<long<float<double
 and comparisons across numeric types promote before comparing, as in the
@@ -23,6 +24,7 @@ from ..extension.registry import Registry
 from ..query_api.definition import AttributeType
 from ..query_api.expression import (
     And,
+    AttributeFunction,
     Compare,
     CompareOp,
     Constant,
@@ -159,6 +161,10 @@ def compile_expression(expr: Expression, resolver: TypeResolver,
     if isinstance(expr, IsNull):
         return _compile_is_null(expr, resolver, registry)
 
+    if (isinstance(expr, AttributeFunction) and not expr.namespace
+            and expr.name == "ifThenElse"):
+        return _compile_if_then_else(expr, resolver, registry)
+
     raise SiddhiAppCreationError(
         f"expression node {type(expr).__name__} is not yet ported to "
         "siddhi_tpu_torch")
@@ -257,6 +263,29 @@ def _compile_compare(expr: Compare, resolver: TypeResolver,
     out_t = dtypes.promote(l.type, r.type)
     return CompiledExpr(lambda s: op(_cast(l(s), out_t), _cast(r(s), out_t)),
                         AttributeType.BOOL)
+
+
+def _compile_if_then_else(expr: AttributeFunction, resolver: TypeResolver,
+                          registry: Registry) -> CompiledExpr:
+    """`ifThenElse(cond, a, b)`, as siddhi_tpu/ops/builtin_functions.py
+    types it: numeric branches promote, other branches must share a type.
+    Patterns compile `e1[last].attr` to a chain of these."""
+    args = [compile_expression(p, resolver, registry)
+            for p in expr.parameters]
+    if len(args) != 3 or args[0].type != AttributeType.BOOL:
+        raise SiddhiAppCreationError("ifThenElse(bool, then, else)")
+    c, a, b = args
+    if a.type != b.type:
+        if dtypes.is_numeric(a.type) and dtypes.is_numeric(b.type):
+            out_t = dtypes.promote(a.type, b.type)
+        else:
+            raise SiddhiAppCreationError(
+                "ifThenElse branches must share a type")
+    else:
+        out_t = a.type
+    return CompiledExpr(
+        lambda s: torch.where(c(s), _cast(torch.as_tensor(a(s)), out_t),
+                              _cast(torch.as_tensor(b(s)), out_t)), out_t)
 
 
 def _compile_is_null(expr: IsNull, resolver: TypeResolver,

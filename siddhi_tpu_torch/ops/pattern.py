@@ -1,0 +1,411 @@
+"""Device primitives of the pattern / sequence step (counterpart of the
+[B, P] reductions and pending-table inserts inside
+siddhi_tpu/core/pattern_runtime.py).
+
+A pattern position keeps a fixed-capacity pending table of partial
+matches (`PendingTable`, P slots). A micro-batch of B arrivals meets it
+in two primitives:
+
+- `first_match` (K11a): for each pending entry, the first arrival that
+  qualifies — the leg condition, `arr_seq > last_seq` (pattern) or
+  `arr_seq == last_seq + 1` (sequence, with the strict kill), and
+  `ts - start_ts <= within` — as the JAX step's `argmin` over a [B, P]
+  `where(q, arr_seq, BIGSEQ)` (`pattern_runtime.py:1197-1226`). The leg
+  condition comes split: equalities between an arrival column and a
+  captured column of the same integral, string-code or bool type are
+  evaluated in the kernel; conjuncts over the arrival alone arrive as a
+  lane mask; the rest as a [B, T] mask tile per range of T entries.
+- `pending_insert` (K11b): candidate entries into the free slots of a
+  table (`_insert_entries`, `pattern_runtime.py:1460`): the k-th valid
+  candidate takes the k-th free slot in ascending slot order; candidates
+  past the free slots are dropped and counted.
+
+Each has a `_plain` and a `_cuda` version behind one name: a CUDA tensor
+launches csrc/k11_pattern.cu, a CPU tensor runs the plain version. The
+CUDA insert updates the table in place (the counterpart of JAX's buffer
+donation); the plain one returns new tensors.
+
+The plain `first_match` materialises the [B, P] mask one range of
+`match_tile(B)` entries at a time (at most 2^25 lane-entry pairs a tile:
+1024 entries at B = 32768, where one int64 temporary is 256 MiB), so its
+memory stays bounded at BASELINE config 4's width (B = 32768, P =
+131072, for which a whole int64 [B, P] would be 34 GB). The kernel reads
+a residual mask in tiles of the same size.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, NamedTuple, Optional, Sequence
+
+import torch
+
+from .. import kernels
+from .search import stable_partition_order, stable_partition_order_plain
+
+#: arrival sequence of an invalid lane (never the first match)
+BIGSEQ = 2**62
+
+#: lane-entry pairs per mask tile (see the module docstring)
+TILE_PAIRS = 1 << 25
+
+#: equalities the kernel evaluates itself; further ones become residual
+MAX_EQ = 4
+
+
+def match_tile(B: int) -> int:
+    """Entries per mask tile for a batch of B lanes."""
+    return max(1, TILE_PAIRS // max(B, 1))
+
+
+class PendingTable(NamedTuple):
+    """One pattern position's waiting partial matches, P slots."""
+
+    frames: dict  # {ref: {attr: [P]}} captured columns of earlier positions
+    frame_valid: dict  # {ref: bool[P]} (leg / skipped frames may be missing)
+    frame_ts: dict  # {ref: int64[P]}
+    start_ts: torch.Tensor  # int64[P] first captured event ts (within)
+    last_seq: torch.Tensor  # int64[P] arrival seq of the latest capture
+    armed_ts: torch.Tensor  # int64[P] when the entry reached this position
+    valid: torch.Tensor  # bool[P]
+    leg_done: torch.Tensor  # bool[P, 2] logical positions: legs captured
+    origin: torch.Tensor  # int32[P] mid-every-group origin slot, -1 here
+
+
+# --------------------------------------------------------------------------- #
+# K11a: first_match
+# --------------------------------------------------------------------------- #
+
+
+Residual = Optional[Callable[[int, int], torch.Tensor]]
+
+
+def first_match_plain(arr_seq: torch.Tensor, ts: torch.Tensor,
+                      valid: torch.Tensor, lane_ok: torch.Tensor,
+                      eq_pairs: Sequence, pend_valid: torch.Tensor,
+                      last_seq: torch.Tensor, start_ts: torch.Tensor,
+                      within: Optional[int], sequence: bool,
+                      seq0: Optional[torch.Tensor] = None,
+                      residual: Residual = None,
+                      tile: Optional[int] = None):
+    """Plain K11a: the JAX step's mask, one tile of entries at a time.
+    `seq0` is unused here (the kernel locates the next lane with it)."""
+    B = arr_seq.shape[0]
+    P = pend_valid.shape[0]
+    dev = arr_seq.device
+    T = tile or match_tile(B)
+    b_star = torch.zeros(P, dtype=torch.int64, device=dev)
+    matched = torch.zeros(P, dtype=torch.bool, device=dev)
+    killed = torch.zeros(P, dtype=torch.bool, device=dev)
+    for p0 in range(0, P, T):
+        p1 = min(P, p0 + T)
+        q = lane_ok[:, None] & pend_valid[None, p0:p1]
+        for arr, ent in eq_pairs:
+            q = q & (arr[:, None] == ent[None, p0:p1])
+        if residual is not None:
+            q = q & residual(p0, p1)
+        nxt_seq = arr_seq[:, None] == last_seq[None, p0:p1] + 1
+        if sequence:
+            q = q & nxt_seq
+        else:
+            q = q & (arr_seq[:, None] > last_seq[None, p0:p1])
+        if within is not None:
+            q = q & (ts[:, None] - start_ts[None, p0:p1] <= within)
+        if sequence:
+            # strict contiguity: the next valid arrival failing the
+            # condition kills the entry (pattern_runtime.py:1214-1221)
+            kill = ((nxt_seq & valid[:, None] & ~q).any(0)
+                    & pend_valid[p0:p1])
+            q = q & ~kill[None, :]
+            killed[p0:p1] = kill
+        qseq = torch.where(q, arr_seq[:, None], BIGSEQ)
+        # torch.argmin returns the first minimal index, as jnp.argmin does:
+        # 0 for an entry with no qualifying arrival (all BIGSEQ)
+        b_star[p0:p1] = torch.argmin(qseq, dim=0)
+        matched[p0:p1] = q.any(0)
+    return b_star, matched, killed
+
+
+_ESIZE = {torch.bool: 1, torch.int32: 4, torch.int64: 8}
+
+
+def _eq_args(eq_pairs, B: int, P: int) -> tuple:
+    """The equality columns as the C function takes them: host arrays of
+    arrival pointers, captured pointers and element sizes, and the count."""
+    if len(eq_pairs) > MAX_EQ:
+        raise ValueError(f"first_match: at most {MAX_EQ} equalities")
+    for arr, ent in eq_pairs:
+        if (arr.dtype != ent.dtype or arr.dtype not in _ESIZE
+                or arr.shape != (B,) or ent.shape != (P,)
+                or not arr.is_contiguous() or not ent.is_contiguous()):
+            raise ValueError("first_match: equality columns are contiguous "
+                             "[B] and [P] of one bool/int32/int64 type")
+    n = len(eq_pairs)
+    Pt = ctypes.c_void_p
+    return ((Pt * MAX_EQ)(*[a.data_ptr() for a, _ in eq_pairs]),
+            (Pt * MAX_EQ)(*[e.data_ptr() for _, e in eq_pairs]),
+            (ctypes.c_int * MAX_EQ)(*[_ESIZE[a.dtype] for a, _ in eq_pairs]),
+            n)
+
+
+def first_match_cuda(arr_seq: torch.Tensor, ts: torch.Tensor,
+                     valid: torch.Tensor, lane_ok: torch.Tensor,
+                     eq_pairs: Sequence, pend_valid: torch.Tensor,
+                     last_seq: torch.Tensor, start_ts: torch.Tensor,
+                     within: Optional[int], sequence: bool,
+                     seq0: Optional[torch.Tensor] = None,
+                     residual: Residual = None,
+                     tile: Optional[int] = None):
+    B = arr_seq.shape[0]
+    P = pend_valid.shape[0]
+    eq_pairs = [(a.contiguous(), e.contiguous()) for a, e in eq_pairs]
+    kernels.require_cuda("first_match", arr_seq, ts, valid, lane_ok,
+                         pend_valid, last_seq, start_ts,
+                         *[t for pair in eq_pairs for t in pair])
+    if (arr_seq.dtype != torch.int64 or ts.dtype != torch.int64
+            or valid.dtype != torch.bool or lane_ok.dtype != torch.bool
+            or pend_valid.dtype != torch.bool
+            or last_seq.dtype != torch.int64
+            or start_ts.dtype != torch.int64
+            or ts.shape != (B,) or valid.shape != (B,)
+            or lane_ok.shape != (B,) or last_seq.shape != (P,)
+            or start_ts.shape != (P,)):
+        raise ValueError("first_match: int64 arr_seq/ts and bool valid/"
+                         "lane_ok [B]; bool pend_valid and int64 last_seq/"
+                         "start_ts [P]")
+    eq = _eq_args(eq_pairs, B, P)
+    dev = arr_seq.device
+    b_star = torch.empty(P, dtype=torch.int64, device=dev)
+    matched = torch.empty(P, dtype=torch.bool, device=dev)
+    killed = torch.empty(P, dtype=torch.bool, device=dev)
+    if P == 0:
+        return b_star, matched, killed
+    order = None
+    if sequence:
+        if seq0 is None or seq0.dtype != torch.int64 or seq0.numel() != 1:
+            raise ValueError("first_match: sequence mode needs seq0, the "
+                             "int64 arrival seq of the batch's first lane")
+        kernels.require_cuda("first_match", seq0)
+        order = stable_partition_order(valid)  # K1: valid lanes first
+    Pt = ctypes.c_void_p
+    fn = kernels.bind("k11_pattern", "k11_first_match",
+                      [Pt] * 6 + [ctypes.c_int, Pt, Pt, Pt, ctypes.c_int]
+                      + [Pt] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong]
+                      + [Pt] * 5)
+    T = P if residual is None else (tile or match_tile(B))
+    for p0 in range(0, P, T):
+        p1 = min(P, p0 + T)
+        mask = None
+        if residual is not None:
+            mask = torch.broadcast_to(residual(p0, p1),
+                                      (B, p1 - p0)).contiguous()
+            if mask.dtype != torch.bool or mask.device != dev:
+                raise ValueError("first_match: the residual mask is bool on "
+                                 "the batch's device")
+        rc = fn(arr_seq.data_ptr(), ts.data_ptr(), valid.data_ptr(),
+                lane_ok.data_ptr(),
+                order.data_ptr() if order is not None else None,
+                seq0.data_ptr() if sequence else None, B, *eq,
+                pend_valid.data_ptr(), last_seq.data_ptr(),
+                start_ts.data_ptr(), p0, p1 - p0, int(sequence),
+                int(within is not None),
+                int(within) if within is not None else 0,
+                mask.data_ptr() if mask is not None else None,
+                b_star.data_ptr(), matched.data_ptr(), killed.data_ptr(),
+                kernels.stream())
+        kernels.check("k11_pattern", "first_match", rc)
+        kernels.LAUNCHES["K11a"] += 1
+    return b_star, matched, killed
+
+
+def first_match(arr_seq: torch.Tensor, ts: torch.Tensor, valid: torch.Tensor,
+                lane_ok: torch.Tensor, eq_pairs: Sequence,
+                pend_valid: torch.Tensor, last_seq: torch.Tensor,
+                start_ts: torch.Tensor, within: Optional[int],
+                sequence: bool, seq0: Optional[torch.Tensor] = None,
+                residual: Residual = None, tile: Optional[int] = None):
+    """The first qualifying arrival of every pending entry (K11a).
+
+    Batch side, [B]: `arr_seq` int64 (seq0 + rank on valid lanes, BIGSEQ
+    on the others), `ts` int64, `valid` bool (the batch's lanes),
+    `lane_ok` bool (valid and the conjuncts over the arrival alone).
+    Entry side, [P]: `pend_valid` bool, `last_seq` int64 (the seq the
+    arrival must pass: the entry's, or the position's snapshot for a
+    logical leg), `start_ts` int64. `eq_pairs`: (arrival column [B],
+    captured column [P]) of one bool/int32/int64 type, equal for a
+    qualifying pair. `residual(p0, p1)`: the other conjuncts as a bool
+    mask broadcastable to [B, p1 - p0], or None. `within`: ms or None.
+    `sequence`: strict contiguity — only the arrival with seq last_seq + 1
+    can qualify, and if it is valid and fails, the entry is killed; the
+    kernel finds it through K1's valid-lane order and `seq0` (int64 0-d).
+
+    Returns b_star int64[P] (0 where nothing qualifies, as `argmin` over
+    an all-BIGSEQ column gives), matched bool[P], killed bool[P] (valid
+    entries killed by a strict sequence; all False for patterns)."""
+    if arr_seq.is_cuda:
+        return first_match_cuda(arr_seq, ts, valid, lane_ok, eq_pairs,
+                                pend_valid, last_seq, start_ts, within,
+                                sequence, seq0, residual, tile)
+    return first_match_plain(arr_seq, ts, valid, lane_ok, eq_pairs,
+                             pend_valid, last_seq, start_ts, within,
+                             sequence, seq0, residual, tile)
+
+
+# --------------------------------------------------------------------------- #
+# K11b: pending_insert
+# --------------------------------------------------------------------------- #
+
+
+def _candidate_columns(dst: PendingTable, frames: dict, fvalid: dict,
+                       fts: dict, start_ts, last_seq, armed_ts, valid,
+                       origin):
+    """(destination tensor, candidate source or None, fill) for every
+    column an insert writes, in `_insert_entries`' order: a missing
+    frame-validity source takes the candidate's `valid` (True wherever a
+    candidate fits), a missing frame timestamp 0, a missing origin -1."""
+    cols = []
+    for ref in dst.frames:
+        src_cols = frames.get(ref)
+        if src_cols is None:
+            continue
+        for n, d in dst.frames[ref].items():
+            cols.append((d, src_cols[n], 0))
+        cols.append((dst.frame_valid[ref], fvalid.get(ref), 1))
+        cols.append((dst.frame_ts[ref], fts.get(ref), 0))
+    cols += [(dst.start_ts, start_ts, 0), (dst.last_seq, last_seq, 0),
+             (dst.armed_ts, armed_ts, 0), (dst.leg_done, None, 0),
+             (dst.origin, origin, -1), (dst.valid, None, 1)]
+    return cols
+
+
+def pending_insert_plain(dst: PendingTable, frames: dict, fvalid: dict,
+                         fts: dict, start_ts: torch.Tensor,
+                         last_seq: torch.Tensor, armed_ts: torch.Tensor,
+                         valid: torch.Tensor,
+                         origin: Optional[torch.Tensor] = None):
+    """Plain K11b, the JAX function's scatters with drop semantics: lanes
+    that do not fit aim at slot P of a table one row longer, which is cut
+    off. Returns (a new PendingTable, n_drop int64 0-d)."""
+    P = dst.valid.shape[0]
+    free = ~dst.valid
+    free_order = stable_partition_order_plain(free)
+    n_free = free.sum(dtype=torch.int32)
+    rank = torch.cumsum(valid.to(torch.int32), 0, dtype=torch.int32) - 1
+    fits = valid & (rank < n_free)
+    n_drop = (valid & ~fits).sum(dtype=torch.int64)
+    slot = torch.where(fits, free_order[torch.clamp(rank, 0, P - 1).long()]
+                       .long(), P)
+
+    def put(arr, src, fill):
+        ext = torch.cat([arr, arr.new_zeros((1,) + arr.shape[1:])])
+        if src is None:
+            ext[slot] = torch.tensor(fill, dtype=arr.dtype,
+                                     device=arr.device)
+        else:
+            ext[slot] = src.to(arr.dtype)
+        return ext[:P]
+
+    out = {id(d): put(d, s, f) for d, s, f in _candidate_columns(
+        dst, frames, fvalid, fts, start_ts, last_seq, armed_ts, valid,
+        origin)}
+
+    def new(t):
+        return out.get(id(t), t)
+
+    return PendingTable(
+        frames={r: {n: new(c) for n, c in cs.items()}
+                for r, cs in dst.frames.items()},
+        frame_valid={r: new(v) for r, v in dst.frame_valid.items()},
+        frame_ts={r: new(v) for r, v in dst.frame_ts.items()},
+        start_ts=new(dst.start_ts), last_seq=new(dst.last_seq),
+        armed_ts=new(dst.armed_ts), valid=new(dst.valid),
+        leg_done=new(dst.leg_done), origin=new(dst.origin)), n_drop
+
+
+_K11B_BLOCK = 1024
+_MAX_JOBS = 32
+
+
+def pending_insert_cuda(dst: PendingTable, frames: dict, fvalid: dict,
+                        fts: dict, start_ts: torch.Tensor,
+                        last_seq: torch.Tensor, armed_ts: torch.Tensor,
+                        valid: torch.Tensor,
+                        origin: Optional[torch.Tensor] = None):
+    """K11b on the card: K1 over the free slots, then three launches
+    (candidate and free-slot block counts, a one-block scan that leaves
+    n_free and n_drop on the device, the scatter of every column, one
+    launch per 32 columns). Updates `dst` in place."""
+    P = dst.valid.shape[0]
+    W = valid.shape[0]
+    cols = _candidate_columns(dst, frames, fvalid, fts, start_ts, last_seq,
+                              armed_ts, valid, origin)
+    jobs = []
+    for d, s, fill in cols:
+        size = d.element_size() * (d.shape[1] if d.dim() == 2 else 1)
+        if d.shape[0] != P or not d.is_contiguous():
+            raise ValueError("pending_insert: table columns are contiguous "
+                             "[P] (leg_done [P, 2])")
+        if s is not None:
+            s = s.contiguous()
+            if s.dtype != d.dtype or s.shape != (W,):
+                raise ValueError("pending_insert: a candidate column is "
+                                 "[W] of its table column's type")
+        jobs.append((d, s, fill, size))
+    valid = valid.contiguous()
+    kernels.require_cuda("pending_insert", valid, dst.valid,
+                         *[j[0] for j in jobs],
+                         *[j[1] for j in jobs if j[1] is not None])
+    if valid.dtype != torch.bool or dst.valid.dtype != torch.bool:
+        raise ValueError("pending_insert: bool valid")
+    dev = valid.device
+    n_drop = torch.zeros((), dtype=torch.int64, device=dev)
+    if W == 0:
+        return dst, n_drop
+    free_order = stable_partition_order(~dst.valid)  # K1: free slots first
+    nb = -(-max(W, P) // _K11B_BLOCK)
+    scratch = torch.empty(2 * nb + 2, dtype=torch.int32, device=dev)
+    Pt = ctypes.c_void_p
+    prep = kernels.bind("k11_pattern", "k11_insert_prepare",
+                        [Pt, Pt, ctypes.c_int, ctypes.c_int, Pt, Pt, Pt])
+    rc = prep(valid.data_ptr(), dst.valid.data_ptr(), W, P,
+              scratch.data_ptr(), n_drop.data_ptr(), kernels.stream())
+    kernels.check("k11_pattern", "pending_insert", rc)
+    kernels.LAUNCHES["K11b"] += 2
+    scatter = kernels.bind("k11_pattern", "k11_insert_scatter",
+                           [Pt, Pt, ctypes.c_int, ctypes.c_int] + [Pt] * 5
+                           + [ctypes.c_int, Pt])
+    for c0 in range(0, len(jobs), _MAX_JOBS):
+        chunk = jobs[c0:c0 + _MAX_JOBS]
+        n = len(chunk)
+        rc = scatter(valid.data_ptr(), free_order.data_ptr(), W, P,
+                     scratch.data_ptr(),
+                     (Pt * n)(*[d.data_ptr() for d, _, _, _ in chunk]),
+                     (Pt * n)(*[s.data_ptr() if s is not None else None
+                                for _, s, _, _ in chunk]),
+                     (ctypes.c_longlong * n)(*[f for _, _, f, _ in chunk]),
+                     (ctypes.c_int * n)(*[z for _, _, _, z in chunk]), n,
+                     kernels.stream())
+        kernels.check("k11_pattern", "pending_insert", rc)
+        kernels.LAUNCHES["K11b"] += 1
+    return dst, n_drop
+
+
+def pending_insert(dst: PendingTable, frames: dict, fvalid: dict, fts: dict,
+                   start_ts: torch.Tensor, last_seq: torch.Tensor,
+                   armed_ts: torch.Tensor, valid: torch.Tensor,
+                   origin: Optional[torch.Tensor] = None):
+    """Insert W candidate entries into dst's free slots (K11b).
+
+    Candidates, [W]: `valid` bool, `start_ts`/`last_seq`/`armed_ts` int64,
+    `origin` int32 or None (-1), `frames` {ref: {attr: [W]}} of the table
+    column types, `fvalid` {ref: bool[W]} (default: `valid`), `fts` {ref:
+    int64[W]} (default 0). Refs of dst missing from `frames` keep their
+    columns. The k-th valid candidate takes the k-th free slot in
+    ascending slot order; `leg_done` of a written slot is cleared.
+    Returns (the table, n_drop int64 0-d: valid candidates past the free
+    slots)."""
+    if valid.is_cuda:
+        return pending_insert_cuda(dst, frames, fvalid, fts, start_ts,
+                                   last_seq, armed_ts, valid, origin)
+    return pending_insert_plain(dst, frames, fvalid, fts, start_ts,
+                                last_seq, armed_ts, valid, origin)

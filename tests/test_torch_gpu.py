@@ -430,3 +430,151 @@ def test_join_app_on_card_matches_cpu(cuda, name):
     assert outs[0] == outs[1] and len(outs[0]) > 300
     for k in on_path:
         assert kernels.LAUNCHES[k] > 0
+
+
+def _first_match_case(cuda, rng, B, P, seq0, n_values):
+    valid = rng.random(B) < 0.9
+    t = {"valid": valid,
+         "arr_seq": np.where(valid, seq0 + np.cumsum(valid) - 1, 2**62),
+         "ts": 10_000 + np.arange(B) // 4,
+         "bval": rng.integers(0, n_values, B).astype(np.int32),
+         "bkey": rng.integers(0, 3, B),
+         "pend_valid": rng.random(P) < 0.5,
+         "last_seq": np.where(rng.random(P) < 0.5,
+                              seq0 - 1 + rng.integers(-2, B + 2, P),
+                              seq0 - 1 - rng.integers(0, 99, P)),
+         "start_ts": 10_000 - rng.integers(-50, 400, P),
+         "eval": rng.integers(0, n_values, P).astype(np.int32),
+         "ekey": rng.integers(0, 3, P)}
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(cuda)
+         for k, v in t.items()}
+    t["seq0"] = torch.tensor(seq0, dtype=torch.int64, device=cuda)
+    return t
+
+
+@pytest.mark.parametrize("sequence", [False, True],
+                         ids=["pattern", "sequence"])
+@pytest.mark.parametrize("with_residual", [False, True],
+                         ids=["no_residual", "residual"])
+def test_k11a_kernel_matches_plain(cuda, sequence, with_residual):
+    from siddhi_tpu_torch.ops import pattern
+    rng = np.random.default_rng(11)
+    B, P = 1500, 3000
+    t = _first_match_case(cuda, rng, B, P, seq0=70_000, n_values=6)
+
+    def resid(p0, p1):
+        return (t["bval"][:, None] + t["eval"][None, p0:p1]) % 3 != 0
+
+    args = (t["arr_seq"], t["ts"], t["valid"],
+            t["valid"] & (t["bval"] != 5),
+            [(t["bval"], t["eval"]), (t["bkey"], t["ekey"])],
+            t["pend_valid"], t["last_seq"], t["start_ts"], 300, sequence)
+    kw = dict(seq0=t["seq0"], residual=resid if with_residual else None,
+              tile=700)  # several residual tiles, a ragged last one
+    got = pattern.first_match(*args, **kw)
+    want = pattern.first_match_plain(*args, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[1].sum()) > 0
+    assert (int(got[2].sum()) > 0) == sequence
+
+
+def _pending_table(cuda, rng, P, refs, fill):
+    live = torch.from_numpy(rng.random(P) < fill).to(cuda)
+
+    def col(dt):
+        return torch.from_numpy(rng.integers(0, 99, P)).to(cuda).to(dt)
+
+    from siddhi_tpu_torch.ops.pattern import PendingTable
+    return PendingTable(
+        frames={r: {"i": col(torch.int32), "l": col(torch.int64),
+                    "f": col(torch.float32), "b": col(torch.bool)}
+                for r in refs},
+        frame_valid={r: col(torch.bool) for r in refs},
+        frame_ts={r: col(torch.int64) for r in refs},
+        start_ts=col(torch.int64), last_seq=col(torch.int64),
+        armed_ts=col(torch.int64), valid=live,
+        leg_done=torch.from_numpy(rng.random((P, 2)) < 0.3).to(cuda),
+        origin=col(torch.int32))
+
+
+@pytest.mark.parametrize("fill", [0.5, 0.97], ids=["free_slots", "overflow"])
+def test_k11b_kernel_matches_plain(cuda, fill):
+    from siddhi_tpu_torch.ops import pattern
+    rng = np.random.default_rng(12)
+    P, W = 5000, 2100
+    refs = [f"e{k}" for k in range(9)]  # 54 columns: two scatter launches
+    dst = _pending_table(cuda, rng, P, refs, fill)
+    clone = pattern.PendingTable(
+        {r: {n: c.clone() for n, c in cs.items()}
+         for r, cs in dst.frames.items()},
+        {r: v.clone() for r, v in dst.frame_valid.items()},
+        {r: v.clone() for r, v in dst.frame_ts.items()},
+        *[x.clone() for x in dst[3:]])
+    cand = _pending_table(cuda, rng, W, refs[:7], 0.8)  # two refs kept
+    fvalid = {r: v for r, v in cand.frame_valid.items() if r != "e3"}
+    args = (cand.frames, fvalid, cand.frame_ts, cand.start_ts,
+            cand.last_seq, cand.armed_ts, cand.valid)
+    want, wdrop = pattern.pending_insert_plain(dst, *args)
+    got, gdrop = pattern.pending_insert(clone, *args, origin=None)
+    assert int(gdrop) == int(wdrop)
+    assert (int(gdrop) > 0) == (fill > 0.9)
+    for f in pattern.PendingTable._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if f == "frames":
+            for r in a:
+                for n in a[r]:
+                    assert torch.equal(a[r][n], b[r][n]), (r, n)
+        elif isinstance(a, dict):
+            for r in a:
+                assert torch.equal(a[r], b[r]), (f, r)
+        else:
+            assert torch.equal(a, b), f
+
+
+PATTERNS_ON_CARD = {
+    "config4": ("from every a=A -> b=B[b.val == a.val] within 5 sec "
+                "select a.val as av, b.val as bv", ("K1", "K11a", "K11b")),
+    "logical_sequence": (
+        "from every e1=A[val > 3], e2=A[val < 3] and e3=A[val == 3] "
+        "select e1.val as av, e2.val as bv", ("K1", "K11a", "K11b")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PATTERNS_ON_CARD))
+def test_pattern_app_on_card_matches_cpu(cuda, name):
+    from siddhi_tpu_torch import SiddhiManager, kernels
+    from siddhi_tpu_torch.core import dtypes
+    query, on_path = PATTERNS_ON_CARD[name]
+    app = f"""
+    @app:playback
+    define stream A (val int);
+    define stream B (val int);
+    @info(name = 'bench')
+    {query}
+    insert into OutStream;
+    """
+    rng = np.random.default_rng(13)
+    feeds = [(sid, rng.integers(0, 8, 256).astype(np.int32))
+             for _ in range(8) for sid in ("A", "B")]
+    outs = []
+    kernels.reset_launch_counts()
+    prev = dtypes.config.pattern_pending_capacity
+    dtypes.config.pattern_pending_capacity = 1024
+    try:
+        for dev in ("cuda", "cpu"):
+            rt = SiddhiManager(device=dev).create_siddhi_app_runtime(
+                app, batch_size=256)
+            got = []
+            rt.add_callback("OutStream", lambda evs, g=got: g.extend(
+                (e.timestamp, e.data) for e in evs))
+            for i, (sid, val) in enumerate(feeds):
+                rt.get_input_handler(sid).send_columns(
+                    {"val": val}, timestamps=np.arange(256) * 5 + 700 * i)
+                rt.flush()
+            outs.append((got, int(rt.query_runtimes["bench"].state.dropped)))
+    finally:
+        dtypes.config.pattern_pending_capacity = prev
+    assert outs[0] == outs[1] and len(outs[0][0]) > 100
+    for k in on_path:
+        assert kernels.LAUNCHES[k] > 0
