@@ -66,7 +66,25 @@ Phases (any failure exits non-zero and prints no result line):
    values where `within` and the first match decide: 16 rounds of one A
    and one B batch (1,048,576 events) each, every output event in order
    against a numpy oracle that models the pending table's slots, no
-   dropped partial match, the same per-app numbers.
+   dropped partial match, the same per-app numbers;
+12. the aggregator kernels against their plain versions at apps J-L's
+   shapes (C = 131072 ring rows, L = 262144 chunk lanes): K8 bit for bit
+   (float32 max over a wrapped ring, int64 min over a chunk with no
+   CURRENT lane, float32 max with NaN), grouped K8 bit for bit (1,000 and
+   1,000,000 groups), K9 HLL ungrouped and grouped (G = 4096, slots past
+   G) with 0, 1 and 3 RESETs: registers and the drop count bit for bit,
+   estimates within max(1, 1e-5 E); K5b's int32 min/max; with the same
+   timings;
+13. apps J (BASELINE config 3 in its HLL form: time(60 sec)
+   hll:distinctCount(symbol) over 100,000 symbols), K (time(60 sec)
+   max/min grouped by 1,000 symbols), L (length(100000) max, min and
+   maxForever) and M (timeBatch(1 sec) max/min/avg/stdDev/count grouped
+   by 100 symbols), 8 rounds of 131072 events each, every output event
+   against an independent numpy oracle (J: a model of the sketch, within
+   max(1, 1e-5 E), and 3 standard errors of the exact distinct count;
+   extrema and counts exact; M's avg rtol 1e-5 and stdDev within 1e-4 sd
+   + sqrt(4 eps32 mean^2)), each new kernel launched, 0 host syncs a step,
+   the same per-app numbers.
 
 The second-to-last lines are the kernel table as one JSON object and the
 card's name and power limit; the last line is
@@ -193,6 +211,44 @@ WITHIN_P = 5000
 #: with the batch, so a smaller run keeps the match rate)
 VALUES_I = 100_000
 
+# the aggregator apps (phase 13); {} takes the window parameter
+APP_J = """
+@app:playback
+define stream TradeStream (symbol string, price double, volume long);
+@info(name = 'bench')
+from TradeStream#window.time({})
+select hll:distinctCount(symbol) as distinctSymbols
+insert into OutStream;
+"""
+APP_K = """
+@app:playback
+define stream TradeStream (symbol string, price double, volume long);
+@info(name = 'bench')
+from TradeStream#window.time({})
+select symbol, max(price) as high, min(price) as low
+group by symbol
+insert into OutStream;
+"""
+APP_L = """
+define stream TradeStream (symbol string, price double, volume long);
+@info(name = 'bench')
+from TradeStream#window.length({})
+select max(price) as hi, min(volume) as lo, maxForever(price) as top
+insert into OutStream;
+"""
+APP_M = """
+@app:playback
+define stream TradeStream (symbol string, price double, volume long);
+@info(name = 'bench')
+from TradeStream#window.timeBatch({})
+select symbol, max(price) as high, min(price) as low, avg(price) as avgPrice,
+       stdDev(price) as sd, count() as n
+group by symbol
+insert into OutStream;
+"""
+M_SYMBOLS = 100
+HLL_M = 1024  # registers per group (config.hll_registers)
+
 TIME_WINDOW_MS = 60_000
 LENGTH_D = 100_000
 C_SYMBOLS = 100_000
@@ -207,6 +263,12 @@ K10_SRC = "siddhi_tpu_torch/csrc/k10_join.cu"
 JOIN = "siddhi_tpu/ops/join.py"
 K11_SRC = "siddhi_tpu_torch/csrc/k11_pattern.cu"
 PATTERN = "siddhi_tpu/core/pattern_runtime.py"
+K8_SRC = "siddhi_tpu_torch/csrc/k8_extrema.cu"
+K9_SRC = "siddhi_tpu_torch/csrc/k9_hll.cu"
+AGGS = "siddhi_tpu/ops/aggregators.py"
+#: window parameter of apps J-M: ms for the time windows, events for L
+AGG_SIZES = {"J": TIME_WINDOW_MS, "K": TIME_WINDOW_MS, "L": LENGTH_D,
+             "M": 1_000}
 
 #: launch-counter key -> (function, source, TPU-side function replaced)
 KERNELS = {
@@ -232,6 +294,13 @@ KERNELS = {
     "K10 compact": ("compact_pairs", K10_SRC, f"{JOIN}:165"),
     "K11a": ("first_match", K11_SRC, f"{PATTERN}:1189"),
     "K11b": ("pending_insert", K11_SRC, f"{PATTERN}:1460"),
+    "K8": ("sliding_extrema_lanes", K8_SRC, "siddhi_tpu/ops/extrema.py:38"),
+    "K8 grouped": ("grouped_sliding_extrema_lanes", K8_SRC,
+                   "siddhi_tpu/ops/extrema.py:96"),
+    "K9 HLL": ("hll:distinctCount register update (custom_scan)", K9_SRC,
+               f"{AGGS}:299"),
+    "K9 HLL estimate": ("hll:distinctCount _estimate", K9_SRC,
+                        f"{AGGS}:289"),
 }
 
 
@@ -811,14 +880,15 @@ def oracle(key, price32, ts, passed):
 
 
 def run_app(torch, text: str, columns: dict, ts,
-            out_stream: str = "SummaryStream"):
-    """Feed ROUNDS sends of BATCH events (send_columns + flush each) and
-    collect the output stream's events."""
+            out_stream: str = "SummaryStream", rounds: int = ROUNDS,
+            batch: int = BATCH):
+    """Feed `rounds` sends of `batch` events (send_columns + flush each)
+    and collect the output stream's events."""
     from siddhi_tpu_torch import SiddhiManager
     from siddhi_tpu_torch import kernels
 
     rt = SiddhiManager().create_siddhi_app_runtime(
-        text, batch_size=BATCH, group_capacity=GROUP_CAP)
+        text, batch_size=batch, group_capacity=GROUP_CAP)
     got = []
     rt.add_callback(out_stream, got.extend)
     h = rt.get_input_handler("TradeStream")
@@ -826,8 +896,8 @@ def run_app(torch, text: str, columns: dict, ts,
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    for r in range(ROUNDS):
-        s = slice(r * BATCH, (r + 1) * BATCH)
+    for r in range(rounds):
+        s = slice(r * batch, (r + 1) * batch)
         h.send_columns({k: v[s] for k, v in columns.items()},
                        timestamps=ts[s])
         rt.flush()
@@ -964,7 +1034,9 @@ def oracle_e(sym: np.ndarray, volume: np.ndarray) -> np.ndarray:
 
 def check_sliding(name: str, got, ts, expect_cols: list) -> int:
     """Every output event against the oracle: timestamps and the columns
-    in `expect_cols` ((what, values, float?)), in arrival order."""
+    in `expect_cols` ((what, values, float?)), in arrival order. float?
+    is True for sums (rtol and atol), "exact" for floats the oracle holds
+    exactly (stored float32 values), False for integers."""
     n = ts.shape[0]
     if len(got) != n:
         raise Failure(f"app {name}: {len(got)} events out, expected {n}")
@@ -978,7 +1050,7 @@ def check_sliding(name: str, got, ts, expect_cols: list) -> int:
             continue
         g = np.fromiter((e.data[i] for e in got),
                         np.float64 if is_float else np.int64, n)
-        if is_float:
+        if is_float is True:
             ok = np.isclose(g, want, rtol=RTOL, atol=ATOL_SLIDING)
         else:
             ok = g == want
@@ -1022,7 +1094,8 @@ def syncs_in(torch, fn) -> list:
     return syncs
 
 
-def measure_steps(torch, rt, columns: dict, ts, fresh: bool = False):
+def measure_steps(torch, rt, columns: dict, ts, fresh: bool = False,
+                  rounds: int = ROUNDS, batch: int = BATCH):
     """The query step alone (no ingest, no output decode) over the app's
     rounds, as device batches prepared beforehand, each at its round's
     event time. `fresh` restarts from the query's initial state, so a
@@ -1034,11 +1107,11 @@ def measure_steps(torch, rt, columns: dict, ts, fresh: bool = False):
     qr = rt.query_runtimes["bench"]
     j = rt.junctions["TradeStream"]
     batches, nows = [], []
-    for r in range(ROUNDS):
-        s = slice(r * BATCH, (r + 1) * BATCH)
+    for r in range(rounds):
+        s = slice(r * batch, (r + 1) * batch)
         cols = j.codec.encode_columns({k: v[s] for k, v in columns.items()},
-                                      BATCH)
-        batches.append(EventBatch.from_numpy(ts[s], cols, BATCH,
+                                      batch)
+        batches.append(EventBatch.from_numpy(ts[s], cols, batch,
                                              j.ctx.device))
         nows.append(int(ts[s].max()))
     dev = j.ctx.device
@@ -1061,7 +1134,7 @@ def measure_steps(torch, rt, columns: dict, ts, fresh: bool = False):
     for b, now in zip(batches, nows):
         qr.state, _ = qr.step(qr.state, b, now)
     torch.cuda.synchronize()
-    return syncs, (time.perf_counter() - t0) / ROUNDS * 1e3
+    return syncs, (time.perf_counter() - t0) / rounds * 1e3
 
 
 def report_app(name, n_in, n_out, elapsed, step_ms, peak, launches, syncs,
@@ -1839,6 +1912,480 @@ def pattern_apps(torch, rng, card: str) -> dict:
     return total
 
 
+# --------------------------------------------------------------------------- #
+# phases 12-13: the aggregator kernels (K8, K9 HLL) and apps J-M
+# --------------------------------------------------------------------------- #
+
+
+def _hll_hash_np(codes: np.ndarray) -> np.ndarray:
+    """K3's hash of one int32 column, then murmur3's fmix64, in uint64."""
+    with np.errstate(over="ignore"):
+        x = codes.astype(np.int64).view(np.uint64)
+        h = (np.uint64(0xCBF29CE484222325) ^ x) * np.uint64(0x100000001B3)
+        h ^= h >> np.uint64(29)
+        h ^= h >> np.uint64(33)
+        h *= np.uint64(0xFF51AFD7ED558CCD)
+        h ^= h >> np.uint64(33)
+        h *= np.uint64(0xC4CEB9FE1A85EC53)
+        h ^= h >> np.uint64(33)
+    return h
+
+
+def _hll_estimate_np(regs: np.ndarray) -> int:
+    """The harmonic-mean estimate with linear counting, in float32."""
+    m = regs.shape[0]
+    R = regs.astype(np.float32)
+    inv = np.exp2(-R).sum(dtype=np.float32)
+    E = np.float32(0.7213 / (1.0 + 1.079 / m) * m * m) / inv
+    zeros = int((R == 0).sum())
+    if E <= 2.5 * m and zeros > 0:
+        E = np.float32(m) * np.log(np.float32(m) / np.float32(zeros))
+    return int(np.rint(E))
+
+
+def oracle_j(sym: np.ndarray, rounds: int, batch: int) -> np.ndarray:
+    """Per event, the sketch's estimate after its round: the string codes
+    in first-seen order (1, 2, ...), K3's hash and fmix64, register
+    j = h & (m - 1) and rank = clz32 of (h >> log2 m) + 1, max-updated."""
+    _, first, inv = np.unique(sym, return_index=True, return_inverse=True)
+    rank = np.empty_like(first)
+    rank[np.argsort(first)] = np.arange(first.shape[0])
+    h = _hll_hash_np((rank[inv] + 1).astype(np.int32))
+    p = HLL_M.bit_length() - 1
+    j = (h & np.uint64(HLL_M - 1)).astype(np.int64)
+    w = ((h >> np.uint64(p)) & np.uint64(0xFFFFFFFF)).astype(np.float64)
+    rho = 33 - np.frexp(w)[1]
+    regs = np.zeros(HLL_M, np.int64)
+    out = np.empty(rounds * batch, np.int64)
+    for r in range(rounds):
+        s = slice(r * batch, (r + 1) * batch)
+        np.maximum.at(regs, j[s], rho[s])
+        out[s] = _hll_estimate_np(regs)
+    return out
+
+
+def check_j(got, sym, ts, rounds: int, batch: int) -> int:
+    """Every estimate within max(1, 1e-5 E) of the numpy sketch, and each
+    round's within 3 standard errors (1.04 / sqrt(m) each) of the exact
+    count of symbols seen so far."""
+    n = ts.shape[0]
+    if len(got) != n:
+        raise Failure(f"app J: {len(got)} events out, expected {n}")
+    if not np.array_equal(np.fromiter((e.timestamp for e in got), np.int64,
+                                      n), ts):
+        raise Failure("app J: timestamps differ from the oracle")
+    g = np.fromiter((e.data[0] for e in got), np.int64, n)
+    want = oracle_j(sym, rounds, batch)
+    bad = np.abs(g - want) > np.maximum(1, 1e-5 * want)
+    if bad.any():
+        i = int(np.argmax(bad))
+        raise Failure(f"app J: estimate of event {i} is {g[i]}, the sketch "
+                      f"model says {want[i]}")
+    sigma3 = 3 * 1.04 / np.sqrt(HLL_M)
+    for r in range(rounds):
+        exact = np.unique(sym[:(r + 1) * batch]).shape[0]
+        est = g[(r + 1) * batch - 1]
+        if abs(est - exact) > sigma3 * exact:
+            raise Failure(f"app J: round {r} estimates {est} distinct "
+                          f"symbols, {exact} were seen")
+    return n
+
+
+def _rmq(vals: np.ndarray, lo: np.ndarray, hi: np.ndarray, op) -> np.ndarray:
+    """op over vals[lo[i]..hi[i]] (inclusive, lo <= hi) by a sparse table."""
+    levels = [vals]
+    span = 1
+    while 2 * span <= vals.shape[0]:
+        prev = levels[-1]
+        levels.append(np.concatenate([op(prev[:-span], prev[span:]),
+                                      prev[-span:]]))
+        span *= 2
+    k = np.frexp((hi - lo + 1).astype(np.float64))[1] - 1
+    out = np.empty(lo.shape[0], vals.dtype)
+    for lvl in np.unique(k):
+        m = k == lvl
+        t = levels[lvl]
+        out[m] = op(t[lo[m]], t[hi[m] - (1 << int(lvl)) + 1])
+    return out
+
+
+def oracle_k(sym: np.ndarray, price32: np.ndarray, span: int):
+    """Per event, the max and min price of its symbol over the last `span`
+    events (ms, 1 ms apart), inclusive."""
+    n = sym.shape[0]
+    idx = np.arange(n, dtype=np.int64)
+    order = np.lexsort((idx, sym))
+    ks = sym[order].astype(np.int64)
+    comb = ks * n + idx[order]
+    lo = np.maximum(np.searchsorted(comb, comb - span + 1, side="left"),
+                    np.searchsorted(comb, ks * n, side="left"))
+    q = np.arange(n)
+    vals = price32[order]
+    hi_o = np.empty(n, np.float32)
+    lo_o = np.empty(n, np.float32)
+    hi_o[order] = _rmq(vals, lo, q, np.maximum)
+    lo_o[order] = _rmq(vals, lo, q, np.minimum)
+    return hi_o, lo_o
+
+
+def oracle_l(price32: np.ndarray, volume: np.ndarray, length: int):
+    """Per event, max(price) and min(volume) over the last `length` events
+    inclusive, and the running max of price (maxForever)."""
+    n = price32.shape[0]
+    q = np.arange(n)
+    lo = np.maximum(q - length + 1, 0)
+    return (_rmq(price32, lo, q, np.maximum),
+            _rmq(volume, lo, q, np.minimum),
+            np.maximum.accumulate(price32))
+
+
+def _seg_scan(v: np.ndarray, start: np.ndarray, op) -> np.ndarray:
+    """Inclusive scan under op restarting at each segment start."""
+    s, f = v.copy(), start.copy()
+    off = 1
+    while off < s.shape[0]:
+        s[off:] = np.where(f[off:], s[off:], op(s[:-off], s[off:]))
+        f[off:] = f[off:] | f[:-off]
+        off *= 2
+    return s
+
+
+def oracle_m(sym: np.ndarray, price32: np.ndarray, ts: np.ndarray,
+             period: int):
+    """Events of every flushed bucket (the last bucket stays open), in
+    order, with the running max, min, mean, population standard deviation
+    (float64) and count of their symbol within the bucket."""
+    bucket = (ts - ts[0]) // period
+    sel = np.nonzero(bucket < bucket[-1])[0]
+    key = bucket[sel] * (int(sym.max()) + 1) + sym[sel]
+    order = np.lexsort((sel, key))
+    ks = key[order]
+    start = np.r_[True, ks[1:] != ks[:-1]]
+    seg = np.cumsum(start) - 1
+    v32 = price32[sel][order]
+    v = v32.astype(np.float64)
+
+    def running_sum(x):
+        cs = np.cumsum(x)
+        return cs - (cs - x)[start][seg]
+
+    pos = np.arange(order.shape[0])
+    cnt = pos - pos[start][seg] + 1
+    total, sumsq = running_sum(v), running_sum(v * v)
+    mean = total / cnt
+    sd = np.sqrt(np.maximum(sumsq / cnt - mean * mean, 0.0))
+    out = {}
+    for name, vals in (("high", _seg_scan(v32, start, np.maximum)),
+                       ("low", _seg_scan(v32, start, np.minimum)),
+                       ("avgPrice", mean), ("sd", sd), ("n", cnt)):
+        col = np.empty_like(vals)
+        col[order] = vals
+        out[name] = col
+    return sel, out
+
+
+def check_m(got, sym, price32, ts, period: int, pool) -> int:
+    """max, min and count exact; avg rtol 1e-5; sd within 1e-4 sd plus
+    sqrt(4 eps32 mean^2), the float32 cancellation of sumsq/n - mean^2."""
+    sel, want = oracle_m(sym, price32, ts, period)
+    n = sel.shape[0]
+    if len(got) != n:
+        raise Failure(f"app M: {len(got)} events out, oracle expects {n}")
+    if not np.array_equal(np.fromiter((e.timestamp for e in got), np.int64,
+                                      n), ts[sel]):
+        raise Failure("app M: timestamps differ from the oracle")
+    if [e.data[0] for e in got] != pool[sym[sel]].tolist():
+        raise Failure("app M: symbols differ from the oracle")
+    eps32 = float(np.finfo(np.float32).eps)
+    for i, name in enumerate(("high", "low", "avgPrice", "sd", "n"), 1):
+        g = np.fromiter((e.data[i] for e in got), np.float64, n)
+        w = want[name]
+        if name == "avgPrice":
+            ok = np.abs(g - w) <= RTOL * np.abs(w)
+        elif name == "sd":
+            ok = np.abs(g - w) <= (1e-4 * w + np.sqrt(
+                4 * eps32 * want["avgPrice"] ** 2))
+        else:
+            ok = g == w
+        if not ok.all():
+            j = int(np.argmin(ok))
+            raise Failure(f"app M: {name} of event {j} is {g[j]}, the "
+                          f"oracle says {w[j]}")
+    return n
+
+
+def _sliding_chunk(torch, rng, B: int, kind: str):
+    """A sliding window's chunk of E = B expired + B current lanes: at a
+    length window's steady state each arrival follows the eviction it
+    causes ("steady"), or only expirations with no arrival ("expiring")."""
+    from siddhi_tpu_torch.core.event import EventBatch
+
+    dev = torch.device("cuda")
+    L = 2 * B
+    if kind == "steady":
+        types = np.tile(np.array([1, 0], np.int8), B)
+        valid = np.ones(L, bool)
+        valid[L - 2000:] = rng.random(2000) < 0.5
+    else:
+        types = np.ones(L, np.int8)
+        valid = np.arange(L) < B // 2
+    return EventBatch(ts=torch.zeros(L, dtype=torch.int64, device=dev),
+                      cols={}, valid=torch.from_numpy(valid).to(dev),
+                      types=torch.from_numpy(types).to(dev))
+
+
+def aggregator_kernel_phase(torch, rng, B: int = BATCH) -> dict:
+    """K8 (ungrouped and grouped) and K9 HLL against their plain versions
+    at apps J, K and L's shapes (C = B ring rows, L = 2B chunk lanes), and
+    an int32 min through K5b; with their timings."""
+    from siddhi_tpu_torch.ops import aggregators as ag
+    from siddhi_tpu_torch.ops import extrema as ex
+    from siddhi_tpu_torch.ops import groupby
+
+    dev = torch.device("cuda")
+    res = {}
+    C, L = B, 2 * B
+    winlen0 = min(LENGTH_D, C - 1000)
+    # the expiry frontier is not a multiple of C: the ring wraps
+    expired = torch.tensor(1_000_003, device=dev)
+    appended = expired + winlen0
+    steady = _sliding_chunk(torch, rng, B, "steady")
+    expiring = _sliding_chunk(torch, rng, B, "expiring")
+
+    def values(dt, n, nan=False):
+        if dt == torch.float32:
+            v = rng.uniform(1, 100, n).astype(np.float32)
+            if nan:
+                v[rng.choice(n, 5, replace=False)] = np.nan
+        else:
+            v = rng.integers(-(2**40), 2**40, n)
+        return torch.from_numpy(v).to(dev).to(dt)
+
+    # K8 ungrouped: f32 max over a wrapped ring (app L's steady chunk),
+    # int64 min over a chunk with no CURRENT lane, f32 max with NaN
+    cases = [("max", torch.float32, steady, False),
+             ("min", torch.int64, expiring, False),
+             ("max", torch.float32, steady, True)]
+    for op, dt, chunk, nan in cases:
+        rv, cv = values(dt, C, nan), values(dt, L, nan)
+        check_equal(f"K8 {op} {dt} nan={nan}",
+                    ex.sliding_extrema_lanes(op, rv, expired, appended,
+                                             chunk, cv),
+                    ex.sliding_extrema_lanes_plain(op, rv, expired, appended,
+                                                   chunk, cv))
+    rv, cv = values(torch.float32, C), values(torch.float32, L)
+    res["K8"] = dict(
+        _timed(torch,
+               lambda: ex.sliding_extrema_lanes("max", rv, expired, appended,
+                                                steady, cv),
+               lambda: ex.sliding_extrema_lanes_plain(
+                   "max", rv, expired, appended, steady, cv)),
+        # ring values, chunk values, valid and types in; results out
+        bound_ms=bound_ms(C * 4 + L * (4 + 1 + 1) + L * 4), max_abs_err=0,
+        bound_by="bytes")
+    print(f"K8 sliding_extrema_lanes C={C} L={L}: {res['K8']}")
+
+    # K8 grouped: 1,000 and 1,000,000 groups, hashed as the runtime does
+    for n_groups in (E_SYMBOLS, N_KEYS):
+        gid = torch.from_numpy(rng.integers(0, n_groups, C + L)).to(dev)
+        rk = groupby.hash_columns([gid[:C]])
+        ck = groupby.hash_columns([gid[C:]])
+        for op in ("max", "min"):
+            check_equal(
+                f"K8 grouped {op} groups={n_groups}",
+                ex.grouped_sliding_extrema_lanes(op, rv, rk, expired,
+                                                 appended, steady, cv, ck),
+                ex.grouped_sliding_extrema_lanes_plain(
+                    op, rv, rk, expired, appended, steady, cv, ck))
+        if n_groups == E_SYMBOLS:
+            res["K8 grouped"] = dict(
+                _timed(torch,
+                       lambda: ex.grouped_sliding_extrema_lanes(
+                           "max", rv, rk, expired, appended, steady, cv, ck),
+                       lambda: ex.grouped_sliding_extrema_lanes_plain(
+                           "max", rv, rk, expired, appended, steady, cv,
+                           ck)),
+                # as K8, plus the ring's and the lanes' group hashes
+                bound_ms=bound_ms(C * (4 + 8) + L * (4 + 8 + 1 + 1)
+                                  + L * 4),
+                max_abs_err=0, bound_by="bytes")
+    print(f"K8 grouped_sliding_extrema_lanes C={C} L={L} groups="
+          f"{E_SYMBOLS}: {res['K8 grouped']}")
+
+    # K9 HLL at app J's chunk: string codes of 100,000 symbols, EXPIRED
+    # lanes ignored; ungrouped and grouped past G = 4096, 0, 1 and 3 resets
+    M, G = HLL_M, 4096
+    codes = torch.from_numpy(rng.integers(1, C_SYMBOLS, L).astype(
+        np.int32)).to(dev)
+    h = groupby.hash_columns([codes])
+    sign = torch.where(steady.types == 1, -1, 1).to(torch.int32)
+    est_err = 0
+    for grouped in (False, True):
+        g = G if grouped else 1
+        slots = (torch.from_numpy(rng.integers(0, G + 64, L).astype(
+            np.int32)).to(dev) if grouped
+            else torch.zeros(L, dtype=torch.int32, device=dev))
+        regs0, drop0, _ = ag.hll_scan_plain(
+            torch.zeros(g * M, dtype=torch.int32, device=dev),
+            torch.zeros((), dtype=torch.int64, device=dev), slots,
+            groupby.hash_columns([codes + 7]), sign, steady.valid,
+            torch.zeros(L, dtype=torch.bool, device=dev), M)
+        for n_res in (0, 1, 3):
+            resets = torch.zeros(L, dtype=torch.bool, device=dev)
+            resets[torch.from_numpy(rng.choice(L, n_res, replace=False)).to(
+                dev)] = True
+            lane_valid = steady.valid & ~resets
+            pr, pd, pe = ag.hll_scan_plain(regs0.clone(), drop0.clone(),
+                                           slots, h, sign, lane_valid,
+                                           resets, M)
+            kr, kd, ke = ag.hll_scan(regs0.clone(), drop0.clone(), slots, h,
+                                     sign, lane_valid, resets, M)
+            name = f"K9 HLL grouped={grouped} resets={n_res}"
+            check_equal(f"{name} registers", kr, pr)
+            check_equal(f"{name} dropped", kd, pd)
+            d = (ke - pe).abs()
+            if bool((d > torch.clamp(pe.double() * 1e-5, min=1)).any()):
+                raise Failure(f"{name}: estimates off by up to "
+                              f"{int(d.max())}")
+            est_err = max(est_err, int(d.max()))
+    # timings at app J's path: ungrouped, no reset
+    slots = torch.zeros(L, dtype=torch.int32, device=dev)
+    no_res = torch.zeros(L, dtype=torch.bool, device=dev)
+    regs = torch.zeros(M, dtype=torch.int32, device=dev)
+    drop = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def restore():
+        regs.zero_()
+        drop.zero_()
+
+    res["K9 HLL"] = dict(
+        _timed(torch,
+               lambda: ag.hll_update_cuda(regs, drop, slots, h, sign,
+                                          steady.valid, no_res, M),
+               lambda: ag.hll_registers_plain(regs, drop, slots, h, sign,
+                                              steady.valid, no_res, M),
+               reset=restore),
+        # hashes, slots, signs, valid and reset flags in; the one group's
+        # registers read and written
+        bound_ms=bound_ms(L * (8 + 4 + 4 + 1 + 1) + 2 * M * 4),
+        max_abs_err=0, bound_by="bytes")
+    pending = ag.hll_update_cuda(regs, drop, slots, h, sign, steady.valid,
+                                 no_res, M)
+    res["K9 HLL estimate"] = dict(
+        _timed(torch,
+               lambda: ag.hll_estimate_cuda(regs, slots, pending, M),
+               lambda: ag.hll_estimate_plain(regs, M)[slots.long()]),
+        # slots and the group's registers in; estimates out
+        bound_ms=bound_ms(L * 4 + M * 4 + L * 8), max_abs_err=est_err,
+        bound_by="bytes")
+    for k in ("K9 HLL", "K9 HLL estimate"):
+        print(f"{k} L={L} M={M}: {res[k]}")
+
+    # K5b's int32 instantiation (min/max over an int attribute in a batch
+    # window), bit for bit
+    K = GROUP_CAP
+    slots = torch.from_numpy(rng.integers(0, K, L).astype(np.int32)).to(dev)
+    d = torch.from_numpy(rng.integers(-(2**31), 2**31 - 1, L).astype(
+        np.int32)).to(dev)
+    resets = torch.zeros(L, dtype=torch.bool, device=dev)
+    resets[L // 3] = True
+    cur = torch.tensor(5, dtype=torch.int32, device=dev)
+    for op in ("min", "max"):
+        st0 = groupby.init_group_state(K, torch.int32, dev)
+        ks, ko = groupby.grouped_scan(st0, slots, d, steady.valid, resets,
+                                      cur, op)
+        ps, po = groupby.grouped_scan_plain(
+            groupby.init_group_state(K, torch.int32, dev), slots, d,
+            steady.valid, resets, cur, op)
+        for nm, a, b in (("values", ks.values, ps.values),
+                         ("epoch", ks.epoch, ps.epoch), ("out", ko, po)):
+            check_equal(f"K5b grouped {op} int32 {nm}", a, b)
+    print("K5b grouped_scan int32 min/max: bit for bit")
+    torch.cuda.synchronize()
+    return res
+
+
+def agg_events(rng, n_symbols: int, rounds: int, batch: int):
+    """symbol index uniform over n_symbols, price 1-100, volume 1-999,
+    timestamps 1 ms apart."""
+    n = rounds * batch
+    sym = rng.integers(0, n_symbols, n)
+    price = rng.uniform(1.0, 100.0, n)
+    volume = rng.integers(1, 1000, n).astype(np.int64)
+    ts = 1_700_000_000_000 + np.arange(n, dtype=np.int64)
+    return sym, price, volume, ts
+
+
+def _time_text(ms: int) -> str:
+    return f"{ms // 1000} sec" if ms % 1000 == 0 else f"{ms} millisec"
+
+
+def agg_apps_plan(sizes: dict) -> dict:
+    """app -> (text, symbols, on-path kernels) at the given window sizes."""
+    k2b = ("K2b pack", "K2b fetch", "K2b append", "K2b gather")
+    return {
+        "J": (APP_J.format(_time_text(sizes["J"])), C_SYMBOLS,
+              ("K1", *k2b, "K3", "K9 HLL", "K9 HLL estimate")),
+        "K": (APP_K.format(_time_text(sizes["K"])), E_SYMBOLS,
+              ("K1", *k2b, "K3", "K8 grouped")),
+        "L": (APP_L.format(sizes["L"]), E_SYMBOLS,
+              ("K1", *k2b, "K8", "K5b ungrouped")),
+        "M": (APP_M.format(_time_text(sizes["M"])), M_SYMBOLS,
+              ("K1", "K5", "K5b grouped")),
+    }
+
+
+def expect_agg_app(name: str, sym, price, volume, ts, window: int,
+                   rounds: int, batch: int, pool):
+    """The oracle's check of app `name`: a function of its events."""
+    price32 = price.astype(np.float32)
+    if name == "J":
+        return lambda got: check_j(got, sym, ts, rounds, batch)
+    if name == "K":
+        hi, lo = oracle_k(sym, price32, window)
+        cols = [("symbol", pool[sym].tolist(), False),
+                ("high", hi, "exact"), ("low", lo, "exact")]
+    elif name == "L":
+        hi, lo, top = oracle_l(price32, volume, window)
+        cols = [("hi", hi, "exact"), ("lo", lo, False),
+                ("top", top, "exact")]
+    else:
+        return lambda got: check_m(got, sym, price32, ts, window, pool)
+    return lambda got: check_sliding(name, got, ts, cols)
+
+
+def aggregator_apps(torch, rng, card: str, rounds: int = ROUNDS,
+                    batch: int = BATCH, sizes: dict = None) -> dict:
+    """Apps J, K, L and M against their oracles; returns their launches."""
+    sizes = sizes or AGG_SIZES
+    total = {}
+    for name, (text, n_sym, on_path) in agg_apps_plan(sizes).items():
+        sym, price, volume, ts = agg_events(rng, n_sym, rounds, batch)
+        pool = symbols(n_sym)
+        columns = {"symbol": pool[sym], "price": price, "volume": volume}
+        check = expect_agg_app(name, sym, price, volume, ts, sizes[name],
+                               rounds, batch, pool)
+        rt, got, launches, elapsed, peak = run_app(
+            torch, text, columns, ts, out_stream="OutStream", rounds=rounds,
+            batch=batch)
+        n_out = check(got)
+        del got
+        for k in on_path:
+            if launches[k] == 0:
+                raise Failure(f"app {name}: kernel {k} never launched")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        syncs, step_ms = measure_steps(torch, rt, columns, ts, fresh=True,
+                                       rounds=rounds, batch=batch)
+        report_app(name, ts.shape[0], n_out, elapsed, step_ms, peak,
+                   launches, syncs, card, rounds=rounds, batch=batch)
+        if syncs:
+            raise Failure(f"app {name}: the step syncs with the host: "
+                          f"{syncs}")
+        del rt
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1910,6 +2457,10 @@ def main(argv=None) -> int:
 
         kres.update(pattern_kernel_phase(torch, rng))
         for k, v in pattern_apps(torch, rng, card).items():
+            launches[k] += v
+
+        kres.update(aggregator_kernel_phase(torch, rng))
+        for k, v in aggregator_apps(torch, rng, card).items():
             launches[k] += v
 
         table = []

@@ -49,6 +49,11 @@ class _Config:
     #: per entry per batch (sticky positions are not yet ported; kept so the
     #: configuration matches the JAX package's)
     pattern_sticky_passes = 4
+    #: HyperLogLog registers per group for hll:distinctCount (power of two;
+    #: std error ~1.04/sqrt(m))
+    hll_registers = 1024
+    #: max groups tracked by hll:distinctCount (each holds hll_registers)
+    hll_group_capacity = 4096
 
 
 config = _Config()

@@ -16,17 +16,23 @@ import time
 import warnings
 from typing import Optional
 
+import torch
+
 from ..errors import SiddhiAppCreationError
 from ..extension.registry import ExtensionKind, Registry
 from ..ops.expr_compile import Scope, TypeResolver, compile_expression
 from ..ops.aggregators import compact_distinct_state
+from ..ops.extrema import (grouped_sliding_extrema_lanes,
+                           sliding_extrema_lanes)
 from ..ops.groupby import GroupState, KeyTable
 from ..ops.ratelimit import make_rate_limiter
 from ..ops.selector import CompiledSelector
 from ..ops.window_factories import WindowFactory
 from ..ops.windows import (
     PassThroughWindow,
+    SlidingWindow,
     WindowOp,
+    _unpack_rows,
     make_layout,
     window_has_time_semantics,
 )
@@ -128,11 +134,21 @@ class QueryRuntime(Receiver):
                                                  expired_on)
         else:
             self.window = PassThroughWindow(layout, batch_cap)
+        #: min/max over a FIFO sliding window are range queries over its
+        #: arrival order (K8); other windows keep the monotone scans
+        self.is_sliding_window = isinstance(self.window, SlidingWindow)
 
         self.selector = CompiledSelector(
             query.selector, self.resolver, registry,
             ctx.effective_group_capacity,
-            select_all_attrs=list(attr_types.items()))
+            select_all_attrs=list(attr_types.items()),
+            sliding_window=self.is_sliding_window)
+        # (min/max with a post-window filter is refused by the JAX package
+        # too; the port refuses every post-window filter above)
+        if self.selector.extrema_plan and self.window.is_delay:
+            raise SiddhiAppCreationError(
+                "min()/max() over #window.delay is not supported "
+                "(delay re-emits expired lanes as arrivals)")
         self.output_definition = StreamDefinition(
             id=query.output_stream.target_id or f"{self.name}_out",
             attributes=tuple(Attribute(n, t)
@@ -165,13 +181,50 @@ class QueryRuntime(Receiver):
         for f in self.filters:
             mask = mask & f(scope)
         batch = batch.where_valid(mask)
+        ring_side = (self._extrema_ring_side(wstate)
+                     if self.selector.extrema_plan else None)
+        wstate_pre = wstate
         wstate, chunk = self.window.step(wstate, batch, now)
         cscope = Scope()
         cscope.add_frame(self.frame_ref, chunk.cols, chunk.ts, chunk.valid,
                          default=True)
+        if ring_side is not None:
+            self._extrema_lanes(ring_side, wstate_pre, chunk, cscope)
         sstate, out = self.selector.step(sstate, chunk, cscope)
         rstate, out = self.rate_limiter.step(rstate, out, now)
         return (wstate, sstate, rstate), out
+
+    def _extrema_ring_side(self, wstate_pre):
+        """The extrema arguments (and group hashes) over the PRE-step ring
+        rows, taken before the window step: on the card the step appends to
+        the ring in place, and 4-byte columns unpack as views of it."""
+        ring_cols, ring_ts = _unpack_rows(wstate_pre.ring, self.window.layout)
+        rscope = Scope()
+        rscope.add_frame(self.frame_ref, ring_cols, ring_ts,
+                         torch.ones(ring_ts.shape, dtype=torch.bool,
+                                    device=ring_ts.device), default=True)
+        ghash = self.selector.extrema_group_hash
+        vals = [args[0](rscope).clone()
+                for _, _, args in self.selector.extrema_plan]
+        return vals, (ghash(rscope) if ghash is not None else None)
+
+    def _extrema_lanes(self, ring_side, wstate_pre, chunk, cscope) -> None:
+        """Sliding min/max per chunk lane (K8), handed to the selector as
+        extras["extrema:<slot>"]."""
+        ring_vals, ring_gkey = ring_side
+        ghash = self.selector.extrema_group_hash
+        cur_gkey = ghash(cscope) if ghash is not None else None
+        for (slot, op, args), rv in zip(self.selector.extrema_plan,
+                                        ring_vals):
+            cur = args[0](cscope)
+            if cur_gkey is not None:
+                v = grouped_sliding_extrema_lanes(
+                    op, rv, ring_gkey, wstate_pre.expired,
+                    wstate_pre.appended, chunk, cur, cur_gkey)
+            else:
+                v = sliding_extrema_lanes(op, rv, wstate_pre.expired,
+                                          wstate_pre.appended, chunk, cur)
+            cscope.extras[f"extrema:{slot}"] = v
 
     def on_batch(self, batch: EventBatch, now: int) -> None:
         t0 = time.perf_counter_ns()

@@ -1,9 +1,11 @@
 // Shared helpers for the siddhi_tpu_torch kernels: the plain C export macro,
-// the error-string export every library carries, and block-wide scans built
-// from warp shuffles (one element per thread).
+// the error-string export every library carries, block-wide scans built
+// from warp shuffles (one element per thread), and the sum/min/max ops with
+// their identities (K5b scans, K8 range extrema).
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #define SIDDHI_API extern "C" __attribute__((visibility("default")))
@@ -53,3 +55,56 @@ __device__ __forceinline__ int block_exclusive_sum(int v, int* smem,
   __syncthreads();  // smem may be reused by the caller's next call
   return warp_prefix + x - v;
 }
+
+// Identities of min and max per element type.
+template <typename T>
+struct Lim;
+template <>
+struct Lim<float> {
+  static __device__ float hi() { return INFINITY; }
+  static __device__ float lo() { return -INFINITY; }
+};
+template <>
+struct Lim<double> {
+  static __device__ double hi() { return static_cast<double>(INFINITY); }
+  static __device__ double lo() { return -static_cast<double>(INFINITY); }
+};
+template <>
+struct Lim<int> {
+  static __device__ int hi() { return 0x7fffffff; }
+  static __device__ int lo() { return -0x7fffffff - 1; }
+};
+template <>
+struct Lim<long long> {
+  static __device__ long long hi() { return 0x7fffffffffffffffLL; }
+  static __device__ long long lo() { return -0x7fffffffffffffffLL - 1; }
+};
+
+// The ops of siddhi_tpu/ops/groupby.py `_OPS`; min and max propagate NaN
+// as jnp.minimum / jnp.maximum do.
+struct OpSum {
+  template <typename T>
+  static __device__ __forceinline__ T identity() { return T(0); }
+  template <typename T>
+  static __device__ __forceinline__ T apply(T a, T b) { return a + b; }
+};
+struct OpMin {
+  template <typename T>
+  static __device__ __forceinline__ T identity() { return Lim<T>::hi(); }
+  template <typename T>
+  static __device__ __forceinline__ T apply(T a, T b) {
+    if (a != a) return a;
+    if (b != b) return b;
+    return b < a ? b : a;
+  }
+};
+struct OpMax {
+  template <typename T>
+  static __device__ __forceinline__ T identity() { return Lim<T>::lo(); }
+  template <typename T>
+  static __device__ __forceinline__ T apply(T a, T b) {
+    if (a != a) return a;
+    if (b != b) return b;
+    return b > a ? b : a;
+  }
+};

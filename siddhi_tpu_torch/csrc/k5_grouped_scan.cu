@@ -38,60 +38,11 @@
 // paid once for every component; three short launches per component keep
 // the block-carry chain simple and exact.
 
-#include <math.h>
-
 #include "common.cuh"
 
 namespace {
 
 constexpr int BLOCK = 512;
-
-template <typename T>
-struct Lim;
-template <>
-struct Lim<float> {
-  static __device__ float hi() { return INFINITY; }
-  static __device__ float lo() { return -INFINITY; }
-};
-template <>
-struct Lim<double> {
-  static __device__ double hi() { return static_cast<double>(INFINITY); }
-  static __device__ double lo() { return -static_cast<double>(INFINITY); }
-};
-template <>
-struct Lim<long long> {
-  static __device__ long long hi() { return 0x7fffffffffffffffLL; }
-  static __device__ long long lo() { return -0x7fffffffffffffffLL - 1; }
-};
-
-// The ops of siddhi_tpu/ops/groupby.py `_OPS`; min and max propagate NaN
-// as jnp.minimum / jnp.maximum do.
-struct OpSum {
-  template <typename T>
-  static __device__ __forceinline__ T identity() { return T(0); }
-  template <typename T>
-  static __device__ __forceinline__ T apply(T a, T b) { return a + b; }
-};
-struct OpMin {
-  template <typename T>
-  static __device__ __forceinline__ T identity() { return Lim<T>::hi(); }
-  template <typename T>
-  static __device__ __forceinline__ T apply(T a, T b) {
-    if (a != a) return a;
-    if (b != b) return b;
-    return b < a ? b : a;
-  }
-};
-struct OpMax {
-  template <typename T>
-  static __device__ __forceinline__ T identity() { return Lim<T>::lo(); }
-  template <typename T>
-  static __device__ __forceinline__ T apply(T a, T b) {
-    if (a != a) return a;
-    if (b != b) return b;
-    return b > a ? b : a;
-  }
-};
 
 template <typename T>
 struct Seg {
@@ -331,6 +282,7 @@ int run_typed(int dtype, const void* deltas, const uint8_t* valid,
     SIDDHI_K5_CASE(0, float)
     SIDDHI_K5_CASE(1, double)
     SIDDHI_K5_CASE(2, long long)
+    SIDDHI_K5_CASE(3, int)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -374,7 +326,7 @@ SIDDHI_API int k5_ungrouped_segment_plan(const int32_t* lane_epoch,
 }
 
 // op: 0 = sum, 1 = min, 2 = max. dtype: 0 = float32, 1 = float64,
-// 2 = int64. `order` is null for an ungrouped plan (lanes in
+// 2 = int64, 3 = int32. `order` is null for an ungrouped plan (lanes in
 // order). `epoch_table` is null when this component does not write the
 // epochs (all but the last of a fused step). Scratch must hold 2n + 2nb
 // elements of the component type, nb ints and n bytes.

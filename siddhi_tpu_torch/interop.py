@@ -2,13 +2,15 @@
 
 The JAX query state, after `jax.device_get`, is a tuple (window state,
 selector state, limiter state) of NamedTuples and dataclasses holding numpy
-arrays; a join query's is (left window, right window, left multimap, right
-multimap, selector state); a pattern query's is a PatternState (its
-pending tables, active0, seq, dropped, armed0_ts, gate0_seq and the
-selector state). The functions here take that state — or the same fields as plain
-dicts — and load it into a port runtime built from the same app text, so
-the next batches continue where the JAX runtime stopped. They read fields
-by name and import nothing of the JAX package.
+arrays (a lengthBatch or time-batch window's BatchState, a sliding
+window's SlidingState); a join query's is (left window, right window,
+left multimap, right multimap, selector state); a pattern query's is a
+PatternState (its pending tables, active0, seq, dropped, armed0_ts,
+gate0_seq and the selector state). The functions here take that state —
+or the same fields as plain dicts — and load it into a port runtime built
+from the same app text, so the next batches continue where the JAX
+runtime stopped. They read fields by name and import nothing of the JAX
+package.
 
     load_app_state(torch_rt, {name: jax_state}, jax_strings)
 """
@@ -25,6 +27,7 @@ from .core.app_runtime import SiddhiAppRuntime
 from .core.join_runtime import JoinQueryRuntime
 from .core.pattern_runtime import PatternQueryRuntime, PatternState
 from .core.query_runtime import QueryRuntime
+from .ops.aggregators import HLLState
 from .ops.groupby import GroupState, KeyTable
 from .ops.join import MultimapState
 from .ops.pattern import PendingTable
@@ -76,9 +79,10 @@ def window_state(window_np, like):
 
 
 def _group(g_np, like):
-    """One aggregate's state: a sum component's [K] values, or a custom
-    aggregator's tuple of KeyTable / GroupState (distinctCount)."""
-    if isinstance(like, (KeyTable, GroupState)):
+    """One aggregate's state: a sum component's [K] values, a monotone or
+    forever component's GroupState, or a custom aggregator's state (a tuple
+    of KeyTable / GroupState for distinctCount, an HLLState)."""
+    if isinstance(like, (KeyTable, GroupState, HLLState)):
         return type(like)(*[_tensor(_field(g_np, f), getattr(like, f))
                             for f in like._fields])
     if isinstance(like, tuple):

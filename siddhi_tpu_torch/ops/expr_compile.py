@@ -40,12 +40,14 @@ from ..query_api.expression import (
 
 class Scope:
     """Column environment: maps (stream_ref, attr) -> tensor[B], plus the
-    timestamps and validity of each frame."""
+    timestamps and validity of each frame, and per-lane values the query
+    runtime hands to the selector (`extras`, e.g. sliding extrema)."""
 
     def __init__(self) -> None:
         self.frames: dict[str, dict] = {}
         self.valids: dict[str, torch.Tensor] = {}
         self.ts: dict[str, torch.Tensor] = {}
+        self.extras: dict[str, torch.Tensor] = {}
         self.default_frame: Optional[str] = None
 
     def add_frame(self, ref: str, cols: dict, ts: torch.Tensor,

@@ -606,7 +606,8 @@ def ungrouped_scan_plain(state: GroupState, deltas, valid, resets,
     return GroupState(v, e), out
 
 
-_K5_DTYPES = {torch.float32: 0, torch.float64: 1, torch.int64: 2}
+_K5_DTYPES = {torch.float32: 0, torch.float64: 1, torch.int64: 2,
+              torch.int32: 3}
 _K5_OPS = {"sum": 0, "min": 1, "max": 2}
 
 
@@ -703,7 +704,7 @@ def _scan_cuda(plan: _CudaPlan, op: str, values_list, epoch_table,
 def _check_component(what, values, deltas, n):
     if values.dtype != deltas.dtype or values.dtype not in _K5_DTYPES:
         raise ValueError(f"{what}: values and deltas share one of "
-                         "float32/float64/int64, got "
+                         "float32/float64/int64/int32, got "
                          f"{values.dtype}/{deltas.dtype}")
     if values.dim() != 1 or deltas.shape != (n,):
         raise ValueError(f"{what}: values [K], deltas [L]")

@@ -1,7 +1,9 @@
 """Compiled SELECT (counterpart of siddhi_tpu/ops/selector.py; this slice
 ports the projection path, the grouped path keyed by one string code, the
 hashed grouped path (K3 -> K4 -> K5), aggregates without GROUP BY, custom
-aggregators with their own state (distinctCount), and HAVING). ORDER BY /
+aggregators with their own state (distinctCount, hll:distinctCount),
+monotone min/max/minForever/maxForever scans (K5b), sliding-window min/max
+as range queries the query runtime computes (K8), and HAVING). ORDER BY /
 LIMIT / OFFSET raise "not yet ported".
 
 Consumes window chunks (CURRENT / EXPIRED / RESET lanes) and produces the
@@ -37,10 +39,13 @@ from .aggregators import AggregatorFactory
 from .expr_compile import CompiledExpr, Scope, TypeResolver, compile_expression
 from .groupby import (
     KeyTable,
+    grouped_scan,
     grouped_scan_fused,
     hash_columns,
+    init_group_state,
     init_key_table,
     key_lookup_or_insert,
+    ungrouped_scan,
     ungrouped_scan_fused,
 )
 
@@ -74,10 +79,11 @@ def _rewrite_aggregators(expr: Expression, registry: Registry, found: list):
 
 @dataclass
 class SelectorState:
-    """Selector state: per aggregate, in select order, one [K] value tensor
-    per sum component (they share `shared_epoch`) or a custom aggregator's
-    state tuple; the key table of the hashed path; the RESET epoch
-    counter."""
+    """Selector state. `groups` holds, in aggregate order (sliding-window
+    extrema hold none): one bare [K] value tensor per plain sum component
+    (they share `shared_epoch`), a GroupState per monotone or forever
+    component, or a custom aggregator's state; the key table of the hashed
+    path; the RESET epoch counter."""
 
     groups: list
     key_table: Optional[KeyTable]
@@ -90,7 +96,8 @@ class CompiledSelector:
 
     def __init__(self, selector: Selector, resolver: TypeResolver,
                  registry: Registry, group_capacity: int,
-                 select_all_attrs: Optional[list] = None):
+                 select_all_attrs: Optional[list] = None,
+                 sliding_window: bool = False):
         if selector.order_by or selector.limit is not None \
                 or selector.offset is not None:
             raise SiddhiAppCreationError(
@@ -110,6 +117,10 @@ class CompiledSelector:
                      for a in attrs]
 
         self.agg_specs = []
+        #: sliding-window true extrema: (slot, 'min'|'max', arg exprs); the
+        #: query runtime computes them as range queries over the window's
+        #: arrival order (K8) and hands them in as scope extras
+        self.extrema_plan = []
         for slot_name, node in agg_nodes:
             factory = registry.require(ExtensionKind.AGGREGATOR,
                                        node.namespace, node.name)
@@ -117,7 +128,17 @@ class CompiledSelector:
             args = [compile_expression(p, resolver, registry)
                     for p in node.parameters]
             spec = factory.make(tuple(a.type for a in args))
+            if sliding_window and spec.extrema_op is not None:
+                self.extrema_plan.append((slot_name, spec.extrema_op, args))
             self.agg_specs.append((slot_name, spec, args))
+        self._extrema_slots = {s for s, _, _ in self.extrema_plan}
+        # grouped extrema need the group hash of ring rows and chunk lanes
+        # alike; one function, so the two can never diverge
+        self.extrema_group_hash = None
+        if self.extrema_plan and selector.group_by:
+            gvars = [resolver.resolve(v) for v in selector.group_by]
+            self.extrema_group_hash = lambda scope: hash_columns(
+                [scope.col(ref, attr) for ref, attr, _ in gvars])
 
         frames = dict(resolver.frames)
         frames[AGG_FRAME] = {slot: spec.return_type
@@ -145,15 +166,21 @@ class CompiledSelector:
         K = self.group_capacity if self.group_vars else 1
         groups = []
         any_fused = False
-        for _, spec, _ in self.agg_specs:
+        for slot_name, spec, _ in self.agg_specs:
+            if slot_name in self._extrema_slots:
+                continue  # computed by the query runtime; no state
             if spec.custom_scan is not None:
                 groups.append(spec.init_custom(
                     self.group_capacity, device,
                     grouped=bool(self.group_vars)))
                 continue
             for comp in spec.components:
-                groups.append(torch.zeros(K, dtype=comp.dtype, device=device))
-                any_fused = True
+                if comp.fused:
+                    groups.append(torch.zeros(K, dtype=comp.dtype,
+                                              device=device))
+                    any_fused = True
+                else:
+                    groups.append(init_group_state(K, comp.dtype, device))
         return SelectorState(
             groups=groups,
             key_table=(init_key_table(K, device) if self.needs_key_table
@@ -191,30 +218,52 @@ class CompiledSelector:
         agg_values: dict[str, torch.Tensor] = {}
         if self.agg_specs:
             sign = torch.where(is_expired, -1, 1).to(torch.int32)
+            no_reset = torch.zeros_like(is_reset)
+            grouped = bool(self.group_vars)
             results: dict[int, torch.Tensor] = {}
             pending = []
             fused_idx, fused_deltas = [], []
             gi = 0
             for slot_name, spec, args in self.agg_specs:
+                if slot_name in self._extrema_slots:
+                    # per-lane window extrema from the query runtime (K8)
+                    agg_values[slot_name] = scope.extras[
+                        f"extrema:{slot_name}"]
+                    continue
                 arg_vals = [a(scope) for a in args] if args else [None]
                 if spec.custom_scan is not None:
                     groups[gi], results[gi] = spec.custom_scan(
                         state.groups[gi], slots, arg_vals, sign, data_valid,
-                        is_reset, state.epoch, grouped=bool(self.group_vars))
+                        is_reset, state.epoch, grouped=grouped)
                     pending.append((slot_name, spec, [gi]))
                     gi += 1
                     continue
                 comp_gis = []
                 for comp in spec.components:
-                    fused_idx.append(gi)
-                    fused_deltas.append(comp.delta(arg_vals[0],
-                                                   sign).contiguous())
+                    deltas = comp.delta(arg_vals[0], sign).contiguous()
+                    if comp.fused:
+                        fused_idx.append(gi)
+                        fused_deltas.append(deltas)
+                    else:
+                        # monotone: EXPIRED lanes are ignored, and a
+                        # forever component never resets
+                        lane_valid = (valid & is_current
+                                      if comp.ignore_removal else data_valid)
+                        resets = no_reset if comp.ignore_reset else is_reset
+                        if grouped:
+                            groups[gi], results[gi] = grouped_scan(
+                                state.groups[gi], slots, deltas, lane_valid,
+                                resets, state.epoch, op=comp.op)
+                        else:
+                            groups[gi], results[gi] = ungrouped_scan(
+                                state.groups[gi], deltas, lane_valid, resets,
+                                state.epoch, op=comp.op)
                     comp_gis.append(gi)
                     gi += 1
                 pending.append((slot_name, spec, comp_gis))
             if fused_idx:
                 fused_vals = [state.groups[i] for i in fused_idx]
-                if self.group_vars:
+                if grouped:
                     fused_vals, shared_epoch, outs = grouped_scan_fused(
                         fused_vals, shared_epoch, slots, fused_deltas,
                         data_valid, is_reset, state.epoch)

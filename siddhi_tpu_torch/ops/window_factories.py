@@ -1,7 +1,8 @@
 """Window extension registrations (counterpart of
-siddhi_tpu/ops/window_factories.py; this slice ports lengthBatch and the
-sliding windows length, time, timeLength, delay and externalTime). The
-other window names stay registered and raise "not yet ported".
+siddhi_tpu/ops/window_factories.py; this slice ports lengthBatch, batch,
+timeBatch, externalTimeBatch and the sliding windows length, time,
+timeLength, delay and externalTime). The other window names stay
+registered and raise "not yet ported".
 
 Each factory receives the stream's column layout, the junction batch
 capacity, the window parameters (constants evaluated; attribute references
@@ -15,7 +16,8 @@ from typing import Callable
 from ..errors import SiddhiAppCreationError
 from ..extension.registry import GLOBAL, ExtensionKind, ExtensionMeta, Parameter
 from ..query_api.expression import Variable
-from .windows import LengthBatchWindow, SlidingWindow
+from .windows import (LengthBatchWindow, PassThroughWindow, SlidingWindow,
+                      TimeBatchWindow)
 
 
 @dataclass
@@ -72,6 +74,32 @@ def _make_external_time(layout, batch_cap, params, expired_on):
                          ts_attr=params[0].attribute)
 
 
+def _make_time_batch(layout, batch_cap, params, expired_on):
+    return TimeBatchWindow(layout, batch_cap,
+                           _int_param(params, 0, "timeBatch"),
+                           expired_on=expired_on,
+                           start_time=params[1] if len(params) > 1 else None)
+
+
+def _make_external_time_batch(layout, batch_cap, params, expired_on):
+    if len(params) < 2 or not isinstance(params[0], Variable):
+        raise SiddhiAppCreationError(
+            "externalTimeBatch needs (timestampAttr, window.time "
+            "[, startTime])")
+    return TimeBatchWindow(layout, batch_cap, params[1],
+                           expired_on=expired_on,
+                           start_time=params[2] if len(params) > 2 else None,
+                           ts_attr=params[0].attribute)
+
+
+def _make_batch(layout, batch_cap, params, expired_on):
+    # without a length the arrival chunk is the batch
+    if not params:
+        return PassThroughWindow(layout, batch_cap)
+    return LengthBatchWindow(layout, batch_cap, params[0],
+                             expired_on=expired_on)
+
+
 def _not_yet_ported(name: str):
     def make(layout, batch_cap, params, expired_on):
         raise SiddhiAppCreationError(
@@ -95,6 +123,11 @@ def register_all() -> None:
     reg("time", _make_time,
         "Sliding window holding events of the last T time units.",
         [P("window.time", ("time",), doc="retention period")])
+    reg("timeBatch", _make_time_batch,
+        "Tumbling window flushing every T time units.",
+        [P("window.time", ("time",), doc="batch period"),
+         P("start.time", ("int", "time"), optional=True, default=0,
+           doc="bucket epoch offset")])
     reg("timeLength", _make_time_length,
         "Sliding window bounded by BOTH time and count.",
         [P("window.time", ("time",), doc="retention period"),
@@ -102,13 +135,24 @@ def register_all() -> None:
     reg("delay", _make_delay,
         "Emits events after a fixed delay.",
         [P("window.delay", ("time",), doc="delay period")])
+    reg("batch", _make_batch,
+        "Chunk-boundary tumbling window.",
+        [P("window.length", ("int",), optional=True,
+           doc="events per batch (default: the arrival chunk)")])
     reg("externalTime", _make_external_time,
         "Sliding time window over an event-attribute clock.",
         [P("timestamp", ("attribute",), doc="the time attribute"),
          P("window.time", ("time",), doc="retention period")])
-    for name in ("expression", "expressionBatch", "timeBatch", "batch",
-                 "externalTimeBatch", "session", "sort", "cron", "hopping",
-                 "frequent", "lossyFrequent"):
+    reg("externalTimeBatch", _make_external_time_batch,
+        "Tumbling time window over an event-attribute clock.",
+        [P("timestamp", ("attribute",), doc="the time attribute"),
+         P("window.time", ("time",), doc="batch period"),
+         P("start.time", ("int", "time"), optional=True,
+           doc="first bucket start"),
+         P("timeout", ("time",), optional=True,
+           doc="flush timeout past the bucket end")])
+    for name in ("expression", "expressionBatch", "session", "sort", "cron",
+                 "hopping", "frequent", "lossyFrequent"):
         GLOBAL.register(ExtensionKind.WINDOW, "", name,
                         WindowFactory(_not_yet_ported(name)))
 

@@ -1,15 +1,16 @@
 """Window operators as `(state, batch) -> (state, chunk)` tensor functions
-(counterpart of siddhi_tpu/ops/windows.py; this slice ports lengthBatch, the
-sliding windows — length, time, timeLength, delay, externalTime — on the
-packed ring, and the pass-through window).
+(counterpart of siddhi_tpu/ops/windows.py; this slice ports lengthBatch,
+the tumbling time windows timeBatch and externalTimeBatch, the sliding
+windows — length, time, timeLength, delay, externalTime — on the packed
+ring, and the pass-through window).
 
 A step consumes a fixed-capacity micro-batch and emits a typed chunk
 (CURRENT / EXPIRED / RESET lanes) in the reference's emission order. Window
 contents live in a ring addressed by 64-bit arrival indices; per-lane index
-math is int32 relative to int64 scalars, as in the JAX code. The lengthBatch
-rings carry one extra row past capacity that takes the writes the JAX
-scatters drop (`mode="drop"`); it is never read. Ring tensors are updated in
-place.
+math is int32 relative to int64 scalars, as in the JAX code. The rings of
+the batch windows carry one extra row past capacity that takes the writes
+the JAX scatters drop (`mode="drop"`); it is never read. Ring tensors are
+updated in place.
 
 The sliding windows keep one packed ring: every row is W 32-bit words in a
 word-major [W, C] matrix (columns in layout order, 8-byte values low word
@@ -461,9 +462,11 @@ def _ring_live_mask(ring_len: int, lo: torch.Tensor, hi: torch.Tensor):
 
 def window_has_time_semantics(window: "WindowOp") -> bool:
     """True if the window needs heartbeats (empty timer batches) to emit
-    expirations when no data arrives (the reference Scheduler's TIMER
-    events). Of the ported windows, the time-bound sliding ones."""
-    return getattr(window, "time_ms", None) is not None
+    expirations or flush buckets when no data arrives (the reference
+    Scheduler's TIMER events). Of the ported windows, the time-bound
+    sliding ones and the tumbling time windows."""
+    return (getattr(window, "time_ms", None) is not None
+            or isinstance(window, TimeBatchWindow))
 
 
 class WindowOp:
@@ -596,6 +599,157 @@ class LengthBatchWindow(WindowOp):
         new_state = state._replace(
             appended=appended1, flushed=f_now * N,
             prev_start=(f_now - 1) * N)
+        return new_state, chunk
+
+    def contents(self, state: BatchState, now):
+        """Joins see the accumulating (unflushed) bucket: ring rows
+        [flushed, appended), without the spare row."""
+        live = _ring_live_mask(self.C, state.flushed, state.appended)
+        return ({k: v[:self.C] for k, v in state.ring_cols.items()},
+                state.ring_ts[:self.C], live)
+
+
+class TimeBatchWindow(WindowOp):
+    """timeBatch(W) / externalTimeBatch(attr, W): tumbling time window.
+    Buckets are [base + k*W, base + (k+1)*W), base the start time or the
+    first event's time; a bucket flushes when an arrival or the watermark
+    crosses its end (the reference's scheduler-driven flush becomes
+    watermark-driven: a heartbeat's `now` flushes an idle bucket). Emits
+    [expired (previous bucket), RESET, currents] like lengthBatch. Without
+    @app:eventTime (not yet ported) the attribute clock's watermark is the
+    largest value seen, with no allowed lateness."""
+
+    def __init__(self, layout: dict, batch_cap: int, time_ms: int,
+                 capacity: Optional[int] = None, expired_on: bool = True,
+                 start_time: Optional[int] = None,
+                 ts_attr: Optional[str] = None):
+        self.layout = layout
+        self.B = batch_cap
+        self.W = time_ms
+        self.expired_on = expired_on
+        self.start_time = start_time
+        #: externalTimeBatch(tsAttr, W): the bucket clock is an attribute
+        self.ts_attr = ts_attr
+        self.C = capacity or max(dtypes.config.default_window_capacity,
+                                 2 * batch_cap)
+        # Emitted current (and expired) lanes a step: every pending row the
+        # ring holds, and one RESET lane per flushed bucket beside them. The
+        # JAX package takes max(B, 1024) candidates and room for one RESET,
+        # so a step that flushes more than that cuts currents off or defers
+        # them to a second RESET of their bucket (ROADMAP.md, Queue 3).
+        self.E = self.C
+        self.chunk_width = 2 * self.E + (self.E if expired_on else 0)
+
+    def init_state(self, device) -> BatchState:
+        def i64(v):
+            return torch.tensor(v, dtype=torch.int64, device=device)
+
+        return BatchState(
+            ring_cols=_empty_like_cols(self.layout, self.C + 1, device),
+            ring_ts=torch.zeros(self.C + 1, dtype=dtypes.TS_DTYPE,
+                                device=device),
+            appended=i64(0), flushed=i64(0), prev_start=i64(0),
+            epoch_base=i64(self.start_time if self.start_time is not None
+                           else 0),
+            has_base=torch.tensor(self.start_time is not None,
+                                  device=device),
+            wm=i64(-(2**62)))
+
+    def step(self, state: BatchState, batch: EventBatch, now):
+        B, E = self.B, self.E
+        dev = batch.ts.device
+        comp_cols, comp_ts, n_valid, _ = compact(batch)
+        lane_b = torch.arange(B, device=dev)
+        if self.ts_attr is not None:
+            comp_ts = comp_cols[self.ts_attr].to(torch.int64)
+            mx = torch.where(lane_b < n_valid, comp_ts, -(2**62)).max()
+            wm = torch.maximum(state.wm, mx)
+            now = wm
+        else:
+            wm = state.wm
+        appended1 = state.appended + n_valid
+
+        # the bucket base comes from the first event ever
+        first_ts = torch.where(n_valid > 0, comp_ts[0], now)
+        base = torch.where(state.has_base, state.epoch_base, first_ts)
+        has_base = state.has_base | (n_valid > 0)
+
+        # buckets relative to now's bucket, in int32, as the JAX code keeps
+        # them (events more than 2^30 ms from the watermark collapse onto the
+        # extreme bucket)
+        W = self.W
+        now_bucket = torch.div(now - base, W, rounding_mode="floor")
+        pivot = base + now_bucket * W
+        lim = 1 << 30
+
+        def bucket_rel(ts):
+            d = torch.clamp(ts - pivot, -lim, lim)
+            if W >= (1 << 31):
+                return torch.div(d, W, rounding_mode="floor").to(torch.int32)
+            return torch.div(d.to(torch.int32), W, rounding_mode="floor")
+
+        arr_bucket = bucket_rel(comp_ts)
+        # every bucket below flush_hi is emitted
+        flush_hi = torch.where(has_base, 0, -(1 << 30)).to(torch.int32)
+
+        # candidate currents: pending events [flushed, appended1) whose
+        # bucket flushes this step
+        pe = torch.arange(E, dtype=torch.int32, device=dev)
+        cur_exists = pe < (appended1 - state.flushed).to(torch.int32)
+        cur_cols, cur_ts = _gather_rel(
+            state.ring_cols, state.ring_ts, comp_cols, comp_ts,
+            state.appended, state.flushed, pe)
+        cur_bucket = bucket_rel(cur_ts)
+        cur_emit = cur_exists & (cur_bucket < flush_hi)
+        # trigger position: the first arrival in a later bucket
+        padded = torch.where(lane_b < n_valid, arr_bucket,
+                             torch.iinfo(torch.int32).max).to(torch.int32)
+        trig = searchsorted32(padded, cur_bucket + 1, side="left")
+        cur_keys = _emit_key(trig, KIND_CURRENT, pe, B)
+
+        # one RESET right after the last current of each flushed bucket
+        next_bucket = torch.cat([cur_bucket[1:], cur_bucket.new_full((1,),
+                                                                    -1)])
+        next_emit = torch.cat([cur_emit[1:], cur_emit.new_zeros(1)])
+        is_bucket_end = cur_emit & ((next_bucket != cur_bucket) | ~next_emit)
+        reset_keys = _emit_key(trig, KIND_RESET, pe, B)
+
+        def kinds(kind):
+            return torch.full((E,), int(kind), dtype=torch.int8, device=dev)
+
+        keys = [cur_keys, reset_keys]
+        colss = [cur_cols, _empty_like_cols(self.layout, E, dev)]
+        tss = [cur_ts, cur_ts]
+        valids = [cur_emit, is_bucket_end]
+        types = [kinds(EventType.CURRENT), kinds(EventType.RESET)]
+
+        if self.expired_on:
+            # the previous flushed bucket's events, [prev_start, flushed),
+            # re-emitted as expired when the next bucket flushes
+            exp_cols, exp_ts = _gather_rel(
+                state.ring_cols, state.ring_ts, comp_cols, comp_ts,
+                state.appended, state.prev_start, pe)
+            exp_bucket = bucket_rel(exp_ts)
+            exp_emit = (pe < (state.flushed - state.prev_start).to(
+                torch.int32)) & (exp_bucket + 1 < flush_hi)
+            trig_e = searchsorted32(padded, exp_bucket + 2, side="left")
+            keys.append(_emit_key(trig_e, KIND_EXPIRED, pe, B))
+            colss.append(exp_cols)
+            tss.append(exp_ts)
+            valids.append(exp_emit)
+            types.append(kinds(EventType.EXPIRED))
+
+        chunk = _merge_sorted_chunks(keys, colss, tss, valids, types,
+                                     self.chunk_width)
+
+        n_emitted = cur_emit.sum(dtype=torch.int64)
+        _scatter_append(state.ring_cols, state.ring_ts, comp_cols, comp_ts,
+                        state.appended, n_valid)
+        new_state = state._replace(
+            appended=appended1, flushed=state.flushed + n_emitted,
+            prev_start=torch.where(n_emitted > 0, state.flushed,
+                                   state.prev_start),
+            epoch_base=base, has_base=has_base, wm=wm)
         return new_state, chunk
 
     def contents(self, state: BatchState, now):

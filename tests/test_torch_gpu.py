@@ -578,3 +578,157 @@ def test_pattern_app_on_card_matches_cpu(cuda, name):
     assert outs[0] == outs[1] and len(outs[0][0]) > 100
     for k in on_path:
         assert kernels.LAUNCHES[k] > 0
+
+
+def _extrema_chunk(cuda, rng, L):
+    from siddhi_tpu_torch.core.event import EventBatch
+    types = rng.integers(0, 4, L).astype(np.int8)
+    types[: L // 2] = np.tile(np.array([1, 0], np.int8), L // 4)
+    return EventBatch(ts=torch.zeros(L, dtype=torch.int64, device=cuda),
+                      cols={},
+                      valid=torch.from_numpy(rng.random(L) < 0.9).to(cuda),
+                      types=torch.from_numpy(types).to(cuda))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64, torch.int64,
+                                torch.int32])
+@pytest.mark.parametrize("op", ["min", "max"])
+def test_k8_kernels_match_plain(cuda, dt, op):
+    """K8 and grouped K8 bit for bit at small sizes: a wrapped ring, ranges
+    within one tile, across tiles and across superblocks (C + L = 5100
+    positions), NaN, and the launch counters move (a CUDA tensor never
+    reaches the plain version)."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import extrema as ex
+    rng = np.random.default_rng(20)
+    for C, L, winlen0 in ((40, 24, 13), (3000, 2100, 2500)):
+        if dt.is_floating_point:
+            vals = rng.uniform(-9, 9, C + L)
+            vals[rng.choice(C + L, 2, replace=False)] = np.nan
+        else:
+            vals = rng.integers(-(2**31), 2**31 - 1, C + L)
+        v = torch.from_numpy(vals).to(cuda).to(dt)
+        rv, cv = v[:C].contiguous(), v[C:].contiguous()
+        chunk = _extrema_chunk(cuda, rng, L)
+        expired = torch.tensor(7 * C + 5, device=cuda)
+        appended = expired + winlen0
+        keys = torch.from_numpy(rng.integers(0, 5, C + L) * (2**40) - 3).to(
+            cuda)
+        rk, ck = keys[:C].contiguous(), keys[C:].contiguous()
+        kernels.reset_launch_counts()
+        got = ex.sliding_extrema_lanes(op, rv, expired, appended, chunk, cv)
+        assert kernels.LAUNCHES["K8"] > 0
+        want = ex.sliding_extrema_lanes_plain(op, rv, expired, appended,
+                                              chunk, cv)
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+        got = ex.grouped_sliding_extrema_lanes(op, rv, rk, expired, appended,
+                                               chunk, cv, ck)
+        assert kernels.LAUNCHES["K8 grouped"] > 0
+        want = ex.grouped_sliding_extrema_lanes_plain(
+            op, rv, rk, expired, appended, chunk, cv, ck)
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+
+
+@pytest.mark.parametrize("n_resets", [0, 1, 3])
+@pytest.mark.parametrize("G", [1, 16])
+def test_k9_hll_kernels_match_plain(cuda, n_resets, G):
+    """Registers and the drop count bit for bit, estimates within
+    max(1, 1e-5 E) (float32 sums in another order); slots past G; the
+    launch counters move."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import aggregators as ag
+    from siddhi_tpu_torch.ops import groupby
+    rng = np.random.default_rng(21 + n_resets)
+    M, L = 1024, 3001
+    h = groupby.hash_columns(
+        [torch.from_numpy(rng.integers(0, 2000, L)).to(cuda)])
+    slots = torch.from_numpy(rng.integers(0, G + 2, L).astype(np.int32)).to(
+        cuda)
+    sign = torch.from_numpy(rng.choice([-1, 1, 1], L).astype(np.int32)).to(
+        cuda)
+    resets = torch.zeros(L, dtype=torch.bool, device=cuda)
+    resets[torch.from_numpy(rng.choice(L, n_resets, replace=False)).to(
+        cuda)] = True
+    valid = torch.from_numpy(rng.random(L) < 0.9).to(cuda) & ~resets
+    regs0 = torch.from_numpy(rng.integers(0, 6, G * M).astype(np.int32)).to(
+        cuda)
+    drop0 = torch.tensor(4, dtype=torch.int64, device=cuda)
+    pr, pd, pe = ag.hll_scan_plain(regs0.clone(), drop0.clone(), slots, h,
+                                   sign, valid, resets, M)
+    kernels.reset_launch_counts()
+    kr, kd, ke = ag.hll_scan(regs0.clone(), drop0.clone(), slots, h, sign,
+                             valid, resets, M)
+    assert kernels.LAUNCHES["K9 HLL"] > 0
+    assert kernels.LAUNCHES["K9 HLL estimate"] > 0
+    assert torch.equal(kr, pr) and torch.equal(kd, pd)
+    assert bool(((ke - pe).abs() <= torch.clamp(pe * 1e-5, min=1)).all())
+
+
+AGG_APPS_ON_CARD = {
+    # app K's shape: grouped sliding extrema (K8 grouped)
+    "K": ("from TradeStream#window.time(300) select symbol, "
+          "max(price) as high, min(price) as low group by symbol",
+          ("K3", "K8 grouped")),
+    # app M's shape: tumbling buckets with monotone scans and resets
+    "M": ("from TradeStream#window.timeBatch(100) select symbol, "
+          "max(price) as high, min(price) as low, avg(price) as a, "
+          "stdDev(price) as sd, count() as n group by symbol",
+          ("K5", "K5b grouped")),
+    "L": ("from TradeStream#window.length(700) select max(price) as hi, "
+          "min(volume) as lo, maxForever(price) as top",
+          ("K8", "K5b ungrouped")),
+    "J": ("from TradeStream#window.time(300) "
+          "select hll:distinctCount(symbol) as d", ("K9 HLL",)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(AGG_APPS_ON_CARD))
+def test_aggregator_app_on_card_matches_cpu(cuda, name):
+    """Extrema, counts and estimates equal; float sums within rtol 1e-5
+    and stdDev within its float32 cancellation (sqrt(4 eps32) * 100)."""
+    from siddhi_tpu_torch import SiddhiManager, kernels
+    query, on_path = AGG_APPS_ON_CARD[name]
+    app = f"""
+    @app:playback
+    define stream TradeStream (symbol string, price double, volume long);
+    @info(name = 'bench')
+    {query}
+    insert into OutStream;
+    """
+    rng = np.random.default_rng(17)
+    n = 2048
+    cols = {"symbol": np.array([f"S{i}" for i in rng.integers(0, 30, n)],
+                               dtype=object),
+            "price": rng.uniform(1, 100, n),
+            "volume": rng.integers(1, 1000, n).astype(np.int64)}
+    ts = 1_000 + np.arange(n, dtype=np.int64)
+    outs = []
+    kernels.reset_launch_counts()
+    for dev in ("cuda", "cpu"):
+        rt = SiddhiManager(device=dev).create_siddhi_app_runtime(
+            app, batch_size=256, group_capacity=1024)
+        got = []
+        rt.add_callback("OutStream", lambda evs, g=got: g.extend(
+            (e.timestamp, e.data) for e in evs))
+        h = rt.get_input_handler("TradeStream")
+        for s in range(0, n, 256):
+            h.send_columns({k: v[s:s + 256] for k, v in cols.items()},
+                           timestamps=ts[s:s + 256])
+            rt.flush()
+        outs.append(got)
+    assert len(outs[0]) == len(outs[1]) > 0
+    sd_atol = float(np.sqrt(4 * np.finfo(np.float32).eps)) * 100
+    for (t0, d0), (t1, d1) in zip(*outs):
+        assert t0 == t1
+        for i, (a, b) in enumerate(zip(d0, d1)):
+            if name == "M" and i in (3, 4):  # avg, stdDev
+                tol = 1e-5 * abs(b) if i == 3 else 1e-4 * abs(b) + sd_atol
+                assert abs(a - b) <= tol
+            elif name == "J":
+                assert abs(a - b) <= max(1, 1e-5 * abs(b))
+            else:
+                assert a == b
+    for k in on_path:
+        assert kernels.LAUNCHES[k] > 0
