@@ -84,7 +84,33 @@ Phases (any failure exits non-zero and prints no result line):
    max(1, 1e-5 E), and 3 standard errors of the exact distinct count;
    extrema and counts exact; M's avg rtol 1e-5 and stdDev within 1e-4 sd
    + sqrt(4 eps32 mean^2)), each new kernel launched, 0 host syncs a step,
-   the same per-app numbers.
+   the same per-app numbers;
+14. the wire pack K12a against its plain version on the card, the header
+   and every region's valid entries bit for bit, at B = 131072 lanes for three output schemas (apps A, G and N) with no,
+   every and half the lanes valid, EXPIRED and RESET lanes, and a 2^32 ms
+   span; with its timings, and the copy of the packed buffer into pinned
+   memory against the per-column readback it replaces;
+15. app N, BASELINE config 1 as bench.py writes it (`from
+   TradeStream[700.0 > price] select symbol, price`, 1,000 symbols, price
+   uniform on [0, 1000)), 8 rounds of 131072, every row against a numpy
+   oracle.
+
+Every app's Event callback reads back through K12a (its launch counter
+must be non-zero in every app). Apps A, C, D, G, H and N also run the
+path bench.py measures, on the same input as their Event run:
+`async_callbacks=True`, a ColumnarBlock callback, send_columns + flush,
+drain; every block's rows against the same oracle, 0 host syncs at the
+decoder hand-off (torch.cuda.set_sync_debug_mode('warn') around the pack,
+the copy and the submit), events/s of both callback forms, the
+send-to-callback latency of each block (p50, p99), a split of the round
+into ingest, step, pack + copy, unpack and Event or block build (a
+synchronous run with the card synchronised at each stage boundary), and
+the peak device memory; they are printed as one JSON line
+{"columnar": ...}. The host encoder that ran (native or Python) is
+printed; the run fails unless the native one ran. Apps A and N run their
+Event path once more with the Python host encoder in place of the native
+one, against the same oracle, so the two encoders' rates come from one
+call.
 
 The second-to-last lines are the kernel table as one JSON object and the
 card's name and power limit; the last line is
@@ -99,6 +125,7 @@ import argparse
 import json
 import subprocess
 import sys
+import threading
 import time
 import traceback
 import warnings
@@ -249,6 +276,17 @@ insert into OutStream;
 M_SYMBOLS = 100
 HLL_M = 1024  # registers per group (config.hll_registers)
 
+# BASELINE config 1 as bench.py writes it (bench_filter)
+APP_N = """
+define stream TradeStream (symbol string, price double, volume long);
+@info(name = 'bench')
+from TradeStream[700.0 > price]
+select symbol, price
+insert into OutStream;
+"""
+N_SYMBOLS = 1_000
+N_PRICE_HI = 1000.0
+
 TIME_WINDOW_MS = 60_000
 LENGTH_D = 100_000
 C_SYMBOLS = 100_000
@@ -301,6 +339,9 @@ KERNELS = {
                f"{AGGS}:299"),
     "K9 HLL estimate": ("hll:distinctCount _estimate", K9_SRC,
                         f"{AGGS}:289"),
+    "K12a": ("_wire_pack + the host compaction",
+             "siddhi_tpu_torch/csrc/k12a_wire_pack.cu",
+             "siddhi_tpu/core/stream.py:178"),
 }
 
 
@@ -1061,10 +1102,10 @@ def check_sliding(name: str, got, ts, expect_cols: list) -> int:
     return n
 
 
-def syncs_in(torch, fn) -> list:
-    """Where fn() syncs with the host under torch.cuda.set_sync_debug_mode(
-    'warn'): one "file:line" per synchronizing call, with the port's own
-    frame that made it."""
+def call_watching_syncs(torch, fn):
+    """(fn(), where it synced with the host under
+    torch.cuda.set_sync_debug_mode('warn')): one "file:line" per
+    synchronizing call, with the port's own frame that made it."""
     syncs = []
 
     def on_warning(message, category, filename, lineno, file=None,
@@ -1079,19 +1120,25 @@ def syncs_in(torch, fn) -> list:
             syncs.append(site)
 
     # switch the mode once outside the capture: the first switch in a
-    # process syncs by itself, outside any step
+    # process syncs by itself
     torch.cuda.set_sync_debug_mode("warn")
     torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
     with warnings.catch_warnings():
         warnings.simplefilter("always")
         warnings.showwarning = on_warning
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            fn()
+            result = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return syncs
+    return result, syncs
+
+
+def syncs_in(torch, fn) -> list:
+    """Where fn() syncs with the host (call_watching_syncs), starting from
+    an idle card."""
+    torch.cuda.synchronize()
+    return call_watching_syncs(torch, fn)[1]
 
 
 def measure_steps(torch, rt, columns: dict, ts, fresh: bool = False,
@@ -1148,8 +1195,9 @@ def report_app(name, n_in, n_out, elapsed, step_ms, peak, launches, syncs,
           f"step: {len(syncs)} {syncs} [{card}]")
 
 
-def sliding_apps(torch, rng, card: str) -> dict:
-    """Apps C, D, E and F against their oracles; returns their
+def sliding_apps(torch, rng, card: str, summary=None) -> dict:
+    """Apps C, D, E and F against their oracles; C and D also through the
+    columnar async path when `summary` is given; returns their
     launches."""
     k2b = ("K2b pack", "K2b fetch", "K2b append", "K2b gather")
     on_path = {"C": ("K1", *k2b, "K5b grouped", "K5b ungrouped"),
@@ -1182,7 +1230,7 @@ def sliding_apps(torch, rng, card: str) -> dict:
                       ("n", count_f, False)]
         n_out = check_sliding(name, got, ts, expect)
         del got
-        for k in on_path[name]:
+        for k in on_path[name] + ("K12a",):
             if launches[k] == 0:
                 raise Failure(f"app {name}: kernel {k} never launched")
         for k, v in launches.items():
@@ -1191,6 +1239,14 @@ def sliding_apps(torch, rng, card: str) -> dict:
         report_app(name, ts.shape[0], n_out, elapsed, step_ms, peak,
                    launches, syncs, card)
         del rt
+        if summary is not None and name in ("C", "D"):
+            col = columnar_pair(
+                torch, name, text, round_sends("TradeStream", columns, ts),
+                "OutStream", BATCH, ROUNDS,
+                lambda g, e=expect, n=name: check_sliding(n, g, ts, e),
+                elapsed, card, summary, gcap=GROUP_CAP)
+            for k, v in col.items():
+                total[k] = total.get(k, 0) + v
     return total
 
 
@@ -1513,32 +1569,43 @@ def measure_join_steps(torch, rt, k, v, ts):
     return syncs, (time.perf_counter() - t0) / ROUNDS_G * 1e3
 
 
-def join_app(torch, rng, card: str) -> dict:
-    """App G against its oracle; returns its launches."""
-    k, v, ts = join_events(rng)
-    want_k, want_lv, want_rv, want_ts, most = oracle_g(k, v, ts)
-    if most > K_MAX:
-        raise Failure(f"app G: a probe has {most} matches, past k_max")
-    rt, got, launches, elapsed, peak = run_join_app(torch, k, v, ts)
+def check_join(name: str, got, want) -> int:
+    """Every output event, in order, against the oracle's (k, lv, rv,
+    ts)."""
+    want_k, want_lv, want_rv, want_ts = want
     n = want_ts.shape[0]
     if len(got) != n:
-        raise Failure(f"app G: {len(got)} events out, the oracle expects {n}")
+        raise Failure(f"app {name}: {len(got)} events out, the oracle "
+                      f"expects {n}")
     g_ts = np.fromiter((e.timestamp for e in got), np.int64, n)
     g = [np.fromiter((e.data[i] for e in got),
                      np.int64 if i == 0 else np.float64, n) for i in range(3)]
-    del got
     for what, a, b in (("timestamp", g_ts, want_ts), ("k", g[0], want_k),
                        ("lv", g[1], want_lv), ("rv", g[2], want_rv)):
         bad = np.nonzero(a != b)[0]
         if bad.size:
             j = int(bad[0])
-            raise Failure(f"app G: {what} of event {j} is {a[j]}, the oracle "
-                          f"says {b[j]}")
+            raise Failure(f"app {name}: {what} of event {j} is {a[j]}, the "
+                          f"oracle says {b[j]}")
+    return n
+
+
+def join_app(torch, rng, card: str, summary=None) -> dict:
+    """App G against its oracle, also through the columnar async path when
+    `summary` is given; returns its launches."""
+    k, v, ts = join_events(rng)
+    want_k, want_lv, want_rv, want_ts, most = oracle_g(k, v, ts)
+    if most > K_MAX:
+        raise Failure(f"app G: a probe has {most} matches, past k_max")
+    rt, got, launches, elapsed, peak = run_join_app(torch, k, v, ts)
+    want = (want_k, want_lv, want_rv, want_ts)
+    n = check_join("G", got, want)
+    del got
     dropped = rt.query_runtimes["bench"]._dropped_dev
     if dropped is not None and int(dropped) != 0:
         raise Failure(f"app G: {int(dropped)} pairs dropped")
     for kname in ("K1", "K2b pack", "K2b fetch", "K2b append", "K2b gather",
-                  "K3b", "K10 append", "K10 probe", "K10 compact"):
+                  "K3b", "K10 append", "K10 probe", "K10 compact", "K12a"):
         if launches[kname] == 0:
             raise Failure(f"app G: kernel {kname} never launched")
     syncs, step_ms = measure_join_steps(torch, rt, k, v, ts)
@@ -1547,6 +1614,18 @@ def join_app(torch, rng, card: str) -> dict:
                batch=f"2 x {BATCH_G}")
     if syncs:
         raise Failure(f"app G: the join step syncs with the host: {syncs}")
+    del rt
+    if summary is not None:
+        sends = []
+        for r in range(ROUNDS_G):
+            s = slice(r * BATCH_G, (r + 1) * BATCH_G)
+            for side, stream in (("L", "LeftStream"), ("R", "RightStream")):
+                sends.append((stream, {"k": k[side][s], "v": v[side][s]},
+                              ts[side][s]))
+        col = columnar_pair(torch, "G", APP_G, sends, "OutStream", BATCH_G,
+                            ROUNDS_G, lambda g: check_join("G", g, want),
+                            elapsed, card, summary)
+        launches = {kk: launches[kk] + col[kk] for kk in launches}
     return launches
 
 
@@ -1880,8 +1959,9 @@ def check_pattern_app(name: str, got, want) -> int:
     return n
 
 
-def pattern_apps(torch, rng, card: str) -> dict:
-    """Apps H and I against their oracles; returns their launches."""
+def pattern_apps(torch, rng, card: str, summary=None) -> dict:
+    """Apps H and I against their oracles, H also through the columnar
+    async path when `summary` is given; returns their launches."""
     total = {}
     for name in ("H", "I"):  # one query, two feeds
         data = pattern_events(rng, name)
@@ -1896,7 +1976,7 @@ def pattern_apps(torch, rng, card: str) -> dict:
         dropped = int(rt.query_runtimes["bench"].state.dropped)
         if dropped:
             raise Failure(f"app {name}: {dropped} partial matches dropped")
-        for k in ("K1", "K11a", "K11b"):
+        for k in ("K1", "K11a", "K11b", "K12a"):
             if launches[k] == 0:
                 raise Failure(f"app {name}: kernel {k} never launched")
         syncs, step_ms = measure_pattern_steps(torch, rt, data)
@@ -1909,6 +1989,20 @@ def pattern_apps(torch, rng, card: str) -> dict:
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         del rt
+        if summary is not None and name == "H":
+            sends = []
+            for r in range(ROUNDS_P):
+                sl = slice(r * BATCH_P, (r + 1) * BATCH_P)
+                for side in ("A", "B"):
+                    val, ts = data[side]
+                    sends.append((f"Stream{side}", {"val": val[sl]}, ts[sl]))
+            col = columnar_pair(
+                torch, name, APP_H, sends, "OutStream", BATCH_P, ROUNDS_P,
+                lambda g, w=want: check_pattern_app("H", g, w), elapsed,
+                card, summary, config={"pattern_pending_capacity":
+                                       PENDING_P})
+            for k, v in col.items():
+                total[k] = total.get(k, 0) + v
     return total
 
 
@@ -2370,7 +2464,7 @@ def aggregator_apps(torch, rng, card: str, rounds: int = ROUNDS,
             batch=batch)
         n_out = check(got)
         del got
-        for k in on_path:
+        for k in on_path + ("K12a",):
             if launches[k] == 0:
                 raise Failure(f"app {name}: kernel {k} never launched")
         for k, v in launches.items():
@@ -2384,6 +2478,413 @@ def aggregator_apps(torch, rng, card: str, rounds: int = ROUNDS,
                           f"{syncs}")
         del rt
     return total
+
+
+# --------------------------------------------------------------------------- #
+# phases 14-15: the wire pack (K12a), app N and the columnar async path
+# --------------------------------------------------------------------------- #
+
+#: output schemas K12a is held at: app A's (code, 2 x float32), app G's join
+#: output (int key, 2 x float32) and app N's (code, float32)
+WIRE_SCHEMAS = {
+    "A": (("symbol", "int32"), ("total", "float32"), ("avgPrice", "float32")),
+    "G": (("k", "int32"), ("lv", "float32"), ("rv", "float32")),
+    "N": (("symbol", "int32"), ("price", "float32")),
+}
+
+
+def _wire_batch(torch, rng, B: int, schema: str, case: str):
+    """An output batch of B lanes: EXPIRED and RESET lanes among CURRENT
+    ones; `case` none / all / half valid, or `span` (half valid, the last
+    valid lane 2^32 ms after the first: the pack's `over`)."""
+    dev = torch.device("cuda")
+    ts = 1_700_000_000_000 + np.arange(B, dtype=np.int64)
+    valid = {"none": np.zeros(B, bool), "all": np.ones(B, bool)}.get(
+        case, rng.random(B) < 0.5)
+    if case == "span":
+        v = np.nonzero(valid)[0]
+        ts[v[-1]] = ts[v[0]] + (1 << 32)
+    types = rng.choice(np.array([0, 1, 3], np.int8), B)
+    cols = {}
+    for name, dt in WIRE_SCHEMAS[schema]:
+        a = (rng.integers(0, 1_000_000, B).astype(np.int32) if dt == "int32"
+             else rng.uniform(1, 1000, B).astype(np.float32))
+        cols[name] = torch.from_numpy(a).to(dev)
+    return (torch.from_numpy(ts).to(dev), torch.from_numpy(valid).to(dev),
+            torch.from_numpy(types).to(dev), cols)
+
+
+def host_ms(torch, fn, iters: int = 20) -> float:
+    """Mean host-clock ms of fn() from an idle card to an idle card."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def wire_kernel_phase(torch, rng, B: int = BATCH) -> dict:
+    """K12a against wire_pack_plain on the card, bit for bit, for three
+    output schemas and four lane mixes; the unpacked timestamps exact
+    (also past 32 bits); with its timings, and the copy of the packed
+    buffer against the per-column readback it replaces."""
+    from siddhi_tpu_torch.ops import wire
+
+    for schema in WIRE_SCHEMAS:
+        for case in ("none", "all", "half", "span"):
+            ts, valid, types, cols = _wire_batch(torch, rng, B, schema, case)
+            layout = wire.layout_of(ts, cols)
+            got = wire.wire_pack_cuda(ts, valid, types, cols, layout)
+            want = wire.wire_pack_plain(ts, valid, types, cols, layout)
+            check_equal(f"K12a {schema} {case}",
+                        wire.wire_payload(got, layout),
+                        wire.wire_payload(want, layout))
+            host = wire.wire_unpack(got.cpu().numpy(), layout)
+            idx = torch.nonzero(valid).squeeze(1)
+            if (host.count != idx.numel() or host.over != (case == "span")
+                    or not np.array_equal(host.ts, ts[idx].cpu().numpy())):
+                raise Failure(f"K12a {schema} {case}: the unpacked count, "
+                              "over flag or timestamps are wrong")
+    print(f"K12a wire_pack B={B}: bit for bit against wire_pack_plain for "
+          f"schemas {sorted(WIRE_SCHEMAS)} x none/all/half valid/2^32 span, "
+          "EXPIRED and RESET lanes; timestamps exact")
+
+    ts, valid, types, cols = _wire_batch(torch, rng, B, "A", "half")
+    layout = wire.layout_of(ts, cols)
+
+    def library():  # nonzero, a gather per column and the minimum
+        idx = torch.nonzero(valid).squeeze(1)
+        return ([t.index_select(0, idx) for t in (ts, types, *cols.values())],
+                torch.min(ts.index_select(0, idx)))
+
+    width = sum(c.element_size() for c in cols.values())
+    buf = wire.wire_pack_cuda(ts, valid, types, cols, layout)
+    host = wire.wire_unpack(buf.cpu().numpy(), layout)
+    # what the function needs: ts, valid, types and the columns read once;
+    # the header and each valid lane's dts, flags and columns written once,
+    # its high words only on an `over` batch
+    need = (B * (8 + 1 + 1 + width) + wire.HEADER_BYTES
+            + host.count * (4 + 1 + width + (4 if host.over else 0)))
+    res = {"K12a": dict(
+        _timed(torch, lambda: wire.wire_pack_cuda(ts, valid, types, cols,
+                                                  layout),
+               lambda: wire.wire_pack_plain(ts, valid, types, cols, layout),
+               library=library),
+        bound_ms=bound_ms(need), max_abs_err=0, bound_by="bytes")}
+    pinned = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
+    copy_ms = time_ms(torch, lambda: pinned.copy_(buf, non_blocking=True))
+
+    def per_column():  # the readback before this slice: 3 + n_cols copies
+        v = valid.cpu().numpy()
+        idx = torch.from_numpy(np.nonzero(v)[0]).to(ts.device)
+        return [t[idx].cpu() for t in (ts, types, *cols.values())]
+
+    percol_ms = host_ms(torch, per_column)
+    packed_ms = host_ms(
+        torch, lambda: wire.start_readback(ts, valid, types, cols).result())
+    print(f"K12a B={B}, {host.count} valid lanes: {res['K12a']} (bound "
+          f"from {need} bytes); device-to-host copy of the "
+          f"{layout.nbytes}-byte packed buffer into pinned memory "
+          f"{copy_ms:.4f} ms (CUDA events, {layout.nbytes / copy_ms / 1e6:.2f}"
+          f" GB/s); whole packed readback (pack, copy, wait, unpack) "
+          f"{packed_ms:.4f} ms against the per-column readback it replaces "
+          f"({3 + len(cols)} blocking copies) {percol_ms:.4f} ms (host clock)")
+    res["K12a"]["copy_ms"] = copy_ms
+    return res
+
+
+def make_runtime(text: str, batch: int, gcap: int = 0, config=None,
+                 async_cb: bool = False):
+    """A runtime on the card, with dtypes.config overrides in place while
+    it is built."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.core import dtypes
+
+    config = config or {}
+    prev = {k: getattr(dtypes.config, k) for k in config}
+    for k, v in config.items():
+        setattr(dtypes.config, k, v)
+    try:
+        return SiddhiManager().create_siddhi_app_runtime(
+            text, batch_size=batch, group_capacity=gcap,
+            async_callbacks=async_cb)
+    finally:
+        for k, v in prev.items():
+            setattr(dtypes.config, k, v)
+
+
+def watch_handoff(torch, found: dict):
+    """Patch the hand-off of a step's output to the decoder (the pack and
+    copy of EventBatch.readback, then AsyncDecoder.submit) so each call
+    runs under torch.cuda.set_sync_debug_mode('warn'); a context manager
+    that counts the calls and collects the syncs in `found`."""
+    import contextlib
+
+    from siddhi_tpu_torch.core.event import EventBatch
+    from siddhi_tpu_torch.core.stream import AsyncDecoder
+
+    @contextlib.contextmanager
+    def cm():
+        saved = [(EventBatch, "readback", EventBatch.__dict__["readback"]),
+                 (AsyncDecoder, "submit", AsyncDecoder.__dict__["submit"])]
+        for cls, name, fn in saved:
+            def watched(*a, _fn=fn, _name=name, **k):
+                r, syncs = call_watching_syncs(torch, lambda: _fn(*a, **k))
+                found["calls"] = found.get("calls", 0) + 1
+                found.setdefault("syncs", []).extend(
+                    f"{_name}: {x}" for x in syncs)
+                return r
+            setattr(cls, name, watched)
+        try:
+            yield
+        finally:
+            for cls, name, fn in saved:
+                setattr(cls, name, fn)
+
+    return cm()
+
+
+def run_columnar(torch, text: str, sends: list, out_stream: str, batch: int,
+                 gcap: int = 0, config=None):
+    """The end-to-end path as bench.py drives it: async_callbacks=True, a
+    ColumnarBlock callback, send_columns + flush per send, drain at the
+    end. `sends`: [(stream, columns, timestamps)], advancing in event
+    time. Returns (blocks, elapsed s, peak bytes, launches, send-to-callback
+    ms per block, the hand-off watch of the second send)."""
+    from siddhi_tpu_torch import kernels
+
+    rt = make_runtime(text, batch, gcap, config, async_cb=True)
+    blocks, arrivals = [], []
+
+    def on_block(block):
+        arrivals.append(time.perf_counter())
+        blocks.append(block)
+
+    rt.add_callback(out_stream, on_block, columnar=True)
+    rt.start()
+    hs = {s: rt.get_input_handler(s) for s, _, _ in sends}
+    starts = np.array([int(t.min()) for _, _, t in sends])
+    t_send, handoff = [], {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i, (stream, cols, ts) in enumerate(sends):
+        t_send.append(time.perf_counter())
+        if i == 1:
+            with watch_handoff(torch, handoff):
+                hs[stream].send_columns(cols, timestamps=ts)
+                rt.flush()
+        else:
+            hs[stream].send_columns(cols, timestamps=ts)
+            rt.flush()
+    rt.drain()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    rt.shutdown()
+    # a block belongs to the send holding its latest timestamp
+    src = np.searchsorted(starts, [int(b.timestamps.max()) for b in blocks],
+                          side="right") - 1
+    lat = (np.array(arrivals) - np.array(t_send)[src]) * 1e3
+    return blocks, elapsed, peak, launches, lat, handoff
+
+
+STAGES = ("ingest", "step", "pack+copy", "unpack", "Event build",
+          "block build")
+
+
+def staged_run(torch, text: str, sends: list, out_stream: str, batch: int,
+               rounds: int, gcap: int = 0, config=None) -> dict:
+    """ms per round of each stage: a synchronous run with an Event and a
+    columnar callback, the card synchronised at every stage boundary.
+    ingest = StreamCodec.encode_columns + StreamJunction._batch (interning,
+    padding, the copy to the card); pack+copy = EventBatch.readback
+    (K12a, the copy, the wait); unpack = Readback.result; Event build /
+    block build = the two callbacks' on_host; step = the rest (the query
+    steps and the junctions around them)."""
+    from siddhi_tpu_torch.core.event import EventBatch, StreamCodec
+    from siddhi_tpu_torch.core.stream import (BatchStreamCallback,
+                                              StreamCallback, StreamJunction)
+    from siddhi_tpu_torch.ops.wire import Readback
+
+    acc = dict.fromkeys(STAGES, 0.0)
+    patches = [(StreamCodec, "encode_columns", "ingest"),
+               (StreamJunction, "_batch", "ingest"),
+               (EventBatch, "readback", "pack+copy"),
+               (Readback, "result", "unpack"),
+               (StreamCallback, "on_host", "Event build"),
+               (BatchStreamCallback, "on_host", "block build")]
+
+    def timed(fn, key):
+        def w(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                acc[key] += time.perf_counter() - t0
+        return w
+
+    rt = make_runtime(text, batch, gcap, config)
+    rt.add_callback(out_stream, lambda events: None)
+    rt.add_callback(out_stream, lambda block: None, columnar=True)
+    hs = {s: rt.get_input_handler(s) for s, _, _ in sends}
+    saved = [(cls, name, cls.__dict__[name]) for cls, name, _ in patches]
+    try:
+        for cls, name, key in patches:
+            setattr(cls, name, timed(cls.__dict__[name], key))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for stream, cols, ts in sends:
+            hs[stream].send_columns(cols, timestamps=ts)
+            rt.flush()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+    rt.shutdown()
+    acc["step"] = total - sum(v for k, v in acc.items() if k != "step")
+    return {k: v * 1e3 / rounds for k, v in acc.items()}
+
+
+def columnar_pair(torch, name: str, text: str, sends: list, out_stream: str,
+                  batch: int, rounds: int, check, ev_elapsed: float,
+                  card: str, summary: dict, gcap: int = 0,
+                  config=None) -> dict:
+    """App `name` through the columnar async path on the same input as its
+    Event run: every block's rows against the same oracle (`check` of the
+    blocks' events), K12a launched, no host sync at the decoder hand-off;
+    then the stage split. Fills summary[name]; returns the launches."""
+    blocks, elapsed, peak, launches, lat, handoff = run_columnar(
+        torch, text, sends, out_stream, batch, gcap, config)
+    n_in = sum(len(t) for _, _, t in sends)
+    n_out = check([e for b in blocks for e in b.to_events()])
+    if sum(b.count for b in blocks) != n_out:
+        raise Failure(f"app {name} columnar: block counts do not add up")
+    del blocks
+    if not len(lat):
+        raise Failure(f"app {name} columnar: no block delivered")
+    if launches["K12a"] == 0:
+        raise Failure(f"app {name} columnar: kernel K12a never launched")
+    if not handoff.get("calls"):
+        raise Failure(f"app {name} columnar: no decoder hand-off watched")
+    if handoff.get("syncs"):
+        raise Failure(f"app {name} columnar: the decoder hand-off syncs "
+                      f"with the host: {handoff['syncs']}")
+    stages = staged_run(torch, text, sends, out_stream, batch, rounds, gcap,
+                        config)
+    p50, p99 = (float(np.percentile(lat, q)) for q in (50, 99))
+    summary[name] = {
+        "events_per_s_event": n_in / ev_elapsed,
+        "events_per_s_columnar": n_in / elapsed,
+        "stages_ms_per_round": stages, "latency_ms_p50": p50,
+        "latency_ms_p99": p99, "blocks": len(lat),
+        "peak_mib": peak / 2**20, "handoff_syncs": 0}
+    print(f"app {name} columnar: {n_in} events in, {n_out} out in "
+          f"ColumnarBlocks, matches the oracle; {n_in / elapsed:.1f} "
+          f"events/s end to end (async_callbacks=True, columnar) against "
+          f"{n_in / ev_elapsed:.1f} (Event callback, synchronous); "
+          f"{elapsed * 1e3 / rounds:.3f} against "
+          f"{ev_elapsed * 1e3 / rounds:.3f} ms per round; split ms per "
+          "round (synchronous run, card synchronised at each stage): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+          + f"; send-to-callback latency p50 {p50:.3f} ms p99 {p99:.3f} ms "
+          f"over {len(lat)} blocks; peak device memory "
+          f"{peak / 2**20:.1f} MiB; host syncs at the decoder hand-off: 0 "
+          f"in {handoff['calls']} calls [{card}]")
+    return launches
+
+
+def python_encoder_run(torch, name: str, text: str, columns: dict, ts,
+                       out_stream: str, check, ev_elapsed: float, card: str,
+                       summary: dict) -> None:
+    """App `name`'s Event run again in the same call, with the Python host
+    encoder in place of the native one (interning, string decode and Event
+    building in Python; the pack and copy unchanged): every event against
+    the oracle, and the rate beside the native run's."""
+    from siddhi_tpu_torch import native
+
+    saved = native.load
+    native.load = lambda: None
+    try:
+        rt, got, _, elapsed, _ = run_app(torch, text, columns, ts,
+                                         out_stream=out_stream)
+        check(got)
+    finally:
+        native.load = saved
+    del rt, got
+    n_in = len(ts)
+    summary[name]["events_per_s_event_python_encoder"] = n_in / elapsed
+    print(f"app {name} Event path with the Python host encoder: "
+          f"{n_in / elapsed:.1f} events/s against {n_in / ev_elapsed:.1f} "
+          f"with the native one ({elapsed * 1e3 / ROUNDS:.3f} against "
+          f"{ev_elapsed * 1e3 / ROUNDS:.3f} ms per round), matches the "
+          f"oracle [{card}]")
+
+
+def round_sends(stream: str, columns: dict, ts, rounds: int = ROUNDS,
+                batch: int = BATCH) -> list:
+    return [(stream, {k: v[r * batch:(r + 1) * batch]
+                      for k, v in columns.items()},
+             ts[r * batch:(r + 1) * batch]) for r in range(rounds)]
+
+
+def check_n(got, sym, price32, ts, pool) -> int:
+    """App N: every passing event (700.0 > price in float32), in order,
+    with its symbol and stored price."""
+    keep = np.float32(700.0) > price32
+    n = int(keep.sum())
+    if len(got) != n:
+        raise Failure(f"app N: {len(got)} events out, the oracle expects "
+                      f"{n}")
+    g_ts = np.fromiter((e.timestamp for e in got), np.int64, n)
+    g_p = np.fromiter((e.data[1] for e in got), np.float64, n)
+    if not np.array_equal(g_ts, ts[keep]):
+        raise Failure("app N: timestamps differ from the oracle")
+    if [e.data[0] for e in got] != pool[sym[keep]].tolist():
+        raise Failure("app N: symbols differ from the oracle")
+    if not np.array_equal(g_p, price32[keep].astype(np.float64)):
+        raise Failure("app N: prices differ from the oracle")
+    return n
+
+
+def config1_app(torch, rng, card: str, summary: dict) -> dict:
+    """App N, BASELINE config 1 (filter + project): its Event run and its
+    columnar async run against the numpy oracle; returns the launches."""
+    n = ROUNDS * BATCH
+    sym = rng.integers(0, N_SYMBOLS, n)
+    price = rng.uniform(0.0, N_PRICE_HI, n)
+    volume = rng.integers(1, 1000, n).astype(np.int64)
+    ts = 1_700_000_000_000 + np.arange(n, dtype=np.int64)
+    pool = symbols(N_SYMBOLS)
+    columns = {"symbol": pool[sym], "price": price, "volume": volume}
+    price32 = price.astype(np.float32)
+    rt, got, launches, elapsed, peak = run_app(
+        torch, APP_N, columns, ts, out_stream="OutStream", rounds=ROUNDS,
+        batch=BATCH)
+    n_out = check_n(got, sym, price32, ts, pool)
+    del got
+    if launches["K12a"] == 0:
+        raise Failure("app N: kernel K12a never launched")
+    syncs, step_ms = measure_steps(torch, rt, columns, ts, rounds=ROUNDS,
+                                   batch=BATCH)
+    report_app("N", n, n_out, elapsed, step_ms, peak, launches, syncs, card,
+               rounds=ROUNDS, batch=BATCH)
+    del rt
+    col = columnar_pair(torch, "N", APP_N, round_sends(
+        "TradeStream", columns, ts, ROUNDS, BATCH), "OutStream", BATCH, ROUNDS,
+        lambda g: check_n(g, sym, price32, ts, pool), elapsed, card,
+        summary, gcap=GROUP_CAP)
+    python_encoder_run(torch, "N", APP_N, columns, ts, "OutStream",
+                       lambda g: check_n(g, sym, price32, ts, pool), elapsed,
+                       card, summary)
+    return {k: launches[k] + col[k] for k in launches}
 
 
 def main(argv=None) -> int:
@@ -2409,11 +2910,21 @@ def main(argv=None) -> int:
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"python {sys.version.split()[0]}")
         t0 = time.perf_counter()
+        from siddhi_tpu_torch import native
+        host_build = threading.Thread(target=native.load)  # beside nvcc
+        host_build.start()
         logs = kernels.build_all()
-        print(f"built {len(logs)} kernel libraries in "
+        host_build.join()
+        print(f"built {len(logs)} kernel libraries and the host encoder in "
               f"{time.perf_counter() - t0:.1f} s")
         for name, log in logs.items():
             print(f"--- nvcc -Xptxas -v: {name}\n{log.strip()}")
+        nat = native.load()
+        print("host encoder: " + (f"native ({nat.__file__})" if nat
+                                  else "Python"))
+        if nat is None:
+            raise Failure("the native host encoder did not build or load "
+                          "(a C compiler and Python.h are needed)")
 
         rng = np.random.default_rng(args.seed)
         from siddhi_tpu_torch.ops.windows import LengthBatchWindow
@@ -2422,7 +2933,9 @@ def main(argv=None) -> int:
         kres = kernel_phase(torch, rng, width_a)
 
         launches = {k: 0 for k in KERNELS}
-        on_path = {"A": ("K1", "K5"), "B": ("K1", "K3", "K4", "K5")}
+        summary = {}  # the columnar async path, per app
+        on_path = {"A": ("K1", "K5", "K12a"),
+                   "B": ("K1", "K3", "K4", "K5", "K12a")}
         for name, text, long_key in (("A", APP_A, False), ("B", APP_B, True)):
             key, price, volume, ts = make_events(rng, long_key)
             key_col = key if long_key else np.array(
@@ -2444,24 +2957,44 @@ def main(argv=None) -> int:
             report_app(name, key.shape[0], n_out, elapsed, step_ms, peak,
                        app_launches, syncs, card)
             del rt, got
+            if name == "A":
+                col = columnar_pair(
+                    torch, "A", APP_A, round_sends("TradeStream", columns,
+                                                   ts),
+                    "SummaryStream", BATCH, ROUNDS,
+                    lambda g: check_app("A", g, key_col, key, price, ts,
+                                        passed, long_key),
+                    elapsed, card, summary, gcap=GROUP_CAP)
+                for k in launches:
+                    launches[k] += col[k]
+                python_encoder_run(
+                    torch, "A", APP_A, columns, ts, "SummaryStream",
+                    lambda g: check_app("A", g, key_col, key, price, ts,
+                                        passed, long_key),
+                    elapsed, card, summary)
 
         sres, routes = sliding_kernel_phase(torch, rng)
         kres.update(sres)
         print("torch routes: " + json.dumps(routes))
-        for k, v in sliding_apps(torch, rng, card).items():
+        for k, v in sliding_apps(torch, rng, card, summary).items():
             launches[k] += v
 
         kres.update(join_kernel_phase(torch, rng))
-        for k, v in join_app(torch, rng, card).items():
+        for k, v in join_app(torch, rng, card, summary).items():
             launches[k] += v
 
         kres.update(pattern_kernel_phase(torch, rng))
-        for k, v in pattern_apps(torch, rng, card).items():
+        for k, v in pattern_apps(torch, rng, card, summary).items():
             launches[k] += v
 
         kres.update(aggregator_kernel_phase(torch, rng))
         for k, v in aggregator_apps(torch, rng, card).items():
             launches[k] += v
+
+        kres.update(wire_kernel_phase(torch, rng))
+        for k, v in config1_app(torch, rng, card, summary).items():
+            launches[k] += v
+        print(json.dumps({"columnar": summary}))
 
         table = []
         for k, (fn, src, replaces) in KERNELS.items():

@@ -17,6 +17,13 @@ NVIDIA card (sm_90a) with hand-written CUDA kernels under `csrc/`:
     rt.get_input_handler("StockStream").send(("IBM", 75.6, 100))
     rt.flush()
 
+`add_callback(stream, fn, columnar=True)` delivers `ColumnarBlock`s
+(compacted numpy columns) instead of Event lists; with
+`create_siddhi_app_runtime(..., async_callbacks=True)` callbacks are
+decoded on worker threads once `start()` runs, and `drain()` is the
+barrier. Every callback reads a step's output back in one packed copy
+(kernel K12a on the card).
+
 `SiddhiManager()` runs on the card and raises without one;
 `SiddhiManager(device="cpu")` runs the plain PyTorch versions of the
 kernels on the CPU. The package never imports JAX or siddhi_tpu.

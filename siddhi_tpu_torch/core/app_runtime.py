@@ -1,17 +1,23 @@
 """SiddhiAppRuntime (counterpart of siddhi_tpu/core/app_runtime.py, reduced
 to streams, single-input queries, stream-stream joins, patterns and
-single-stream sequences, and heartbeats). Lint, admission control,
-sharding, supersteps, persistence, tables, windows, triggers, aggregations
-and partitions are not yet ported; an app that declares them is refused."""
+single-stream sequences, heartbeats, Event and columnar callbacks with
+optional asynchronous delivery, and the capacity-overflow sweep). Lint,
+admission control, sharding, supersteps, persistence, tables, windows,
+triggers, aggregations and partitions are not yet ported; an app that
+declares them is refused."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
 from ..errors import DefinitionNotExistError, SiddhiAppCreationError
 from ..extension.registry import Registry
+from ..ops.aggregators import HLLState
+from ..ops.groupby import KeyTable
+from ..ops.windows import SlidingState
 from ..query_api import SiddhiApp
 from ..query_api.execution import (JoinInputStream, OutputAction, Query,
                                    StateInputStream)
@@ -21,15 +27,25 @@ from .context import (
     parse_annotation_time,
 )
 from .join_runtime import JoinQueryRuntime, _JoinSideReceiver
-from .pattern_runtime import PatternQueryRuntime, _PatternSideReceiver
+from .pattern_runtime import (PatternQueryRuntime, PatternState,
+                              _PatternSideReceiver)
 from .query_runtime import FunctionQueryCallback, QueryCallback, QueryRuntime
-from .stream import FunctionStreamCallback, InputHandler, StreamCallback, StreamJunction
+from .stream import (
+    AsyncDecoder,
+    BatchStreamCallback,
+    FunctionBatchCallback,
+    FunctionStreamCallback,
+    InputHandler,
+    StreamCallback,
+    StreamJunction,
+)
 
 
 class SiddhiAppRuntime:
     def __init__(self, app: SiddhiApp, registry: Registry,
                  device: torch.device, batch_size: int = 0,
-                 group_capacity: int = 0) -> None:
+                 group_capacity: int = 0,
+                 async_callbacks: bool = False) -> None:
         for what, defs in (("table", app.table_definitions),
                            ("window", app.window_definitions),
                            ("trigger", app.trigger_definitions),
@@ -55,7 +71,7 @@ class SiddhiAppRuntime:
                 playback=playback is not None,
                 playback_increment_ms=increment_ms),
             device=device, batch_size=batch_size,
-            group_capacity=group_capacity)
+            group_capacity=group_capacity, async_callbacks=async_callbacks)
         self.junctions: dict[str, StreamJunction] = {}
         self.query_runtimes: dict[str, QueryRuntime] = {}
         self.input_handlers: dict[str, InputHandler] = {}
@@ -104,8 +120,10 @@ class SiddhiAppRuntime:
             qr.output_junction = target
 
     def start(self) -> None:
-        """Nothing runs in the background in this slice; kept for the
-        reference's lifecycle."""
+        """Start the async callback decoder when the runtime was created
+        with async_callbacks=True (nothing else runs in the background)."""
+        if self.ctx.async_callbacks and self.ctx.decoder is None:
+            self.ctx.decoder = AsyncDecoder()
 
     def get_input_handler(self, stream_id: str) -> InputHandler:
         if stream_id not in self.input_handlers:
@@ -116,12 +134,19 @@ class SiddhiAppRuntime:
             self.input_handlers[stream_id] = InputHandler(junction)
         return self.input_handlers[stream_id]
 
-    def add_callback(self, stream_id: str, callback) -> None:
+    def add_callback(self, stream_id: str, callback,
+                     columnar: bool = False) -> None:
+        """Subscribe to a stream. `columnar=True` delivers ColumnarBlock
+        batches (compacted numpy columns, lazy string decode) instead of
+        Event lists."""
         junction = self.junctions.get(stream_id)
         if junction is None:
             raise DefinitionNotExistError(
                 f"stream {stream_id!r} is not defined")
-        if not isinstance(callback, StreamCallback):
+        if columnar and not isinstance(
+                callback, (BatchStreamCallback, StreamCallback)):
+            callback = FunctionBatchCallback(callback)
+        elif not isinstance(callback, (StreamCallback, BatchStreamCallback)):
             callback = FunctionStreamCallback(callback)
         junction.subscribe(callback)
 
@@ -138,6 +163,14 @@ class SiddhiAppRuntime:
         """Drive every staged batch through the pipeline."""
         for j in list(self.junctions.values()):
             j.flush(now)
+
+    def drain(self) -> None:
+        """Flush staged rows and block until every async callback has
+        fired: the barrier of async_callbacks=True (with synchronous
+        callbacks the same as flush())."""
+        self.flush()
+        if self.ctx.decoder is not None:
+            self.ctx.decoder.drain()
 
     def heartbeat(self, now: Optional[int] = None) -> None:
         """Advance time: flush, then deliver an empty timer batch to every
@@ -166,7 +199,61 @@ class SiddhiAppRuntime:
                 if id(j) not in seen:
                     seen.add(id(j))
                     j.heartbeat(t)
+        # overflow counters warn from the heartbeat too
+        self.collect_overflow()
+
+    def collect_overflow(self) -> None:
+        """Sweep every query's device state for capacity-overflow counters
+        and record them in Statistics.record_overflow (one warning per
+        counter): window-ring overwrites of live rows, key-table unresolved
+        lanes (group-by, distinct pairs), HLL lanes past the group capacity,
+        pattern pending-table drops and join pair drops. The counters stay
+        on the device; one stacked readback fetches them all."""
+        pending: dict[str, list] = {}
+
+        def scan(label: str, obj) -> None:
+            key = None
+            if isinstance(obj, KeyTable):
+                key, counter = "key_table_unresolved", obj.misses
+            elif isinstance(obj, SlidingState):
+                key, counter = "window_ring_overflow", obj.overflow
+            elif isinstance(obj, PatternState):
+                key, counter = "pattern_pending_dropped", obj.dropped
+            elif isinstance(obj, HLLState):
+                key, counter = "hll_groups_dropped", obj.dropped
+            if key is not None:
+                pending.setdefault(f"{label}.{key}", []).append(counter)
+            if isinstance(obj, dict):
+                for v in obj.values():
+                    scan(label, v)
+            elif hasattr(obj, "_fields"):  # NamedTuple: its fields
+                for f in obj._fields:
+                    scan(label, getattr(obj, f))
+            elif isinstance(obj, (tuple, list)):
+                for v in obj:
+                    scan(label, v)
+            elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+                for f in dataclasses.fields(obj):  # SelectorState
+                    scan(label, getattr(obj, f.name))
+
+        for n, qr in self.query_runtimes.items():
+            scan(f"query:{n}", qr.state)
+            if isinstance(qr, JoinQueryRuntime) and \
+                    qr._dropped_dev is not None:
+                pending[f"query:{n}.join_pairs_dropped"] = [qr._dropped_dev]
+        if not pending:
+            return
+        names = list(pending)
+        sums = torch.stack([torch.stack([c.to(torch.int64).reshape(())
+                                         for c in pending[k]]).sum()
+                            for k in names]).cpu()  # ONE readback
+        for name, n in zip(names, sums.tolist()):
+            self.ctx.statistics.record_overflow(name, int(n))
 
     def shutdown(self) -> None:
-        """Deliver what is still staged; nothing else holds resources."""
+        """Deliver what is still staged and stop the async decoder (after
+        it has delivered everything submitted)."""
         self.flush()
+        if self.ctx.decoder is not None:
+            self.ctx.decoder.stop()
+            self.ctx.decoder = None

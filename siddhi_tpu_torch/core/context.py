@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import threading
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -71,10 +72,16 @@ class TimestampGenerator:
 @dataclass
 class Statistics:
     """Per-query step latency (host clock around the step and its
-    distribution) and per-stream batch counts."""
+    distribution), per-stream batch counts and the capacity-overflow
+    counters."""
 
     batches: dict = field(default_factory=dict)  # stream -> batches
     query_latency_ns: dict = field(default_factory=dict)  # query -> (sum, n)
+    #: capacity-overflow counters ("<runtime>.<structure>" -> lifetime rows
+    #: dropped or overwritten past a fixed device capacity), filled by
+    #: SiddhiAppRuntime.collect_overflow. Each counter warns once.
+    overflow: dict = field(default_factory=dict)
+    _overflow_warned: set = field(default_factory=set)
 
     def track_batch(self, stream_id: str) -> None:
         self.batches[stream_id] = self.batches.get(stream_id, 0) + 1
@@ -82,6 +89,29 @@ class Statistics:
     def track_latency(self, query: str, ns: int) -> None:
         total, n = self.query_latency_ns.get(query, (0, 0))
         self.query_latency_ns[query] = (total + ns, n + 1)
+
+    def record_overflow(self, name: str, n: int) -> None:
+        """Register a lifetime overflow counter reading; warns ONCE per
+        counter the first time it goes positive (an @OnError-style signal —
+        results past this point may be missing rows)."""
+        if n <= 0:
+            self.overflow.pop(name, None)
+            return
+        self.overflow[name] = n
+        if name not in self._overflow_warned:
+            self._overflow_warned.add(name)
+            warnings.warn(
+                f"{name}: {n} rows exceeded a fixed device capacity and "
+                "were dropped/overwritten — results may be missing rows; "
+                "raise the relevant capacity (see Statistics.report()"
+                "['overflow'])", stacklevel=3)
+
+    def report(self) -> dict:
+        """A snapshot of the counters (the overflow ones as of the last
+        SiddhiAppRuntime.collect_overflow)."""
+        return {"batches": dict(self.batches),
+                "query_latency_ns": dict(self.query_latency_ns),
+                "overflow": dict(self.overflow)}
 
 
 @dataclass
@@ -98,6 +128,14 @@ class SiddhiAppContext:
     #: serializes device work and staging between producer threads and
     #: flush (a plain re-entrant lock)
     controller_lock: threading.RLock = field(default_factory=threading.RLock)
+    #: async stream-callback decode (create_siddhi_app_runtime(...,
+    #: async_callbacks=True)): the packed device-to-host readback is
+    #: enqueued at delivery and decoded on worker threads, so the
+    #: controller thread never waits for the copy. Opt-in because it changes
+    #: visible semantics: flush() may return before callbacks ran —
+    #: runtime.drain() is the barrier.
+    async_callbacks: bool = False
+    decoder: object = None  # stream.AsyncDecoder while started
 
     @property
     def effective_batch_size(self) -> int:

@@ -41,14 +41,19 @@ class SiddhiManager:
 
     def create_siddhi_app_runtime(self, app: Union[str, SiddhiApp], *,
                                   batch_size: int = 0,
-                                  group_capacity: int = 0
+                                  group_capacity: int = 0,
+                                  async_callbacks: bool = False
                                   ) -> Optional[SiddhiAppRuntime]:
+        """Build a runtime. `async_callbacks=True` decodes stream callbacks
+        on worker threads once the runtime starts; runtime.drain() is then
+        the barrier."""
         if isinstance(app, str):
             app = compiler.parse(compiler.update_variables(app)
                                  if "${" in app else app)
         rt = SiddhiAppRuntime(app, self.registry, self.device,
                               batch_size=batch_size,
-                              group_capacity=group_capacity)
+                              group_capacity=group_capacity,
+                              async_callbacks=async_callbacks)
         self.runtimes[app.name] = rt
         return rt
 

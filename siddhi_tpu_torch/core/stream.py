@@ -1,23 +1,40 @@
-"""Stream junctions, input handlers and stream callbacks (counterpart of
-siddhi_tpu/core/stream.py; synchronous staging, flush and heartbeats only —
-the async decoder, the wire packing, parallel ingress, WAL and breakers are
-not yet ported).
+"""Stream junctions, input handlers, stream callbacks and the async
+decoder (counterpart of siddhi_tpu/core/stream.py; staging, flush,
+heartbeats, Event and columnar callbacks, synchronous or asynchronous
+delivery — parallel ingress, WAL, breakers and @OnError are not yet
+ported).
 
 `send` / `send_batch` stage host rows; a full batch or `flush()` encodes
 them into a fixed-capacity columnar batch on the app's device and delivers
 it to every receiver. `send_columns` encodes whole numpy columns at once.
+
+A callback receives a step's output through one packed readback
+(ops/wire.py, K12a on the card): `_deliver` packs the batch and starts its
+copy to the host at once, under the controller lock and on the step's
+stream, because the next step may update the output's tensors in place.
+Without a decoder the callback then waits for that copy; with
+`async_callbacks=True` the AsyncDecoder's workers wait and decode while the
+controller goes on.
 """
 
 from __future__ import annotations
 
+import logging
+import os
+import queue
+import threading
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from ..ops.wire import Readback, WireHost
 from ..query_api.definition import StreamDefinition
 from . import dtypes
 from .context import SiddhiAppContext
-from .event import Event, EventBatch, StreamCodec
+from .event import (Event, EventBatch, EventType, StreamCodec,
+                    events_from_columns, host_events)
+
+_log = logging.getLogger("siddhi_tpu_torch")
 
 
 class Receiver:
@@ -27,17 +44,25 @@ class Receiver:
         raise NotImplementedError
 
 
-class StreamCallback(Receiver):
-    """User-facing stream subscriber: override `receive`, or wrap a plain
-    function with FunctionStreamCallback."""
+class _HostReceiver(Receiver):
+    """A subscriber that takes the host form of a batch (`on_host`): the
+    junction hands it one shared packed readback per delivery."""
 
     _junction: "StreamJunction" = None
+
+    def on_host(self, host: WireHost, now: int) -> None:
+        raise NotImplementedError
+
+
+class StreamCallback(_HostReceiver):
+    """User-facing stream subscriber: override `receive`, or wrap a plain
+    function with FunctionStreamCallback."""
 
     def receive(self, events: list[Event]) -> None:
         raise NotImplementedError
 
-    def on_batch(self, batch: EventBatch, now: int) -> None:
-        events = batch.to_host_events(self._junction.codec)
+    def on_host(self, host: WireHost, now: int) -> None:
+        events = host_events(host, self._junction.codec)
         if events:
             self.receive(events)
 
@@ -48,6 +73,172 @@ class FunctionStreamCallback(StreamCallback):
 
     def receive(self, events: list[Event]) -> None:
         self.fn(events)
+
+
+class ColumnarBlock:
+    """One delivered output micro-batch, as columns: compacted numpy arrays
+    in DEVICE dtypes (doubles arrive as float32, strings as int32
+    dictionary codes). `strings(name)` decodes a string column;
+    `to_events()` materializes Event objects. Delivery by block skips the
+    per-event object construction. The callbacks of one stream share the
+    arrays of a delivery (one readback): treat them as read-only."""
+
+    __slots__ = ("timestamps", "columns", "is_expired", "count", "_codec")
+
+    def __init__(self, timestamps, columns, is_expired, count, codec):
+        self.timestamps = timestamps  # int64[count]
+        self.columns = columns  # name -> numpy[count] (device dtypes)
+        self.is_expired = is_expired  # bool[count]
+        self.count = count
+        self._codec = codec
+
+    def __len__(self) -> int:
+        return self.count
+
+    def column(self, name: str) -> np.ndarray:
+        return self.columns[name]
+
+    def strings(self, name: str) -> list:
+        """Decode a string column's codes to Python strings (native
+        map_codes unless the column holds transient codes)."""
+        return self._codec.string_tables[name].decode_column(
+            self.columns[name])
+
+    def to_events(self) -> list[Event]:
+        """Event objects, with the same decode as the Event callback."""
+        return events_from_columns(self._codec, self.timestamps,
+                                   self.is_expired, self.columns)
+
+
+class BatchStreamCallback(_HostReceiver):
+    """Columnar (batch-level) stream subscriber: override `receive_batch`,
+    or wrap a function via add_callback(..., columnar=True)."""
+
+    def receive_batch(self, block: ColumnarBlock) -> None:
+        raise NotImplementedError
+
+    def on_host(self, host: WireHost, now: int) -> None:
+        if host.count == 0:
+            return
+        self.receive_batch(ColumnarBlock(
+            timestamps=host.ts, columns=host.cols,
+            is_expired=host.types == int(EventType.EXPIRED),
+            count=host.count, codec=self._junction.codec))
+
+
+class FunctionBatchCallback(BatchStreamCallback):
+    def __init__(self, fn: Callable[[ColumnarBlock], None]):
+        self.fn = fn
+
+    def receive_batch(self, block: ColumnarBlock) -> None:
+        self.fn(block)
+
+
+class AsyncDecoder:
+    """Background device-to-host decode for stream callbacks.
+
+    `submit` runs on the controller thread: the junction has already packed
+    the batch and enqueued its copy into pinned memory (K12a, one copy, one
+    event), so submit only queues it. Two stages of threads follow:
+
+      fetch workers (N)   wait for the copy's event (the wait releases the
+                          GIL) and unpack it into fresh numpy arrays; they
+                          launch no device work
+      delivery thread (1) calls the callbacks strictly in submit order
+                          (a sequence-numbered reorder buffer)
+
+    The input queue bounds the buffers in flight, hence the pinned memory;
+    the reorder buffer is bounded too (fetch-to-deliver backpressure). A
+    failing callback is logged and delivery goes on."""
+
+    N_FETCH = int(os.environ.get("SIDDHI_DECODE_WORKERS", "2"))
+
+    def __init__(self, maxsize: int = 32) -> None:
+        self._q: queue.Queue = queue.Queue(maxsize=maxsize)
+        #: max decoded-but-undelivered batches held in the reorder buffer
+        self._max_lag = max(maxsize, self.N_FETCH + 1)
+        self._seq = 0
+        self._deliver_next = 0
+        self._buffer: dict = {}
+        self._cv = threading.Condition()
+        self._stopping = False
+        self._threads = [
+            threading.Thread(target=self._fetch_loop, daemon=True,
+                             name=f"siddhi-fetch-{i}")
+            for i in range(self.N_FETCH)]
+        self._threads.append(threading.Thread(
+            target=self._deliver_loop, daemon=True, name="siddhi-decoder"))
+        for t in self._threads:
+            t.start()
+
+    def submit(self, receiver: _HostReceiver, readback: Readback,
+               now: int) -> None:
+        """Queue one receiver's delivery (controller thread, under the
+        controller lock). The bounded put may block; the workers never take
+        the controller lock, so the queue always drains."""
+        self._q.put((self._seq, receiver, readback, now))
+        self._seq += 1
+
+    def _fetch_loop(self) -> None:
+        while True:
+            item = self._q.get()
+            try:
+                if item is None:
+                    return
+                seq, receiver, readback, now = item
+                try:
+                    host = readback.result()
+                except Exception:  # noqa: BLE001 — the worker must not die
+                    _log.exception("async readback failed")
+                    host = None
+                with self._cv:
+                    # backpressure the fetch-to-deliver stage: at most
+                    # N_FETCH seqs are in flight and every seq below the
+                    # smallest of them is buffered or delivered, so
+                    # delivery always progresses and notifies
+                    while (seq - self._deliver_next > self._max_lag
+                           and not self._stopping):
+                        self._cv.wait(timeout=0.2)
+                    self._buffer[seq] = (receiver, host, now)
+                    self._cv.notify_all()
+            finally:
+                self._q.task_done()
+
+    def _deliver_loop(self) -> None:
+        while True:
+            with self._cv:
+                while (self._deliver_next not in self._buffer
+                       and not self._stopping):
+                    self._cv.wait(timeout=0.2)
+                if self._stopping and self._deliver_next not in self._buffer:
+                    return
+                receiver, host, now = self._buffer.pop(self._deliver_next)
+                self._deliver_next += 1
+            if host is not None:
+                try:
+                    receiver.on_host(host, now)
+                except Exception:  # noqa: BLE001 — async path must not die
+                    _log.exception("async stream callback failed")
+            with self._cv:
+                self._cv.notify_all()
+
+    def drain(self) -> None:
+        """Block until every submitted batch has been delivered."""
+        self._q.join()  # all fetches done
+        with self._cv:
+            while self._deliver_next < self._seq:
+                self._cv.wait(timeout=0.2)
+
+    def stop(self) -> None:
+        self.drain()
+        for _ in range(self.N_FETCH):
+            self._q.put(None)
+        self._q.join()
+        with self._cv:
+            self._stopping = True
+            self._cv.notify_all()
+        for t in self._threads:
+            t.join(timeout=30)
 
 
 class StreamJunction:
@@ -64,7 +255,7 @@ class StreamJunction:
         self._staged_ts: list[int] = []
 
     def subscribe(self, receiver: Receiver) -> None:
-        if isinstance(receiver, StreamCallback):
+        if isinstance(receiver, _HostReceiver):
             receiver._junction = self
         self.receivers.append(receiver)
 
@@ -148,8 +339,19 @@ class StreamJunction:
 
     def _deliver(self, batch: EventBatch, now: int) -> None:
         self.ctx.statistics.track_batch(self.definition.id)
+        decoder = self.ctx.decoder
+        readback = None
+        if any(isinstance(r, _HostReceiver) for r in self.receivers):
+            # one pack and copy for every callback, enqueued now: a later
+            # step may update the output's tensors in place
+            readback = batch.readback()
         for r in self.receivers:
-            r.on_batch(batch, now)
+            if not isinstance(r, _HostReceiver):
+                r.on_batch(batch, now)
+            elif decoder is not None:
+                decoder.submit(r, readback, now)
+            else:
+                r.on_host(readback.result(), now)
 
 
 class InputHandler:

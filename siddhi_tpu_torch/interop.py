@@ -13,13 +13,14 @@ runtime stopped. They read fields by name and import nothing of the JAX
 package.
 
     load_app_state(torch_rt, {name: jax_state}, jax_strings)
+
+`jax_strings` is the JAX runtime's `ctx.global_strings.snapshot()` (or the
+plain list of its strings).
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Optional, Sequence
-
 import numpy as np
 import torch
 
@@ -183,13 +184,16 @@ def load_pattern_state(pr: PatternQueryRuntime, state) -> None:
     pr.state = pattern_state(state, pr.state)
 
 
-def load_strings(rt: SiddhiAppRuntime, strings: Sequence[Optional[str]]) -> None:
-    """Load the app-global string table (code i -> strings[i], 0 = null)."""
+def load_strings(rt: SiddhiAppRuntime, strings) -> None:
+    """Load the app-global string table: a JAX `StringTable.snapshot()`
+    dict (with its transient UUID ring, so carried state holding transient
+    codes decodes the same) or a plain list (code i -> strings[i], 0 =
+    null)."""
     rt.ctx.global_strings.restore(strings)
 
 
 def load_app_state(rt: SiddhiAppRuntime, query_states: dict,
-                   strings: Sequence[Optional[str]]) -> None:
+                   strings) -> None:
     """Load every named query's state and the string table."""
     for name, state in query_states.items():
         qr = rt.query_runtimes[name]

@@ -732,3 +732,103 @@ def test_aggregator_app_on_card_matches_cpu(cuda, name):
                 assert a == b
     for k in on_path:
         assert kernels.LAUNCHES[k] > 0
+
+
+def _wire_case(cuda, B, seed, p_valid, span=None):
+    rng = np.random.default_rng(seed)
+    ts = 1_700_000_000_000 + np.cumsum(rng.integers(0, 3, B)).astype(np.int64)
+    valid = rng.random(B) < p_valid
+    if span is not None and valid.any():
+        v = np.nonzero(valid)[0]
+        ts[v[-1]] = ts[v[0]] + span
+    cols = {"code": torch.from_numpy(rng.integers(0, 1000, B).astype(
+                np.int32)).to(cuda),
+            "x": torch.from_numpy(rng.normal(size=B).astype(np.float32)).to(
+                cuda),
+            "n": torch.from_numpy(rng.integers(-2**40, 2**40, B)).to(cuda),
+            "b": torch.from_numpy(rng.random(B) < 0.5).to(cuda)}
+    return (torch.from_numpy(ts).to(cuda), torch.from_numpy(valid).to(cuda),
+            torch.from_numpy(rng.choice(np.array([0, 1, 3], np.int8),
+                                        B)).to(cuda), cols)
+
+
+@pytest.mark.parametrize("B,p_valid,span", [
+    (1, 1.0, None), (1000, 0.0, None), (1024, 1.0, None),
+    (70001, 0.5, None), (4097, 0.3, 0xFFFFFFFF), (4097, 0.3, 1 << 32)])
+def test_k12a_kernel_matches_plain(cuda, B, p_valid, span):
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import wire
+    ts, valid, types, cols = _wire_case(cuda, B, B, p_valid, span)
+    layout = wire.layout_of(ts, cols)
+    kernels.reset_launch_counts()
+    got = wire.wire_pack_cuda(ts, valid, types, cols, layout)
+    assert kernels.LAUNCHES["K12a"] == 3
+    want = wire.wire_pack_plain(ts, valid, types, cols, layout)
+    torch.cuda.synchronize()
+    assert torch.equal(wire.wire_payload(got, layout),
+                       wire.wire_payload(want, layout))
+    host = wire.wire_unpack(got.cpu().numpy(), layout)
+    idx = torch.nonzero(valid).squeeze(1)
+    assert host.count == idx.numel()
+    assert host.over == (span is not None and span >= 1 << 32)
+    assert np.array_equal(host.ts, ts[idx].cpu().numpy())
+
+
+def test_cuda_batch_reaches_k12a_not_the_plain_pack(cuda, monkeypatch):
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import wire
+    monkeypatch.setattr(wire, "wire_pack_plain",
+                        lambda *a: pytest.fail("plain pack on the card"))
+    ts, valid, types, cols = _wire_case(cuda, 512, 3, 0.5)
+    kernels.reset_launch_counts()
+    host = wire.start_readback(ts, valid, types, cols).result()
+    assert kernels.LAUNCHES["K12a"] == 3
+    assert host.count == int(valid.sum())
+
+
+def test_async_decoder_on_card_while_steps_rewrite_the_ring(cuda):
+    """A length window's output columns are views of its packed ring, which
+    the next steps append to in place: async blocks must still hold each
+    step's own rows (the pack is enqueued at submit, on the step's
+    stream)."""
+    from siddhi_tpu_torch import SiddhiManager, kernels
+    app = """
+    define stream TradeStream (symbol string, price double, volume long);
+    @info(name = 'bench')
+    from TradeStream#window.length(300)
+    select symbol, price, volume
+    insert all events into OutStream;
+    """
+    rng = np.random.default_rng(23)
+    n, bs = 64 * 40, 64
+    cols = {"symbol": np.array([f"S{i}" for i in rng.integers(0, 50, n)],
+                               dtype=object),
+            "price": rng.uniform(1, 100, n),
+            "volume": rng.integers(1, 1000, n).astype(np.int64)}
+    ts = 1_000 + np.arange(n, dtype=np.int64)
+    outs = []
+    for dev, async_cb in (("cuda", True), ("cpu", False)):
+        rt = SiddhiManager(device=dev).create_siddhi_app_runtime(
+            app, batch_size=bs, async_callbacks=async_cb)
+        blocks = []
+        rt.add_callback("OutStream", blocks.append, columnar=True)
+        rt.start()
+        kernels.reset_launch_counts()
+        h = rt.get_input_handler("TradeStream")
+        for s in range(0, n, bs):
+            h.send_columns({k: v[s:s + bs] for k, v in cols.items()},
+                           timestamps=ts[s:s + bs])
+            rt.flush()
+        rt.drain()
+        if dev == "cuda":
+            assert kernels.LAUNCHES["K12a"] > 0
+        rt.shutdown()
+        outs.append(blocks)
+    card, cpu = outs
+    assert [b.count for b in card] == [b.count for b in cpu]
+    for a, b in zip(card, cpu):
+        assert np.array_equal(a.timestamps, b.timestamps)
+        assert np.array_equal(a.is_expired, b.is_expired)
+        for k in b.columns:
+            assert np.array_equal(a.columns[k], b.columns[k]), k
+        assert a.strings("symbol") == b.strings("symbol")

@@ -55,3 +55,19 @@ def test_chip_smoke_without_a_card_exits_nonzero():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_port_builds_its_own_host_encoder_source():
+    # the port reads no file under native/: its loader compiles the copy
+    # inside the package, and no module names the reference's source
+    from pathlib import Path
+
+    from siddhi_tpu_torch import native
+    pkg = Path(REPO) / "siddhi_tpu_torch"
+    assert native.SRC == pkg / "csrc" / "host_columnar.c"
+    assert native.SRC.exists() and native.BUILD_ROOT.parent == pkg
+    for py in pkg.rglob("*.py"):
+        text = py.read_text()
+        for literal in ('"columnar.c"', '"native"', "'native'",
+                        '"native/', "'native/"):
+            assert literal not in text, (py, literal)
