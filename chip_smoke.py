@@ -93,7 +93,29 @@ Phases (any failure exits non-zero and prints no result line):
 15. app N, BASELINE config 1 as bench.py writes it (`from
    TradeStream[700.0 > price] select symbol, price`, 1,000 symbols, price
    uniform on [0, 1000)), 8 rounds of 131072, every row against a numpy
-   oracle.
+   oracle;
+16. the absent and every-group kernels against their plain versions at
+   app I's shapes (B = 32768 arrivals, P = 131072 entries), bit for bit:
+   K11c absent_scan with and without the equality pair and the residual
+   tile, with deadlines on both sides of the batch's timestamps and
+   without a timer; K11d match_count with and without the pair and the
+   residual; K11e release_origin with W = P completions, several per
+   origin and some without one (-1); with the same timings;
+17. app O (`every a=StreamA -> not StreamB[val == a.val] for 5 sec`,
+   @app:playback) and app P (`every a=StreamA -> every
+   b=StreamB[b.val == a.val] within 5 sec`) on app I's feed, a closing
+   heartbeat past O's last deadline, every event in order against numpy
+   oracles of the pending table (O: each A no equal value reaches inside
+   5 sec fires at its deadline, 0 dropped; P: every equal-valued B within
+   5 sec, at most pattern_sticky_passes an A a batch, pass-major, and the
+   rest counted in `dropped` and Statistics.overflow); app Q (`every
+   a=StreamA, b=StreamB[b.val == a.val]`, a sequence across two streams
+   on the merged junction), 8 rounds of 16384 rows in a random interleave
+   sent as runs of one stream by send_columns, against the adjacent
+   (A, B) pairs of equal value in send order; apps R (the mid and head
+   every-group shapes of tests/test_absent_patterns.py, 8 rounds of 256
+   S1 and 64 S2 events) on the card against the CPU, event for event;
+   each app's kernels launched and 0 host syncs a step.
 
 Every app's Event callback reads back through K12a (its launch counter
 must be non-zero in every app). Apps A, C, D, G, H and N also run the
@@ -300,6 +322,7 @@ K2B_SRC = "siddhi_tpu_torch/csrc/k2b_packed_ring.cu"
 K10_SRC = "siddhi_tpu_torch/csrc/k10_join.cu"
 JOIN = "siddhi_tpu/ops/join.py"
 K11_SRC = "siddhi_tpu_torch/csrc/k11_pattern.cu"
+K11C_SRC = "siddhi_tpu_torch/csrc/k11c_absent.cu"
 PATTERN = "siddhi_tpu/core/pattern_runtime.py"
 K8_SRC = "siddhi_tpu_torch/csrc/k8_extrema.cu"
 K9_SRC = "siddhi_tpu_torch/csrc/k9_hll.cu"
@@ -332,6 +355,9 @@ KERNELS = {
     "K10 compact": ("compact_pairs", K10_SRC, f"{JOIN}:165"),
     "K11a": ("first_match", K11_SRC, f"{PATTERN}:1189"),
     "K11b": ("pending_insert", K11_SRC, f"{PATTERN}:1460"),
+    "K11c": ("absent_scan", K11C_SRC, f"{PATTERN}:871"),
+    "K11d": ("match_count", K11C_SRC, f"{PATTERN}:1318"),
+    "K11e": ("release_origin", K11C_SRC, f"{PATTERN}:1440"),
     "K8": ("sliding_extrema_lanes", K8_SRC, "siddhi_tpu/ops/extrema.py:38"),
     "K8 grouped": ("grouped_sliding_extrema_lanes", K8_SRC,
                    "siddhi_tpu/ops/extrema.py:96"),
@@ -1873,9 +1899,11 @@ def pattern_kernel_phase(torch, rng) -> dict:
 
 
 def run_pattern_app(torch, text: str, data, rounds: int = ROUNDS_P,
-                    batch: int = BATCH_P, pending: int = PENDING_P):
-    """Feed `rounds` of one A and one B batch (send_columns + flush each)
-    and collect OutStream's events."""
+                    batch: int = BATCH_P, pending: int = PENDING_P,
+                    end=None):
+    """Feed `rounds` of one A and one B batch (send_columns + flush each),
+    then `end(runtime)` if given (a closing heartbeat), and collect
+    OutStream's events."""
     from siddhi_tpu_torch import SiddhiManager, kernels
     from siddhi_tpu_torch.core import dtypes
 
@@ -1898,6 +1926,8 @@ def run_pattern_app(torch, text: str, data, rounds: int = ROUNDS_P,
             val, ts = data[side]
             hs[side].send_columns({"val": val[sl]}, timestamps=ts[sl])
             rt.flush()
+    if end is not None:
+        end(rt)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
@@ -1938,25 +1968,30 @@ def measure_pattern_steps(torch, rt, data, rounds: int = ROUNDS_P,
     return syncs, (time.perf_counter() - t0) / rounds * 1e3
 
 
-def check_pattern_app(name: str, got, want) -> int:
-    """Every output event, in order, against the oracle's (ts, aVal,
-    bVal)."""
-    w_ts, w_a, w_b, _ = want
-    n = w_ts.shape[0]
+def check_events(name: str, got, want: tuple) -> int:
+    """Every output event in order against the oracle's columns (the
+    timestamp first, then each attribute)."""
+    n = want[0].shape[0]
     if len(got) != n:
         raise Failure(f"app {name}: {len(got)} events out, the oracle "
                       f"expects {n}")
-    g_ts = np.fromiter((e.timestamp for e in got), np.int64, n)
-    g_a = np.fromiter((e.data[0] for e in got), np.int64, n)
-    g_b = np.fromiter((e.data[1] for e in got), np.int64, n)
-    for what, x, y in (("timestamp", g_ts, w_ts), ("aVal", g_a, w_a),
-                       ("bVal", g_b, w_b)):
+    cols = [np.fromiter((e.timestamp for e in got), np.int64, n)] + [
+        np.fromiter((e.data[k] for e in got), np.int64, n)
+        for k in range(len(want) - 1)]
+    for k, (x, y) in enumerate(zip(cols, want)):
         bad = np.nonzero(x != y)[0]
         if bad.size:
             j = int(bad[0])
+            what = "timestamp" if k == 0 else f"attribute {k - 1}"
             raise Failure(f"app {name}: {what} of event {j} is {x[j]}, the "
                           f"oracle says {y[j]}")
     return n
+
+
+def check_pattern_app(name: str, got, want) -> int:
+    """Every output event, in order, against the oracle's (ts, aVal,
+    bVal)."""
+    return check_events(name, got, want[:3])
 
 
 def pattern_apps(torch, rng, card: str, summary=None) -> dict:
@@ -2003,6 +2038,509 @@ def pattern_apps(torch, rng, card: str, summary=None) -> dict:
                                        PENDING_P})
             for k, v in col.items():
                 total[k] = total.get(k, 0) + v
+    return total
+
+
+# --------------------------------------------------------------------------- #
+# phases 16-17: the absent / every-group kernels (K11c, K11d, K11e), apps O-R
+# --------------------------------------------------------------------------- #
+
+# non-occurrence on app I's feed: every A no equal-valued B reaches within
+# 5 sec fires at its deadline
+APP_O = """
+@app:playback
+define stream StreamA (val int);
+define stream StreamB (val int);
+@info(name = 'bench')
+from every a=StreamA -> not StreamB[val == a.val] for 5 sec
+select a.val as aVal
+insert into OutStream;
+"""
+WAIT_O = 5000
+# the mid-pattern `every`: each live A emits every equal-valued B in 5 sec
+APP_P = """
+@app:playback
+define stream StreamA (val int);
+define stream StreamB (val int);
+@info(name = 'bench')
+from every a=StreamA -> every b=StreamB[b.val == a.val] within 5 sec
+select a.val as aVal, b.val as bVal
+insert into OutStream;
+"""
+# a sequence across two streams on the merged junction
+APP_Q = """
+@app:playback
+define stream StreamA (val int);
+define stream StreamB (val int);
+@info(name = 'bench')
+from every a=StreamA, b=StreamB[b.val == a.val]
+select a.val as aVal, b.val as bVal
+insert into OutStream;
+"""
+ROUNDS_Q = 8
+ROWS_Q = 16384  # rows a round, both streams (the taps are per-row host code)
+PENDING_Q = 2 * ROWS_Q
+VALUES_Q = 4
+# the every-group shapes of tests/test_absent_patterns.py (mid group, head
+# group), at a small size: no closed-form oracle models the group gate
+APPS_R = {
+    "R1 mid group": """
+@app:playback
+define stream S1 (symbol string, price float);
+define stream S2 (symbol string, price float);
+@info(name = 'bench')
+from e4=S1[symbol == 'MSFT'] -> every (e1=S1[price>20.0] -> e3=S1[price>20.0])
+  -> e2=S2[price>e1.price]
+select e1.price as p1, e3.price as p3, e2.price as p2
+insert into OutStream;
+""",
+    "R2 head group": """
+@app:playback
+define stream S1 (symbol string, price float);
+define stream S2 (symbol string, price float);
+@info(name = 'bench')
+from every (e1=S1[price>20.0] -> e3=S1[price>20.0]) -> e2=S2[price>e1.price]
+select e1.price as p1, e3.price as p3, e2.price as p2
+insert into OutStream;
+"""}
+ROUNDS_R = 8
+BATCH_R = 256
+def absent_kernel_phase(torch, rng) -> dict:
+    """K11c, K11d and K11e against their plain versions at app I's shapes,
+    bit for bit, with their timings: K11c and K11d with and without the
+    equality pair and the residual tile, K11c with deadlines on both sides
+    of the batch's timestamps and without a timer; K11e with many
+    completions per origin and completions without one (-1)."""
+    from siddhi_tpu_torch.ops import pattern
+
+    dev = torch.device("cuda")
+    res = {}
+    B, P = BATCH_P, PENDING_P
+    t = _pattern_batch(torch, rng, B, P, seq0=5_000_000)
+    # deadlines: a third before the batch's first timestamp, a third after
+    # its last, the rest inside it
+    ts0, ts1 = int(t["ts"][0]), int(t["ts"][-1])
+    deadline = torch.from_numpy(rng.integers(ts0 - 3000, ts1 + 3000, P)
+                                .astype(np.int64)).to(dev)
+    small = {"bval": (t["bval"] % 4).contiguous(),
+             "eval": (t["eval"] % 4).contiguous()}
+
+    def resid(p0, p1):
+        return (t["bval"][:, None] + t["eval"][None, p0:p1]) % 3 != 0
+
+    seen = {}
+    for eq in ("eq", "no eq"):
+        # values over 1..4 in the pair, so most live entries meet several
+        # arrivals, on both sides of their deadlines
+        pairs = [(small["bval"], small["eval"])] if eq == "eq" else []
+        for residual in (None, resid):
+            for dl in (deadline, None):
+                a = (t["arr_seq"], t["ts"], t["lane_ok"], pairs,
+                     t["pend_valid"], t["last_seq"], dl)
+                what = (f"K11c {eq} {'with' if residual else 'without'} "
+                        f"residual {'deadline' if dl is not None else 'untimed'}")
+                got = pattern.absent_scan(*a, residual=residual)
+                want = pattern.absent_scan_plain(*a, residual=residual)
+                for nm, x, y in zip(("first", "before", "after"), got, want):
+                    check_equal(f"{what} {nm}", x, y)
+                seen[what] = tuple(int(x.sum()) for x in
+                                   (got[0] < 2**62, got[1], got[2]))
+            a = (t["arr_seq"], t["ts"], t["lane_ok"], pairs,
+                 t["pend_valid"], t["last_seq"], t["start_ts"], WITHIN_P)
+            what = f"K11d {eq} {'with' if residual else 'without'} residual"
+            got = pattern.match_count(*a, residual=residual)
+            check_equal(what, got,
+                        pattern.match_count_plain(*a, residual=residual))
+            seen[what] = int(got)
+    print(f"K11c checks (found, before, after) and K11d counts: {seen}")
+    if not all(v[1] and v[2] for k, v in seen.items()
+               if k.startswith("K11c") and "deadline" in k):
+        raise Failure(f"K11c: a case without hits on both sides: {seen}")
+
+    # the path's K11c: app O's B step, the equality and a deadline each side
+    a = (t["arr_seq"], t["ts"], t["valid"], [(t["bval"], t["eval"])],
+         t["pend_valid"], t["last_seq"], deadline)
+    got = pattern.absent_scan(*a)
+    res["K11c"] = dict(
+        _timed(torch, lambda: pattern.absent_scan(*a),
+               lambda: pattern.absent_scan_plain(*a)),
+        # lanes: arr_seq, ts, lane_ok, value; entries: valid, last_seq,
+        # deadline, value in; first, before, after out
+        bound_ms=bound_ms(B * (8 + 8 + 1 + 4) + P * (1 + 8 + 8 + 4)
+                          + P * (8 + 1 + 1)),
+        max_abs_err=0, bound_by="bytes")
+    print(f"K11c absent_scan B={B} P={P} ({int(t['pend_valid'].sum())} live,"
+          f" {int(got[1].sum())} before, {int(got[2].sum())} after): "
+          f"{res['K11c']}")
+    # the path's K11d: app P's sticky count (the equality, within)
+    a = (t["arr_seq"], t["ts"], t["valid"], [(t["bval"], t["eval"])],
+         t["pend_valid"], t["last_seq"], t["start_ts"], WITHIN_P)
+    n = int(pattern.match_count(*a))
+    res["K11d"] = dict(
+        _timed(torch, lambda: pattern.match_count(*a),
+               lambda: pattern.match_count_plain(*a)),
+        # lanes: arr_seq, ts, lane_ok, value; entries: valid, last_seq,
+        # start_ts, value in; the count out
+        bound_ms=bound_ms(B * (8 + 8 + 1 + 4) + P * (1 + 8 + 8 + 4) + 8),
+        max_abs_err=0, bound_by="bytes")
+    print(f"K11d match_count B={B} P={P} ({n} pairs): {res['K11d']}")
+
+    # K11e: W = P completions (a mid group's end position) into a P-slot
+    # head table; origins over a quarter of the slots, 10% -1, 70% valid
+    W = P
+    valid = torch.from_numpy(rng.random(W) < 0.7).to(dev)
+    origin = torch.from_numpy(np.where(
+        rng.random(W) < 0.1, -1, rng.integers(0, P // 4, W))
+        .astype(np.int32)).to(dev)
+    seq = torch.from_numpy(rng.integers(0, 2**40, W)).to(dev)
+    ld0 = torch.from_numpy(rng.random((P, 2)) < 0.5).to(dev)
+    ls0 = torch.from_numpy(rng.integers(0, 2**40, P)).to(dev)
+
+    def table():
+        z = torch.zeros(P, dtype=torch.int64, device=dev)
+        return pattern.PendingTable(
+            frames={}, frame_valid={}, frame_ts={}, start_ts=z,
+            last_seq=ls0.clone(), armed_ts=z,
+            valid=torch.ones(P, dtype=torch.bool, device=dev),
+            leg_done=ld0.clone(),
+            origin=torch.full((P,), -1, dtype=torch.int32, device=dev))
+
+    want = pattern.release_origin_plain(table(), valid, origin, seq)
+    work = table()
+    got = pattern.release_origin(work, valid, origin, seq)
+    check_equal("K11e leg_done", got.leg_done, want.leg_done)
+    check_equal("K11e last_seq", got.last_seq, want.last_seq)
+    hit = origin[valid & (origin >= 0)].long()
+    n_orig = int(torch.unique(hit).numel())
+    per = torch.bincount(hit, minlength=P)
+    if int(per.max()) < 2:
+        raise Failure("K11e: no origin with several completions")
+
+    def restore():
+        work.leg_done.copy_(ld0)
+        work.last_seq.copy_(ls0)
+
+    def library():
+        o = torch.where(valid & (origin >= 0), origin.long(), P)
+        ls = torch.cat([work.last_seq, work.last_seq.new_zeros(1)])
+        ls.scatter_reduce_(0, o, seq, "amax")
+        ld = torch.cat([work.leg_done[:, 0], valid.new_zeros(1)])
+        ld.index_put_((o,), valid.new_zeros(()))
+
+    res["K11e"] = dict(
+        _timed(torch, lambda: pattern.release_origin(work, valid, origin,
+                                                     seq),
+               lambda: pattern.release_origin_plain(work, valid, origin,
+                                                    seq),
+               library=library, reset=restore),
+        # per completion valid, origin, seq read; per origin its latch
+        # byte and seq written
+        bound_ms=bound_ms(W * (1 + 4 + 8) + n_orig * (1 + 8)),
+        max_abs_err=0, bound_by="bytes")
+    print(f"K11e release_origin W={W} into P={P} ({n_orig} origins, at most "
+          f"{int(per.max())} completions each): {res['K11e']}")
+    torch.cuda.synchronize()
+    return res
+
+
+def oracle_absent(data, rounds: int, batch: int, pending: int,
+                  wait: int = WAIT_O, end=None):
+    """App O step by step on a model of position 1's table: an A batch's
+    arrivals take the free slots in ascending order, then every live entry
+    whose deadline (its ts + wait) the step's clock has passed fires at its
+    deadline, in slot order; a B batch first kills each live entry that an
+    equal value reaches before its deadline, then fires the same way; a
+    final heartbeat at `end` fires the rest. Returns (ts, aVal) arrays and
+    the dropped count."""
+    (va, ta), (vb, tb) = data["A"], data["B"]
+    live = np.zeros(pending, bool)
+    sval = np.zeros(pending, np.int64)
+    sts = np.zeros(pending, np.int64)
+    out_ts, out_a = [], []
+    dropped = 0
+
+    def fire(now):
+        slots = np.flatnonzero(live & (now >= sts + wait))
+        out_ts.append(sts[slots] + wait)
+        out_a.append(sval[slots])
+        live[slots] = False
+
+    nows = iter(pattern_nows(data, rounds, batch))
+    hi = int(max(va.max(), vb.max())) + 1
+    for r in range(rounds):
+        s = slice(r * batch, (r + 1) * batch)
+        free = np.flatnonzero(~live)
+        k = min(free.size, batch)
+        dropped += batch - k
+        live[free[:k]] = True
+        sval[free[:k]] = va[s][:k]
+        sts[free[:k]] = ta[s][:k]
+        fire(next(nows))
+        first_b = np.full(hi, 2**62, np.int64)
+        np.minimum.at(first_b, vb[s], tb[s])
+        live &= ~(first_b[sval] < sts + wait)
+        fire(next(nows))
+    fire(end if end is not None else 2**61)
+    return np.concatenate(out_ts), np.concatenate(out_a), dropped
+
+
+def oracle_sticky(data, rounds: int, batch: int, pending: int,
+                  within: int = WITHIN_P, passes: int = 4):
+    """App P step by step on the table model: entries expire when the
+    step's clock is more than `within` past their A; an A batch takes the
+    free slots; on a B batch, pass k emits for every live entry its k-th
+    equal-valued B within `within` (pass-major, slot order within a pass)
+    and the ones past `passes` count as dropped. Returns (ts, aVal, bVal)
+    arrays and the dropped count."""
+    (va, ta), (vb, tb) = data["A"], data["B"]
+    live = np.zeros(pending, bool)
+    sval = np.zeros(pending, np.int64)
+    sts = np.zeros(pending, np.int64)
+    out_ts, out_a, out_b = [], [], []
+    dropped = 0
+    nows = iter(pattern_nows(data, rounds, batch))
+    shift = np.int64(2**32)
+    for r in range(rounds):
+        s = slice(r * batch, (r + 1) * batch)
+        live &= next(nows) - sts <= within
+        free = np.flatnonzero(~live)
+        k = min(free.size, batch)
+        dropped += batch - k
+        live[free[:k]] = True
+        sval[free[:k]] = va[s][:k]
+        sts[free[:k]] = ta[s][:k]
+        live &= next(nows) - sts <= within
+        bv, bt = vb[s].astype(np.int64), tb[s]
+        # lanes by (value, lane); B timestamps rise with the lane, so the
+        # lanes of one value inside `within` of an entry are a prefix
+        order = np.argsort(bv, kind="stable")
+        key = bv[order] * shift + (bt[order] - bt.min())
+        slots = np.flatnonzero(live)
+        lo = np.searchsorted(key, sval[slots] * shift, side="left")
+        hi = np.searchsorted(key, sval[slots] * shift
+                             + (sts[slots] + within - bt.min()), side="right")
+        cnt = np.maximum(hi - lo, 0)
+        dropped += int(np.maximum(cnt - passes, 0).sum())
+        for p in range(passes):
+            m = cnt > p
+            lane = order[lo[m] + p]
+            out_ts.append(bt[lane])
+            out_a.append(sval[slots[m]])
+            out_b.append(bv[lane])
+    cat = np.concatenate
+    return cat(out_ts), cat(out_a), cat(out_b), dropped
+
+
+def sequence_feed(rng, rounds: int = ROUNDS_Q, rows: int = ROWS_Q):
+    """App Q's feed in send order: a stream per row (A or B with equal
+    odds), values uniform over 1..VALUES_Q, 1 ms apart."""
+    n = rounds * rows
+    is_a = rng.random(n) < 0.5
+    val = rng.integers(1, VALUES_Q + 1, n).astype(np.int32)
+    return is_a, val, np.arange(n, dtype=np.int64) + 1000
+
+
+def oracle_sequence(is_a, val, ts, rounds: int = ROUNDS_Q,
+                    rows: int = ROWS_Q):
+    """App Q on the table model: each A (a row followed by an equal-valued
+    B) matches its next row in send order. A merged batch (one round)
+    inserts its A rows into the free slots in ascending order (the A on a
+    round's last row stays, in its slot, for the next round's first row)
+    and emits its matches in slot order. Returns (ts, aVal, bVal)."""
+    out = []
+    carry = None  # (slot, value) of a round's last-row A
+    for r in range(rounds):
+        s = slice(r * rows, (r + 1) * rows)
+        a, v, t = is_a[s], val[s], ts[s]
+        lanes = np.flatnonzero(a)
+        free = np.arange(lanes.size + 1)
+        if carry is not None:
+            free = free[free != carry[0]]
+        slot = free[:lanes.size]
+        hits = []
+        if carry is not None and not a[0] and v[0] == carry[1]:
+            hits.append((carry[0], carry[1], v[0], t[0]))
+        nxt = lanes + 1
+        inside = nxt < rows
+        ok = np.zeros(lanes.size, bool)
+        ok[inside] = ~a[nxt[inside]] & (v[nxt[inside]] == v[lanes[inside]])
+        for k in np.flatnonzero(ok):
+            hits.append((slot[k], v[lanes[k]], v[nxt[k]], t[nxt[k]]))
+        hits.sort()
+        out += hits
+        carry = (int(slot[-1]), v[-1]) if a[-1] else None
+    arr = np.array([(h[3], h[1], h[2]) for h in out], np.int64).reshape(-1, 3)
+    return arr[:, 0], arr[:, 1], arr[:, 2]
+
+
+def absent_every_apps(torch, rng, card: str) -> dict:
+    """Apps O, P and Q against their oracles and R on the card against the
+    CPU; each reads its own launch counts; returns their launches."""
+    from siddhi_tpu_torch import SiddhiManager, kernels
+    from siddhi_tpu_torch.core.event import EventBatch
+    from siddhi_tpu_torch.core.pattern_runtime import MERGED_SID
+
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    data = pattern_events(rng, "I", ROUNDS_P, BATCH_P)
+    check_no_tie(data, ROUNDS_P, BATCH_P)
+    end = int(data["B"][1].max()) + WAIT_O + 1
+    for name, text, on_path in (("O", APP_O, ("K11b", "K11c", "K12a")),
+                                ("P", APP_P, ("K11a", "K11b", "K11d",
+                                              "K12a"))):
+        if name == "O":
+            want = oracle_absent(data, ROUNDS_P, BATCH_P, PENDING_P, end=end)
+        else:
+            want = oracle_sticky(data, ROUNDS_P, BATCH_P, PENDING_P)
+        if name == "O" and want[-1]:
+            raise Failure(f"app O: the oracle drops {want[-1]} entries")
+        rt, got, launches, elapsed, peak = run_pattern_app(
+            torch, text, data, ROUNDS_P, BATCH_P, PENDING_P,
+            end=(lambda r: r.heartbeat(end)) if name == "O" else None)
+        n = check_events(name, got, want[:-1])
+        del got
+        dropped = int(rt.query_runtimes["bench"].state.dropped)
+        rt.collect_overflow()
+        stats = rt.ctx.statistics.overflow.get(
+            "query:bench.pattern_pending_dropped", 0)
+        if dropped != want[-1] or stats != want[-1]:
+            raise Failure(f"app {name}: {dropped} dropped ({stats} in "
+                          f"Statistics.overflow), the oracle says "
+                          f"{want[-1]}")
+        for k in on_path:
+            if launches[k] == 0:
+                raise Failure(f"app {name}: kernel {k} never launched")
+        syncs, step_ms = measure_pattern_steps(torch, rt, data, ROUNDS_P,
+                                               BATCH_P)
+        report_app(name, 2 * BATCH_P * ROUNDS_P, n, elapsed, step_ms, peak,
+                   launches, syncs, card, rounds=ROUNDS_P,
+                   batch=f"2 x {BATCH_P}")
+        print(f"app {name}: dropped {dropped} (oracle {want[-1]})")
+        if syncs:
+            raise Failure(f"app {name}: the pattern step syncs with the "
+                          f"host: {syncs}")
+        add(launches)
+        del rt
+
+    # app Q: the merged junction in send order, runs of one stream sent
+    # by send_columns
+    is_a, val, ts = sequence_feed(rng, ROUNDS_Q, ROWS_Q)
+    want = oracle_sequence(is_a, val, ts, ROUNDS_Q, ROWS_Q)
+    rt = make_runtime(APP_Q, BATCH_P,
+                      config={"pattern_pending_capacity": PENDING_Q})
+    got = []
+    rt.add_callback("OutStream", got.extend)
+    hs = {True: rt.get_input_handler("StreamA"),
+          False: rt.get_input_handler("StreamB")}
+    cuts = np.flatnonzero(np.diff(is_a.astype(np.int8))) + 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in range(ROUNDS_Q):
+        lo, hi = r * ROWS_Q, (r + 1) * ROWS_Q
+        edges = [lo, *cuts[(cuts > lo) & (cuts < hi)].tolist(), hi]
+        for a, b in zip(edges[:-1], edges[1:]):
+            hs[bool(is_a[a])].send_columns({"val": val[a:b]},
+                                           timestamps=ts[a:b])
+        rt.flush()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n = check_events("Q", got, want)
+    for k in ("K1", "K11a", "K11b", "K12a"):
+        if launches[k] == 0:
+            raise Failure(f"app Q: kernel {k} never launched")
+    qr = rt.query_runtimes["bench"]
+    mj = qr.merged_junction
+    batches = []
+    for r in range(ROUNDS_Q):
+        s = slice(r * ROWS_Q, (r + 1) * ROWS_Q)
+        cols = {"_tag": np.where(is_a[s], 0, 1).astype(np.int32),
+                "StreamA::val": np.where(is_a[s], val[s], 0).astype(np.int32),
+                "StreamB::val": np.where(is_a[s], 0, val[s]).astype(np.int32)}
+        batches.append(EventBatch.from_numpy(ts[s], cols, ROWS_Q,
+                                             mj.ctx.device))
+    step = qr._steps[MERGED_SID]
+    qr.state = qr.init_state()
+    syncs = syncs_in(torch, lambda: setattr(qr, "state", step(
+        qr.state, batches[0], int(ts[ROWS_Q - 1]))[0]))
+    qr.state = qr.init_state()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for r, b in enumerate(batches):
+        qr.state, _ = step(qr.state, b, int(ts[(r + 1) * ROWS_Q - 1]))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) / ROUNDS_Q * 1e3
+    report_app("Q", ROUNDS_Q * ROWS_Q, n, elapsed, step_ms, peak, launches,
+               syncs, card, rounds=ROUNDS_Q, batch=ROWS_Q)
+    if syncs:
+        raise Failure(f"app Q: the sequence step syncs with the host: "
+                      f"{syncs}")
+    add(launches)
+    del rt, got
+
+    # apps R: the group shapes, the card against the CPU
+    pool = np.array(["MSFT", "WSO2", "GOOG", "IBM", "ORCL"], dtype=object)
+    n1, n2 = BATCH_R, BATCH_R // 4
+    feed = []
+    for r in range(ROUNDS_R):
+        t = 1000 + 400 * r
+        feed.append(("S1", {"symbol": pool[rng.choice(
+            5, n1, p=[0.02, 0.245, 0.245, 0.245, 0.245])],
+            "price": rng.uniform(10, 60, n1).astype(np.float32)},
+            t + np.arange(n1)))
+        feed.append(("S2", {"symbol": pool[rng.integers(0, 5, n2)],
+                            "price": rng.uniform(10, 70, n2).astype(
+                                np.float32)}, t + n1 + np.arange(n2)))
+    for name, text in APPS_R.items():
+        outs, syncs = {}, []
+        for dev in ("cuda", "cpu"):
+            rt = SiddhiManager(device=dev).create_siddhi_app_runtime(
+                text, batch_size=BATCH_R)
+            got = []
+            rt.add_callback("OutStream", lambda evs, g=got: g.extend(
+                (e.timestamp, tuple(e.data)) for e in evs))
+            kernels.reset_launch_counts()
+            for sid, cols, tss in feed:
+                rt.get_input_handler(sid).send_columns(cols, timestamps=tss)
+                rt.flush()
+            outs[dev] = (got, int(rt.query_runtimes["bench"].state.dropped))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = dict(kernels.LAUNCHES)
+                qr = rt.query_runtimes["bench"]
+                j = rt.junctions["S1"]
+                sid, cols, tss = feed[0]
+                b = EventBatch.from_numpy(
+                    tss, j.codec.encode_columns(cols, n1), n1, j.ctx.device)
+                syncs = syncs_in(torch, lambda: setattr(qr, "state", qr._steps[
+                    "S1"](qr.state, b, int(tss[-1]))[0]))
+            del rt
+        if outs["cuda"] != outs["cpu"]:
+            raise Failure(f"app {name}: the card and the CPU differ")
+        n_out = len(outs["cuda"][0])
+        if n_out == 0:
+            raise Failure(f"app {name}: no event out")
+        need = ("K11a", "K11b", "K11e") if "mid" in name else ("K11a",
+                                                              "K11b")
+        for k in need:
+            if launches[k] == 0:
+                raise Failure(f"app {name}: kernel {k} never launched")
+        print(f"app {name}: {ROUNDS_R * (n1 + n2)} events in, {n_out} out, "
+              f"the card and the CPU agree in order (dropped "
+              f"{outs['cuda'][1]}); kernel launches "
+              f"{ {k: v for k, v in launches.items() if v} }; host syncs "
+              f"in one step: {len(syncs)} {syncs} [{card}]")
+        if syncs:
+            raise Failure(f"app {name}: the pattern step syncs with the "
+                          f"host: {syncs}")
+        add(launches)
     return total
 
 
@@ -2993,6 +3531,10 @@ def main(argv=None) -> int:
 
         kres.update(wire_kernel_phase(torch, rng))
         for k, v in config1_app(torch, rng, card, summary).items():
+            launches[k] += v
+
+        kres.update(absent_kernel_phase(torch, rng))
+        for k, v in absent_every_apps(torch, rng, card).items():
             launches[k] += v
         print(json.dumps({"columnar": summary}))
 

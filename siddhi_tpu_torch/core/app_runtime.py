@@ -1,6 +1,6 @@
 """SiddhiAppRuntime (counterpart of siddhi_tpu/core/app_runtime.py, reduced
 to streams, single-input queries, stream-stream joins, patterns and
-single-stream sequences, heartbeats, Event and columnar callbacks with
+sequences, heartbeats, Event and columnar callbacks with
 optional asynchronous delivery, and the capacity-overflow sweep). Lint,
 admission control, sharding, supersteps, persistence, tables, windows,
 triggers, aggregations and partitions are not yet ported; an app that
@@ -27,8 +27,8 @@ from .context import (
     parse_annotation_time,
 )
 from .join_runtime import JoinQueryRuntime, _JoinSideReceiver
-from .pattern_runtime import (PatternQueryRuntime, PatternState,
-                              _PatternSideReceiver)
+from .pattern_runtime import (MERGED_SID, PatternQueryRuntime,
+                              PatternState, _PatternSideReceiver)
 from .query_runtime import FunctionQueryCallback, QueryCallback, QueryRuntime
 from .stream import (
     AsyncDecoder,
@@ -92,9 +92,18 @@ class SiddhiAppRuntime:
         elif isinstance(query.input_stream, StateInputStream):
             qr = PatternQueryRuntime(query, self.ctx, self.junctions,
                                      self.ctx.registry, name)
-            # one receiver per source junction, in position order
-            for sid, junction in qr.junctions.items():
-                junction.subscribe(_PatternSideReceiver(qr, sid))
+            if qr.merged_junction is not None:
+                # multi-stream sequence: the tagged merged junction (fed by
+                # send-order taps on the sources) is the only feed;
+                # registered so flush() drives it like any other junction
+                qr.merged_junction.subscribe(
+                    _PatternSideReceiver(qr, MERGED_SID))
+                self.junctions[qr.merged_junction.definition.id] = \
+                    qr.merged_junction
+            else:
+                # one receiver per source junction, in position order
+                for sid, junction in qr.junctions.items():
+                    junction.subscribe(_PatternSideReceiver(qr, sid))
         else:
             sid = getattr(query.input_stream, "stream_id", None)
             junction = self.junctions.get(sid)
@@ -175,9 +184,10 @@ class SiddhiAppRuntime:
     def heartbeat(self, now: Optional[int] = None) -> None:
         """Advance time: flush, then deliver an empty timer batch to every
         junction that feeds a query with a time-driven window, so its
-        expirations fire with no data; a pattern with `within` steps
-        itself. In playback mode a bare heartbeat()
-        bumps the virtual clock by the @app:playback increment."""
+        expirations fire with no data; a pattern with `within`, an absent
+        position or a grouped `every ( ... ) within` steps itself. In
+        playback mode a bare heartbeat() bumps the virtual clock by the
+        @app:playback increment."""
         tg = self.ctx.timestamp_generator
         if now is None and tg.playback and tg.playback_increment_ms:
             t = tg.advance_idle()

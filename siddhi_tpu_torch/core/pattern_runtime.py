@@ -17,12 +17,20 @@ slots (K11b, `pending_insert`), or emitted past the last position.
 start state with its first match. Counts `<m:n>` expand at plan time into
 n positions, optional beyond m, with epsilon edges past optional ones.
 
-This slice ports plain and logical (and/or) positions, counts, `every` at
-the head over one element, `within` (with heartbeat expiry) and
-single-stream sequences. Absent positions (`not X for t`), the logical
-absent (`not X and Y`), grouped `every ( ... )` at the head or
-mid-pattern, the mid-pattern sticky `every` and multi-stream sequences
-are refused at plan time as not yet ported.
+Positions are plain, logical (and/or), counts, absent (`not X for t`,
+killed by a matching X inside its period, completed with an empty frame
+when the period passes: `absent_scan`, K11c; heartbeats drive it), the
+logical absent (`not X and Y`, with or without a timer) and the leading
+absent (`not X for t -> ...`, armed at build or, in playback, at the first
+observed instant). `every` re-arms the head over one element, or a whole
+group `every ( ... )` one iteration at a time (a gate on the arrival seq);
+a mid-pattern `-> every B` keeps its entries armed and advances up to
+`pattern_sticky_passes` arrivals per batch, and a mid-pattern group latches
+its context entry while an iteration is in flight and releases it on
+completion (`release_origin`, K11e). Matches past a pass bound are counted
+into `dropped` (`match_count`, K11d). Sequences across several streams run
+off a merged junction that taps every source at send time, so strict
+contiguity sees the true send order.
 
 A step makes no host synchronisation: `active0`, the drop counter and
 every mask stay on the device; the drop counter is read every 64 steps.
@@ -42,8 +50,9 @@ from ..errors import DefinitionNotExistError, SiddhiAppCreationError
 from ..extension.registry import Registry
 from ..ops.expr_compile import Scope, TypeResolver, compile_expression
 from ..ops.join import split_conjuncts
-from ..ops.pattern import (BIGSEQ, MAX_EQ, PendingTable, first_match,
-                           pending_insert)
+from ..ops.pattern import (BIGSEQ, MAX_EQ, PendingTable, absent_scan,
+                           first_match, match_count, pending_insert,
+                           release_origin)
 from ..ops.selector import CompiledSelector
 from ..query_api.definition import Attribute, AttributeType, StreamDefinition
 from ..query_api.execution import (
@@ -68,6 +77,9 @@ from .stream import Receiver, StreamJunction
 
 #: steps between two reads of the dropped-partial-match counter
 _DROP_CHECK_EVERY = 64
+
+#: junction key for the merged multi-stream sequence step
+MERGED_SID = "#merged"
 
 #: column types an equality may compare in the K11a kernel
 _EQ_TYPES = (AttributeType.INT, AttributeType.LONG, AttributeType.STRING,
@@ -374,14 +386,19 @@ class _RefRewriter:
 
 class PatternState(NamedTuple):
     pending: tuple  # PendingTable per position 1..S-1 (position 0 implicit)
-    active0: torch.Tensor  # bool 0-d: start state armed (non-every)
+    #: bool 0-d: start state armed (non-every; a head every-group's gate
+    #: open)
+    active0: torch.Tensor
     seq: torch.Tensor  # int64 0-d: global arrival counter
     sel_state: object
-    #: int64 0-d lifetime partial matches dropped (pending-table overflow)
+    #: int64 0-d lifetime partial matches dropped (pending-table overflow,
+    #: matches past pattern_sticky_passes in one batch)
     dropped: torch.Tensor
-    #: leading-absent arming instant; -2^62 (no leading absent here)
+    #: int64 0-d leading-absent arming instant (-1 in playback until the
+    #: first observed instant); -2^62 without a leading absent
     armed0_ts: torch.Tensor
-    #: head every-group gate (no groups here): 0
+    #: int64 0-d head every-group gate: the next iteration starts only
+    #: with an arrival seq >= gate0_seq
     gate0_seq: torch.Tensor
 
 
@@ -430,7 +447,16 @@ class PatternQueryRuntime:
 
         self.plan = _PatternPlan(sis, ctx)
         plan = self.plan
-        self._refuse_unported()
+        # Multi-stream sequences: strict contiguity needs ONE arrival order
+        # across the participating streams. Those queries run off a merged
+        # junction: the source junctions are tapped at send time, so the
+        # true per-event send order survives micro-batching; the merged
+        # batch carries a stream tag and each stream's columns under
+        # "<sid>::<attr>" names.
+        self.merged_mode = plan.is_sequence and len(
+            {leg.stream_id for pos in plan.positions for leg in pos.legs}) > 1
+        self.merged_junction: Optional[StreamJunction] = None
+        self._tag_codes: dict[str, int] = {}
 
         # --- junctions / frames / codecs ---
         self.junctions: dict[str, StreamJunction] = {}
@@ -449,6 +475,8 @@ class PatternQueryRuntime:
                 frames[leg.ref] = attr_types
                 codecs[leg.ref] = j.codec
                 self.ref_types[leg.ref] = attr_types
+        if self.merged_mode:
+            self._build_merged_junction()
 
         # bare stream names resolve when unambiguous
         sid_count: dict[str, int] = {}
@@ -504,41 +532,82 @@ class PatternQueryRuntime:
         self.output_codec = StreamCodec(self.output_definition,
                                         ctx.global_strings)
 
-        # --- state & steps (one per junction + heartbeat) ---
+        # --- state & steps (one per junction, or the merged one, and the
+        # heartbeat's) ---
         self.state = self.init_state()
-        self._steps = {sid: self._make_step(sid) for sid in self.junctions}
+        feeds = [MERGED_SID] if self.merged_mode else list(self.junctions)
+        self._steps = {sid: self._make_step(sid) for sid in feeds}
         self._heartbeat_step = self._make_step(None)
-        self.has_time_semantics = plan.within_ms is not None
+        self.has_time_semantics = (
+            plan.within_ms is not None
+            or (plan.head_group is not None
+                and plan.head_group.within_ms is not None)
+            or any(p.kind == "absent"
+                   or (p.kind == "notand" and p.wait_ms is not None)
+                   for p in plan.positions))
 
-    def _refuse_unported(self) -> None:
-        plan = self.plan
-        kinds = {p.kind for p in plan.positions}
-        what = None
-        if "absent" in kinds:
-            what = "absent pattern positions (`not X for t`)"
-        elif "notand" in kinds:
-            what = "the logical absent (`not X and Y`)"
-        elif plan.head_group is not None:
-            what = "grouped `every ( ... )` at the head of a pattern"
-        elif plan.mid_groups:
-            what = "mid-pattern grouped `every ( ... )`"
-        elif any(p.sticky for p in plan.positions):
-            what = "mid-pattern `every` (sticky positions)"
-        elif plan.is_sequence and len({leg.stream_id
-                                       for p in plan.positions
-                                       for leg in p.legs}) > 1:
-            what = "multi-stream sequences (the merged junction)"
-        if what is not None:
-            raise SiddhiAppCreationError(
-                f"{what} not yet ported to siddhi_tpu_torch")
+    # ---------------------------------------------------------- merged stream
+
+    def _build_merged_junction(self) -> None:
+        """One tagged union junction over the sequence's source streams, fed
+        by send-order taps so strict contiguity sees the true interleave."""
+        participants = []
+        for pos in self.plan.positions:
+            for leg in pos.legs:
+                if leg.stream_id not in participants:
+                    participants.append(leg.stream_id)
+        self._tag_codes = {sid: i for i, sid in enumerate(participants)}
+        attrs = [Attribute("_tag", AttributeType.INT)]
+        slots: dict[str, tuple[int, list[int]]] = {}
+        pad_of = {AttributeType.STRING: "", AttributeType.BOOL: False}
+        pads: list = []
+        for sid in participants:
+            src_idx = []
+            base = len(attrs) - 1  # offset into the padded tail
+            for i, a in enumerate(self.junctions[sid].definition.attributes):
+                if a.type == AttributeType.OBJECT:
+                    continue
+                attrs.append(Attribute(f"{sid}::{a.name}", a.type))
+                src_idx.append(i)
+                pads.append(pad_of.get(a.type, 0))
+            slots[sid] = (base, src_idx)
+        self.merged_junction = StreamJunction(
+            StreamDefinition(id=f"#seq:{self.name}", attributes=tuple(attrs)),
+            self.ctx)
+        pads = tuple(pads)
+        merged = self.merged_junction
+        for sid in participants:
+            code = self._tag_codes[sid]
+            base, src_idx = slots[sid]
+
+            def tap(ts, data, code=code, base=base, src_idx=src_idx):
+                tail = list(pads)
+                for k, i in enumerate(src_idx):
+                    tail[base + k] = data[i]
+                merged.stage_row(ts, (code, *tail))
+
+            self.junctions[sid].taps.append(tap)
+
+    def _leg_batch(self, batch: EventBatch, leg: _Leg) -> EventBatch:
+        """The leg's view of a step's batch: the batch itself, or on the
+        merged sequence step its stream's lanes (tag-masked) with the
+        columns de-prefixed."""
+        if not self.merged_mode:
+            return batch
+        code = self._tag_codes[leg.stream_id]
+        cols = {a: batch.cols[f"{leg.stream_id}::{a}"]
+                for a in self.ref_types[leg.ref]}
+        return EventBatch(ts=batch.ts, cols=cols,
+                          valid=batch.valid & (batch.cols["_tag"] == code),
+                          types=batch.types)
 
     def _split_leg(self, pos: _Position, leg: _Leg, conds: list,
                    resolver: TypeResolver, registry: Registry) -> None:
-        """Split the leg condition for K11a: equalities between an arrival
-        column and a captured column of one integral, string-code or bool
-        type (`leg.eq`: (arrival attr, captured ref, captured attr)), the
-        conjuncts over the arrival alone (`leg.lane`) and the rest
-        (`leg.resid`, evaluated as [B, T] mask tiles)."""
+        """Split the leg condition for the [B, P] kernels: equalities
+        between an arrival column and a captured column of one integral,
+        string-code or bool type (`leg.eq`: (arrival attr, captured ref,
+        captured attr)), the conjuncts over the arrival alone (`leg.lane`)
+        and the rest (`leg.resid`, evaluated as [B, T] mask tiles)."""
         leg.eq, leg.lane, leg.resid = [], [], []
         if pos.index == 0:
             return
@@ -578,27 +647,32 @@ class PatternQueryRuntime:
 
     def _captured_refs(self, pos_index: int) -> list[str]:
         """Frame refs captured before reaching position pos_index (all legs
-        of earlier positions; a logical position also captures its own)."""
+        of earlier positions; a logical or timed logical-absent position
+        also captures its own)."""
         refs = []
         for pos in self.plan.positions[:pos_index]:
             for leg in pos.legs:
                 refs.append(leg.ref)
         pos = self.plan.positions[pos_index]
-        if pos.kind == "logical":
+        if pos.kind == "logical" or (pos.kind == "notand"
+                                     and pos.wait_ms is not None):
             for leg in pos.legs:
                 refs.append(leg.ref)
         return refs
+
+    def _zero_frame(self, ref: str, W: int, dev):
+        """(columns, validity, timestamps) of an absent frame, W lanes."""
+        return ({n: torch.zeros(W, dtype=dtypes.device_dtype(t), device=dev)
+                 for n, t in self.ref_types[ref].items()},
+                torch.zeros(W, dtype=torch.bool, device=dev),
+                torch.zeros(W, dtype=dtypes.TS_DTYPE, device=dev))
 
     def _empty_pending(self, pos_index: int) -> PendingTable:
         P = self.P
         dev = self.ctx.device
         frames, fvalid, fts = {}, {}, {}
         for ref in self._captured_refs(pos_index):
-            frames[ref] = {
-                n: torch.zeros(P, dtype=dtypes.device_dtype(t), device=dev)
-                for n, t in self.ref_types[ref].items()}
-            fvalid[ref] = torch.zeros(P, dtype=torch.bool, device=dev)
-            fts[ref] = torch.zeros(P, dtype=dtypes.TS_DTYPE, device=dev)
+            frames[ref], fvalid[ref], fts[ref] = self._zero_frame(ref, P, dev)
         return PendingTable(
             frames=frames, frame_valid=fvalid, frame_ts=fts,
             start_ts=torch.zeros(P, dtype=dtypes.TS_DTYPE, device=dev),
@@ -611,6 +685,11 @@ class PatternQueryRuntime:
     def init_state(self) -> PatternState:
         S = len(self.plan.positions)
         dev = self.ctx.device
+        tg = self.ctx.timestamp_generator
+        # a leading absent arms at runtime build; in playback lazily, at
+        # the first observed instant (-1 until then)
+        armed0 = ((-1 if tg.playback else tg.current_time())
+                  if self.plan.positions[0].kind == "absent" else -(2 ** 62))
 
         def scalar(v, dt):
             return torch.tensor(v, dtype=dt, device=dev)
@@ -621,7 +700,7 @@ class PatternQueryRuntime:
             seq=scalar(0, torch.int64),
             sel_state=self.selector.init_state(dev),
             dropped=scalar(0, torch.int64),
-            armed0_ts=scalar(-(2 ** 62), torch.int64),
+            armed0_ts=scalar(armed0, torch.int64),
             gate0_seq=scalar(0, torch.int64))
 
     # ------------------------------------------------------------------- step
@@ -649,23 +728,24 @@ class PatternQueryRuntime:
             m = m & ce(scope)
         return m
 
-    def _match(self, leg: _Leg, batch: EventBatch, pend: PendingTable,
-               arr_seq: torch.Tensor, last_seq: torch.Tensor, seq0,
-               sequence: bool, within: Optional[int]):
-        """K11a over one leg and one pending table: (b_star, matched,
-        killed), as the JAX step's mask (`_leg_cond` + `:1197-1226`)."""
-        eq_pairs = [(batch.cols[a], pend.frames[ref][c])
+    def _leg_inputs(self, leg: _Leg, batch: EventBatch, pend: PendingTable):
+        """The leg's condition against `pend` as the [B, P] kernels take it,
+        on the leg's view of the batch: (equality pairs, lane mask,
+        residual mask tiles or None), as the JAX step's `_leg_cond`."""
+        leg_b = self._leg_batch(batch, leg)
+        eq_pairs = [(leg_b.cols[a], pend.frames[ref][c])
                     for a, ref, c in leg.eq]
         residual = None
         if leg.resid:
             def residual(p0, p1):
-                scope = self._arrival_scope(leg, batch, lanes_2d=True)
+                scope = self._arrival_scope(leg, leg_b, lanes_2d=True)
                 for ref, cols in pend.frames.items():
                     if ref == leg.ref:
                         # a logical position captures its OWN legs in the
                         # table; the leg's frame stays the arriving event
                         continue
-                    scope.add_frame(ref, {n: c[p0:p1] for n, c in cols.items()},
+                    scope.add_frame(ref,
+                                    {n: c[p0:p1] for n, c in cols.items()},
                                     pend.frame_ts[ref][p0:p1],
                                     pend.frame_valid[ref][p0:p1])
                 m = None
@@ -673,32 +753,72 @@ class PatternQueryRuntime:
                     r = ce(scope)
                     m = r if m is None else m & r
                 return m
+        return eq_pairs, self._lane_cond(leg, leg_b, leg.lane), residual
+
+    def _match(self, leg: _Leg, batch: EventBatch, pend: PendingTable,
+               arr_seq: torch.Tensor, last_seq: torch.Tensor, seq0,
+               sequence: bool, within: Optional[int],
+               live: Optional[torch.Tensor] = None):
+        """K11a over one leg and one pending table (`live` narrows the
+        entries, default `pend.valid`): (b_star, matched, killed), as the
+        JAX step's mask (`_leg_cond` + `:1197-1226`)."""
+        eq_pairs, lane_ok, residual = self._leg_inputs(leg, batch, pend)
         return first_match(
-            arr_seq, batch.ts, batch.valid,
-            self._lane_cond(leg, batch, leg.lane), eq_pairs, pend.valid,
-            last_seq, pend.start_ts, within, sequence, seq0=seq0,
-            residual=residual)
+            arr_seq, batch.ts, batch.valid, lane_ok, eq_pairs,
+            pend.valid if live is None else live, last_seq, pend.start_ts,
+            within, sequence, seq0=seq0, residual=residual)
+
+    def _absent(self, leg: _Leg, batch: EventBatch, pend: PendingTable,
+                arr_seq: torch.Tensor, deadline: Optional[torch.Tensor]):
+        """K11c over an absent leg: (first kill seq, any before the
+        deadline, any at or after it) per entry."""
+        eq_pairs, lane_ok, residual = self._leg_inputs(leg, batch, pend)
+        return absent_scan(arr_seq, batch.ts, lane_ok, eq_pairs, pend.valid,
+                           pend.last_seq, deadline, residual=residual)
+
+    def _count(self, leg: _Leg, batch: EventBatch, pend: PendingTable,
+               arr_seq: torch.Tensor, within: Optional[int]) -> torch.Tensor:
+        """K11d: the (lane, entry) pairs that still qualify, int64 0-d."""
+        eq_pairs, lane_ok, residual = self._leg_inputs(leg, batch, pend)
+        return match_count(arr_seq, batch.ts, lane_ok, eq_pairs, pend.valid,
+                           pend.last_seq, pend.start_ts, within,
+                           residual=residual)
 
     def _make_step(self, junction_sid: Optional[str]):
         plan = self.plan
         S = len(plan.positions)
+        P = self.P
         within = plan.within_ms
         is_seq = plan.is_sequence
         every = plan.every
+        sticky_passes = dtypes.config.pattern_sticky_passes
+        hg = plan.head_group
+        mid_heads = {g.head: g for g in plan.mid_groups}
+        merged = junction_sid == MERGED_SID
         # positions where a NEW match may begin: 0, plus the position after
-        # each leading zero-minimum count group (`A*, B`)
+        # each leading zero-minimum count group (`A*, B`); every-groups
+        # exclude themselves
         startable = {0}
         _idx = 0
         for _s0, _e0 in plan.zero_min_spans:
             if _s0 != _idx:
                 break
             _idx = _e0 + 1
-            if _idx < S:
+            if _idx < S and not (
+                    (hg is not None and _idx <= hg.end)
+                    or any(g.head <= _idx <= g.end for g in plan.mid_groups)):
                 startable.add(_idx)
+
+        def fed(leg: _Leg) -> bool:
+            return junction_sid is not None and (
+                merged or leg.stream_id == junction_sid)
 
         def step(state: PatternState, batch: EventBatch, now: int):
             pending = list(state.pending)
             active0_box = [state.active0]
+            gate0_box = [state.gate0_seq]
+            armed0_out = [state.armed0_ts]
+            gate_ctx = {"active0": active0_box, "gate0": gate0_box}
             B = batch.ts.shape[0]
             dev = batch.ts.device
 
@@ -711,42 +831,79 @@ class PatternQueryRuntime:
             out_blocks = []  # (frames, fvalid, fts, ts, valid)
             drop_acc = [state.dropped]
 
-            def expire(pend: PendingTable) -> PendingTable:
-                if within is None:
-                    return pend
-                return pend._replace(
-                    valid=pend.valid & (now - pend.start_ts <= within))
+            def with_frame(pend: PendingTable, ref: str, frame):
+                """pend's captured frames with `ref` set to frame
+                (columns, validity, timestamps)."""
+                frames, fvalid, fts = (dict(pend.frames),
+                                       dict(pend.frame_valid),
+                                       dict(pend.frame_ts))
+                frames[ref], fvalid[ref], fts[ref] = frame
+                return frames, fvalid, fts
 
-            pending = [expire(p) for p in pending]
+            def advance(target, frames, fvalid, fts, start_ts, last_seq,
+                        armed_ts, valid, origin=None):
+                self._advance(pending, out_blocks, target, frames, fvalid,
+                              fts, start_ts, last_seq, armed_ts, valid,
+                              drop_acc, origin, gate_ctx)
+
+            def expire(pend: PendingTable, pos_index: int) -> PendingTable:
+                in_head = hg is not None and hg.head < pos_index <= hg.end
+                gw = hg.within_ms if in_head else None
+                if within is None and gw is None:
+                    return pend
+                ok = pend.valid
+                if within is not None:
+                    ok = ok & (now - pend.start_ts <= within)
+                if gw is not None:
+                    # within scoped INSIDE `every (...)` bounds each
+                    # iteration (start_ts = the iteration's first capture)
+                    ok = ok & (now - pend.start_ts <= gw)
+                died = pend.valid & ~ok
+                if in_head:
+                    # the in-flight head iteration expired: re-arm the gate
+                    active0_box[0] = active0_box[0] | died.any()
+                for g in plan.mid_groups:
+                    if g.head < pos_index <= g.end:
+                        # a died iteration releases its origin context
+                        # entry's busy latch (its seq watermark stays)
+                        pending[g.head - 1] = release_origin(
+                            pending[g.head - 1], died, pend.origin,
+                            torch.full_like(pend.last_seq, -BIGSEQ))
+                return pend._replace(valid=ok)
+
+            # in place: expire() may clear busy latches on EARLIER tables
+            for i in range(len(pending)):
+                pending[i] = expire(pending[i], i + 1)
 
             def begin_at(pi: int, pos: _Position):
                 """Start NEW match entries at position pi (0, or a
                 startable position past leading zero-min optionals)."""
                 leg = pos.legs[0]
-                m = self._lane_cond(leg, batch, leg.compiled)
-                if not every:
-                    # only the first match consumes the start state: a
-                    # one-hot of the first qualifying lane, on the device
+                leg_b = self._leg_batch(batch, leg)
+                m = self._lane_cond(leg, leg_b, leg.compiled)
+                gated = hg is not None and pi == 0
+                if not every or gated:
+                    # non-every: only the first match consumes the start
+                    # state; a grouped head `every`: the gate admits one
+                    # iteration at a time, the first qualifying arrival past
+                    # the previous completion. A one-hot of that lane, on
+                    # the device
                     a0 = active0_box[0]
+                    if gated:
+                        m = m & (arr_seq >= gate0_box[0])
                     mseq = torch.where(m, arr_seq, BIGSEQ)
                     only = torch.arange(B, device=dev) == torch.argmin(mseq)
                     m = m & only & a0
                     active0_box[0] = a0 & ~m.any()
-                frames = {leg.ref: dict(batch.cols)}
+                frames = {leg.ref: dict(leg_b.cols)}
                 fvalid = {leg.ref: m}
                 fts = {leg.ref: batch.ts}
                 for pos_e in plan.positions[:pi]:  # skipped zero-min refs
                     for lg in pos_e.legs:
-                        frames[lg.ref] = {
-                            n: torch.zeros(B, dtype=dtypes.device_dtype(t),
-                                           device=dev)
-                            for n, t in self.ref_types[lg.ref].items()}
-                        fvalid[lg.ref] = torch.zeros(B, dtype=torch.bool,
-                                                     device=dev)
-                        fts[lg.ref] = torch.zeros(B, dtype=dtypes.TS_DTYPE,
-                                                  device=dev)
-                self._advance(pending, out_blocks, pi + 1, frames, fvalid,
-                              fts, batch.ts, arr_seq, batch.ts, m, drop_acc)
+                        frames[lg.ref], fvalid[lg.ref], fts[lg.ref] = \
+                            self._zero_frame(lg.ref, B, dev)
+                advance(pi + 1, frames, fvalid, fts, batch.ts, arr_seq,
+                        batch.ts, m)
 
             def joint_kill(pi: int, pos: _Position):
                 # strict kill JOINTLY over both legs of a logical sequence
@@ -758,61 +915,211 @@ class PatternQueryRuntime:
                 nxt = torch.zeros_like(pend.valid)
                 for lj, lg in enumerate(pos.legs):
                     _, ok, bad = self._match(lg, batch, pend, arr_seq,
-                                             pend.last_seq, state.seq, True,
-                                             None)
+                                                pend.last_seq, state.seq,
+                                                True, None)
                     q_any = q_any | (ok & ~pend.leg_done[:, lj])
                     nxt = nxt | ok | bad
                 killed = nxt & ~q_any & pend.valid
                 pending[pi - 1] = pend._replace(valid=pend.valid & ~killed)
 
-            def process_position(pi: int):
-                pos = plan.positions[pi]
-                if junction_sid is None or not any(
-                        leg.stream_id == junction_sid for leg in pos.legs):
+            def absent_position(pi: int, pos: _Position):
+                # `not X for t` after position 0: a matching X inside the
+                # period kills the entry; the deadline passing completes it
+                # with an empty frame (time-driven: every step, heartbeats
+                # included)
+                pend = pending[pi - 1]
+                leg = pos.legs[0]
+                deadline = pend.armed_ts + pos.wait_ms
+                due = pend.valid & (now >= deadline)
+                late = None
+                if fed(leg):
+                    _, killed, late = self._absent(leg, batch, pend, arr_seq,
+                                                   deadline)
+                    pend = pend._replace(valid=pend.valid & ~killed)
+                    due = due & ~killed
+                advance(pi + 1, *with_frame(pend, leg.ref,
+                                            self._zero_frame(leg.ref, P, dev)),
+                        torch.where(pend.valid, pend.start_ts, 0),
+                        pend.last_seq, deadline, due, pend.origin)
+                if pos.sticky:
+                    # `-> every not X for t`: one fire per elapsed quiet
+                    # period, re-armed for the next; a matching arrival
+                    # consumes the arming for good, in the current period
+                    # (killed above) or past its deadline (`late`: the
+                    # completed period still fired)
+                    pend = pend._replace(
+                        armed_ts=torch.where(due, deadline, pend.armed_ts),
+                        valid=pend.valid if late is None
+                        else pend.valid & ~late)
+                else:
+                    pend = pend._replace(valid=pend.valid & ~due)
+                pending[pi - 1] = pend
+
+            def timed_notand(pi: int, pos: _Position):
+                # `not X for t and Y`: an X inside [armed, armed + t) kills
+                # the entry; Y is captured before or after the deadline; the
+                # match fires at max(armed + t, Y's ts) once both hold
+                a_leg, p_leg = pos.legs
+                pend = pending[pi - 1]
+                deadline = pend.armed_ts + pos.wait_ms
+                if fed(a_leg):
+                    _, killed, _ = self._absent(a_leg, batch, pend, arr_seq,
+                                                deadline)
+                    pend = pend._replace(valid=pend.valid & ~killed)
+                if fed(p_leg):
+                    b_star, matched, _ = self._match(
+                        p_leg, batch, pend, arr_seq, pend.last_seq,
+                        state.seq, False, within,
+                        live=pend.valid & ~pend.leg_done[:, 1])
+                    leg_b = self._leg_batch(batch, p_leg)
+                    frames, fvalid, fts = with_frame(pend, p_leg.ref, (
+                        {n: torch.where(matched, v[b_star],
+                                        pend.frames[p_leg.ref][n])
+                         for n, v in leg_b.cols.items()},
+                        pend.frame_valid[p_leg.ref] | matched,
+                        torch.where(matched, batch.ts[b_star],
+                                    pend.frame_ts[p_leg.ref])))
+                    leg_done = pend.leg_done.clone()
+                    leg_done[:, 1] |= matched
+                    pend = pend._replace(
+                        frames=frames, frame_valid=fvalid, frame_ts=fts,
+                        leg_done=leg_done,
+                        last_seq=torch.where(
+                            matched,
+                            torch.maximum(arr_seq[b_star], pend.last_seq),
+                            pend.last_seq))
+                due = pend.valid & pend.leg_done[:, 1] & (now >= deadline)
+                pending[pi - 1] = pend._replace(valid=pend.valid & ~due)
+                advance(pi + 1, *with_frame(pend, a_leg.ref, self._zero_frame(
+                            a_leg.ref, P, dev)),
+                        torch.where(due, pend.start_ts, 0), pend.last_seq,
+                        torch.maximum(deadline, pend.frame_ts[p_leg.ref]),
+                        due, pend.origin)
+
+            def leading_absent(pos: _Position):
+                # `not X for t -> ...`: the armed period passing quiet
+                # advances an empty-frame entry to position 1; a matching
+                # arrival before the deadline kills the arming. Playback
+                # arms lazily at the first observed instant. Arrivals in
+                # the batch of the elapse may match position 1 whatever
+                # their order inside it (batch granularity)
+                leg = pos.legs[0]
+                first_ts = torch.where(batch.valid, batch.ts,
+                                       2 ** 62).amin()
+                armed0 = torch.where(state.armed0_ts >= 0, state.armed0_ts,
+                                     first_ts.clamp(max=now))
+                deadline = armed0 + pos.wait_ms
+                km_any = km_late = torch.zeros((), dtype=torch.bool,
+                                               device=dev)
+                kill_ts = torch.full((), -(2 ** 62), dtype=torch.int64,
+                                     device=dev)
+                if fed(leg):
+                    km_all = self._lane_cond(leg, self._leg_batch(batch, leg),
+                                             leg.compiled)
+                    early = batch.ts < deadline
+                    km_any = (km_all & early).any()
+                    # a match past the deadline breaks the NEXT period (the
+                    # completed one still fires below)
+                    km_late = (km_all & ~early).any()
+                    kill_ts = torch.where(km_all, batch.ts,
+                                          -(2 ** 62)).amax()
+                due = active0_box[0] & ~km_any & (now >= deadline)
+                frames, fvalid, fts = self._zero_frame(leg.ref, 1, dev)
+                d1 = deadline.reshape(1)
+                advance(1, {leg.ref: frames}, {leg.ref: fvalid},
+                        {leg.ref: fts}, d1, (state.seq - 1).reshape(1), d1,
+                        due.reshape(1))
+                if every:
+                    # `every not X for t -> ...`: re-arm at each fired
+                    # boundary; a matching arrival restarts the measurement
+                    # from its own timestamp
+                    armed0 = torch.where(km_any | km_late, kill_ts,
+                                         torch.where(due, deadline, armed0))
+                else:
+                    active0_box[0] = active0_box[0] & ~km_any & ~due
+                armed0_out[0] = armed0
+
+            def notand(pi: int, pos: _Position):
+                # `not X and Y` with no timer: an X earlier than the first
+                # qualifying Y kills the entry, a Y earlier than any X
+                # advances it with the absent frame empty
+                pend = pending[pi - 1]
+                a_leg, p_leg = pos.legs
+                kseq = torch.full((P,), BIGSEQ, dtype=torch.int64,
+                                  device=dev)
+                if fed(a_leg):
+                    kseq, _, _ = self._absent(a_leg, batch, pend, arr_seq,
+                                              None)
+                if not fed(p_leg):
+                    killed = pend.valid & (kseq < BIGSEQ)
+                    pending[pi - 1] = pend._replace(valid=pend.valid & ~killed)
                     return
-                if pi == 0:
-                    if pos.kind == "logical":
-                        raise SiddhiAppCreationError(
-                            "logical conditions at the first pattern "
-                            "position are not yet supported")
-                    if pos.legs[0].stream_id != junction_sid:
-                        return
-                    begin_at(pi, pos)
-                    return
+                b_star, matched, _ = self._match(
+                    p_leg, batch, pend, arr_seq, pend.last_seq, state.seq,
+                    False, within)
+                leg_b = self._leg_batch(batch, p_leg)
+                pseq = torch.where(matched, arr_seq[b_star], BIGSEQ)
+                advanced = pend.valid & (pseq < kseq)
+                killed = pend.valid & (kseq < BIGSEQ) & ~advanced
+                frames, fvalid, fts = with_frame(pend, p_leg.ref, (
+                    {n: v[b_star] for n, v in leg_b.cols.items()}, advanced,
+                    batch.ts[b_star]))
+                frames[a_leg.ref], fvalid[a_leg.ref], fts[a_leg.ref] = \
+                    self._zero_frame(a_leg.ref, P, dev)
+                pending[pi - 1] = pend._replace(
+                    valid=pend.valid & ~(advanced | killed))
+                advance(pi + 1, frames, fvalid, fts,
+                        torch.where(advanced, pend.start_ts, 0),
+                        torch.where(advanced,
+                                    torch.maximum(pseq, pend.last_seq),
+                                    pend.last_seq),
+                        batch.ts[b_star], advanced, pend.origin)
+
+            def stream_position(pi: int, pos: _Position):
                 if (pi in startable and pos.kind == "normal"
-                        and pos.legs[0].stream_id == junction_sid):
+                        and fed(pos.legs[0])):
                     # zero-occurrence leading optionals: this arrival may
                     # BEGIN a match here
                     begin_at(pi, pos)
-
+                logical = pos.kind == "logical"
                 #: ordering snapshot for pattern-mode logical legs
                 pend0 = pending[pi - 1]
+                mid_g = mid_heads.get(pi)
                 leg_iters = list(enumerate(pos.legs))
-                if is_seq and pos.kind == "logical":
+                if is_seq and logical:
                     # two passes: the second leg's arrival becomes reachable
                     # (last_seq + 1) only after the first leg matched
                     leg_iters = leg_iters * 2
+                if pos.sticky:
+                    # mid-pattern `every`: each pass advances one more
+                    # qualifying arrival per entry; the rest are counted
+                    # into `dropped` below
+                    leg_iters = leg_iters * sticky_passes
                 for li, leg in leg_iters:
-                    if is_seq and pos.kind == "logical":
+                    if is_seq and logical:
                         joint_kill(pi, pos)
-                    if leg.stream_id != junction_sid:
+                    if not fed(leg):
                         continue
                     pend = pending[pi - 1]
-                    ref_seq = (pend0.last_seq
-                               if pos.kind == "logical" and not is_seq
+                    ref_seq = (pend0.last_seq if logical and not is_seq
                                else pend.last_seq)
+                    # a mid every-group head with an iteration in flight
+                    # (busy latch) does not start another
+                    live = (pend.valid & ~pend.leg_done[:, 0]
+                            if mid_g is not None else None)
                     b_star, matched, killed = self._match(
                         leg, batch, pend, arr_seq, ref_seq, state.seq,
-                        is_seq, within)
-                    if is_seq and pos.kind != "logical":
+                        is_seq, within, live)
+                    leg_b = self._leg_batch(batch, leg)
+                    if is_seq and not logical:
                         # strict: the next arrival not matching kills
                         pend = pend._replace(valid=pend.valid & ~killed)
 
-                    cap = {n: v[b_star] for n, v in batch.cols.items()}
+                    cap = {n: v[b_star] for n, v in leg_b.cols.items()}
                     cap_ts = batch.ts[b_star]
                     seq_b = torch.maximum(arr_seq[b_star], pend.last_seq)
 
-                    if pos.kind == "logical":
+                    if logical:
                         other = 1 - li
                         # logical positions keep their legs in their own
                         # pending table (both legs are captured refs)
@@ -848,33 +1155,102 @@ class PatternQueryRuntime:
                     else:
                         # carry captured frames + the new arrival frame into
                         # the advance; pend's own structure is untouched
-                        ins_frames = dict(pend.frames)
-                        ins_fvalid = dict(pend.frame_valid)
-                        ins_fts = dict(pend.frame_ts)
-                        ins_frames[leg.ref] = cap
-                        ins_fvalid[leg.ref] = matched
-                        ins_fts[leg.ref] = cap_ts
+                        ins_frames, ins_fvalid, ins_fts = with_frame(
+                            pend, leg.ref, (cap, matched, cap_ts))
                         adv_valid = matched
                         comp_ts = cap_ts
-                        pending[pi - 1] = pend._replace(
-                            valid=pend.valid & ~matched)
+                        last_seq = torch.where(matched, seq_b, pend.last_seq)
+                        if pos.sticky:
+                            # the entry stays armed; the bumped last_seq
+                            # lets the next pass advance the NEXT arrival
+                            pending[pi - 1] = pend._replace(last_seq=last_seq)
+                        elif mid_g is not None:
+                            # the group-head context entry stays armed but
+                            # busy-latched until this iteration completes
+                            leg_done = pend.leg_done.clone()
+                            leg_done[:, 0] |= matched
+                            pending[pi - 1] = pend._replace(
+                                leg_done=leg_done, last_seq=last_seq)
+                        else:
+                            pending[pi - 1] = pend._replace(
+                                valid=pend.valid & ~matched)
 
-                    self._advance(
-                        pending, out_blocks, pi + 1,
-                        ins_frames, ins_fvalid, ins_fts,
-                        torch.where(adv_valid, pend.start_ts, 0),
-                        torch.where(adv_valid, seq_b, pend.last_seq),
-                        comp_ts, adv_valid, drop_acc)
+                    advance(pi + 1, ins_frames, ins_fvalid, ins_fts,
+                            torch.where(adv_valid, pend.start_ts, 0),
+                            torch.where(adv_valid, seq_b, pend.last_seq),
+                            comp_ts, adv_valid,
+                            torch.arange(P, dtype=torch.int32, device=dev)
+                            if mid_g is not None else pend.origin)
 
-            for pi in range(S):
-                process_position(pi)
+                if pos.sticky and fed(pos.legs[0]):
+                    # qualifying arrivals past the per-batch pass bound:
+                    # counted as dropped (K11d)
+                    drop_acc[0] = drop_acc[0] + self._count(
+                        pos.legs[0], batch, pending[pi - 1], arr_seq, within)
+
+            def process_position(pi: int):
+                pos = plan.positions[pi]
+                if pos.kind == "absent":
+                    if pi == 0:
+                        leading_absent(pos)
+                    else:
+                        absent_position(pi, pos)
+                    return
+                if pos.kind == "notand" and pos.wait_ms is not None:
+                    timed_notand(pi, pos)
+                    return
+                if not any(fed(leg) for leg in pos.legs):
+                    return
+                if pi == 0:
+                    if pos.kind == "logical":
+                        raise SiddhiAppCreationError(
+                            "logical conditions at the first pattern "
+                            "position are not yet supported")
+                    if fed(pos.legs[0]):
+                        begin_at(pi, pos)
+                elif pos.kind == "notand":
+                    notand(pi, pos)
+                else:
+                    stream_position(pi, pos)
+
+            pi = 0
+            while pi < S:
+                g = hg if (hg is not None and pi == hg.head) else \
+                    mid_heads.get(pi)
+                if g is None:
+                    process_position(pi)
+                    pi += 1
+                    continue
+                # an every-group: several passes, so iterations chain start
+                # -> complete -> re-arm -> start within one batch
+                for _ in range(sticky_passes):
+                    for pj in range(g.head, g.end + 1):
+                        process_position(pj)
+                # iteration starts past the pass bound are lost for this
+                # batch: counted into `dropped`
+                leg0 = plan.positions[g.head].legs[0]
+                if fed(leg0):
+                    if g is hg:
+                        m_left = self._lane_cond(
+                            leg0, self._leg_batch(batch, leg0),
+                            leg0.compiled) & (arr_seq >= gate0_box[0])
+                        # the in-flight iteration's own start is not a
+                        # leftover (gate closed: one started)
+                        cnt = (m_left.sum(dtype=torch.int64)
+                               - (~active0_box[0]).to(torch.int64))
+                        drop_acc[0] = drop_acc[0] + cnt.clamp(min=0)
+                    else:
+                        drop_acc[0] = drop_acc[0] + self._count(
+                            leg0, batch, pending[g.head - 1], arr_seq,
+                            within)
+                pi = g.end + 1
 
             new_sel, out = self._emit(state.sel_state, out_blocks, dev)
             return PatternState(
                 pending=tuple(pending), active0=active0_box[0],
                 seq=state.seq + n_valid, sel_state=new_sel,
-                dropped=drop_acc[0], armed0_ts=state.armed0_ts,
-                gate0_seq=state.gate0_seq), out
+                dropped=drop_acc[0], armed0_ts=armed0_out[0],
+                gate0_seq=gate0_box[0]), out
 
         return step
 
@@ -882,22 +1258,46 @@ class PatternQueryRuntime:
 
     def _advance(self, pending: list, out_blocks: list, target_pos: int,
                  frames, fvalid, fts, start_ts, last_seq, armed_ts,
-                 valid, drop_acc) -> None:
+                 valid, drop_acc, origin=None, gate_ctx=None) -> None:
         """Move completed entries to `target_pos` (insert into its waiting
         table, or emit past the last position). Optional count positions
         add an epsilon edge: entries also advance past them at once (the
         epsilon copy and the stay-behind copy are independent entries, a
-        documented divergence of the JAX package)."""
-        S = len(self.plan.positions)
+        documented divergence of the JAX package).
+
+        `origin` carries the spawning context slot of mid every-group
+        iteration entries (None: -1); `gate_ctx` lets a crossing of an
+        every-group's end re-arm it (the head gate scalars, the mid busy
+        latches through K11e)."""
+        plan = self.plan
+        S = len(plan.positions)
+        hg = plan.head_group
         while True:
+            if gate_ctx is not None:
+                if hg is not None and target_pos == hg.end + 1:
+                    # head every-group completion: re-open the gate for
+                    # arrivals past the completing event
+                    any_c = valid.any()
+                    mx = torch.where(valid, last_seq, -BIGSEQ).amax() + 1
+                    gate0 = gate_ctx["gate0"][0]
+                    gate_ctx["active0"][0] = gate_ctx["active0"][0] | any_c
+                    gate_ctx["gate0"][0] = torch.where(
+                        any_c, torch.maximum(gate0, mx), gate0)
+                for g in plan.mid_groups:
+                    if target_pos == g.end + 1 and origin is not None:
+                        # mid every-group completion: release the origin
+                        # context entries (busy latch, seq watermark)
+                        pending[g.head - 1] = release_origin(
+                            pending[g.head - 1], valid, origin, last_seq)
+                        origin = None
             if target_pos >= S:
                 out_blocks.append((frames, fvalid, fts, armed_ts, valid))
                 return
             pending[target_pos - 1], n_drop = pending_insert(
                 pending[target_pos - 1], frames, fvalid, fts, start_ts,
-                last_seq, armed_ts, valid)
+                last_seq, armed_ts, valid, origin)
             drop_acc[0] = drop_acc[0] + n_drop
-            if not self.plan.positions[target_pos].optional:
+            if not plan.positions[target_pos].optional:
                 return
             target_pos += 1
 
@@ -919,20 +1319,15 @@ class PatternQueryRuntime:
         for ref in all_refs:
             cols_parts, valid_parts, ts_parts = [], [], []
             for frames, fvalid, fts, ts, v in out_blocks:
-                W = ts.shape[0]
                 if ref in frames:
                     cols_parts.append(frames[ref])
                     valid_parts.append(fvalid[ref] & v)
                     ts_parts.append(fts[ref])
                 else:
-                    cols_parts.append({
-                        n: torch.zeros(W, dtype=dtypes.device_dtype(t),
-                                       device=dev)
-                        for n, t in self.ref_types[ref].items()})
-                    valid_parts.append(torch.zeros(W, dtype=torch.bool,
-                                                   device=dev))
-                    ts_parts.append(torch.zeros(W, dtype=dtypes.TS_DTYPE,
-                                                device=dev))
+                    cols, fv, ft = self._zero_frame(ref, ts.shape[0], dev)
+                    cols_parts.append(cols)
+                    valid_parts.append(fv)
+                    ts_parts.append(ft)
             fv = torch.cat(valid_parts)
             # zero missing frames so projections emit nulls
             cols = {n: torch.where(fv, torch.cat([c[n] for c in cols_parts]),

@@ -7,6 +7,10 @@ ported).
 `send` / `send_batch` stage host rows; a full batch or `flush()` encodes
 them into a fixed-capacity columnar batch on the app's device and delivers
 it to every receiver. `send_columns` encodes whole numpy columns at once.
+A junction may carry send-order taps: a multi-stream sequence copies every
+row of its source streams, in the order they were sent, into its merged
+junction (`stage_row`); a tapped junction takes each row through its taps
+one by one, whichever way it was sent.
 
 A callback receives a step's output through one packed readback
 (ops/wire.py, K12a on the card): `_deliver` packs the batch and starts its
@@ -253,6 +257,14 @@ class StreamJunction:
         self.batch_size = ctx.effective_batch_size
         self._staged_rows: list = []
         self._staged_ts: list[int] = []
+        #: send-order interceptors fn(ts, data): multi-stream sequence
+        #: queries tap their source junctions to build a merged arrival
+        #: stream in true per-event send order
+        self.taps: list[Callable] = []
+        #: rows staged by taps from any producer thread (`stage_row`),
+        #: drained into the staging buffers at the next flush
+        self._tap_queue: list = []
+        self._tap_lock = threading.Lock()
 
     def subscribe(self, receiver: Receiver) -> None:
         if isinstance(receiver, _HostReceiver):
@@ -264,6 +276,16 @@ class StreamJunction:
     def send_rows(self, tss: Sequence[int], rows: Sequence) -> None:
         if not rows:
             return
+        if self.taps:
+            # sequence taps need true per-row send order
+            for ts, row in zip(tss, rows):
+                for tap in self.taps:
+                    tap(ts, row)
+                self._stage_rows((ts,), (row,))
+            return
+        self._stage_rows(tss, rows)
+
+    def _stage_rows(self, tss: Sequence[int], rows: Sequence) -> None:
         with self.ctx.controller_lock:
             self._staged_ts.extend(tss)
             self._staged_rows.extend(rows)
@@ -272,10 +294,30 @@ class StreamJunction:
         if full:
             self.flush()
 
+    def stage_row(self, ts: int, data: Sequence) -> None:
+        """Thread-safe staging from any producer thread (the sequence taps
+        run on whichever thread called the source's send); the rows enter
+        the staging buffers under the controller lock at the next flush."""
+        with self._tap_lock:
+            self._tap_queue.append((ts, data))
+            full = len(self._tap_queue) >= self.batch_size
+        self.ctx.timestamp_generator.observe_event_time(ts)
+        if full:
+            self.flush()
+
     def send_column_batch(self, ts_arr: np.ndarray, cols: dict,
                           n: int) -> None:
-        """Deliver encoded numpy columns, chunked to the batch capacity."""
+        """Deliver encoded numpy columns, chunked to the batch capacity. A
+        tapped junction takes the rows one by one through its taps: the
+        columns decode back to host rows."""
         if n == 0:
+            return
+        if self.taps:
+            events = events_from_columns(
+                self.codec, np.ascontiguousarray(ts_arr[:n]),
+                np.zeros(n, dtype=bool), {k: v[:n] for k, v in cols.items()})
+            self.send_rows([e.timestamp for e in events],
+                           [tuple(e.data) for e in events])
             return
         self.ctx.timestamp_generator.observe_event_time(int(ts_arr[:n].max()))
         cap = self.batch_size
@@ -305,12 +347,24 @@ class StreamJunction:
     def publish_batch(self, batch: EventBatch, now: int) -> None:
         """Device-side publication (query output chaining)."""
         with self.ctx.controller_lock:
+            if self.taps:
+                # taps need host rows: only a derived stream feeding a
+                # multi-stream sequence pays this readback
+                for ev in batch.to_host_events(self.codec):
+                    for tap in self.taps:
+                        tap(ev.timestamp, tuple(ev.data))
             if self._staged_rows:
                 self.flush()
             self._deliver(batch, now)
 
     def flush(self, now: Optional[int] = None) -> None:
         with self.ctx.controller_lock:
+            if self._tap_queue:
+                with self._tap_lock:
+                    q, self._tap_queue = self._tap_queue, []
+                for ts, row in q:
+                    self._staged_ts.append(ts)
+                    self._staged_rows.append(row)
             if not self._staged_rows:
                 return
             rows, tss = self._staged_rows, self._staged_ts

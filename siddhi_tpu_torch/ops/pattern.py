@@ -1,10 +1,10 @@
 """Device primitives of the pattern / sequence step (counterpart of the
-[B, P] reductions and pending-table inserts inside
+[B, P] reductions and pending-table scatters inside
 siddhi_tpu/core/pattern_runtime.py).
 
 A pattern position keeps a fixed-capacity pending table of partial
 matches (`PendingTable`, P slots). A micro-batch of B arrivals meets it
-in two primitives:
+in five primitives:
 
 - `first_match` (K11a): for each pending entry, the first arrival that
   qualifies — the leg condition, `arr_seq > last_seq` (pattern) or
@@ -19,17 +19,28 @@ in two primitives:
   table (`_insert_entries`, `pattern_runtime.py:1460`): the k-th valid
   candidate takes the k-th free slot in ascending slot order; candidates
   past the free slots are dropped and counted.
+- `absent_scan` (K11c): for each entry, the arrivals of an absent leg
+  (`not X for t`, `not X and Y`) that reach it: the first one's seq, and
+  whether one lands before and one at or after the entry's deadline
+  (`pattern_runtime.py:871-882, 937-941, 1088-1094`).
+- `match_count` (K11d): the number of qualifying (lane, entry) pairs,
+  on the device: the matches a mid-pattern `every` or an every-group
+  leaves past its pass bound (`:1318-1331, 1368-1380`).
+- `release_origin` (K11e): a mid-pattern every-group's completions clear
+  their origin entries' busy latch and scatter-max their seq into them
+  (`_advance` `:1440-1446`).
 
 Each has a `_plain` and a `_cuda` version behind one name: a CUDA tensor
-launches csrc/k11_pattern.cu, a CPU tensor runs the plain version. The
-CUDA insert updates the table in place (the counterpart of JAX's buffer
-donation); the plain one returns new tensors.
+launches csrc/k11_pattern.cu (K11a, K11b) or csrc/k11c_absent.cu (K11c,
+K11d, K11e), a CPU tensor runs the plain version. The CUDA insert and
+release update the table in place (the counterpart of JAX's buffer
+donation); the plain ones return new tensors.
 
-The plain `first_match` materialises the [B, P] mask one range of
+The plain reductions over [B, P] materialise their mask one range of
 `match_tile(B)` entries at a time (at most 2^25 lane-entry pairs a tile:
-1024 entries at B = 32768, where one int64 temporary is 256 MiB), so its
-memory stays bounded at BASELINE config 4's width (B = 32768, P =
-131072, for which a whole int64 [B, P] would be 34 GB). The kernel reads
+1024 entries at B = 32768, where one int64 temporary is 256 MiB), so
+their memory stays bounded at BASELINE config 4's width (B = 32768, P =
+131072, for which a whole int64 [B, P] would be 34 GB). The kernels read
 a residual mask in tiles of the same size.
 """
 
@@ -80,6 +91,27 @@ class PendingTable(NamedTuple):
 Residual = Optional[Callable[[int, int], torch.Tensor]]
 
 
+def _qualify_tile(arr_seq, lane_ok, eq_pairs, pend_valid, last_seq,
+                  residual, p0, p1, start_ts=None, ts=None, within=None,
+                  sequence=False):
+    """bool[B, p1 - p0]: the qualifying (lane, entry) pairs of one tile of
+    entries: the lane mask, the entry mask, every equality, the residual,
+    arr_seq > last_seq (sequence: arr_seq == last_seq + 1) and (where
+    given) ts - start_ts <= within."""
+    q = lane_ok[:, None] & pend_valid[None, p0:p1]
+    for arr, ent in eq_pairs:
+        q = q & (arr[:, None] == ent[None, p0:p1])
+    if residual is not None:
+        q = q & residual(p0, p1)
+    if sequence:
+        q = q & (arr_seq[:, None] == last_seq[None, p0:p1] + 1)
+    else:
+        q = q & (arr_seq[:, None] > last_seq[None, p0:p1])
+    if within is not None:
+        q = q & (ts[:, None] - start_ts[None, p0:p1] <= within)
+    return q
+
+
 def first_match_plain(arr_seq: torch.Tensor, ts: torch.Tensor,
                       valid: torch.Tensor, lane_ok: torch.Tensor,
                       eq_pairs: Sequence, pend_valid: torch.Tensor,
@@ -99,21 +131,12 @@ def first_match_plain(arr_seq: torch.Tensor, ts: torch.Tensor,
     killed = torch.zeros(P, dtype=torch.bool, device=dev)
     for p0 in range(0, P, T):
         p1 = min(P, p0 + T)
-        q = lane_ok[:, None] & pend_valid[None, p0:p1]
-        for arr, ent in eq_pairs:
-            q = q & (arr[:, None] == ent[None, p0:p1])
-        if residual is not None:
-            q = q & residual(p0, p1)
-        nxt_seq = arr_seq[:, None] == last_seq[None, p0:p1] + 1
-        if sequence:
-            q = q & nxt_seq
-        else:
-            q = q & (arr_seq[:, None] > last_seq[None, p0:p1])
-        if within is not None:
-            q = q & (ts[:, None] - start_ts[None, p0:p1] <= within)
+        q = _qualify_tile(arr_seq, lane_ok, eq_pairs, pend_valid, last_seq,
+                          residual, p0, p1, start_ts, ts, within, sequence)
         if sequence:
             # strict contiguity: the next valid arrival failing the
             # condition kills the entry (pattern_runtime.py:1214-1221)
+            nxt_seq = arr_seq[:, None] == last_seq[None, p0:p1] + 1
             kill = ((nxt_seq & valid[:, None] & ~q).any(0)
                     & pend_valid[p0:p1])
             q = q & ~kill[None, :]
@@ -146,6 +169,21 @@ def _eq_args(eq_pairs, B: int, P: int) -> tuple:
             (Pt * MAX_EQ)(*[e.data_ptr() for _, e in eq_pairs]),
             (ctypes.c_int * MAX_EQ)(*[_ESIZE[a.dtype] for a, _ in eq_pairs]),
             n)
+
+
+def _residual_tiles(what, residual, B, P, tile, dev):
+    """(p0, p1, contiguous bool [B, p1 - p0] mask or None) per launch."""
+    T = max(P, 1) if residual is None else (tile or match_tile(B))
+    for p0 in range(0, P, T):
+        p1 = min(P, p0 + T)
+        mask = None
+        if residual is not None:
+            mask = torch.broadcast_to(residual(p0, p1),
+                                      (B, p1 - p0)).contiguous()
+            if mask.dtype != torch.bool or mask.device != dev:
+                raise ValueError(f"{what}: the residual mask is bool on the "
+                                 "batch's device")
+        yield p0, p1, mask
 
 
 def first_match_cuda(arr_seq: torch.Tensor, ts: torch.Tensor,
@@ -192,16 +230,8 @@ def first_match_cuda(arr_seq: torch.Tensor, ts: torch.Tensor,
                       [Pt] * 6 + [ctypes.c_int, Pt, Pt, Pt, ctypes.c_int]
                       + [Pt] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong]
                       + [Pt] * 5)
-    T = P if residual is None else (tile or match_tile(B))
-    for p0 in range(0, P, T):
-        p1 = min(P, p0 + T)
-        mask = None
-        if residual is not None:
-            mask = torch.broadcast_to(residual(p0, p1),
-                                      (B, p1 - p0)).contiguous()
-            if mask.dtype != torch.bool or mask.device != dev:
-                raise ValueError("first_match: the residual mask is bool on "
-                                 "the batch's device")
+    for p0, p1, mask in _residual_tiles("first_match", residual, B, P, tile,
+                                        dev):
         rc = fn(arr_seq.data_ptr(), ts.data_ptr(), valid.data_ptr(),
                 lane_ok.data_ptr(),
                 order.data_ptr() if order is not None else None,
@@ -409,3 +439,256 @@ def pending_insert(dst: PendingTable, frames: dict, fvalid: dict, fts: dict,
                                    last_seq, armed_ts, valid, origin)
     return pending_insert_plain(dst, frames, fvalid, fts, start_ts,
                                 last_seq, armed_ts, valid, origin)
+
+
+# --------------------------------------------------------------------------- #
+# K11c: absent_scan
+# --------------------------------------------------------------------------- #
+
+
+def absent_scan_plain(arr_seq: torch.Tensor, ts: torch.Tensor,
+                      lane_ok: torch.Tensor, eq_pairs: Sequence,
+                      pend_valid: torch.Tensor, last_seq: torch.Tensor,
+                      deadline: Optional[torch.Tensor],
+                      residual: Residual = None,
+                      tile: Optional[int] = None):
+    """Plain K11c: the JAX step's [B, P] kill masks (`pattern_runtime.py:
+    871-882, 937-941, 1088-1094`), one tile of entries at a time."""
+    B = arr_seq.shape[0]
+    P = pend_valid.shape[0]
+    dev = arr_seq.device
+    T = tile or match_tile(B)
+    first = torch.full((P,), BIGSEQ, dtype=torch.int64, device=dev)
+    before = torch.zeros(P, dtype=torch.bool, device=dev)
+    after = torch.zeros(P, dtype=torch.bool, device=dev)
+    for p0 in range(0, P, T):
+        p1 = min(P, p0 + T)
+        q = _qualify_tile(arr_seq, lane_ok, eq_pairs, pend_valid, last_seq,
+                          residual, p0, p1)
+        first[p0:p1] = torch.where(q, arr_seq[:, None], BIGSEQ).amin(0)
+        if deadline is None:
+            before[p0:p1] = q.any(0)
+        else:
+            early = ts[:, None] < deadline[None, p0:p1]
+            before[p0:p1] = (q & early).any(0)
+            after[p0:p1] = (q & ~early).any(0)
+    return first, before, after
+
+
+def _batch_checks(what, arr_seq, ts, lane_ok, pend_valid, last_seq,
+                  entry_cols=()):
+    B = arr_seq.shape[0]
+    P = pend_valid.shape[0]
+    if (arr_seq.dtype != torch.int64 or ts.dtype != torch.int64
+            or lane_ok.dtype != torch.bool or pend_valid.dtype != torch.bool
+            or last_seq.dtype != torch.int64 or ts.shape != (B,)
+            or lane_ok.shape != (B,) or last_seq.shape != (P,)
+            or any(c.dtype != torch.int64 or c.shape != (P,)
+                   for c in entry_cols)):
+        raise ValueError(f"{what}: int64 arr_seq/ts and bool lane_ok [B]; "
+                         "bool pend_valid and int64 last_seq (and the "
+                         "other entry columns) [P]")
+
+
+def absent_scan_cuda(arr_seq: torch.Tensor, ts: torch.Tensor,
+                     lane_ok: torch.Tensor, eq_pairs: Sequence,
+                     pend_valid: torch.Tensor, last_seq: torch.Tensor,
+                     deadline: Optional[torch.Tensor],
+                     residual: Residual = None,
+                     tile: Optional[int] = None):
+    B = arr_seq.shape[0]
+    P = pend_valid.shape[0]
+    eq_pairs = [(a.contiguous(), e.contiguous()) for a, e in eq_pairs]
+    extra = (deadline,) if deadline is not None else ()
+    kernels.require_cuda("absent_scan", arr_seq, ts, lane_ok, pend_valid,
+                         last_seq, *extra,
+                         *[t for pair in eq_pairs for t in pair])
+    _batch_checks("absent_scan", arr_seq, ts, lane_ok, pend_valid, last_seq,
+                  extra)
+    eq = _eq_args(eq_pairs, B, P)
+    dev = arr_seq.device
+    first = torch.empty(P, dtype=torch.int64, device=dev)
+    before = torch.empty(P, dtype=torch.bool, device=dev)
+    after = torch.empty(P, dtype=torch.bool, device=dev)
+    Pt = ctypes.c_void_p
+    fn = kernels.bind("k11c_absent", "k11c_absent_scan",
+                      [Pt] * 3 + [ctypes.c_int, Pt, Pt, Pt, ctypes.c_int]
+                      + [Pt] * 3 + [ctypes.c_int] * 2 + [Pt] * 5)
+    for p0, p1, mask in _residual_tiles("absent_scan", residual, B, P, tile,
+                                        dev):
+        rc = fn(arr_seq.data_ptr(), ts.data_ptr(), lane_ok.data_ptr(), B,
+                *eq, pend_valid.data_ptr(), last_seq.data_ptr(),
+                deadline.data_ptr() if deadline is not None else None,
+                p0, p1 - p0, mask.data_ptr() if mask is not None else None,
+                first.data_ptr(), before.data_ptr(), after.data_ptr(),
+                kernels.stream())
+        kernels.check("k11c_absent", "absent_scan", rc)
+        kernels.LAUNCHES["K11c"] += 1
+    return first, before, after
+
+
+def absent_scan(arr_seq: torch.Tensor, ts: torch.Tensor,
+                lane_ok: torch.Tensor, eq_pairs: Sequence,
+                pend_valid: torch.Tensor, last_seq: torch.Tensor,
+                deadline: Optional[torch.Tensor], residual: Residual = None,
+                tile: Optional[int] = None):
+    """Per pending entry, the arrivals of an absent leg that reach it
+    (K11c).
+
+    The batch and entry sides are as for `first_match` (valid lanes carry
+    strictly increasing `arr_seq`; `lane_ok` holds the valid lanes passing
+    the conjuncts over the arrival alone). An arrival qualifies for entry
+    p when p is live, every equality holds, the residual holds and
+    arr_seq > last_seq[p]. `deadline`: int64 [P] (armed_ts + wait) or
+    None (an absence with no timer: every arrival counts as before it).
+
+    Returns first int64[P] (the first qualifying arrival seq, BIGSEQ if
+    none), before bool[P] (one qualifies with ts < deadline) and after
+    bool[P] (one qualifies with ts >= deadline)."""
+    if arr_seq.is_cuda:
+        return absent_scan_cuda(arr_seq, ts, lane_ok, eq_pairs, pend_valid,
+                                last_seq, deadline, residual, tile)
+    return absent_scan_plain(arr_seq, ts, lane_ok, eq_pairs, pend_valid,
+                             last_seq, deadline, residual, tile)
+
+
+# --------------------------------------------------------------------------- #
+# K11d: match_count
+# --------------------------------------------------------------------------- #
+
+
+def match_count_plain(arr_seq: torch.Tensor, ts: torch.Tensor,
+                      lane_ok: torch.Tensor, eq_pairs: Sequence,
+                      pend_valid: torch.Tensor, last_seq: torch.Tensor,
+                      start_ts: torch.Tensor, within: Optional[int],
+                      residual: Residual = None,
+                      tile: Optional[int] = None) -> torch.Tensor:
+    """Plain K11d: the JAX step's `jnp.sum(q, dtype=int64)` over a [B, P]
+    mask (`pattern_runtime.py:1318-1331, 1368-1380`), tile by tile."""
+    B = arr_seq.shape[0]
+    P = pend_valid.shape[0]
+    T = tile or match_tile(B)
+    total = torch.zeros((), dtype=torch.int64, device=arr_seq.device)
+    for p0 in range(0, P, T):
+        p1 = min(P, p0 + T)
+        total = total + _qualify_tile(
+            arr_seq, lane_ok, eq_pairs, pend_valid, last_seq, residual, p0,
+            p1, start_ts, ts, within).sum(dtype=torch.int64)
+    return total
+
+
+def match_count_cuda(arr_seq: torch.Tensor, ts: torch.Tensor,
+                     lane_ok: torch.Tensor, eq_pairs: Sequence,
+                     pend_valid: torch.Tensor, last_seq: torch.Tensor,
+                     start_ts: torch.Tensor, within: Optional[int],
+                     residual: Residual = None,
+                     tile: Optional[int] = None) -> torch.Tensor:
+    B = arr_seq.shape[0]
+    P = pend_valid.shape[0]
+    eq_pairs = [(a.contiguous(), e.contiguous()) for a, e in eq_pairs]
+    kernels.require_cuda("match_count", arr_seq, ts, lane_ok, pend_valid,
+                         last_seq, start_ts,
+                         *[t for pair in eq_pairs for t in pair])
+    _batch_checks("match_count", arr_seq, ts, lane_ok, pend_valid, last_seq,
+                  (start_ts,))
+    eq = _eq_args(eq_pairs, B, P)
+    dev = arr_seq.device
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    Pt = ctypes.c_void_p
+    fn = kernels.bind("k11c_absent", "k11d_match_count",
+                      [Pt] * 3 + [ctypes.c_int, Pt, Pt, Pt, ctypes.c_int]
+                      + [Pt] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong]
+                      + [Pt] * 3)
+    for p0, p1, mask in _residual_tiles("match_count", residual, B, P, tile,
+                                        dev):
+        rc = fn(arr_seq.data_ptr(), ts.data_ptr(), lane_ok.data_ptr(), B,
+                *eq, pend_valid.data_ptr(), last_seq.data_ptr(),
+                start_ts.data_ptr(), p0, p1 - p0, int(within is not None),
+                int(within) if within is not None else 0,
+                mask.data_ptr() if mask is not None else None,
+                total.data_ptr(), kernels.stream())
+        kernels.check("k11c_absent", "match_count", rc)
+        kernels.LAUNCHES["K11d"] += 1
+    return total
+
+
+def match_count(arr_seq: torch.Tensor, ts: torch.Tensor,
+                lane_ok: torch.Tensor, eq_pairs: Sequence,
+                pend_valid: torch.Tensor, last_seq: torch.Tensor,
+                start_ts: torch.Tensor, within: Optional[int],
+                residual: Residual = None,
+                tile: Optional[int] = None) -> torch.Tensor:
+    """The number of qualifying (lane, entry) pairs (K11d), int64 0-d on
+    the batch's device: K11a's pattern-mode mask (the lane mask, live
+    entries, the equalities, the residual, arr_seq > last_seq and ts -
+    start_ts <= within) summed over [B, P] instead of reduced to a first
+    lane per entry."""
+    if arr_seq.is_cuda:
+        return match_count_cuda(arr_seq, ts, lane_ok, eq_pairs, pend_valid,
+                                last_seq, start_ts, within, residual, tile)
+    return match_count_plain(arr_seq, ts, lane_ok, eq_pairs, pend_valid,
+                             last_seq, start_ts, within, residual, tile)
+
+
+# --------------------------------------------------------------------------- #
+# K11e: release_origin
+# --------------------------------------------------------------------------- #
+
+
+def release_origin_plain(table: PendingTable, valid: torch.Tensor,
+                         origin: torch.Tensor, last_seq: torch.Tensor):
+    """Plain K11e, the JAX scatters with drop semantics (`_advance`
+    `pattern_runtime.py:1440-1446`): lanes that release nothing aim at
+    slot P of a table one row longer, which is cut off."""
+    P = table.valid.shape[0]
+    o = torch.where(valid & (origin >= 0), origin.long(), P)
+    clear = torch.zeros(P + 1, dtype=torch.bool, device=valid.device)
+    clear[o] = True
+    leg_done = table.leg_done.clone()
+    leg_done[:, 0] &= ~clear[:P]
+    ext = torch.cat([table.last_seq, table.last_seq.new_zeros(1)])
+    ext = ext.scatter_reduce(0, o, last_seq, "amax", include_self=True)
+    return table._replace(leg_done=leg_done, last_seq=ext[:P])
+
+
+def release_origin_cuda(table: PendingTable, valid: torch.Tensor,
+                        origin: torch.Tensor, last_seq: torch.Tensor):
+    """K11e on the card: one thread per completion; updates `table`'s
+    leg_done and last_seq in place."""
+    W = valid.shape[0]
+    P = table.valid.shape[0]
+    kernels.require_cuda("release_origin", valid, origin, last_seq,
+                         table.leg_done, table.last_seq)
+    if (valid.dtype != torch.bool or origin.dtype != torch.int32
+            or last_seq.dtype != torch.int64 or origin.shape != (W,)
+            or last_seq.shape != (W,) or table.leg_done.shape != (P, 2)
+            or table.leg_done.dtype != torch.bool
+            or table.last_seq.dtype != torch.int64):
+        raise ValueError("release_origin: bool valid, int32 origin, int64 "
+                         "last_seq [W]; the table's bool leg_done [P, 2] "
+                         "and int64 last_seq [P]")
+    if W == 0:
+        return table
+    Pt = ctypes.c_void_p
+    fn = kernels.bind("k11c_absent", "k11e_release_origin",
+                      [Pt] * 3 + [ctypes.c_int, Pt, Pt, ctypes.c_int, Pt])
+    rc = fn(valid.data_ptr(), origin.data_ptr(), last_seq.data_ptr(), W,
+            table.leg_done.data_ptr(), table.last_seq.data_ptr(), P,
+            kernels.stream())
+    kernels.check("k11c_absent", "release_origin", rc)
+    kernels.LAUNCHES["K11e"] += 1
+    return table
+
+
+def release_origin(table: PendingTable, valid: torch.Tensor,
+                   origin: torch.Tensor, last_seq: torch.Tensor):
+    """Completions of a mid-pattern `every ( ... )` iteration release the
+    context entries they came from (K11e): for every valid completion w
+    with origin[w] >= 0, clear leg_done[origin[w], 0] (the busy latch) and
+    raise last_seq[origin[w]] to at least last_seq[w]. Several completions
+    may share one origin: the seq is a scatter-max. `valid` bool, `origin`
+    int32, `last_seq` int64, all [W]. Returns the table (the CUDA version
+    updates it in place)."""
+    if valid.is_cuda:
+        return release_origin_cuda(table, valid, origin, last_seq)
+    return release_origin_plain(table, valid, origin, last_seq)

@@ -832,3 +832,126 @@ def test_async_decoder_on_card_while_steps_rewrite_the_ring(cuda):
         for k in b.columns:
             assert np.array_equal(a.columns[k], b.columns[k]), k
         assert a.strings("symbol") == b.strings("symbol")
+
+
+@pytest.mark.parametrize("timer", [True, False], ids=["deadline", "untimed"])
+@pytest.mark.parametrize("with_residual", [False, True],
+                         ids=["no_residual", "residual"])
+def test_k11c_kernel_matches_plain(cuda, timer, with_residual):
+    from siddhi_tpu_torch.ops import pattern
+    rng = np.random.default_rng(14)
+    B, P = 1500, 3000
+    t = _first_match_case(cuda, rng, B, P, seq0=70_000, n_values=6)
+    deadline = torch.from_numpy(rng.integers(9_900, 10_500, P)).to(cuda)
+
+    def resid(p0, p1):
+        return (t["bval"][:, None] + t["eval"][None, p0:p1]) % 3 != 0
+
+    args = (t["arr_seq"], t["ts"], t["valid"] & (t["bval"] != 5),
+            [(t["bval"], t["eval"]), (t["bkey"], t["ekey"])],
+            t["pend_valid"], t["last_seq"], deadline if timer else None)
+    kw = dict(residual=resid if with_residual else None, tile=700)
+    got = pattern.absent_scan(*args, **kw)
+    want = pattern.absent_scan_plain(*args, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int((got[0] < 2**62).sum()) > 0 and int(got[1].sum()) > 0
+    assert (int(got[2].sum()) > 0) == timer
+
+
+@pytest.mark.parametrize("with_residual", [False, True],
+                         ids=["no_residual", "residual"])
+def test_k11d_kernel_matches_plain(cuda, with_residual):
+    from siddhi_tpu_torch.ops import pattern
+    rng = np.random.default_rng(15)
+    B, P = 1500, 3000
+    t = _first_match_case(cuda, rng, B, P, seq0=70_000, n_values=6)
+
+    def resid(p0, p1):
+        return (t["bval"][:, None] + t["eval"][None, p0:p1]) % 3 != 0
+
+    args = (t["arr_seq"], t["ts"], t["valid"], [(t["bval"], t["eval"])],
+            t["pend_valid"], t["last_seq"], t["start_ts"], 300)
+    kw = dict(residual=resid if with_residual else None, tile=700)
+    got = pattern.match_count(*args, **kw)
+    assert got.is_cuda and got.dtype == torch.int64
+    assert int(got) == int(pattern.match_count_plain(*args, **kw)) > 0
+
+
+def test_k11e_kernel_matches_plain(cuda):
+    from siddhi_tpu_torch.ops import pattern
+    rng = np.random.default_rng(16)
+    P, W = 3000, 5000
+    base = _pending_table(cuda, rng, P, [], 0.5)
+    valid = torch.from_numpy(rng.random(W) < 0.7).to(cuda)
+    origin = torch.from_numpy(np.where(rng.random(W) < 0.1, -1,
+                                       rng.integers(0, 500, W))
+                              .astype(np.int32)).to(cuda)
+    seq = torch.from_numpy(rng.integers(0, 2**40, W)).to(cuda)
+    want = pattern.release_origin_plain(base, valid, origin, seq)
+    work = base._replace(leg_done=base.leg_done.clone(),
+                         last_seq=base.last_seq.clone())
+    got = pattern.release_origin(work, valid, origin, seq)
+    assert torch.equal(got.leg_done, want.leg_done)
+    assert torch.equal(got.last_seq, want.last_seq)
+    assert got.last_seq.data_ptr() == work.last_seq.data_ptr()  # in place
+
+
+ABSENT_EVERY_ON_CARD = {
+    "O_absent": ("from every a=A -> not B[val == a.val] for 20 millisec "
+                 "select a.val as av", ("K11b", "K11c")),
+    "P_sticky": ("from every a=A -> every b=B[b.val == a.val] within 1 sec "
+                 "select a.val as av, b.val as bv", ("K11a", "K11d")),
+    "Q_sequence": ("from every a=A, b=B[b.val == a.val] "
+                   "select a.val as av, b.val as bv", ("K11a", "K11b")),
+    "R_mid_group": ("from e0=B[val == 7] -> every (e1=A[val > 4] -> "
+                    "e2=A[val < e1.val]) -> e3=B[val == e2.val] "
+                    "select e1.val as av, e3.val as bv", ("K11a", "K11e")),
+    "R_head_group": ("from every (e1=A[val > 4] -> e2=A[val < e1.val]) -> "
+                     "e3=B[val == e2.val] within 1 sec "
+                     "select e1.val as av, e3.val as bv", ("K11a", "K11b")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ABSENT_EVERY_ON_CARD))
+def test_absent_and_every_app_on_card_matches_cpu(cuda, name):
+    from siddhi_tpu_torch import SiddhiManager, kernels
+    from siddhi_tpu_torch.core import dtypes
+    query, on_path = ABSENT_EVERY_ON_CARD[name]
+    app = f"""
+    @app:playback
+    define stream A (val int);
+    define stream B (val int);
+    @info(name = 'bench')
+    {query}
+    insert into OutStream;
+    """
+    rng = np.random.default_rng(17)
+    # runs of one stream, so a sequence meets both streams in one batch
+    feeds = [(sid, rng.integers(0, 8, int(rng.integers(1, 9)))
+              .astype(np.int32)) for _ in range(160) for sid in ("A", "B")]
+    outs = []
+    kernels.reset_launch_counts()
+    prev = dtypes.config.pattern_pending_capacity
+    dtypes.config.pattern_pending_capacity = 1024
+    try:
+        for dev in ("cuda", "cpu"):
+            rt = SiddhiManager(device=dev).create_siddhi_app_runtime(
+                app, batch_size=256)
+            got = []
+            rt.add_callback("OutStream", lambda evs, g=got: g.extend(
+                (e.timestamp, e.data) for e in evs))
+            t = 1000
+            for i, (sid, val) in enumerate(feeds):
+                rt.get_input_handler(sid).send_columns(
+                    {"val": val}, timestamps=t + np.arange(val.size))
+                t += val.size
+                if i % 16 == 15:
+                    rt.flush()
+            rt.heartbeat(t + 5000)
+            outs.append((got, int(rt.query_runtimes["bench"].state.dropped)))
+    finally:
+        dtypes.config.pattern_pending_capacity = prev
+    assert outs[0] == outs[1] and len(outs[0][0]) > 10
+    for k in on_path:
+        assert kernels.LAUNCHES[k] > 0

@@ -4,8 +4,10 @@ kernels K11a `first_match` and K11b `pending_insert`) against the JAX
 step's own arrays, the shapes of tests/test_patterns.py this slice
 supports through the public API, `within` expiry by heartbeat, a
 pending-table overflow, BASELINE config 4 (apps H and I of chip_smoke.py
-at a reduced size, also against that script's numpy oracle), interop of a
-mid-run state, and the refusals of what is not yet ported.
+at a reduced size, also against that script's numpy oracle) and interop
+of a mid-run state. Absent positions are in tests/test_torch_absent.py,
+every-groups, the mid-pattern `every` and multi-stream sequences in
+tests/test_torch_every.py.
 
 Inputs are made with numpy from a seed and handed to both packages. App
 events must be equal: ints, strings and timestamps exactly, floats within
@@ -32,7 +34,6 @@ from siddhi_tpu.core.pattern_runtime import PendingTable as JPending
 from siddhi_tpu_torch import interop
 from siddhi_tpu_torch.core import dtypes as tdtypes
 from siddhi_tpu_torch.core.event import EventBatch as TBatch
-from siddhi_tpu_torch.errors import SiddhiAppCreationError
 from siddhi_tpu_torch.ops import pattern as tp
 
 FLOAT_RTOL = 1e-5
@@ -253,13 +254,17 @@ def test_pending_insert_matches_the_jax_insert(fill, W, p_cand,
 
 
 def _run(pkg, app, script, batch_size=8, out="OutStream", pending=None,
-         **kw):
-    """Drive an app with a script of ("send", stream, rows, ts),
-    ("flush",) and ("hb", t) steps; returns (timestamp, data) events."""
+         runtimes=None, **kw):
+    """Drive an app with a script of ("send", stream, rows, ts) (one
+    send_batch), ("one", stream, row, ts) (one send), ("cols", stream,
+    columns, ts), ("flush",) and ("hb", t) steps; returns
+    (timestamp, data) events (and appends the runtime to `runtimes`)."""
     with _pending_capacity(pending or jdtypes.config
                            .pattern_pending_capacity):
         rt = pkg.SiddhiManager(**kw).create_siddhi_app_runtime(
             app, batch_size=batch_size)
+    if runtimes is not None:
+        runtimes.append(rt)
     got = []
     rt.add_callback(out, lambda evs: got.extend(
         (e.timestamp, tuple(e.data)) for e in evs))
@@ -267,6 +272,9 @@ def _run(pkg, app, script, batch_size=8, out="OutStream", pending=None,
         if op[0] == "send":
             _, sid, rows, ts = op
             rt.get_input_handler(sid).send_batch(rows, timestamps=ts)
+        elif op[0] == "one":
+            _, sid, row, ts = op
+            rt.get_input_handler(sid).send(row, timestamp=ts)
         elif op[0] == "cols":
             _, sid, cols, ts = op
             rt.get_input_handler(sid).send_columns(cols, timestamps=ts)
@@ -656,19 +664,3 @@ def test_interop_continues_a_jax_pattern():
     feed(trt, tail)
     assert len(jout) > n_head
     _assert_same(jout[n_head:], tout)
-
-
-@pytest.mark.parametrize("query", [
-    "from every e1=S1 -> not S2 for 1 sec select e1.price as p "
-    "insert into OutStream;",
-    "from e1=S1 -> not S2 and e3=S3 select e1.price as p "
-    "insert into OutStream;",
-    "from every (e1=S1 -> e2=S2) select e1.price as p "
-    "insert into OutStream;",
-    "from e1=S1 -> every e2=S2 select e1.price as p insert into OutStream;",
-    "from every e1=S1, e2=S2 select e1.price as p insert into OutStream;",
-], ids=["absent", "not_and", "every_group", "mid_every", "multi_stream_seq"])
-def test_unported_pattern_forms_are_refused(query):
-    mgr = siddhi_tpu_torch.SiddhiManager(device="cpu")
-    with pytest.raises(SiddhiAppCreationError, match="not yet ported"):
-        mgr.create_siddhi_app_runtime(THREE + query)
