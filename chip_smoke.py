@@ -115,7 +115,29 @@ Phases (any failure exits non-zero and prints no result line):
    (A, B) pairs of equal value in send order; apps R (the mid and head
    every-group shapes of tests/test_absent_patterns.py, 8 rounds of 256
    S1 and 64 S2 events) on the card against the CPU, event for event;
-   each app's kernels launched and 0 host syncs a step.
+   each app's kernels launched and 0 host syncs a step;
+18. K7, the stable radix argsort, against its plain version on the card,
+   bit for bit, at each site's shape: app S's session chunk (L = 3B =
+   393,216 emission keys, ~40% invalid), app V's sort chunk (L = 2B + N
+   = 272,144), app V's rank passes over M = N + B = 141,072 float64 keys
+   with ties, -0.0, NaN and ±inf (asc and desc; and the whole two-key
+   `_rank_key` on the card against the CPU), app T's key grouping (B
+   keys below K = 4096, invalid lanes at K) and app T's top-E (the
+   oldest E = B of C = 262,144 ring ages); with the same timings, the
+   library call being `torch.sort(stable=True)`;
+19. apps S (`session(5 sec)`: bursts of 1,000-50,000 events 1 ms apart
+   between idle jumps of 6-20 s, a heartbeat after each round), T
+   (`session(5 sec, symbol)`: 1,000 symbols taking turns in four groups
+   of 250 over 20 s phases), U (app D's query through a named
+   `length(100000)` window) and V (`sort(10000, price, 'desc', volume)`,
+   a top-10,000 leaderboard), `insert all events` but U, 8 rounds of
+   131072 each under @app:playback, every event in order against numpy
+   oracles (S: each session's rows expired before the next session's
+   first current; T: a model of the per-key sessions, at most E closed
+   rows a step, oldest first; U: oracle_d; V: np.lexsort on (-price,
+   volume, merge position)), strings, longs, timestamps and stored
+   float32 values exact, U's sums rtol 1e-5; T drops no key; each app's
+   K7 counters non-zero and 0 host syncs a step.
 
 Every app's Event callback reads back through K12a (its launch counter
 must be non-zero in every app). Apps A, C, D, G, H and N also run the
@@ -327,6 +349,8 @@ PATTERN = "siddhi_tpu/core/pattern_runtime.py"
 K8_SRC = "siddhi_tpu_torch/csrc/k8_extrema.cu"
 K9_SRC = "siddhi_tpu_torch/csrc/k9_hll.cu"
 AGGS = "siddhi_tpu/ops/aggregators.py"
+K7_SRC = "siddhi_tpu_torch/csrc/k7_radix_sort.cu"
+WINDOWS_EXTRA = "siddhi_tpu/ops/windows_extra.py"
 #: window parameter of apps J-M: ms for the time windows, events for L
 AGG_SIZES = {"J": TIME_WINDOW_MS, "K": TIME_WINDOW_MS, "L": LENGTH_D,
              "M": 1_000}
@@ -368,6 +392,13 @@ KERNELS = {
     "K12a": ("_wire_pack + the host compaction",
              "siddhi_tpu_torch/csrc/k12a_wire_pack.cu",
              "siddhi_tpu/core/stream.py:178"),
+    "K7 session chunk": ("_sort_chunk (session)", K7_SRC, f"{WINDOWS}:136"),
+    "K7 sort chunk": ("_sort_chunk (sort)", K7_SRC, f"{WINDOWS}:136"),
+    "K7 rank": ("SortWindow._rank_key", K7_SRC, f"{WINDOWS}:1214"),
+    "K7 keyed group": ("KeyedSessionWindow.step key grouping", K7_SRC,
+                       f"{WINDOWS_EXTRA}:480"),
+    "K7 keyed top-E": ("KeyedSessionWindow.step top-E", K7_SRC,
+                       f"{WINDOWS_EXTRA}:542"),
 }
 
 
@@ -948,9 +979,10 @@ def oracle(key, price32, ts, passed):
 
 def run_app(torch, text: str, columns: dict, ts,
             out_stream: str = "SummaryStream", rounds: int = ROUNDS,
-            batch: int = BATCH):
+            batch: int = BATCH, after_round=None):
     """Feed `rounds` sends of `batch` events (send_columns + flush each)
-    and collect the output stream's events."""
+    and collect the output stream's events. `after_round(rt, r)` runs after
+    each round's flush, inside the timed run (heartbeats)."""
     from siddhi_tpu_torch import SiddhiManager
     from siddhi_tpu_torch import kernels
 
@@ -968,6 +1000,8 @@ def run_app(torch, text: str, columns: dict, ts,
         h.send_columns({k: v[s] for k, v in columns.items()},
                        timestamps=ts[s])
         rt.flush()
+        if after_round is not None:
+            after_round(rt, r)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
@@ -1168,16 +1202,20 @@ def syncs_in(torch, fn) -> list:
 
 
 def measure_steps(torch, rt, columns: dict, ts, fresh: bool = False,
-                  rounds: int = ROUNDS, batch: int = BATCH):
+                  rounds: int = ROUNDS, batch: int = BATCH,
+                  window: str = None):
     """The query step alone (no ingest, no output decode) over the app's
     rounds, as device batches prepared beforehand, each at its round's
     event time. `fresh` restarts from the query's initial state, so a
-    sliding window sees the same traffic as in the app run. Returns (where
-    one step syncs with the host under torch.cuda.set_sync_debug_mode(
-    'warn'), one "file:line" per synchronizing call; mean ms per step)."""
+    sliding window sees the same traffic as in the app run; with a named
+    `window` feeding the query, a step is the window's step and then the
+    query's. Returns (where one step syncs with the host under
+    torch.cuda.set_sync_debug_mode('warn'), one "file:line" per
+    synchronizing call; mean ms per step)."""
     from siddhi_tpu_torch.core.event import EventBatch
 
     qr = rt.query_runtimes["bench"]
+    w = rt.windows[window] if window is not None else None
     j = rt.junctions["TradeStream"]
     batches, nows = [], []
     for r in range(rounds):
@@ -1192,20 +1230,24 @@ def measure_steps(torch, rt, columns: dict, ts, fresh: bool = False,
     def restart():
         qr.state = (qr.window.init_state(dev), qr.selector.init_state(dev),
                     qr.rate_limiter.init_state(dev))
+        if w is not None:
+            w.state = w.window.init_state(dev)
+
+    def step(b, now):
+        if w is not None:
+            w.state, chunk = w.window.step(w.state, b, now)
+            b = w._apply_output_event_type(chunk)
+        qr.state, _ = qr.step(qr.state, b, now)
 
     if fresh:
         restart()
-
-    def one_step():
-        qr.state, _ = qr.step(qr.state, batches[0], nows[0])
-
-    syncs = syncs_in(torch, one_step)
+    syncs = syncs_in(torch, lambda: step(batches[0], nows[0]))
     if fresh:
         restart()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for b, now in zip(batches, nows):
-        qr.state, _ = qr.step(qr.state, b, now)
+        step(b, now)
     torch.cuda.synchronize()
     return syncs, (time.perf_counter() - t0) / rounds * 1e3
 
@@ -3425,6 +3467,350 @@ def config1_app(torch, rng, card: str, summary: dict) -> dict:
     return {k: launches[k] + col[k] for k in launches}
 
 
+# --------------------------------------------------------------------------- #
+# phases 18-19: K7 and the session, keyed-session, named and sort windows
+# --------------------------------------------------------------------------- #
+
+GAP_S = 5000  # session gap of apps S and T, ms
+N_V = 10_000  # app V's leaderboard
+T_SYMBOLS = 1_000
+T_GROUPS = 4  # app T's symbols take turns in groups of 250
+T_PHASE = 20_000  # events a phase, 1 ms apart: a group is quiet 60 s
+S_BURST = (1_000, 50_001)  # app S's burst lengths, events 1 ms apart
+S_JUMP = (GAP_S + 1_000, 20_001)  # and the idle jumps between them, ms
+
+APP_S = f"""
+@app:playback
+define stream TradeStream (symbol string, price double, volume long);
+@info(name = 'bench')
+from TradeStream#window.session({GAP_S // 1000} sec)
+select symbol, price, volume
+insert all events into OutStream;
+"""
+
+APP_T = f"""
+@app:playback
+define stream TradeStream (symbol string, price double, volume long);
+@info(name = 'bench')
+from TradeStream#window.session({GAP_S // 1000} sec, symbol)
+select symbol, price, volume
+insert all events into OutStream;
+"""
+
+# app D's query through a named window
+APP_U = """
+@app:playback
+define stream TradeStream (symbol string, price double, volume long);
+define window TradeWindow (symbol string, price double, volume long)
+  length(100000) output all events;
+from TradeStream insert into TradeWindow;
+@info(name = 'bench')
+from TradeWindow
+select symbol, sum(price) as total, count() as n
+group by symbol
+insert into OutStream;
+"""
+
+APP_V = f"""
+@app:playback
+define stream TradeStream (symbol string, price double, volume long);
+@info(name = 'bench')
+from TradeStream#window.sort({N_V}, price, 'desc', volume)
+select symbol, price, volume
+insert all events into OutStream;
+"""
+
+
+def sort_kernel_phase(torch, rng) -> dict:
+    """K7 against its plain version at each on-path site's shape, bit for
+    bit, with its timings: (a) app S's chunk, (b) app V's chunk, (c) app
+    V's rank passes (float64 keys with ties, -0.0, NaN and ±inf, asc and
+    desc; and the whole two-key _rank_key on the card against the CPU),
+    (d) app T's key grouping, (e) app T's top-E."""
+    from siddhi_tpu_torch.ops import search
+    from siddhi_tpu_torch.ops.windows import SortWindow, _chunk_key_bound
+
+    dev = torch.device("cuda")
+    B, N = BATCH, N_V
+    res = {}
+
+    def site(counter, keys, bound, width, what, library_keys=None):
+        keys = keys.to(dev)
+        width = keys.numel() if width is None else width
+        got = search.stable_radix_argsort(keys, bound, width,
+                                          counter=counter)
+        want = search.stable_radix_argsort_plain(keys, bound, width)
+        check_equal(f"{counter} ({what})", got, want)
+        lib = keys if library_keys is None else library_keys.to(dev)
+        res[counter] = dict(
+            _timed(torch,
+                   lambda: search.stable_radix_argsort(keys, bound, width,
+                                                       counter=counter),
+                   lambda: search.stable_radix_argsort_plain(keys, bound,
+                                                             width),
+                   library=lambda: torch.sort(lib, stable=True)),
+            # the keys read once, the order written once
+            bound_ms=bound_ms(keys.numel() * keys.element_size()
+                              + width * 4),
+            max_abs_err=0, bound_by="bytes")
+        print(f"{counter} {what} L={keys.numel()} width={width}: "
+              f"{res[counter]}")
+
+    bound = _chunk_key_bound(B)
+
+    def chunk_keys(L, p_valid):
+        k = rng.integers(0, B + 1, L) * 4 + rng.choice([0, 2], L)
+        return torch.from_numpy(np.where(rng.random(L) < p_valid, k, bound)
+                                .astype(np.int32))
+
+    # (a) E ring lanes, B arrival-expired and B currents, ~40% invalid;
+    # all of them kept (the JAX window keeps 2B, ROADMAP.md Queue 3)
+    site("K7 session chunk", chunk_keys(3 * B, 0.6), bound, None,
+         "app S's chunk")
+    # (b) B currents (all valid) then N + B merge lanes at 4B, ~B evicted
+    ev = np.where(rng.random(N + B) < B / (N + B), 4 * B, bound)
+    keys_v = np.concatenate([np.arange(B) * 4 + 2, ev]).astype(np.int32)
+    site("K7 sort chunk", torch.from_numpy(keys_v), bound, None,
+         "app V's chunk")
+    # (c) M = N + B float keys, many ties, specials planted
+    x = rng.integers(0, 2000, N + B).astype(np.float64) * 0.05
+    for v in (0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf):
+        x[rng.integers(0, x.size, 50)] = v
+    xt = torch.from_numpy(x)
+    asc = search.float64_sort_key(xt.to(dev), False)
+    got = search.stable_radix_argsort(asc, counter="K7 rank")
+    check_equal("K7 rank (asc)", got,
+                search.stable_radix_argsort_plain(asc))
+    site("K7 rank", search.float64_sort_key(xt, True), None, None,
+         "app V's rank pass, desc", library_keys=-xt)
+    win = SortWindow({"price": torch.float32, "volume": torch.int64}, B, N,
+                     [("price", -1), ("volume", 1)])
+    cols = {"price": torch.from_numpy(x.astype(np.float32)),
+            "volume": torch.from_numpy(rng.integers(1, 20, N + B))}
+    valid = torch.from_numpy(rng.random(N + B) < 0.95)
+    check_equal("K7 _rank_key (two keys, card vs CPU)",
+                win._rank_key({k: v.to(dev) for k, v in cols.items()},
+                              valid.to(dev)).cpu(),
+                win._rank_key(cols, valid))
+    # (d) B symbol codes < 1000 of K = 4096 slots, 3% invalid (K)
+    K = 4096
+    kg = np.where(rng.random(B) < 0.97, rng.integers(1, T_SYMBOLS + 1, B), K)
+    site("K7 keyed group", torch.from_numpy(kg.astype(np.int32)), K, None,
+         "app T's key grouping")
+    # (e) ages of C = 2B ring rows, half closed, the oldest E = B
+    C = 2 * B
+    ages = np.where(rng.random(C) < 0.5, rng.permutation(C), C)
+    site("K7 keyed top-E", torch.from_numpy(ages.astype(np.int32)), C, B,
+         "app T's top-E")
+    torch.cuda.synchronize()
+    return res
+
+
+def session_events(rng, rounds: int = ROUNDS, batch: int = BATCH):
+    """App S's traffic: bursts of 1,000-50,000 events 1 ms apart, idle
+    jumps of 6-20 s between them."""
+    n = rounds * batch
+    steps = np.ones(n, dtype=np.int64)
+    i = int(rng.integers(*S_BURST))
+    while i < n:
+        steps[i] = rng.integers(*S_JUMP)
+        i += int(rng.integers(*S_BURST))
+    ts = 1_700_000_000_000 + np.cumsum(steps)
+    sym = rng.integers(0, T_SYMBOLS, n)
+    return (sym, rng.uniform(1.0, 100.0, n),
+            rng.integers(1, 1000, n).astype(np.int64), ts)
+
+
+def oracle_s(ts: np.ndarray, batch: int = BATCH) -> np.ndarray:
+    """Output row indices of app S: each session's currents, then the same
+    rows expired, which come out before the next session's first current
+    (or at the heartbeat whose clock closes the session; the last one at
+    the closing heartbeat). As in the JAX package, no gap breaks a
+    session inside the very first batch (its break needs
+    `state.has_events`, siddhi_tpu/ops/windows.py:1106; ROADMAP.md,
+    Queue 3). Every row comes out: the JAX window keeps only the first
+    B + E lanes of a step's chunk and the port all of them (Queue 3)."""
+    n = ts.shape[0]
+    idx = np.arange(n)
+    start = np.r_[True, np.diff(ts) > GAP_S]
+    start[1:batch] = False
+    first = np.maximum.accumulate(np.where(start, idx, 0))
+    end = np.r_[np.nonzero(start)[0][1:], n]  # one past each session
+    last = end[np.cumsum(start) - 1]
+    # before session s: 2 * first(s) rows; then its currents, its expired
+    out = np.empty(2 * n, dtype=np.int64)
+    out[first + idx] = idx
+    out[idx + last] = idx
+    return out
+
+
+def keyed_events(rng, rounds: int = ROUNDS, batch: int = BATCH):
+    """App T's traffic: 1 ms apart; 1,000 symbols in 4 groups of 250 take
+    turns in phases of T_PHASE events, so a symbol goes quiet for 60 s
+    between its phases."""
+    n = rounds * batch
+    group = (np.arange(n) // T_PHASE) % T_GROUPS
+    per = T_SYMBOLS // T_GROUPS
+    sym = group * per + rng.integers(0, per, n)
+    ts = 1_700_000_000_000 + np.arange(n, dtype=np.int64)
+    return (sym, rng.uniform(1.0, 100.0, n),
+            rng.integers(1, 1000, n).astype(np.int64), ts)
+
+
+def oracle_t(sym, ts, nows, rounds: int = ROUNDS, batch: int = BATCH):
+    """Output (row index, expired) of app T, step by step: a key's session
+    closes at the step where its next event arrives (after a gap over
+    GAP_S) or where the step's clock passes its last event by GAP_S,
+    whichever comes first; a step emits the oldest E = B closed rows not
+    yet emitted, then its batch's currents. `nows` are the steps' clocks
+    (rounds, then the closing heartbeats). Fails if the traffic would
+    overwrite a row of the C = 2B ring before it is emitted."""
+    n = sym.shape[0]
+    E, C = batch, 2 * batch
+    idx = np.arange(n)
+    nxt = next_same(sym)
+    is_last = (nxt == n) | (ts[np.minimum(nxt, n - 1)] - ts > GAP_S)
+    order = np.lexsort((idx, sym))
+    pos = np.where(is_last[order], np.arange(n), n)
+    last_sorted = np.minimum.accumulate(pos[::-1])[::-1]
+    last = np.empty(n, dtype=np.int64)
+    last[order] = order[last_sorted]
+    by_next = np.where(nxt[last] < n, nxt[last] // batch, 1 << 30)
+    by_clock = np.searchsorted(np.asarray(nows), ts[last] + GAP_S,
+                               side="right")
+    close = np.minimum(by_next, by_clock)
+    out_i, out_e = [], []
+    pending = np.empty(0, dtype=np.int64)
+    for r in range(len(nows)):
+        pending = np.sort(np.concatenate([pending, idx[close == r]]))
+        emit, pending = pending[:E], pending[E:]
+        appended = min((r + 1) * batch, n)
+        if emit.size and emit[0] < appended - C:
+            raise Failure("app T traffic: a row leaves the ring before its "
+                          "session's expiry is emitted")
+        out_i.append(emit)
+        out_e.append(np.ones(emit.size, dtype=bool))
+        if r < rounds:
+            cur = idx[r * batch:(r + 1) * batch]
+            out_i.append(cur)
+            out_e.append(np.zeros(cur.size, dtype=bool))
+    if pending.size:
+        raise Failure(f"app T oracle: {pending.size} rows still pending "
+                      "after the closing heartbeats")
+    return np.concatenate(out_i), np.concatenate(out_e)
+
+
+def oracle_v(price32, volume, ts, rounds: int = ROUNDS, batch: int = BATCH):
+    """Output (row index, timestamp) of app V: each round its arrivals,
+    then the rows the top-N_V leaderboard (price desc, volume asc, merge
+    position) evicts, in merge order (the kept rows in rank order, then
+    the arrivals), stamped with the round's clock."""
+    kept = np.empty(0, dtype=np.int64)
+    out_i, out_t = [], []
+    for r in range(rounds):
+        arr = np.arange(r * batch, (r + 1) * batch)
+        merged = np.concatenate([kept, arr])
+        rank = np.lexsort((np.arange(merged.size), volume[merged],
+                           -price32[merged].astype(np.float64)))
+        keep = np.zeros(merged.size, dtype=bool)
+        keep[rank[:N_V]] = True
+        ev = merged[~keep]
+        out_i += [arr, ev]
+        out_t += [ts[arr], np.full(ev.size, ts[arr[-1]])]
+        kept = merged[rank[:N_V]]
+    return np.concatenate(out_i), np.concatenate(out_t)
+
+
+def session_sort_apps(torch, rng, card: str, rounds: int = ROUNDS,
+                      batch: int = BATCH) -> dict:
+    """Apps S, T, U and V against their oracles; each reads its own launch
+    counts; 0 host syncs a step; returns their launches."""
+    total = {}
+    pool = symbols(T_SYMBOLS)
+    for name in ("S", "T", "U", "V"):
+        after, nows_t = None, None
+        if name == "S":
+            text, on_path = APP_S, ("K1", "K7 session chunk")
+            sym, price, volume, ts = session_events(rng, rounds, batch)
+
+            def after(rt, r, ts=ts):
+                # mid-jump heartbeats close a session by the watermark;
+                # the last one reaches past the final gap
+                nxt = ((r + 1) * batch if r + 1 < rounds else None)
+                rt.heartbeat(int(ts[nxt]) - 1 if nxt is not None
+                             else int(ts[-1]) + GAP_S + 1)
+        elif name == "T":
+            text, on_path = APP_T, ("K1", "K7 keyed group", "K7 keyed top-E")
+            sym, price, volume, ts = keyed_events(rng, rounds, batch)
+            end = int(ts[-1]) + GAP_S + 1
+            nows_t = [int(ts[(r + 1) * batch - 1]) for r in range(rounds)]
+            nows_t += [end, end, end]
+
+            def after(rt, r, end=end):
+                if r == rounds - 1:
+                    for _ in range(3):  # drain E closed rows a step
+                        rt.heartbeat(end)
+        elif name == "U":
+            text, on_path = APP_U, ("K1", "K2b append", "K5")
+            sym, price, volume, ts = sliding_events(rng, N_KEYS)
+            sym = sym[:rounds * batch]
+            price, volume, ts = (a[:rounds * batch]
+                                 for a in (price, volume, ts))
+        else:
+            text, on_path = APP_V, ("K1", "K7 sort chunk", "K7 rank")
+            sym, price, volume, ts = sliding_events(rng, T_SYMBOLS)
+            sym = sym[:rounds * batch]
+            price, volume, ts = (a[:rounds * batch]
+                                 for a in (price, volume, ts))
+        names = pool if name != "U" else symbols(N_KEYS)
+        columns = {"symbol": names[sym], "price": price, "volume": volume}
+        rt, got, launches, elapsed, peak = run_app(
+            torch, text, columns, ts, out_stream="OutStream", rounds=rounds,
+            batch=batch, after_round=after)
+        price32 = price.astype(np.float32)
+        if name == "U":
+            total_d, count_d = oracle_d(sym, price32)
+            expect = [("symbol", columns["symbol"].tolist(), False),
+                      ("total", total_d, True), ("n", count_d, False)]
+            n_out = check_sliding(name, got, ts, expect)
+        else:
+            if name == "S":
+                oi = oracle_s(ts, batch)
+                ots = ts[oi]
+            elif name == "T":
+                oi, _ = oracle_t(sym, ts, nows_t, rounds, batch)
+                ots = ts[oi]
+            else:
+                oi, ots = oracle_v(price32, volume, ts, rounds, batch)
+            expect = [("symbol", columns["symbol"][oi].tolist(), False),
+                      ("price", price32[oi].astype(np.float64), "exact"),
+                      ("volume", volume[oi], False)]
+            n_out = check_sliding(name, got, ots, expect)
+        del got
+        if name == "T":
+            rt.collect_overflow()
+            dropped = rt.ctx.statistics.overflow.get(
+                "query:bench.session_key_dropped", 0)
+            if dropped or int(rt.query_runtimes["bench"].state[0].dropped):
+                raise Failure(f"app T: {dropped} events dropped past the "
+                              "key capacity")
+        for k in on_path + ("K12a",):
+            if launches[k] == 0:
+                raise Failure(f"app {name}: kernel {k} never launched")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        syncs, step_ms = measure_steps(
+            torch, rt, columns, ts, fresh=True, rounds=rounds, batch=batch,
+            window="TradeWindow" if name == "U" else None)
+        report_app(name, ts.shape[0], n_out, elapsed, step_ms, peak,
+                   launches, syncs, card, rounds=rounds, batch=batch)
+        if syncs:
+            raise Failure(f"app {name}: the step syncs with the host: "
+                          f"{syncs}")
+        del rt
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3535,6 +3921,10 @@ def main(argv=None) -> int:
 
         kres.update(absent_kernel_phase(torch, rng))
         for k, v in absent_every_apps(torch, rng, card).items():
+            launches[k] += v
+
+        kres.update(sort_kernel_phase(torch, rng))
+        for k, v in session_sort_apps(torch, rng, card).items():
             launches[k] += v
         print(json.dumps({"columnar": summary}))
 

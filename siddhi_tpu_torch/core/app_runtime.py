@@ -1,10 +1,10 @@
 """SiddhiAppRuntime (counterpart of siddhi_tpu/core/app_runtime.py, reduced
-to streams, single-input queries, stream-stream joins, patterns and
-sequences, heartbeats, Event and columnar callbacks with
+to streams, named windows, single-input queries, stream-stream joins,
+patterns and sequences, heartbeats, Event and columnar callbacks with
 optional asynchronous delivery, and the capacity-overflow sweep). Lint,
-admission control, sharding, supersteps, persistence, tables, windows,
-triggers, aggregations and partitions are not yet ported; an app that
-declares them is refused."""
+admission control, sharding, supersteps, persistence, tables, triggers,
+aggregations, partitions, on-demand queries and joins against a named
+window are not yet ported; an app that declares them is refused."""
 
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from ..extension.registry import Registry
 from ..ops.aggregators import HLLState
 from ..ops.groupby import KeyTable
 from ..ops.windows import SlidingState
+from ..ops.windows_extra import KeyedSessionState
 from ..query_api import SiddhiApp
 from ..query_api.execution import (JoinInputStream, OutputAction, Query,
                                    StateInputStream)
@@ -30,6 +31,7 @@ from .join_runtime import JoinQueryRuntime, _JoinSideReceiver
 from .pattern_runtime import (MERGED_SID, PatternQueryRuntime,
                               PatternState, _PatternSideReceiver)
 from .query_runtime import FunctionQueryCallback, QueryCallback, QueryRuntime
+from .window import NamedWindow, WindowJunctionAdapter
 from .stream import (
     AsyncDecoder,
     BatchStreamCallback,
@@ -47,7 +49,6 @@ class SiddhiAppRuntime:
                  group_capacity: int = 0,
                  async_callbacks: bool = False) -> None:
         for what, defs in (("table", app.table_definitions),
-                           ("window", app.window_definitions),
                            ("trigger", app.trigger_definitions),
                            ("aggregation", app.aggregation_definitions),
                            ("function", app.function_definitions),
@@ -77,12 +78,20 @@ class SiddhiAppRuntime:
         self.input_handlers: dict[str, InputHandler] = {}
         for sd in app.stream_definitions.values():
             self.junctions[sd.id] = StreamJunction(sd, self.ctx)
+        self.windows: dict[str, NamedWindow] = {
+            wd.id: NamedWindow(wd, self.ctx, registry)
+            for wd in app.window_definitions.values()}
         for i, query in enumerate(app.queries):
             self._add_query(query, f"query{i + 1}")
 
     def _add_query(self, query: Query, default_name: str) -> None:
         name = query.name or default_name
         if isinstance(query.input_stream, JoinInputStream):
+            for side in (query.input_stream.left, query.input_stream.right):
+                if side.stream_id in self.windows:
+                    raise SiddhiAppCreationError(
+                        f"join against the named window {side.stream_id!r} "
+                        "is not yet ported to siddhi_tpu_torch")
             qr = JoinQueryRuntime(query, self.ctx, self.junctions,
                                   self.ctx.registry, name)
             # left first: with both sides on one stream, the left direction
@@ -107,6 +116,13 @@ class SiddhiAppRuntime:
         else:
             sid = getattr(query.input_stream, "stream_id", None)
             junction = self.junctions.get(sid)
+            if junction is None and sid in self.windows:
+                # `from W ...` consumes the named window's emissions
+                if query.input_stream.handlers.window is not None:
+                    raise SiddhiAppCreationError(
+                        f"named window {sid!r} cannot take a further window "
+                        "in FROM (a window cannot be windowed)")
+                junction = self.windows[sid].output_junction
             if junction is None:
                 raise DefinitionNotExistError(
                     f"stream {sid!r} is not defined")
@@ -119,7 +135,10 @@ class SiddhiAppRuntime:
             raise SiddhiAppCreationError(
                 "only `insert into <stream>` outputs are ported to "
                 "siddhi_tpu_torch")
-        if out.target_id:
+        if out.target_id in self.windows:
+            qr.output_junction = WindowJunctionAdapter(
+                self.windows[out.target_id], out_types=qr.selector.out_types)
+        elif out.target_id:
             target = self.junctions.get(out.target_id)
             if target is None:
                 # auto-define the output stream from the select list
@@ -170,8 +189,19 @@ class SiddhiAppRuntime:
 
     def flush(self, now: Optional[int] = None) -> None:
         """Drive every staged batch through the pipeline."""
-        for j in list(self.junctions.values()):
+        for j in self._all_junctions():
             j.flush(now)
+
+    def _all_junctions(self) -> list:
+        """The stream junctions, then the named windows' output
+        junctions."""
+        return (list(self.junctions.values())
+                + [w.output_junction for w in self.windows.values()])
+
+    def query(self, text: str):
+        """On-demand (pull) queries are not ported yet."""
+        raise SiddhiAppCreationError(
+            "on-demand queries are not yet ported to siddhi_tpu_torch")
 
     def drain(self) -> None:
         """Flush staged rows and block until every async callback has
@@ -194,6 +224,9 @@ class SiddhiAppRuntime:
         else:
             t = now if now is not None else tg.current_time()
         self.flush(t)
+        for w in self.windows.values():
+            if w.has_time_semantics:
+                w.heartbeat(t)
         seen: set[int] = set()
         for qr in self.query_runtimes.values():
             if not qr.has_time_semantics:
@@ -217,8 +250,10 @@ class SiddhiAppRuntime:
         and record them in Statistics.record_overflow (one warning per
         counter): window-ring overwrites of live rows, key-table unresolved
         lanes (group-by, distinct pairs), HLL lanes past the group capacity,
-        pattern pending-table drops and join pair drops. The counters stay
-        on the device; one stacked readback fetches them all."""
+        keyed-session key-capacity drops, pattern pending-table drops and
+        join pair drops, in the queries' and the named windows' states. The
+        counters stay on the device; one stacked readback fetches them
+        all."""
         pending: dict[str, list] = {}
 
         def scan(label: str, obj) -> None:
@@ -227,6 +262,8 @@ class SiddhiAppRuntime:
                 key, counter = "key_table_unresolved", obj.misses
             elif isinstance(obj, SlidingState):
                 key, counter = "window_ring_overflow", obj.overflow
+            elif isinstance(obj, KeyedSessionState):
+                key, counter = "session_key_dropped", obj.dropped
             elif isinstance(obj, PatternState):
                 key, counter = "pattern_pending_dropped", obj.dropped
             elif isinstance(obj, HLLState):
@@ -251,6 +288,8 @@ class SiddhiAppRuntime:
             if isinstance(qr, JoinQueryRuntime) and \
                     qr._dropped_dev is not None:
                 pending[f"query:{n}.join_pairs_dropped"] = [qr._dropped_dev]
+        for n, w in self.windows.items():
+            scan(f"window:{n}", w.state)
         if not pending:
             return
         names = list(pending)

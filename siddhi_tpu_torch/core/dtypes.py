@@ -54,6 +54,8 @@ class _Config:
     hll_registers = 1024
     #: max groups tracked by hll:distinctCount (each holds hll_registers)
     hll_group_capacity = 4096
+    #: key slots for keyed session windows (session(gap, key))
+    session_key_capacity = 4096
 
 
 config = _Config()

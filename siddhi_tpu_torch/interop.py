@@ -3,8 +3,10 @@
 The JAX query state, after `jax.device_get`, is a tuple (window state,
 selector state, limiter state) of NamedTuples and dataclasses holding numpy
 arrays (a lengthBatch or time-batch window's BatchState, a sliding
-window's SlidingState); a join query's is (left window, right window,
-left multimap, right multimap, selector state); a pattern query's is a
+window's SlidingState, a session window's SessionState or
+KeyedSessionState, a sort window's SortState); a join query's is (left
+window, right window, left multimap, right multimap, selector state); a
+named window's is its window state; a pattern query's is a
 PatternState (its pending tables, active0, seq, dropped, armed0_ts,
 gate0_seq and the selector state). The functions here take that state —
 or the same fields as plain dicts — and load it into a port runtime built
@@ -12,7 +14,8 @@ from the same app text, so the next batches continue where the JAX
 runtime stopped. They read fields by name and import nothing of the JAX
 package.
 
-    load_app_state(torch_rt, {name: jax_state}, jax_strings)
+    load_app_state(torch_rt, {name: jax_state}, jax_strings,
+                   window_states={name: jax_rt.windows[name].state})
 
 `jax_strings` is the JAX runtime's `ctx.global_strings.snapshot()` (or the
 plain list of its strings).
@@ -21,6 +24,8 @@ plain list of its strings).
 from __future__ import annotations
 
 from collections.abc import Mapping
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -33,7 +38,8 @@ from .ops.groupby import GroupState, KeyTable
 from .ops.join import MultimapState
 from .ops.pattern import PendingTable
 from .ops.selector import SelectorState
-from .ops.windows import BatchState, SlidingState
+from .ops.windows import BatchState, SessionState, SlidingState, SortState
+from .ops.windows_extra import KeyedSessionState
 
 
 def _field(obj, name: str):
@@ -68,15 +74,24 @@ def window_state(window_np, like):
             ring=_tensor(ring, like.ring),
             **{f: _tensor(_field(window_np, f), getattr(like, f))
                for f in SlidingState._fields if f != "ring"})
-    if not isinstance(like, BatchState):
+    if isinstance(like, SortState):
+        return SortState(
+            cols={k: _tensor(_field(window_np, "cols")[k], v)
+                  for k, v in like.cols.items()},
+            **{f: _tensor(_field(window_np, f), getattr(like, f))
+               for f in SortState._fields if f != "cols"})
+    if not isinstance(like, (BatchState, SessionState, KeyedSessionState)):
         raise ValueError(f"window state {type(like).__name__} is not "
                          "ported by interop")
-    return BatchState(
+    # ring fields are [C] there and [C + 1] here; the rest as they are
+    rings = {f for f in like._fields
+             if f.startswith("ring") and f != "ring_cols"}
+    return type(like)(
         ring_cols={k: _ring(_field(window_np, "ring_cols")[k], v)
                    for k, v in like.ring_cols.items()},
-        ring_ts=_ring(_field(window_np, "ring_ts"), like.ring_ts),
-        **{f: _tensor(_field(window_np, f), getattr(like, f))
-           for f in BatchState._fields if f not in ("ring_cols", "ring_ts")})
+        **{f: (_ring if f in rings else _tensor)(_field(window_np, f),
+                                                 getattr(like, f))
+           for f in like._fields if f != "ring_cols"})
 
 
 def _group(g_np, like):
@@ -193,8 +208,9 @@ def load_strings(rt: SiddhiAppRuntime, strings) -> None:
 
 
 def load_app_state(rt: SiddhiAppRuntime, query_states: dict,
-                   strings) -> None:
-    """Load every named query's state and the string table."""
+                   strings, window_states: Optional[dict] = None) -> None:
+    """Load every named query's state, every named window's state (the JAX
+    runtime's `windows[name].state`) and the string table."""
     for name, state in query_states.items():
         qr = rt.query_runtimes[name]
         if isinstance(qr, JoinQueryRuntime):
@@ -203,4 +219,7 @@ def load_app_state(rt: SiddhiAppRuntime, query_states: dict,
             load_pattern_state(qr, state)
         else:
             load_query_state(qr, state)
+    for name, state in (window_states or {}).items():
+        w = rt.windows[name]
+        w.state = window_state(state, w.state)
     load_strings(rt, strings)

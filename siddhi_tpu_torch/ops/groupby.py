@@ -47,6 +47,14 @@ _INSERT_ROUNDS = 6
 _MASK32 = 0xFFFFFFFF
 
 
+def invert_permutation(perm: torch.Tensor) -> torch.Tensor:
+    """Inverse of a permutation by one scatter (as the JAX function)."""
+    n = perm.shape[0]
+    out = torch.empty(n, dtype=perm.dtype, device=perm.device)
+    out[perm] = torch.arange(n, dtype=perm.dtype, device=perm.device)
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # K3: hash_columns
 # --------------------------------------------------------------------------- #

@@ -3,7 +3,10 @@ siddhi_tpu/ops/search.py).
 
 `stable_partition_order` is kernel K1: on a CUDA tensor it launches
 `csrc/k1_partition.cu`; on a CPU tensor it runs the plain version below.
-The other two are single torch calls on every device.
+`stable_radix_argsort` is kernel K7 (`csrc/k7_radix_sort.cu`), the stable
+argsort of bounded integer keys behind the session, sort and keyed-session
+windows, dispatched the same way. `stable_argsort_bounded` and
+`searchsorted32` are single torch calls on every device.
 """
 
 from __future__ import annotations
@@ -68,3 +71,104 @@ def searchsorted32(a: torch.Tensor, v: torch.Tensor,
     """Positions where `v` would insert into sorted `a`, as int32 (same
     sides as jnp.searchsorted)."""
     return torch.searchsorted(a, v, right=(side == "right"), out_int32=True)
+
+
+# --------------------------------------------------------------------------- #
+# K7: stable radix argsort
+# --------------------------------------------------------------------------- #
+
+#: int64 key of every NaN: above +inf, so NaNs sort last in lane order
+_NAN_KEY = 2**63 - 1
+
+
+def float64_sort_key(x: torch.Tensor, descending: bool = False):
+    """int64 keys whose signed order is jnp.argsort's order of `x` as
+    float64 (`-x` when descending, as SortWindow._rank_key negates): -0.0
+    equals 0.0, and so does every subnormal (XLA compares with subnormals
+    flushed to zero), every NaN (also -NaN) sorts last, -inf first. Ties
+    stay ties, so a stable sort keeps their lane order."""
+    k = x.to(torch.float64)
+    if descending:
+        k = -k
+    nan = torch.isnan(k)
+    tiny = torch.finfo(torch.float64).tiny
+    k = torch.where(k.abs() < tiny, 0.0, k)  # -0.0 and subnormals -> 0.0
+    bits = k.contiguous().view(torch.int64)
+    # negative floats: larger magnitude, larger bits -> flip them
+    key = torch.where(bits < 0, bits ^ (2**63 - 1), bits)
+    return torch.where(nan, _NAN_KEY, key)
+
+
+def stable_radix_argsort_plain(keys: torch.Tensor, bound=None,
+                               width=None) -> torch.Tensor:
+    """Plain K7: the JAX form, `jnp.argsort(keys, stable=True)[:width]`,
+    as int32 lane ids. `bound` is the kernel's static key bound (unused
+    here)."""
+    order = torch.sort(keys, stable=True).indices.to(torch.int32)
+    return order if width is None else order[:width]
+
+
+_K7_BLOCK = 1024
+_K7_MAX_TILES = 256
+
+
+def stable_radix_argsort_cuda(keys: torch.Tensor, bound=None, width=None,
+                              *, counter: str):
+    """K7 on the card. int32 keys in [0, bound] (a static bound; the pass
+    count follows its bit length) or int64 keys in signed order (bound
+    None, 8 passes). Returns the first `width` lanes of the stable order,
+    int32. Scratch is sized from the shapes alone: no host sync."""
+    if keys.dim() != 1 or keys.dtype not in (torch.int32, torch.int64):
+        raise ValueError("stable_radix_argsort: keys must be int32[L] or "
+                         "int64[L]")
+    if (keys.dtype == torch.int32) != (bound is not None):
+        raise ValueError("stable_radix_argsort: int32 keys take a static "
+                         "bound, int64 keys none")
+    if bound is not None and not 0 <= bound < 2**31:
+        raise ValueError("stable_radix_argsort: bound must be in [0, 2^31)")
+    kernels.require_cuda("stable_radix_argsort", keys)
+    n = keys.shape[0]
+    width = n if width is None else width
+    if not 0 <= width <= n:
+        raise ValueError("stable_radix_argsort: width must be in [0, L]")
+    dev = keys.device
+    out = torch.empty(width, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    lib = "k7_radix_sort"
+    radix = kernels.bind(lib, "k7_radix_bits", [])()
+    bits = 64 if bound is None else max(int(bound).bit_length(), 1)
+    passes = -(-bits // radix)
+    tile = _K7_BLOCK * max(1, -(-n // (_K7_BLOCK * _K7_MAX_TILES)))
+    ntiles = -(-n // tile)
+    spare = 2 * n if passes > 1 else 1
+    key_scratch = torch.empty(spare, dtype=keys.dtype, device=dev)
+    idx_scratch = torch.empty(spare, dtype=torch.int32, device=dev)
+    # per (digit, tile) offsets, then the digits' totals
+    counts = torch.empty((1 << radix) * (ntiles + 1), dtype=torch.int32,
+                         device=dev)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    if bound is None:
+        fn = kernels.bind(lib, "k7_argsort_i64", [P, I, I, I, P, P, P, P, P])
+        rc = fn(keys.data_ptr(), n, width, tile, out.data_ptr(),
+                key_scratch.data_ptr(), idx_scratch.data_ptr(),
+                counts.data_ptr(), kernels.stream())
+    else:
+        fn = kernels.bind(lib, "k7_argsort_u32",
+                          [P, I, I, I, I, P, P, P, P, P])
+        rc = fn(keys.data_ptr(), n, bits, width, tile, out.data_ptr(),
+                key_scratch.data_ptr(), idx_scratch.data_ptr(),
+                counts.data_ptr(), kernels.stream())
+    kernels.check(lib, "stable_radix_argsort", rc)
+    kernels.LAUNCHES[counter] += 3 * passes
+    return out
+
+
+def stable_radix_argsort(keys: torch.Tensor, bound=None, width=None, *,
+                         counter: str) -> torch.Tensor:
+    """Stable argsort of bounded integer keys, first `width` lanes, int32
+    (K7). `counter` names the launch counter of the calling site."""
+    if keys.is_cuda:
+        return stable_radix_argsort_cuda(keys.contiguous(), bound, width,
+                                         counter=counter)
+    return stable_radix_argsort_plain(keys, bound, width)

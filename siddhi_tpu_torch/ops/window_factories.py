@@ -1,8 +1,8 @@
 """Window extension registrations (counterpart of
-siddhi_tpu/ops/window_factories.py; this slice ports lengthBatch, batch,
-timeBatch, externalTimeBatch and the sliding windows length, time,
-timeLength, delay and externalTime). The other window names stay
-registered and raise "not yet ported".
+siddhi_tpu/ops/window_factories.py: lengthBatch, batch, timeBatch,
+externalTimeBatch, the sliding windows length, time, timeLength, delay and
+externalTime, session (plain and keyed) and sort). The other window names
+stay registered and raise "not yet ported".
 
 Each factory receives the stream's column layout, the junction batch
 capacity, the window parameters (constants evaluated; attribute references
@@ -16,8 +16,8 @@ from typing import Callable
 from ..errors import SiddhiAppCreationError
 from ..extension.registry import GLOBAL, ExtensionKind, ExtensionMeta, Parameter
 from ..query_api.expression import Variable
-from .windows import (LengthBatchWindow, PassThroughWindow, SlidingWindow,
-                      TimeBatchWindow)
+from .windows import (LengthBatchWindow, PassThroughWindow, SessionWindow,
+                      SlidingWindow, SortWindow, TimeBatchWindow)
 
 
 @dataclass
@@ -100,6 +100,37 @@ def _make_batch(layout, batch_cap, params, expired_on):
                              expired_on=expired_on)
 
 
+def _make_session(layout, batch_cap, params, expired_on):
+    gap = _int_param(params, 0, "session")
+    if len(params) > 1:
+        key = params[1]
+        if not isinstance(key, Variable):
+            raise SiddhiAppCreationError(
+                "session key must be a stream attribute")
+        from .windows_extra import KeyedSessionWindow
+        return KeyedSessionWindow(layout, batch_cap, gap, key.attribute)
+    return SessionWindow(layout, batch_cap, gap)
+
+
+def _make_sort(layout, batch_cap, params, expired_on):
+    n = _int_param(params, 0, "sort")
+    keys = []
+    i = 1
+    while i < len(params):
+        v = params[i]
+        if not isinstance(v, Variable):
+            raise SiddhiAppCreationError("sort() keys must be attributes")
+        order = 1
+        if i + 1 < len(params) and isinstance(params[i + 1], str):
+            order = -1 if params[i + 1].lower() == "desc" else 1
+            i += 1
+        keys.append((v.attribute, order))
+        i += 1
+    if not keys:
+        raise SiddhiAppCreationError("sort() needs at least one key attribute")
+    return SortWindow(layout, batch_cap, n, keys)
+
+
 def _not_yet_ported(name: str):
     def make(layout, batch_cap, params, expired_on):
         raise SiddhiAppCreationError(
@@ -108,10 +139,11 @@ def _not_yet_ported(name: str):
 
 
 def register_all() -> None:
-    def reg(name, make, desc, params):
+    def reg(name, make, desc, params, repeat_last=False):
         GLOBAL.register(ExtensionKind.WINDOW, "", name, WindowFactory(make),
                         meta=ExtensionMeta(description=desc,
-                                           parameters=tuple(params)))
+                                           parameters=tuple(params),
+                                           repeat_last=repeat_last))
 
     P = Parameter
     reg("length", _make_length,
@@ -151,8 +183,21 @@ def register_all() -> None:
            doc="first bucket start"),
          P("timeout", ("time",), optional=True,
            doc="flush timeout past the bucket end")])
-    for name in ("expression", "expressionBatch", "session", "sort", "cron",
-                 "hopping", "frequent", "lossyFrequent"):
+    reg("session", _make_session,
+        "Session window keyed by a gap of inactivity.",
+        [P("window.session", ("time",), doc="session gap"),
+         P("window.key", ("attribute",), optional=True,
+           doc="per-key sessions"),
+         P("window.allowedlatency", ("time",), optional=True,
+           doc="late-arrival grace period")])
+    reg("sort", _make_sort,
+        "Keeps the top-N events by sort order.",
+        [P("window.length", ("int",), doc="events retained"),
+         P("attribute", ("attribute", "string"), optional=True,
+           doc="sort key(s), each optionally followed by 'asc'/'desc'")],
+        repeat_last=True)
+    for name in ("expression", "expressionBatch", "cron", "hopping",
+                 "frequent", "lossyFrequent"):
         GLOBAL.register(ExtensionKind.WINDOW, "", name,
                         WindowFactory(_not_yet_ported(name)))
 

@@ -1,8 +1,9 @@
 """Window operators as `(state, batch) -> (state, chunk)` tensor functions
-(counterpart of siddhi_tpu/ops/windows.py; this slice ports lengthBatch,
-the tumbling time windows timeBatch and externalTimeBatch, the sliding
-windows — length, time, timeLength, delay, externalTime — on the packed
-ring, and the pass-through window).
+(counterpart of siddhi_tpu/ops/windows.py: lengthBatch, the tumbling time
+windows timeBatch and externalTimeBatch, the sliding windows — length,
+time, timeLength, delay, externalTime — on the packed ring, session(gap),
+sort(N, ...) and the pass-through window; the keyed session is in
+windows_extra.py).
 
 A step consumes a fixed-capacity micro-batch and emits a typed chunk
 (CURRENT / EXPIRED / RESET lanes) in the reference's emission order. Window
@@ -19,6 +20,11 @@ coalesce. Its four memory passes are kernel K2b (csrc/k2b_packed_ring.cu):
 pack-compact, ring fetch, ring append and the chunk gather. The words are
 stored as torch.int32 holding the bits of JAX's uint32 words: torch.uint32
 lacks most indexing and `where` ops on the CPU and on CUDA.
+
+The session and sort windows build one chunk and order it with a stable
+argsort of its emission keys (`_sort_chunk`), and the sort window ranks its
+buffer with successive stable argsorts: both are kernel K7
+(csrc/k7_radix_sort.cu).
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ from .. import kernels
 from ..core import dtypes
 from ..core.event import EventBatch, EventType
 from ..errors import SiddhiAppCreationError
-from .search import searchsorted32, stable_partition_order
+from .search import (float64_sort_key, searchsorted32,
+                     stable_partition_order, stable_radix_argsort)
 
 # emission-key kinds: expired lanes sort before reset before current at the
 # same trigger position
@@ -143,6 +150,26 @@ def _merge_sorted_chunks(keys, colss, tss, valids, types, width):
         valid=torch.cat(valids)[order],
         types=torch.cat(types)[order],
     )
+
+
+def _chunk_key_bound(B: int) -> int:
+    """Static K7 key bound of a chunk whose emission keys are trigger
+    position * 4 + kind with positions in [0, B]: every valid key is at
+    most 4B + 2, and invalid lanes take 4B + 3 (the JAX code's BIG), so
+    they sort last in lane order."""
+    return 4 * B + 3
+
+
+def _sort_chunk(keys, cols, ts, valid, types, width: int, bound: int,
+                counter: str) -> EventBatch:
+    """Order lanes by emission key, invalid lanes last, and keep the first
+    `width` (the int64-key form of the JAX `_sort_chunk`): K7 on int32 keys
+    bounded by `bound`, then one row gather."""
+    k = torch.where(valid, keys, bound).to(torch.int32)
+    order = stable_radix_argsort(k, bound, width, counter=counter).long()
+    return EventBatch(ts=ts[order],
+                      cols={n: v[order] for n, v in cols.items()},
+                      valid=valid[order], types=types[order])
 
 
 def _empty_like_cols(layout: dict, n: int, device) -> dict:
@@ -464,9 +491,10 @@ def window_has_time_semantics(window: "WindowOp") -> bool:
     """True if the window needs heartbeats (empty timer batches) to emit
     expirations or flush buckets when no data arrives (the reference
     Scheduler's TIMER events). Of the ported windows, the time-bound
-    sliding ones and the tumbling time windows."""
+    sliding ones, the tumbling time windows and the session windows."""
     return (getattr(window, "time_ms", None) is not None
-            or isinstance(window, TimeBatchWindow))
+            or getattr(window, "needs_heartbeat", False)
+            or isinstance(window, (TimeBatchWindow, SessionWindow)))
 
 
 class WindowOp:
@@ -963,3 +991,231 @@ class SlidingWindow(WindowOp):
             # rows past their deadline are out even before a batch flushes
             live = live & (ring_ts + self.time_ms > now)
         return ring_cols, ring_ts, live
+
+
+# --------------------------------------------------------------------------- #
+# session window
+# --------------------------------------------------------------------------- #
+
+
+class SessionState(NamedTuple):
+    """The JAX SessionState's fields; rings are [C + 1] (spare row last)."""
+
+    ring_cols: dict
+    ring_ts: torch.Tensor
+    ring_session: torch.Tensor  # int64 session id per ring slot
+    appended: torch.Tensor  # int64
+    flushed: torch.Tensor  # int64
+    last_ts: torch.Tensor  # int64 ts of the latest arrival (gap detection)
+    session: torch.Tensor  # int64 current session id
+    has_events: torch.Tensor  # bool
+
+
+class SessionWindow(WindowOp):
+    """session(gap): events pass through as CURRENT at once; when a gap
+    larger than `gap` opens (next arrival or the watermark), the closed
+    session's events are re-emitted as EXPIRED, before the CURRENT at the
+    trigger position (the reference prepends the expired chunk on
+    rollover). One chunk of E ring lanes and 2B batch lanes, ordered by K7.
+    Keyed sessions are windows_extra.KeyedSessionWindow.
+
+    The chunk keeps all E + 2B lanes. The JAX window keeps the first
+    B + E, so a step whose expired rows and currents outnumber them loses
+    the rest; the port emits them (a deliberate divergence, ROADMAP.md
+    Queue 3). Like the JAX window, it breaks no session inside the very
+    first batch (its break needs `has_events`; Queue 3)."""
+
+    def __init__(self, layout: dict, batch_cap: int, gap_ms: int,
+                 capacity: Optional[int] = None):
+        self.layout = layout
+        self.B = batch_cap
+        self.gap = gap_ms
+        self.C = capacity or max(dtypes.config.default_window_capacity,
+                                 2 * batch_cap)
+        self.E = max(batch_cap, 1024)
+        self.chunk_width = self.E + 2 * self.B
+
+    def init_state(self, device) -> SessionState:
+        def i64(v):
+            return torch.tensor(v, dtype=torch.int64, device=device)
+
+        return SessionState(
+            ring_cols=_empty_like_cols(self.layout, self.C + 1, device),
+            ring_ts=torch.zeros(self.C + 1, dtype=dtypes.TS_DTYPE,
+                                device=device),
+            ring_session=torch.zeros(self.C + 1, dtype=torch.int64,
+                                     device=device),
+            appended=i64(0), flushed=i64(0), last_ts=i64(0), session=i64(0),
+            has_events=torch.tensor(False, device=device))
+
+    def step(self, state: SessionState, batch: EventBatch, now):
+        B, E, C = self.B, self.E, self.C
+        dev = batch.ts.device
+        comp_cols, comp_ts, n_valid, _ = compact(batch)
+        p = torch.arange(B, dtype=torch.int64, device=dev)
+        is_arr = p < n_valid
+
+        # gap break before arrival i (vs the previous arrival / last_ts)
+        prev_ts = torch.cat([state.last_ts.reshape(1), comp_ts[:-1]])
+        brk = is_arr & state.has_events & (comp_ts - prev_ts > self.gap)
+        # the very first arrival ever starts session 0 without a break
+        brk = brk & ~((p == 0) & ~state.has_events)
+        arr_session = state.session + torch.cumsum(brk.to(torch.int64), 0)
+        # lane n_valid - 1 as a one-lane index: no host read of n_valid
+        last = torch.clamp(n_valid - 1, 0, B - 1).long().reshape(1)
+        session_after = torch.where(n_valid > 0, arr_session[last][0],
+                                    state.session)
+        # watermark close: the gap elapsed since the batch's last event
+        new_last = torch.where(n_valid > 0, comp_ts[last][0], state.last_ts)
+        wm_close = ((state.has_events | (n_valid > 0))
+                    & (now - new_last > self.gap))
+        session_open = torch.where(wm_close, session_after + 1,
+                                   session_after)
+
+        # currents pass through
+        keys_cur = p * 4 + KIND_CURRENT
+        # expired: ring events whose session < session_open
+        o = state.flushed + torch.arange(E, dtype=torch.int64, device=dev)
+        in_ring = o < state.appended
+        slot = torch.remainder(torch.clamp(o, min=0), C)
+        ring_sess = state.ring_session[slot]
+        exp_ring = in_ring & (ring_sess < session_open)
+        # batch arrivals whose session closed within this same step
+        exp_arr = is_arr & (arr_session < session_open)
+        # trigger: the first arrival of a later session (or the batch end)
+        arr_sess_padded = torch.where(is_arr, arr_session, BIG)
+        trig_ring = searchsorted32(arr_sess_padded, ring_sess + 1,
+                                   side="left").to(torch.int64)
+        trig_arr = searchsorted32(arr_sess_padded, arr_session + 1,
+                                  side="left").to(torch.int64)
+        keys_exp_ring = torch.clamp(trig_ring, 0, B) * 4 + KIND_EXPIRED
+        keys_exp_arr = torch.clamp(trig_arr, 0, B) * 4 + KIND_EXPIRED
+
+        def kinds(kind, n):
+            return torch.full((n,), int(kind), dtype=torch.int8, device=dev)
+
+        chunk = _sort_chunk(
+            torch.cat([keys_exp_ring, keys_exp_arr, keys_cur]),
+            {k: torch.cat([state.ring_cols[k][slot], comp_cols[k],
+                           comp_cols[k]]) for k in self.layout},
+            torch.cat([state.ring_ts[slot], comp_ts, comp_ts]),
+            torch.cat([exp_ring, exp_arr, is_arr]),
+            torch.cat([kinds(EventType.EXPIRED, E),
+                       kinds(EventType.EXPIRED, B),
+                       kinds(EventType.CURRENT, B)]),
+            self.chunk_width, _chunk_key_bound(B), "K7 session chunk")
+
+        # ring update, in place: append arrivals with their session ids
+        _scatter_append(state.ring_cols, state.ring_ts, comp_cols, comp_ts,
+                        state.appended, n_valid)
+        wslot = torch.where(is_arr, torch.remainder(state.appended + p, C), C)
+        state.ring_session.index_put_((wslot,), arr_session)
+        n_flushed = (exp_ring.sum(dtype=torch.int64)
+                     + exp_arr.sum(dtype=torch.int64))
+        new_state = state._replace(
+            appended=state.appended + n_valid, flushed=state.flushed
+            + n_flushed, last_ts=new_last, session=session_open,
+            has_events=state.has_events | (n_valid > 0))
+        return new_state, chunk
+
+    def contents(self, state: SessionState, now):
+        """Ring rows [flushed, appended), without the spare row."""
+        live = _ring_live_mask(self.C, state.flushed, state.appended)
+        return ({k: v[:self.C] for k, v in state.ring_cols.items()},
+                state.ring_ts[:self.C], live)
+
+
+# --------------------------------------------------------------------------- #
+# sort window
+# --------------------------------------------------------------------------- #
+
+
+class SortState(NamedTuple):
+    cols: dict
+    ts: torch.Tensor
+    seq: torch.Tensor  # int64 arrival order (stable tiebreak)
+    valid: torch.Tensor
+    count: torch.Tensor  # int64 arrivals ever
+
+
+class SortWindow(WindowOp):
+    """sort(N, attr [, 'asc'|'desc'], ...): keeps the N best events by
+    sort key; each batch emits its currents, then the evicted events as
+    EXPIRED (state rows in rank order, then arrivals) stamped `now`. Batch
+    form: merge buffer and batch, keep the N best (the kept set after any
+    arrival order is the N best). Ranks and the chunk order are K7."""
+
+    def __init__(self, layout: dict, batch_cap: int, n: int,
+                 sort_keys: list):  # [(attr, +1|-1)]
+        self.layout = layout
+        self.B = batch_cap
+        self.N = n
+        self.sort_keys = sort_keys
+        self.chunk_width = batch_cap + batch_cap + n  # currents + evictable
+        self.M = self.N + self.B  # merge width
+
+    def init_state(self, device) -> SortState:
+        N = self.N
+        return SortState(
+            cols=_empty_like_cols(self.layout, N, device),
+            ts=torch.zeros(N, dtype=dtypes.TS_DTYPE, device=device),
+            seq=torch.zeros(N, dtype=torch.int64, device=device),
+            valid=torch.zeros(N, dtype=torch.bool, device=device),
+            count=torch.tensor(0, dtype=torch.int64, device=device))
+
+    def _rank_key(self, cols: dict, valid: torch.Tensor) -> torch.Tensor:
+        """Positions in best-to-worst order: successive stable argsorts
+        (K7 on order-preserving int64 keys), last key first, then the
+        valid lanes stably to the front (K1)."""
+        M = valid.shape[0]
+        perm = torch.arange(M, device=valid.device)
+        for attr, order in reversed(self.sort_keys):
+            k = float64_sort_key(cols[attr][perm], descending=order < 0)
+            perm = perm[stable_radix_argsort(k, counter="K7 rank").long()]
+        return perm[stable_partition_order(valid[perm].contiguous()).long()]
+
+    def step(self, state: SortState, batch: EventBatch, now):
+        B, N = self.B, self.N
+        dev = batch.ts.device
+        comp_cols, comp_ts, n_valid, _ = compact(batch)
+        p = torch.arange(B, dtype=torch.int64, device=dev)
+        is_arr = p < n_valid
+
+        m_cols = {k: torch.cat([state.cols[k], comp_cols[k]])
+                  for k in self.layout}
+        m_ts = torch.cat([state.ts, comp_ts])
+        m_seq = torch.cat([state.seq, state.count + p])
+        m_valid = torch.cat([state.valid, is_arr])
+
+        from .groupby import invert_permutation
+        perm = self._rank_key(m_cols, m_valid)
+        keep_rank = invert_permutation(perm)
+        evicted = m_valid & ~(keep_rank < N)
+
+        # chunk: currents (arrival order), then the evicted as EXPIRED
+        M = self.M
+        keys_cur = p * 4 + KIND_CURRENT
+        keys_ev = torch.full((M,), B * 4 + KIND_EXPIRED, dtype=torch.int64,
+                             device=dev)
+        chunk = _sort_chunk(
+            torch.cat([keys_cur, keys_ev]),
+            {k: torch.cat([comp_cols[k], m_cols[k]]) for k in self.layout},
+            torch.cat([comp_ts, torch.zeros(M, dtype=dtypes.TS_DTYPE,
+                                            device=dev) + now]),
+            torch.cat([is_arr, evicted]),
+            torch.cat([torch.full((B,), int(EventType.CURRENT),
+                                  dtype=torch.int8, device=dev),
+                       torch.full((M,), int(EventType.EXPIRED),
+                                  dtype=torch.int8, device=dev)]),
+            self.chunk_width, _chunk_key_bound(B), "K7 sort chunk")
+
+        # the new buffer: the N best lanes
+        sel = perm[:N]
+        new_state = SortState(
+            cols={k: m_cols[k][sel] for k in self.layout},
+            ts=m_ts[sel], seq=m_seq[sel], valid=m_valid[sel],
+            count=state.count + n_valid)
+        return new_state, chunk
+
+    def contents(self, state: SortState, now):
+        return state.cols, state.ts, state.valid

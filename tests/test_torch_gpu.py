@@ -955,3 +955,129 @@ def test_absent_and_every_app_on_card_matches_cpu(cuda, name):
     assert outs[0] == outs[1] and len(outs[0][0]) > 10
     for k in on_path:
         assert kernels.LAUNCHES[k] > 0
+
+
+def _k7_case(rng, site, B=512, N=100, C=4096, E=1024, K=4096):
+    """(keys, bound, width) at one K7 site's form, small."""
+    from siddhi_tpu_torch.ops import search
+    if site in ("session_chunk", "sort_chunk", "all_equal", "wide"):
+        L = {"session_chunk": 3 * B, "sort_chunk": 2 * B + N,
+             "all_equal": 5000, "wide": 300_001}[site]
+        bound = 4 * B + 3
+        keys = rng.integers(0, B + 1, L) * 4 + rng.choice([0, 2], L)
+        if site == "all_equal":
+            keys[:] = 4 * B
+        keys = np.where(rng.random(L) < 0.6, keys, bound)
+        width = 2 * B if site == "session_chunk" else L
+        return torch.from_numpy(keys.astype(np.int32)), bound, width
+    if site in ("rank_asc", "rank_desc"):
+        x = rng.integers(-4, 5, N + B).astype(np.float64) * 0.5
+        for v in (0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf):
+            x[rng.integers(0, x.size, 5)] = v
+        return (search.float64_sort_key(torch.from_numpy(x),
+                                        site == "rank_desc"), None, None)
+    if site == "keyed_group":
+        keys = np.where(rng.random(B) < 0.9, rng.integers(0, 1000, B), K)
+        return torch.from_numpy(keys.astype(np.int32)), K, B
+    ages = np.where(rng.random(C) < 0.3, rng.permutation(C), C)
+    return torch.from_numpy(ages.astype(np.int32)), C, E
+
+
+@pytest.mark.parametrize("site", ["session_chunk", "sort_chunk", "rank_asc",
+                                  "rank_desc", "keyed_group", "keyed_top_e",
+                                  "all_equal", "wide"])
+def test_k7_kernel_matches_plain(cuda, site):
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import search
+    keys, bound, width = _k7_case(np.random.default_rng(len(site)), site)
+    keys = keys.to(cuda)
+    kernels.reset_launch_counts()
+    got = search.stable_radix_argsort(keys, bound, width, counter="K7 rank")
+    want = search.stable_radix_argsort_plain(keys, bound, width)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    passes = -(-(64 if bound is None else bound.bit_length()) // 8)
+    assert kernels.LAUNCHES["K7 rank"] == 3 * passes
+
+
+def test_cuda_keys_never_reach_the_plain_sort(cuda, monkeypatch):
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import search
+    from siddhi_tpu_torch.ops.windows import SortWindow
+    from siddhi_tpu_torch.core.event import EventBatch
+    monkeypatch.setattr(search, "stable_radix_argsort_plain",
+                        lambda *a, **k: pytest.fail("plain sort on the card"))
+    win = SortWindow({"p": torch.float32, "v": torch.int64}, 64, 10,
+                     [("p", -1), ("v", 1)])
+    rng = np.random.default_rng(3)
+    batch = EventBatch(
+        ts=torch.arange(64, device=cuda),
+        cols={"p": torch.from_numpy(rng.integers(0, 5, 64).astype(
+            np.float32)).to(cuda),
+              "v": torch.from_numpy(rng.integers(0, 5, 64)).to(cuda)},
+        valid=torch.ones(64, dtype=torch.bool, device=cuda),
+        types=torch.zeros(64, dtype=torch.int8, device=cuda))
+    kernels.reset_launch_counts()
+    state, chunk = win.step(win.init_state(cuda), batch, 100)
+    assert int(chunk.valid.sum()) == 64 + 54
+    assert kernels.LAUNCHES["K7 rank"] > 0
+    assert kernels.LAUNCHES["K7 sort chunk"] > 0
+
+
+SESSION_SORT_ON_CARD = {
+    "S_session": ("from TradeStream#window.session(40) select symbol, "
+                  "price, volume insert all events into OutStream;",
+                  ("K7 session chunk",)),
+    "T_keyed_session": ("from TradeStream#window.session(40, symbol) select "
+                        "symbol, price, volume insert all events into "
+                        "OutStream;", ("K7 keyed group", "K7 keyed top-E")),
+    "U_named_window": ("define window TradeWindow (symbol string, price "
+                       "double, volume long) length(300) output all "
+                       "events;\nfrom TradeStream insert into TradeWindow;\n"
+                       "@info(name = 'bench') from TradeWindow select "
+                       "symbol, sum(price) as total, count() as n group by "
+                       "symbol insert into OutStream;", ("K2b append",)),
+    "V_sort": ("from TradeStream#window.sort(100, price, 'desc', volume) "
+               "select symbol, price, volume insert all events into "
+               "OutStream;", ("K7 sort chunk", "K7 rank")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SESSION_SORT_ON_CARD))
+def test_session_sort_app_on_card_matches_cpu(cuda, name):
+    from siddhi_tpu_torch import SiddhiManager, kernels
+    query, on_path = SESSION_SORT_ON_CARD[name]
+    app = ("@app:playback\ndefine stream TradeStream (symbol string, price "
+           "double, volume long);\n" + query)
+    rng = np.random.default_rng(29)
+    n, bs = 256 * 8, 256
+    steps = np.where(rng.random(n) < 0.02, rng.integers(41, 200, n),
+                     rng.integers(0, 3, n))
+    ts = 1_000 + np.cumsum(steps)
+    cols = {"symbol": np.array([f"S{i}" for i in rng.integers(0, 20, n)],
+                               dtype=object),
+            "price": rng.integers(1, 50, n) * 0.5,
+            "volume": rng.integers(1, 30, n).astype(np.int64)}
+    outs = []
+    for dev in ("cuda", "cpu"):
+        rt = SiddhiManager(device=dev).create_siddhi_app_runtime(
+            app, batch_size=bs)
+        got = []
+        rt.add_callback("OutStream", lambda evs, g=got: g.extend(
+            (e.timestamp, e.data) for e in evs))
+        kernels.reset_launch_counts()
+        h = rt.get_input_handler("TradeStream")
+        for s in range(0, n, bs):
+            h.send_columns({k: v[s:s + bs] for k, v in cols.items()},
+                           timestamps=ts[s:s + bs])
+            rt.flush()
+        rt.heartbeat(int(ts[-1]) + 500)
+        if dev == "cuda":
+            for k in on_path:
+                assert kernels.LAUNCHES[k] > 0, k
+        outs.append(got)
+    card, cpu = outs
+    assert len(card) == len(cpu) >= n
+    for (ta, da), (tb, db) in zip(card, cpu):
+        assert ta == tb and da[0] == db[0]
+        np.testing.assert_allclose(da[1:], db[1:], rtol=1e-5, atol=1e-3)
