@@ -137,7 +137,39 @@ Phases (any failure exits non-zero and prints no result line):
    rows a step, oldest first; U: oracle_d; V: np.lexsort on (-price,
    volume, merge position)), strings, longs, timestamps and stored
    float32 values exact, U's sums rtol 1e-5; T drops no key; each app's
-   K7 counters non-zero and 0 host syncs a step.
+   K7 counters non-zero and 0 host syncs a step;
+20. K7 on the expression windows' packed chunks (app W's L = E + B =
+   262,144 and app X's batch chunk L = 2P + B = 655,360 lanes, and the
+   whole `_sort_chunk_packed` against the CPU), K13a's sliding walk and
+   batch scan at app X's shapes (B = 131072, a 5,000,000 volume budget at
+   its steady state, and a 10,000.0 price budget), K13a on seven more
+   conditions (first/last/current attributes, avg, stdDev,
+   eventTimestamp, `%` with negative operands, windows that empty, in
+   both modes), K13b at app Y's N = 64 and 10,000 slots, and app Y's
+   int64 key and slot-key sorts, each against its plain version on the
+   card, bit for bit, with the same timings (the library calls:
+   `torch.sort(stable=True)`, and `scatter_reduce_(amax)` plus a gather
+   for K13b; K13a has none);
+21. apps W (`expression('count() <= 100000')`), X
+   (`expression('sum(volume) <= 5000000')` with volumes 1-100, and
+   `expressionBatch('sum(price) < 10000.0', true)` with prices on a 1/64
+   grid), Y (`frequent(64, symbol)`, `frequent(9600, symbol)` and
+   `lossyFrequent(0.001, 0.0001, symbol)` over 10,000 symbols drawn
+   Zipf(1.2): a batch holds about 9,400 of them, so frequent(64) drains
+   every counter and emits nothing, while frequent(9600) tracks them and
+   evicts at the decrements) and Z
+   (`#pol2Cart(price, volume)#window.hopping(10 sec, 1 sec)[x > 0.0]`
+   grouped by symbol, and `#window.cron('*/1 * * * * ?')`, 20 events a
+   ms), `insert all events` but Z's hopping query, 8 rounds of 131072
+   each under @app:playback, every event in order against numpy oracles
+   (W: length(100000), each arrival's CURRENT then the row it pops; X:
+   the frontiers of the prefix sums, at most E pops a step, and the
+   greedy segmentation of the price sums; Y: the batched Misra-Gries and
+   lossy counters on K3's hash; Z: the ring's rows of the last hop in
+   slot order with per-symbol running sums, and each round's rows with
+   the previous round's expired), strings, longs, timestamps and doubles
+   exact, Z's sums rtol 1e-5; each app's kernels launched and 0 host
+   syncs a step for every query.
 
 Every app's Event callback reads back through K12a (its launch counter
 must be non-zero in every app). Apps A, C, D, G, H and N also run the
@@ -351,6 +383,9 @@ K9_SRC = "siddhi_tpu_torch/csrc/k9_hll.cu"
 AGGS = "siddhi_tpu/ops/aggregators.py"
 K7_SRC = "siddhi_tpu_torch/csrc/k7_radix_sort.cu"
 WINDOWS_EXTRA = "siddhi_tpu/ops/windows_extra.py"
+EXPR_GENERAL = "siddhi_tpu/ops/expression_general.py"
+K13A_SRC = "siddhi_tpu_torch/csrc/k13a_expression_walk.cu"
+K13B_SRC = "siddhi_tpu_torch/csrc/k13b_frequent.cu"
 #: window parameter of apps J-M: ms for the time windows, events for L
 AGG_SIZES = {"J": TIME_WINDOW_MS, "K": TIME_WINDOW_MS, "L": LENGTH_D,
              "M": 1_000}
@@ -399,6 +434,18 @@ KERNELS = {
                        f"{WINDOWS_EXTRA}:480"),
     "K7 keyed top-E": ("KeyedSessionWindow.step top-E", K7_SRC,
                        f"{WINDOWS_EXTRA}:542"),
+    "K7 packed chunk": ("_sort_chunk_packed (expression windows)", K7_SRC,
+                        f"{WINDOWS}:419"),
+    "K7 frequent key": ("FrequentWindow.step key sort", K7_SRC,
+                        f"{WINDOWS_EXTRA}:277"),
+    "K7 frequent match": ("_match slot-key sort", K7_SRC,
+                          f"{WINDOWS_EXTRA}:374"),
+    "K13a sliding": ("GeneralExpressionWindow._frontiers", K13A_SRC,
+                     f"{EXPR_GENERAL}:287"),
+    "K13a batch": ("GeneralExpressionBatchWindow.step scan", K13A_SRC,
+                   f"{EXPR_GENERAL}:386"),
+    "K13b": ("FrequentWindow.step last lane per slot", K13B_SRC,
+             f"{WINDOWS_EXTRA}:330"),
 }
 
 
@@ -981,15 +1028,19 @@ def run_app(torch, text: str, columns: dict, ts,
             out_stream: str = "SummaryStream", rounds: int = ROUNDS,
             batch: int = BATCH, after_round=None):
     """Feed `rounds` sends of `batch` events (send_columns + flush each)
-    and collect the output stream's events. `after_round(rt, r)` runs after
-    each round's flush, inside the timed run (heartbeats)."""
+    and collect the output stream's events (a tuple of streams: a dict of
+    each one's events). `after_round(rt, r)` runs after each round's
+    flush, inside the timed run (heartbeats)."""
     from siddhi_tpu_torch import SiddhiManager
     from siddhi_tpu_torch import kernels
 
     rt = SiddhiManager().create_siddhi_app_runtime(
         text, batch_size=batch, group_capacity=GROUP_CAP)
-    got = []
-    rt.add_callback(out_stream, got.extend)
+    outs = (out_stream,) if isinstance(out_stream, str) else out_stream
+    streams = {o: [] for o in outs}
+    for o in outs:
+        rt.add_callback(o, streams[o].extend)
+    got = streams[out_stream] if isinstance(out_stream, str) else streams
     h = rt.get_input_handler("TradeStream")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1203,18 +1254,18 @@ def syncs_in(torch, fn) -> list:
 
 def measure_steps(torch, rt, columns: dict, ts, fresh: bool = False,
                   rounds: int = ROUNDS, batch: int = BATCH,
-                  window: str = None):
+                  window: str = None, query: str = "bench"):
     """The query step alone (no ingest, no output decode) over the app's
     rounds, as device batches prepared beforehand, each at its round's
     event time. `fresh` restarts from the query's initial state, so a
     sliding window sees the same traffic as in the app run; with a named
     `window` feeding the query, a step is the window's step and then the
-    query's. Returns (where one step syncs with the host under
-    torch.cuda.set_sync_debug_mode('warn'), one "file:line" per
-    synchronizing call; mean ms per step)."""
+    query's (`query` names the query). Returns (where one step syncs with
+    the host under torch.cuda.set_sync_debug_mode('warn'), one "file:line"
+    per synchronizing call; mean ms per step)."""
     from siddhi_tpu_torch.core.event import EventBatch
 
-    qr = rt.query_runtimes["bench"]
+    qr = rt.query_runtimes[query]
     w = rt.windows[window] if window is not None else None
     j = rt.junctions["TradeStream"]
     batches, nows = [], []
@@ -3811,6 +3862,621 @@ def session_sort_apps(torch, rng, card: str, rounds: int = ROUNDS,
     return total
 
 
+# --------------------------------------------------------------------------- #
+# phases 20-21: K7's packed chunk sort, K13a, K13b; apps W, X, Y and Z
+# --------------------------------------------------------------------------- #
+
+W_LENGTH = 100_000  # app W's count bound
+X_VOLUME = 5_000_000  # app X's volume budget
+X_PRICE = 10_000.0  # app X's batch price budget
+Y_SYMBOLS = 10_000
+Y_ZIPF = 1.2
+Y_SLOTS = 64
+Y_WIDE = 9_600  # above the ~9,400 distinct symbols of a batch
+Y_SUPPORT, Y_ERROR = 0.001, 0.0001
+Z_RATE = 20_000  # app Z's events a second: a round spans ~6.5 s
+Z_WINDOW_MS, Z_HOP_MS = 10_000, 1_000
+STOCK = """@app:playback
+define stream TradeStream (symbol string, price double, volume long);
+"""
+
+
+def expr_app_plan(w_length: int = W_LENGTH, x_volume: int = X_VOLUME,
+                  x_price: float = X_PRICE, y_slots: int = Y_SLOTS,
+                  y_wide: int = Y_WIDE) -> dict:
+    """name -> (app text, {query: output stream}) of apps W, X, Y and Z."""
+    def q(name, window, select, out, kind="all events "):
+        return (f"@info(name = '{name}')\nfrom TradeStream{window}\n"
+                f"select {select}\ninsert {kind}into {out};\n")
+
+    rows = "symbol, price, volume"
+    return {
+        "W": (STOCK + q("bench", f"#window.expression('count() <= "
+                        f"{w_length}')", rows, "OutStream"),
+              {"bench": "OutStream"}),
+        "X": (STOCK + q("bench", f"#window.expression('sum(volume) <= "
+                        f"{x_volume}')", rows, "OutStream")
+              + q("batch", f"#window.expressionBatch('sum(price) < "
+                  f"{x_price}', true)", rows, "BatchOut"),
+              {"bench": "OutStream", "batch": "BatchOut"}),
+        "Y": (STOCK + q("bench", f"#window.frequent({y_slots}, symbol)",
+                        rows, "OutStream")
+              + q("wide", f"#window.frequent({y_wide}, symbol)", rows,
+                  "WideOut")
+              + q("lossy", f"#window.lossyFrequent({Y_SUPPORT}, "
+                  f"{Y_ERROR}, symbol)", rows, "LossyOut"),
+              {"bench": "OutStream", "wide": "WideOut",
+               "lossy": "LossyOut"}),
+        "Z": (STOCK + q("bench", "#pol2Cart(price, volume)#window.hopping("
+                        f"{Z_WINDOW_MS // 1000} sec, {Z_HOP_MS // 1000} "
+                        "sec)[x > 0.0]", "symbol, sum(x) as sx, count() as "
+                        "n\ngroup by symbol", "OutStream", kind="")
+              + q("cron", "#window.cron('*/1 * * * * ?')", rows, "CronOut"),
+              {"bench": "OutStream", "cron": "CronOut"}),
+    }
+
+
+def _env_of(torch, cond, data: dict, C: int, B: int, w0: int, nv: int):
+    """Metric arrays for a condition: value sequences of length C + B (rows
+    past w0 + nv zero) and their prefix sums, float64, on the device."""
+    env = {}
+    for kind, attr in cond.program.arrays:
+        seq = np.zeros(C + B)
+        seq[:w0 + nv] = data[attr][:w0 + nv]
+        if kind == "prefix":
+            seq = np.r_[0.0, np.cumsum(seq)]
+        elif kind == "prefix_sq":
+            seq = np.r_[0.0, np.cumsum(seq * seq)]
+        env[(kind, attr)] = torch.from_numpy(seq).to(torch.device("cuda"))
+    return env
+
+
+def _walk_bytes(cond, positions: int, out_bytes: int) -> float:
+    """Bytes K13a must move: each float64 array that the condition's program
+    indexes, read at the `positions` distinct positions this walk visits,
+    and the outputs written once."""
+    return len(cond.program.arrays) * positions * 8 + out_bytes
+
+
+def expression_kernel_phase(torch, rng, B: int = BATCH) -> dict:
+    """K7's packed chunk sort, K13a (both modes), K13b and the frequent
+    windows' K7 int64 sorts against their plain versions on the card at
+    the apps' shapes, bit for bit, with their timings: (a) app W's chunk
+    (L = E + B) and app X's batch chunk (L = 2P + B), also through the
+    whole `_sort_chunk_packed` against the CPU; (b) K13a's sliding walk
+    on app X's condition at its steady state, and its batch scan; (c)
+    K13a on seven conditions over first/last/current attributes, avg,
+    stdDev, eventTimestamp, `%` with negative operands and windows that
+    empty (NaN means) at B = 2048, both modes; (d) K13b at app Y's N = 64
+    and N = 10,000; (e) app Y's key sort (B int64 keys) and slot-key sort
+    (N = 10,000)."""
+    from siddhi_tpu_torch.ops import expression_general as eg
+    from siddhi_tpu_torch.ops import search, windows, windows_extra as wx
+
+    dev = torch.device("cuda")
+    res = {}
+    layout = {"symbol": torch.int32, "price": torch.float64,
+              "volume": torch.int64}
+    bound = 4 * B + 4
+
+    # (a) hi keys of both callers' form, ~half the expiry lanes valid
+    def packed_keys(n_exp, n_cur, exp_kind):
+        hi = np.r_[np.sort(rng.integers(0, B + 1, n_exp)) * 4 + exp_kind,
+                   np.arange(n_cur) * 4 + 2]
+        valid = np.r_[rng.random(n_exp) < 0.5, rng.random(n_cur) < 0.97]
+        return hi.astype(np.int32), valid
+
+    for what, (hi, valid) in (("app W's chunk", packed_keys(B, B, 3)),
+                              ("app X's batch chunk",
+                               packed_keys(4 * B, B, 0))):
+        k = torch.from_numpy(np.where(valid, hi, bound).astype(np.int32))
+        kd = k.to(dev)
+        got = search.stable_radix_argsort(kd, bound,
+                                          counter="K7 packed chunk")
+        check_equal(f"K7 packed chunk ({what})", got,
+                    search.stable_radix_argsort_plain(kd, bound))
+        L = hi.shape[0]
+        mat = torch.from_numpy(rng.integers(
+            -2**31, 2**31, (windows._layout_words(layout), L))
+            .astype(np.int32))
+        emit = torch.from_numpy(rng.integers(0, 2**40, L))
+        types = torch.from_numpy(rng.integers(0, 3, L).astype(np.int8))
+        args = (torch.from_numpy(hi), mat, emit, torch.from_numpy(valid),
+                types, layout, L, bound)
+        want = windows._sort_chunk_packed(*args)
+        chunk = windows._sort_chunk_packed(
+            *[a.to(dev) if isinstance(a, torch.Tensor) else a
+              for a in args])
+        for f in ("ts", "valid", "types"):
+            check_equal(f"_sort_chunk_packed {f} ({what})",
+                        getattr(chunk, f).cpu(), getattr(want, f))
+        for c in layout:
+            check_equal(f"_sort_chunk_packed {c} ({what})",
+                        chunk.cols[c].cpu(), want.cols[c])
+        if what == "app W's chunk":
+            res["K7 packed chunk"] = dict(
+                _timed(torch,
+                       lambda: search.stable_radix_argsort(
+                           kd, bound, counter="K7 packed chunk"),
+                       lambda: search.stable_radix_argsort_plain(kd, bound),
+                       library=lambda: torch.sort(kd, stable=True)),
+                bound_ms=bound_ms(2 * L * 4), max_abs_err=0,
+                bound_by="bytes")
+            print(f"K7 packed chunk {what} L={L}: {res['K7 packed chunk']}")
+
+    # (b) K13a at app X's shapes
+    win = eg.GeneralExpressionWindow(layout, B, f"sum(volume) <= {X_VOLUME}")
+    vol = rng.integers(1, 101, win.C + B).astype(np.float64)
+    w0 = int(np.searchsorted(np.cumsum(vol), X_VOLUME))
+    env = _env_of(torch, win.cond, {"volume": vol}, win.C, B, w0, B)
+    w0_d = torch.tensor(w0, dtype=torch.int32, device=dev)
+    nv_d = torch.tensor(B, dtype=torch.int32, device=dev)
+    got = eg.sliding_walk(win.cond, env, w0_d, nv_d, B, win.E)
+    want = eg.sliding_walk_plain(win.cond, env, w0_d, nv_d, B, win.E)
+    for g, w, f in zip(got, want, ("s_vec", "s")):
+        check_equal(f"K13a sliding ({f}, app X)", g, w)
+    pops = int(want[1])
+    # the walk reads positions [0, final s] (pops) and [w0, w0 + B]
+    visited = (w0 + B + 1 if pops >= w0 else pops + 1 + B + 1)
+    res["K13a sliding"] = dict(
+        ms=time_ms(torch, lambda: eg.sliding_walk(win.cond, env, w0_d, nv_d,
+                                                  B, win.E),
+                   iters=5, warmup=1),
+        plain_ms=time_ms(torch, lambda: eg.sliding_walk_plain(
+            win.cond, env, w0_d, nv_d, B, win.E), iters=1, warmup=0),
+        library_ms=None, bound_ms=bound_ms(_walk_bytes(win.cond, visited,
+                                                   4 * B + 4)),
+        max_abs_err=0, bound_by="bytes", checks=B + pops)
+    print(f"K13a sliding walk, app X's condition, B={B}, window {w0} rows, "
+          f"{B + pops} checks: {res['K13a sliding']}")
+
+    bwin = eg.GeneralExpressionBatchWindow(
+        layout, B, f"sum(price) < {X_PRICE}", include_trigger=True)
+    price = rng.integers(32, 6400, bwin.C + B) / 64.0
+    w0b = 150
+    benv = _env_of(torch, bwin.cond, {"price": price}, bwin.C, B, w0b, B)
+    w0b_d = torch.tensor(w0b, dtype=torch.int32, device=dev)
+    got = eg.batch_walk(bwin.cond, benv, w0b_d, nv_d, B, True)
+    want = eg.batch_walk_plain(bwin.cond, benv, w0b_d, nv_d, B, True)
+    for g, w, f in zip(got, want, ("flush", "end_j", "empty", "s")):
+        check_equal(f"K13a batch ({f}, app X)", g, w)
+    # the scan reads each segment start and [w0, w0 + B]
+    starts = want[1].cpu().numpy()[want[0].cpu().numpy().astype(bool)]
+    bvisited = np.union1d(np.r_[0, starts],
+                          np.arange(w0b, w0b + B + 1)).size
+    res["K13a batch"] = dict(
+        ms=time_ms(torch, lambda: eg.batch_walk(bwin.cond, benv, w0b_d, nv_d,
+                                                B, True),
+                   iters=5, warmup=1),
+        plain_ms=time_ms(torch, lambda: eg.batch_walk_plain(
+            bwin.cond, benv, w0b_d, nv_d, B, True), iters=1, warmup=0),
+        library_ms=None, bound_ms=bound_ms(_walk_bytes(bwin.cond, bvisited,
+                                                   6 * B + 4)),
+        max_abs_err=0, bound_by="bytes", checks=B)
+    print(f"K13a batch scan, app X's condition, B={B}, "
+          f"{int(want[0].sum())} flushes: {res['K13a batch']}")
+
+    # (c) the walk's semantics, both modes
+    Bs, Cs = 2048, 4096
+    data = {"price": rng.integers(-4000, 6400, Cs + Bs) / 64.0,
+            "volume": rng.integers(-50, 50, Cs + Bs).astype(np.float64),
+            eg.TS_ATTR: (1_000 + np.cumsum(rng.integers(0, 9, Cs + Bs)))
+            .astype(np.float64)}
+    layout_s = {"price": torch.float64, "volume": torch.int64}
+    for text in ("stdDev(price) < 30.0 and count() < 300",
+                 "avg(price) >= 10.0 or last.volume % 7 != 3",
+                 "(last.price - first.price) % -7.5 < 3.0",
+                 "eventTimestamp(last) - eventTimestamp(first) <= 500 "
+                 "and not (price > 90.0)",
+                 "sum(volume) / count() > -1.5",
+                 "avg(price) > 1000.0",
+                 "volume % 4 == -1 or first.volume * 2 < price"):
+        for w0s in (0, 700):
+            sw = eg.GeneralExpressionWindow(layout_s, Bs, text)
+            senv = _env_of(torch, sw.cond, data, Cs, Bs, w0s, Bs - 5)
+            a = (torch.tensor(w0s, dtype=torch.int32, device=dev),
+                 torch.tensor(Bs - 5, dtype=torch.int32, device=dev))
+            for g, w in zip(eg.sliding_walk(sw.cond, senv, *a, Bs, sw.E),
+                            eg.sliding_walk_plain(sw.cond, senv, *a, Bs,
+                                                  sw.E)):
+                check_equal(f"K13a sliding ({text!r}, w0={w0s})", g, w)
+            for inc in (False, True):
+                for g, w in zip(eg.batch_walk(sw.cond, senv, *a, Bs, inc),
+                                eg.batch_walk_plain(sw.cond, senv, *a, Bs,
+                                                    inc)):
+                    check_equal(f"K13a batch ({text!r}, w0={w0s}, "
+                                f"include={inc})", g, w)
+    print("K13a: 7 conditions x 2 windows, both modes, match the plain walk")
+
+    # (d) K13b at app Y's shapes
+    sym = np.minimum(rng.zipf(Y_ZIPF, B), Y_SYMBOLS) - 1
+    comp = {"symbol": torch.from_numpy(sym.astype(np.int32)),
+            "price": torch.from_numpy(rng.uniform(1, 100, B)),
+            "volume": torch.from_numpy(rng.integers(1, 1000, B))}
+    comp_ts = torch.from_numpy(1_700_000_000_000 + np.arange(B))
+    for N in (Y_SLOTS, Y_SYMBOLS):
+        slot = torch.from_numpy(np.where(sym < N, sym, N).astype(np.int32))
+        old = {"symbol": torch.from_numpy(rng.integers(0, 9, N)
+                                          .astype(np.int32)),
+               "price": torch.from_numpy(rng.uniform(1, 100, N)),
+               "volume": torch.from_numpy(rng.integers(1, 1000, N))}
+        old_ts = torch.from_numpy(rng.integers(0, 2**40, N))
+        a = [slot.to(dev), {k: v.to(dev) for k, v in comp.items()},
+             comp_ts.to(dev), {k: v.to(dev) for k, v in old.items()},
+             old_ts.to(dev), N]
+        gc, gt = wx.frequent_last_lane(*a)
+        wc, wt = wx.frequent_last_lane_plain(*a)
+        check_equal(f"K13b ts (N={N})", gt, wt)
+        for k in comp:
+            check_equal(f"K13b {k} (N={N})", gc[k], wc[k])
+
+        def library(a=a):
+            last = torch.full((N + 1,), -1, dtype=torch.int32, device=dev)
+            last.scatter_reduce_(0, a[0].long(), torch.arange(
+                B, dtype=torch.int32, device=dev), reduce="amax")
+            g = last[:N].clamp(min=0).long()
+            return [c[g] for c in (*a[1].values(), a[2])]
+
+        hit = int(np.unique(slot.numpy()[slot.numpy() < N]).size)
+        row = sum(v.element_size() for v in comp.values()) + 8
+        if N == Y_SYMBOLS:
+            res["K13b"] = dict(
+                _timed(torch, lambda a=a: wx.frequent_last_lane(*a),
+                       lambda a=a: wx.frequent_last_lane_plain(*a),
+                       library=library),
+                bound_ms=bound_ms(4 * B + 2 * N * row + hit * row),
+                max_abs_err=0, bound_by="bytes")
+        print(f"K13b N={N} ({hit} slots with a new lane) matches"
+              + (f": {res['K13b']}" if N == Y_SYMBOLS else ""))
+
+    # (e) app Y's int64 sorts
+    from siddhi_tpu_torch.ops.groupby import hash_columns
+    keys = hash_columns([comp["symbol"].to(dev)])
+    for counter, k in (("K7 frequent key", keys),
+                       ("K7 frequent match",
+                        torch.where(torch.rand(keys[:Y_SYMBOLS].shape,
+                                               device=dev) < 0.9,
+                                    keys[:Y_SYMBOLS],
+                                    torch.iinfo(torch.int64).max))):
+        k = k.contiguous()
+        got = search.stable_radix_argsort(k, counter=counter)
+        check_equal(counter, got, search.stable_radix_argsort_plain(k))
+        res[counter] = dict(
+            _timed(torch,
+                   lambda k=k, c=counter: search.stable_radix_argsort(
+                       k, counter=c),
+                   lambda k=k: search.stable_radix_argsort_plain(k),
+                   library=lambda k=k: torch.sort(k, stable=True)),
+            bound_ms=bound_ms(k.numel() * 12), max_abs_err=0,
+            bound_by="bytes")
+        print(f"{counter} L={k.numel()}: {res[counter]}")
+    torch.cuda.synchronize()
+    return res
+
+
+def _now_of(ts, rounds: int, batch: int) -> np.ndarray:
+    """Each event's round's clock under @app:playback: the round's last
+    timestamp."""
+    return np.repeat(ts[batch - 1::batch][:rounds], batch)
+
+
+def oracle_sliding_frontiers(t_abs, ts, rounds: int, batch: int, E: int):
+    """Output (row, timestamp) of a sliding expression window
+    whose retained window after arrival i starts at t_abs[i] (nondecreasing,
+    the condition monotone in the start): each arrival's CURRENT, then the
+    rows it pops (oldest first, stamped with the round's clock); at most E
+    pops a step, the rest carried to the next step's first arrival."""
+    now = _now_of(ts, rounds, batch)
+    expired = 0
+    rows, stamps = [], []
+    for r in range(rounds):
+        lo = r * batch
+        j = np.arange(batch)
+        f = np.maximum(t_abs[lo:lo + batch] - expired, 0)
+        f = np.minimum(np.minimum(f, lo + j + 1 - expired), E)
+        f = np.maximum.accumulate(f)
+        prev = np.r_[0, f[:-1]]
+        n_pop = f - prev
+        start = np.cumsum(1 + n_pop) - (1 + n_pop)  # each arrival's slot
+        out = np.empty(batch + int(f[-1]), dtype=np.int64)
+        is_exp = np.ones(out.shape[0], dtype=bool)
+        out[start] = lo + j
+        is_exp[start] = False
+        pop_slot = np.nonzero(is_exp)[0]
+        out[pop_slot] = expired + np.arange(int(f[-1]))
+        rows.append(out)
+        stamps.append(np.where(is_exp, now[lo], ts[out]))
+        expired += int(f[-1])
+    return np.concatenate(rows), np.concatenate(stamps)
+
+
+def oracle_expression_batch(price, ts, rounds: int, batch: int,
+                            budget: float):
+    """Output (row, timestamp) of expressionBatch('sum(price) <
+    budget', true): a flush covers the accumulated rows and the arrival
+    that breaks the budget; at each flush the previous flush's rows come
+    out expired, then its own current, all stamped with the clock of the
+    round the breaking arrival came in. No single price reaches the budget
+    here, so no flush is empty."""
+    n = rounds * batch
+    pre = np.r_[0.0, np.cumsum(price[:n])]
+    now = _now_of(ts, rounds, batch)
+    rows = []
+    s, prev = 0, np.empty(0, dtype=np.int64)
+    while True:
+        j = int(np.searchsorted(pre, pre[s] + budget, side="left")) - 1
+        if j >= n:
+            break
+        cur = np.arange(s, j + 1)
+        rows.append((np.r_[prev, cur], now[j]))
+        prev, s = cur, j + 1
+    return (np.concatenate([r for r, _ in rows]),
+            np.concatenate([np.full(r.shape[0], t) for r, t in rows]))
+
+
+def _k3_hash_np(codes: np.ndarray) -> np.ndarray:
+    """K3's hash of one int32 column, as int64."""
+    with np.errstate(over="ignore"):
+        x = codes.astype(np.int64).view(np.uint64)
+        h = (np.uint64(0xCBF29CE484222325) ^ x) * np.uint64(0x100000001B3)
+        h ^= h >> np.uint64(29)
+    return h.view(np.int64)
+
+
+def oracle_frequent(codes, ts, rounds: int, batch: int, n_slots: int,
+                    support: float = 0.0, error: float = 0.0,
+                    lossy: bool = False):
+    """Output (row, timestamp) of frequent(N, symbol) or
+    lossyFrequent(support, error, symbol), batch by batch as the window
+    counts: K3's hash of the string code as the key; the batch's distinct
+    keys in key order; tracked keys add their count; new keys take the
+    free slots in slot order while they last; the arrivals of the rest
+    decrement every counter, and counters at 0 free their slot (lossy: so
+    do counters under error x total). CURRENT: the arrivals whose key is
+    tracked afterwards (lossy: with count >= (support - error) x total);
+    then EXPIRED: each freed slot that was occupied before the batch, its
+    remembered row (the last arrival of its key), in slot order."""
+    PAD, SCALE = np.iinfo(np.int64).max, 1_000_000
+    keys_all = _k3_hash_np(codes)
+    keys_all[keys_all == PAD] = PAD - 1
+    N = n_slots
+    slot_keys = np.full(N, PAD, dtype=np.int64)
+    counts = np.zeros(N, dtype=np.int64)
+    slot_row = np.full(N, -1, dtype=np.int64)
+    total = 0
+    rows = []
+    for r in range(rounds):
+        lane_rows = np.arange(r * batch, (r + 1) * batch)
+        keys = keys_all[lane_rows]
+        uk, uc = np.unique(keys, return_counts=True)
+        where = {int(k): i for i, k in enumerate(slot_keys) if k != PAD}
+        slot_of = np.array([where.get(int(k), N) for k in uk])
+        tracked = slot_of < N
+        counts1 = counts.copy()
+        counts1[slot_of[tracked]] += uc[tracked]
+        free = np.nonzero(slot_keys == PAD)[0]
+        new = np.nonzero(~tracked)[0]
+        placed, unplaced = new[:free.size], new[free.size:]
+        keys1, counts2 = slot_keys.copy(), counts1.copy()
+        keys1[free[:placed.size]] = uk[placed]
+        counts2[free[:placed.size]] = uc[placed]
+        occupied = keys1 != PAD
+        counts3 = np.where(occupied,
+                           np.maximum(counts2 - uc[unplaced].sum(), 0), 0)
+        evicted = occupied & (counts3 == 0)
+        keys2 = np.where(evicted, PAD, keys1)
+        total1 = total + batch
+        if lossy:
+            low = (keys2 != PAD) & (counts3 * SCALE
+                                    < int(error * SCALE) * total1)
+            evicted |= low
+            keys2 = np.where(low, PAD, keys2)
+        where2 = {int(k): i for i, k in enumerate(keys2) if k != PAD}
+        lane_slot = np.array([where2.get(int(k), N) for k in uk])[
+            np.searchsorted(uk, keys)]
+        tracked_lane = lane_slot < N
+        new_row = slot_row.copy()
+        np.maximum.at(new_row, lane_slot[tracked_lane],
+                      lane_rows[tracked_lane])
+        cur = tracked_lane
+        if lossy:
+            thr = int((support - error) * SCALE)
+            cur = cur & (counts3[np.minimum(lane_slot, N - 1)] * SCALE
+                         >= thr * total1)
+        gone = np.nonzero(evicted & (slot_keys != PAD))[0]
+        rows += [lane_rows[cur], slot_row[gone]]
+        slot_keys, counts, slot_row, total = keys2, counts3, new_row, total1
+    out = np.concatenate(rows)
+    return out, ts[out]
+
+
+def oracle_hopping(sym, x, ts, rounds: int, batch: int, C: int):
+    """Rows and per-symbol running (sum(x), count) of app Z's hopping query:
+    each round fires at the latest hop boundary b <= its clock and emits
+    the ring's live rows (the last C arrivals) with b - window < ts <= b,
+    in ring-slot order (row % C), those with x > 0, counted per symbol
+    from the boundary's reset."""
+    rows, sums, cnts = [], [], []
+    for r in range(rounds):
+        hi = (r + 1) * batch
+        b = int(ts[hi - 1]) // Z_HOP_MS * Z_HOP_MS
+        live = np.arange(max(hi - C, 0), hi)
+        sel = live[(ts[live] > b - Z_WINDOW_MS) & (ts[live] <= b)]
+        sel = sel[np.argsort(sel % C, kind="stable")]
+        sel = sel[x[sel] > 0.0]
+        order = np.lexsort((np.arange(sel.size), sym[sel]))
+        ks = sym[sel][order]
+        start = np.r_[True, ks[1:] != ks[:-1]]
+        seg = np.cumsum(start) - 1
+        cs = np.cumsum(x[sel][order])
+        run = cs - (cs - x[sel][order])[start][seg]
+        pos = np.arange(order.size)
+        s_, c_ = np.empty(sel.size), np.empty(sel.size, dtype=np.int64)
+        s_[order] = run
+        c_[order] = pos - pos[start][seg] + 1
+        rows.append(sel)
+        sums.append(s_)
+        cnts.append(c_)
+    return np.concatenate(rows), np.concatenate(sums), np.concatenate(cnts)
+
+
+def oracle_cron(ts, rounds: int, batch: int):
+    """Every round crosses a one-second boundary, so each step fires: the
+    previous round's rows expired, then its own current, in arrival
+    order, with their own timestamps."""
+    out = np.concatenate([np.arange(max(r - 1, 0) * batch, (r + 1) * batch)
+                          for r in range(rounds)])
+    return out, ts[out]
+
+
+def check_rows(name: str, got, rows, stamps, columns: dict,
+               names: tuple = ("symbol", "price", "volume")) -> int:
+    """check_sliding on the oracle's rows (strings and longs exact, prices
+    as the stored float32 values, exact). A stream callback sees the
+    forwarded events as CURRENT: expired rows are told by their places and
+    timestamps."""
+    expect = [(c, columns[c][rows].tolist() if c == "symbol"
+               else (columns[c][rows].astype(np.float32).astype(np.float64)
+                     if c == "price" else columns[c][rows]),
+               "exact" if c == "price" else False)
+              for c in names]
+    return check_sliding(name, got, stamps, expect)
+
+
+def zipf_symbols(rng, n: int) -> np.ndarray:
+    """Symbol indices drawn Zipf(Y_ZIPF), ranks past Y_SYMBOLS folded back
+    into the pool."""
+    return (rng.zipf(Y_ZIPF, n) - 1) % Y_SYMBOLS
+
+
+def expr_app_events(rng, name: str, rounds: int = ROUNDS,
+                    batch: int = BATCH, z_rate: int = Z_RATE):
+    """(symbol index, price, volume, ts, symbol pool) of app `name`: W as
+    app V's traffic; X with volumes 1-100 and prices on a 1/64 grid (every
+    prefix sum exact in float64); Y over 10,000 symbols drawn Zipf(1.2);
+    Z at z_rate events a second. Timestamps 1 ms apart but Z's."""
+    n = rounds * batch
+    pool = symbols(Y_SYMBOLS if name == "Y" else T_SYMBOLS)
+    sym = (zipf_symbols(rng, n) if name == "Y"
+           else rng.integers(0, T_SYMBOLS, n))
+    price = rng.uniform(1.0, 100.0, n)
+    volume = rng.integers(1, 1000, n).astype(np.int64)
+    if name == "X":
+        volume = rng.integers(1, 101, n).astype(np.int64)
+        price = rng.integers(32, 6400, n) / 64.0
+    step = np.arange(n, dtype=np.int64)
+    ts = 1_700_000_000_000 + (step * 1000 // z_rate if name == "Z"
+                              else step)
+    return sym, price, volume, ts, pool
+
+
+def expect_expr_app(name: str, sym, price, volume, ts, pool,
+                    rounds: int = ROUNDS, batch: int = BATCH,
+                    w_length: int = W_LENGTH, x_volume: int = X_VOLUME,
+                    x_price: float = X_PRICE, y_slots: int = Y_SLOTS,
+                    y_wide: int = Y_WIDE):
+    """check(got: {stream: events}) -> events checked, against app
+    `name`'s numpy oracles."""
+    from siddhi_tpu_torch.ops.windows_extra import HoppingWindow
+    n = rounds * batch
+    columns = {"symbol": pool[sym], "price": price, "volume": volume}
+    E = max(batch, 1024)  # the expression windows' expiry lanes a step
+
+    def check(got: dict) -> int:
+        if name == "W":
+            t_abs = np.maximum(np.arange(n) + 1 - w_length, 0)
+            return check_rows("W", got["OutStream"], *oracle_sliding_frontiers(
+                t_abs, ts, rounds, batch, E), columns)
+        if name == "X":
+            pre = np.r_[0, np.cumsum(volume)]
+            t_abs = np.searchsorted(pre, pre[1:] - x_volume, side="left")
+            return (check_rows("X", got["OutStream"],
+                                *oracle_sliding_frontiers(
+                                    t_abs, ts, rounds, batch, E), columns)
+                    + check_rows("X batch", got["BatchOut"],
+                                  *oracle_expression_batch(
+                                      price, ts, rounds, batch, x_price),
+                                  columns))
+        if name == "Y":
+            _, first, inv = np.unique(sym, return_index=True,
+                                      return_inverse=True)
+            rank = np.empty_like(first)
+            rank[np.argsort(first)] = np.arange(first.shape[0])
+            codes = (rank[inv] + 1).astype(np.int32)  # first-seen order
+            wide = oracle_frequent(codes, ts, rounds, batch, y_wide)
+            # EXPIRED rows are the remembered rows of earlier rounds
+            gone = wide[0] < np.maximum.accumulate(wide[0]) // batch * batch
+            if gone.all() or not gone.any():
+                raise Failure(f"app Y: frequent({y_wide})'s oracle holds "
+                              f"{int((~gone).sum())} CURRENT and "
+                              f"{int(gone.sum())} EXPIRED rows; both must "
+                              "be non-empty")
+            return (check_rows("Y", got["OutStream"], *oracle_frequent(
+                        codes, ts, rounds, batch, y_slots), columns)
+                    + check_rows("Y wide", got["WideOut"], *wide, columns)
+                    + check_rows("Y lossy", got["LossyOut"],
+                                  *oracle_frequent(
+                                      codes, ts, rounds, batch,
+                                      max(int(1.0 / Y_ERROR), 16),
+                                      Y_SUPPORT, Y_ERROR, lossy=True),
+                                  columns))
+        C = HoppingWindow({}, batch, Z_WINDOW_MS, Z_HOP_MS).C
+        # pol2Cart on the stored float32 price: float32 arithmetic
+        x = (volume.astype(np.float32) * np.cos(np.deg2rad(
+            price.astype(np.float32)))).astype(np.float64)
+        rows, sx, cnt = oracle_hopping(sym, x, ts, rounds, batch, C)
+        return (check_sliding("Z", got["OutStream"], ts[rows],
+                              [("symbol", pool[sym[rows]].tolist(), False),
+                               ("sx", sx, True), ("n", cnt, False)])
+                + check_rows("Z cron", got["CronOut"],
+                              *oracle_cron(ts, rounds, batch), columns))
+
+    return check
+
+
+def expression_apps(torch, rng, card: str, rounds: int = ROUNDS,
+                    batch: int = BATCH) -> dict:
+    """Apps W, X, Y and Z against their oracles, 0 host syncs a step for
+    each query, each app's kernels launched; returns their launches."""
+    k2b = ("K2b pack", "K2b fetch", "K2b append", "K2b gather")
+    on_path = {"W": ("K1", *k2b, "K5b ungrouped", "K7 packed chunk"),
+               "X": ("K1", *k2b, "K5b ungrouped", "K7 packed chunk",
+                     "K13a sliding", "K13a batch"),
+               "Y": ("K1", "K3", "K7 frequent key", "K7 frequent match",
+                     "K13b"),
+               "Z": ("K1",)}
+    total = {}
+    for name, (text, queries) in expr_app_plan().items():
+        sym, price, volume, ts, pool = expr_app_events(rng, name, rounds,
+                                                       batch)
+        columns = {"symbol": pool[sym], "price": price, "volume": volume}
+        rt, got, launches, elapsed, peak = run_app(
+            torch, text, columns, ts, out_stream=tuple(queries.values()),
+            rounds=rounds, batch=batch)
+        n_out = expect_expr_app(name, sym, price, volume, ts, pool, rounds,
+                                batch)(got)
+        del got
+        for k in on_path[name] + ("K12a",):
+            if launches[k] == 0:
+                raise Failure(f"app {name}: kernel {k} never launched")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        step_ms = {}
+        for q in queries:
+            syncs, step_ms[q] = measure_steps(torch, rt, columns, ts,
+                                              fresh=True, rounds=rounds,
+                                              batch=batch, query=q)
+            if syncs:
+                raise Failure(f"app {name}: query {q}'s step syncs with the "
+                              f"host: {syncs}")
+        report_app(name, ts.shape[0], n_out, elapsed,
+                   sum(step_ms.values()), peak, launches, [], card,
+                   rounds=rounds, batch=batch)
+        print(f"app {name}: each query's step alone, ms per round: "
+              f"{step_ms}")
+        del rt
+    return total
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3925,6 +4591,10 @@ def main(argv=None) -> int:
 
         kres.update(sort_kernel_phase(torch, rng))
         for k, v in session_sort_apps(torch, rng, card).items():
+            launches[k] += v
+
+        kres.update(expression_kernel_phase(torch, rng))
+        for k, v in expression_apps(torch, rng, card).items():
             launches[k] += v
         print(json.dumps({"columnar": summary}))
 

@@ -3,7 +3,8 @@ of siddhi_tpu/core/query_runtime.py).
 
     step(state, batch, now) -> (state', out_batch)
 
-runs filter mask -> window -> selector -> rate limiter on fixed-shape
+runs filter mask -> stream functions -> window -> stream functions ->
+post-window filters -> selector -> rate limiter on fixed-shape
 tensors with no host synchronisation; the only readback is in
 `_distribute`, where callbacks decode the output. JAX donates the state to
 its jitted step; here the kernels update the state tensors in place.
@@ -25,8 +26,10 @@ from ..ops.aggregators import compact_distinct_state
 from ..ops.extrema import (grouped_sliding_extrema_lanes,
                            sliding_extrema_lanes)
 from ..ops.groupby import GroupState, KeyTable
+from ..ops.expression_window import ExpressionWindow
 from ..ops.ratelimit import make_rate_limiter
 from ..ops.selector import CompiledSelector
+from ..ops.stream_functions import StreamFunctionFactory
 from ..ops.window_factories import WindowFactory
 from ..ops.windows import (
     PassThroughWindow,
@@ -44,6 +47,7 @@ from ..query_api.execution import (
     SingleInputStream,
 )
 from ..query_api.expression import Constant, Expression, Variable
+from . import dtypes
 from .context import SiddhiAppContext
 from .event import EventBatch, EventType, StreamCodec
 from .stream import Receiver, StreamJunction
@@ -87,11 +91,6 @@ class QueryRuntime(Receiver):
                 f"{type(in_stream).__name__} queries are not yet ported to "
                 "siddhi_tpu_torch")
         h = in_stream.handlers
-        if (h.pre_window_functions or h.post_window_functions
-                or h.post_window_filters):
-            raise SiddhiAppCreationError(
-                "stream functions and post-window filters are not yet ported "
-                "to siddhi_tpu_torch")
         self.query = query
         self.ctx = ctx
         self.name = name or query.name or f"query_{id(self)}"
@@ -117,8 +116,26 @@ class QueryRuntime(Receiver):
             if f.type != AttributeType.BOOL:
                 raise SiddhiAppCreationError("filter must be boolean")
 
+        # stream functions (reference: StreamFunctionProcessor SPI) append
+        # computed columns to the frame: later handlers and the selector
+        # see the extended schema. attr_types is the dict the resolver
+        # reads, so extending it extends name resolution too.
+        self.pre_window_fns = self._compile_stream_fns(
+            h.pre_window_functions, attr_types, registry)
+        self.post_window_fns = self._compile_stream_fns(
+            h.post_window_functions, attr_types, registry)
+        self.post_filters = [compile_expression(f, self.resolver, registry)
+                             for f in h.post_window_filters]
+
         batch_cap = input_junction.batch_size
-        layout = make_layout(attr_types)
+        # the window's layout holds the stream's columns and the pre-window
+        # functions' ones
+        layout = make_layout({a.name: a.type for a in definition.attributes
+                              if a.type != AttributeType.OBJECT})
+        for spec, _ in self.pre_window_fns:
+            for n, t in spec.new_attrs:
+                layout[n] = dtypes.device_dtype(t)
+                layout.attr_types[n] = t
         # batch windows materialise EXPIRED lanes only when the output
         # wants them
         expired_on = query.output_stream.event_type != OutputEventType.CURRENT
@@ -134,21 +151,36 @@ class QueryRuntime(Receiver):
                                                  expired_on)
         else:
             self.window = PassThroughWindow(layout, batch_cap)
-        #: min/max over a FIFO sliding window are range queries over its
-        #: arrival order (K8); other windows keep the monotone scans
-        self.is_sliding_window = isinstance(self.window, SlidingWindow)
+        #: min/max over a FIFO sliding window (the expression windows share
+        #: its state and FIFO suffix) are range queries over its arrival
+        #: order (K8); other windows keep the monotone scans
+        self.is_sliding_window = h.window is not None and isinstance(
+            self.window, (SlidingWindow, ExpressionWindow))
 
+        select_all = [(a.name, a.type) for a in definition.attributes
+                      if a.type != AttributeType.OBJECT]
+        for spec, _ in (*self.pre_window_fns, *self.post_window_fns):
+            for n, t in spec.new_attrs:
+                if n not in dict(select_all):
+                    select_all.append((n, t))
         self.selector = CompiledSelector(
             query.selector, self.resolver, registry,
             ctx.effective_group_capacity,
-            select_all_attrs=list(attr_types.items()),
+            select_all_attrs=select_all,
             sliding_window=self.is_sliding_window)
-        # (min/max with a post-window filter is refused by the JAX package
-        # too; the port refuses every post-window filter above)
-        if self.selector.extrema_plan and self.window.is_delay:
-            raise SiddhiAppCreationError(
-                "min()/max() over #window.delay is not supported "
-                "(delay re-emits expired lanes as arrivals)")
+        if self.selector.extrema_plan:
+            # the range-query extrema path reads WINDOW contents: shapes
+            # where window membership diverges from what the aggregator
+            # may see are refused
+            if self.post_filters:
+                raise SiddhiAppCreationError(
+                    "min()/max() over a sliding window cannot combine with a "
+                    "post-window filter (filtered rows remain in the "
+                    "window); filter before the window instead")
+            if getattr(self.window, "is_delay", False):
+                raise SiddhiAppCreationError(
+                    "min()/max() over #window.delay is not supported "
+                    "(delay re-emits expired lanes as arrivals)")
         self.output_definition = StreamDefinition(
             id=query.output_stream.target_id or f"{self.name}_out",
             attributes=tuple(Attribute(n, t)
@@ -171,8 +203,38 @@ class QueryRuntime(Receiver):
         #: time-driven windows need heartbeats to flush expirations
         self.has_time_semantics = window_has_time_semantics(self.window)
 
+    def _compile_stream_fns(self, handlers, attr_types: dict,
+                            registry: Registry) -> list:
+        out = []
+        for h in handlers:
+            factory = registry.require(ExtensionKind.STREAM_FUNCTION,
+                                       h.namespace, h.name)
+            assert isinstance(factory, StreamFunctionFactory)
+            arg_ex = [compile_expression(p, self.resolver, registry)
+                      for p in h.parameters]
+            spec = factory.make(tuple(a.type for a in arg_ex))
+            for n, t in spec.new_attrs:
+                attr_types[n] = t
+            out.append((spec, arg_ex))
+        return out
+
+    def _apply_fns(self, fns, batch: EventBatch, scope: Scope):
+        """Append each stream function's columns (cast to their declared
+        types) and re-register the frame."""
+        for spec, arg_ex in fns:
+            new_cols = spec.apply(*[a(scope) for a in arg_ex])
+            declared = dict(spec.new_attrs)
+            batch = dataclasses.replace(batch, cols={
+                **batch.cols,
+                **{n: c.to(dtypes.device_dtype(declared[n]))
+                   for n, c in new_cols.items()}})
+            scope.add_frame(self.frame_ref, batch.cols, batch.ts,
+                            batch.valid, default=True)
+        return batch
+
     def step(self, state, batch: EventBatch, now: int):
-        """One micro-batch through filter -> window -> selector -> limiter."""
+        """One micro-batch through filter -> stream functions -> window ->
+        stream functions -> post-window filters -> selector -> limiter."""
         wstate, sstate, rstate = state
         scope = Scope()
         scope.add_frame(self.frame_ref, batch.cols, batch.ts, batch.valid,
@@ -181,6 +243,10 @@ class QueryRuntime(Receiver):
         for f in self.filters:
             mask = mask & f(scope)
         batch = batch.where_valid(mask)
+        if self.pre_window_fns:
+            scope.add_frame(self.frame_ref, batch.cols, batch.ts,
+                            batch.valid, default=True)
+            batch = self._apply_fns(self.pre_window_fns, batch, scope)
         ring_side = (self._extrema_ring_side(wstate)
                      if self.selector.extrema_plan else None)
         wstate_pre = wstate
@@ -188,6 +254,11 @@ class QueryRuntime(Receiver):
         cscope = Scope()
         cscope.add_frame(self.frame_ref, chunk.cols, chunk.ts, chunk.valid,
                          default=True)
+        chunk = self._apply_fns(self.post_window_fns, chunk, cscope)
+        for f in self.post_filters:
+            # post-window filters drop CURRENT lanes only
+            chunk = chunk.where_valid(
+                f(cscope) | (chunk.types != int(EventType.CURRENT)))
         if ring_side is not None:
             self._extrema_lanes(ring_side, wstate_pre, chunk, cscope)
         sstate, out = self.selector.step(sstate, chunk, cscope)

@@ -1,25 +1,26 @@
 """Carry a running app's state from the JAX package into the port.
 
 The JAX query state, after `jax.device_get`, is a tuple (window state,
-selector state, limiter state) of NamedTuples and dataclasses holding numpy
-arrays (a lengthBatch or time-batch window's BatchState, a sliding
-window's SlidingState, a session window's SessionState or
-KeyedSessionState, a sort window's SortState); a join query's is (left
-window, right window, left multimap, right multimap, selector state); a
-named window's is its window state; a pattern query's is a
-PatternState (its pending tables, active0, seq, dropped, armed0_ts,
+selector state, limiter state) of NamedTuples and dataclasses holding
+numpy arrays (a lengthBatch or time-batch window's BatchState, a sliding
+window's or an expression window's SlidingState, an expressionBatch
+window's GeneralBatchState, a session window's SessionState or
+KeyedSessionState, a sort window's SortState, a cron window's CronState,
+a hopping window's HopState, a frequent window's FrequentState); a join
+query's is (left window, right window, left multimap, right multimap,
+selector state); a named window's is its window state; a pattern query's
+is a PatternState (its pending tables, active0, seq, dropped, armed0_ts,
 gate0_seq and the selector state). The functions here take that state —
-or the same fields as plain dicts — and load it into a port runtime built
-from the same app text, so the next batches continue where the JAX
+or the same fields as plain dicts — and load it into a port runtime
+built from the same app text, so the next batches continue where the JAX
 runtime stopped. They read fields by name and import nothing of the JAX
 package.
 
     load_app_state(torch_rt, {name: jax_state}, jax_strings,
                    window_states={name: jax_rt.windows[name].state})
 
-`jax_strings` is the JAX runtime's `ctx.global_strings.snapshot()` (or the
-plain list of its strings).
-"""
+`jax_strings` is the JAX runtime's `ctx.global_strings.snapshot()` (or
+the plain list of its strings)."""
 
 from __future__ import annotations
 
@@ -38,8 +39,10 @@ from .ops.groupby import GroupState, KeyTable
 from .ops.join import MultimapState
 from .ops.pattern import PendingTable
 from .ops.selector import SelectorState
+from .ops.expression_general import GeneralBatchState
 from .ops.windows import BatchState, SessionState, SlidingState, SortState
-from .ops.windows_extra import KeyedSessionState
+from .ops.windows_extra import (CronState, FrequentState, HopState,
+                                KeyedSessionState)
 
 
 def _field(obj, name: str):
@@ -67,20 +70,27 @@ def _ring(a, like: torch.Tensor) -> torch.Tensor:
 def window_state(window_np, like):
     if like == ():  # pass-through window
         return ()
-    if isinstance(like, SlidingState):
+    if isinstance(like, (SlidingState, GeneralBatchState)):
         # JAX's uint32 ring words, bit for bit, as the port's int32 words
         ring = np.ascontiguousarray(_field(window_np, "ring")).view(np.int32)
-        return SlidingState(
+        return type(like)(
             ring=_tensor(ring, like.ring),
             **{f: _tensor(_field(window_np, f), getattr(like, f))
-               for f in SlidingState._fields if f != "ring"})
+               for f in like._fields if f != "ring"})
+    if isinstance(like, FrequentState):
+        return FrequentState(
+            slot_cols={k: _tensor(_field(window_np, "slot_cols")[k], v)
+                       for k, v in like.slot_cols.items()},
+            **{f: _tensor(_field(window_np, f), getattr(like, f))
+               for f in FrequentState._fields if f != "slot_cols"})
     if isinstance(like, SortState):
         return SortState(
             cols={k: _tensor(_field(window_np, "cols")[k], v)
                   for k, v in like.cols.items()},
             **{f: _tensor(_field(window_np, f), getattr(like, f))
                for f in SortState._fields if f != "cols"})
-    if not isinstance(like, (BatchState, SessionState, KeyedSessionState)):
+    if not isinstance(like, (BatchState, SessionState, KeyedSessionState,
+                             CronState, HopState)):
         raise ValueError(f"window state {type(like).__name__} is not "
                          "ported by interop")
     # ring fields are [C] there and [C + 1] here; the rest as they are

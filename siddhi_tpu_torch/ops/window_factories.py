@@ -1,8 +1,8 @@
 """Window extension registrations (counterpart of
 siddhi_tpu/ops/window_factories.py: lengthBatch, batch, timeBatch,
 externalTimeBatch, the sliding windows length, time, timeLength, delay and
-externalTime, session (plain and keyed) and sort). The other window names
-stay registered and raise "not yet ported".
+externalTime, session (plain and keyed), sort, expression,
+expressionBatch, cron, hopping, frequent and lossyFrequent).
 
 Each factory receives the stream's column layout, the junction batch
 capacity, the window parameters (constants evaluated; attribute references
@@ -131,11 +131,112 @@ def _make_sort(layout, batch_cap, params, expired_on):
     return SortWindow(layout, batch_cap, n, keys)
 
 
-def _not_yet_ported(name: str):
-    def make(layout, batch_cap, params, expired_on):
+def _make_cron(layout, batch_cap, params, expired_on):
+    from .windows_extra import CronWindow
+    if len(params) != 1 or not isinstance(params[0], str):
+        raise SiddhiAppCreationError("cron window needs ('<cron expression>')")
+    return CronWindow(layout, batch_cap, params[0], expired_on=expired_on)
+
+
+def _make_hopping(layout, batch_cap, params, expired_on):
+    from .windows_extra import HoppingWindow
+    w = _int_param(params, 0, "hopping")
+    h = _int_param(params, 1, "hopping")
+    return HoppingWindow(layout, batch_cap, w, h)
+
+
+def _frequent_keys(params, start):
+    keys = []
+    for p in params[start:]:
+        if not isinstance(p, Variable):
+            raise SiddhiAppCreationError(
+                "frequent key parameters must be attributes")
+        keys.append(p.attribute)
+    return keys or None
+
+
+def _make_frequent(layout, batch_cap, params, expired_on):
+    from .windows_extra import FrequentWindow
+    n = _int_param(params, 0, "frequent")
+    return FrequentWindow(layout, batch_cap, n,
+                          key_attrs=_frequent_keys(params, 1))
+
+
+def _make_lossy_frequent(layout, batch_cap, params, expired_on):
+    from .windows_extra import FrequentWindow
+    if not params or not isinstance(params[0], float):
         raise SiddhiAppCreationError(
-            f"window {name!r} is not yet ported to siddhi_tpu_torch")
-    return make
+            "lossyFrequent needs (supportThreshold [, errorBound] "
+            "[, attrs...])")
+    support = params[0]
+    has_error = len(params) > 1 and isinstance(params[1], float)
+    error = params[1] if has_error else support / 10.0
+    start = 2 if has_error else 1
+    if not 0.0 < support < 1.0:
+        raise SiddhiAppCreationError(
+            f"lossyFrequent supportThreshold must be in (0, 1), got "
+            f"{support}")
+    if not 0.0 < error < support:
+        raise SiddhiAppCreationError(
+            f"lossyFrequent errorBound must be in (0, supportThreshold), "
+            f"got {error}")
+    n_slots = max(int(1.0 / error), 16)
+    return FrequentWindow(layout, batch_cap, n_slots,
+                          key_attrs=_frequent_keys(params, start),
+                          support=support, error=error, lossy=True)
+
+
+def _make_expression(layout, batch_cap, params, expired_on):
+    """expression(condition): conditions monotone by construction (count()
+    and event-timestamp spans) take the vectorized binary-search path;
+    anything else the reference's exact pop loop (K13a)."""
+    from .expression_general import GeneralExpressionWindow
+    from .expression_window import ExpressionWindow
+    if not params or not isinstance(params[0], str):
+        raise SiddhiAppCreationError(
+            "expression window needs a condition string, e.g. "
+            "expression('count() <= 20')")
+    try:
+        return ExpressionWindow(layout, batch_cap, params[0])
+    except SiddhiAppCreationError:
+        return GeneralExpressionWindow(layout, batch_cap, params[0])
+
+
+def _make_expression_batch(layout, batch_cap, params, expired_on):
+    """expressionBatch('count() <= N') is exactly lengthBatch(N); every
+    other condition segments greedily with one check per arrival (K13a)."""
+    from ..compiler import parse_expression
+    from .expression_general import GeneralExpressionBatchWindow
+    from .expression_window import plan_expression
+    if not params or not isinstance(params[0], str):
+        raise SiddhiAppCreationError(
+            "expressionBatch window needs a condition string")
+    include_trigger = False
+    if len(params) > 1:
+        if isinstance(params[1], bool):
+            include_trigger = params[1]
+        else:
+            raise SiddhiAppCreationError(
+                "expressionBatch second parameter (includeTriggeringEvent) "
+                "must be a constant bool")
+    if len(params) > 2:
+        raise SiddhiAppCreationError(
+            "expressionBatch stream-input-events mode (3rd parameter) is "
+            "not supported on this engine")
+    try:
+        conjuncts = plan_expression(parse_expression(params[0]))
+    except SiddhiAppCreationError:
+        conjuncts = None
+    if (conjuncts is not None and len(conjuncts) == 1
+            and conjuncts[0].kind == "count" and not include_trigger):
+        c = conjuncts[0]
+        n = int(c.limit) - (1 if c.strict else 0)
+        if n < 1:
+            raise SiddhiAppCreationError(
+                "expressionBatch count bound admits no events")
+        return LengthBatchWindow(layout, batch_cap, n, expired_on=expired_on)
+    return GeneralExpressionBatchWindow(layout, batch_cap, params[0],
+                                        include_trigger=include_trigger)
 
 
 def register_all() -> None:
@@ -196,10 +297,41 @@ def register_all() -> None:
          P("attribute", ("attribute", "string"), optional=True,
            doc="sort key(s), each optionally followed by 'asc'/'desc'")],
         repeat_last=True)
-    for name in ("expression", "expressionBatch", "cron", "hopping",
-                 "frequent", "lossyFrequent"):
-        GLOBAL.register(ExtensionKind.WINDOW, "", name,
-                        WindowFactory(_not_yet_ported(name)))
-
+    reg("expression", _make_expression,
+        "Sliding window retaining events while the expression holds.",
+        [P("expression", ("string", "bool"),
+           doc="retain condition over the window contents")])
+    reg("expressionBatch", _make_expression_batch,
+        "Tumbling window flushing when the expression turns false.",
+        [P("expression", ("string", "bool"),
+           doc="retain condition; flush on violation"),
+         P("include.triggering.event", ("bool",), optional=True,
+           default=False,
+           doc="start the next batch with the violating arrival"),
+         P("stream.current.event", ("bool",), optional=True, default=False,
+           doc="reference stream-mode flag (rejected with guidance)")])
+    reg("cron", _make_cron,
+        "Tumbling window flushing on a cron schedule.",
+        [P("cron.expression", ("string",), doc="quartz-layout cron")])
+    reg("hopping", _make_hopping,
+        "Hopping time window (period, hop).",
+        [P("window.time", ("time",), doc="window span"),
+         P("hop.time", ("time",), doc="hop step")])
+    reg("frequent", _make_frequent,
+        "Retains the most frequent event variants (Misra-Gries).",
+        [P("event.count", ("int",), doc="variants tracked"),
+         P("attribute", ("attribute",), optional=True,
+           doc="key attributes (default: all)")],
+        repeat_last=True)
+    reg("lossyFrequent", _make_lossy_frequent,
+        "Lossy-counting frequent-variant window.",
+        [P("support.threshold", ("double",), doc="min relative frequency"),
+         # position 2 is the error bound OR already an attribute (the
+         # factory tells which)
+         P("error.bound", ("double", "attribute"), optional=True,
+           doc="counting error bound, or the first key attribute"),
+         P("attribute", ("attribute",), optional=True,
+           doc="key attributes (default: all)")],
+        repeat_last=True)
 
 register_all()

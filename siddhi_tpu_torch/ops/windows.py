@@ -479,6 +479,25 @@ def _gather_chunk_packed(order, payload_mat, emit_ts, valid, types,
                                       types, layout)
 
 
+def _sort_chunk_packed(hi, payload_mat, emit_ts, valid, types,
+                       layout: dict, width: int, bound: int) -> EventBatch:
+    """The JAX `_sort_chunk_packed`: a stable (hi, lo) sort of the lanes,
+    invalid ones last, trimmed to `width`, then the packed gather (K2b).
+
+    Both callers (the expression windows) number `lo` by the lane's index
+    within its kind and concatenate each kind's lanes in `lo` order, and
+    the kind is `hi % 4`, so two valid lanes with one `hi` also share a
+    kind and their `lo` order is their lane order: the stable sort on `hi`
+    alone gives the same order of valid lanes, and `lo` is not needed.
+    That sort is K7 on int32 keys up to `bound`, the invalid lanes set to
+    `bound` (the JAX code orders invalid lanes by `lo` instead; they carry
+    no event)."""
+    k = torch.where(valid, hi, bound).to(torch.int32)
+    order = stable_radix_argsort(k, bound, width, counter="K7 packed chunk")
+    return _gather_chunk_packed(order, payload_mat, emit_ts, valid, types,
+                                layout)
+
+
 def _ring_live_mask(ring_len: int, lo: torch.Tensor, hi: torch.Tensor):
     """Valid-slot mask for a ring holding overall indices [lo, hi): slot
     s's most recent write is idx = hi-1 - ((hi-1-s) % C); live iff >= lo."""

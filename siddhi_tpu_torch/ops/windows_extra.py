@@ -1,24 +1,548 @@
-"""The keyed session window (counterpart of KeyedSessionWindow in
-siddhi_tpu/ops/windows_extra.py). The cron, hopping, frequent and
-lossyFrequent windows of that module are not yet ported.
+"""Additional window operators (counterpart of
+siddhi_tpu/ops/windows_extra.py): cron, hopping, frequent, lossyFrequent
+and the keyed session window.
 
-Its two stable argsorts (arrivals grouped by key slot; the oldest-first
-top-E of the ring's closed rows) are kernel K7 (csrc/k7_radix_sort.cu).
+Reference: core/query/processor/stream/window/ — CronWindowProcessor.java
+(quartz-driven tumble), HoppingWindowProcessor.java (emit every hop the
+events of the last windowTime), FrequentWindowProcessor.java (Misra-Gries
+counters, evicted keys emit EXPIRED), LossyFrequentWindowProcessor.java
+(lossy counting with support/error bounds), SessionWindowProcessor.java
+with a session key.
+
+Batched divergences, as in the JAX package: counter updates happen at
+micro-batch granularity, and several boundary crossings inside one batch
+collapse into the latest one.
+
+Kernels: the frequent windows' int64 key sorts are K7
+(csrc/k7_radix_sort.cu, `k7_argsort_i64`), the free-slot order K1, and the
+last arriving lane of each slot — a scatter-max over conflicting writes —
+K13b (csrc/k13b_frequent.cu). The keyed session's two stable argsorts
+(arrivals grouped by key slot; the oldest-first top-E of the ring's closed
+rows) are K7. The cron and hopping windows are elementwise work on a ring.
 """
 
 from __future__ import annotations
 
+import bisect
+import ctypes
 from typing import NamedTuple, Optional
 
 import torch
 
+from .. import kernels
 from ..core import dtypes
 from ..core.event import EventBatch, EventType
 from ..errors import SiddhiAppCreationError
 from ..query_api.definition import AttributeType
-from .groupby import _scatter_drop, _segment_starts_index
-from .search import stable_radix_argsort
-from .windows import WindowOp, _empty_like_cols, _ring_live_mask, compact
+from .groupby import _scatter_drop, _segment_starts_index, hash_columns
+from .search import (searchsorted32, stable_partition_order,
+                     stable_radix_argsort)
+from .windows import (BIG, WindowOp, _empty_like_cols, _ring_live_mask,
+                      _scatter_append, compact)
+
+
+def _types(kind: EventType, n: int, device) -> torch.Tensor:
+    return torch.full((n,), int(kind), dtype=torch.int8, device=device)
+
+
+# --------------------------------------------------------------------------- #
+# cron
+# --------------------------------------------------------------------------- #
+
+
+class CronState(NamedTuple):
+    """The JAX CronState's fields; rings are [C + 1] (spare row last)."""
+
+    ring_cols: dict
+    ring_ts: torch.Tensor
+    appended: torch.Tensor  # int64 total arrivals
+    flushed: torch.Tensor  # int64 arrivals already emitted
+    prev_start: torch.Tensor  # int64 start of the previous flush
+    next_fire: torch.Tensor  # int64 epoch ms of the next fire, -1 unset
+
+
+def _gather_overall(ring_cols, ring_ts, comp_cols, comp_ts, appended0,
+                    o_idx):
+    """Events by overall arrival index (the JAX `_gather_overall`): from
+    the ring below `appended0`, from the compacted batch above it."""
+    C = ring_ts.shape[0] - 1
+    B = comp_ts.shape[0]
+    from_batch = o_idx >= appended0
+    ring_slot = torch.remainder(torch.clamp(o_idx, min=0), C)
+    batch_slot = torch.clamp(o_idx - appended0, 0, B - 1)
+    cols = {k: torch.where(from_batch, comp_cols[k][batch_slot],
+                           ring_cols[k][ring_slot]) for k in ring_cols}
+    ts = torch.where(from_batch, comp_ts[batch_slot], ring_ts[ring_slot])
+    return cols, ts
+
+
+class CronFireTable:
+    """The fire instants a cron window reads, kept on the device.
+
+    The JAX window asks the host for the next fire inside its step (a
+    pure_callback). Here the host keeps F consecutive fires starting at the
+    latest fire at or before the clock it was built at, and uploads them
+    (pinned, non-blocking: no host sync). While the clock stays in [built
+    at, last entry) the table answers both questions the step asks:
+      - the next fire after the clock: on the host, by bisection;
+      - the lazy first schedule, the next fire after (smallest valid
+        timestamp - 1), which only the device knows: a searchsorted on the
+        table. When that instant lies before the table's first entry, the
+        first entry (at or before the clock) stands in: both fire at once,
+        and the fired state does not keep the value.
+    Outside that range the table is rebuilt around the new clock."""
+
+    F = 256
+    LOOKBACK_MS = 1 << 40  # how far back the latest fire is looked for
+
+    def __init__(self, schedule):
+        self.schedule = schedule
+        self.host: list = []
+        self.device: Optional[torch.Tensor] = None
+        self.built_at: Optional[int] = None
+
+    def _next(self, t: int) -> int:
+        nxt = self.schedule.next_fire_ms(int(t))
+        return nxt if nxt is not None else 2**62
+
+    def _latest_at_or_before(self, now: int) -> int:
+        d = 1000
+        while d <= self.LOOKBACK_MS:
+            f = self._next(now - d)
+            if f <= now:
+                while (g := self._next(f)) <= now:
+                    f = g
+                return f
+            d *= 2
+        return self._next(now)  # no fire before: the first one after
+
+    def fires(self, now: int, device) -> torch.Tensor:
+        if (self.device is None or self.device.device != device
+                or not self.built_at <= now < self.host[-1]):
+            fires = [self._latest_at_or_before(now)]
+            while len(fires) < self.F:
+                fires.append(self._next(fires[-1]) if fires[-1] < 2**62
+                             else 2**62)
+            t = torch.tensor(fires, dtype=torch.int64)
+            if device.type == "cuda":
+                t = t.pin_memory().to(device, non_blocking=True)
+            self.host, self.device, self.built_at = fires, t, now
+        return self.device
+
+    def next_after(self, now: int) -> int:
+        """The first fire after `now` (call `fires(now, ...)` first)."""
+        return self.host[bisect.bisect_right(self.host, now)]
+
+
+class CronWindow(WindowOp):
+    """cron('0 0/5 * * * ?'): tumble on cron fire times. The next-fire
+    instant lives in the state; crossing it flushes the buffer (currents
+    of the buffer, expired copies of the previous flush)."""
+
+    needs_heartbeat = True
+
+    def __init__(self, layout: dict, batch_cap: int, expr: str,
+                 expired_on: bool = True):
+        from ..core.trigger import CronSchedule
+        self.layout = layout
+        self.B = batch_cap
+        self.expired_on = expired_on
+        self.schedule = CronSchedule(expr)
+        self.table = CronFireTable(self.schedule)
+        self.C = max(dtypes.config.default_window_capacity, 4 * batch_cap)
+        self.chunk_width = 2 * self.C + 1
+
+    def init_state(self, device) -> CronState:
+        def i64(v):
+            return torch.tensor(v, dtype=torch.int64, device=device)
+
+        return CronState(
+            ring_cols=_empty_like_cols(self.layout, self.C + 1, device),
+            ring_ts=torch.zeros(self.C + 1, dtype=dtypes.TS_DTYPE,
+                                device=device),
+            appended=i64(0), flushed=i64(0), prev_start=i64(0),
+            next_fire=i64(-1))
+
+    def step(self, state: CronState, batch: EventBatch, now):
+        C, B = self.C, self.B
+        dev = batch.ts.device
+        now = int(now)
+        fires = self.table.fires(now, dev)
+        comp_cols, comp_ts, n_valid, _ = compact(batch)
+        appended1 = state.appended + n_valid
+        _scatter_append(state.ring_cols, state.ring_ts, comp_cols, comp_ts,
+                        state.appended, n_valid)
+        ring_cols, ring_ts = state.ring_cols, state.ring_ts
+
+        # lazy first schedule: from the earliest unprocessed event, so a
+        # boundary between it and the first watermark still fires
+        lane = torch.arange(B, dtype=torch.int64, device=dev)
+        min_ts = torch.where(lane < n_valid, comp_ts, BIG).min()
+        base = torch.where(n_valid > 0, torch.clamp(min_ts, max=now), now)
+        first = fires[torch.clamp(searchsorted32(fires, (base - 1)[None],
+                                                 side="right"),
+                                  max=fires.shape[0] - 1).long()][0]
+        next_fire = torch.where(state.next_fire < 0, first, state.next_fire)
+        fire = next_fire <= now
+
+        # currents: overall [flushed, appended1); expired: [prev_start,
+        # flushed); only the most recent C arrivals survive between fires
+        o = torch.arange(C, dtype=torch.int64, device=dev)
+        o_cur = state.flushed + o
+        cur_valid = fire & (o_cur < appended1) & (appended1 - o_cur <= C)
+        cur_cols, cur_ts = _gather_overall(ring_cols, ring_ts, comp_cols,
+                                           comp_ts, appended1, o_cur)
+        o_exp = state.prev_start + o
+        exp_valid = (fire & self.expired_on & (o_exp < state.flushed)
+                     & (state.flushed - o_exp <= C))
+        exp_cols, exp_ts = _gather_overall(ring_cols, ring_ts, comp_cols,
+                                           comp_ts, appended1, o_exp)
+        chunk = EventBatch(
+            ts=torch.cat([exp_ts, torch.full((1,), now, dtype=torch.int64,
+                                             device=dev), cur_ts]),
+            cols={k: torch.cat([exp_cols[k], v.new_zeros(1), cur_cols[k]])
+                  for k, v in ring_cols.items()},
+            valid=torch.cat([exp_valid,
+                             (fire & (state.flushed > state.prev_start))[None],
+                             cur_valid]),
+            types=torch.cat([_types(EventType.EXPIRED, C, dev),
+                             _types(EventType.RESET, 1, dev),
+                             _types(EventType.CURRENT, C, dev)]))
+        new_state = state._replace(
+            appended=appended1,
+            flushed=torch.where(fire, appended1, state.flushed),
+            prev_start=torch.where(fire, state.flushed, state.prev_start),
+            next_fire=torch.where(fire, self.table.next_after(now),
+                                  next_fire))
+        return new_state, chunk
+
+    def contents(self, state: CronState, now):
+        live = _ring_live_mask(self.C, state.flushed, state.appended)
+        return ({k: v[:self.C] for k, v in state.ring_cols.items()},
+                state.ring_ts[:self.C], live)
+
+
+# --------------------------------------------------------------------------- #
+# hopping
+# --------------------------------------------------------------------------- #
+
+
+class HopState(NamedTuple):
+    """The JAX HopState's fields; rings are [C + 1] (spare row last)."""
+
+    ring_cols: dict
+    ring_ts: torch.Tensor
+    appended: torch.Tensor  # int64 total arrivals
+    last_hop: torch.Tensor  # int64 index of the last emitted hop boundary
+
+
+class HoppingWindow(WindowOp):
+    """hopping(windowTime, hopTime): every hopTime emit the events of the
+    last windowTime (overlapping when window > hop). Several hop boundaries
+    crossed inside one micro-batch collapse into the latest one's
+    emission (the JAX package's batched divergence)."""
+
+    needs_heartbeat = True
+
+    def __init__(self, layout: dict, batch_cap: int, window_ms: int,
+                 hop_ms: int):
+        if hop_ms <= 0 or window_ms <= 0:
+            raise SiddhiAppCreationError(
+                "hopping needs positive window and hop")
+        self.layout = layout
+        self.B = batch_cap
+        self.W = window_ms
+        self.H = hop_ms
+        self.C = max(dtypes.config.default_window_capacity, 2 * batch_cap)
+        self.chunk_width = self.C + 1  # RESET + window contents
+
+    def init_state(self, device) -> HopState:
+        def i64(v):
+            return torch.tensor(v, dtype=torch.int64, device=device)
+
+        return HopState(
+            ring_cols=_empty_like_cols(self.layout, self.C + 1, device),
+            ring_ts=torch.zeros(self.C + 1, dtype=dtypes.TS_DTYPE,
+                                device=device),
+            appended=i64(0), last_hop=i64(0))
+
+    def _in_window(self, ring_ts, appended, boundary: int):
+        live = _ring_live_mask(self.C, torch.clamp(appended - self.C, min=0),
+                               appended)
+        ts = ring_ts[:self.C]
+        return live & (ts > boundary - self.W) & (ts <= boundary)
+
+    def step(self, state: HopState, batch: EventBatch, now):
+        C = self.C
+        dev = batch.ts.device
+        now = int(now)
+        comp_cols, comp_ts, n_valid, _ = compact(batch)
+        appended1 = state.appended + n_valid
+        _scatter_append(state.ring_cols, state.ring_ts, comp_cols, comp_ts,
+                        state.appended, n_valid)
+
+        hop_idx = now // self.H
+        fire = hop_idx > state.last_hop
+        in_window = self._in_window(state.ring_ts, appended1,
+                                    hop_idx * self.H)
+        chunk = EventBatch(
+            ts=torch.cat([torch.full((1,), now, dtype=torch.int64,
+                                     device=dev), state.ring_ts[:C]]),
+            cols={k: torch.cat([v.new_zeros(1), v[:C]])
+                  for k, v in state.ring_cols.items()},
+            valid=torch.cat([fire[None], fire & in_window]),
+            types=torch.cat([_types(EventType.RESET, 1, dev),
+                             _types(EventType.CURRENT, C, dev)]))
+        new_state = state._replace(
+            appended=appended1,
+            last_hop=torch.where(fire, hop_idx, state.last_hop))
+        return new_state, chunk
+
+    def contents(self, state: HopState, now):
+        # the (boundary - W, boundary] interval step() last emitted
+        in_window = self._in_window(state.ring_ts, state.appended,
+                                    state.last_hop * self.H)
+        return ({k: v[:self.C] for k, v in state.ring_cols.items()},
+                state.ring_ts[:self.C], in_window)
+
+
+# --------------------------------------------------------------------------- #
+# frequent / lossyFrequent
+# --------------------------------------------------------------------------- #
+
+
+class FrequentState(NamedTuple):
+    slot_keys: torch.Tensor  # int64[N], PAD when empty
+    slot_counts: torch.Tensor  # int64[N]
+    slot_cols: dict  # latest event per slot [N]
+    slot_ts: torch.Tensor  # int64[N]
+    total: torch.Tensor  # int64 total arrivals (lossyFrequent)
+
+
+_PAD = torch.iinfo(torch.int64).max
+
+
+def frequent_last_lane_plain(slot, comp_cols: dict, comp_ts, slot_cols: dict,
+                             slot_ts, N: int):
+    """Plain K13b, the JAX form: a scatter-max of the lane index into N + 1
+    slots (N takes the untracked lanes), then each slot's row from its last
+    lane where one arrived. Returns (cols [N], ts [N])."""
+    B = slot.shape[0]
+    dev = slot.device
+    last = torch.full((N + 1,), -1, dtype=torch.int32, device=dev)
+    last.scatter_reduce_(0, slot.long(),
+                         torch.arange(B, dtype=torch.int32, device=dev),
+                         reduce="amax")
+    last = last[:N]
+    has_new = last >= 0
+    g = torch.clamp(last, 0, B - 1).long()
+    return ({k: torch.where(has_new, comp_cols[k][g], slot_cols[k])
+             for k in slot_cols},
+            torch.where(has_new, comp_ts[g], slot_ts))
+
+
+def frequent_last_lane_cuda(slot, comp_cols: dict, comp_ts, slot_cols: dict,
+                            slot_ts, N: int):
+    """K13b on the card: the atomicMax scatter, then the row gather (one
+    launch per up to k13b_max_cols() columns, ts included)."""
+    names = list(slot_cols)
+    srcs = [comp_cols[k].contiguous() for k in names] + [comp_ts.contiguous()]
+    olds = [slot_cols[k].contiguous() for k in names] + [slot_ts.contiguous()]
+    kernels.require_cuda("frequent_last_lane", slot, *srcs, *olds)
+    B = slot.shape[0]
+    if (slot.dtype != torch.int32 or any(s.shape != (B,) for s in srcs)
+            or any(o.shape != (N,) or o.dtype != s.dtype
+                   for o, s in zip(olds, srcs))):
+        raise ValueError("frequent_last_lane: int32 slots [B], batch "
+                         "columns [B] and slot columns [N] of one dtype")
+    dev = slot.device
+    dsts = [torch.empty_like(o) for o in olds]
+    last = torch.empty(N + 1, dtype=torch.int32, device=dev)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib = "k13b_frequent"
+    rc = kernels.bind(lib, "k13b_last_lane", [P, I, I, P, P])(
+        slot.data_ptr(), B, N, last.data_ptr(), kernels.stream())
+    kernels.check(lib, "frequent_last_lane", rc)
+    kernels.LAUNCHES["K13b"] += 2 if B else 1
+    gather = kernels.bind(lib, "k13b_gather_rows", [P, I, P, P, P, P, I, P])
+    step = kernels.library(lib).k13b_max_cols()
+    for c0 in range(0, len(srcs), step):
+        part = slice(c0, c0 + step)
+
+        def ptrs(ts):
+            return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+
+        sizes = [s.element_size() for s in srcs[part]]
+        rc = gather(last.data_ptr(), N, ptrs(srcs[part]), ptrs(olds[part]),
+                    ptrs(dsts[part]), (ctypes.c_int * len(sizes))(*sizes),
+                    len(sizes), kernels.stream())
+        kernels.check(lib, "frequent_last_lane (gather)", rc)
+        kernels.LAUNCHES["K13b"] += 1
+    return dict(zip(names, dsts[:-1])), dsts[-1]
+
+
+def frequent_last_lane(slot, comp_cols: dict, comp_ts, slot_cols: dict,
+                       slot_ts, N: int):
+    """The remembered latest event of each slot after this batch (K13b)."""
+    if slot.is_cuda:
+        return frequent_last_lane_cuda(slot, comp_cols, comp_ts, slot_cols,
+                                       slot_ts, N)
+    return frequent_last_lane_plain(slot, comp_cols, comp_ts, slot_cols,
+                                    slot_ts, N)
+
+
+def _match(table_keys, query_keys):
+    """Index of each query key in table_keys, or len(table) when absent
+    (the table's stable order is K7's int64 argsort)."""
+    N = table_keys.shape[0]
+    order = stable_radix_argsort(table_keys, counter="K7 frequent match")
+    order = order.long()
+    sorted_keys = table_keys[order].contiguous()
+    pos = searchsorted32(sorted_keys, query_keys.contiguous())
+    pos_c = torch.clamp(pos, 0, N - 1).long()
+    found = sorted_keys[pos_c] == query_keys
+    return torch.where(found, order[pos_c], N).to(torch.int32)
+
+
+class FrequentWindow(WindowOp):
+    """frequent(N[, attrs...]): keep events whose attribute combination is
+    one of the N most frequent — Misra-Gries counters. Evicted keys emit
+    their remembered latest event as EXPIRED. Batched divergence: counter
+    decrements apply per micro-batch, so admit/evict interleavings inside
+    one batch collapse."""
+
+    def __init__(self, layout: dict, batch_cap: int, n_slots: int,
+                 key_attrs: Optional[list] = None, support: float = 0.0,
+                 error: float = 0.0, lossy: bool = False):
+        self.layout = layout
+        self.B = batch_cap
+        self.N = n_slots
+        self.key_attrs = key_attrs or list(layout.keys())
+        for a in self.key_attrs:
+            if a not in layout:
+                raise SiddhiAppCreationError(f"frequent: no attribute {a!r}")
+        self.support = support
+        self.error = error
+        self.lossy = lossy
+        self.chunk_width = batch_cap + n_slots  # currents + evict-expireds
+
+    def init_state(self, device) -> FrequentState:
+        N = self.N
+        return FrequentState(
+            slot_keys=torch.full((N,), _PAD, dtype=torch.int64,
+                                 device=device),
+            slot_counts=torch.zeros(N, dtype=torch.int64, device=device),
+            slot_cols=_empty_like_cols(self.layout, N, device),
+            slot_ts=torch.zeros(N, dtype=dtypes.TS_DTYPE, device=device),
+            total=torch.tensor(0, dtype=torch.int64, device=device))
+
+    _SCALE = 1_000_000  # fixed point for the support/error thresholds
+
+    def step(self, state: FrequentState, batch: EventBatch, now):
+        N, B = self.N, self.B
+        dev = batch.ts.device
+        comp_cols, comp_ts, n_valid, _ = compact(batch)
+        lane = torch.arange(B, dtype=torch.int32, device=dev)
+        lane_live = lane < n_valid
+        keys = hash_columns([comp_cols[a] for a in self.key_attrs])
+        keys = torch.where(keys == _PAD, _PAD - 1, keys)
+
+        # batch-unique keys: runs of the sorted keys, with their counts
+        sk = torch.where(lane_live, keys, _PAD)
+        s = sk[stable_radix_argsort(sk, counter="K7 frequent key").long()]
+        first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                           s[1:] != s[:-1]])
+        n_runs = first.sum(dtype=torch.int32)
+        run_start = torch.where(lane < n_runs, stable_partition_order(first),
+                                B)
+        run_end = torch.cat([run_start[1:],
+                             torch.full((1,), B, dtype=torch.int32,
+                                        device=dev)])
+        head = s[torch.clamp(run_start, max=B - 1).long()]
+        run_count = torch.where(head != _PAD, run_end - run_start,
+                                0).to(torch.int64)
+        run_key = torch.where(run_count > 0, head, _PAD)
+        uniq_live = run_count > 0
+
+        # match the batch-unique keys against the tracked slots
+        slot_of = _match(state.slot_keys, run_key)  # [B] slot or N
+        tracked = slot_of < N
+
+        # 1) tracked keys: counts += batch count (one run per slot)
+        counts1 = torch.cat([state.slot_counts,
+                             state.slot_counts.new_zeros(1)])
+        counts1.scatter_add_(
+            0, torch.where(tracked & uniq_live, slot_of, N).long(),
+            run_count)
+        counts1 = counts1[:N]
+
+        # 2) untracked keys fill free slots (j-th new key -> j-th free slot)
+        free = state.slot_keys == _PAD
+        free_order = stable_partition_order(free)  # free slots first (K1)
+        new_need = uniq_live & ~tracked
+        new_rank = torch.cumsum(new_need.to(torch.int32), 0,
+                                dtype=torch.int32) - 1
+        placed = new_need & (new_rank < free.sum(dtype=torch.int32))
+        place_slot = torch.where(
+            placed, free_order[torch.clamp(new_rank, 0, N - 1).long()],
+            N).long()
+        keys1 = _scatter_drop(state.slot_keys, place_slot, run_key)
+        counts2 = _scatter_drop(counts1, place_slot, run_count)
+
+        # 3) Misra-Gries decrement: arrivals that found no slot decrement
+        # every counter
+        unplaced = torch.where(new_need & ~placed, run_count, 0).sum()
+        occupied = keys1 != _PAD
+        counts3 = torch.where(occupied,
+                              torch.clamp(counts2 - unplaced, min=0), 0)
+        evicted = occupied & (counts3 == 0)
+        keys2 = torch.where(evicted, _PAD, keys1)
+
+        total1 = state.total + n_valid
+        if self.lossy:
+            # lossy-counting prune below the error floor, fixed point
+            err = int(self.error * self._SCALE)
+            lossy_evict = (keys2 != _PAD) & (
+                counts3 * self._SCALE < err * total1)
+            evicted = evicted | lossy_evict
+            keys2 = torch.where(lossy_evict, _PAD, keys2)
+
+        # the remembered latest event per tracked slot (K13b)
+        lane_slot_of = _match(keys2, keys)  # per original lane
+        lane_tracked = lane_live & (lane_slot_of < N)
+        cols1, ts1 = frequent_last_lane(
+            torch.where(lane_tracked, lane_slot_of, N), comp_cols, comp_ts,
+            state.slot_cols, state.slot_ts, N)
+
+        # CURRENT lanes whose key is tracked after the update (lossy adds
+        # the support threshold); EXPIRED = the evicted slots' remembered
+        # events, only for slots occupied before this batch
+        evicted_emit = evicted & (state.slot_keys != _PAD)
+        cur_valid = lane_tracked
+        if self.lossy:
+            thr = int((self.support - self.error) * self._SCALE)
+            lane_count = counts3[torch.clamp(lane_slot_of, 0, N - 1).long()]
+            cur_valid = cur_valid & (lane_count * self._SCALE
+                                     >= thr * total1)
+        chunk = EventBatch(
+            ts=torch.cat([comp_ts, state.slot_ts]),
+            cols={k: torch.cat([comp_cols[k], state.slot_cols[k]])
+                  for k in self.layout},
+            valid=torch.cat([cur_valid, evicted_emit]),
+            types=torch.cat([_types(EventType.CURRENT, B, dev),
+                             _types(EventType.EXPIRED, N, dev)]))
+        new_state = FrequentState(
+            slot_keys=keys2, slot_counts=counts3, slot_cols=cols1,
+            slot_ts=ts1, total=total1)
+        return new_state, chunk
+
+    def contents(self, state: FrequentState, now):
+        return state.slot_cols, state.slot_ts, state.slot_keys != _PAD
+
+
+# --------------------------------------------------------------------------- #
+# keyed session window
+# --------------------------------------------------------------------------- #
 
 
 class KeyedSessionState(NamedTuple):

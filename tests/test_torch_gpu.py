@@ -1081,3 +1081,163 @@ def test_session_sort_app_on_card_matches_cpu(cuda, name):
     for (ta, da), (tb, db) in zip(card, cpu):
         assert ta == tb and da[0] == db[0]
         np.testing.assert_allclose(da[1:], db[1:], rtol=1e-5, atol=1e-3)
+
+
+# ------------------------------------------------ K7 packed, K13a, K13b
+
+
+def test_k13a_walks_match_plain(cuda):
+    """Both modes of the walk on conditions over every metric kind, `%`
+    with negative operands and windows that empty, bit for bit; and the
+    kernel's static limits are the ones the postfix compiler checks."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import expression_general as eg
+    lib = kernels.library("k13a_expression_walk")
+    assert eg.K13A_LIMITS == {"instr": lib.k13a_max_instr(),
+                              "consts": lib.k13a_max_consts(),
+                              "arrays": lib.k13a_max_arrays(),
+                              "stack": lib.k13a_max_stack()}
+    layout = {"price": torch.float64, "volume": torch.int64}
+    rng = np.random.default_rng(31)
+    B, C = 256, 512
+    data = {"price": rng.integers(-400, 900, C + B) / 64.0,
+            "volume": rng.integers(-20, 20, C + B).astype(np.float64),
+            eg.TS_ATTR: (1_000 + np.cumsum(rng.integers(0, 9, C + B)))
+            .astype(np.float64)}
+    for text in ("stdDev(price) < 3.0 and count() < 60",
+                 "avg(price) > 100.0",
+                 "(last.volume - first.volume) % -7 > -3 or price < 0.0",
+                 "eventTimestamp(last) - eventTimestamp(first) <= 90",
+                 "not (sum(volume) / count() > 1.5)"):
+        win = eg.GeneralExpressionWindow(layout, B, text)
+        env = {}
+        for kind, attr in win.cond.program.arrays:
+            seq = data[attr].copy()
+            seq = {"seq": seq, "prefix": np.r_[0.0, np.cumsum(seq)],
+                   "prefix_sq": np.r_[0.0, np.cumsum(seq * seq)]}[kind]
+            env[(kind, attr)] = torch.from_numpy(seq).to(cuda)
+        for w0, nv in ((0, B), (300, B - 9)):
+            a = (torch.tensor(w0, dtype=torch.int32, device=cuda),
+                 torch.tensor(nv, dtype=torch.int32, device=cuda))
+            for g, w in zip(eg.sliding_walk(win.cond, env, *a, B, win.E),
+                            eg.sliding_walk_plain(win.cond, env, *a, B,
+                                                  win.E)):
+                assert torch.equal(g, w), text
+            for inc in (False, True):
+                for g, w in zip(eg.batch_walk(win.cond, env, *a, B, inc),
+                                eg.batch_walk_plain(win.cond, env, *a, B,
+                                                    inc)):
+                    assert torch.equal(g, w), text
+
+
+@pytest.mark.parametrize("N", [1, 64, 10_000])
+def test_k13b_kernel_matches_plain(cuda, N):
+    from siddhi_tpu_torch.ops import windows_extra as wx
+    rng = np.random.default_rng(N)
+    B = 4096
+    slot = torch.from_numpy(rng.integers(0, N + 1, B).astype(np.int32))
+    comp = {"b": torch.from_numpy(rng.random(B) < 0.5),
+            "i": torch.from_numpy(rng.integers(-9, 9, B).astype(np.int32)),
+            "d": torch.from_numpy(rng.normal(size=B))}
+    old = {"b": torch.from_numpy(rng.random(N) < 0.5),
+           "i": torch.from_numpy(rng.integers(-9, 9, N).astype(np.int32)),
+           "d": torch.from_numpy(rng.normal(size=N))}
+    args = [slot.to(cuda), {k: v.to(cuda) for k, v in comp.items()},
+            torch.from_numpy(rng.integers(0, 2**40, B)).to(cuda),
+            {k: v.to(cuda) for k, v in old.items()},
+            torch.from_numpy(rng.integers(0, 2**40, N)).to(cuda), N]
+    gc, gt = wx.frequent_last_lane(*args)
+    wc, wt = wx.frequent_last_lane_plain(*args)
+    assert torch.equal(gt, wt)
+    for k in comp:
+        assert torch.equal(gc[k], wc[k]), k
+
+
+def test_k7_packed_chunk_matches_the_cpu(cuda):
+    from siddhi_tpu_torch.ops import windows
+    rng = np.random.default_rng(37)
+    B = 1000
+    L = 2 * B
+    hi = torch.from_numpy(np.r_[rng.integers(0, B + 1, B) * 4 + 3,
+                                np.arange(B) * 4 + 2].astype(np.int32))
+    layout = {"p": torch.float32, "v": torch.int64}
+    mat = torch.from_numpy(rng.integers(-2**31, 2**31, (5, L))
+                           .astype(np.int32))
+    args = [hi, mat, torch.from_numpy(rng.integers(0, 2**40, L)),
+            torch.from_numpy(rng.random(L) < 0.6),
+            torch.from_numpy(rng.integers(0, 3, L).astype(np.int8))]
+    want = windows._sort_chunk_packed(*args, layout, L, 4 * B + 4)
+    got = windows._sort_chunk_packed(*[a.to(cuda) for a in args], layout, L,
+                                     4 * B + 4)
+    for f in ("ts", "valid", "types"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    for k in layout:
+        assert torch.equal(got.cols[k].cpu().view(torch.int32
+                                                  if k == "p" else
+                                                  torch.int64),
+                           want.cols[k].view(torch.int32 if k == "p"
+                                             else torch.int64)), k
+
+
+EXPRESSION_ON_CARD = {
+    "expression_general": (
+        "@info(name = 'q') from TradeStream#window.expression('sum(volume) "
+        "<= 300 and count() > 1') select symbol, price, volume insert all "
+        "events into OutStream;", ("K13a sliding", "K7 packed chunk")),
+    "expression_count": (
+        "@info(name = 'q') from TradeStream#window.expression('count() <= "
+        "100') select symbol, sum(price) as t insert all events into "
+        "OutStream;", ("K7 packed chunk", "K5b ungrouped")),
+    "expression_batch": (
+        "@info(name = 'q') from TradeStream#window.expressionBatch("
+        "'sum(price) < 60.0', true) select symbol, price insert all events "
+        "into OutStream;", ("K13a batch", "K7 packed chunk")),
+    "frequent": (
+        "@info(name = 'q') from TradeStream#window.frequent(8, symbol) "
+        "select symbol, price insert all events into OutStream;",
+        ("K13b", "K7 frequent key", "K7 frequent match")),
+    "hopping_pol2cart": (
+        "@info(name = 'q') from TradeStream#pol2Cart(price, volume)"
+        "#window.hopping(2 sec, 500 millisec)[x > 0.0] select symbol, "
+        "sum(x) as sx group by symbol insert into OutStream;", ("K1",)),
+    "cron": (
+        "@info(name = 'q') from TradeStream#window.cron('*/1 * * * * ?') "
+        "select symbol, volume insert all events into OutStream;", ("K1",)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EXPRESSION_ON_CARD))
+def test_expression_frequent_cron_apps_on_card_match_cpu(cuda, name):
+    from siddhi_tpu_torch import SiddhiManager, kernels
+    query, on_path = EXPRESSION_ON_CARD[name]
+    app = ("@app:playback\ndefine stream TradeStream (symbol string, price "
+           "double, volume long);\n" + query)
+    rng = np.random.default_rng(41)
+    n, bs = 256 * 8, 256
+    ts = 1_000 + np.cumsum(rng.integers(0, 12, n))
+    cols = {"symbol": np.array([f"S{i}" for i in np.minimum(
+        rng.zipf(1.5, n), 12)], dtype=object),
+            "price": rng.integers(1, 120, n) * 0.5,
+            "volume": rng.integers(1, 30, n).astype(np.int64)}
+    outs = []
+    for dev in ("cuda", "cpu"):
+        rt = SiddhiManager(device=dev).create_siddhi_app_runtime(
+            app, batch_size=bs)
+        got = []
+        rt.add_callback("OutStream", lambda evs, g=got: g.extend(
+            (e.timestamp, e.data) for e in evs))
+        kernels.reset_launch_counts()
+        h = rt.get_input_handler("TradeStream")
+        for s in range(0, n, bs):
+            h.send_columns({k: v[s:s + bs] for k, v in cols.items()},
+                           timestamps=ts[s:s + bs])
+            rt.flush()
+        if dev == "cuda":
+            for k in on_path:
+                assert kernels.LAUNCHES[k] > 0, k
+        outs.append(got)
+    card, cpu = outs
+    assert len(card) == len(cpu) > 0
+    for (ta, da), (tb, db) in zip(card, cpu):
+        assert ta == tb and da[0] == db[0]
+        np.testing.assert_allclose(da[1:], db[1:], rtol=1e-5, atol=1e-3)
