@@ -169,7 +169,33 @@ Phases (any failure exits non-zero and prints no result line):
    slot order with per-symbol running sums, and each round's rows with
    the previous round's expired), strings, longs, timestamps and doubles
    exact, Z's sums rtol 1e-5; each app's kernels launched and 0 host
-   syncs a step for every query.
+   syncs a step for every query;
+22. K13c, the rate limiters' ring, against its plain version on the
+   card, bit for bit: the append of B = 131072 lanes (ts, three columns,
+   valid and type) into a C = 262144 ring across its end and the gather
+   of C lanes from a wrapped start (`output all every 1 sec`), the
+   snapshot ring's append of a 262,144-lane sliding chunk into Cap =
+   262144 and its gather of a 4,096-row window; and the new sites of the
+   ported kernels at apps AA and AB's shapes: K7 on time-first bucket
+   keys and on float64 ORDER BY keys, K1's valid-first partition, K5b's
+   int32 LIMIT rank and int64 event ordinal, K13b's last lane per group
+   slot (G = 1024); with the same timings (the library calls: `ring[:,
+   slot] = rows` and `index_select` on the ring's word matrix with the
+   slots given, `torch.sort(stable=True)`, `torch.cumsum`,
+   `scatter_reduce_(amax)` plus gathers);
+23. apps AA (a dashboard's rates over 1,000 symbols at 20 events a ms:
+   `output last every 100 events`, `output all every 1 sec`, `output
+   first every 1 sec`, a grouped `time(5 sec)` avg/count `output
+   snapshot every 1 sec` and a `length(4096)` `output snapshot every 1
+   sec`) and AB (a leaderboard on app A's feed: `lengthBatch(10000)`
+   sum(volume)/avg(price) by symbol `order by total desc, ap limit 10
+   offset 2`), 8 rounds of 131072 each, every event in order against
+   numpy oracles (the ordinals, the buckets, each symbol's windowed mean
+   and count at its last arrival before a tick, the window as of the
+   tick's boundary, each step's stable sort of its flushes' running
+   values), strings, longs, timestamps and stored float32 values exact,
+   means rtol 1e-5 plus atol 1e-3; each app's kernels launched and 0
+   host syncs a step for every query.
 
 Every app's Event callback reads back through K12a (its launch counter
 must be non-zero in every app). Apps A, C, D, G, H and N also run the
@@ -386,6 +412,9 @@ WINDOWS_EXTRA = "siddhi_tpu/ops/windows_extra.py"
 EXPR_GENERAL = "siddhi_tpu/ops/expression_general.py"
 K13A_SRC = "siddhi_tpu_torch/csrc/k13a_expression_walk.cu"
 K13B_SRC = "siddhi_tpu_torch/csrc/k13b_frequent.cu"
+K13C_SRC = "siddhi_tpu_torch/csrc/k13c_limiter_ring.cu"
+RATELIMIT = "siddhi_tpu/ops/ratelimit.py"
+SELECTOR = "siddhi_tpu/ops/selector.py"
 #: window parameter of apps J-M: ms for the time windows, events for L
 AGG_SIZES = {"J": TIME_WINDOW_MS, "K": TIME_WINDOW_MS, "L": LENGTH_D,
              "M": 1_000}
@@ -446,6 +475,25 @@ KERNELS = {
                    f"{EXPR_GENERAL}:386"),
     "K13b": ("FrequentWindow.step last lane per slot", K13B_SRC,
              f"{WINDOWS_EXTRA}:330"),
+    "K13c append": ("BufferedLimiter.step ring append", K13C_SRC,
+                    f"{RATELIMIT}:111"),
+    "K13c gather": ("BufferedLimiter.step ring gather", K13C_SRC,
+                    f"{RATELIMIT}:152"),
+    "K13c snapshot append": ("WindowedSnapshotLimiter.step ring append",
+                             K13C_SRC, f"{RATELIMIT}:307"),
+    "K13c snapshot gather": ("WindowedSnapshotLimiter.step ring gather",
+                             K13C_SRC, f"{RATELIMIT}:326"),
+    "K13b grouped snapshot": ("GroupedSnapshotLimiter.step last lane per "
+                              "slot", K13B_SRC, f"{RATELIMIT}:461"),
+    "K7 time-first": ("TimeFirstLimiter.step bucket sort", K7_SRC,
+                      f"{RATELIMIT}:195"),
+    "K7 order by": ("_order_chunk key sort", K7_SRC, f"{SELECTOR}:535"),
+    "K1 order by": ("_order_chunk valid-first partition",
+                    "siddhi_tpu_torch/csrc/k1_partition.cu",
+                    f"{SELECTOR}:548"),
+    "K5b ordinal": ("EventOrdinalLimiter.step ordinal scan", K5_SRC,
+                    f"{RATELIMIT}:75"),
+    "K5b limit": ("_limit_chunk rank scan", K5_SRC, f"{SELECTOR}:558"),
 }
 
 
@@ -4477,6 +4525,507 @@ def expression_apps(torch, rng, card: str, rounds: int = ROUNDS,
         del rt
     return total
 
+# --------------------------------------------------------------------------- #
+# phases 22-23: K13c and the limiter / ORDER BY sites; apps AA and AB
+# --------------------------------------------------------------------------- #
+
+AA_SYMBOLS = 1_000
+AA_RATE = 20_000  # app AA's events a second: a round spans ~6.5 s
+AA_PERIOD_MS = 1_000  # every rate's period
+AA_EVENTS = 100  # `output last every 100 events`
+#: query 4's time window: 100,000 rows at AA_RATE, inside the sliding
+#: ring's 131,072 (10 sec would overflow it and drop rows)
+AA_TIME_MS = 5_000
+AA_LENGTH = 4_096  # query 5's length window
+AB_LENGTH = WINDOW  # app AB's lengthBatch
+AB_OFFSET, AB_LIMIT = 2, 10
+
+
+def limiter_app_plan(aa_length: int = AA_LENGTH,
+                     ab_length: int = AB_LENGTH) -> dict:
+    """name -> (app text, {query: output stream}) of apps AA and AB."""
+    def q(name, source, select, rate, out):
+        return (f"@info(name = '{name}')\nfrom TradeStream{source}\n"
+                f"select {select}\n{rate}\ninsert into {out};\n")
+
+    every = f"every {AA_PERIOD_MS // 1000} sec"
+    return {
+        "AA": (STOCK
+               + q("last", "", "symbol, price",
+                   f"output last every {AA_EVENTS} events", "LastOut")
+               + q("all", "", "symbol, price, volume", f"output all {every}",
+                   "AllOut")
+               + q("first", "", "symbol, price", f"output first {every}",
+                   "FirstOut")
+               + q("grouped", f"#window.time({AA_TIME_MS // 1000} sec)",
+                   "symbol, avg(price) as ap, count() as n",
+                   f"group by symbol\noutput snapshot {every}",
+                   "GroupedOut")
+               + q("windowed", f"#window.length({aa_length})",
+                   "symbol, price", f"output snapshot {every}",
+                   "WindowedOut"),
+               {"last": "LastOut", "all": "AllOut", "first": "FirstOut",
+                "grouped": "GroupedOut", "windowed": "WindowedOut"}),
+        "AB": (STOCK.replace("@app:playback\n", "")
+               + q("bench", f"#window.lengthBatch({ab_length})",
+                   "symbol, sum(volume) as total, avg(price) as ap",
+                   f"group by symbol\norder by total desc, ap\n"
+                   f"limit {AB_LIMIT} offset {AB_OFFSET}", "OutStream"),
+               {"bench": "OutStream"}),
+    }
+
+
+def limiter_app_events(rng, name: str, rounds: int = ROUNDS,
+                       batch: int = BATCH, aa_rate: int = AA_RATE):
+    """(symbol index, price, volume, ts, symbol pool): AA over 1,000
+    symbols at aa_rate events a second, AB on app A's feed (1,000,000
+    symbols, 1 ms apart)."""
+    n = rounds * batch
+    if name == "AB":
+        key, price, volume, ts = make_events(rng, False)
+        key, price, volume, ts = key[:n], price[:n], volume[:n], ts[:n]
+        return key - 1, price, volume, ts, symbols(N_KEYS)
+    sym = rng.integers(0, AA_SYMBOLS, n)
+    price = rng.uniform(1.0, 100.0, n)
+    volume = rng.integers(1, 1000, n).astype(np.int64)
+    ts = 1_700_000_000_000 + np.arange(n, dtype=np.int64) * 1000 // aa_rate
+    return sym, price, volume, ts, symbols(AA_SYMBOLS)
+
+
+def _first_seen_codes(sym: np.ndarray) -> np.ndarray:
+    """The string table's codes: 1, 2, ... in first-seen order."""
+    _, first, inv = np.unique(sym, return_index=True, return_inverse=True)
+    rank = np.empty_like(first)
+    rank[np.argsort(first)] = np.arange(first.shape[0])
+    return rank[inv] + 1
+
+
+def oracle_buffered(ts, rounds: int, batch: int, period: int, C: int):
+    """`output all every <period>`: each step whose clock crosses into a
+    newer bucket releases every buffered row (the newest C at most), in
+    arrival order, with their own timestamps."""
+    rows, bucket, flushed = [], 0, 0
+    for r in range(rounds):
+        end = (r + 1) * batch
+        cur = int(ts[end - 1]) // period
+        if cur > bucket:
+            rows.append(np.arange(max(flushed, end - C), end))
+            flushed = end
+        bucket = max(bucket, cur)
+    rows = np.concatenate(rows) if rows else np.zeros(0, np.int64)
+    return rows, ts[rows]
+
+
+def oracle_grouped_snapshot(sym, price32, ts, rounds: int, batch: int,
+                            period: int, window: int):
+    """`time(window)` avg/count by symbol, `output snapshot every period`:
+    each step that crosses into a newer bucket (the first step only sets
+    it) emits, in string-code order, every symbol's row at its last
+    arrival before the step: the mean and count of its events in (ts -
+    window, ts] up to that arrival. Returns (symbol index, ap, n, ts)."""
+    n = ts.shape[0]
+    codes = _first_seen_codes(sym)
+    order = np.lexsort((np.arange(n), codes))  # by code, then arrival
+    c_sorted, t_sorted = codes[order], ts[order]
+    key_i = c_sorted * (n + 1) + order
+    key_t = c_sorted * (2**45) + (t_sorted - ts[0])
+    csum = np.r_[0.0, np.cumsum(price32[order].astype(np.float64))]
+    start = np.searchsorted(c_sorted, np.arange(1, codes.max() + 1))
+    g = np.arange(1, codes.max() + 1)
+    out = ([], [], [], [])
+    bucket = -1
+    for r in range(rounds):
+        now = int(ts[(r + 1) * batch - 1])
+        b = now // period
+        if bucket >= 0 and b > bucket:
+            pos = np.searchsorted(key_i, g * (n + 1) + r * batch) - 1
+            seen = pos >= start
+            gs, ps = g[seen], pos[seen]
+            lo = np.searchsorted(
+                key_t, gs * (2**45) + (t_sorted[ps] - window - ts[0]),
+                side="right")
+            cnt = ps - lo + 1
+            out[0].append(sym[order[ps]])
+            out[1].append((csum[ps + 1] - csum[lo]) / cnt)
+            out[2].append(cnt)
+            out[3].append(np.full(gs.shape[0], now, np.int64))
+        bucket = b if bucket < 0 else max(bucket, b)
+    return tuple(np.concatenate(o) for o in out)
+
+
+def oracle_windowed_snapshot(ts, rounds: int, batch: int, period: int,
+                             length: int):
+    """`length(L)` rows, `output snapshot every period`: each step that
+    crosses into a newer bucket emits the window as of the bucket's
+    start: the last L events stamped at or before it (an evicted event
+    leaves at its evictor's timestamp), in arrival order, at the step's
+    clock."""
+    rows, stamps, bucket = [], [], -1
+    for r in range(rounds):
+        now = int(ts[(r + 1) * batch - 1])
+        b = now // period
+        if bucket >= 0 and b > bucket:
+            hi = int(np.searchsorted(ts, b * period, side="right"))
+            rows.append(np.arange(max(0, hi - length), hi))
+            stamps.append(np.full(rows[-1].shape[0], now, np.int64))
+        bucket = b if bucket < 0 else max(bucket, b)
+    return np.concatenate(rows), np.concatenate(stamps)
+
+
+def oracle_leaderboard(key, price32, volume, ts, batch: int, length: int,
+                       offset: int = AB_OFFSET, limit: int = AB_LIMIT):
+    """`lengthBatch(length)` sum(volume)/avg(price) by symbol, `order by
+    total desc, ap limit .. offset ..`: each step's chunk holds the
+    lengthBatch flushes it completes, every event with its running
+    per-symbol values inside its flush; the chunk is sorted stably by
+    (-total, ap) and rows [offset, offset + limit) come out (ap in
+    float64: an order that float32 rounding could flip needs two equal
+    totals with means within an ulp). Returns (event indices, totals,
+    aps)."""
+    n_flush = ts.shape[0] // length
+    step = (np.arange(1, n_flush + 1) * length - 1) // batch
+    rows, totals, aps = [], [], []
+    for r in np.unique(step):
+        ev = np.concatenate([np.arange(f * length, (f + 1) * length)
+                             for f in np.nonzero(step == r)[0]])
+        flush = ev // length
+        k = key[ev]
+        o = np.lexsort((np.arange(ev.shape[0]), k, flush))
+        start = np.r_[True, (k[o][1:] != k[o][:-1])
+                      | (flush[o][1:] != flush[o][:-1])]
+        seg = np.cumsum(start) - 1
+        tot = np.empty(ev.shape[0], np.int64)
+        ap = np.empty(ev.shape[0])
+        v, p = volume[ev][o], price32[ev][o].astype(np.float64)
+        first = np.nonzero(start)[0][seg]
+        cs, cp = np.cumsum(v), np.cumsum(p)
+        tot[o] = cs - (cs - v)[start][seg]
+        ap[o] = (cp - (cp - p)[start][seg]) / (np.arange(ev.shape[0])
+                                                - first + 1)
+        pick = np.lexsort((np.arange(ev.shape[0]), ap,
+                           -tot))[offset:offset + limit]
+        rows.append(ev[pick])
+        totals.append(tot[pick])
+        aps.append(ap[pick])
+    return (np.concatenate(rows), np.concatenate(totals),
+            np.concatenate(aps))
+
+
+def expect_limiter_app(name: str, sym, price, volume, ts, pool,
+                       rounds: int = ROUNDS, batch: int = BATCH,
+                       aa_length: int = AA_LENGTH,
+                       ab_length: int = AB_LENGTH):
+    """check(got: {stream: events}) -> events checked, against app
+    `name`'s numpy oracles."""
+    from siddhi_tpu_torch.ops.ratelimit import BufferedLimiter
+    n = rounds * batch
+    columns = {"symbol": pool[sym], "price": price, "volume": volume}
+    price32 = price.astype(np.float32)
+
+    def check(got: dict) -> int:
+        if name == "AB":
+            rows, tot, ap = oracle_leaderboard(sym, price32, volume, ts,
+                                               batch, ab_length)
+            if rows.shape[0] == 0:
+                raise Failure("app AB: the oracle emits nothing")
+            return check_sliding("AB", got["OutStream"], ts[rows],
+                                 [("symbol", pool[sym[rows]].tolist(),
+                                   False), ("total", tot, False),
+                                  ("ap", ap, True)])
+        idx = np.arange(n)
+        last = idx[(idx + 1) % AA_EVENTS == 0]
+        bucket = ts // AA_PERIOD_MS
+        first = idx[np.r_[True, bucket[1:] != bucket[:-1]]]
+        C = BufferedLimiter({}, batch, time_ms=AA_PERIOD_MS).C
+        g_sym, g_ap, g_n, g_ts = oracle_grouped_snapshot(
+            sym, price32, ts, rounds, batch, AA_PERIOD_MS, AA_TIME_MS)
+        n_checked = (
+            check_rows("AA last", got["LastOut"], last, ts[last], columns,
+                       ("symbol", "price"))
+            + check_rows("AA all", got["AllOut"],
+                         *oracle_buffered(ts, rounds, batch, AA_PERIOD_MS,
+                                          C), columns)
+            + check_rows("AA first", got["FirstOut"], first, ts[first],
+                         columns, ("symbol", "price"))
+            + check_sliding("AA grouped", got["GroupedOut"], g_ts,
+                            [("symbol", pool[g_sym].tolist(), False),
+                             ("ap", g_ap, True), ("n", g_n, False)])
+            + check_rows("AA windowed", got["WindowedOut"],
+                         *oracle_windowed_snapshot(ts, rounds, batch,
+                                                   AA_PERIOD_MS, aa_length),
+                         columns, ("symbol", "price")))
+        if not all(got[o] for o in ("LastOut", "AllOut", "FirstOut",
+                                    "GroupedOut", "WindowedOut")):
+            raise Failure("app AA: a query emitted nothing")
+        return n_checked
+
+    return check
+
+
+def limiter_kernel_phase(torch, rng, B: int = BATCH) -> dict:
+    """K13c and the new sites of K7, K1, K5b and K13b against their plain
+    versions on the card, bit for bit, at the shapes apps AA and AB give
+    them: (a) K13c append of B lanes of ts, three columns, valid and type
+    into a C = 2B ring across its end (`output all every 1 sec`), (b) its
+    gather of C lanes from a wrapped start, (c) the snapshot ring's append
+    of a 2B-lane sliding chunk, half CURRENT, into Cap = 2B (two columns),
+    (d) its gather with n = the length window, (e) K7 on time-first bucket
+    keys, (f) K7 on app AB's float64 order keys, (g) K1 on its chunk's
+    valid lanes, (h) K5b's int32 rank of them, (i) K5b's int64 ordinal with
+    a base, (j) K13b into G = 1024 group slots from a 2B-lane time-window
+    chunk; with the same timings. The library calls: `ring[:, slot] =
+    rows` and `index_select` on the ring's word matrix (the slots given),
+    `torch.sort(stable=True)`, `torch.cumsum`, `scatter_reduce_(amax)`
+    plus gathers."""
+    from siddhi_tpu_torch.ops import groupby, search
+    from siddhi_tpu_torch.ops import ratelimit as rl
+    from siddhi_tpu_torch.ops import windows_extra as wx
+    from siddhi_tpu_torch.ops.windows import LengthBatchWindow
+
+    dev = torch.device("cuda")
+    res = {}
+    C = 2 * B
+
+    def fields(n, full=True):
+        f = {"symbol": torch.from_numpy(rng.integers(1, AA_SYMBOLS + 1, n)
+                                        .astype(np.int32)),
+             "price": torch.from_numpy(rng.uniform(1, 100, n)
+                                       .astype(np.float32))}
+        if full:
+            f = {"__ts__": torch.from_numpy(
+                     1_700_000_000_000 + np.arange(n, dtype=np.int64)),
+                 **f,
+                 "volume": torch.from_numpy(rng.integers(1, 1000, n)),
+                 "__valid__": torch.from_numpy(rng.random(n) < 0.97),
+                 "__types__": torch.zeros(n, dtype=torch.int8)}
+        return {k: v.to(dev) for k, v in f.items()}
+
+    def row_bytes(f):
+        return sum(v.element_size() for v in f.values())
+
+    def append_site(counter, src, ring, sel, appended, what):
+        want, wn = rl.ring_append_plain({k: v.clone() for k, v in ring.items()},
+                                        src, sel, appended)
+        got, gn = rl.ring_append(ring, src, sel, appended, counter=counter)
+        check_equal(f"{counter} count", gn, wn)
+        for k in want:
+            check_equal(f"{counter} {k}", got[k], want[k])
+        n_sel = int(wn)
+        slot = torch.remainder(torch.remainder(appended, C)
+                               + torch.arange(n_sel, device=dev), C)
+        words = -(-row_bytes(src) // 4)
+        mat = torch.zeros((words, C), dtype=torch.int32, device=dev)
+        rows = torch.ones((words, n_sel), dtype=torch.int32, device=dev)
+        res[counter] = dict(
+            _timed(torch,
+                   lambda: rl.ring_append(ring, src, sel, appended,
+                                          counter=counter),
+                   lambda: rl.ring_append_plain(ring, src, sel, appended),
+                   library=lambda: mat.__setitem__((slice(None), slot),
+                                                   rows)),
+            # the selection read, each selected row read and written once
+            bound_ms=bound_ms(sel.numel() + 2 * n_sel * row_bytes(src)
+                              + 16),
+            max_abs_err=0, bound_by="bytes")
+        print(f"{counter} {what} B={sel.numel()} into C={C} "
+              f"({n_sel} selected): {res[counter]}")
+
+    def gather_site(counter, ring, lo, n, ring_valid, what):
+        args = (ring, torch.tensor(lo, device=dev),
+                torch.tensor(n, device=dev), ring_valid)
+        wc, wv = rl.ring_gather_plain(*args)
+        gc, gv = rl.ring_gather(*args, counter=counter)
+        check_equal(f"{counter} valid", gv, wv)
+        for k in wc:
+            check_equal(f"{counter} {k}", gc[k], wc[k])
+        slot = torch.remainder(lo % C + torch.arange(C, device=dev), C)
+        words = -(-(row_bytes(ring) + 1) // 4)
+        mat = torch.zeros((words, C), dtype=torch.int32, device=dev)
+        valid_bytes = 2 * C if ring_valid is not None else C
+        res[counter] = dict(
+            _timed(torch, lambda: rl.ring_gather(*args, counter=counter),
+                   lambda: rl.ring_gather_plain(*args),
+                   library=lambda: mat.index_select(1, slot)),
+            # C rows read and written, the valid flags, lo and n
+            bound_ms=bound_ms(2 * C * row_bytes(ring) + valid_bytes + 16),
+            max_abs_err=0, bound_by="bytes")
+        print(f"{counter} {what} C={C} lo={lo} n={n}: {res[counter]}")
+
+    # (a), (b) the buffered ring of `output all every 1 sec`
+    src, ring = fields(B), fields(C)
+    sel = src["__valid__"] & (src["__types__"] == 0)
+    append_site("K13c append", src, ring, sel,
+                torch.tensor(C - B // 2, device=dev), "buffered")
+    valid = ring.pop("__valid__")
+    gather_site("K13c gather", ring, C - 1000, B, valid, "buffered")
+    # (c), (d) the full-window snapshot ring of a length(4096) window
+    src, ring = fields(C, full=False), fields(C, full=False)
+    cur = torch.from_numpy(rng.random(C) < 0.5).to(dev)
+    append_site("K13c snapshot append", src, ring, cur,
+                torch.tensor(5 * C + 77, device=dev), "snapshot")
+    gather_site("K13c snapshot gather", ring, 7 * C - 2000, AA_LENGTH, None,
+                "snapshot")
+
+    def sort_site(counter, keys, what, library_keys):
+        keys = keys.to(dev)
+        check_equal(counter, search.stable_radix_argsort(keys,
+                                                         counter=counter),
+                    search.stable_radix_argsort_plain(keys))
+        lib = library_keys.to(dev)
+        res[counter] = dict(
+            _timed(torch,
+                   lambda: search.stable_radix_argsort(keys,
+                                                       counter=counter),
+                   lambda: search.stable_radix_argsort_plain(keys),
+                   library=lambda: torch.sort(lib, stable=True)),
+            bound_ms=bound_ms(keys.numel() * 8 + keys.numel() * 4),
+            max_abs_err=0, bound_by="bytes")
+        print(f"{counter} {what} L={keys.numel()}: {res[counter]}")
+
+    # (e) time-first: ~7 buckets a batch, a fifth of the lanes not newer
+    bucket = 1_700_000_000 + np.arange(B) * 1000 // AA_RATE // 1000
+    key = np.where(rng.random(B) < 0.8, bucket, 2**62)
+    sort_site("K7 time-first", torch.from_numpy(key), "bucket keys",
+              torch.from_numpy(key))
+    # (f) app AB's chunk: float64 order keys of running sums, invalid +inf
+    M = LengthBatchWindow({}, B, AB_LENGTH, expired_on=False).chunk_width
+    valid = torch.from_numpy(rng.random(M) < 0.99).to(dev)
+    tot = torch.from_numpy(rng.integers(1, 3000, M).astype(np.float64))
+    k = torch.where(valid.cpu(), -tot, float("inf"))
+    sort_site("K7 order by", search.float64_sort_key(k), "total desc",
+              k)
+    # (g) the stable partition of its valid lanes
+    check_equal("K1 order by",
+                search.stable_partition_order(valid, counter="K1 order by"),
+                search.stable_partition_order_plain(valid))
+    res["K1 order by"] = dict(
+        _timed(torch,
+               lambda: search.stable_partition_order(valid,
+                                                     counter="K1 order by"),
+               lambda: search.stable_partition_order_plain(valid),
+               library=lambda: torch.sort((~valid).to(torch.int32),
+                                          stable=True)),
+        bound_ms=bound_ms(M + 4 * M), max_abs_err=0, bound_by="bytes")
+    print(f"K1 order by L={M}: {res['K1 order by']}")
+
+    # (h), (i) running counts
+    def count_site(counter, mask, dt, base):
+        got, gt = groupby.running_count(mask, counter=counter, base=base,
+                                        dtype=dt)
+        want = torch.cumsum(mask.to(dt), 0) + (0 if base is None else base)
+        check_equal(counter, got, want.to(dt))
+        check_equal(f"{counter} total", gt.reshape(1), want[-1:].to(dt))
+        plain_state = groupby.GroupState(
+            torch.zeros(1, dtype=dt, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev))
+        zeros = torch.zeros_like(mask)
+        epoch = torch.zeros((), dtype=torch.int32, device=dev)
+        res[counter] = dict(
+            _timed(torch,
+                   lambda: groupby.running_count(mask, counter=counter,
+                                                 base=base, dtype=dt),
+                   lambda: groupby.ungrouped_scan_plain(
+                       plain_state, mask.to(dt), mask, zeros, epoch),
+                   library=lambda: torch.cumsum(mask.to(dt), 0)),
+            bound_ms=bound_ms(mask.numel() * (1 + dt.itemsize)),
+            max_abs_err=0, bound_by="bytes")
+        print(f"{counter} L={mask.numel()} {dt}: {res[counter]}")
+
+    count_site("K5b limit", valid, torch.int32, None)
+    count_site("K5b ordinal", torch.from_numpy(rng.random(B) < 0.97)
+               .to(dev), torch.int64, torch.tensor(5_000_000, device=dev))
+
+    # (j) the grouped snapshot: the last live lane of each of G slots
+    G = 1024
+    L = C
+    slot = np.where(rng.random(L) < 0.5, rng.integers(1, AA_SYMBOLS + 1, L),
+                    G).astype(np.int32)
+    comp = {"symbol": torch.from_numpy(slot.copy()).to(dev),
+            "ap": torch.from_numpy(rng.uniform(1, 100, L)
+                                   .astype(np.float32)).to(dev),
+            "n": torch.from_numpy(rng.integers(1, 300, L)).to(dev)}
+    old = {k: torch.zeros(G, dtype=v.dtype, device=dev)
+           for k, v in comp.items()}
+    a = [torch.from_numpy(slot).to(dev), comp,
+         torch.ones(L, dtype=torch.bool, device=dev), old,
+         torch.zeros(G, dtype=torch.bool, device=dev), G]
+    gc, gp = wx.frequent_last_lane(*a, counter="K13b grouped snapshot")
+    wc, wp = wx.frequent_last_lane_plain(*a)
+    check_equal("K13b grouped snapshot present", gp, wp)
+    for k in comp:
+        check_equal(f"K13b grouped snapshot {k}", gc[k], wc[k])
+
+    def library():
+        last = torch.full((G + 1,), -1, dtype=torch.int32, device=dev)
+        last.scatter_reduce_(0, a[0].long(), torch.arange(
+            L, dtype=torch.int32, device=dev), reduce="amax")
+        g = last[:G].clamp(min=0).long()
+        return [c[g] for c in (*comp.values(), a[2])]
+
+    hit = int(np.unique(slot[slot < G]).size)
+    row = sum(v.element_size() for v in comp.values()) + 1
+    res["K13b grouped snapshot"] = dict(
+        _timed(torch,
+               lambda: wx.frequent_last_lane(
+                   *a, counter="K13b grouped snapshot"),
+               lambda: wx.frequent_last_lane_plain(*a), library=library),
+        bound_ms=bound_ms(4 * L + 2 * G * row + hit * row),
+        max_abs_err=0, bound_by="bytes")
+    print(f"K13b grouped snapshot L={L} into G={G} ({hit} slots hit): "
+          f"{res['K13b grouped snapshot']}")
+    torch.cuda.synchronize()
+    return res
+
+
+def limiter_apps(torch, rng, card: str, rounds: int = ROUNDS,
+                 batch: int = BATCH) -> dict:
+    """Apps AA and AB against their oracles, 0 host syncs a step for each
+    query, each app's kernels launched; returns their launches."""
+    on_path = {"AA": ("K5b ordinal", "K13c append", "K13c gather",
+                      "K7 time-first", "K13b grouped snapshot",
+                      "K13c snapshot append", "K13c snapshot gather",
+                      "K5", "K2b pack"),
+               "AB": ("K7 order by", "K1 order by", "K5b limit", "K5")}
+    total = {}
+    for name, (text, queries) in limiter_app_plan().items():
+        sym, price, volume, ts, pool = limiter_app_events(rng, name, rounds,
+                                                          batch)
+        columns = {"symbol": pool[sym], "price": price, "volume": volume}
+        rt, got, launches, elapsed, peak = run_app(
+            torch, text, columns, ts, out_stream=tuple(queries.values()),
+            rounds=rounds, batch=batch)
+        n_out = expect_limiter_app(name, sym, price, volume, ts, pool,
+                                   rounds, batch)(got)
+        del got
+        # the oracles hold every row: no window or snapshot ring overflowed
+        for q in queries:
+            for part in rt.query_runtimes[q].state:
+                if int(getattr(part, "overflow", 0)):
+                    raise Failure(f"app {name}: query {q} overflowed a "
+                                  f"ring ({type(part).__name__})")
+        for k in on_path[name] + ("K12a",):
+            if launches[k] == 0:
+                raise Failure(f"app {name}: kernel {k} never launched")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        step_ms = {}
+        for q in queries:
+            syncs, step_ms[q] = measure_steps(torch, rt, columns, ts,
+                                              fresh=True, rounds=rounds,
+                                              batch=batch, query=q)
+            if syncs:
+                raise Failure(f"app {name}: query {q}'s step syncs with the "
+                              f"host: {syncs}")
+        report_app(name, ts.shape[0], n_out, elapsed,
+                   sum(step_ms.values()), peak, launches, [], card,
+                   rounds=rounds, batch=batch)
+        print(f"app {name}: each query's step alone, ms per round: "
+              f"{step_ms}")
+        del rt
+    return total
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4595,6 +5144,10 @@ def main(argv=None) -> int:
 
         kres.update(expression_kernel_phase(torch, rng))
         for k, v in expression_apps(torch, rng, card).items():
+            launches[k] += v
+
+        kres.update(limiter_kernel_phase(torch, rng))
+        for k, v in limiter_apps(torch, rng, card).items():
             launches[k] += v
         print(json.dumps({"columnar": summary}))
 

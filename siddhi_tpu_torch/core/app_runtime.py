@@ -17,6 +17,7 @@ from ..errors import DefinitionNotExistError, SiddhiAppCreationError
 from ..extension.registry import Registry
 from ..ops.aggregators import HLLState
 from ..ops.groupby import KeyTable
+from ..ops.ratelimit import WindowedSnapshotState
 from ..ops.windows import SlidingState
 from ..ops.windows_extra import KeyedSessionState
 from ..query_api import SiddhiApp
@@ -250,8 +251,8 @@ class SiddhiAppRuntime:
         and record them in Statistics.record_overflow (one warning per
         counter): window-ring overwrites of live rows, key-table unresolved
         lanes (group-by, distinct pairs), HLL lanes past the group capacity,
-        keyed-session key-capacity drops, pattern pending-table drops and
-        join pair drops, in the queries' and the named windows' states. The
+        keyed-session key-capacity drops, pattern pending-table drops,
+        full-window snapshot ring overwrites and join pair drops, in the queries' and the named windows' states. The
         counters stay on the device; one stacked readback fetches them
         all."""
         pending: dict[str, list] = {}
@@ -266,6 +267,8 @@ class SiddhiAppRuntime:
                 key, counter = "session_key_dropped", obj.dropped
             elif isinstance(obj, PatternState):
                 key, counter = "pattern_pending_dropped", obj.dropped
+            elif isinstance(obj, WindowedSnapshotState):
+                key, counter = "snapshot_ring_overflow", obj.overflow
             elif isinstance(obj, HLLState):
                 key, counter = "hll_groups_dropped", obj.dropped
             if key is not None:

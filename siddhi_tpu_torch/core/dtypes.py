@@ -45,9 +45,13 @@ class _Config:
     pattern_pending_capacity = 1024
     #: expansion bound for unbounded pattern counts `<m:>`
     pattern_unbounded_count_extra = 8
+    #: retained groups for `output snapshot ... group by` (rows per snapshot)
+    snapshot_group_capacity = 1024
+    #: full-window snapshot limiter ring (non-aggregated `output snapshot`);
+    #: sized up automatically when the window's own capacity is known
+    snapshot_window_capacity = 4096
     #: mid-pattern `every` (sticky positions): qualifying arrivals advanced
-    #: per entry per batch (sticky positions are not yet ported; kept so the
-    #: configuration matches the JAX package's)
+    #: per entry per batch (core/pattern_runtime.py reads it)
     pattern_sticky_passes = 4
     #: HyperLogLog registers per group for hll:distinctCount (power of two;
     #: std error ~1.04/sqrt(m))

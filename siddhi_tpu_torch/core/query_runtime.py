@@ -27,13 +27,16 @@ from ..ops.extrema import (grouped_sliding_extrema_lanes,
                            sliding_extrema_lanes)
 from ..ops.groupby import GroupState, KeyTable
 from ..ops.expression_window import ExpressionWindow
-from ..ops.ratelimit import make_rate_limiter
+from ..ops.ratelimit import (ContentsSnapshotLimiter,
+                             GroupedSnapshotLimiter, make_rate_limiter)
 from ..ops.selector import CompiledSelector
 from ..ops.stream_functions import StreamFunctionFactory
 from ..ops.window_factories import WindowFactory
 from ..ops.windows import (
+    LengthBatchWindow,
     PassThroughWindow,
     SlidingWindow,
+    TimeBatchWindow,
     WindowOp,
     _unpack_rows,
     make_layout,
@@ -43,10 +46,12 @@ from ..query_api.definition import Attribute, AttributeType, StreamDefinition
 from ..query_api.execution import (
     OutputAction,
     OutputEventType,
+    OutputRateType,
     Query,
     SingleInputStream,
 )
-from ..query_api.expression import Constant, Expression, Variable
+from ..query_api.expression import (AttributeFunction, Constant, Expression,
+                                    Variable)
 from . import dtypes
 from .context import SiddhiAppContext
 from .event import EventBatch, EventType, StreamCodec
@@ -77,6 +82,27 @@ def eval_constant(expr: Expression):
     if isinstance(expr, Variable):
         return expr
     raise SiddhiAppCreationError(f"expected a constant parameter, got {expr!r}")
+
+
+def _selects_aggregates(selector, registry: Registry) -> bool:
+    """True if any select item calls an aggregator: the detection
+    CompiledSelector performs, needed before the window is built (a
+    full-window snapshot changes the window's expired-lane emission)."""
+    from ..ops.aggregators import AggregatorFactory
+
+    def walk(e) -> bool:
+        if isinstance(e, AttributeFunction):
+            f = registry.lookup(ExtensionKind.AGGREGATOR, e.namespace, e.name)
+            if isinstance(f, AggregatorFactory):
+                return True
+        for a in ("left", "right", "expression"):
+            sub = getattr(e, a, None)
+            if isinstance(sub, Expression) and walk(sub):
+                return True
+        return any(isinstance(p, Expression) and walk(p)
+                   for p in getattr(e, "parameters", ()) or ())
+
+    return any(walk(a.expression) for a in selector.attributes)
 
 
 class QueryRuntime(Receiver):
@@ -137,8 +163,17 @@ class QueryRuntime(Receiver):
                 layout[n] = dtypes.device_dtype(t)
                 layout.attr_types[n] = t
         # batch windows materialise EXPIRED lanes only when the output
-        # wants them
+        # wants them, or when a full-window snapshot pops its ring on them
+        # (non-aggregated `output snapshot`; the same flag later picks the
+        # limiter, so the two decisions cannot diverge)
         expired_on = query.output_stream.event_type != OutputEventType.CURRENT
+        self._selects_aggs = _selects_aggregates(query.selector, registry)
+        self._snapshot_full_window = (
+            query.output_rate is not None
+            and query.output_rate.type == OutputRateType.SNAPSHOT
+            and not self._selects_aggs)
+        if self._snapshot_full_window:
+            expired_on = True
         if h.window is not None:
             wh = h.window
             factory = registry.require(ExtensionKind.WINDOW, wh.namespace,
@@ -187,7 +222,7 @@ class QueryRuntime(Receiver):
                              for n, t in self.selector.out_types.items()))
         self.output_codec = StreamCodec(self.output_definition,
                                         ctx.global_strings)
-        self.rate_limiter = make_rate_limiter(query.output_rate)
+        self.rate_limiter = self._make_rate_limiter(query, ctx)
         self._batch_cap = batch_cap
         dev = ctx.device
         self.state = (self.window.init_state(dev),
@@ -199,9 +234,47 @@ class QueryRuntime(Receiver):
         self._batches_seen = 0
         self._capacity_warned = False
         self._capacity_pressure = False
+        self._snapshot_warned = False
         self._last_compacted_live: dict[int, int] = {}
-        #: time-driven windows need heartbeats to flush expirations
-        self.has_time_semantics = window_has_time_semantics(self.window)
+        #: time-driven windows and rates need heartbeats to flush
+        self.has_time_semantics = (window_has_time_semantics(self.window)
+                                   or self.rate_limiter.has_time_semantics)
+
+    def _make_rate_limiter(self, query: Query, ctx: SiddhiAppContext):
+        """The output rate limiter: a full-window snapshot over a FIFO
+        window keeps a ring of the projected rows, over a findable non-FIFO
+        window it re-projects the window's contents."""
+        out_layout = {n: dtypes.device_dtype(t)
+                      for n, t in self.selector.out_types.items()
+                      if t != AttributeType.OBJECT}
+        fifo = isinstance(self.window, (SlidingWindow, LengthBatchWindow,
+                                        TimeBatchWindow))
+        findable = (getattr(type(self.window), "contents", None) is not None
+                    and not isinstance(self.window, PassThroughWindow))
+        limiter = make_rate_limiter(
+            query.output_rate, out_layout, self.window.chunk_width,
+            grouped=bool(query.selector.group_by),
+            group_capacity=ctx.effective_group_capacity,
+            fifo_window=fifo and self._snapshot_full_window,
+            has_aggregates=self._selects_aggs,
+            window_capacity=getattr(self.window, "C", 0),
+            contents_window=findable and self._snapshot_full_window)
+        if isinstance(limiter, GroupedSnapshotLimiter):
+            self.selector.expose_group_slot = True
+        if isinstance(limiter, ContentsSnapshotLimiter):
+            if self.post_window_fns or self.post_filters:
+                raise SiddhiAppCreationError(
+                    "`output snapshot` over a non-FIFO window cannot combine "
+                    "with post-window functions/filters (snapshots re-project "
+                    "the raw window contents); apply them before the window")
+            sel = query.selector
+            if sel.order_by or sel.limit is not None \
+                    or sel.offset is not None:
+                raise SiddhiAppCreationError(
+                    "`output snapshot` over a non-FIFO window cannot combine "
+                    "with order by / limit / offset (snapshots re-emit the "
+                    "whole live window set)")
+        return limiter
 
     def _compile_stream_fns(self, handlers, attr_types: dict,
                             registry: Registry) -> list:
@@ -262,8 +335,30 @@ class QueryRuntime(Receiver):
         if ring_side is not None:
             self._extrema_lanes(ring_side, wstate_pre, chunk, cscope)
         sstate, out = self.selector.step(sstate, chunk, cscope)
-        rstate, out = self.rate_limiter.step(rstate, out, now)
+        if getattr(self.rate_limiter, "needs_window_contents", False):
+            rstate, out = self.rate_limiter.step_contents(
+                rstate, self._projected_contents(wstate, now), now)
+        else:
+            rstate, out = self.rate_limiter.step(rstate, out, now)
         return (wstate, sstate, rstate), out
+
+    def _projected_contents(self, wstate, now) -> EventBatch:
+        """A non-FIFO snapshot's rows: the window's live contents after the
+        step (so this watermark's evictions apply) through the select list
+        and HAVING; ts keeps each row's arrival instant."""
+        w_cols, w_ts, w_live = self.window.contents(wstate, now)
+        s2 = Scope()
+        s2.add_frame(self.frame_ref, w_cols, w_ts, w_live, default=True)
+        proj = {name: torch.broadcast_to(ce(s2), w_ts.shape).contiguous()
+                for name, ce in self.selector.out_exprs}
+        if self.selector.having is not None:
+            h2 = Scope()
+            h2.add_frame(self.frame_ref, w_cols, w_ts, w_live)
+            h2.add_frame("__out__", proj, w_ts, w_live, default=True)
+            w_live = w_live & self.selector.having(h2)
+        return EventBatch(ts=w_ts, cols=proj, valid=w_live,
+                          types=torch.zeros(w_ts.shape, dtype=torch.int8,
+                                            device=w_ts.device))
 
     def _extrema_ring_side(self, wstate_pre):
         """The extrema arguments (and group hashes) over the PRE-step ring
@@ -311,14 +406,25 @@ class QueryRuntime(Receiver):
     def _post_step_maintenance(self) -> None:
         """Per-batch housekeeping after the step: the custom-aggregate
         compaction cadence (batches 1, 16, 64, then every 256, or every 4
-        while a table runs hot). Each check reads a few scalars back from
-        the device; the step itself never does."""
+        while a table runs hot) and the one-shot snapshot-overflow warning
+        (every 256 batches). Each check reads a few scalars back from the
+        device; the step itself never does."""
         self._batches_seen += 1
         interval = 4 if self._capacity_pressure else 256
         if (self._has_custom_aggs
                 and (self._batches_seen in (1, 16, 64)
                      or self._batches_seen % interval == 0)):
             self._check_custom_agg_capacity()
+        if (not self._snapshot_warned and self._batches_seen % 256 == 0
+                and hasattr(self.state[2], "overflow")):
+            n = int(self.state[2].overflow)
+            if n > 0:
+                warnings.warn(
+                    f"query {self.name!r}: {n} output lanes exceeded "
+                    "snapshot_group_capacity and are missing from periodic "
+                    "snapshots — raise config.snapshot_group_capacity",
+                    stacklevel=2)
+                self._snapshot_warned = True
 
     def _check_custom_agg_capacity(self) -> None:
         """distinctCount's (group, value) pair table only grows inside a

@@ -92,11 +92,19 @@ class CronSchedule:
         return min(allowed), True
 
     def next_fire_ms(self, after_ms: int) -> Optional[int]:
-        """First fire time strictly after `after_ms` (epoch millis). Field-carry
-        evaluation: jumps straight to the next allowed second/minute/hour/day
-        instead of scanning second-by-second."""
+        """First fire time strictly after `after_ms` (epoch millis), read
+        in local wall time. Inside a repeated (fall-back) hour the answer
+        is the wall time's first occurrence, which may lie before
+        `after_ms`: the JAX package's fault, kept for parity."""
         dt = datetime.fromtimestamp(after_ms / 1000.0).replace(microsecond=0)
-        dt += timedelta(seconds=1)
+        nxt = self.next_fire_local(dt + timedelta(seconds=1))
+        return None if nxt is None else int(nxt.timestamp() * 1000)
+
+    def next_fire_local(self, dt: datetime) -> Optional[datetime]:
+        """The first allowed local wall time at or after the naive `dt`
+        (whole seconds, fold 0), within four years. Field-carry evaluation:
+        jumps straight to the next allowed second/minute/hour/day instead
+        of scanning second-by-second."""
         limit = dt + timedelta(days=366 * 4)
         while dt < limit:
             if ((self.mon is not None and dt.month not in self.mon)
@@ -122,5 +130,5 @@ class CronSchedule:
             if carry:
                 dt = (dt.replace(second=0) + timedelta(minutes=1))
                 continue
-            return int(dt.replace(second=s).timestamp() * 1000)
+            return dt.replace(second=s)
         return None

@@ -6,7 +6,9 @@ numpy arrays (a lengthBatch or time-batch window's BatchState, a sliding
 window's or an expression window's SlidingState, an expressionBatch
 window's GeneralBatchState, a session window's SessionState or
 KeyedSessionState, a sort window's SortState, a cron window's CronState,
-a hopping window's HopState, a frequent window's FrequentState); a join
+a hopping window's HopState, a frequent window's FrequentState; the
+limiter's CounterState, BufferState, SnapshotState, WindowedSnapshotState,
+ContentsSnapshotState or GroupedSnapshotState, or () without a rate); a join
 query's is (left window, right window, left multimap, right multimap,
 selector state); a named window's is its window state; a pattern query's
 is a PatternState (its pending tables, active0, seq, dropped, armed0_ts,
@@ -31,6 +33,7 @@ import numpy as np
 import torch
 
 from .core.app_runtime import SiddhiAppRuntime
+from .core.event import EventBatch
 from .core.join_runtime import JoinQueryRuntime
 from .core.pattern_runtime import PatternQueryRuntime, PatternState
 from .core.query_runtime import QueryRuntime
@@ -38,6 +41,9 @@ from .ops.aggregators import HLLState
 from .ops.groupby import GroupState, KeyTable
 from .ops.join import MultimapState
 from .ops.pattern import PendingTable
+from .ops.ratelimit import (BufferState, ContentsSnapshotState, CounterState,
+                            GroupedSnapshotState, SnapshotState,
+                            WindowedSnapshotState)
 from .ops.selector import SelectorState
 from .ops.expression_general import GeneralBatchState
 from .ops.windows import BatchState, SessionState, SlidingState, SortState
@@ -140,13 +146,48 @@ def selector_state(sel_np, like: SelectorState) -> SelectorState:
                       else _tensor(shared, like.shared_epoch)))
 
 
+def _cols(cols_np, like: dict) -> dict:
+    if set(cols_np) != set(like):
+        raise ValueError(f"columns {sorted(cols_np)} in the state, the "
+                         f"port's limiter has {sorted(like)}")
+    return {k: _tensor(cols_np[k], v) for k, v in like.items()}
+
+
+def limiter_state(r_np, like):
+    """A rate limiter's state, field by field: dicts of columns by name,
+    the buffered limiter's ring an EventBatch, the rest tensors."""
+    if like == ():
+        if len(r_np):
+            raise ValueError("the state has a rate limiter, the port's "
+                             "query has none")
+        return ()
+    if isinstance(like, BufferState):
+        ring, rl = _field(r_np, "ring"), like.ring
+        return BufferState(
+            ring=EventBatch(ts=_tensor(_field(ring, "ts"), rl.ts),
+                            cols=_cols(_field(ring, "cols"), rl.cols),
+                            valid=_tensor(_field(ring, "valid"), rl.valid),
+                            types=_tensor(_field(ring, "types"), rl.types)),
+            **{f: _tensor(_field(r_np, f), getattr(like, f))
+               for f in ("appended", "flushed", "bucket")})
+    col_field = {SnapshotState: "last_cols", WindowedSnapshotState: "cols",
+                 GroupedSnapshotState: "rows"}.get(type(like))
+    if col_field is None and not isinstance(
+            like, (CounterState, ContentsSnapshotState)):
+        raise ValueError(f"limiter state {type(like).__name__} is not "
+                         "ported by interop")
+    return type(like)(**{
+        f: (_cols(_field(r_np, f), getattr(like, f)) if f == col_field
+            else _tensor(_field(r_np, f), getattr(like, f)))
+        for f in like._fields})
+
+
 def load_query_state(qr: QueryRuntime, state) -> None:
     """Load one query's (window, selector, limiter) state."""
     w_np, s_np, r_np = state
     w_like, s_like, r_like = qr.state
-    if len(r_np) or r_like != ():
-        raise ValueError("only the pass-through rate limiter is ported")
-    qr.state = (window_state(w_np, w_like), selector_state(s_np, s_like), ())
+    qr.state = (window_state(w_np, w_like), selector_state(s_np, s_like),
+                limiter_state(r_np, r_like))
 
 
 def multimap_state(mm_np, like):

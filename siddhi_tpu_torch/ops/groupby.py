@@ -801,7 +801,8 @@ def grouped_scan_cuda(state: GroupState, slots, deltas, valid, resets,
 
 
 def ungrouped_scan_cuda(state: GroupState, deltas, valid, resets,
-                        current_epoch, op: str = "sum"):
+                        current_epoch, op: str = "sum", *,
+                        counter: str = "K5b ungrouped"):
     """K5b without GROUP BY on the card: the ungrouped plan, then the
     op-templated scan. Updates the state cell in place."""
     kernels.require_cuda("ungrouped_scan", state.values, state.epoch, deltas,
@@ -813,9 +814,9 @@ def ungrouped_scan_cuda(state: GroupState, deltas, valid, resets,
     if n == 0:
         return state, torch.empty_like(deltas)
     plan = _k5_ungrouped_plan_cuda(resets, current_epoch, state.epoch,
-                                   "K5b ungrouped")
+                                   counter)
     (out,) = _scan_cuda(plan, op, [state.values], state.epoch, [deltas],
-                        valid, "K5b ungrouped")
+                        valid, counter)
     return state, out
 
 
@@ -844,11 +845,12 @@ def grouped_scan(state: GroupState, slots, deltas, valid, resets,
 
 
 def ungrouped_scan(state: GroupState, deltas, valid, resets, current_epoch,
-                   op: str = "sum"):
-    """`grouped_scan` for one group: no sort, segments at resets (K5b)."""
+                   op: str = "sum", *, counter: str = "K5b ungrouped"):
+    """`grouped_scan` for one group: no sort, segments at resets (K5b).
+    `counter` names the launch counter of the calling site."""
     if deltas.is_cuda:
         return ungrouped_scan_cuda(state, deltas, valid, resets,
-                                   current_epoch, op)
+                                   current_epoch, op, counter=counter)
     return ungrouped_scan_plain(state, deltas, valid, resets, current_epoch,
                                 op)
 
@@ -863,3 +865,20 @@ def ungrouped_scan_fused(values_list, shared_epoch, deltas_list, valid,
                                          current_epoch)
     return ungrouped_scan_fused_plain(values_list, shared_epoch, deltas_list,
                                       valid, resets, current_epoch)
+
+
+def running_count(mask: torch.Tensor, *, counter: str, base=None,
+                  dtype=torch.int32):
+    """Inclusive running count of the `mask` lanes in lane order, plus
+    `base` (a 0-d tensor, default 0): the JAX `base + jnp.cumsum(mask)` as
+    K5b's ungrouped sum scan, no host sync. Lanes outside the mask carry
+    the count so far. Returns (counts [L], the count after the last lane)
+    in `dtype`."""
+    dev = mask.device
+    cell = (torch.zeros(1, dtype=dtype, device=dev) if base is None
+            else base.reshape(1).to(dtype).clone())
+    state = GroupState(cell, torch.zeros(1, dtype=torch.int32, device=dev))
+    new, counts = ungrouped_scan(
+        state, mask.to(dtype), mask, torch.zeros_like(mask),
+        torch.zeros((), dtype=torch.int32, device=dev), counter=counter)
+    return counts, new.values[0]

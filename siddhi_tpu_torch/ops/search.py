@@ -35,7 +35,8 @@ def stable_partition_order_plain(live: torch.Tensor) -> torch.Tensor:
 _K1_BLOCK = 1024
 
 
-def stable_partition_order_cuda(live: torch.Tensor) -> torch.Tensor:
+def stable_partition_order_cuda(live: torch.Tensor, *,
+                                counter: str = "K1") -> torch.Tensor:
     if live.dtype != torch.bool or live.dim() != 1:
         raise ValueError("stable_partition_order: live must be bool[L]")
     kernels.require_cuda("stable_partition_order", live)
@@ -50,14 +51,16 @@ def stable_partition_order_cuda(live: torch.Tensor) -> torch.Tensor:
     rc = fn(live.data_ptr(), out.data_ptr(), scratch.data_ptr(), n,
             kernels.stream())
     kernels.check("k1_partition", "stable_partition_order", rc)
-    kernels.LAUNCHES["K1"] += 3
+    kernels.LAUNCHES[counter] += 3
     return out
 
 
-def stable_partition_order(live: torch.Tensor) -> torch.Tensor:
-    """Permutation that stably moves live lanes to the front (K1)."""
+def stable_partition_order(live: torch.Tensor, *,
+                           counter: str = "K1") -> torch.Tensor:
+    """Permutation that stably moves live lanes to the front (K1).
+    `counter` names the launch counter of the calling site."""
     if live.is_cuda:
-        return stable_partition_order_cuda(live)
+        return stable_partition_order_cuda(live, counter=counter)
     return stable_partition_order_plain(live)
 
 

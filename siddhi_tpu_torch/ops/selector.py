@@ -1,10 +1,10 @@
-"""Compiled SELECT (counterpart of siddhi_tpu/ops/selector.py; this slice
-ports the projection path, the grouped path keyed by one string code, the
-hashed grouped path (K3 -> K4 -> K5), aggregates without GROUP BY, custom
+"""Compiled SELECT (counterpart of siddhi_tpu/ops/selector.py): the
+projection path, the grouped path keyed by one string code, the hashed
+grouped path (K3 -> K4 -> K5), aggregates without GROUP BY, custom
 aggregators with their own state (distinctCount, hll:distinctCount),
 monotone min/max/minForever/maxForever scans (K5b), sliding-window min/max
-as range queries the query runtime computes (K8), and HAVING). ORDER BY /
-LIMIT / OFFSET raise "not yet ported".
+as range queries the query runtime computes (K8), HAVING, and ORDER BY /
+LIMIT / OFFSET per chunk (K7 and K1 sort, K5b ranks).
 
 Consumes window chunks (CURRENT / EXPIRED / RESET lanes) and produces the
 output batch, reproducing per-event semantics: each aggregate component
@@ -24,7 +24,7 @@ from ..core.event import EventBatch, EventType
 from ..errors import SiddhiAppCreationError
 from ..extension.registry import ExtensionKind, Registry
 from ..query_api.definition import AttributeType
-from ..query_api.execution import OutputAttribute, Selector
+from ..query_api.execution import OrderByOrder, OutputAttribute, Selector
 from ..query_api.expression import (
     And,
     AttributeFunction,
@@ -45,11 +45,17 @@ from .groupby import (
     init_group_state,
     init_key_table,
     key_lookup_or_insert,
+    running_count,
     ungrouped_scan,
     ungrouped_scan_fused,
 )
+from .search import (float64_sort_key, stable_partition_order,
+                     stable_radix_argsort)
 
 AGG_FRAME = "__agg__"
+#: pseudo-column carrying each output lane's group slot (grouped snapshot
+#: rate limiting); never part of the output schema
+GROUP_SLOT_COL = "__slot__"
 
 
 def _rewrite_aggregators(expr: Expression, registry: Registry, found: list):
@@ -98,12 +104,10 @@ class CompiledSelector:
                  registry: Registry, group_capacity: int,
                  select_all_attrs: Optional[list] = None,
                  sliding_window: bool = False):
-        if selector.order_by or selector.limit is not None \
-                or selector.offset is not None:
-            raise SiddhiAppCreationError(
-                "order by / limit / offset are not yet ported to "
-                "siddhi_tpu_torch")
         self.group_capacity = group_capacity
+        #: set by the query runtime when a grouped snapshot limiter needs
+        #: each lane's group slot (GROUP_SLOT_COL)
+        self.expose_group_slot = False
         attrs = selector.attributes
         if not attrs:
             if select_all_attrs is None:
@@ -161,6 +165,10 @@ class CompiledSelector:
         self.having = (compile_expression(selector.having, out_resolver,
                                           registry)
                        if selector.having is not None else None)
+        self.order_by = [(out_resolver.resolve(ob.variable), ob.order)
+                         for ob in selector.order_by]
+        self.limit = selector.limit
+        self.offset = selector.offset
 
     def init_state(self, device) -> SelectorState:
         K = self.group_capacity if self.group_vars else 1
@@ -289,6 +297,10 @@ class CompiledSelector:
             if v.dim() == 0:  # constant projection: broadcast to the lanes
                 v = torch.full((L,), v.item(), dtype=v.dtype, device=dev)
             out_cols[name] = v
+        if self.expose_group_slot:
+            # grouped snapshot limiters retain one row per group: each
+            # lane's group slot rides through order / limit as a column
+            out_cols[GROUP_SLOT_COL] = slots
         out_valid = data_valid
         if self.having is not None:
             scope.frames["__out__"] = out_cols
@@ -297,4 +309,47 @@ class CompiledSelector:
             out_valid = out_valid & self.having(scope)
         out = EventBatch(ts=chunk.ts, cols=out_cols, valid=out_valid,
                          types=types)
+        # order by / offset / limit apply per chunk, like the reference
+        if self.order_by:
+            out = self._order_chunk(out)
+        if self.offset is not None or self.limit is not None:
+            out = self._limit_chunk(out)
         return SelectorState(groups, key_table, new_epoch, shared_epoch), out
+
+    def _order_chunk(self, out: EventBatch) -> EventBatch:
+        """The JAX `_order_chunk`: per key, last key first, a stable argsort
+        of the float64 keys (DESC negated before the cast, `~` on BOOL;
+        invalid lanes +inf) through `float64_sort_key` (K7), then a stable
+        partition with the valid lanes first (K1). A STRING key orders by
+        its intern code, as the JAX package's int32 code column does."""
+        perm = torch.arange(out.capacity, device=out.ts.device)
+        for (_, attr, _), order in reversed(self.order_by):
+            col = out.cols[attr]
+            if order == OrderByOrder.DESC:
+                col = ~col if col.dtype == torch.bool else -col
+            if col.dtype == torch.float32:
+                # XLA's float32 -> float64 cast flushes subnormals to zero
+                col = torch.where(col.abs() < torch.finfo(col.dtype).tiny,
+                                  0.0, col)
+            k = torch.where(out.valid[perm], col[perm].to(torch.float64),
+                            float("inf"))
+            perm = perm[stable_radix_argsort(float64_sort_key(k),
+                                             counter="K7 order by").long()]
+        perm = perm[stable_partition_order(out.valid[perm],
+                                           counter="K1 order by").long()]
+        return EventBatch(ts=out.ts[perm],
+                          cols={k: v[perm] for k, v in out.cols.items()},
+                          valid=out.valid[perm], types=out.types[perm])
+
+    def _limit_chunk(self, out: EventBatch) -> EventBatch:
+        """The JAX `_limit_chunk`: each valid lane's rank among the valid
+        lanes (a running count, K5b) against OFFSET and LIMIT."""
+        counts, _ = running_count(out.valid, counter="K5b limit")
+        rank = counts - 1
+        keep = out.valid
+        if self.offset is not None:
+            keep = keep & (rank >= self.offset)
+            rank = rank - self.offset
+        if self.limit is not None:
+            keep = keep & (rank < self.limit)
+        return dataclasses.replace(out, valid=keep)

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import bisect
 import ctypes
+from datetime import datetime, timedelta, timezone
 from typing import NamedTuple, Optional
 
 import torch
@@ -77,61 +78,118 @@ def _gather_overall(ring_cols, ring_ts, comp_cols, comp_ts, appended0,
 
 
 class CronFireTable:
-    """The fire instants a cron window reads, kept on the device.
+    """The JAX step's next-fire answers, kept on the device.
 
-    The JAX window asks the host for the next fire inside its step (a
-    pure_callback). Here the host keeps F consecutive fires starting at the
-    latest fire at or before the clock it was built at, and uploads them
-    (pinned, non-blocking: no host sync). While the clock stays in [built
-    at, last entry) the table answers both questions the step asks:
-      - the next fire after the clock: on the host, by bisection;
-      - the lazy first schedule, the next fire after (smallest valid
-        timestamp - 1), which only the device knows: a searchsorted on the
-        table. When that instant lies before the table's first entry, the
-        first entry (at or before the clock) stands in: both fire at once,
-        and the fired state does not keep the value.
-    Outside that range the table is rebuilt around the new clock."""
+    The JAX window asks the host `schedule.next_fire_ms(t)` inside its step
+    (a pure_callback): for the lazy first schedule at t = (smallest valid
+    timestamp - 1), which only the device knows, and after a fire at t =
+    now. That answer is a step function of t: it reads t's local wall time
+    L(t) and changes only where L(t) equals a fire's wall time (twice in a
+    repeated fall-back hour, where the answer is the first occurrence and
+    may lie before t) or where L jumps (a DST change). The host lists those
+    instants from the latest fire at or before the clock on, with the
+    answer at each, and uploads both (pinned, non-blocking: no host sync);
+    each lookup is then exact:
+      - after a fire: on the host, by bisection;
+      - the lazy first schedule: a searchsorted on the device. An instant
+        before the first listed fire takes the answer just before it: a
+        fire at or before the clock, so both fire at once and the fired
+        state does not keep the value (or, with no earlier fire, the first
+        fire itself).
+    A clock outside the listed range rebuilds the table around it."""
 
-    F = 256
-    LOOKBACK_MS = 1 << 40  # how far back the latest fire is looked for
+    F = 256  # fires a table spans (at most SPAN_S seconds of them)
+    SPAN_S = 400 * 86400
+    LOOKBACK_S = 1 << 30  # how far back the latest fire is looked for
+    PROBE_S = 6 * 3600  # DST changes are found between probes this close
 
     def __init__(self, schedule):
         self.schedule = schedule
-        self.host: list = []
-        self.device: Optional[torch.Tensor] = None
-        self.built_at: Optional[int] = None
+        self.at: list = []  # instants where the answer changes (ms)
+        self.answer: list = []  # next_fire_ms at each of them
+        self.device: Optional[torch.Tensor] = None  # [2, n]: at, answer
+
+    @staticmethod
+    def _offset(t: int):
+        """Local wall time minus UTC at second t."""
+        return (datetime.fromtimestamp(t)
+                - datetime.fromtimestamp(t, timezone.utc).replace(tzinfo=None))
+
+    def _changes(self, lo: int, hi: int) -> list:
+        """The seconds in (lo, hi] where the UTC offset changes."""
+        out = []
+        grid = list(range(lo, hi, self.PROBE_S)) + [hi]
+        for a, b in zip(grid, grid[1:]):
+            if self._offset(a) == self._offset(b):
+                continue
+            while b - a > 1:  # first second with b's offset
+                m = (a + b) // 2
+                if self._offset(m) == self._offset(a):
+                    a = m
+                else:
+                    b = m
+            out.append(b)
+        return out
+
+    def _latest_local_fire(self, now_s: int):
+        wall = datetime.fromtimestamp(now_s)
+        d = 1
+        while d <= self.LOOKBACK_S:
+            f = self.schedule.next_fire_local(wall - timedelta(seconds=d))
+            if f is not None and f <= wall:
+                while (g := self.schedule.next_fire_local(
+                        f + timedelta(seconds=1))) is not None and g <= wall:
+                    f = g
+                return f
+            d *= 2
+        return self.schedule.next_fire_local(wall)  # no fire before
+
+    def _build(self, now: int) -> None:
+        def stamp(w: datetime, fold: int) -> int:
+            return int(w.replace(fold=fold).timestamp()) * 1000
+
+        walls = []
+        w = self._latest_local_fire(now // 1000)
+        while w is not None and len(walls) < self.F:
+            walls.append(w)
+            if stamp(w, 0) - stamp(walls[0], 0) > self.SPAN_S * 1000:
+                break
+            w = self.schedule.next_fire_local(w + timedelta(seconds=1))
+        at = {stamp(w, f) for w in walls for f in (0, 1)} | {now}
+        lo, hi = min(at), max(at)
+        if hi <= now:  # no listed fire after the clock
+            hi = now + 1
+            at.add(hi)
+        at.update(s * 1000 for s in self._changes(lo // 1000, hi // 1000))
+        at = sorted(a for a in at if lo <= a <= hi)
+        # a sentinel first row answers for instants before the first fire
+        self.at = [-2**62] + at
+        self.answer = [self._next(at[0] - 1)] + [self._next(a) for a in at]
 
     def _next(self, t: int) -> int:
         nxt = self.schedule.next_fire_ms(int(t))
         return nxt if nxt is not None else 2**62
 
-    def _latest_at_or_before(self, now: int) -> int:
-        d = 1000
-        while d <= self.LOOKBACK_MS:
-            f = self._next(now - d)
-            if f <= now:
-                while (g := self._next(f)) <= now:
-                    f = g
-                return f
-            d *= 2
-        return self._next(now)  # no fire before: the first one after
-
-    def fires(self, now: int, device) -> torch.Tensor:
+    def table(self, now: int, device) -> torch.Tensor:
+        """[2, n] int64 on `device`: the instants and the answer at each."""
         if (self.device is None or self.device.device != device
-                or not self.built_at <= now < self.host[-1]):
-            fires = [self._latest_at_or_before(now)]
-            while len(fires) < self.F:
-                fires.append(self._next(fires[-1]) if fires[-1] < 2**62
-                             else 2**62)
-            t = torch.tensor(fires, dtype=torch.int64)
+                or not self.at[1] <= now < self.at[-1]):
+            self._build(now)
+            t = torch.tensor([self.at, self.answer], dtype=torch.int64)
             if device.type == "cuda":
                 t = t.pin_memory().to(device, non_blocking=True)
-            self.host, self.device, self.built_at = fires, t, now
+            self.device = t
         return self.device
 
     def next_after(self, now: int) -> int:
-        """The first fire after `now` (call `fires(now, ...)` first)."""
-        return self.host[bisect.bisect_right(self.host, now)]
+        """`next_fire_ms(now)` (call `table(now, ...)` first)."""
+        return self.answer[bisect.bisect_right(self.at, now) - 1]
+
+    @staticmethod
+    def first_schedule(table: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """`next_fire_ms(t)` for a device scalar t (no host sync)."""
+        i = searchsorted32(table[0], t.reshape(1), side="right").long() - 1
+        return table[1][i][0]
 
 
 class CronWindow(WindowOp):
@@ -167,7 +225,7 @@ class CronWindow(WindowOp):
         C, B = self.C, self.B
         dev = batch.ts.device
         now = int(now)
-        fires = self.table.fires(now, dev)
+        table = self.table.table(now, dev)
         comp_cols, comp_ts, n_valid, _ = compact(batch)
         appended1 = state.appended + n_valid
         _scatter_append(state.ring_cols, state.ring_ts, comp_cols, comp_ts,
@@ -179,9 +237,7 @@ class CronWindow(WindowOp):
         lane = torch.arange(B, dtype=torch.int64, device=dev)
         min_ts = torch.where(lane < n_valid, comp_ts, BIG).min()
         base = torch.where(n_valid > 0, torch.clamp(min_ts, max=now), now)
-        first = fires[torch.clamp(searchsorted32(fires, (base - 1)[None],
-                                                 side="right"),
-                                  max=fires.shape[0] - 1).long()][0]
+        first = self.table.first_schedule(table, base - 1)
         next_fire = torch.where(state.next_fire < 0, first, state.next_fire)
         fire = next_fire <= now
 
@@ -342,7 +398,7 @@ def frequent_last_lane_plain(slot, comp_cols: dict, comp_ts, slot_cols: dict,
 
 
 def frequent_last_lane_cuda(slot, comp_cols: dict, comp_ts, slot_cols: dict,
-                            slot_ts, N: int):
+                            slot_ts, N: int, *, counter: str = "K13b"):
     """K13b on the card: the atomicMax scatter, then the row gather (one
     launch per up to k13b_max_cols() columns, ts included)."""
     names = list(slot_cols)
@@ -363,7 +419,7 @@ def frequent_last_lane_cuda(slot, comp_cols: dict, comp_ts, slot_cols: dict,
     rc = kernels.bind(lib, "k13b_last_lane", [P, I, I, P, P])(
         slot.data_ptr(), B, N, last.data_ptr(), kernels.stream())
     kernels.check(lib, "frequent_last_lane", rc)
-    kernels.LAUNCHES["K13b"] += 2 if B else 1
+    kernels.LAUNCHES[counter] += 2 if B else 1
     gather = kernels.bind(lib, "k13b_gather_rows", [P, I, P, P, P, P, I, P])
     step = kernels.library(lib).k13b_max_cols()
     for c0 in range(0, len(srcs), step):
@@ -377,16 +433,17 @@ def frequent_last_lane_cuda(slot, comp_cols: dict, comp_ts, slot_cols: dict,
                     ptrs(dsts[part]), (ctypes.c_int * len(sizes))(*sizes),
                     len(sizes), kernels.stream())
         kernels.check(lib, "frequent_last_lane (gather)", rc)
-        kernels.LAUNCHES["K13b"] += 1
+        kernels.LAUNCHES[counter] += 1
     return dict(zip(names, dsts[:-1])), dsts[-1]
 
 
 def frequent_last_lane(slot, comp_cols: dict, comp_ts, slot_cols: dict,
-                       slot_ts, N: int):
-    """The remembered latest event of each slot after this batch (K13b)."""
+                       slot_ts, N: int, *, counter: str = "K13b"):
+    """The remembered latest event of each slot after this batch (K13b).
+    `counter` names the launch counter of the calling site."""
     if slot.is_cuda:
         return frequent_last_lane_cuda(slot, comp_cols, comp_ts, slot_cols,
-                                       slot_ts, N)
+                                       slot_ts, N, counter=counter)
     return frequent_last_lane_plain(slot, comp_cols, comp_ts, slot_cols,
                                     slot_ts, N)
 

@@ -1241,3 +1241,185 @@ def test_expression_frequent_cron_apps_on_card_match_cpu(cuda, name):
     for (ta, da), (tb, db) in zip(card, cpu):
         assert ta == tb and da[0] == db[0]
         np.testing.assert_allclose(da[1:], db[1:], rtol=1e-5, atol=1e-3)
+
+
+def _ring_case(rng, B, C, dev):
+    """A batch of B lanes (ts + three columns + valid + types) and a C-slot
+    ring of the same columns, on `dev`."""
+    def cols(n):
+        return {"ts": torch.from_numpy(rng.integers(0, 2**40, n)),
+                "s": torch.from_numpy(rng.integers(-9, 9, n)
+                                      .astype(np.int32)),
+                "p": torch.from_numpy(rng.normal(size=n).astype(np.float32)),
+                "v": torch.from_numpy(rng.integers(0, 2**50, n)),
+                "ok": torch.from_numpy(rng.random(n) < 0.7),
+                "t": torch.from_numpy(rng.integers(0, 2, n)
+                                      .astype(np.int8))}
+    return ({k: v.to(dev) for k, v in cols(B).items()},
+            {k: v.to(dev) for k, v in cols(C).items()})
+
+
+@pytest.mark.parametrize("B,C,appended,p_sel", [
+    (4096, 8192, 0, 0.6), (4096, 8192, 8190, 0.9), (3000, 6000, 2**40 + 7, 1.0),
+    (131072, 262144, 262100, 0.8), (5000, 10000, 17, 0.0)],
+    ids=["empty_ring", "wraps", "large_count", "path_shape", "none"])
+def test_k13c_append_matches_plain(cuda, B, C, appended, p_sel):
+    from siddhi_tpu_torch.ops import ratelimit as rl
+    rng = np.random.default_rng(B + C)
+    src, ring = _ring_case(rng, B, C, cuda)
+    sel = torch.from_numpy(rng.random(B) < p_sel).to(cuda)
+    base = torch.tensor(appended, device=cuda)
+    want, wn = rl.ring_append_plain({k: v.clone() for k, v in ring.items()},
+                                    src, sel, base)
+    got, gn = rl.ring_append(ring, src, sel, base, counter="K13c append")
+    assert int(gn) == int(wn)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("C,lo,n,with_valid", [
+    (8192, 0, 0, True), (8192, 8000, 5000, True), (8192, 2**40 + 3, 8192,
+                                                   False),
+    (262144, 200000, 131072, True)],
+    ids=["n_zero", "wraps", "large_lo_full", "path_shape"])
+def test_k13c_gather_matches_plain(cuda, C, lo, n, with_valid):
+    from siddhi_tpu_torch.ops import ratelimit as rl
+    rng = np.random.default_rng(C + n)
+    _, ring = _ring_case(rng, 1, C, cuda)
+    rvalid = ring.pop("ok") if with_valid else None
+    args = (ring, torch.tensor(lo, device=cuda), torch.tensor(n, device=cuda),
+            rvalid)
+    wc, wv = rl.ring_gather_plain(*args)
+    gc, gv = rl.ring_gather(*args, counter="K13c gather")
+    assert torch.equal(gv, wv)
+    for k in wc:
+        assert torch.equal(gc[k], wc[k]), k
+
+
+def test_new_k7_k1_k5b_k13b_sites_match_plain(cuda):
+    """The limiter and ORDER BY sites of the ported kernels: K7 on
+    time-first bucket keys and on float64 order keys, K1's stable
+    partition, K5b's running counts (int32 and int64 with a base) and
+    K13b's last lane per group slot."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import groupby, search
+    from siddhi_tpu_torch.ops import windows_extra as wx
+    rng = np.random.default_rng(9)
+    B = 131072
+    kernels.reset_launch_counts()
+    key = torch.from_numpy(np.where(rng.random(B) < 0.5,
+                                    rng.integers(0, 50, B), 2**62)).to(cuda)
+    assert torch.equal(
+        search.stable_radix_argsort(key, counter="K7 time-first"),
+        search.stable_radix_argsort_plain(key))
+    f = torch.from_numpy(rng.choice([0.0, -0.0, np.nan, 1.5, -2.5, np.inf],
+                                    B)).to(cuda)
+    k = search.float64_sort_key(f)
+    assert torch.equal(search.stable_radix_argsort(k, counter="K7 order by"),
+                       search.stable_radix_argsort_plain(k))
+    live = torch.from_numpy(rng.random(B) < 0.3).to(cuda)
+    assert torch.equal(
+        search.stable_partition_order(live, counter="K1 order by"),
+        search.stable_partition_order_plain(live))
+    for dt, base, counter in ((torch.int32, None, "K5b limit"),
+                              (torch.int64, torch.tensor(2**40, device=cuda),
+                               "K5b ordinal")):
+        counts, total = groupby.running_count(live, counter=counter,
+                                              base=base, dtype=dt)
+        want = torch.cumsum(live.to(dt), 0) + (0 if base is None else base)
+        assert torch.equal(counts, want.to(dt))
+        assert int(total) == int(want[-1])
+    G = 1024
+    slot = torch.from_numpy(np.where(rng.random(B) < 0.9,
+                                     rng.integers(0, G + 1, B), G)
+                            .astype(np.int32)).to(cuda)
+    comp = {"x": torch.from_numpy(rng.normal(size=B)).to(cuda)}
+    old = {"x": torch.zeros(G, dtype=torch.float64, device=cuda)}
+    present = torch.zeros(G, dtype=torch.bool, device=cuda)
+    ones = torch.ones(B, dtype=torch.bool, device=cuda)
+    gc, gp = wx.frequent_last_lane(slot, comp, ones, old, present, G,
+                                   counter="K13b grouped snapshot")
+    wc, wp = wx.frequent_last_lane_plain(slot, comp, ones, old, present, G)
+    assert torch.equal(gp, wp) and torch.equal(gc["x"], wc["x"])
+    for site in ("K7 time-first", "K7 order by", "K1 order by", "K5b limit",
+                 "K5b ordinal", "K13b grouped snapshot"):
+        assert kernels.LAUNCHES[site] > 0, site
+
+
+LIMITERS_ON_CARD = {
+    "last_every_100_events": (
+        "from TradeStream select symbol, price output last every 100 events "
+        "insert into OutStream;", ("K5b ordinal",)),
+    "all_every_1_sec": (
+        "from TradeStream select symbol, price, volume output all every 1 "
+        "sec insert into OutStream;", ("K13c append", "K13c gather")),
+    "last_every_1_sec": (
+        "from TradeStream select symbol, price output last every 1 sec "
+        "insert into OutStream;", ("K13c append", "K13c gather")),
+    "all_every_7_events": (
+        "from TradeStream select symbol, volume output all every 7 events "
+        "insert into OutStream;", ("K13c append", "K13c gather")),
+    "first_every_1_sec": (
+        "from TradeStream select symbol, price output first every 1 sec "
+        "insert into OutStream;", ("K7 time-first",)),
+    "snapshot": (
+        "from TradeStream select symbol, price output snapshot every 1 sec "
+        "insert into OutStream;", ()),
+    "grouped_snapshot": (
+        "from TradeStream#window.time(3 sec) select symbol, avg(price) as ap, "
+        "count() as n group by symbol output snapshot every 1 sec insert "
+        "into OutStream;", ("K13b grouped snapshot",)),
+    "windowed_snapshot": (
+        "from TradeStream#window.length(300) select symbol, price output "
+        "snapshot every 1 sec insert into OutStream;",
+        ("K13c snapshot append", "K13c snapshot gather")),
+    "contents_snapshot": (
+        "from TradeStream#window.sort(50, price) select symbol, price output "
+        "snapshot every 1 sec insert into OutStream;", ()),
+    "order_limit": (
+        "from TradeStream#window.lengthBatch(100) select symbol, "
+        "sum(volume) as total, avg(price) as ap group by symbol order by "
+        "total desc, ap limit 10 offset 2 insert into OutStream;",
+        ("K7 order by", "K1 order by", "K5b limit")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LIMITERS_ON_CARD))
+def test_rate_limiter_apps_on_card_match_cpu(cuda, name):
+    """One app per limiter kind (and ORDER BY / LIMIT), card against CPU,
+    with heartbeats past the feed so timed rates flush."""
+    from siddhi_tpu_torch import SiddhiManager, kernels
+    query, on_path = LIMITERS_ON_CARD[name]
+    app = ("@app:playback\ndefine stream TradeStream (symbol string, price "
+           "double, volume long);\n@info(name = 'q') " + query)
+    rng = np.random.default_rng(43)
+    n, bs = 256 * 8, 256
+    ts = 1_000 + np.cumsum(rng.integers(0, 12, n))
+    cols = {"symbol": np.array([f"S{i}" for i in rng.integers(0, 20, n)],
+                               dtype=object),
+            "price": rng.integers(1, 120, n) * 0.5,
+            "volume": rng.integers(1, 30, n).astype(np.int64)}
+    outs = []
+    for dev in ("cuda", "cpu"):
+        rt = SiddhiManager(device=dev).create_siddhi_app_runtime(
+            app, batch_size=bs)
+        got = []
+        rt.add_callback("OutStream", lambda evs, g=got: g.extend(
+            (e.timestamp, e.data) for e in evs))
+        kernels.reset_launch_counts()
+        h = rt.get_input_handler("TradeStream")
+        for s in range(0, n, bs):
+            h.send_columns({k: v[s:s + bs] for k, v in cols.items()},
+                           timestamps=ts[s:s + bs])
+            rt.flush()
+        for dt in (1_000, 2_000):
+            rt.heartbeat(int(ts[-1]) + dt)
+        if dev == "cuda":
+            for k in on_path:
+                assert kernels.LAUNCHES[k] > 0, k
+        outs.append(got)
+    card, cpu = outs
+    assert len(card) == len(cpu) > 0
+    for (ta, da), (tb, db) in zip(card, cpu):
+        assert ta == tb and da[0] == db[0]
+        np.testing.assert_allclose(da[1:], db[1:], rtol=1e-5, atol=1e-3)

@@ -161,9 +161,9 @@ def test_window_steps_and_state_match_jax(kind):
 
 
 def test_cron_fire_table_answers_as_the_schedule():
-    """The next fire after any clock, and the lazy first schedule: a first
-    instant before the table stands in for any earlier one only when both
-    are at or before the clock."""
+    """The next fire after any clock, and the lazy first schedule: an
+    instant before the table's first fire gets an answer that differs from
+    the schedule's only when both are at or before the clock."""
     from siddhi_tpu.core.trigger import CronSchedule as JCron
     from siddhi_tpu_torch.core.trigger import CronSchedule
     for expr in ("*/1 * * * * ?", "0 0/5 * * * ?", "0 0 12 ? * MON-FRI"):
@@ -173,13 +173,12 @@ def test_cron_fire_table_answers_as_the_schedule():
         for now in np.sort(rng.integers(1_700_000_000_000,
                                         1_700_900_000_000, 20)):
             now = int(now)
-            fires = table.fires(now, torch.device("cpu")).tolist()
+            dev = table.table(now, torch.device("cpu"))
             assert table.next_after(now) == ref.next_fire_ms(now)
             for back in (1, 999, 60_000, 3_600_000, 10**9):
                 x = now - back
-                i = min(np.searchsorted(fires, x, side="right"),
-                        len(fires) - 1)
-                got, want = fires[i], ref.next_fire_ms(x)
+                got = int(table.first_schedule(dev, torch.tensor(x)))
+                want = ref.next_fire_ms(x)
                 assert got == want or (got <= now and want <= now)
 
 
@@ -370,3 +369,77 @@ def test_apps_match_jax_and_the_oracle(name):
             assert b.data[1] == pytest.approx(a.data[1], rel=FLOAT_RTOL,
                                               abs=FLOAT_ATOL)
     assert check(got) == sum(len(v) for v in got.values())
+
+
+# ------------------------------------------------ cron across a DST change
+
+
+@pytest.fixture
+def new_york():
+    """The process time zone set to America/New_York, restored after."""
+    import os
+    import time
+    old = os.environ.get("TZ")
+    os.environ["TZ"] = "America/New_York"
+    time.tzset()
+    yield
+    if old is None:
+        os.environ.pop("TZ", None)
+    else:
+        os.environ["TZ"] = old
+    time.tzset()
+
+
+def _cron_dst_run(pkg, **kw):
+    """cron('0 30 1 * * ?') over 6 rounds of 64 events a minute apart from
+    2026-11-01T03:00Z (the fall-back night: 01:30 local comes twice), then
+    a heartbeat an hour after the last event."""
+    app = ("@app:playback define stream S (symbol string, price double, "
+           "volume long, k int); from S#window.cron('0 30 1 * * ?') select "
+           "symbol, price insert all events into Out;")
+    rt = pkg.SiddhiManager(**kw).create_siddhi_app_runtime(app,
+                                                           batch_size=64)
+    got = []
+    rt.add_callback("Out", lambda evs: got.extend(
+        (e.timestamp, tuple(e.data), e.is_expired) for e in evs))
+    t0 = 1_793_502_000_000  # 2026-11-01T03:00Z
+    h = rt.get_input_handler("S")
+    for r in range(6):
+        i = np.arange(r * 64, (r + 1) * 64)
+        h.send_columns({"symbol": np.array([f"s{j % 7}" for j in i],
+                                           dtype=object),
+                        "price": i * 0.5, "volume": i.astype(np.int64),
+                        "k": (i % 5).astype(np.int32)},
+                       timestamps=t0 + i * 60_000)
+        rt.flush()
+    rt.heartbeat(t0 + 383 * 60_000 + 3_600_000)
+    return got
+
+
+def test_cron_repeats_the_jax_fire_after_a_fall_back_change(new_york):
+    """The reference's next fire inside the repeated hour is the hour's
+    first 01:30 (05:30Z), before its argument (06:11Z), so it fires again
+    one step later: 192 events at the 01:30 EDT fire, 256 more at the next
+    step, 448 in all. The port keeps that order of events exactly."""
+    want = _cron_dst_run(siddhi_tpu)
+    assert len(want) == 448
+    assert _cron_dst_run(siddhi_tpu_torch, device="cpu") == want
+
+
+@pytest.mark.parametrize("expr", ["0 30 1 * * ?", "0 */20 * * * ?",
+                                  "30 0 2 * * ?"])
+def test_cron_fire_table_is_exact_across_dst_changes(new_york, expr):
+    """The table's answer against `next_fire_ms` itself at instants 7 s
+    apart through both 2026 changes (March 8 and November 1), the fall-back
+    hour and the spring-forward gap included."""
+    from siddhi_tpu.core.trigger import CronSchedule as JCron
+    from siddhi_tpu_torch.core.trigger import CronSchedule
+    ref = JCron(expr)
+    for start in (1_772_935_200_000, 1_793_498_400_000):  # 02:00Z those days
+        table = twx.CronFireTable(CronSchedule(expr))
+        xs = start + np.arange(0, 6 * 3_600_000, 7_001)
+        for x in xs.tolist():
+            dev = table.table(x, torch.device("cpu"))
+            assert table.next_after(x) == ref.next_fire_ms(x), x
+            got = int(table.first_schedule(dev, torch.tensor(x - 1)))
+            assert got == ref.next_fire_ms(x - 1), x
