@@ -195,7 +195,35 @@ Phases (any failure exits non-zero and prints no result line):
    tick's boundary, each step's stable sort of its flushes' running
    values), strings, longs, timestamps and stored float32 values exact,
    means rtol 1e-5 plus atol 1e-3; each app's kernels launched and 0
-   host syncs a step for every query.
+   host syncs a step for every query;
+24. the table kernels against their plain versions on the card, bit for
+   bit: K13d's primary-key dedup of B = 16,384 lanes of string codes
+   (in-batch repeats) against C = 65,536 rows, 40,000 live, and its
+   placement of the staying lanes into the free rows (the table state
+   and both counts; once more overflowing, which must write nothing);
+   K13e's per-row any, last matching event and per-event any of an
+   [8,192 x 65,536] mask (app AD's shape); and the new sites of the
+   ported kernels: K1 on the table's free rows, K7 on its index keys,
+   K13b's last lane per group of an on-demand aggregate; with the same
+   timings (the library calls: the [B, C] and [B, B] equality masks with
+   `any` for the dedup, `index_put_` of the rows with the slots given
+   for the placement, `any` / `argmax` over the flipped mask / `any` for
+   K13e, `torch.sort`, `scatter_reduce_(amax)`);
+25. apps AC (reference-data enrichment: 50,000 symbols fed into an
+   @PrimaryKey / @Index table in 4 batches of 16,384 lanes, 15,536 of
+   them repeats, then 8 rounds of 131,072 trades over 60,000 symbols
+   filtered by `in SymbolTable` and joined with the table, then two
+   on-demand finds) and AD (an account ledger: 8 rounds of 8 `update or
+   insert` batches of 8,192 transactions over 60,000 ids and a 1,024-id
+   `delete` batch into C = 65,536 rows, after each round an on-demand
+   grouped sum and an on-demand delete), every event, table row and
+   found row against independent numpy oracles of the JAX semantics
+   (first primary key wins, the last matching event updates a row with
+   SET against the row as it was, two new events of one key insert
+   once), strings, longs and stored float32 values exact, on-demand sums
+   within 1e-5 of the sum of magnitudes; each app's kernels launched;
+   one host read a table insert (its overflow and dropped counts) and
+   none elsewhere in a step.
 
 Every app's Event callback reads back through K12a (its launch counter
 must be non-zero in every app). Apps A, C, D, G, H and N also run the
@@ -415,6 +443,8 @@ K13B_SRC = "siddhi_tpu_torch/csrc/k13b_frequent.cu"
 K13C_SRC = "siddhi_tpu_torch/csrc/k13c_limiter_ring.cu"
 RATELIMIT = "siddhi_tpu/ops/ratelimit.py"
 SELECTOR = "siddhi_tpu/ops/selector.py"
+TABLE = "siddhi_tpu/core/table.py"
+K13D_SRC = "siddhi_tpu_torch/csrc/k13d_table_insert.cu"
 #: window parameter of apps J-M: ms for the time windows, events for L
 AGG_SIZES = {"J": TIME_WINDOW_MS, "K": TIME_WINDOW_MS, "L": LENGTH_D,
              "M": 1_000}
@@ -494,6 +524,19 @@ KERNELS = {
     "K5b ordinal": ("EventOrdinalLimiter.step ordinal scan", K5_SRC,
                     f"{RATELIMIT}:75"),
     "K5b limit": ("_limit_chunk rank scan", K5_SRC, f"{SELECTOR}:558"),
+    "K13d dedup": ("InMemoryTable._make_insert primary-key dedup",
+                   K13D_SRC, f"{TABLE}:177"),
+    "K13d place": ("InMemoryTable._make_insert placement", K13D_SRC,
+                   f"{TABLE}:191"),
+    "K13e": ("TableOutputExecutor._make last match (and contains_probe)",
+             "siddhi_tpu_torch/csrc/k13e_last_match.cu", f"{TABLE}:361"),
+    "K1 table free": ("_make_insert free-row order",
+                      "siddhi_tpu_torch/csrc/k1_partition.cu",
+                      f"{TABLE}:193"),
+    "K7 table index": ("InMemoryTable.probe_indexes sort", K7_SRC,
+                       f"{TABLE}:150"),
+    "K13b final per group": ("emit_final_per_group last lane per group",
+                             K13B_SRC, f"{SELECTOR}:510"),
 }
 
 
@@ -5025,6 +5068,633 @@ def limiter_apps(torch, rng, card: str, rounds: int = ROUNDS,
     return total
 
 
+# --------------------------------------------------------------------------- #
+# phases 24-25: in-memory tables, table outputs, on-demand queries
+# --------------------------------------------------------------------------- #
+
+TABLE_C = 1 << 16  # config.default_table_capacity: both apps' tables
+AC_SYMBOLS = 50_000  # symbols fed into app AC's table
+AC_POOL = 60_000  # symbols the trades draw from: a sixth unknown
+AC_FEED_BATCH = 16_384
+AC_FEED_ROUNDS = 4
+AC_SECTORS = 100
+AD_IDS = 60_000
+AD_BATCH = 8_192
+AD_TXN_BATCHES = 8  # Txn batches a round
+AD_CLOSE = 1_024  # ids a round's Close batch deletes
+AD_KINDS = 10
+AD_FLOOR = -5000.0  # the on-demand delete's balance bound
+
+APP_AC = """@app:playback
+define stream SymbolFeed (symbol string, sector int, weight double);
+define stream TradeStream (symbol string, price double, volume long);
+@PrimaryKey('symbol')
+@Index('sector')
+define table SymbolTable (symbol string, sector int, weight double);
+from SymbolFeed insert into SymbolTable;
+@info(name = 'known')
+from TradeStream[TradeStream.symbol == SymbolTable.symbol in SymbolTable]
+  select symbol, price, volume insert into KnownTrades;
+@info(name = 'enrich')
+from TradeStream as t join SymbolTable as s on t.symbol == s.symbol
+  select t.symbol, s.sector, t.price * s.weight as wprice insert into Enriched;
+"""
+AC_QUERIES = ("from SymbolTable select sector, count() as n, avg(weight) as w "
+              "group by sector",
+              "from SymbolTable on sector == 7 select symbol, weight")
+
+APP_AD = """@app:playback
+define stream Txn (id long, amount double, kind int);
+define stream Close (id long);
+@PrimaryKey('id')
+define table Account (id long, balance double, kind int);
+@info(name = 'txn')
+from Txn select id, amount as balance, kind
+  update or insert into Account set Account.balance = Account.balance + balance, Account.kind = kind
+  on Account.id == id;
+@info(name = 'close')
+from Close delete Account on Account.id == id;
+"""
+AD_QUERIES = ("from Account select kind, sum(balance) as total, count() as n "
+              "group by kind",
+              f"delete Account on Account.balance < {AD_FLOOR}")
+
+
+def table_kernel_phase(torch, rng, B: int = AC_FEED_BATCH, C: int = TABLE_C,
+                       B_mask: int = AD_BATCH) -> dict:
+    """K13d, K13e and the table sites of K1, K7 and K13b against their
+    plain versions on the card, bit for bit, at apps AC's and AD's
+    shapes, with the same timings."""
+    from siddhi_tpu_torch.core import table as tb
+    from siddhi_tpu_torch.core.table import TableState
+    from siddhi_tpu_torch.ops import search
+    from siddhi_tpu_torch.ops import windows_extra as wx
+
+    dev = torch.device("cuda")
+    res = {}
+    n_live = min(40_000, C * 5 // 8)
+    live = np.zeros(C, bool)
+    live[rng.choice(C, n_live, replace=False)] = True
+    codes = rng.permutation(4 * C).astype(np.int32)[:C]  # distinct keys
+
+    def state_of():
+        return TableState(
+            {"symbol": torch.from_numpy(codes).to(dev),
+             "sector": torch.from_numpy(rng.integers(0, AC_SECTORS, C)
+                                        .astype(np.int32)).to(dev),
+             "weight": torch.from_numpy(rng.random(C).astype(np.float32))
+             .to(dev)},
+            torch.arange(C, dtype=torch.int64, device=dev),
+            torch.from_numpy(live).to(dev))
+
+    state = state_of()
+    # the feed: a fifth repeats a live row's key, a fifth a key earlier in
+    # the batch
+    bkey = rng.integers(0, 4 * C, B).astype(np.int32)
+    pick = rng.random(B)
+    bkey = np.where(pick < 0.2, rng.choice(codes[live], B), bkey)
+    earlier = np.maximum(np.arange(B) - rng.integers(1, 50, B), 0)
+    bkey = np.where(pick > 0.8, bkey[earlier], bkey)
+    bcols = {"symbol": torch.from_numpy(bkey).to(dev),
+             "sector": torch.from_numpy(rng.integers(0, AC_SECTORS, B)
+                                        .astype(np.int32)).to(dev),
+             "weight": torch.from_numpy(rng.random(B).astype(np.float32))
+             .to(dev)}
+    bts = torch.arange(B, dtype=torch.int64, device=dev) + 10**12
+    bvalid = torch.from_numpy(rng.random(B) < 0.98).to(dev)
+    lane, row = [bcols["symbol"]], [state.cols["symbol"]]
+
+    # (a) the dedup
+    drop = tb.pk_duplicates(lane, row, bvalid, state.valid)
+    check_equal("K13d dedup", drop,
+                tb.pk_duplicates_plain(lane, row, bvalid, state.valid))
+
+    def masks():
+        a, r = lane[0], row[0]
+        eq = (a[:, None] == r[None, :]) & state.valid[None, :]
+        eq_b = (a[:, None] == a[None, :]) & torch.tril(
+            torch.ones((B, B), dtype=torch.bool, device=dev), -1)
+        return eq.any(1) | (eq_b & bvalid[None, :]).any(1)
+
+    res["K13d dedup"] = dict(
+        _timed(torch, lambda: tb.pk_duplicates(lane, row, bvalid,
+                                               state.valid),
+               lambda: tb.pk_duplicates_plain(lane, row, bvalid,
+                                              state.valid),
+               library=masks),
+        # the keys and valid flags read once, the drop flags written
+        bound_ms=bound_ms(5 * B + 5 * C + B), max_abs_err=0,
+        bound_by="bytes")
+    print(f"K13d dedup B={B} against C={C} ({n_live} live, "
+          f"{int(drop.sum())} dropped): {res['K13d dedup']}")
+
+    # (b) the placement, then once more overflowing
+    free = search.stable_partition_order(~state.valid,
+                                         counter="K1 table free")
+    check_equal("K1 table free", free,
+                search.stable_partition_order_plain(~state.valid))
+
+    def fresh():
+        return TableState({k: v.clone() for k, v in state.cols.items()},
+                          state.ts.clone(), state.valid.clone())
+
+    want, wcounts = tb.place_rows_plain(state, bcols, bts, bvalid, drop,
+                                        free)
+    got, gcounts = tb.place_rows(fresh(), bcols, bts, bvalid, drop, free)
+    check_equal("K13d place counts", gcounts, wcounts)
+    for k in want.cols:
+        check_equal(f"K13d place {k}", got.cols[k], want.cols[k])
+    check_equal("K13d place ts", got.ts, want.ts)
+    check_equal("K13d place valid", got.valid, want.valid)
+    full = torch.ones(C, dtype=torch.bool, device=dev)
+    full[:B // 4] = False  # fewer free rows than staying lanes
+    over = TableState(dict(state.cols), state.ts, full)
+    ofree = search.stable_partition_order_plain(~full)
+    copy = TableState({k: v.clone() for k, v in state.cols.items()},
+                      state.ts.clone(), full.clone())
+    _, ocounts = tb.place_rows(copy, bcols, bts, bvalid, drop, ofree)
+    _, wo = tb.place_rows_plain(over, bcols, bts, bvalid, drop, ofree)
+    check_equal("K13d place overflow counts", ocounts, wo)
+    if int(ocounts[0]) == 0:
+        raise Failure("K13d place: the overflow case did not overflow")
+    for k in state.cols:
+        check_equal(f"K13d place overflow {k}", copy.cols[k], state.cols[k])
+    check_equal("K13d place overflow valid", copy.valid, full)
+    n_ins = int((bvalid & ~drop).sum())
+    slots = free[:n_ins].long()
+    src = [bcols[k][:n_ins] for k in state.cols]
+    work = fresh()
+
+    def reset():  # untimed: the placement writes the table in place
+        for k, v in state.cols.items():
+            work.cols[k].copy_(v)
+        work.ts.copy_(state.ts)
+        work.valid.copy_(state.valid)
+
+    res["K13d place"] = dict(
+        _timed(torch,
+               lambda: tb.place_rows(work, bcols, bts, bvalid, drop, free),
+               lambda: tb.place_rows_plain(state, bcols, bts, bvalid, drop,
+                                           free),
+               library=lambda: [d.index_put_((slots,), s_) for d, s_ in
+                                zip(work.cols.values(), src)],
+               reset=reset),
+        # the flags, the staying rows read and written, their free slots
+        bound_ms=bound_ms(2 * B + C + n_ins * (4 + 2 * (4 + 4 + 4 + 8) + 1)),
+        max_abs_err=0, bound_by="bytes")
+    print(f"K13d place {n_ins} lanes into C={C}: {res['K13d place']}")
+    res["K1 table free"] = dict(
+        _timed(torch,
+               lambda: search.stable_partition_order(
+                   ~state.valid, counter="K1 table free"),
+               lambda: search.stable_partition_order_plain(~state.valid),
+               library=lambda: torch.sort(state.valid.to(torch.int32),
+                                          stable=True)),
+        bound_ms=bound_ms(C + 4 * C), max_abs_err=0, bound_by="bytes")
+    print(f"K1 table free C={C}: {res['K1 table free']}")
+
+    # (c) K13e at app AD's [B, C]: each event matches at most one row
+    ids = rng.permutation(C).astype(np.int64)
+    ev = torch.from_numpy(rng.integers(0, C + C // 2, B_mask)).to(dev)
+    rows = torch.from_numpy(ids).to(dev)
+    mask = (ev[:, None] == rows[None, :]) & state.valid[None, :]
+    got = tb.last_match(mask)
+    for name, g, w in zip(("has", "b_star", "ev_matched"), got,
+                          tb.last_match_plain(mask)):
+        check_equal(f"K13e {name}", g, w)
+
+    def library13e():
+        return (mask.any(0), torch.argmax(mask.flip(0).to(torch.uint8), 0),
+                mask.any(1))
+
+    res["K13e"] = dict(
+        _timed(torch, lambda: tb.last_match(mask),
+               lambda: tb.last_match_plain(mask), library=library13e),
+        bound_ms=bound_ms(B_mask * C + 5 * C + B_mask), max_abs_err=0,
+        bound_by="bytes")
+    print(f"K13e [{B_mask} x {C}] ({int(got[0].sum())} rows matched): "
+          f"{res['K13e']}")
+    del mask
+
+    # (d) K7 on the index keys: the sector column, invalid rows at max
+    sector = torch.where(state.valid, state.cols["sector"],
+                         torch.iinfo(torch.int32).max)
+    check_equal("K7 table index", tb.sorted_index(sector),
+                torch.sort(sector).values)
+    k64 = sector.to(torch.int64)
+    res["K7 table index"] = dict(
+        _timed(torch, lambda: tb.sorted_index(sector),
+               lambda: search.stable_radix_argsort_plain(k64),
+               library=lambda: torch.sort(sector)),
+        bound_ms=bound_ms(4 * C + 4 * C), max_abs_err=0, bound_by="bytes")
+    print(f"K7 table index C={C}: {res['K7 table index']}")
+
+    # (e) K13b: the last lane of each group slot of an on-demand chunk
+    K = GROUP_CAP
+    slot = torch.from_numpy(np.where(live, rng.integers(0, AC_SECTORS, C),
+                                     K).astype(np.int32)).to(dev)
+    check_equal("K13b final per group",
+                wx.last_lane_per_slot(slot, K,
+                                      counter="K13b final per group"),
+                wx.last_lane_per_slot_plain(slot, K))
+
+    def library13b():
+        last = torch.full((K + 1,), -1, dtype=torch.int32, device=dev)
+        return last.scatter_reduce_(0, slot.long(), torch.arange(
+            C, dtype=torch.int32, device=dev), reduce="amax")
+
+    res["K13b final per group"] = dict(
+        _timed(torch,
+               lambda: wx.last_lane_per_slot(
+                   slot, K, counter="K13b final per group"),
+               lambda: wx.last_lane_per_slot_plain(slot, K),
+               library=library13b),
+        # the slots read, the K + 1 last lanes written
+        bound_ms=bound_ms(4 * C + 4 * (K + 1)), max_abs_err=0,
+        bound_by="bytes")
+    print(f"K13b final per group C={C} into K={K}: "
+          f"{res['K13b final per group']}")
+    torch.cuda.synchronize()
+    return res
+
+
+def ac_events(rng, n_symbols: int = AC_SYMBOLS, pool: int = AC_POOL,
+              feed_batch: int = AC_FEED_BATCH,
+              feed_rounds: int = AC_FEED_ROUNDS, rounds: int = ROUNDS,
+              batch: int = BATCH):
+    """App AC's feed (every symbol once, then repeats, shuffled) and
+    trades over a pool a sixth larger."""
+    L = feed_rounds * feed_batch
+    feed = rng.permutation(np.concatenate([
+        np.arange(n_symbols), rng.integers(0, n_symbols, L - n_symbols)]))
+    sector = rng.integers(0, AC_SECTORS, L).astype(np.int32)
+    weight = rng.uniform(0.5, 2.0, L)
+    n = rounds * batch
+    sym = rng.integers(0, pool, n)
+    price = rng.uniform(1.0, 100.0, n)
+    volume = rng.integers(1, 1000, n).astype(np.int64)
+    t0 = 1_700_000_000_000
+    feed_ts = t0 + np.arange(L, dtype=np.int64)
+    ts = t0 + L + np.arange(n, dtype=np.int64)
+    names = np.array([f"S{i}" for i in range(pool)], dtype=object)
+    return names, (feed, sector, weight, feed_ts), (sym, price, volume, ts)
+
+
+def oracle_ac(feed, sector, weight, sym, price):
+    """The table (slots in first-occurrence order) and app AC's outputs:
+    KnownTrades lanes, each known trade's (sector, price x weight), the
+    per-sector (last slot, count, mean weight) and sector 7's slots."""
+    _, first = np.unique(feed, return_index=True)
+    order = np.sort(first)
+    t_sym = feed[order]
+    t_sector = sector[order]
+    t_weight = weight[order].astype(np.float32)
+    slot_of = np.full(max(int(sym.max()), int(feed.max())) + 1, -1)
+    slot_of[t_sym] = np.arange(t_sym.shape[0])
+    known = slot_of[sym] >= 0
+    s = slot_of[sym[known]]
+    wprice = price[known].astype(np.float32) * t_weight[s]
+    groups = []
+    for sec in np.unique(t_sector):
+        idx = np.nonzero(t_sector == sec)[0]
+        groups.append((int(idx[-1]), int(sec), idx.size,
+                       float(t_weight[idx].astype(np.float64).mean())))
+    groups.sort()
+    return (t_sym, t_sector, t_weight, known, t_sector[s], wprice, groups,
+            np.nonzero(t_sector == 7)[0])
+
+
+def _batches(rt, stream: str, columns: dict, ts, batch: int) -> list:
+    from siddhi_tpu_torch.core.event import EventBatch
+    j = rt.junctions[stream]
+    out = []
+    for s in range(0, ts.shape[0], batch):
+        n = min(batch, ts.shape[0] - s)
+        cols = j.codec.encode_columns(
+            {k: v[s:s + n] for k, v in columns.items()}, n)
+        out.append((EventBatch.from_numpy(ts[s:s + n], cols, n,
+                                          j.ctx.device),
+                    int(ts[s + n - 1])))
+    return out
+
+
+def timed_steps(torch, fn, items, expect_syncs: int, what: str):
+    """(mean ms of fn(item) over `items`, the card synchronised around the
+    whole run; the first call's host syncs, which must number
+    `expect_syncs`)."""
+    torch.cuda.synchronize()
+    _, syncs = call_watching_syncs(torch, lambda: fn(items[0]))
+    if len(syncs) != expect_syncs:
+        raise Failure(f"{what}: {len(syncs)} host syncs in a step, "
+                      f"{expect_syncs} expected: {syncs}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for it in items:
+        fn(it)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / len(items) * 1e3, syncs
+
+
+def check_ac(rt, got, names, feed_cols, trade_cols) -> int:
+    feed, sector, weight, _ = feed_cols
+    sym, price, volume, ts = trade_cols
+    (t_sym, t_sector, t_weight, known, k_sector, wprice, groups,
+     sec7) = oracle_ac(feed, sector, weight, sym, price)
+    tbl = rt.tables["SymbolTable"]
+    rows = tbl.all_rows()
+    want_rows = list(zip(names[t_sym], t_sector.tolist(),
+                         t_weight.tolist()))
+    if rows != want_rows:
+        raise Failure("app AC: the table's rows differ from the oracle's")
+    if tbl.dropped_duplicates != feed.shape[0] - t_sym.shape[0]:
+        raise Failure(f"app AC: {tbl.dropped_duplicates} duplicates "
+                      f"dropped, {feed.shape[0] - t_sym.shape[0]} expected")
+    kt, en = got["KnownTrades"], got["Enriched"]
+    idx = np.nonzero(known)[0]
+    if len(kt) != idx.size or len(en) != idx.size:
+        raise Failure(f"app AC: {len(kt)} known trades and {len(en)} "
+                      f"enriched, {idx.size} expected")
+    p32 = price.astype(np.float32)
+    for j, i in enumerate(idx):
+        e, f = kt[j], en[j]
+        if (e.timestamp != ts[i] or e.data[0] != names[sym[i]]
+                or e.data[1] != float(p32[i]) or e.data[2] != volume[i]):
+            raise Failure(f"app AC: known trade {j} is {e}, lane {i}")
+        if (f.timestamp != ts[i] or f.data[0] != names[sym[i]]
+                or f.data[1] != k_sector[j]
+                or not np.isclose(f.data[2], wprice[j], rtol=RTOL, atol=0)):
+            raise Failure(f"app AC: enriched event {j} is {f}, expected "
+                          f"({names[sym[i]]}, {k_sector[j]}, {wprice[j]})")
+    found = [e.data for e in rt.query(AC_QUERIES[0])]
+    if len(found) != len(groups):
+        raise Failure(f"app AC: {len(found)} sectors found, {len(groups)}")
+    for d, (_, sec, n, w) in zip(found, groups):
+        if d[0] != sec or d[1] != n or not np.isclose(d[2], w, rtol=RTOL):
+            raise Failure(f"app AC: sector row {d}, expected {(sec, n, w)}")
+    found = [e.data for e in rt.query(AC_QUERIES[1])]
+    if found != list(zip(names[t_sym[sec7]], t_weight[sec7].tolist())):
+        raise Failure("app AC: the sector 7 rows differ from the oracle's")
+    return len(kt) + len(en)
+
+
+def run_ac(torch, rng, card: str, rounds: int = ROUNDS,
+           batch: int = BATCH, **sizes) -> dict:
+    from siddhi_tpu_torch import SiddhiManager, kernels
+    names, feed_cols, trade_cols = ac_events(rng, rounds=rounds,
+                                             batch=batch, **sizes)
+    feed, sector, weight, feed_ts = feed_cols
+    sym, price, volume, ts = trade_cols
+    fb = sizes.get("feed_batch", AC_FEED_BATCH)
+    feed_columns = {"symbol": names[feed], "sector": sector,
+                    "weight": weight}
+    trade_columns = {"symbol": names[sym], "price": price,
+                     "volume": volume}
+    rt = SiddhiManager().create_siddhi_app_runtime(
+        APP_AC, batch_size=batch, group_capacity=GROUP_CAP)
+    got = {"KnownTrades": [], "Enriched": []}
+    for o in got:
+        rt.add_callback(o, got[o].extend)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    hf = rt.get_input_handler("SymbolFeed")
+    for s in range(0, feed.shape[0], fb):
+        hf.send_columns({k: v[s:s + fb] for k, v in feed_columns.items()},
+                        timestamps=feed_ts[s:s + fb])
+        rt.flush()
+    ht = rt.get_input_handler("TradeStream")
+    for r in range(rounds):
+        s = slice(r * batch, (r + 1) * batch)
+        ht.send_columns({k: v[s] for k, v in trade_columns.items()},
+                        timestamps=ts[s])
+        rt.flush()
+    for q in AC_QUERIES:
+        rt.query(q)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_out = check_ac(rt, got, names, feed_cols, trade_cols)
+    del got
+    for k in ("K13d dedup", "K13d place", "K1 table free", "K7 table index",
+              "K13b final per group", "K3b", "K12a"):
+        if launches[k] == 0:
+            raise Failure(f"app AC: kernel {k} never launched")
+    # each step alone: the inserts into a cleared table (one host read
+    # each), the `in` filter and the join (none)
+    tbl = rt.tables["SymbolTable"]
+    tbl.clear()
+    fbat = _batches(rt, "SymbolFeed", feed_columns, feed_ts, fb)
+    step, reads = {}, {}
+    step["insert"], reads["insert"] = timed_steps(
+        torch, lambda b: tbl.insert_batch(b[0]), fbat, 1, "app AC insert")
+    tbat = _batches(rt, "TradeStream", trade_columns, ts, batch)
+    known, jr = rt.query_runtimes["known"], rt.query_runtimes["enrich"]
+
+    def known_step(b):
+        known.state, _ = known.step(known.state, b[0], b[1])
+
+    def join_step(b):
+        jr.state, _, _ = jr._step_left(jr.state, b[0], b[1])
+
+    step["known"], _ = timed_steps(torch, known_step, tbat, 0,
+                                   "app AC known")
+    step["enrich"], _ = timed_steps(torch, join_step, tbat, 0,
+                                    "app AC enrich")
+    n_in = feed.shape[0] + ts.shape[0]
+    report_app("AC", n_in, n_out, elapsed, sum(step.values()), peak,
+               launches, reads["insert"], card, rounds=rounds, batch=batch)
+    print(f"app AC: steps alone, ms a batch: {step}; host reads a step: "
+          "insert 1 (overflow and dropped, one copy), known 0, enrich 0")
+    return launches
+
+
+def ad_events(rng, rounds: int = ROUNDS, batch: int = AD_BATCH,
+              n_ids: int = AD_IDS, txn_batches: int = AD_TXN_BATCHES,
+              n_close: int = AD_CLOSE):
+    n = rounds * txn_batches * batch
+    ids = rng.integers(0, n_ids, n).astype(np.int64)
+    amount = rng.uniform(-1500.0, 1000.0, n)
+    kind = rng.integers(0, AD_KINDS, n).astype(np.int32)
+    close = rng.integers(0, n_ids, rounds * n_close).astype(np.int64)
+    return ids, amount, kind, close
+
+
+class AccountOracle:
+    """A numpy model of app AD's table under the JAX semantics."""
+
+    def __init__(self, C: int, n_ids: int):
+        self.id = np.zeros(C, np.int64)
+        self.balance = np.zeros(C, np.float32)
+        self.kind = np.zeros(C, np.int32)
+        self.ts = np.zeros(C, np.int64)
+        self.valid = np.zeros(C, bool)
+        self.slot_of = np.full(n_ids, -1)
+
+    def update_or_insert(self, ids, amount32, kind, ts):
+        s = self.slot_of[ids]
+        hit = np.nonzero(s >= 0)[0]
+        # the last matching event of each row, against the old row
+        rev = hit[::-1]
+        _, first = np.unique(s[rev], return_index=True)
+        last = rev[first]
+        rows = s[last]
+        self.balance[rows] = self.balance[rows] + amount32[last]
+        self.kind[rows] = kind[last]
+        # unmatched events: the first of each id inserts, into free rows
+        miss = np.nonzero(s < 0)[0]
+        _, first = np.unique(ids[miss], return_index=True)
+        new = miss[np.sort(first)]
+        free = np.nonzero(~self.valid)[0][:new.size]
+        if free.size < new.size:
+            raise Failure("app AD's oracle: the table overflowed")
+        self.id[free] = ids[new]
+        self.balance[free] = amount32[new]
+        self.kind[free] = kind[new]
+        self.ts[free] = ts[new]
+        self.valid[free] = True
+        self.slot_of[ids[new]] = free
+
+    def delete(self, rows):
+        rows = rows[self.valid[rows]]
+        self.valid[rows] = False
+        self.slot_of[self.id[rows]] = -1
+
+    def rows(self):
+        v = np.nonzero(self.valid)[0]
+        return list(zip(self.id[v].tolist(), self.balance[v].tolist(),
+                        self.kind[v].tolist()))
+
+    def by_kind(self):
+        """Each kind's (last row, ts of that row, sum, sum of magnitudes,
+        count), in the order of the last rows."""
+        v = np.nonzero(self.valid)[0]
+        out = []
+        for k in np.unique(self.kind[v]):
+            idx = v[self.kind[v] == k]
+            b = self.balance[idx].astype(np.float64)
+            out.append((int(idx[-1]), int(self.ts[idx[-1]]), int(k),
+                        float(b.sum()), float(np.abs(b).sum()), idx.size))
+        out.sort()
+        return out
+
+
+def run_ad(torch, rng, card: str, rounds: int = ROUNDS,
+           batch: int = AD_BATCH, C: int = TABLE_C, **sizes) -> dict:
+    from siddhi_tpu_torch import SiddhiManager, kernels
+    n_ids = sizes.get("n_ids", AD_IDS)
+    txn_batches = sizes.get("txn_batches", AD_TXN_BATCHES)
+    n_close = sizes.get("n_close", AD_CLOSE)
+    ids, amount, kind, close = ad_events(rng, rounds, batch, n_ids,
+                                         txn_batches, n_close)
+    t0_ms = 1_700_000_000_000
+    per_round = txn_batches * batch + n_close
+    rt = SiddhiManager().create_siddhi_app_runtime(
+        APP_AD, batch_size=batch, group_capacity=GROUP_CAP)
+    oracle = AccountOracle(C, n_ids)
+    a32 = amount.astype(np.float32)
+    found_rounds = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ht, hc = rt.get_input_handler("Txn"), rt.get_input_handler("Close")
+    host_s = 0.0
+    for r in range(rounds):
+        base = t0_ms + r * per_round
+        for k in range(txn_batches):
+            s = slice((r * txn_batches + k) * batch,
+                      (r * txn_batches + k + 1) * batch)
+            ts = base + k * batch + np.arange(batch, dtype=np.int64)
+            ht.send_columns({"id": ids[s], "amount": amount[s],
+                             "kind": kind[s]}, timestamps=ts)
+            rt.flush()
+            h0 = time.perf_counter()
+            oracle.update_or_insert(ids[s], a32[s], kind[s], ts)
+            host_s += time.perf_counter() - h0
+        cs = slice(r * n_close, (r + 1) * n_close)
+        hc.send_columns({"id": close[cs]}, timestamps=np.full(
+            n_close, base + txn_batches * batch, np.int64))
+        rt.flush()
+        found = rt.query(AD_QUERIES[0])
+        rt.query(AD_QUERIES[1])
+        h0 = time.perf_counter()
+        oracle.delete(oracle.slot_of[close[cs]][
+            oracle.slot_of[close[cs]] >= 0])
+        found_rounds.append(([(e.timestamp, e.data) for e in found],
+                             oracle.by_kind()))
+        low = np.nonzero(oracle.valid & (oracle.balance
+                                         < np.float32(AD_FLOOR)))[0]
+        oracle.delete(low)
+        host_s += time.perf_counter() - h0
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0 - host_s  # the oracle's time out
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    rows = rt.tables["Account"].all_rows()
+    if rows != oracle.rows():
+        raise Failure("app AD: the table's rows differ from the oracle's")
+    n_out = 0
+    for r, (found, want) in enumerate(found_rounds):
+        if len(found) != len(want):
+            raise Failure(f"app AD round {r}: {len(found)} kinds found, "
+                          f"{len(want)} expected")
+        for (ts, d), (_, wts, k, total, mag, n) in zip(found, want):
+            if ts != wts or d[0] != k or d[2] != n or \
+                    abs(d[1] - total) > RTOL * mag + 1e-3:
+                raise Failure(f"app AD round {r}: found {(ts, d)}, "
+                              f"expected {(wts, k, total, n)}")
+        n_out += len(found)
+    for k in ("K13e", "K13d dedup", "K13d place", "K1 table free",
+              "K13b final per group", "K12a"):
+        if launches[k] == 0:
+            raise Failure(f"app AD: kernel {k} never launched")
+    # each step alone on a cleared table: an update-or-insert batch (one
+    # host read, its insert's) and a delete batch (none)
+    tbl = rt.tables["Account"]
+    tbl.clear()
+    txn, cls = rt.query_runtimes["txn"], rt.query_runtimes["close"]
+    n_txn = rounds * txn_batches * batch
+    tb = _batches(rt, "Txn", {"id": ids, "amount": amount, "kind": kind},
+                  t0_ms + np.arange(n_txn, dtype=np.int64), batch)
+    cb = _batches(rt, "Close", {"id": close},
+                  t0_ms + n_txn + np.arange(close.shape[0], dtype=np.int64),
+                  n_close)
+    step = {}
+    step["update or insert"], reads = timed_steps(
+        torch, lambda b: txn.on_batch(*b), tb, 1, "app AD txn")
+    step["delete"], _ = timed_steps(torch, lambda b: cls.on_batch(*b), cb, 0,
+                                    "app AD close")
+    q0 = time.perf_counter()
+    for q in AD_QUERIES:
+        rt.query(q)
+    torch.cuda.synchronize()
+    step["on-demand pair"] = (time.perf_counter() - q0) * 1e3
+    n_in = n_txn + close.shape[0]
+    report_app("AD", n_in, n_out, elapsed, step["update or insert"]
+               * txn_batches + step["delete"], peak, launches, reads, card,
+               rounds=rounds, batch=per_round)
+    print(f"app AD: steps alone, ms a batch: {step}; host reads a step: "
+          "update or insert 1 (its insert's overflow and dropped, one "
+          f"copy), delete 0; {len(rows)} rows at the end")
+    return launches
+
+
+def table_apps(torch, rng, card: str, rounds: int = ROUNDS,
+               batch: int = BATCH, ad_batch: int = AD_BATCH,
+               ac_sizes=None, ad_sizes=None) -> dict:
+    """Apps AC and AD; returns their launches."""
+    total = {}
+    for launches in (run_ac(torch, rng, card, rounds, batch,
+                            **(ac_sizes or {})),
+                     run_ad(torch, rng, card, rounds, ad_batch,
+                            **(ad_sizes or {}))):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5148,6 +5818,10 @@ def main(argv=None) -> int:
 
         kres.update(limiter_kernel_phase(torch, rng))
         for k, v in limiter_apps(torch, rng, card).items():
+            launches[k] += v
+
+        kres.update(table_kernel_phase(torch, rng))
+        for k, v in table_apps(torch, rng, card).items():
             launches[k] += v
         print(json.dumps({"columnar": summary}))
 

@@ -1,10 +1,12 @@
 """SiddhiAppRuntime (counterpart of siddhi_tpu/core/app_runtime.py, reduced
-to streams, named windows, single-input queries, stream-stream joins,
-patterns and sequences, heartbeats, Event and columnar callbacks with
-optional asynchronous delivery, and the capacity-overflow sweep). Lint,
-admission control, sharding, supersteps, persistence, tables, triggers,
-aggregations, partitions, on-demand queries and joins against a named
-window are not yet ported; an app that declares them is refused."""
+to streams, named windows, in-memory tables, single-input queries, joins
+of streams, tables and named windows, patterns and sequences, table
+outputs (insert, delete, update, update or insert), on-demand queries,
+heartbeats, Event and columnar callbacks with optional asynchronous
+delivery, and the capacity-overflow sweep). Lint, admission control,
+sharding, supersteps, persistence, record tables (@store), triggers,
+aggregations, partitions and fault streams are not yet ported; an app
+that declares them is refused."""
 
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from .. import compiler
 from ..errors import DefinitionNotExistError, SiddhiAppCreationError
 from ..extension.registry import Registry
 from ..ops.aggregators import HLLState
@@ -23,6 +26,8 @@ from ..ops.windows_extra import KeyedSessionState
 from ..query_api import SiddhiApp
 from ..query_api.execution import (JoinInputStream, OutputAction, Query,
                                    StateInputStream)
+from .ondemand import OnDemandCrudRuntime, OnDemandQueryRuntime
+from .table import InMemoryTable, TableJunctionAdapter, TableOutputExecutor
 from .context import (
     SiddhiAppContext,
     TimestampGenerator,
@@ -49,8 +54,7 @@ class SiddhiAppRuntime:
                  device: torch.device, batch_size: int = 0,
                  group_capacity: int = 0,
                  async_callbacks: bool = False) -> None:
-        for what, defs in (("table", app.table_definitions),
-                           ("trigger", app.trigger_definitions),
+        for what, defs in (("trigger", app.trigger_definitions),
                            ("aggregation", app.aggregation_definitions),
                            ("function", app.function_definitions),
                            ("partition", app.partitions)):
@@ -79,29 +83,38 @@ class SiddhiAppRuntime:
         self.input_handlers: dict[str, InputHandler] = {}
         for sd in app.stream_definitions.values():
             self.junctions[sd.id] = StreamJunction(sd, self.ctx)
+        self.tables: dict[str, InMemoryTable] = {}
+        for td in app.table_definitions.values():
+            if td.annotations and (td.annotation("store")
+                                   or td.annotation("Store")):
+                raise SiddhiAppCreationError(
+                    "record tables (@store) are not yet ported to "
+                    "siddhi_tpu_torch")
+            self.tables[td.id] = InMemoryTable(td, self.ctx)
         self.windows: dict[str, NamedWindow] = {
             wd.id: NamedWindow(wd, self.ctx, registry)
             for wd in app.window_definitions.values()}
+        self._ondemand_cache: dict = {}
         for i, query in enumerate(app.queries):
             self._add_query(query, f"query{i + 1}")
 
     def _add_query(self, query: Query, default_name: str) -> None:
         name = query.name or default_name
         if isinstance(query.input_stream, JoinInputStream):
-            for side in (query.input_stream.left, query.input_stream.right):
-                if side.stream_id in self.windows:
-                    raise SiddhiAppCreationError(
-                        f"join against the named window {side.stream_id!r} "
-                        "is not yet ported to siddhi_tpu_torch")
             qr = JoinQueryRuntime(query, self.ctx, self.junctions,
-                                  self.ctx.registry, name)
+                                  self.ctx.registry, name,
+                                  tables=self.tables, windows=self.windows)
             # left first: with both sides on one stream, the left direction
-            # probes before the right one, as in the JAX package
-            qr.left.junction.subscribe(_JoinSideReceiver(qr, True))
-            qr.right.junction.subscribe(_JoinSideReceiver(qr, False))
+            # probes before the right one, as in the JAX package; a table
+            # side has no junction
+            if qr.left.junction is not None:
+                qr.left.junction.subscribe(_JoinSideReceiver(qr, True))
+            if qr.right.junction is not None:
+                qr.right.junction.subscribe(_JoinSideReceiver(qr, False))
         elif isinstance(query.input_stream, StateInputStream):
             qr = PatternQueryRuntime(query, self.ctx, self.junctions,
-                                     self.ctx.registry, name)
+                                     self.ctx.registry, name,
+                                     tables=self.tables)
             if qr.merged_junction is not None:
                 # multi-stream sequence: the tagged merged junction (fed by
                 # send-order taps on the sources) is the only feed;
@@ -128,15 +141,38 @@ class SiddhiAppRuntime:
                 raise DefinitionNotExistError(
                     f"stream {sid!r} is not defined")
             qr = QueryRuntime(query, self.ctx, junction, self.ctx.registry,
-                              name=name)
+                              name=name, tables=self.tables)
             junction.subscribe(qr)
         self.query_runtimes[name] = qr
+        self._wire_output(qr, query)
+
+    def _wire_output(self, qr, query: Query) -> None:
         out = query.output_stream
-        if out.action != OutputAction.INSERT or out.is_fault:
+        if out.is_fault:
             raise SiddhiAppCreationError(
-                "only `insert into <stream>` outputs are ported to "
+                "fault streams (@OnError) are not yet ported to "
                 "siddhi_tpu_torch")
-        if out.target_id in self.windows:
+        if out.action in (OutputAction.DELETE, OutputAction.UPDATE,
+                          OutputAction.UPDATE_OR_INSERT):
+            table = self.tables.get(out.target_id)
+            if table is None:
+                raise DefinitionNotExistError(
+                    f"table {out.target_id!r} is not defined")
+            aliases = [getattr(query.input_stream, "stream_id", None),
+                       getattr(query.input_stream, "reference_id", None)]
+            qr.table_executor = TableOutputExecutor(
+                table, out, qr.selector.out_types, qr.output_codec,
+                self.ctx.registry, out_frame_aliases=aliases)
+            return
+        if out.target_id in self.tables:
+            table = self.tables[out.target_id]
+            # unionSet-projection provenance flows into the table, so
+            # sizeOfSet(T.attr) stays readable downstream
+            table.set_projection_attrs |= {
+                n for n in qr.selector.host_set_slots
+                if n in table.attr_types}
+            qr.output_junction = TableJunctionAdapter(table)
+        elif out.target_id in self.windows:
             qr.output_junction = WindowJunctionAdapter(
                 self.windows[out.target_id], out_types=qr.selector.out_types)
         elif out.target_id:
@@ -199,10 +235,47 @@ class SiddhiAppRuntime:
         return (list(self.junctions.values())
                 + [w.output_junction for w in self.windows.values()])
 
-    def query(self, text: str):
-        """On-demand (pull) queries are not ported yet."""
-        raise SiddhiAppCreationError(
-            "on-demand queries are not yet ported to siddhi_tpu_torch")
+    def query(self, text: str, now: Optional[int] = None):
+        """Run an on-demand (pull) query against a table or a named window:
+        find, or a write form (delete, update, update or insert, insert).
+        Returns the Events found (an insert from a store returns the rows
+        it inserted, the other write forms none). Compiled once per text."""
+        rt = self._ondemand_cache.get(text)
+        if rt is None:
+            odq = compiler.parse_on_demand_query(text)
+            if odq.action != OutputAction.RETURN:
+                rt = self._build_crud_runtime(odq)
+            else:
+                store = self.tables.get(odq.input_store_id)
+                if store is None:
+                    store = self.windows.get(odq.input_store_id)
+                if store is None:
+                    raise DefinitionNotExistError(
+                        f"store {odq.input_store_id!r} is not defined")
+                rt = OnDemandQueryRuntime(odq, store, self.ctx,
+                                          self.ctx.registry)
+            self._ondemand_cache[text] = rt
+        self.flush()
+        t = (now if now is not None
+             else self.ctx.timestamp_generator.current_time())
+        return rt.execute(t)
+
+    def _build_crud_runtime(self, odq):
+        target = self.tables.get(odq.target_id)
+        if target is None:
+            raise DefinitionNotExistError(
+                f"table {odq.target_id!r} is not defined")
+        source = None
+        if odq.action == OutputAction.INSERT and \
+                odq.input_store_id is not None:
+            source = self.tables.get(odq.input_store_id)
+            if source is None:  # not `or`: an empty table is falsy
+                source = self.windows.get(odq.input_store_id)
+            if source is None:
+                raise DefinitionNotExistError(
+                    f"store {odq.input_store_id!r} is not defined")
+        return OnDemandCrudRuntime(odq, target, self.ctx, self.ctx.registry,
+                                   source_store=source)
 
     def drain(self) -> None:
         """Flush staged rows and block until every async callback has

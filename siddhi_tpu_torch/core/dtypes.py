@@ -60,6 +60,8 @@ class _Config:
     hll_group_capacity = 4096
     #: key slots for keyed session windows (session(gap, key))
     session_key_capacity = 4096
+    #: rows of an in-memory table without @capacity
+    default_table_capacity = 1 << 16
 
 
 config = _Config()

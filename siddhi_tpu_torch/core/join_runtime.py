@@ -1,7 +1,7 @@
-"""Join query runtime (counterpart of siddhi_tpu/core/join_runtime.py; this
-slice ports joins whose sides are streams, with or without a window and
-with filters: inner, left, right and full outer joins, `unidirectional`,
-`within` and self-joins with aliases).
+"""Join query runtime (counterpart of siddhi_tpu/core/join_runtime.py):
+joins whose sides are streams (with or without a window, with filters),
+in-memory tables or named windows; inner, left, right and full outer
+joins, `unidirectional`, `within` and self-joins with aliases.
 
 One runtime serves `from L#w() join R#w() on cond`. Each side keeps its own
 window; a batch arriving on a triggering side is appended to its own window
@@ -10,7 +10,12 @@ build side with equality keys is probed through its multimap (K10),
 maintained as rows append; other build sides through the sort-merge or the
 cross probe (ops/join.py). Within one micro-batch of a self-join the
 direction that probes first does not see the batch itself, as in the JAX
-package. Table, named-window and aggregation sides are not yet ported.
+package. A table side never triggers: it is read as the build side,
+its rows filtered by the side's filters. A named-window side is read
+through the window's contents and triggers on the CURRENT lanes of its
+emissions. Stream functions and post-window filters on a join side are
+accepted and, as in the JAX package, not applied (ROADMAP.md Queue 3).
+Aggregation sides and record tables are not yet ported.
 
 A step makes no host synchronisation: the dropped-pair counter
 accumulates on the device and is read every 64 steps.
@@ -36,13 +41,14 @@ from ..ops.window_factories import WindowFactory
 from ..ops.windows import (PassThroughWindow, SlidingWindow, WindowOp,
                            _unpack_rows, _words_to, make_layout,
                            window_has_time_semantics)
-from ..query_api.definition import Attribute, AttributeType, StreamDefinition
+from ..query_api.definition import AttributeType
 from ..query_api.execution import (EventTrigger, JoinInputStream, JoinType,
                                    Query, SingleInputStream)
 from . import dtypes
 from .context import SiddhiAppContext
 from .event import EventBatch, EventType, StreamCodec
-from .query_runtime import QueryCallback, QueryRuntime, eval_constant
+from .query_runtime import (QueryCallback, QueryRuntime, eval_constant,
+                            output_definition)
 from .stream import Receiver, StreamJunction
 
 #: steps between two reads of the dropped-pair counter
@@ -50,39 +56,56 @@ _DROP_CHECK_EVERY = 64
 
 
 class _Side:
-    """One join side: a stream (junction + window)."""
+    """One join side: a stream (junction + window), a table, or a named
+    window (its contents probed, its emissions triggering)."""
 
     def __init__(self, ins: SingleInputStream, registry: Registry,
-                 junctions: dict) -> None:
+                 junctions: dict, tables: dict, windows: dict) -> None:
         self.ref = ins.reference_id  # alias or stream id
-        self.junction: Optional[StreamJunction] = junctions.get(ins.stream_id)
-        if self.junction is None:
-            raise DefinitionNotExistError(
-                f"stream {ins.stream_id!r} is not defined")
         h = ins.handlers
-        if (h.pre_window_functions or h.post_window_functions
-                or h.post_window_filters):
-            raise SiddhiAppCreationError(
-                "stream functions and post-window filters on join sides are "
-                "not yet ported to siddhi_tpu_torch")
-        self.codec = self.junction.codec
-        self.attr_types = {
-            a.name: a.type for a in self.junction.definition.attributes
-            if a.type != AttributeType.OBJECT}
-        layout = make_layout(self.attr_types)
-        batch_cap = self.junction.batch_size
-        wh = h.window
-        if wh is not None:
-            factory = registry.require(ExtensionKind.WINDOW, wh.namespace,
-                                       wh.name)
-            assert isinstance(factory, WindowFactory)
-            params = [eval_constant(p) for p in wh.parameters]
-            registry.validate_params(ExtensionKind.WINDOW, wh.namespace,
-                                     wh.name, params, what="window")
-            self.window: WindowOp = factory.make(layout, batch_cap, params,
-                                                 True)
+        self.table = tables.get(ins.stream_id)
+        self.is_table = self.table is not None
+        self.named_window = windows.get(ins.stream_id)
+        self.is_named_window = (self.named_window is not None
+                                and not self.is_table)
+        self.junction: Optional[StreamJunction] = None
+        self.window: Optional[WindowOp] = None
+        if self.is_table:
+            if h.window is not None:
+                raise SiddhiAppCreationError(
+                    "tables cannot take windows in joins")
+            self.attr_types = dict(self.table.attr_types)
+            self.codec = self.table.codec
+        elif self.is_named_window:
+            if h.window is not None:
+                raise SiddhiAppCreationError(
+                    "named windows cannot take further windows in joins")
+            self.attr_types = dict(self.named_window.attr_types)
+            self.codec = self.named_window.codec
+            # the window's emission stream triggers this side
+            self.junction = self.named_window.output_junction
         else:
-            self.window = PassThroughWindow(layout, batch_cap)
+            self.junction = junctions.get(ins.stream_id)
+            if self.junction is None:
+                raise DefinitionNotExistError(
+                    f"stream {ins.stream_id!r} is not defined")
+            self.codec = self.junction.codec
+            self.attr_types = {
+                a.name: a.type for a in self.junction.definition.attributes
+                if a.type != AttributeType.OBJECT}
+            layout = make_layout(self.attr_types)
+            batch_cap = self.junction.batch_size
+            wh = h.window
+            if wh is not None:
+                factory = registry.require(ExtensionKind.WINDOW,
+                                           wh.namespace, wh.name)
+                assert isinstance(factory, WindowFactory)
+                params = [eval_constant(p) for p in wh.parameters]
+                registry.validate_params(ExtensionKind.WINDOW, wh.namespace,
+                                         wh.name, params, what="window")
+                self.window = factory.make(layout, batch_cap, params, True)
+            else:
+                self.window = PassThroughWindow(layout, batch_cap)
         self.handlers = h
         self.filters: list = []
         #: bucket count of this side's multimap (None: no multimap), and the
@@ -90,10 +113,24 @@ class _Side:
         self.mm_buckets: Optional[int] = None
         self.mm_build_keys: list = []
 
+    @property
+    def has_window_state(self) -> bool:
+        return not (self.is_table or self.is_named_window)
+
+    def set_projections(self) -> set:
+        """unionSet-projection provenance: a junction-fed side reads the
+        upstream output's markers, a table side the table's."""
+        if self.is_table:
+            return set(self.table.set_projection_attrs)
+        return {a.name for a in self.junction.definition.attributes
+                if getattr(a, "set_projection", False)}
+
 
 class JoinQueryRuntime:
     def __init__(self, query: Query, ctx: SiddhiAppContext, junctions: dict,
-                 registry: Registry, name: str) -> None:
+                 registry: Registry, name: str,
+                 tables: Optional[dict] = None,
+                 windows: Optional[dict] = None) -> None:
         assert isinstance(query.input_stream, JoinInputStream)
         jis: JoinInputStream = query.input_stream
         if jis.per is not None:
@@ -104,13 +141,18 @@ class JoinQueryRuntime:
         self.name = name
         self.callbacks: list[QueryCallback] = []
         self.output_junction: Optional[StreamJunction] = None
+        self.table_executor = None
         self._dropped_dev: Optional[torch.Tensor] = None
         self._drop_checks = 0
         self._drop_warned = False
         self.k_max = dtypes.config.join_max_matches
 
-        self.left = _Side(jis.left, registry, junctions)
-        self.right = _Side(jis.right, registry, junctions)
+        tables, windows = tables or {}, windows or {}
+        self.left = _Side(jis.left, registry, junctions, tables, windows)
+        self.right = _Side(jis.right, registry, junctions, tables, windows)
+        if self.left.is_table and self.right.is_table:
+            raise SiddhiAppCreationError(
+                "cannot join two tables in a stream query")
         if self.left.ref == self.right.ref:
             raise SiddhiAppCreationError(
                 "self-joins need an alias: `from S as a join S as b ...`")
@@ -122,7 +164,10 @@ class JoinQueryRuntime:
                   self.right.ref: self.right.attr_types}
         codecs = {self.left.ref: self.left.codec,
                   self.right.ref: self.right.codec}
-        self.resolver = TypeResolver(frames, self.left.ref, codecs)
+        set_projections = {side.ref: sp for side in (self.left, self.right)
+                           if (sp := side.set_projections())}
+        self.resolver = TypeResolver(frames, self.left.ref, codecs,
+                                     set_projections)
         for side in (self.left, self.right):
             side.filters = [compile_expression(f, self.resolver, registry)
                             for f in side.handlers.filters]
@@ -142,10 +187,8 @@ class JoinQueryRuntime:
         self.selector = CompiledSelector(
             query.selector, self.resolver, registry,
             ctx.effective_group_capacity, select_all_attrs=select_all)
-        self.output_definition = StreamDefinition(
-            id=query.output_stream.target_id or f"{name}_out",
-            attributes=tuple(Attribute(n, t)
-                             for n, t in self.selector.out_types.items()))
+        self.output_definition = output_definition(
+            query.output_stream.target_id or f"{name}_out", self.selector)
         self.output_codec = StreamCodec(self.output_definition,
                                         ctx.global_strings)
 
@@ -161,7 +204,7 @@ class JoinQueryRuntime:
         self._step_left = self._make_step(from_left=True)
         self._step_right = self._make_step(from_left=False)
         self.has_time_semantics = any(
-            window_has_time_semantics(s.window)
+            s.window is not None and window_has_time_semantics(s.window)
             for s in (self.left, self.right))
 
     def init_state(self):
@@ -174,8 +217,10 @@ class JoinQueryRuntime:
                 return ()
             return multimap_init(s.window.C, s.mm_buckets, dev)
 
-        return (self.left.window.init_state(dev),
-                self.right.window.init_state(dev),
+        def side_state(s):
+            return s.window.init_state(dev) if s.has_window_state else ()
+
+        return (side_state(self.left), side_state(self.right),
                 mm_state(self.left), mm_state(self.right),
                 self.selector.init_state(dev))
 
@@ -204,7 +249,7 @@ class JoinQueryRuntime:
         filters = probe_side.filters
         use_mm = build_side.mm_buckets is not None and bool(plan.probe_keys)
         bw = build_side.window
-        layout = bw.layout
+        layout = bw.layout if bw is not None else None
 
         def step(state, batch: EventBatch, now):
             wl, wr, mml, mmr, sel = state
@@ -216,17 +261,24 @@ class JoinQueryRuntime:
             pscope = Scope()
             pscope.add_frame(probe_side.ref, batch.cols, batch.ts,
                              batch.valid, default=True)
+            pscope.extras["now"] = now
             mask = batch.valid
+            if probe_side.is_named_window:
+                # window emissions carry CURRENT and EXPIRED lanes; only
+                # arrivals probe
+                mask = mask & (batch.types == int(EventType.CURRENT))
             for f in filters:
                 mask = mask & f(pscope)
             batch = dataclasses.replace(batch, valid=mask)
             pscope.valids[probe_side.ref] = mask
-            appended0 = getattr(w_probe, "appended", None)
-            w_probe, _chunk = probe_side.window.step(w_probe, batch, now)
-            if probe_side.mm_buckets is not None:
-                live = mask & (batch.types == int(EventType.CURRENT))
-                hashes = _hash_exprs(probe_side.mm_build_keys, pscope)
-                mm_probe = multimap_append(mm_probe, hashes, live, appended0)
+            if probe_side.has_window_state:
+                appended0 = getattr(w_probe, "appended", None)
+                w_probe, _chunk = probe_side.window.step(w_probe, batch, now)
+                if probe_side.mm_buckets is not None:
+                    live = mask & (batch.types == int(EventType.CURRENT))
+                    hashes = _hash_exprs(probe_side.mm_build_keys, pscope)
+                    mm_probe = multimap_append(mm_probe, hashes, live,
+                                               appended0)
 
             # --- candidate pairs ---
             truncated = None
@@ -246,11 +298,26 @@ class JoinQueryRuntime:
                     pv = pv & (_words_to(tsw[0], tsw[1], torch.int64)
                                + bw.time_ms > now)
             else:
-                if isinstance(bw, PassThroughWindow):
+                if build_side.is_table:
+                    st = build_side.table.state
+                    b_cols, b_ts, b_valid = st.cols, st.ts, st.valid
+                elif build_side.is_named_window:
+                    nw = build_side.named_window
+                    b_cols, b_ts, b_valid = nw.contents(nw.state, now)
+                elif isinstance(bw, PassThroughWindow):
                     b_cols, b_ts, b_valid = bw.contents(w_build, now,
                                                         device=dev)
                 else:
                     b_cols, b_ts, b_valid = bw.contents(w_build, now)
+                if build_side.filters and not build_side.has_window_state:
+                    # stream sides filter before their window append;
+                    # probed contents are filtered here
+                    bscope = Scope()
+                    bscope.add_frame(build_side.ref, b_cols, b_ts, b_valid,
+                                     default=True)
+                    bscope.extras["now"] = now
+                    for f in build_side.filters:
+                        b_valid = b_valid & f(bscope)
                 if plan.probe_keys:
                     lane, brow, pv = probe_equi(
                         plan, pscope, mask, b_cols, b_ts, b_valid,
@@ -293,6 +360,7 @@ class JoinQueryRuntime:
             else:
                 pair.add_frame(build_side.ref, g_cols, g_ts, pv)
                 pair.add_frame(probe_side.ref, p_cols, p_ts, pv, default=True)
+            pair.extras["now"] = now
 
             # --- exact verification: the full ON condition + within ---
             if plan.residual is not None:
@@ -331,6 +399,7 @@ class JoinQueryRuntime:
                                 pv if from_left else bf_valid, default=True)
             out_scope.add_frame(self.right.ref, rf_cols, rf_ts,
                                 bf_valid if from_left else pv)
+            out_scope.extras["now"] = now
             chunk = EventBatch(
                 ts=p_ts, cols={}, valid=pv,
                 types=torch.zeros(pv.shape[0], dtype=torch.int8,
@@ -356,6 +425,8 @@ class JoinQueryRuntime:
             batch = batch.pad_to(side.junction.batch_size)
         if not self._triggers(from_left):
             # a non-triggering side still feeds its window (+ multimap)
+            if not side.has_window_state:
+                return
             wl, wr, mml, mmr, sel = self.state
             w, mm = (wl, mml) if from_left else (wr, mmr)
             w2, mm2 = self._append_only(side, w, mm, batch, now)
@@ -398,13 +469,19 @@ class JoinQueryRuntime:
         return w2, mm
 
     def side_junctions(self) -> list:
-        """The side junctions, each once (a self-join reads one stream)."""
-        out = [self.left.junction]
-        if self.right.junction is not self.left.junction:
-            out.append(self.right.junction)
+        """The junctions of the sides with a window, each once (a self-join
+        reads one stream)."""
+        out = []
+        for s in (self.left, self.right):
+            if s.has_window_state and s.junction not in out:
+                out.append(s.junction)
         return out
 
+    def _selector_state(self):
+        return self.state[4]
+
     _distribute = QueryRuntime._distribute
+    _intern_uuid_columns = QueryRuntime._intern_uuid_columns
 
     def add_callback(self, cb: QueryCallback) -> None:
         self.callbacks.append(cb)

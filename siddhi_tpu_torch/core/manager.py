@@ -18,6 +18,7 @@ from .app_runtime import SiddhiAppRuntime
 
 # built-in extension registration side effects
 from ..ops import aggregators as _aggregators  # noqa: F401
+from ..ops import builtin_functions as _builtin_functions  # noqa: F401
 from ..ops import stream_functions as _stream_functions  # noqa: F401
 from ..ops import window_factories as _window_factories  # noqa: F401
 

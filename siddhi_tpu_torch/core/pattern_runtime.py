@@ -72,7 +72,7 @@ from ..query_api.expression import (Compare, CompareOp, Expression, IsNull,
 from . import dtypes
 from .context import SiddhiAppContext
 from .event import EventBatch, StreamCodec
-from .query_runtime import QueryCallback, QueryRuntime
+from .query_runtime import QueryCallback, QueryRuntime, output_definition
 from .stream import Receiver, StreamJunction
 
 #: steps between two reads of the dropped-partial-match counter
@@ -433,7 +433,8 @@ class PatternQueryRuntime:
     """Runtime for one pattern/sequence query."""
 
     def __init__(self, query: Query, ctx: SiddhiAppContext, junctions: dict,
-                 registry: Registry, name: str) -> None:
+                 registry: Registry, name: str,
+                 tables: Optional[dict] = None) -> None:
         assert isinstance(query.input_stream, StateInputStream)
         sis: StateInputStream = query.input_stream
         self.query = query
@@ -441,6 +442,11 @@ class PatternQueryRuntime:
         self.name = name
         self.callbacks: list[QueryCallback] = []
         self.output_junction: Optional[StreamJunction] = None
+        #: set by the app runtime for delete / update / update-or-insert
+        self.table_executor = None
+        self.tables = tables or {}
+        #: the running step's `now`, for currentTimeMillis()
+        self._now = 0
         self.P = dtypes.config.pattern_pending_capacity
         self._steps_run = 0
         self._drop_warned = False
@@ -492,14 +498,24 @@ class PatternQueryRuntime:
                             codecs[sid] = codecs[leg.ref]
 
         rewriter = _RefRewriter(plan.count_groups)
+        # unionSet-projection provenance per leg frame
+        set_projections = {}
+        for pos in plan.positions:
+            for leg in pos.legs:
+                sp = {a.name for a in
+                      self.junctions[leg.stream_id].definition.attributes
+                      if getattr(a, "set_projection", False)}
+                if sp:
+                    set_projections[leg.ref] = sp
         self.resolver = TypeResolver(frames, plan.positions[0].legs[0].ref,
-                                     codecs)
+                                     codecs, set_projections)
 
         # --- per-leg conditions (unqualified attrs resolve to the leg's own
         # arrival frame, like the reference's per-state meta) ---
         for pos in plan.positions:
             for leg in pos.legs:
-                leg_resolver = TypeResolver(frames, leg.ref, codecs)
+                leg_resolver = TypeResolver(frames, leg.ref, codecs,
+                                            set_projections)
                 conds = [rewriter.rewrite(f) for f in leg.filters]
                 leg.compiled = [compile_expression(c, leg_resolver, registry)
                                 for c in conds]
@@ -525,10 +541,8 @@ class PatternQueryRuntime:
         self.selector = CompiledSelector(
             sel, self.resolver, registry, ctx.effective_group_capacity,
             select_all_attrs=select_all)
-        self.output_definition = StreamDefinition(
-            id=query.output_stream.target_id or f"{name}_out",
-            attributes=tuple(Attribute(n, t)
-                             for n, t in self.selector.out_types.items()))
+        self.output_definition = output_definition(
+            query.output_stream.target_id or f"{name}_out", self.selector)
         self.output_codec = StreamCodec(self.output_definition,
                                         ctx.global_strings)
 
@@ -723,6 +737,7 @@ class PatternQueryRuntime:
         """bool[B]: the batch's valid lanes under conditions over the
         arrival alone."""
         scope = self._arrival_scope(leg, batch, lanes_2d=False)
+        scope.extras["now"] = self._now
         m = batch.valid
         for ce in exprs:
             m = m & ce(scope)
@@ -739,6 +754,7 @@ class PatternQueryRuntime:
         if leg.resid:
             def residual(p0, p1):
                 scope = self._arrival_scope(leg, leg_b, lanes_2d=True)
+                scope.extras["now"] = self._now
                 for ref, cols in pend.frames.items():
                     if ref == leg.ref:
                         # a logical position captures its OWN legs in the
@@ -814,6 +830,7 @@ class PatternQueryRuntime:
                 merged or leg.stream_id == junction_sid)
 
         def step(state: PatternState, batch: EventBatch, now: int):
+            self._now = now
             pending = list(state.pending)
             active0_box = [state.active0]
             gate0_box = [state.gate0_seq]
@@ -1337,6 +1354,7 @@ class PatternQueryRuntime:
             scope.add_frame(ref, cols, torch.cat(ts_parts), fv,
                             default=(ref == all_refs[0]))
         self._alias_bare_streams(scope)
+        scope.extras["now"] = self._now
         chunk = EventBatch(ts=tss, cols={}, valid=valids,
                            types=torch.zeros(tss.shape[0], dtype=torch.int8,
                                              device=dev))
@@ -1393,7 +1411,11 @@ class PatternQueryRuntime:
                 stacklevel=2)
             self._drop_warned = True
 
+    def _selector_state(self):
+        return self.state.sel_state
+
     _distribute = QueryRuntime._distribute
+    _intern_uuid_columns = QueryRuntime._intern_uuid_columns
 
     def add_callback(self, cb: QueryCallback) -> None:
         self.callbacks.append(cb)

@@ -6,16 +6,22 @@ of siddhi_tpu/core/query_runtime.py).
 runs filter mask -> stream functions -> window -> stream functions ->
 post-window filters -> selector -> rate limiter on fixed-shape
 tensors with no host synchronisation; the only readback is in
-`_distribute`, where callbacks decode the output. JAX donates the state to
-its jitted step; here the kernels update the state tensors in place.
+`_distribute`, where callbacks decode the output and a table output makes
+its one read. JAX donates the state to its jitted step; here the kernels
+update the state tensors in place. Tables that `in` conditions probe
+enter each step as arguments (their states and sorted indexes), so a step
+sees their contents as of that batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import uuid
 import warnings
 from typing import Optional
+
+import numpy as np
 
 import torch
 
@@ -50,11 +56,11 @@ from ..query_api.execution import (
     Query,
     SingleInputStream,
 )
-from ..query_api.expression import (AttributeFunction, Constant, Expression,
-                                    Variable)
+from ..query_api.expression import (AttributeFunction, Compare, CompareOp,
+                                    Constant, Expression, In, Variable)
 from . import dtypes
 from .context import SiddhiAppContext
-from .event import EventBatch, EventType, StreamCodec
+from .event import Event, EventBatch, EventType, StreamCodec
 from .stream import Receiver, StreamJunction
 
 
@@ -110,7 +116,8 @@ class QueryRuntime(Receiver):
 
     def __init__(self, query: Query, ctx: SiddhiAppContext,
                  input_junction: StreamJunction, registry: Registry,
-                 name: Optional[str] = None) -> None:
+                 name: Optional[str] = None,
+                 tables: Optional[dict] = None) -> None:
         in_stream = query.input_stream
         if not isinstance(in_stream, SingleInputStream):
             raise SiddhiAppCreationError(
@@ -122,7 +129,16 @@ class QueryRuntime(Receiver):
         self.name = name or query.name or f"query_{id(self)}"
         self.callbacks: list[QueryCallback] = []
         self.output_junction: Optional[StreamJunction] = None
+        #: set by the app runtime for delete / update / update-or-insert
+        self.table_executor = None
         self.input_junction = input_junction
+        self.tables = tables or {}
+        #: tables that `in` conditions probe: their states are step inputs
+        self.dep_tables = sorted(tid for tid in _collect_in_sources(query)
+                                 if tid in self.tables)
+        #: of those, the ones probed by an index-eligible equality: only
+        #: these pay the lazy sorted-index rebuild after a mutation
+        self._index_tables = _collect_eq_probe_tables(query, self.tables)
 
         definition = input_junction.definition
         self.frame_ref = in_stream.reference_id
@@ -132,9 +148,25 @@ class QueryRuntime(Receiver):
         frames = {self.frame_ref: attr_types}
         if self.frame_ref != definition.id:
             frames[definition.id] = attr_types
-        self.resolver = TypeResolver(
-            frames, self.frame_ref,
-            {self.frame_ref: codec, definition.id: codec})
+        codecs = {self.frame_ref: codec, definition.id: codec}
+        # `in T` conditions name table attributes (T.attr)
+        for tid in self.dep_tables:
+            frames[tid] = dict(self.tables[tid].attr_types)
+            codecs[tid] = self.tables[tid].codec
+        # unionSet-projection provenance: the upstream output's markers and
+        # the tables' markers set at wiring time
+        set_projections = {}
+        sp = {a.name for a in definition.attributes
+              if getattr(a, "set_projection", False)}
+        if sp:
+            set_projections[self.frame_ref] = sp
+            set_projections[definition.id] = sp
+        for tid in self.dep_tables:
+            tsp = getattr(self.tables[tid], "set_projection_attrs", None)
+            if tsp:
+                set_projections[tid] = set(tsp)
+        self.resolver = TypeResolver(frames, self.frame_ref, codecs,
+                                     set_projections)
 
         self.filters = [compile_expression(f, self.resolver, registry)
                         for f in h.filters]
@@ -216,10 +248,9 @@ class QueryRuntime(Receiver):
                 raise SiddhiAppCreationError(
                     "min()/max() over #window.delay is not supported "
                     "(delay re-emits expired lanes as arrivals)")
-        self.output_definition = StreamDefinition(
-            id=query.output_stream.target_id or f"{self.name}_out",
-            attributes=tuple(Attribute(n, t)
-                             for n, t in self.selector.out_types.items()))
+        self.output_definition = output_definition(
+            query.output_stream.target_id or f"{self.name}_out",
+            self.selector)
         self.output_codec = StreamCodec(self.output_definition,
                                         ctx.global_strings)
         self.rate_limiter = self._make_rate_limiter(query, ctx)
@@ -305,6 +336,13 @@ class QueryRuntime(Receiver):
                             batch.valid, default=True)
         return batch
 
+    def _table_states(self) -> dict:
+        """tid -> (state, sorted indexes) of the tables `in` probes."""
+        return {tid: (self.tables[tid].state,
+                      self.tables[tid].probe_indexes()
+                      if tid in self._index_tables else {})
+                for tid in self.dep_tables}
+
     def step(self, state, batch: EventBatch, now: int):
         """One micro-batch through filter -> stream functions -> window ->
         stream functions -> post-window filters -> selector -> limiter."""
@@ -312,6 +350,11 @@ class QueryRuntime(Receiver):
         scope = Scope()
         scope.add_frame(self.frame_ref, batch.cols, batch.ts, batch.valid,
                         default=True)
+        scope.extras["now"] = now
+        for tid, (tstate, tidx) in self._table_states().items():
+            scope.extras[f"table:{tid}"] = tstate
+            scope.extras[f"tableidx:{tid}"] = tidx
+            scope.extras[f"in:{tid}"] = self.tables[tid].contains_probe
         mask = batch.valid
         for f in self.filters:
             mask = mask & f(scope)
@@ -327,6 +370,7 @@ class QueryRuntime(Receiver):
         cscope = Scope()
         cscope.add_frame(self.frame_ref, chunk.cols, chunk.ts, chunk.valid,
                          default=True)
+        cscope.extras = dict(scope.extras)
         chunk = self._apply_fns(self.post_window_fns, chunk, cscope)
         for f in self.post_filters:
             # post-window filters drop CURRENT lanes only
@@ -349,12 +393,14 @@ class QueryRuntime(Receiver):
         w_cols, w_ts, w_live = self.window.contents(wstate, now)
         s2 = Scope()
         s2.add_frame(self.frame_ref, w_cols, w_ts, w_live, default=True)
+        s2.extras["now"] = now
         proj = {name: torch.broadcast_to(ce(s2), w_ts.shape).contiguous()
                 for name, ce in self.selector.out_exprs}
         if self.selector.having is not None:
             h2 = Scope()
             h2.add_frame(self.frame_ref, w_cols, w_ts, w_live)
             h2.add_frame("__out__", proj, w_ts, w_live, default=True)
+            h2.extras["now"] = now
             w_live = w_live & self.selector.having(h2)
         return EventBatch(ts=w_ts, cols=proj, valid=w_live,
                           types=torch.zeros(w_ts.shape, dtype=torch.int8,
@@ -481,11 +527,39 @@ class QueryRuntime(Receiver):
                     self._capacity_warned = True
         self._capacity_pressure = pressure
 
+    def _selector_state(self):
+        """The selector's part of this runtime's state."""
+        return self.state[1]
+
     def _distribute(self, out: EventBatch, now: int) -> None:
         action = self.query.output_stream.action
         etype = self.query.output_stream.event_type
+        uuid_slots = self.selector.host_uuid_slots
+        forwards = (self.output_junction is not None
+                    or self.table_executor is not None)
+        if uuid_slots and forwards:
+            # a fresh uuid4 per emitted lane, interned into the string
+            # table's bounded transient ring: downstream queries, tables
+            # and callbacks all see the same value
+            out = self._intern_uuid_columns(out)
         if self.callbacks:
             events = out.to_host_events(self.output_codec)
+            set_slots = self.selector.host_set_slots
+            if set_slots and events:
+                # raw unionSet: the live value set, materialised once for
+                # the batch's events
+                names = [a.name for a in self.output_definition.attributes]
+                subs = [(names.index(n), self.selector.union_set_values(
+                    self._selector_state(), n, self.ctx.global_strings))
+                    for n in set_slots]
+                events = [_with_values(e, subs) for e in events]
+            if uuid_slots and not forwards and events:
+                # callback-only output: fresh uuids, nothing interned
+                names = [a.name for a in self.output_definition.attributes]
+                idxs = [names.index(u) for u in uuid_slots]
+                events = [_with_values(e, [(i, str(uuid.uuid4()))
+                                           for i in idxs])
+                          for e in events]
             in_events = [e for e in events if not e.is_expired] or None
             remove_events = ([e for e in events if e.is_expired] or None
                              if etype != OutputEventType.CURRENT else None)
@@ -498,6 +572,21 @@ class QueryRuntime(Receiver):
                 and self.output_junction.receivers):
             self.output_junction.publish_batch(
                 _select_event_type(out, etype), now)
+        elif (action in (OutputAction.DELETE, OutputAction.UPDATE,
+                         OutputAction.UPDATE_OR_INSERT)
+              and self.table_executor is not None):
+            self.table_executor.apply(_select_event_type(out, etype))
+
+    def _intern_uuid_columns(self, out: EventBatch) -> EventBatch:
+        valid = out.valid.cpu().numpy()
+        cols = dict(out.cols)
+        for slot in self.selector.host_uuid_slots:
+            tbl = self.output_codec.string_tables[slot]
+            codes = np.zeros(out.capacity, np.int32)
+            for i in np.nonzero(valid)[0]:
+                codes[i] = tbl.encode_transient(str(uuid.uuid4()))
+            cols[slot] = torch.from_numpy(codes).to(out.valid.device)
+        return dataclasses.replace(out, cols=cols)
 
     def add_callback(self, cb: QueryCallback) -> None:
         self.callbacks.append(cb)
@@ -514,3 +603,83 @@ def _select_event_type(out: EventBatch, etype: OutputEventType) -> EventBatch:
     # forwarded events enter the next stream as fresh CURRENT arrivals
     return dataclasses.replace(out, valid=out.valid & keep,
                                types=out.types.new_zeros(out.types.shape))
+
+
+def output_definition(stream_id: str, selector) -> StreamDefinition:
+    """A query's output schema; a raw unionSet output carries the
+    set-size-projection marker that sizeOfSet reads downstream."""
+    return StreamDefinition(id=stream_id, attributes=tuple(
+        Attribute(n, t, set_projection=n in selector.host_set_slots)
+        for n, t in selector.out_types.items()))
+
+
+def _with_values(e: Event, subs) -> Event:
+    """`e` with data[i] = v for each (i, v) of subs."""
+    data = list(e.data)
+    for i, v in subs:
+        data[i] = v
+    return Event(e.timestamp, tuple(data), is_expired=e.is_expired)
+
+
+def _walk(node, visit) -> None:
+    """Visit every expression node below `node`; `visit` returns True to
+    stop the descent at a node."""
+    if node is None or not isinstance(node, Expression):
+        return
+    if visit(node):
+        return
+    for attr in ("left", "right", "expression"):
+        sub = getattr(node, attr, None)
+        if isinstance(sub, Expression):
+            _walk(sub, visit)
+    for p in getattr(node, "parameters", ()) or ():
+        _walk(p, visit)
+
+
+def _collect_in_sources(query: Query) -> set:
+    """Table ids named by `in T` conditions anywhere in the query."""
+    found: set = set()
+
+    def visit(node):
+        if isinstance(node, In):
+            found.add(node.source_id)
+            _walk(node.expression, visit)
+            return True
+        return False
+
+    h = query.input_stream.handlers
+    for f in (*getattr(h, "filters", ()),
+              *getattr(h, "post_window_filters", ())):
+        _walk(f, visit)
+    for a in query.selector.attributes:
+        _walk(a.expression, visit)
+    _walk(query.selector.having, visit)
+    return found
+
+
+def _collect_eq_probe_tables(query: Query, tables: dict) -> set:
+    """Tables probed by a single equality `in` condition on an indexable
+    attribute: the only ones whose sorted indexes a step reads."""
+    found: set = set()
+
+    def visit(node):
+        if isinstance(node, In):
+            e = node.expression
+            t = tables.get(node.source_id)
+            if (t is not None and isinstance(e, Compare)
+                    and e.op == CompareOp.EQUAL
+                    and hasattr(t, "indexable_eq_attrs")):
+                for side in (e.left, e.right):
+                    if (isinstance(side, Variable)
+                            and side.stream_id == node.source_id
+                            and side.attribute in t.indexable_eq_attrs()):
+                        found.add(node.source_id)
+            _walk(e, visit)
+            return True
+        return False
+
+    h = query.input_stream.handlers
+    for f in (*h.filters, *h.post_window_filters):
+        _walk(f, visit)
+    _walk(query.selector.having, visit)
+    return found

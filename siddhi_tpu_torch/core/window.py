@@ -6,7 +6,7 @@ is shared by every consumer: queries `insert into W` feed its append step,
 and queries `from W ...` subscribe to its output junction, which carries
 the emitted chunk (CURRENT on arrival, EXPIRED on expiry, filtered by the
 definition's `output ... events` clause) device to device. Joins and
-on-demand queries against a named window are not yet ported.
+on-demand queries read its live rows through `contents(state, now)`.
 """
 
 from __future__ import annotations
@@ -90,6 +90,13 @@ class NamedWindow:
             cap = dtypes.bucket_capacity(0, cap)  # timer batch: min bucket
         self.append(EventBatch.empty(self.stream_definition, cap,
                                      self.ctx.device), now)
+
+    def contents(self, state, now: int):
+        """The rows in the window now, as (cols, ts, valid): what a join
+        side or an on-demand query reads."""
+        if isinstance(self.window, PassThroughWindow):
+            return self.window.contents(state, now, device=self.ctx.device)
+        return self.window.contents(state, now)
 
     def _apply_output_event_type(self, chunk: EventBatch) -> EventBatch:
         if self.output_event_type == "current":

@@ -12,14 +12,16 @@ ContentsSnapshotState or GroupedSnapshotState, or () without a rate); a join
 query's is (left window, right window, left multimap, right multimap,
 selector state); a named window's is its window state; a pattern query's
 is a PatternState (its pending tables, active0, seq, dropped, armed0_ts,
-gate0_seq and the selector state). The functions here take that state —
+gate0_seq and the selector state); a table's is a TableState (cols by
+name, ts, valid). The functions here take that state —
 or the same fields as plain dicts — and load it into a port runtime
 built from the same app text, so the next batches continue where the JAX
 runtime stopped. They read fields by name and import nothing of the JAX
 package.
 
     load_app_state(torch_rt, {name: jax_state}, jax_strings,
-                   window_states={name: jax_rt.windows[name].state})
+                   window_states={name: jax_rt.windows[name].state},
+                   table_states={tid: jax_rt.tables[tid].state})
 
 `jax_strings` is the JAX runtime's `ctx.global_strings.snapshot()` (or
 the plain list of its strings)."""
@@ -37,6 +39,7 @@ from .core.event import EventBatch
 from .core.join_runtime import JoinQueryRuntime
 from .core.pattern_runtime import PatternQueryRuntime, PatternState
 from .core.query_runtime import QueryRuntime
+from .core.table import TableState
 from .ops.aggregators import HLLState
 from .ops.groupby import GroupState, KeyTable
 from .ops.join import MultimapState
@@ -250,6 +253,24 @@ def load_pattern_state(pr: PatternQueryRuntime, state) -> None:
     pr.state = pattern_state(state, pr.state)
 
 
+def table_state(state_np, like: TableState) -> TableState:
+    """A table's state: its columns by name, row timestamps and validity."""
+    cols = _field(state_np, "cols")
+    if set(cols) != set(like.cols):
+        raise ValueError(f"table columns {sorted(cols)} in the state, the "
+                         f"port's table has {sorted(like.cols)}")
+    return TableState(
+        cols={k: _tensor(cols[k], v) for k, v in like.cols.items()},
+        ts=_tensor(_field(state_np, "ts"), like.ts),
+        valid=_tensor(_field(state_np, "valid"), like.valid))
+
+
+def load_table(rt: SiddhiAppRuntime, tid: str, state) -> None:
+    """Load table `tid`'s rows (its sorted indexes rebuild at next use)."""
+    t = rt.tables[tid]
+    t.state = table_state(state, t.state)
+
+
 def load_strings(rt: SiddhiAppRuntime, strings) -> None:
     """Load the app-global string table: a JAX `StringTable.snapshot()`
     dict (with its transient UUID ring, so carried state holding transient
@@ -259,9 +280,11 @@ def load_strings(rt: SiddhiAppRuntime, strings) -> None:
 
 
 def load_app_state(rt: SiddhiAppRuntime, query_states: dict,
-                   strings, window_states: Optional[dict] = None) -> None:
+                   strings, window_states: Optional[dict] = None,
+                   table_states: Optional[dict] = None) -> None:
     """Load every named query's state, every named window's state (the JAX
-    runtime's `windows[name].state`) and the string table."""
+    runtime's `windows[name].state`), every table's state and the string
+    table."""
     for name, state in query_states.items():
         qr = rt.query_runtimes[name]
         if isinstance(qr, JoinQueryRuntime):
@@ -273,4 +296,6 @@ def load_app_state(rt: SiddhiAppRuntime, query_states: dict,
     for name, state in (window_states or {}).items():
         w = rt.windows[name]
         w.state = window_state(state, w.state)
+    for tid, state in (table_states or {}).items():
+        load_table(rt, tid, state)
     load_strings(rt, strings)

@@ -8,9 +8,10 @@ aggregator (distinctCount, hll:distinctCount), its own device state and
 scan (`init_custom` / `custom_scan`). avg = sum / count, stdDev = (sum,
 sumsq, count), and/or = counts of false/true; min/max and
 minForever/maxForever are monotone components, and min/max over a sliding
-window become range queries (ops/extrema.py, K8) instead. unionSet is
-refused: its supported form rewrites to distinctCount through
-createSet/sizeOfSet, which are not yet ported.
+window become range queries (ops/extrema.py, K8) instead. unionSet never
+reaches its factory as a top-level output: the selector rewrites
+`sizeOfSet(unionSet(...))` and a raw `select unionSet(x) as s` to
+distinctCount; inside a larger expression it is refused.
 """
 
 from __future__ import annotations
@@ -493,11 +494,15 @@ def _make_hll_distinct_count(arg_types):
                           init_custom=init_custom, custom_scan=custom_scan)
 
 
-def _not_yet_ported(name: str):
-    def make(arg_types):
-        raise SiddhiAppCreationError(
-            f"aggregator {name}() is not yet ported to siddhi_tpu_torch")
-    return make
+def _make_union_set(arg_types):
+    """unionSet(set): reached only inside a larger expression, where the
+    set would stay host-opaque."""
+    raise SiddhiAppCreationError(
+        "unionSet() inside a larger expression is not supported on this "
+        "engine (raw `select unionSet(x) as s` IS — the set materializes "
+        "host-side at the callback boundary); "
+        "use sizeOfSet(unionSet(...)), which compiles to an exact distinct "
+        "count on device")
 
 
 def register_all() -> None:
@@ -516,7 +521,7 @@ def register_all() -> None:
     reg("and", _make_bool_and)
     reg("or", _make_bool_or)
     reg("distinctCount", _make_distinct_count)
-    reg("unionSet", _not_yet_ported("unionSet"))
+    reg("unionSet", _make_union_set)
     reg("distinctCount", _make_hll_distinct_count, "hll")
 
 

@@ -1,7 +1,9 @@
 """Expression AST -> column functions over torch tensors (counterpart of
-siddhi_tpu/ops/expr_compile.py; this slice ports variables, constants,
-comparisons, arithmetic, and/or/not, `is null` and the one function the
-pattern rewrite needs, `ifThenElse`).
+siddhi_tpu/ops/expr_compile.py): variables, constants, comparisons,
+arithmetic, and/or/not, `is null`, `expr in Table` with its index plan,
+the registry's scalar functions (ops/builtin_functions.py) and the
+planner-resolved `eventTimestamp`, `currentTimeMillis` and `sizeOfSet`
+over a forwarded unionSet column.
 
 Every node gets a static AttributeType; math promotes int<long<float<double
 and comparisons across numeric types promote before comparing, as in the
@@ -20,7 +22,7 @@ from ..core import dtypes
 from ..core.dtypes import NULL_CODE
 from ..core.event import StreamCodec
 from ..errors import SiddhiAppCreationError
-from ..extension.registry import Registry
+from ..extension.registry import ExtensionKind, Registry
 from ..query_api.definition import AttributeType
 from ..query_api.expression import (
     And,
@@ -29,6 +31,7 @@ from ..query_api.expression import (
     CompareOp,
     Constant,
     Expression,
+    In,
     IsNull,
     MathExpression,
     MathOp,
@@ -40,14 +43,16 @@ from ..query_api.expression import (
 
 class Scope:
     """Column environment: maps (stream_ref, attr) -> tensor[B], plus the
-    timestamps and validity of each frame, and per-lane values the query
-    runtime hands to the selector (`extras`, e.g. sliding extrema)."""
+    timestamps and validity of each frame, and what the runtime hands to
+    the compiled functions (`extras`): the step's `now` (a Python int),
+    sliding extrema, and the table states, indexes and membership probes
+    of `in` conditions."""
 
     def __init__(self) -> None:
         self.frames: dict[str, dict] = {}
         self.valids: dict[str, torch.Tensor] = {}
         self.ts: dict[str, torch.Tensor] = {}
-        self.extras: dict[str, torch.Tensor] = {}
+        self.extras: dict[str, object] = {}
         self.default_frame: Optional[str] = None
 
     def add_frame(self, ref: str, cols: dict, ts: torch.Tensor,
@@ -70,6 +75,14 @@ class Scope:
 
 
 @dataclass
+class ScalarFunction:
+    """SPI for scalar functions: `make(arg_types)` returns (fn,
+    return_type); fn maps the argument tensors to the result tensor."""
+
+    make: Callable
+
+
+@dataclass
 class CompiledExpr:
     """A typed column function."""
 
@@ -84,11 +97,19 @@ class TypeResolver:
     """Resolves Variable -> (frame_ref, attr, AttributeType)."""
 
     def __init__(self, frames: dict, default_frame: Optional[str] = None,
-                 codecs: Optional[dict] = None) -> None:
+                 codecs: Optional[dict] = None,
+                 set_projections: Optional[dict] = None) -> None:
         self.frames = frames
         self.default_frame = default_frame or (next(iter(frames)) if frames
                                                else None)
         self.codecs: dict[str, StreamCodec] = codecs or {}
+        #: frame ref -> attributes carrying a forwarded unionSet set-size
+        #: projection: the only columns sizeOfSet() reads downstream
+        self.set_projections: dict = set_projections or {}
+
+    def is_set_projection(self, frame_ref: Optional[str], attr: str) -> bool:
+        ref = frame_ref or self.default_frame
+        return attr in self.set_projections.get(ref, ())
 
     def resolve(self, v: Variable):
         if v.stream_id is not None:
@@ -163,13 +184,14 @@ def compile_expression(expr: Expression, resolver: TypeResolver,
     if isinstance(expr, IsNull):
         return _compile_is_null(expr, resolver, registry)
 
-    if (isinstance(expr, AttributeFunction) and not expr.namespace
-            and expr.name == "ifThenElse"):
-        return _compile_if_then_else(expr, resolver, registry)
+    if isinstance(expr, In):
+        return _compile_in(expr, resolver, registry)
+
+    if isinstance(expr, AttributeFunction):
+        return _compile_function(expr, resolver, registry)
 
     raise SiddhiAppCreationError(
-        f"expression node {type(expr).__name__} is not yet ported to "
-        "siddhi_tpu_torch")
+        f"cannot compile expression node {type(expr).__name__}")
 
 
 def _require_bool(*exprs: CompiledExpr) -> None:
@@ -267,29 +289,6 @@ def _compile_compare(expr: Compare, resolver: TypeResolver,
                         AttributeType.BOOL)
 
 
-def _compile_if_then_else(expr: AttributeFunction, resolver: TypeResolver,
-                          registry: Registry) -> CompiledExpr:
-    """`ifThenElse(cond, a, b)`, as siddhi_tpu/ops/builtin_functions.py
-    types it: numeric branches promote, other branches must share a type.
-    Patterns compile `e1[last].attr` to a chain of these."""
-    args = [compile_expression(p, resolver, registry)
-            for p in expr.parameters]
-    if len(args) != 3 or args[0].type != AttributeType.BOOL:
-        raise SiddhiAppCreationError("ifThenElse(bool, then, else)")
-    c, a, b = args
-    if a.type != b.type:
-        if dtypes.is_numeric(a.type) and dtypes.is_numeric(b.type):
-            out_t = dtypes.promote(a.type, b.type)
-        else:
-            raise SiddhiAppCreationError(
-                "ifThenElse branches must share a type")
-    else:
-        out_t = a.type
-    return CompiledExpr(
-        lambda s: torch.where(c(s), _cast(torch.as_tensor(a(s)), out_t),
-                              _cast(torch.as_tensor(b(s)), out_t)), out_t)
-
-
 def _compile_is_null(expr: IsNull, resolver: TypeResolver,
                      registry: Registry) -> CompiledExpr:
     if expr.stream_id is not None:
@@ -314,3 +313,134 @@ def _compile_is_null(expr: IsNull, resolver: TypeResolver,
     e = compile_expression(inner, resolver, registry)
     return CompiledExpr(lambda s: torch.zeros_like(e(s), dtype=torch.bool),
                         AttributeType.BOOL)
+
+
+def _compile_in(expr: In, resolver: TypeResolver,
+                registry: Registry) -> CompiledExpr:
+    """`expr in T`: the query runtime puts a membership probe under
+    scope.extras['in:<T>']. A single `T.attr == <stream expr>` of one type
+    on both sides also carries an index plan, which the probe answers from
+    the table's sorted index when the attribute is indexed."""
+    inner = (compile_expression(expr.expression, resolver, registry)
+             if expr.expression else None)
+    source = expr.source_id
+
+    eq_plan = None
+    e = expr.expression
+    if isinstance(e, Compare) and e.op == CompareOp.EQUAL:
+        for tside, sside in ((e.left, e.right), (e.right, e.left)):
+            if not (isinstance(tside, Variable)
+                    and tside.stream_id == source):
+                continue
+            if _references_frame(sside, source, resolver):
+                continue
+            if isinstance(sside, Constant) and sside.type_name == "string":
+                # interned against the table attribute's string table
+                try:
+                    code = resolver.string_code(source, tside.attribute,
+                                                sside.value)
+                except SiddhiAppCreationError:
+                    break
+
+                def const_code(s, c=code):
+                    ts = s.ts[s.default_frame]
+                    return torch.full(ts.shape, c, dtype=torch.int32,
+                                      device=ts.device)
+
+                sc = CompiledExpr(const_code, AttributeType.STRING)
+            else:
+                try:
+                    sc = compile_expression(sside, resolver, registry)
+                except SiddhiAppCreationError:
+                    break
+            # the sorted-copy probe compares in the table column's dtype:
+            # mixed-type compares keep the exhaustive path, which promotes
+            try:
+                _, _, t_type = resolver.resolve(tside)
+            except Exception:
+                break
+            if sc.type != t_type:
+                break
+            eq_plan = (tside.attribute, sc)
+            break
+
+    def fn(s: Scope):
+        probe = s.extras.get(f"in:{source}")
+        if probe is None:
+            raise SiddhiAppCreationError(
+                f"`in {source}` used outside a table-aware context")
+        return probe(s, inner, eq_plan)
+
+    return CompiledExpr(fn, AttributeType.BOOL)
+
+
+def _references_frame(e: Expression, frame: str,
+                      resolver: TypeResolver) -> bool:
+    if isinstance(e, Variable):
+        if e.stream_id is not None:
+            return e.stream_id == frame
+        # an unqualified variable may resolve to the table frame
+        try:
+            ref, _, _ = resolver.resolve(e)
+        except Exception:
+            return True  # unresolvable: decline the plan
+        return ref == frame
+    for attr in ("left", "right", "expression"):
+        sub = getattr(e, attr, None)
+        if isinstance(sub, Expression) and _references_frame(sub, frame,
+                                                             resolver):
+            return True
+    for p_ in getattr(e, "parameters", ()) or ():
+        if isinstance(p_, Expression) and _references_frame(p_, frame,
+                                                            resolver):
+            return True
+    return False
+
+
+def _compile_function(expr: AttributeFunction, resolver: TypeResolver,
+                      registry: Registry) -> CompiledExpr:
+    # planner-resolved built-ins: they read the batch context, not columns
+    if not expr.namespace and expr.name == "eventTimestamp":
+        if expr.parameters:
+            sid = expr.parameters[0]
+            if isinstance(sid, Variable):
+                return CompiledExpr(lambda s, r=sid.attribute: s.ts[r],
+                                    AttributeType.LONG)
+        return CompiledExpr(lambda s: s.ts[s.default_frame],
+                            AttributeType.LONG)
+    if not expr.namespace and expr.name == "currentTimeMillis":
+        def now(s):
+            ts = s.ts[s.default_frame]
+            return torch.full(ts.shape, int(s.extras["now"]),
+                              dtype=torch.int64, device=ts.device)
+        return CompiledExpr(now, AttributeType.LONG)
+    # sizeOfSet over a forwarded raw-unionSet column: the lane carries the
+    # exact distinct count (a LONG set-size projection); accepted only with
+    # unionSet provenance, an ordinary LONG column raises
+    if (not expr.namespace and expr.name == "sizeOfSet"
+            and len(expr.parameters) == 1
+            and isinstance(expr.parameters[0], Variable)):
+        v = expr.parameters[0]
+        ref, attr, t = resolver.resolve(v)
+        if t == AttributeType.LONG and resolver.is_set_projection(ref, attr):
+            dt = dtypes.device_dtype(AttributeType.LONG)
+            return CompiledExpr(
+                lambda s, r=ref, a=attr, d=dt: s.col(r, a).to(d),
+                AttributeType.LONG)
+        raise SiddhiAppCreationError(
+            f"sizeOfSet({v.attribute}): the column does not carry a "
+            "unionSet set-size projection — only a forwarded `select "
+            "unionSet(x) as s` output (auto-defined stream or insert-into "
+            "table) is readable by sizeOfSet downstream; an ordinary "
+            f"{t.value} attribute would silently forward its value")
+
+    args = tuple(compile_expression(p, resolver, registry)
+                 for p in expr.parameters)
+    impl = registry.lookup(ExtensionKind.FUNCTION, expr.namespace, expr.name)
+    if impl is None:
+        raise SiddhiAppCreationError(
+            f"no function extension {expr.full_name!r} "
+            f"(aggregators are valid only in SELECT)")
+    assert isinstance(impl, ScalarFunction)
+    fn, ret_t = impl.make(tuple(a.type for a in args))
+    return CompiledExpr(lambda s: fn(*(a(s) for a in args)), ret_t)

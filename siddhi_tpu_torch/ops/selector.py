@@ -4,7 +4,11 @@ grouped path (K3 -> K4 -> K5), aggregates without GROUP BY, custom
 aggregators with their own state (distinctCount, hll:distinctCount),
 monotone min/max/minForever/maxForever scans (K5b), sliding-window min/max
 as range queries the query runtime computes (K8), HAVING, and ORDER BY /
-LIMIT / OFFSET per chunk (K7 and K1 sort, K5b ranks).
+LIMIT / OFFSET per chunk (K7 and K1 sort, K5b ranks). The set idioms
+rewrite to distinctCount (`sizeOfSet(unionSet(createSet(x)))`), a raw
+`unionSet(x)` output is materialised on the host from its pair table,
+`UUID()` outputs are filled in on the host, and on-demand queries emit
+one row per group (the last lane of each group slot, K13b).
 
 Consumes window chunks (CURRENT / EXPIRED / RESET lanes) and produces the
 output batch, reproducing per-event semantics: each aggregate component
@@ -51,11 +55,38 @@ from .groupby import (
 )
 from .search import (float64_sort_key, stable_partition_order,
                      stable_radix_argsort)
+from .windows_extra import last_lane_per_slot
 
 AGG_FRAME = "__agg__"
 #: pseudo-column carrying each output lane's group slot (grouped snapshot
 #: rate limiting); never part of the output schema
 GROUP_SLOT_COL = "__slot__"
+
+
+def _rewrite_set_idioms(expr: Expression) -> Expression:
+    """`sizeOfSet(unionSet(createSet(x)))` (and without createSet) becomes
+    an exact `distinctCount(x)`: the set is never materialised."""
+    if isinstance(expr, AttributeFunction):
+        if (not expr.namespace and expr.name == "sizeOfSet"
+                and expr.parameters):
+            inner = expr.parameters[0]
+            if (isinstance(inner, AttributeFunction) and not inner.namespace
+                    and inner.name == "unionSet" and inner.parameters):
+                arg = inner.parameters[0]
+                if (isinstance(arg, AttributeFunction) and not arg.namespace
+                        and arg.name == "createSet" and arg.parameters):
+                    arg = arg.parameters[0]
+                return AttributeFunction("", "distinctCount",
+                                         (_rewrite_set_idioms(arg),))
+        return AttributeFunction(
+            expr.namespace, expr.name,
+            tuple(_rewrite_set_idioms(p) for p in expr.parameters))
+    for name in ("left", "right", "expression"):
+        sub = getattr(expr, name, None)
+        if isinstance(sub, Expression):
+            expr = dataclasses.replace(
+                expr, **{name: _rewrite_set_idioms(sub)})
+    return expr
 
 
 def _rewrite_aggregators(expr: Expression, registry: Registry, found: list):
@@ -103,8 +134,12 @@ class CompiledSelector:
     def __init__(self, selector: Selector, resolver: TypeResolver,
                  registry: Registry, group_capacity: int,
                  select_all_attrs: Optional[list] = None,
-                 sliding_window: bool = False):
+                 sliding_window: bool = False,
+                 emit_final_per_group: bool = False):
         self.group_capacity = group_capacity
+        #: on-demand queries: one lane per group, its final aggregate,
+        #: instead of every lane's running value
+        self.emit_final_per_group = emit_final_per_group
         #: set by the query runtime when a grouped snapshot limiter needs
         #: each lane's group slot (GROUP_SLOT_COL)
         self.expose_group_slot = False
@@ -115,10 +150,49 @@ class CompiledSelector:
                     "select * needs input attribute list")
             attrs = tuple(OutputAttribute(n, Variable(n))
                           for n, _ in select_all_attrs)
+        #: raw `select unionSet(x) as s`: the device tracks an exact
+        #: distinctCount; the query runtime materialises the live set on
+        #: the host from its pair table. out name -> __agg__ slot
+        self.host_set_slots: dict[str, str] = {}
+        pre = []
+        for a in attrs:
+            e = _rewrite_set_idioms(a.expression)
+            if (isinstance(e, AttributeFunction) and not e.namespace
+                    and e.name == "unionSet" and e.parameters):
+                arg = e.parameters[0]
+                if (isinstance(arg, AttributeFunction) and not arg.namespace
+                        and arg.name == "createSet" and arg.parameters):
+                    arg = arg.parameters[0]
+                if a.rename is None:
+                    raise SiddhiAppCreationError(
+                        "raw unionSet(...) output needs an `as` name")
+                if selector.group_by:
+                    raise SiddhiAppCreationError(
+                        "raw unionSet(...) emission is ungrouped-only on "
+                        "this engine (use sizeOfSet(unionSet(...)) for "
+                        "grouped counts)")
+                if compile_expression(arg, resolver,
+                                      registry).type != AttributeType.STRING:
+                    raise SiddhiAppCreationError(
+                        "raw unionSet(...) emission needs a STRING argument "
+                        "(host materialization reads the dictionary-code "
+                        "table); use sizeOfSet(unionSet(...)) for counts "
+                        "over other types")
+                self.host_set_slots[a.rename] = ""  # agg slot filled below
+                e = AttributeFunction("", "distinctCount", (arg,))
+            pre.append((a.rename, e))
         agg_nodes: list = []
-        rewritten = [(a.rename, _rewrite_aggregators(a.expression, registry,
-                                                     agg_nodes))
-                     for a in attrs]
+        rewritten = [(name, _rewrite_aggregators(e, registry, agg_nodes))
+                     for name, e in pre]
+        for name, e in rewritten:
+            if name in self.host_set_slots:
+                self.host_set_slots[name] = e.attribute
+        #: outputs filled with a fresh uuid4 per event on the host; the
+        #: device lanes carry a placeholder code
+        self.host_uuid_slots: list[str] = [
+            name or f"UUID{i}" for i, (name, e) in enumerate(rewritten)
+            if (isinstance(e, AttributeFunction) and not e.namespace
+                and e.name == "UUID")]
 
         self.agg_specs = []
         #: sliding-window true extrema: (slot, 'min'|'max', arg exprs); the
@@ -148,11 +222,18 @@ class CompiledSelector:
         frames[AGG_FRAME] = {slot: spec.return_type
                              for slot, spec, _ in self.agg_specs}
         self.resolver = TypeResolver(frames, resolver.default_frame,
-                                     resolver.codecs)
+                                     resolver.codecs,
+                                     resolver.set_projections)
         self.out_exprs: list[tuple[str, CompiledExpr]] = [
-            (name, compile_expression(e, self.resolver, registry))
+            (name, CompiledExpr(_uuid_placeholder, AttributeType.STRING)
+             if name in self.host_uuid_slots
+             else compile_expression(e, self.resolver, registry))
             for name, e in rewritten]
         self.out_types = {name: ce.type for name, ce in self.out_exprs}
+        for name in self.host_set_slots:
+            # the lane carries the exact distinct count: downstream
+            # consumers read the set-size projection as LONG
+            self.out_types[name] = AttributeType.LONG
 
         self.group_vars = [resolver.resolve(v) for v in selector.group_by]
         self.use_string_code = (len(self.group_vars) == 1
@@ -161,7 +242,8 @@ class CompiledSelector:
 
         out_frames = dict(frames)
         out_frames["__out__"] = dict(self.out_types)
-        out_resolver = TypeResolver(out_frames, "__out__", resolver.codecs)
+        out_resolver = TypeResolver(out_frames, "__out__", resolver.codecs,
+                                    resolver.set_projections)
         self.having = (compile_expression(selector.having, out_resolver,
                                           registry)
                        if selector.having is not None else None)
@@ -196,6 +278,28 @@ class CompiledSelector:
             epoch=torch.zeros((), dtype=torch.int32, device=device),
             shared_epoch=(torch.zeros(K, dtype=torch.int32, device=device)
                           if any_fused else None))
+
+    def union_set_values(self, sstate: SelectorState, out_name: str,
+                         string_table) -> set:
+        """The live value set behind a raw-unionSet output (the ungrouped
+        string path's per-code pair counts), decoded through the app's
+        string table: one readback."""
+        agg_slot = self.host_set_slots[out_name]
+        off = 0
+        state = None
+        for slot_name, spec, _ in self.agg_specs:
+            if slot_name in self._extrema_slots:
+                continue
+            if slot_name == agg_slot:
+                state = sstate.groups[off]
+                break
+            off += 1 if spec.custom_scan is not None else len(
+                spec.components)
+        assert state is not None, f"no state for set slot {out_name!r}"
+        pairs = state[0]  # (pair GroupState[P], distinct GroupState[1])
+        live = (pairs.epoch == sstate.epoch) & (pairs.values > 0)
+        codes = torch.nonzero(live).flatten().cpu().tolist()
+        return {string_table.decode(int(c)) for c in codes}
 
     def step(self, state: SelectorState, chunk: EventBatch,
              scope: Scope) -> tuple[SelectorState, EventBatch]:
@@ -302,6 +406,16 @@ class CompiledSelector:
             # lane's group slot rides through order / limit as a column
             out_cols[GROUP_SLOT_COL] = slots
         out_valid = data_valid
+        if self.emit_final_per_group and self.agg_specs:
+            # keep only the last lane of each group (its running aggregate
+            # is the group's final value), before HAVING judges it
+            K = self.group_capacity if self.group_vars else 1
+            in_range = out_valid & (slots >= 0) & (slots < K)
+            last = last_lane_per_slot(torch.where(in_range, slots, K), K,
+                                      counter="K13b final per group")
+            idx = torch.arange(L, dtype=torch.int32, device=dev)
+            out_valid = out_valid & (
+                idx == last[torch.clamp(slots, 0, K - 1).long()])
         if self.having is not None:
             scope.frames["__out__"] = out_cols
             scope.valids["__out__"] = out_valid
@@ -353,3 +467,10 @@ class CompiledSelector:
         if self.limit is not None:
             keep = keep & (rank < self.limit)
         return dataclasses.replace(out, valid=keep)
+
+
+def _uuid_placeholder(s: Scope) -> torch.Tensor:
+    """A UUID() output's device lanes: code 0 until the host fills in a
+    uuid4 per event."""
+    ts = s.ts[s.default_frame]
+    return torch.zeros(ts.shape, dtype=torch.int32, device=ts.device)

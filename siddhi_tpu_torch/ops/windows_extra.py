@@ -448,6 +448,35 @@ def frequent_last_lane(slot, comp_cols: dict, comp_ts, slot_cols: dict,
                                     slot_ts, N)
 
 
+def last_lane_per_slot_plain(slot: torch.Tensor, N: int) -> torch.Tensor:
+    """Plain K13b without the row gather: the last lane of each of N + 1
+    slots (N takes the lanes that count for no slot), -1 where none.
+    int32[N + 1]."""
+    last = torch.full((N + 1,), -1, dtype=torch.int32, device=slot.device)
+    last.scatter_reduce_(0, slot.long(),
+                         torch.arange(slot.shape[0], dtype=torch.int32,
+                                      device=slot.device), reduce="amax")
+    return last
+
+
+def last_lane_per_slot(slot: torch.Tensor, N: int, *,
+                       counter: str) -> torch.Tensor:
+    """The last lane of each slot (K13b's init and atomicMax scatter).
+    `slot` holds values in [0, N]; `counter` names the calling site."""
+    if not slot.is_cuda:
+        return last_lane_per_slot_plain(slot, N)
+    slot = slot.to(torch.int32).contiguous()
+    kernels.require_cuda("last_lane_per_slot", slot)
+    B = slot.shape[0]
+    last = torch.empty(N + 1, dtype=torch.int32, device=slot.device)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    rc = kernels.bind("k13b_frequent", "k13b_last_lane", [P, I, I, P, P])(
+        slot.data_ptr(), B, N, last.data_ptr(), kernels.stream())
+    kernels.check("k13b_frequent", "last_lane_per_slot", rc)
+    kernels.LAUNCHES[counter] += 2 if B else 1
+    return last
+
+
 def _match(table_keys, query_keys):
     """Index of each query key in table_keys, or len(table) when absent
     (the table's stable order is K7's int64 argsort)."""

@@ -467,11 +467,24 @@ def test_min_max_refused_over_a_delay_window():
 
 
 def test_union_set_is_not_yet_ported():
+    """A raw unionSet runs: its live sets match the JAX package's
+    (tests/test_torch_builtins.py covers the set idioms)."""
     app = S + ("@info(name = 'q') from S#window.length(3) "
                "select unionSet(symbol) as u insert into Out;")
-    with pytest.raises(SiddhiAppCreationError, match="not yet ported"):
-        siddhi_tpu_torch.SiddhiManager(device="cpu") \
-            .create_siddhi_app_runtime(app)
+    outs = []
+    for pkg in (siddhi_tpu, siddhi_tpu_torch):
+        rt = (pkg.SiddhiManager(device="cpu") if pkg is siddhi_tpu_torch
+              else pkg.SiddhiManager()).create_siddhi_app_runtime(app)
+        got = []
+        rt.add_query_callback("q", lambda ts, i, r, got=got: got.extend(
+            e.data[0] for e in i or []))
+        h = rt.get_input_handler("S")
+        for k, sym in enumerate("abcab"):
+            h.send((sym, 1.0, 1, k, True), timestamp=k)
+            rt.flush()
+        outs.append(got)
+    assert outs[1] == outs[0] == [{"a"}, {"a", "b"}, {"a", "b", "c"},
+                                  {"a", "b", "c"}, {"a", "b", "c"}]
 
 
 # ------------------------------------------------- joins and patterns

@@ -1423,3 +1423,215 @@ def test_rate_limiter_apps_on_card_match_cpu(cuda, name):
     for (ta, da), (tb, db) in zip(card, cpu):
         assert ta == tb and da[0] == db[0]
         np.testing.assert_allclose(da[1:], db[1:], rtol=1e-5, atol=1e-3)
+
+
+def _table_case(cuda, rng, B, C, n_live, kinds):
+    """A table state and an insert batch whose keys collide with the
+    rows and with each other (NaN and -0.0 among the float keys)."""
+    from siddhi_tpu_torch.core.table import TableState
+
+    def keys(kind, n):
+        if kind == "double":
+            return torch.from_numpy(rng.choice(
+                np.array([0.0, -0.0, 1.5, np.nan, 2.0], np.float32), n))
+        if kind == "bool":
+            return torch.from_numpy(rng.random(n) < 0.5)
+        dt = {"int": np.int32, "long": np.int64}[kind]
+        return torch.from_numpy(rng.integers(-3, 4, n).astype(dt))
+
+    live = np.zeros(C, bool)
+    live[rng.choice(C, n_live, replace=False)] = True
+    cols = {f"k{i}": keys(k, C) for i, k in enumerate(kinds)}
+    cols["v"] = torch.from_numpy(rng.random(C).astype(np.float32))
+    state = TableState({k: v.to(cuda) for k, v in cols.items()},
+                       torch.arange(C, dtype=torch.int64, device=cuda),
+                       torch.from_numpy(live).to(cuda))
+    bcols = {f"k{i}": keys(k, B).to(cuda) for i, k in enumerate(kinds)}
+    bcols["v"] = torch.from_numpy(rng.random(B).astype(np.float32)).to(cuda)
+    bts = 10_000 + torch.arange(B, dtype=torch.int64, device=cuda)
+    bvalid = torch.from_numpy(rng.random(B) < 0.9).to(cuda)
+    return state, bcols, bts, bvalid
+
+
+@pytest.mark.parametrize("B,C,n_live,kinds", [
+    (1, 64, 10, ("long",)), (512, 4096, 0, ("int",)),
+    (2048, 8192, 3000, ("int", "long")), (700, 2048, 2040, ("long",)),
+    (300, 1024, 500, ("double", "bool")), (4096, 16, 16, ("long",))],
+    ids=["B1", "empty", "two_keys", "full", "nan_keys", "table_full"])
+def test_k13d_kernels_match_plain(cuda, B, C, n_live, kinds):
+    """K13d dedup bit for bit with the [B, C] / [B, B] masks, and K13d
+    place with the JAX scatter: the table state and both counts; an
+    overflowing insert writes nothing."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.core import table as tb
+    from siddhi_tpu_torch.core.table import TableState
+    from siddhi_tpu_torch.ops import search
+    rng = np.random.default_rng(B + C)
+    state, bcols, bts, bvalid = _table_case(cuda, rng, B, C, n_live, kinds)
+    names = [f"k{i}" for i in range(len(kinds))]
+    kernels.reset_launch_counts()
+    lane = [bcols[k] for k in names]
+    row = [state.cols[k] for k in names]
+    drop = tb.pk_duplicates(lane, row, bvalid, state.valid)
+    assert torch.equal(drop, tb.pk_duplicates_plain(lane, row, bvalid,
+                                                    state.valid))
+    free = search.stable_partition_order_plain(~state.valid)
+    want, wcounts = tb.place_rows_plain(state, bcols, bts, bvalid, drop,
+                                        free)
+    copy = TableState({k: v.clone() for k, v in state.cols.items()},
+                      state.ts.clone(), state.valid.clone())
+    got, gcounts = tb.place_rows(copy, bcols, bts, bvalid, drop, free)
+    assert torch.equal(gcounts, wcounts)
+    expect = state if int(wcounts[0]) else want
+    for k in state.cols:
+        assert torch.equal(got.cols[k].view(torch.uint8),
+                           expect.cols[k].view(torch.uint8)), k
+    assert torch.equal(got.ts, expect.ts)
+    assert torch.equal(got.valid, expect.valid)
+    assert kernels.LAUNCHES["K13d dedup"] > 0
+    assert kernels.LAUNCHES["K13d place"] > 0
+
+
+@pytest.mark.parametrize("B,C,density", [
+    (1, 65536, 0.3), (4096, 1, 0.5), (8192, 8192, 0.0001),
+    (300, 5000, 0.0), (1000, 3000, 0.9)])
+def test_k13e_kernel_matches_plain(cuda, B, C, density):
+    from siddhi_tpu_torch.core import table as tb
+    rng = np.random.default_rng(B ^ C)
+    mask = torch.from_numpy(rng.random((B, C)) < density).to(cuda)
+    for g, w in zip(tb.last_match(mask), tb.last_match_plain(mask)):
+        assert torch.equal(g, w)
+
+
+def test_new_k1_k7_k13b_table_sites_match_plain(cuda):
+    """K1 on a table's free rows, K7 on its index keys (int32 codes,
+    int64, float32 with NaN and -0.0), K13b's last lane per group of an
+    on-demand aggregate."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.core import table as tb
+    from siddhi_tpu_torch.ops import search
+    from siddhi_tpu_torch.ops import windows_extra as wx
+    rng = np.random.default_rng(12)
+    C = 65536
+    kernels.reset_launch_counts()
+    free = torch.from_numpy(rng.random(C) < 0.2).to(cuda)
+    assert torch.equal(
+        search.stable_partition_order(free, counter="K1 table free"),
+        search.stable_partition_order_plain(free))
+    for keys in (rng.integers(0, 60000, C).astype(np.int32),
+                 rng.integers(-2**40, 2**40, C),
+                 rng.choice(np.array([0.0, -0.0, np.nan, 1.5, -2.5, np.inf],
+                                     np.float32), C)):
+        k = torch.from_numpy(keys).to(cuda)
+        got = tb.sorted_index(k)
+        want = torch.sort(k.cpu()).values.to(cuda)
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8)) \
+            or torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    K = 1024
+    slot = torch.from_numpy(rng.integers(0, K + 1, C).astype(np.int32)) \
+        .to(cuda)
+    assert torch.equal(
+        wx.last_lane_per_slot(slot, K, counter="K13b final per group"),
+        wx.last_lane_per_slot_plain(slot, K))
+    for site in ("K1 table free", "K7 table index", "K13b final per group"):
+        assert kernels.LAUNCHES[site] > 0, site
+
+
+TABLE_APPS_ON_CARD = {
+    "insert_primary_key": (
+        "@PrimaryKey('symbol')\ndefine table T (symbol string, price double, "
+        "volume long);\nfrom TradeStream insert into T;",
+        (), ("K13d dedup", "K13d place", "K1 table free")),
+    "in_indexed": (
+        "@PrimaryKey('symbol')\ndefine table T (symbol string, price double, "
+        "volume long);\nfrom TradeStream[volume < 10] insert into T;\n"
+        "@info(name = 'q') from TradeStream[TradeStream.symbol == T.symbol "
+        "in T] select symbol, price insert into OutStream;",
+        ("q",), ("K7 table index",)),
+    "in_scan": (
+        "define table T (symbol string, price double, volume long);\n"
+        "from TradeStream[volume < 10] insert into T;\n"
+        "@info(name = 'q') from TradeStream[(TradeStream.symbol == T.symbol "
+        "and TradeStream.price > T.price) in T] select symbol, price "
+        "insert into OutStream;", ("q",), ("K13e",)),
+    "update_or_insert": (
+        "@PrimaryKey('symbol')\ndefine table T (symbol string, price double, "
+        "volume long);\nfrom TradeStream update or insert into T set "
+        "T.price = T.price + price, T.volume = volume on T.symbol == symbol;",
+        (), ("K13e", "K13d dedup", "K13d place")),
+    "update_and_delete": (
+        "define table T (symbol string, price double, volume long);\n"
+        "from TradeStream[volume < 15] insert into T;\n"
+        "from TradeStream[volume >= 25] update T set T.price = price "
+        "on T.symbol == symbol;\n"
+        "from TradeStream[volume > 15 and volume < 20] delete T "
+        "on T.symbol == symbol;", (), ("K13e",)),
+    "join_table": (
+        "@PrimaryKey('symbol')\ndefine table T (symbol string, price double, "
+        "volume long);\nfrom TradeStream[volume < 5] insert into T;\n"
+        "@info(name = 'q') from TradeStream as t join T as s on t.symbol == "
+        "s.symbol select t.symbol, s.volume, t.price * s.price as w "
+        "insert into OutStream;", ("q",), ()),
+    "join_named_window": (
+        "define window W (symbol string, price double, volume long) "
+        "length(50);\nfrom TradeStream[volume < 10] insert into W;\n"
+        "@info(name = 'q') from TradeStream as t join W as w on t.symbol == "
+        "w.symbol select t.symbol, w.price as wp, t.price as tp "
+        "insert into OutStream;", ("q",), ()),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TABLE_APPS_ON_CARD))
+def test_table_apps_on_card_match_cpu(cuda, name):
+    """One app per table action, card against CPU: the callbacks, the
+    table's rows and on-demand finds (a grouped one on K13b) and deletes
+    over it."""
+    from siddhi_tpu_torch import SiddhiManager, kernels
+    text, queries, on_path = TABLE_APPS_ON_CARD[name]
+    app = ("@app:playback\ndefine stream TradeStream (symbol string, price "
+           "double, volume long);\n" + text)
+    rng = np.random.default_rng(61)
+    n, bs = 256 * 6, 256
+    ts = 1_000 + np.arange(n)
+    cols = {"symbol": np.array([f"S{i}" for i in rng.integers(0, 90, n)],
+                               dtype=object),
+            "price": rng.integers(1, 120, n) * 0.5,
+            "volume": rng.integers(1, 30, n).astype(np.int64)}
+    outs = []
+    for dev in ("cuda", "cpu"):
+        rt = SiddhiManager(device=dev).create_siddhi_app_runtime(
+            app, batch_size=bs)
+        got = []
+        if queries:
+            rt.add_callback("OutStream", lambda evs, g=got: g.extend(
+                (e.timestamp, e.data) for e in evs))
+        kernels.reset_launch_counts()
+        h = rt.get_input_handler("TradeStream")
+        for s in range(0, n, bs):
+            h.send_columns({k: v[s:s + bs] for k, v in cols.items()},
+                           timestamps=ts[s:s + bs])
+            rt.flush()
+        store = "W" if "W" in rt.windows else "T"
+        finds = [e.data for e in rt.query(
+            f"from {store} select symbol, count() as c, sum(price) as p "
+            "group by symbol")]
+        if store == "T":
+            finds.append(len(rt.tables["T"]))
+            rt.query("delete T on T.price > 30.0")
+            finds += sorted(rt.tables["T"].all_rows())
+        if dev == "cuda":
+            for k in on_path + ("K13b final per group",):
+                assert kernels.LAUNCHES[k] > 0, k
+        outs.append((got, finds))
+    (card, cfind), (cpu, pfind) = outs
+    assert len(card) == len(cpu) and len(cfind) == len(pfind) > 1
+    assert (len(card) > 0) == bool(queries)
+    for (ta, da), (tb_, db) in zip(card, cpu):
+        assert ta == tb_ and da[0] == db[0]
+        np.testing.assert_allclose(da[1:], db[1:], rtol=1e-5, atol=1e-3)
+    for a, b in zip(cfind, pfind):
+        if isinstance(a, tuple):
+            assert a[0] == b[0]
+            np.testing.assert_allclose(a[1:], b[1:], rtol=1e-5, atol=1e-3)
+        else:
+            assert a == b

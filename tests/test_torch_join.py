@@ -528,15 +528,38 @@ def test_interop_continues_a_jax_join():
 
 
 @pytest.mark.parametrize("defs,tail", [
-    ("define table T (k int, w double);", ""),
-    ("define window T (k int, w double) length(5);", ""),
+    ("define table T (k int, w double);\nfrom R select k, v as w "
+     "insert into T;", ""),
+    ("define window T (k int, w double) length(5);\nfrom R select k, "
+     "v as w insert into T;", ""),
     ("define aggregation T from R select k, sum(v) as w group by k "
      "aggregate every sec, min;", " per 'sec'"),
 ], ids=["table", "named_window", "aggregation"])
 def test_unported_sides_are_refused(defs, tail):
-    app = KV + defs + ("\nfrom L#window.length(5) as a join T as b "
-                       f"on a.k == b.k{tail} select a.k as k "
-                       "insert into OutStream;")
-    mgr = siddhi_tpu_torch.SiddhiManager(device="cpu")
-    with pytest.raises(SiddhiAppCreationError, match="not yet ported"):
-        mgr.create_siddhi_app_runtime(app)
+    """Aggregation sides stay refused; table and named-window sides run,
+    with the JAX package's output."""
+    app = KV + defs + ("\n@info(name='j') from L#window.length(5) as a "
+                       f"join T as b on a.k == b.k{tail} select a.k as k, "
+                       "b.w as w insert into OutStream;")
+    if "aggregation" in defs:
+        mgr = siddhi_tpu_torch.SiddhiManager(device="cpu")
+        with pytest.raises(SiddhiAppCreationError, match="not yet ported"):
+            mgr.create_siddhi_app_runtime(app)
+        return
+    outs = []
+    for pkg in (siddhi_tpu, siddhi_tpu_torch):
+        rt = (pkg.SiddhiManager(device="cpu") if pkg is siddhi_tpu_torch
+              else pkg.SiddhiManager()).create_siddhi_app_runtime(
+                  "@app:playback\n" + app, batch_size=8)
+        got = []
+        rt.add_query_callback("j", lambda ts, i, r, got=got: got.extend(
+            (e.timestamp, tuple(e.data)) for e in i or []))
+        for k in range(4):
+            rt.get_input_handler("R").send((k % 3, float(k)), timestamp=k)
+        rt.flush()
+        for k in range(5):
+            rt.get_input_handler("L").send((k, 0.5), timestamp=10 + k)
+        rt.flush()
+        outs.append(got)
+    assert outs[0]
+    _assert_same(outs[0], outs[1])

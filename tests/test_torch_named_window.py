@@ -226,7 +226,7 @@ def test_interop_continues_a_jax_named_window():
      "length(5);\nfrom StockStream insert into W;\n"
      "from Check join W on Check.symbol == W.symbol "
      "select Check.symbol as symbol insert into Out;",
-     "not yet ported"),
+     None),
     ("define window W (sym string, p float) length(5);\n"
      "from StockStream select symbol, price, volume insert into W;",
      "query emits 3 attributes, window has 2"),
@@ -236,18 +236,31 @@ def test_interop_continues_a_jax_named_window():
 ], ids=["window_of_a_window", "join_side", "rename_arity", "rename_type"])
 def test_refusals_match(text, match):
     """The JAX package refuses the first and last two with the same text;
-    a join against a named window is not yet ported."""
-    if match != "not yet ported":
-        with pytest.raises(siddhi_tpu.errors.SiddhiAppCreationError,
-                           match=match):
-            _build(siddhi_tpu, STOCK + text)
+    both build a join against a named window (its parity is in
+    tests/test_torch_tables.py)."""
+    if match is None:
+        _build(siddhi_tpu, STOCK + text)
+        _build(siddhi_tpu_torch, STOCK + text)
+        return
+    with pytest.raises(siddhi_tpu.errors.SiddhiAppCreationError,
+                       match=match):
+        _build(siddhi_tpu, STOCK + text)
     with pytest.raises(SiddhiAppCreationError, match=match):
         _build(siddhi_tpu_torch, STOCK + text)
 
 
 def test_pull_queries_stay_refused():
-    rt = _build(siddhi_tpu_torch, STOCK + "define window W (symbol string, "
-                "price float, volume long) length(3);\n"
-                "from StockStream insert into W;")
-    with pytest.raises(SiddhiAppCreationError, match="not yet ported"):
-        rt.query("from W select symbol, price")
+    """An on-demand query over a named window finds the window's rows as
+    the JAX package does."""
+    outs = []
+    for pkg in (siddhi_tpu, siddhi_tpu_torch):
+        rt = _build(pkg, "@app:playback\n" + STOCK + "define window W "
+                    "(symbol string, price float, volume long) length(3);\n"
+                    "from StockStream insert into W;")
+        h = rt.get_input_handler("StockStream")
+        for k, sym in enumerate("abcd"):
+            h.send((sym, float(k), k), timestamp=k)
+        rt.flush()
+        outs.append([(e.timestamp, tuple(e.data))
+                     for e in rt.query("from W select symbol, price")])
+    assert outs[1] == outs[0] and len(outs[0]) == 3

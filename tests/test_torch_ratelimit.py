@@ -378,8 +378,8 @@ Q = "@info(name='q') from S "
 GROUPED_SUM = (Q + "select symbol, sum(price) as total group by symbol "
                "output {} insert into Out;")
 
-# the limiter shapes of tests/test_ratelimit.py (its two table cases
-# belong to the tables, which the port does not run yet)
+# the limiter shapes of tests/test_ratelimit.py (its two table cases are
+# test_const_insert_* below)
 SHAPES = {
     "last_every_3_events": (
         Q + "select symbol, price output last every 3 events insert into "
@@ -696,3 +696,31 @@ def test_apps_match_jax_and_the_oracle(name):
                     [(e.timestamp, tuple(e.data), e.is_expired)
                      for e in got[stream]])
     assert check(got) == sum(len(v) for v in got.values())
+
+
+@pytest.mark.parametrize("select,ok", [
+    ("select 5.0 as wrongname", False),
+    ("select 5.0 as price, 'NEW' as sym", True)])
+def test_const_insert_into_a_table(select, ok):
+    """tests/test_ratelimit.py's `test_const_insert_rejects_schema_mismatch`
+    and `test_const_insert_maps_by_name`: a standalone `select <constants>
+    insert into T` checks its names against the table schema and inserts
+    by name, in both packages."""
+    from siddhi_tpu.errors import SiddhiAppCreationError as JError
+    outcomes = []
+    for pkg, err in ((siddhi_tpu, JError),
+                     (siddhi_tpu_torch, SiddhiAppCreationError)):
+        rt = pkg.SiddhiManager(
+            **({"device": "cpu"} if pkg is siddhi_tpu_torch else {})) \
+            .create_siddhi_app_runtime(
+                "define table T (sym string, price double);")
+        try:
+            rt.query(f"{select} insert into T")
+            outcomes.append(("rows", rt.tables["T"].all_rows()))
+        except err as e:
+            outcomes.append(("error", str(e)))
+    assert outcomes[1] == outcomes[0]
+    if ok:
+        assert outcomes[1] == ("rows", [("NEW", 5.0)])
+    else:
+        assert outcomes[1][0] == "error" and "missing" in outcomes[1][1]

@@ -92,10 +92,25 @@ def test_refusals_match_jax(text, match):
 
 
 def test_join_sides_keep_refusing_stream_functions():
+    """The JAX package accepts stream functions on a join side and does
+    not apply them (ROADMAP.md Queue 3), and so does the port: the same
+    output."""
     app = (S + "define stream R (symbol string, w double);\n"
-           "from S#pol2Cart(price, volume)#window.length(5) as a join "
-           "R#window.length(5) as b on a.symbol == b.symbol "
-           "select a.symbol as s insert into Out;")
-    with pytest.raises(SiddhiAppCreationError, match="join sides"):
-        siddhi_tpu_torch.SiddhiManager(device="cpu") \
-            .create_siddhi_app_runtime(app)
+           "@info(name='j') from S#pol2Cart(price, volume)#window.length(5) "
+           "as a join R#window.length(5) as b on a.symbol == b.symbol "
+           "select a.symbol as s, a.price as p insert into Out;")
+    outs = []
+    for pkg in (siddhi_tpu, siddhi_tpu_torch):
+        rt = (pkg.SiddhiManager(device="cpu") if pkg is siddhi_tpu_torch
+              else pkg.SiddhiManager()).create_siddhi_app_runtime(
+                  app, batch_size=8)
+        got = []
+        rt.add_query_callback("j", lambda ts, i, r, got=got: got.extend(
+            tuple(e.data) for e in i or []))
+        rt.get_input_handler("S").send(("a", 1.5, 2, 0), timestamp=1)
+        rt.get_input_handler("S").send(("b", 2.5, 3, 0), timestamp=2)
+        rt.flush()
+        rt.get_input_handler("R").send(("a", 0.5), timestamp=3)
+        rt.flush()
+        outs.append(got)
+    assert outs[1] == outs[0] == [("a", 1.5)]
