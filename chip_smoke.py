@@ -223,7 +223,36 @@ Phases (any failure exits non-zero and prints no result line):
    once), strings, longs and stored float32 values exact, on-demand sums
    within 1e-5 of the sum of magnitudes; each app's kernels launched;
    one host read a table insert (its overflow and dropped counts) and
-   none elsewhere in a step.
+   none elsewhere in a step;
+26. K13f, the aggregation's bucket scatter, against its plain version on
+   the card: app AE's ten columns (the bucket and symbol set, the alive
+   flags, float32 sums, min and max with NaN and ±inf, int64 sums) in one
+   launch of B = 131,072 lanes into K = 2^20 slots at low contention
+   (~125,000 slots, AE's `sec` store) and high (10,000 slots, its hour to
+   year stores), set, min, max and int64 sums bit for bit, float32 sums
+   within 1e-5 of the slot's sum of magnitudes; the evict (a 2^20-slot
+   store's kept rows into a fresh one) and AF's restore (90,000 rows),
+   bit for bit; and the aggregation sites of K3 and K4; K13f, its plain
+   version and the library calls (`index_put_`, `index_add_` and
+   `scatter_reduce_` with the slots given) timed on the device alone,
+   back to back behind a spin kernel with L2 flushed before each, and
+   one K13f call with its host enqueue beside it; K13f's bound counts
+   the kept lanes' distinct sources, every lane's slot, and the touched
+   slots' set columns written and reduced columns read and written;
+27. apps AE (rollups for a trading dashboard: `every sec ... year` over
+   10,000 symbols with sum, avg, min, max, count and sum(volume), `@purge`
+   of `sec` buckets after 5 min, 8 rounds of 131,072 trades 1 ms apart
+   from 2025-12-31 23:50:00 UTC, so the run crosses a minute, hour, day,
+   month and year; each round a heartbeat, a grouped find over the last
+   5 minutes of `sec` buckets, finds per `min`, `month` and `year`, and
+   4,096 query events joined `per 'hour'`) and AF (a durable `@store`
+   aggregation per `min`, `hour`, `day` fed AE's first 4 rounds, shut
+   down, rebuilt in a fresh runtime, fed the rest), every found, joined
+   and rebuilt row against numpy oracles (buckets by `ts - ts % w` and
+   datetime64, float64 sums by `np.add.at`), counts, volumes, min, max
+   and buckets exact, sums within 1e-5 of the sum of magnitudes; the
+   `sec` store holding only buckets at or after now - 5 min; no dropped
+   join pair; 0 host syncs in an ingest step.
 
 Every app's Event callback reads back through K12a (its launch counter
 must be non-zero in every app). Apps A, C, D, G, H and N also run the
@@ -445,6 +474,8 @@ RATELIMIT = "siddhi_tpu/ops/ratelimit.py"
 SELECTOR = "siddhi_tpu/ops/selector.py"
 TABLE = "siddhi_tpu/core/table.py"
 K13D_SRC = "siddhi_tpu_torch/csrc/k13d_table_insert.cu"
+AGG = "siddhi_tpu/core/aggregation.py"
+K13F_SRC = "siddhi_tpu_torch/csrc/k13f_bucket_scatter.cu"
 #: window parameter of apps J-M: ms for the time windows, events for L
 AGG_SIZES = {"J": TIME_WINDOW_MS, "K": TIME_WINDOW_MS, "L": LENGTH_D,
              "M": 1_000}
@@ -537,7 +568,20 @@ KERNELS = {
                        f"{TABLE}:150"),
     "K13b final per group": ("emit_final_per_group last lane per group",
                              K13B_SRC, f"{SELECTOR}:510"),
+    "K13f ingest": ("AggregationRuntime._make_ingest scatters", K13F_SRC,
+                    f"{AGG}:622"),
+    "K13f evict": ("AggregationRuntime._make_evict scatters", K13F_SRC,
+                   f"{AGG}:672"),
+    "K13f restore": ("AggregationRuntime._restore_fn scatters", K13F_SRC,
+                     f"{AGG}:465"),
+    "K3 aggregation": ("hash_columns of (bucket, group columns)",
+                       "siddhi_tpu_torch/csrc/k3_hash.cu", f"{AGG}:647"),
+    "K4 aggregation": ("key_lookup_or_insert into a duration store",
+                       "siddhi_tpu_torch/csrc/k4_keytable.cu", f"{AGG}:648"),
 }
+#: rows of the kernel table beyond one a counter: row key -> the counter
+#: whose launches it reports (the same kernel at a second shape)
+EXTRA_ROWS = {"K13f ingest (10,000 slots)": "K13f ingest"}
 
 
 class Failure(Exception):
@@ -577,6 +621,90 @@ def time_ms(torch, fn, reset=None, iters=20, warmup=3) -> float:
         e1.synchronize()
         total += e0.elapsed_time(e1)
     return total / iters
+
+
+_SLEEP_CYCLES_PER_MS = []  # torch.cuda._sleep's rate, measured once
+
+
+def device_ms(torch, fn, iters=20, warmup=3) -> float:
+    """Mean device time of fn() without its host enqueue: the calls queue
+    behind a spin kernel (torch.cuda._sleep) that outlasts their enqueue,
+    so the card runs them back to back, each between its own events
+    after a 128 MiB fill that leaves L2 cold, as a step's other work
+    leaves it. A fn that reads the card on the host stalls there, and
+    its time includes the stall."""
+    if not _SLEEP_CYCLES_PER_MS:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        torch.cuda._sleep(10_000_000)
+        e1.record()
+        e1.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(10_000_000 / e0.elapsed_time(e1))
+    # larger than the H100's 50 MB L2; freed on return, so that no later
+    # phase's peak memory counts it
+    flush = torch.empty(2**25, dtype=torch.int32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        flush.zero_()
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(int(_SLEEP_CYCLES_PER_MS[0]
+                          * min(2 * enqueue_ms + 1, 1000)))
+    for e0, e1 in events:
+        flush.zero_()
+        e0.record()
+        fn()
+        e1.record()
+    torch.cuda.synchronize()
+    return sum(e0.elapsed_time(e1) for e0, e1 in events) / iters
+
+
+def device_busy_ms(torch, fn):
+    """The card's busy time over fn(): the union of the kernel, copy and
+    fill spans of a torch.profiler (CUPTI) trace; None where the trace
+    holds no device span."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, None
+    for a, b in spans:
+        if end is None or a >= end:
+            busy_us += b - a
+            end = b
+        elif b > end:
+            busy_us += b - end
+            end = b
+    return busy_us / 1e3 if busy_us else None
+
+
+def scatter_bytes(widx, cols) -> int:
+    """The bytes a bucket scatter must move: every lane's slot read, each
+    distinct source read at the kept lanes, each touched slot's add, min
+    and max columns read and written and its set columns written."""
+    import torch
+    K = cols[0][0].shape[0]
+    keep = (widx >= 0) & (widx < K)
+    kept = int(keep.sum())
+    touched = int(torch.unique(widx[keep]).numel())
+    srcs = {s.data_ptr(): s.element_size() for _, s, _ in cols
+            if s is not None}
+    slot = sum(d.element_size() * (1 if op in ("set", "true") else 2)
+               for d, _, op in cols)
+    return widx.numel() * 4 + kept * sum(srcs.values()) + touched * slot
 
 
 def check_equal(name, a, b) -> None:
@@ -778,6 +906,15 @@ def _timed(torch, fn, plain, library=None, reset=None) -> dict:
                 plain_ms=time_ms(torch, plain, reset=reset),
                 library_ms=(time_ms(torch, library, reset=reset)
                             if library is not None else None))
+
+
+def _timed_device(torch, fn, plain, library=None) -> dict:
+    """_timed's times by device_ms, and `call_ms`, one call's time with
+    its host enqueue (time_ms), as a step pays it."""
+    return dict(ms=device_ms(torch, fn), plain_ms=device_ms(torch, plain),
+                library_ms=(device_ms(torch, library)
+                            if library is not None else None),
+                call_ms=time_ms(torch, fn))
 
 
 def sliding_kernel_phase(torch, rng) -> tuple[dict, dict]:
@@ -5695,6 +5832,784 @@ def table_apps(torch, rng, card: str, rounds: int = ROUNDS,
     return total
 
 
+# --------------------------------------------------------------------------- #
+# phases 26-27: incremental aggregation (K13f, apps AE and AF)
+# --------------------------------------------------------------------------- #
+
+AE_SYMBOLS = 10_000
+AE_T0 = 1_767_225_000_000  # 2025-12-31 23:50:00 UTC
+AE_RETENTION = 300_000  # @retentionPeriod(sec='5 min')
+AE_QUERIES = 4_096  # QueryStream events a round
+AE_NAN = 16  # NaN prices a round
+AE_HOT = 10_000  # distinct slots of the high-contention shape
+AF_ROUNDS = 4  # rounds before AF's restart
+AF_ROWS = 90_000  # AF's `min` rows at the restart
+FAR_FUTURE = 4_102_444_800_000  # 2100-01-01
+#: AE's components in store order: total, avg's sum and count, lo, hi, n,
+#: vol
+AE_OPS = ("add", "add", "add", "min", "max", "add", "add")
+
+APP_AE = """@app:playback
+define stream TradeStream (symbol string, price double, volume long, ts long);
+define stream QueryStream (symbol string);
+@purge(enable='true', @retentionPeriod(sec='5 min'))
+define aggregation TradeAgg from TradeStream
+select symbol, sum(price) as total, avg(price) as avgPrice,
+       min(price) as lo, max(price) as hi, count() as n, sum(volume) as vol
+group by symbol
+aggregate by ts every sec ... year;
+@info(name = 'rollup')
+from QueryStream join TradeAgg on QueryStream.symbol == TradeAgg.symbol
+per 'hour'
+select QueryStream.symbol as symbol, TradeAgg.AGG_TIMESTAMP as bucket,
+       TradeAgg.total as total, TradeAgg.n as n
+insert into HourRollup;
+"""
+AE_FINDS = {
+    "min": "from TradeAgg within {lo}, {hi} per 'min' select symbol, total, "
+           "avgPrice, lo, hi, n, vol, AGG_TIMESTAMP",
+    "months": "from TradeAgg within '2025-12-01 00:00:00', "
+              "'2026-02-01 00:00:00' per 'month' select symbol, total, "
+              "avgPrice, lo, hi, n, vol, AGG_TIMESTAMP",
+    "years": "from TradeAgg within '2025-01-01 00:00:00', "
+             "'2027-01-01 00:00:00' per 'year' select symbol, total, "
+             "avgPrice, lo, hi, n, vol, AGG_TIMESTAMP",
+}
+AE_SEC_FIND = ("from TradeAgg within {lo}, {hi} per 'sec' select symbol, "
+               "sum(total) as total, sum(n) as n, sum(vol) as vol "
+               "group by symbol")
+
+APP_AF = """@app:playback
+define stream TradeStream (symbol string, price double, volume long, ts long);
+@store(type='durable')
+define aggregation TradeAggD from TradeStream
+select symbol, sum(price) as total, count() as n
+group by symbol
+aggregate by ts every min, hour, day;
+"""
+
+
+def _ae_store(torch, dev, K: int, n_comps: int = 7) -> dict:
+    """A store of app AE's layout (bucket, symbol, alive and the seven
+    components at their initial values); AF's when n_comps is 2."""
+    f32, i64 = torch.float32, torch.int64
+    comps = ([torch.zeros(K, dtype=f32, device=dev) for _ in range(3)]
+             + [torch.full((K,), float("inf"), dtype=f32, device=dev),
+                torch.full((K,), float("-inf"), dtype=f32, device=dev)]
+             + [torch.zeros(K, dtype=i64, device=dev) for _ in range(2)])
+    if n_comps == 2:
+        comps = [comps[0], comps[5]]
+    return {"bucket": torch.zeros(K, dtype=i64, device=dev),
+            "symbol": torch.zeros(K, dtype=torch.int32, device=dev),
+            "alive": torch.zeros(K, dtype=torch.bool, device=dev),
+            "comps": comps}
+
+
+def _store_cols(store: dict, src: dict, ops) -> list:
+    return ([(store["bucket"], src["bucket"], "set"),
+             (store["symbol"], src["symbol"], "set"),
+             (store["alive"], None, "true")]
+            + [(d, s, op) for d, s, op in zip(store["comps"], src["comps"],
+                                               ops)])
+
+
+def _store_clone(store: dict) -> dict:
+    return {k: ([c.clone() for c in v] if k == "comps" else v.clone())
+            for k, v in store.items()}
+
+
+def _check_float_sum(name, got, want, mag) -> float:
+    """A float32 scatter sum against its plain version: NaN and inf where
+    the plain version has them, the rest within 1e-5 of the slot's sum of
+    magnitudes (atomics add in another order)."""
+    import torch
+    if not (torch.equal(torch.isnan(got), torch.isnan(want))
+            and torch.equal(torch.isinf(got), torch.isinf(want))
+            and torch.equal(got[torch.isinf(got)], want[torch.isinf(want)])):
+        raise Failure(f"{name}: NaN or inf slots differ from the plain "
+                      "version's")
+    fin = torch.isfinite(want)
+    err = (got[fin].double() - want[fin].double()).abs()
+    tol = RTOL * torch.clamp(mag[fin], min=1.0)
+    if bool((err > tol).any()):
+        raise Failure(f"{name}: off by {float(err.max())} beyond 1e-5 of "
+                      "the slot's sum of magnitudes")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def _ae_lanes(torch, rng, dev, B: int, K: int, hot: int = 0) -> dict:
+    """B lanes of app AE's ingest: their slots (2% dropped at K; `hot`
+    distinct slots when given), bucket and symbol as functions of the slot,
+    prices with NaN and ±inf, counts, volumes."""
+    if hot:
+        pool = rng.choice(K, hot, replace=False)
+        slot = pool[rng.integers(0, hot, B)]
+    else:
+        slot = rng.integers(0, K, B)
+    slot = np.where(rng.random(B) < 0.02, K, slot).astype(np.int32)
+    price = (rng.integers(1, 400_000, B) * 0.01).astype(np.float32)
+    special = rng.random(B)
+    price[special < 1e-3] = np.nan
+    price[(special >= 1e-3) & (special < 2e-3)] = np.inf
+    price[(special >= 2e-3) & (special < 3e-3)] = -np.inf
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    p = t(price)
+    one = torch.ones(B, dtype=torch.float32, device=dev)
+    n = torch.ones(B, dtype=torch.int64, device=dev)
+    vol = t(rng.integers(1, 1000, B).astype(np.int64))
+    return {"widx": t(slot),
+            "bucket": t(AE_T0 + (slot.astype(np.int64) % 131) * 1000),
+            "symbol": t((slot % AE_SYMBOLS).astype(np.int32)),
+            "comps": [p, p, one, p, p, n, vol]}
+
+
+def _check_store(name, got: dict, want: dict, mags: dict) -> float:
+    err = 0.0
+    for k in ("bucket", "symbol", "alive"):
+        check_equal(f"{name} {k}", got[k], want[k])
+    for i, (a, b) in enumerate(zip(got["comps"], want["comps"])):
+        if i in mags:
+            err = max(err, _check_float_sum(f"{name} comp {i}", a, b,
+                                            mags[i]))
+        else:
+            check_equal(f"{name} comp {i}", a, b)
+    return err
+
+
+def aggregation_kernel_phase(torch, rng, B: int = BATCH,
+                             K: int = GROUP_CAP, hot: int = AE_HOT,
+                             n_restore: int = AF_ROWS) -> dict:
+    """K13f (ingest at low and high contention, evict, restore) and the
+    aggregation sites of K3 and K4 against their plain versions on the
+    card at apps AE's and AF's shapes; K13f timed by device_ms."""
+    from siddhi_tpu_torch.ops import bucket_scatter as bs
+    from siddhi_tpu_torch.ops import groupby
+
+    dev = torch.device("cuda")
+    res = {}
+    # (a) the ingest: AE's ten columns in one launch
+    for key, h in (("K13f ingest", 0), ("K13f ingest (10,000 slots)", hot)):
+        lanes = _ae_lanes(torch, rng, dev, B, K, h)
+        w = lanes["widx"]
+        base = _ae_store(torch, dev, K)
+        got, want = _store_clone(base), _store_clone(base)
+        bs.bucket_scatter(w, _store_cols(got, lanes, AE_OPS))
+        bs.bucket_scatter_plain(w, _store_cols(want, lanes, AE_OPS))
+        keep = w < K
+        idx = w[keep].long()
+        mag = torch.zeros(K, dtype=torch.float64, device=dev)
+        mag.index_add_(0, idx, lanes["comps"][0][keep].double().abs())
+        count = torch.bincount(idx, minlength=K).double()
+        err = _check_store(key, got, want, {0: mag, 1: mag, 2: count})
+        work = _store_clone(base)
+        kept = {k: (v[keep] if k != "comps" else [c[keep] for c in v])
+                for k, v in lanes.items()}
+        true = torch.ones((), dtype=torch.bool, device=dev)
+
+        def library():
+            work["bucket"].index_put_((idx,), kept["bucket"])
+            work["symbol"].index_put_((idx,), kept["symbol"])
+            work["alive"].index_put_((idx,), true)
+            for d, s, op in zip(work["comps"], kept["comps"], AE_OPS):
+                if op == "add":
+                    d.index_add_(0, idx, s)
+                else:
+                    d.scatter_reduce_(0, idx, s, reduce="a" + op,
+                                      include_self=True)
+
+        touched = int(torch.unique(idx).numel())
+        res[key] = dict(
+            _timed_device(torch,
+                          lambda: bs.bucket_scatter(
+                              w, _store_cols(work, lanes, AE_OPS)),
+                          lambda: bs.bucket_scatter_plain(
+                              w, _store_cols(work, lanes, AE_OPS)),
+                          library=library),
+            bound_ms=bound_ms(scatter_bytes(
+                w, _store_cols(work, lanes, AE_OPS))),
+            max_abs_err=err, bound_by="bytes")
+        print(f"{key} B={B} into K={K}, {touched} slots touched, "
+              f"{int(keep.sum())} lanes kept: {res[key]}")
+
+    # (b) the evict: a K-slot store, 40% alive, 70% of those kept, into a
+    # fresh store at dense ids in K4's order (a permutation)
+    old = _store_clone(base)
+    alive = torch.from_numpy(rng.random(K) < 0.4).to(dev)
+    old["alive"].copy_(alive)
+    old["bucket"].copy_(torch.from_numpy(
+        AE_T0 + rng.integers(0, 431, K) * 1000).to(dev))
+    old["symbol"].copy_(torch.from_numpy(
+        rng.integers(0, AE_SYMBOLS, K).astype(np.int32)).to(dev))
+    for c in old["comps"]:
+        c.copy_(torch.from_numpy(rng.integers(-500, 500, K)).to(dev)
+                .to(c.dtype))
+    keep = alive & torch.from_numpy(rng.random(K) < 0.7).to(dev)
+    n_keep = int(keep.sum())
+    ids = torch.full((K,), K, dtype=torch.int32, device=dev)
+    ids[keep] = torch.from_numpy(rng.permutation(n_keep).astype(
+        np.int32)).to(dev)
+    src = {"bucket": old["bucket"], "symbol": old["symbol"],
+           "comps": old["comps"]}
+    set_ops = ("set",) * 7
+    got, want = _ae_store(torch, dev, K), _ae_store(torch, dev, K)
+    bs.bucket_scatter(ids, _store_cols(got, src, set_ops),
+                      counter="K13f evict")
+    bs.bucket_scatter_plain(ids, _store_cols(want, src, set_ops))
+    _check_store("K13f evict", got, want, {})
+    kidx = ids[keep].long()
+    ksrc = [c[keep] for c in [old["bucket"], old["symbol"]] + old["comps"]]
+    true = torch.ones((), dtype=torch.bool, device=dev)
+
+    def library_evict():
+        for d, s in zip([got["bucket"], got["symbol"]] + got["comps"], ksrc):
+            d.index_put_((kidx,), s)
+        got["alive"].index_put_((kidx,), true)
+
+    res["K13f evict"] = dict(
+        _timed_device(torch,
+                      lambda: bs.bucket_scatter(
+                          ids, _store_cols(got, src, set_ops),
+                          counter="K13f evict"),
+                      lambda: bs.bucket_scatter_plain(
+                          ids, _store_cols(want, src, set_ops)),
+                      library=library_evict),
+        bound_ms=bound_ms(scatter_bytes(ids, _store_cols(got, src,
+                                                         set_ops))),
+        max_abs_err=0, bound_by="bytes")
+    print(f"K13f evict K={K}, {n_keep} kept: {res['K13f evict']}")
+
+    # (c) the restore: AF's `min` rows into a fresh store of AF's layout
+    n = n_restore
+    rids = torch.from_numpy(rng.permutation(K)[:n].astype(np.int32)).to(dev)
+    rsrc = {"bucket": torch.from_numpy(AE_T0 + rng.integers(0, 9, n)
+                                       * 60_000).to(dev),
+            "symbol": torch.from_numpy(rng.integers(0, AE_SYMBOLS, n)
+                                       .astype(np.int32)).to(dev),
+            "comps": [torch.from_numpy(rng.random(n).astype(np.float32)
+                                       * 1e5).to(dev),
+                      torch.from_numpy(rng.integers(1, 40, n)).to(dev)]}
+    got, want = _ae_store(torch, dev, K, 2), _ae_store(torch, dev, K, 2)
+    bs.bucket_scatter(rids, _store_cols(got, rsrc, ("set", "set")),
+                      counter="K13f restore")
+    bs.bucket_scatter_plain(rids, _store_cols(want, rsrc, ("set", "set")))
+    _check_store("K13f restore", got, want, {})
+    ridx = rids.long()
+
+    def library_restore():
+        for d, s in zip([got["bucket"], got["symbol"]] + got["comps"],
+                        [rsrc["bucket"], rsrc["symbol"]] + rsrc["comps"]):
+            d.index_put_((ridx,), s)
+        got["alive"].index_put_((ridx,), true)
+
+    res["K13f restore"] = dict(
+        _timed_device(torch,
+                      lambda: bs.bucket_scatter(
+                          rids, _store_cols(got, rsrc, ("set", "set")),
+                          counter="K13f restore"),
+                      lambda: bs.bucket_scatter_plain(
+                          rids, _store_cols(want, rsrc, ("set", "set"))),
+                      library=library_restore),
+        bound_ms=bound_ms(scatter_bytes(
+            rids, _store_cols(got, rsrc, ("set", "set")))),
+        max_abs_err=0, bound_by="bytes")
+    print(f"K13f restore {n} rows into K={K}: {res['K13f restore']}")
+
+    # (d) K3 on (bucket, symbol) and K4 into a sec store at its steady
+    # state: ~125,000 new keys a batch onto 2^18 present
+    lanes = _ae_lanes(torch, rng, dev, B, K)
+    parts = [lanes["bucket"], lanes["symbol"]]
+    check_equal("K3 aggregation",
+                groupby.hash_columns(parts, counter="K3 aggregation"),
+                groupby.hash_columns_plain(parts))
+    res["K3 aggregation"] = dict(
+        _timed(torch, lambda: groupby.hash_columns(
+                   parts, counter="K3 aggregation"),
+               lambda: groupby.hash_columns_plain(parts)),
+        bound_ms=bound_ms(B * (8 + 4 + 8)), max_abs_err=0,
+        bound_by="bytes")
+    print(f"K3 aggregation n={B} (int64 bucket, int32 symbol): "
+          f"{res['K3 aggregation']}")
+    table = groupby.init_key_table(K, dev)
+    pre = torch.from_numpy(rng.integers(0, 2**62, K // 4,
+                                        dtype=np.int64)).to(dev)
+    table, _, _ = groupby.key_lookup_or_insert(
+        table, pre, torch.ones(pre.shape[0], dtype=torch.bool, device=dev),
+        counter="K4 aggregation")
+    n_fresh = B * 125 // 131  # distinct (second, symbol) keys a batch
+    fresh = rng.integers(2**62, 2**63 - 1, n_fresh, dtype=np.int64)
+    keys = torch.from_numpy(rng.permutation(np.concatenate(
+        [fresh, fresh[rng.integers(0, n_fresh, B - n_fresh)]]))).to(dev)
+    valid = torch.from_numpy(rng.random(B) < 0.98).to(dev)
+    saved = [t.clone() for t in table]
+    count0 = int(table.count)
+
+    def restore4():
+        for t_, s_ in zip(table, saved):
+            t_.copy_(s_)
+
+    p_tab, p_ids, p_res = groupby.key_lookup_or_insert_plain(
+        groupby.KeyTable(*[t_.clone() for t_ in saved]), keys, valid)
+    restore4()
+    k_tab, k_ids, k_res = groupby.key_lookup_or_insert(
+        table, keys, valid, counter="K4 aggregation")
+    for nm, a, b in (("keys", k_tab.keys, p_tab.keys),
+                     ("ids", k_tab.ids, p_tab.ids),
+                     ("count", k_tab.count, p_tab.count),
+                     ("misses", k_tab.misses, p_tab.misses),
+                     ("lane ids", k_ids, p_ids),
+                     ("resolved", k_res, p_res)):
+        check_equal(f"K4 aggregation {nm}", a, b)
+    n_new = int(k_tab.count) - count0
+    n_valid = int(valid.sum())
+    res["K4 aggregation"] = dict(
+        _timed(torch, lambda: groupby.key_lookup_or_insert(
+                   table, keys, valid, counter="K4 aggregation"),
+               lambda: groupby.key_lookup_or_insert_plain(table, keys, valid),
+               reset=restore4),
+        bound_ms=bound_ms(B * (8 + 1 + 4 + 1) + n_valid * 12 + n_new * 12),
+        max_abs_err=0, bound_by="bytes")
+    print(f"K4 aggregation H={2 * K} prefilled={count0} new={n_new}: "
+          f"{res['K4 aggregation']}")
+    torch.cuda.synchronize()
+    return res
+
+
+def ae_events(rng, rounds: int = ROUNDS, batch: int = BATCH,
+              n_symbols: int = AE_SYMBOLS, n_queries: int = AE_QUERIES,
+              spacing: int = 1):
+    """The trades (1 ms apart from 2025-12-31 23:50:00 UTC, crossing a
+    minute, hour, day, month and year; AE_NAN NaN prices a round) and the
+    query symbols of each round."""
+    n = rounds * batch
+    sym = rng.integers(0, n_symbols, n)
+    price = rng.integers(1, 400_000, n) * 0.01
+    for r in range(rounds):
+        price[r * batch + rng.choice(batch, AE_NAN, replace=False)] = np.nan
+    volume = rng.integers(1, 1000, n).astype(np.int64)
+    ts = AE_T0 + np.arange(n, dtype=np.int64) * spacing
+    names = np.array([f"S{i}" for i in range(n_symbols)], dtype=object)
+    qsym = rng.integers(0, n_symbols, rounds * n_queries)
+    return names, (sym, price, volume, ts), qsym
+
+
+def _bucket_np(ts: np.ndarray, dur: str) -> np.ndarray:
+    """Bucket starts by numpy alone: fixed widths by ts - ts % w, months
+    and years through datetime64."""
+    w = {"sec": 1_000, "min": 60_000, "hours": 3_600_000,
+         "days": 86_400_000}.get(dur)
+    if w is not None:
+        return ts - ts % w
+    unit = "M" if dur == "months" else "Y"
+    return (ts.astype("datetime64[ms]").astype(f"datetime64[{unit}]")
+            .astype("datetime64[ms]").astype(np.int64))
+
+
+def oracle_buckets(trades, dur: str, n_symbols: int, lo=None, hi=None):
+    """Per (bucket, symbol) of the trades whose bucket lies in [lo, hi):
+    sums in float64 of the float32 prices and of their magnitudes, counts,
+    int64 volume sums, float32 min and max (NaN wins)."""
+    sym, price, volume, ts = trades
+    b = _bucket_np(ts, dur)
+    sel = np.ones(b.shape[0], bool)
+    if lo is not None:
+        sel = (b >= lo) & (b < hi)
+    b, s = b[sel], sym[sel]
+    p32 = price[sel].astype(np.float32)
+    b0 = int(b.min()) if b.size else 0
+    uk, inv = np.unique((b - b0) * n_symbols + s, return_inverse=True)
+    m = uk.shape[0]
+    total, mag = np.zeros(m), np.zeros(m)
+    np.add.at(total, inv, p32.astype(np.float64))
+    np.add.at(mag, inv, np.abs(p32.astype(np.float64)))
+    vol = np.zeros(m, np.int64)
+    np.add.at(vol, inv, volume[sel])
+    lo_, hi_ = np.full(m, np.inf, np.float32), np.full(m, -np.inf,
+                                                        np.float32)
+    with np.errstate(invalid="ignore"):  # NaN prices win, as on the card
+        np.minimum.at(lo_, inv, p32)
+        np.maximum.at(hi_, inv, p32)
+    return {"bucket": uk // n_symbols + b0, "sym": uk % n_symbols,
+            "total": total, "mag": mag, "n": np.bincount(inv, minlength=m),
+            "vol": vol, "lo": lo_, "hi": hi_}
+
+
+def _close(name, got, want, mag) -> None:
+    """A float32 sum: NaN where the oracle has NaN, else within 1e-5 of
+    the sum of magnitudes."""
+    if np.isnan(want) or np.isnan(got):
+        if not (np.isnan(want) and np.isnan(got)):
+            raise Failure(f"{name}: {got}, the oracle says {want}")
+        return
+    if abs(got - want) > RTOL * max(mag, 1.0):
+        raise Failure(f"{name}: {got}, the oracle says {want} (sum of "
+                      f"magnitudes {mag})")
+
+
+def _same_float(name, got, want) -> None:
+    if not (got == want or (np.isnan(got) and np.isnan(want))):
+        raise Failure(f"{name}: {got}, the oracle says {want}")
+
+
+def check_ae_buckets(what: str, got: list, orc: dict, names) -> int:
+    """Rows (symbol, total, avgPrice, lo, hi, n, vol, AGG_TIMESTAMP)
+    against oracle_buckets: counts, volumes, min, max and buckets exact,
+    sums within 1e-5 of the sum of magnitudes."""
+    if len(got) != orc["n"].shape[0]:
+        raise Failure(f"{what}: {len(got)} rows, the oracle has "
+                      f"{orc['n'].shape[0]}")
+    index = {(names[s], int(b)): i for i, (s, b) in
+             enumerate(zip(orc["sym"].tolist(), orc["bucket"].tolist()))}
+    for row in got:
+        sym, total, avg, lo, hi, n, vol, b = row
+        i = index.get((sym, b))
+        if i is None:
+            raise Failure(f"{what}: row {row} is not in the oracle")
+        if n != orc["n"][i] or vol != orc["vol"][i]:
+            raise Failure(f"{what}: row {row}: n {orc['n'][i]}, vol "
+                          f"{orc['vol'][i]} expected")
+        _close(f"{what} {sym}@{b} total", total, orc["total"][i],
+               orc["mag"][i])
+        _close(f"{what} {sym}@{b} avg", avg, orc["total"][i] / n,
+               orc["mag"][i] / n)
+        _same_float(f"{what} {sym}@{b} lo", lo, float(orc["lo"][i]))
+        _same_float(f"{what} {sym}@{b} hi", hi, float(orc["hi"][i]))
+    return len(got)
+
+
+def check_ae_sec_find(got: list, trades, names, lo: int, hi: int,
+                      n_symbols: int) -> int:
+    """The grouped find over the `sec` buckets in [lo, hi): per symbol
+    sums of totals (1e-5 of the magnitudes), counts and volumes."""
+    orc = oracle_buckets(trades, "sec", n_symbols, lo, hi)
+    total, mag = np.zeros(n_symbols), np.zeros(n_symbols)
+    np.add.at(total, orc["sym"], orc["total"])
+    np.add.at(mag, orc["sym"], orc["mag"])
+    n = np.bincount(orc["sym"], weights=orc["n"], minlength=n_symbols)
+    vol = np.zeros(n_symbols, np.int64)
+    np.add.at(vol, orc["sym"], orc["vol"])
+    present = np.unique(orc["sym"])
+    if len(got) != present.shape[0]:
+        raise Failure(f"app AE sec find: {len(got)} symbols, the oracle "
+                      f"has {present.shape[0]}")
+    code = {nm: i for i, nm in enumerate(names.tolist())}
+    for sym, t, c, v in got:
+        i = code[sym]
+        if c != int(n[i]) or v != int(vol[i]):
+            raise Failure(f"app AE sec find: {sym} n {c} vol {v}, the "
+                          f"oracle says {int(n[i])}, {int(vol[i])}")
+        _close(f"app AE sec find {sym}", t, total[i], mag[i])
+    return len(got)
+
+
+def check_ae_rollup(got: list, trades, names, qsym, n_symbols: int) -> int:
+    """The join per 'hour': for each query symbol every hour bucket it has
+    so far, with its total and count."""
+    from collections import Counter
+    orc = oracle_buckets(trades, "hours", n_symbols)
+    by_sym: dict = {}
+    for i, s in enumerate(orc["sym"].tolist()):
+        by_sym.setdefault(s, []).append(i)
+    want = Counter()
+    for q in qsym.tolist():
+        for i in by_sym.get(q, ()):
+            want[(names[q], int(orc["bucket"][i]), int(orc["n"][i]))] += 1
+    have = Counter((r[0], r[1], r[3]) for r in got)
+    if have != want:
+        raise Failure(f"app AE rollup: {sum(have.values())} rows, the "
+                      f"oracle has {sum(want.values())} "
+                      f"({len(have - want)} keys unexpected)")
+    index = {(names[s], int(b)): i for i, (s, b) in
+             enumerate(zip(orc["sym"].tolist(), orc["bucket"].tolist()))}
+    for sym, b, total, _ in got:
+        i = index[(sym, b)]
+        _close(f"app AE rollup {sym}@{b}", total, orc["total"][i],
+               orc["mag"][i])
+    return len(got)
+
+
+def run_ae(torch, rng, card: str, rounds: int = ROUNDS, batch: int = BATCH,
+           n_symbols: int = AE_SYMBOLS, n_queries: int = AE_QUERIES,
+           spacing: int = 1, gcap: int = GROUP_CAP):
+    """App AE against its numpy oracles; returns (launches, the events
+    and names for app AF)."""
+    from siddhi_tpu_torch import SiddhiManager, kernels
+    names, trades, qsym = ae_events(rng, rounds, batch, n_symbols,
+                                    n_queries, spacing)
+    sym, price, volume, ts = trades
+    columns = {"symbol": names[sym], "price": price, "volume": volume,
+               "ts": ts}
+    rt = SiddhiManager().create_siddhi_app_runtime(
+        APP_AE, batch_size=batch, group_capacity=gcap)
+    agg = rt.aggregations["TradeAgg"]
+    rollups = []
+    rt.add_callback("HourRollup", lambda evs: rollups[-1].extend(
+        tuple(e.data) for e in evs))
+    ht = rt.get_input_handler("TradeStream")
+    hq = rt.get_input_handler("QueryStream")
+    seen = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    busy = 0.0
+    for r in range(rounds):
+        t0 = time.perf_counter()
+        s = slice(r * batch, (r + 1) * batch)
+        ht.send_columns({k: v[s] for k, v in columns.items()},
+                        timestamps=ts[s])
+        rt.flush()
+        now = int(ts[s][-1])
+        rt.heartbeat(now)
+        finds = {"sec": [tuple(e.data) for e in rt.query(
+            AE_SEC_FIND.format(lo=now - AE_RETENTION, hi=now + 1))]}
+        m0 = now - now % 60_000
+        for d, q in AE_FINDS.items():
+            finds[d] = [tuple(e.data) for e in rt.query(
+                q.format(lo=m0 - 60_000, hi=m0 + 60_000))]
+        rollups.append([])
+        qs = qsym[r * n_queries:(r + 1) * n_queries]
+        hq.send_columns({"symbol": names[qs]},
+                        timestamps=np.full(n_queries, now, np.int64))
+        rt.flush()
+        torch.cuda.synchronize()
+        busy += time.perf_counter() - t0
+        # the sec store after retention: only buckets at or after the
+        # cutoff (one host read, outside the timed span)
+        st = agg.state[0]
+        live_b = st.bucket_ts[st.alive].cpu().numpy()
+        seen.append((now, finds, int(live_b.size),
+                     int(live_b.min()) if live_b.size else None))
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for k in ("K3 aggregation", "K4 aggregation", "K13f ingest",
+              "K13f evict", "K13b final per group", "K12a"):
+        if launches[k] == 0:
+            raise Failure(f"app AE: kernel {k} never launched")
+    jr = rt.query_runtimes["rollup"]
+    dropped = int(jr._dropped_dev) if jr._dropped_dev is not None else 0
+    if dropped:
+        raise Failure(f"app AE: {dropped} join pairs dropped")
+    bad = {k: v for k, v in rt.ctx.statistics.overflow.items()
+           if k.startswith("aggregation:")}
+    if bad:
+        raise Failure(f"app AE: unplaced buckets {bad}")
+    n_rows = 0
+    for r, (now, finds, n_live, min_b) in enumerate(seen):
+        upto = tuple(a[:(r + 1) * batch] for a in trades)
+        cutoff = now - AE_RETENTION
+        kept = oracle_buckets(upto, "sec", n_symbols, cutoff, 1 << 62)
+        if n_live != kept["n"].shape[0] or (min_b is not None
+                                            and min_b < cutoff):
+            raise Failure(f"app AE round {r}: the sec store holds {n_live} "
+                          f"buckets from {min_b}, the oracle "
+                          f"{kept['n'].shape[0]} from {cutoff}")
+        n_rows += check_ae_sec_find(finds["sec"], upto, names, cutoff,
+                                    now + 1, n_symbols)
+        m0 = now - now % 60_000
+        n_rows += check_ae_buckets(
+            f"app AE round {r} min", finds["min"],
+            oracle_buckets(upto, "min", n_symbols, m0 - 60_000,
+                           m0 + 60_000), names)
+        for d in ("months", "years"):
+            n_rows += check_ae_buckets(f"app AE round {r} {d}", finds[d],
+                                       oracle_buckets(upto, d, n_symbols),
+                                       names)
+        n_rows += check_ae_rollup(
+            rollups[r], upto, names,
+            qsym[r * n_queries:(r + 1) * n_queries], n_symbols)
+    years = {row[-1] for row in seen[-1][1]["years"]}
+    if spacing == 1 and rounds * batch > 600_000 and len(years) != 2:
+        raise Failure(f"app AE: the run crossed no year ({years})")
+    # the ingest step alone, from fresh stores, on the same batches; the
+    # retention evict between steps is outside the timed span
+    items = _batches(rt, "TradeStream", columns, ts, batch)
+    agg.state = tuple(agg._init_store() for _ in agg.durations)
+
+    def step(it):
+        agg.state = agg._ingest(agg.state, it[0], it[1])
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    _, syncs = call_watching_syncs(torch, lambda: step(items[0]))
+    per_step = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if syncs:
+        raise Failure(f"app AE: {len(syncs)} host syncs in an ingest step: "
+                      f"{syncs}")
+    agg.state = tuple(agg._init_store() for _ in agg.durations)
+    step_s = 0.0
+    for it in items:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(it)
+        torch.cuda.synchronize()
+        step_s += time.perf_counter() - t0
+        agg._maybe_evict(it[1])
+    n_in = ts.shape[0] + qsym.shape[0]
+    report_app("AE", n_in, n_rows, busy, step_s / rounds * 1e3, peak,
+               launches, syncs, card, rounds=rounds, batch=batch)
+    print(f"app AE: ingest step launches {per_step}; {n_rows} found and "
+          f"joined rows checked; years seen {sorted(years)}")
+    # the card's busy time in each part of a round: the last round's work
+    # once more under torch.profiler (unchecked; its trades land in the
+    # same slots), against the unprofiled round's wall time
+    s = slice((rounds - 1) * batch, rounds * batch)
+    now = int(ts[s][-1])
+    m0 = now - now % 60_000
+    qs = qsym[(rounds - 1) * n_queries:rounds * n_queries]
+    rollups.append([])
+
+    def ingest():
+        ht.send_columns({k: v[s] for k, v in columns.items()},
+                        timestamps=ts[s])
+        rt.flush()
+
+    def finds():
+        rt.query(AE_SEC_FIND.format(lo=now - AE_RETENTION, hi=now + 1))
+        for q in AE_FINDS.values():
+            rt.query(q.format(lo=m0 - 60_000, hi=m0 + 60_000))
+
+    def join():
+        hq.send_columns({"symbol": names[qs]},
+                        timestamps=np.full(n_queries, now, np.int64))
+        rt.flush()
+
+    parts = {"ingest": ingest, "heartbeat": lambda: rt.heartbeat(now),
+             "finds": finds, "join": join}
+    dev_ms = {k: device_busy_ms(torch, f) for k, f in parts.items()}
+    round_ms = busy / rounds * 1e3
+    if all(v is not None for v in dev_ms.values()):
+        idle = f"{1 - sum(dev_ms.values()) / round_ms:.4f}"
+    else:
+        idle = "not measured (no device span in the trace)"
+    print(f"app AE: device busy ms in a round by torch.profiler {dev_ms}, "
+          f"{sum(v or 0 for v in dev_ms.values())} of a {round_ms:.3f} ms "
+          f"round; device idle share {idle} [{card}]")
+    return launches, (names, trades)
+
+
+class AfStore:
+    """App AF's durable store: class-level rows, so a new runtime sees
+    what the last one wrote (the role an RDBMS plays for the reference)."""
+
+    tables: dict = {}
+
+    @classmethod
+    def make(cls):
+        from siddhi_tpu_torch.io.record_table import InMemoryRecordStore
+
+        class DurableStore(InMemoryRecordStore):
+            def init(self, definition, properties, config_reader=None):
+                super().init(definition, properties, config_reader)
+                self.rows = list(cls.tables.get(definition.id, []))
+
+            def _sync(self):
+                cls.tables[self.definition.id] = list(self.rows)
+
+            def add(self, rows):
+                super().add(rows)
+                self._sync()
+
+            def delete(self, compiled):
+                n = super().delete(compiled)
+                self._sync()
+                return n
+
+        return DurableStore
+
+
+def run_af(torch, card: str, names, trades, rounds: int = ROUNDS,
+           batch: int = BATCH, restart_after: int = AF_ROUNDS,
+           gcap: int = GROUP_CAP) -> dict:
+    """App AF: a durable aggregation fed AE's first rounds, shut down
+    (the flush), rebuilt in a fresh runtime (the restore), fed the rest,
+    every duration against the numpy oracle over all rounds."""
+    from siddhi_tpu_torch import SiddhiManager, kernels
+    sym, price, volume, ts = trades
+    columns = {"symbol": names[sym], "price": price, "volume": volume,
+               "ts": ts}
+    n_symbols = names.shape[0]
+    AfStore.tables.clear()
+    store = AfStore.make()
+
+    def runtime():
+        mgr = SiddhiManager()
+        mgr.set_extension("durable", store)
+        return mgr.create_siddhi_app_runtime(APP_AF, batch_size=batch,
+                                             group_capacity=gcap)
+
+    def feed(rt, rs):
+        h = rt.get_input_handler("TradeStream")
+        for r in rs:
+            s = slice(r * batch, (r + 1) * batch)
+            h.send_columns({k: v[s] for k, v in columns.items()},
+                           timestamps=ts[s])
+            rt.flush()
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    rt = runtime()
+    feed(rt, range(restart_after))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rt.shutdown()
+    flush_s = time.perf_counter() - t0
+    rows = {k: len(v) for k, v in AfStore.tables.items()}
+    del rt
+    t0 = time.perf_counter()
+    rt2 = runtime()
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    feed(rt2, range(restart_after, rounds))
+    launches = dict(kernels.LAUNCHES)
+    for k in ("K3 aggregation", "K4 aggregation", "K13f ingest",
+              "K13f restore"):
+        if launches[k] == 0:
+            raise Failure(f"app AF: kernel {k} never launched")
+    n_rows = 0
+    for d, per in (("min", "min"), ("hours", "hour"), ("days", "day")):
+        got = [tuple(e.data) for e in rt2.query(
+            f"from TradeAggD within 0, {FAR_FUTURE} per '{per}' "
+            "select symbol, total, n, AGG_TIMESTAMP")]
+        orc = oracle_buckets(trades, d, n_symbols)
+        if len(got) != orc["n"].shape[0]:
+            raise Failure(f"app AF {d}: {len(got)} rows, the oracle has "
+                          f"{orc['n'].shape[0]}")
+        index = {(names[s], int(b)): i for i, (s, b) in
+                 enumerate(zip(orc["sym"].tolist(),
+                               orc["bucket"].tolist()))}
+        for s, total, n, b in got:
+            i = index.get((s, b))
+            if i is None or n != orc["n"][i]:
+                raise Failure(f"app AF {d}: row {(s, total, n, b)} not in "
+                              "the oracle")
+            _close(f"app AF {d} {s}@{b}", total, orc["total"][i],
+                   orc["mag"][i])
+        n_rows += len(got)
+    rt2.shutdown(flush_durable=False)
+    print(f"app AF: {ts.shape[0]} events, restart after {restart_after} "
+          f"rounds; durable rows at the restart {rows}; flush "
+          f"{flush_s * 1e3:.3f} ms, rebuild {rebuild_s * 1e3:.3f} ms; "
+          f"{n_rows} rows match the oracle; kernel launches "
+          f"{ {k: v for k, v in launches.items() if v} } [{card}]")
+    return launches
+
+
+def aggregation_apps(torch, rng, card: str, rounds: int = ROUNDS,
+                     batch: int = BATCH, **sizes) -> dict:
+    """Apps AE and AF; returns their launches."""
+    total = {}
+    launches, (names, trades) = run_ae(torch, rng, card, rounds, batch,
+                                       **sizes)
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    for k, v in run_af(torch, card, names, trades, rounds, batch,
+                       restart_after=min(AF_ROUNDS, rounds // 2),
+                       gcap=sizes.get("gcap", GROUP_CAP)).items():
+        total[k] = total.get(k, 0) + v
+    return total
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5823,14 +6738,20 @@ def main(argv=None) -> int:
         kres.update(table_kernel_phase(torch, rng))
         for k, v in table_apps(torch, rng, card).items():
             launches[k] += v
+
+        kres.update(aggregation_kernel_phase(torch, rng))
+        for k, v in aggregation_apps(torch, rng, card).items():
+            launches[k] += v
         print(json.dumps({"columnar": summary}))
 
         table = []
-        for k, (fn, src, replaces) in KERNELS.items():
+        rows = [(k, k) for k in KERNELS] + list(EXTRA_ROWS.items())
+        for k, counter in rows:
+            fn, src, replaces = KERNELS[counter]
             r = kres[k]
             table.append({"name": f"{k} {fn}", "route": "cuda",
                           "source": src, "replaces": replaces,
-                          "launches": launches[k],
+                          "launches": launches[counter],
                           "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                           "plain_ms": r["plain_ms"],
                           "bound_ms": r["bound_ms"],

@@ -1,11 +1,12 @@
 """SiddhiAppRuntime (counterpart of siddhi_tpu/core/app_runtime.py, reduced
-to streams, named windows, in-memory tables, single-input queries, joins
-of streams, tables and named windows, patterns and sequences, table
-outputs (insert, delete, update, update or insert), on-demand queries,
-heartbeats, Event and columnar callbacks with optional asynchronous
-delivery, and the capacity-overflow sweep). Lint, admission control,
-sharding, supersteps, persistence, record tables (@store), triggers,
-aggregations, partitions and fault streams are not yet ported; an app
+to streams, named windows, in-memory tables, incremental aggregations
+(with durable @store duration tables), single-input queries, joins of
+streams, tables, named windows and aggregations, patterns and sequences,
+table outputs (insert, delete, update, update or insert), on-demand
+queries, heartbeats, Event and columnar callbacks with optional
+asynchronous delivery, and the capacity-overflow sweep). Lint, admission
+control, sharding, supersteps, persistence, record tables (@store on a
+table), triggers, partitions and fault streams are not yet ported; an app
 that declares them is refused."""
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from ..ops.windows_extra import KeyedSessionState
 from ..query_api import SiddhiApp
 from ..query_api.execution import (JoinInputStream, OutputAction, Query,
                                    StateInputStream)
+from .aggregation import AggregationRuntime
 from .ondemand import OnDemandCrudRuntime, OnDemandQueryRuntime
 from .table import InMemoryTable, TableJunctionAdapter, TableOutputExecutor
 from .context import (
@@ -55,7 +57,6 @@ class SiddhiAppRuntime:
                  group_capacity: int = 0,
                  async_callbacks: bool = False) -> None:
         for what, defs in (("trigger", app.trigger_definitions),
-                           ("aggregation", app.aggregation_definitions),
                            ("function", app.function_definitions),
                            ("partition", app.partitions)):
             if defs:
@@ -89,11 +90,20 @@ class SiddhiAppRuntime:
                                    or td.annotation("Store")):
                 raise SiddhiAppCreationError(
                     "record tables (@store) are not yet ported to "
-                    "siddhi_tpu_torch")
+                    "siddhi_tpu_torch (ROADMAP Queue 1 item 1)")
             self.tables[td.id] = InMemoryTable(td, self.ctx)
         self.windows: dict[str, NamedWindow] = {
             wd.id: NamedWindow(wd, self.ctx, registry)
             for wd in app.window_definitions.values()}
+        self.aggregations: dict[str, AggregationRuntime] = {}
+        for ad in app.aggregation_definitions.values():
+            junction = self.junctions.get(ad.input_stream_id)
+            if junction is None:
+                raise DefinitionNotExistError(
+                    f"aggregation {ad.id!r}: stream {ad.input_stream_id!r} "
+                    "is not defined")
+            self.aggregations[ad.id] = AggregationRuntime(
+                ad, self.ctx, junction, registry)
         self._ondemand_cache: dict = {}
         for i, query in enumerate(app.queries):
             self._add_query(query, f"query{i + 1}")
@@ -103,7 +113,8 @@ class SiddhiAppRuntime:
         if isinstance(query.input_stream, JoinInputStream):
             qr = JoinQueryRuntime(query, self.ctx, self.junctions,
                                   self.ctx.registry, name,
-                                  tables=self.tables, windows=self.windows)
+                                  tables=self.tables, windows=self.windows,
+                                  aggregations=self.aggregations)
             # left first: with both sides on one stream, the left direction
             # probes before the right one, as in the JAX package; a table
             # side has no junction
@@ -236,10 +247,11 @@ class SiddhiAppRuntime:
                 + [w.output_junction for w in self.windows.values()])
 
     def query(self, text: str, now: Optional[int] = None):
-        """Run an on-demand (pull) query against a table or a named window:
-        find, or a write form (delete, update, update or insert, insert).
-        Returns the Events found (an insert from a store returns the rows
-        it inserted, the other write forms none). Compiled once per text."""
+        """Run an on-demand (pull) query against a table, a named window or
+        an aggregation (`within ... per '<duration>'`): find, or a write
+        form (delete, update, update or insert, insert). Returns the Events
+        found (an insert from a store returns the rows it inserted, the
+        other write forms none). Compiled once per text."""
         rt = self._ondemand_cache.get(text)
         if rt is None:
             odq = compiler.parse_on_demand_query(text)
@@ -249,6 +261,17 @@ class SiddhiAppRuntime:
                 store = self.tables.get(odq.input_store_id)
                 if store is None:
                     store = self.windows.get(odq.input_store_id)
+                if store is None and \
+                        odq.input_store_id in self.aggregations:
+                    # an aggregation store: bind `per`/`within` into a view
+                    agg = self.aggregations[odq.input_store_id]
+                    if odq.per is None:
+                        raise SiddhiAppCreationError(
+                            f"aggregation {odq.input_store_id!r} queries "
+                            "need `per '<duration>'`")
+                    store = agg.view(odq.per, odq.within_range)
+                    odq = dataclasses.replace(odq, per=None,
+                                              within_range=None)
                 if store is None:
                     raise DefinitionNotExistError(
                         f"store {odq.input_store_id!r} is not defined")
@@ -271,6 +294,10 @@ class SiddhiAppRuntime:
             source = self.tables.get(odq.input_store_id)
             if source is None:  # not `or`: an empty table is falsy
                 source = self.windows.get(odq.input_store_id)
+            if source is None and odq.input_store_id in self.aggregations:
+                raise SiddhiAppCreationError(
+                    "insert-into from aggregations: query the aggregation "
+                    "and insert host-side instead")
             if source is None:
                 raise DefinitionNotExistError(
                     f"store {odq.input_store_id!r} is not defined")
@@ -301,6 +328,8 @@ class SiddhiAppRuntime:
         for w in self.windows.values():
             if w.has_time_semantics:
                 w.heartbeat(t)
+        for a in self.aggregations.values():
+            a._maybe_evict(t)  # retention purge rides the heartbeat clock
         seen: set[int] = set()
         for qr in self.query_runtimes.values():
             if not qr.has_time_semantics:
@@ -325,7 +354,8 @@ class SiddhiAppRuntime:
         counter): window-ring overwrites of live rows, key-table unresolved
         lanes (group-by, distinct pairs), HLL lanes past the group capacity,
         keyed-session key-capacity drops, pattern pending-table drops,
-        full-window snapshot ring overwrites and join pair drops, in the queries' and the named windows' states. The
+        full-window snapshot ring overwrites and join pair drops, in the
+        queries', the named windows' and the aggregations' states. The
         counters stay on the device; one stacked readback fetches them
         all."""
         pending: dict[str, list] = {}
@@ -366,6 +396,8 @@ class SiddhiAppRuntime:
                 pending[f"query:{n}.join_pairs_dropped"] = [qr._dropped_dev]
         for n, w in self.windows.items():
             scan(f"window:{n}", w.state)
+        for n, a in self.aggregations.items():
+            scan(f"aggregation:{n}", a.state)
         if not pending:
             return
         names = list(pending)
@@ -375,10 +407,16 @@ class SiddhiAppRuntime:
         for name, n in zip(names, sums.tolist()):
             self.ctx.statistics.record_overflow(name, int(n))
 
-    def shutdown(self) -> None:
-        """Deliver what is still staged and stop the async decoder (after
-        it has delivered everything submitted)."""
+    def shutdown(self, flush_durable: bool = True) -> None:
+        """Deliver what is still staged, stop the async decoder (after it
+        has delivered everything submitted), then write the aggregations'
+        durable duration tables through (`flush_durable`) and close
+        them."""
         self.flush()
         if self.ctx.decoder is not None:
             self.ctx.decoder.stop()
             self.ctx.decoder = None
+        for a in self.aggregations.values():
+            if flush_durable:
+                a.flush_durable()
+            a.close_durable()

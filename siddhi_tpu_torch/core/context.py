@@ -23,6 +23,8 @@ _TIME_UNITS_MS = {
     "minute": 60_000, "minutes": 60_000, "min": 60_000,
     "hour": 3_600_000, "hours": 3_600_000,
     "day": 86_400_000, "days": 86_400_000,
+    "month": 2_592_000_000, "months": 2_592_000_000,
+    "year": 31_536_000_000, "years": 31_536_000_000,
 }
 
 

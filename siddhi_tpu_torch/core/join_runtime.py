@@ -15,7 +15,9 @@ its rows filtered by the side's filters. A named-window side is read
 through the window's contents and triggers on the CURRENT lanes of its
 emissions. Stream functions and post-window filters on a join side are
 accepted and, as in the JAX package, not applied (ROADMAP.md Queue 3).
-Aggregation sides and record tables are not yet ported.
+An aggregation side (`join Agg per '<duration>'`) never triggers: it is
+read as the build side through the duration store's contents, its rows
+filtered by the side's filters. Record tables are not yet ported.
 
 A step makes no host synchronisation: the dropped-pair counter
 accumulates on the device and is read every 64 steps.
@@ -56,11 +58,13 @@ _DROP_CHECK_EVERY = 64
 
 
 class _Side:
-    """One join side: a stream (junction + window), a table, or a named
-    window (its contents probed, its emissions triggering)."""
+    """One join side: a stream (junction + window), a table, a named
+    window (its contents probed, its emissions triggering), or an
+    aggregation bound to one duration (its store's contents probed)."""
 
     def __init__(self, ins: SingleInputStream, registry: Registry,
-                 junctions: dict, tables: dict, windows: dict) -> None:
+                 junctions: dict, tables: dict, windows: dict,
+                 aggregations: dict, per) -> None:
         self.ref = ins.reference_id  # alias or stream id
         h = ins.handlers
         self.table = tables.get(ins.stream_id)
@@ -68,9 +72,29 @@ class _Side:
         self.named_window = windows.get(ins.stream_id)
         self.is_named_window = (self.named_window is not None
                                 and not self.is_table)
+        self.aggregation = aggregations.get(ins.stream_id)
+        self.is_aggregation = (self.aggregation is not None
+                               and not self.is_table
+                               and not self.is_named_window)
+        self.agg_view = None
         self.junction: Optional[StreamJunction] = None
         self.window: Optional[WindowOp] = None
-        if self.is_table:
+        if self.is_aggregation:
+            # `from S join Agg per "duration" on ...` (reference:
+            # AggregationRuntime.compileExpression); `within` bounds are
+            # not taken on joins, as in the JAX package: use the ON
+            # condition over AGG_TIMESTAMP
+            if per is None:
+                raise SiddhiAppCreationError(
+                    f"joining aggregation {ins.stream_id!r} needs `per "
+                    "'<duration>'`")
+            if h.window is not None:
+                raise SiddhiAppCreationError(
+                    "aggregations cannot take windows in joins")
+            self.agg_view = self.aggregation.view(per)
+            self.attr_types = dict(self.aggregation.output_attr_types)
+            self.codec = self.aggregation.output_codec
+        elif self.is_table:
             if h.window is not None:
                 raise SiddhiAppCreationError(
                     "tables cannot take windows in joins")
@@ -115,11 +139,14 @@ class _Side:
 
     @property
     def has_window_state(self) -> bool:
-        return not (self.is_table or self.is_named_window)
+        return not (self.is_table or self.is_named_window
+                    or self.is_aggregation)
 
     def set_projections(self) -> set:
         """unionSet-projection provenance: a junction-fed side reads the
         upstream output's markers, a table side the table's."""
+        if self.is_aggregation:
+            return set()
         if self.is_table:
             return set(self.table.set_projection_attrs)
         return {a.name for a in self.junction.definition.attributes
@@ -130,12 +157,10 @@ class JoinQueryRuntime:
     def __init__(self, query: Query, ctx: SiddhiAppContext, junctions: dict,
                  registry: Registry, name: str,
                  tables: Optional[dict] = None,
-                 windows: Optional[dict] = None) -> None:
+                 windows: Optional[dict] = None,
+                 aggregations: Optional[dict] = None) -> None:
         assert isinstance(query.input_stream, JoinInputStream)
         jis: JoinInputStream = query.input_stream
-        if jis.per is not None:
-            raise SiddhiAppCreationError(
-                "aggregation joins are not yet ported to siddhi_tpu_torch")
         self.query = query
         self.ctx = ctx
         self.name = name
@@ -148,11 +173,16 @@ class JoinQueryRuntime:
         self.k_max = dtypes.config.join_max_matches
 
         tables, windows = tables or {}, windows or {}
-        self.left = _Side(jis.left, registry, junctions, tables, windows)
-        self.right = _Side(jis.right, registry, junctions, tables, windows)
+        aggregations = aggregations or {}
+        self.left = _Side(jis.left, registry, junctions, tables, windows,
+                          aggregations, jis.per)
+        self.right = _Side(jis.right, registry, junctions, tables, windows,
+                           aggregations, jis.per)
         if self.left.is_table and self.right.is_table:
             raise SiddhiAppCreationError(
                 "cannot join two tables in a stream query")
+        if self.left.is_aggregation and self.right.is_aggregation:
+            raise SiddhiAppCreationError("cannot join two aggregations")
         if self.left.ref == self.right.ref:
             raise SiddhiAppCreationError(
                 "self-joins need an alias: `from S as a join S as b ...`")
@@ -304,6 +334,9 @@ class JoinQueryRuntime:
                 elif build_side.is_named_window:
                     nw = build_side.named_window
                     b_cols, b_ts, b_valid = nw.contents(nw.state, now)
+                elif build_side.is_aggregation:
+                    av = build_side.agg_view
+                    b_cols, b_ts, b_valid = av.contents(av.state, now)
                 elif isinstance(bw, PassThroughWindow):
                     b_cols, b_ts, b_valid = bw.contents(w_build, now,
                                                         device=dev)

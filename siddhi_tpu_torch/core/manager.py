@@ -12,7 +12,8 @@ from typing import Optional, Union
 import torch
 
 from .. import compiler
-from ..extension.registry import GLOBAL, Registry
+from ..errors import SiddhiAppCreationError
+from ..extension.registry import GLOBAL, ExtensionKind, Registry
 from ..query_api import SiddhiApp
 from .app_runtime import SiddhiAppRuntime
 
@@ -21,6 +22,7 @@ from ..ops import aggregators as _aggregators  # noqa: F401
 from ..ops import builtin_functions as _builtin_functions  # noqa: F401
 from ..ops import stream_functions as _stream_functions  # noqa: F401
 from ..ops import window_factories as _window_factories  # noqa: F401
+from ..io import record_table as _record_table  # noqa: F401
 
 
 def resolve_device(device=None) -> torch.device:
@@ -61,6 +63,32 @@ class SiddhiManager:
 
     def get_siddhi_app_runtime(self, name: str) -> Optional[SiddhiAppRuntime]:
         return self.runtimes.get(name)
+
+    def set_extension(self, name: str, impl,
+                      kind: Optional[ExtensionKind] = None) -> None:
+        """Register a per-manager extension as `namespace:name` (reference:
+        SiddhiManager.setExtension). `kind` defaults by probing the impl's
+        type."""
+        if kind is None:
+            from ..io.record_table import RecordStore
+            from ..ops.aggregators import AggregatorFactory
+            from ..ops.expr_compile import ScalarFunction
+            from ..ops.window_factories import WindowFactory
+            if isinstance(impl, AggregatorFactory):
+                kind = ExtensionKind.AGGREGATOR
+            elif isinstance(impl, ScalarFunction):
+                kind = ExtensionKind.FUNCTION
+            elif isinstance(impl, WindowFactory):
+                kind = ExtensionKind.WINDOW
+            elif (isinstance(impl, RecordStore)
+                  or (isinstance(impl, type)
+                      and issubclass(impl, RecordStore))):
+                kind = ExtensionKind.STORE
+            else:
+                raise SiddhiAppCreationError(
+                    f"cannot infer extension kind for {impl!r}; pass kind=")
+        ns, _, nm = name.rpartition(":")
+        self.registry.register(kind, ns, nm, impl)
 
     def shutdown(self) -> None:
         for rt in self.runtimes.values():

@@ -1,11 +1,13 @@
-"""On-demand (pull) queries against tables and named windows (counterpart
-of siddhi_tpu/core/ondemand.py).
+"""On-demand (pull) queries against tables, named windows and aggregations
+(counterpart of siddhi_tpu/core/ondemand.py).
 
 `OnDemandQueryRuntime` serves `from T [on cond] select ...`: the store's
 rows form one CURRENT chunk, the ON condition masks it, and the selector
 runs with `emit_final_per_group`, so aggregates give one row per group,
 their final value (the last lane of each group slot, K13b). A named
-window is read through its `contents(state, now)`. `OnDemandCrudRuntime`
+window is read through its `contents(state, now)`, and so is an
+aggregation, as a view that the app runtime has bound to one duration and
+its `within` range (core/aggregation.py). `OnDemandCrudRuntime`
 serves the write forms through the table output executor.
 """
 

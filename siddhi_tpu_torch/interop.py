@@ -13,7 +13,9 @@ query's is (left window, right window, left multimap, right multimap,
 selector state); a named window's is its window state; a pattern query's
 is a PatternState (its pending tables, active0, seq, dropped, armed0_ts,
 gate0_seq and the selector state); a table's is a TableState (cols by
-name, ts, valid). The functions here take that state —
+name, ts, valid); an aggregation's (`AggregationRuntime.state`) is a tuple
+of DurationStore, one a duration (key_table, bucket_ts, group_cols by
+name, comps, alive). The functions here take that state —
 or the same fields as plain dicts — and load it into a port runtime
 built from the same app text, so the next batches continue where the JAX
 runtime stopped. They read fields by name and import nothing of the JAX
@@ -34,6 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .core.aggregation import DurationStore
 from .core.app_runtime import SiddhiAppRuntime
 from .core.event import EventBatch
 from .core.join_runtime import JoinQueryRuntime
@@ -269,6 +272,41 @@ def load_table(rt: SiddhiAppRuntime, tid: str, state) -> None:
     """Load table `tid`'s rows (its sorted indexes rebuild at next use)."""
     t = rt.tables[tid]
     t.state = table_state(state, t.state)
+
+
+def duration_store(store_np, like: DurationStore) -> DurationStore:
+    """One duration's bucket store: its key table, buckets, group columns
+    by name, components and alive flags."""
+    groups = _field(store_np, "group_cols")
+    if set(groups) != set(like.group_cols):
+        raise ValueError(f"group columns {sorted(groups)} in the state, the "
+                         f"port's store has {sorted(like.group_cols)}")
+    comps = _field(store_np, "comps")
+    if len(comps) != len(like.comps):
+        raise ValueError(f"{len(comps)} components in the state, the "
+                         f"port's store has {len(like.comps)}")
+    kt = _field(store_np, "key_table")
+    return DurationStore(
+        key_table=KeyTable(*[_tensor(_field(kt, f), getattr(like.key_table,
+                                                             f))
+                             for f in KeyTable._fields]),
+        bucket_ts=_tensor(_field(store_np, "bucket_ts"), like.bucket_ts),
+        group_cols={g: _tensor(groups[g], v)
+                    for g, v in like.group_cols.items()},
+        comps=tuple(_tensor(a, b) for a, b in zip(comps, like.comps)),
+        alive=_tensor(_field(store_np, "alive"), like.alive))
+
+
+def load_aggregation(rt: SiddhiAppRuntime, agg_id: str, state_np) -> None:
+    """Load aggregation `agg_id`'s duration stores (the JAX runtime's
+    `aggregations[agg_id].state`, one store a duration in the same order;
+    both runtimes of one group capacity)."""
+    agg = rt.aggregations[agg_id]
+    if len(state_np) != len(agg.state):
+        raise ValueError(f"{len(state_np)} duration stores in the state, "
+                         f"the port's aggregation has {len(agg.state)}")
+    agg.state = tuple(duration_store(s, like)
+                      for s, like in zip(state_np, agg.state))
 
 
 def load_strings(rt: SiddhiAppRuntime, strings) -> None:

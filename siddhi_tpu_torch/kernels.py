@@ -28,7 +28,7 @@ SOURCES = ("k1_partition", "k2b_packed_ring", "k3_hash", "k4_keytable",
            "k5_grouped_scan", "k7_radix_sort", "k8_extrema", "k9_hll", "k10_join",
            "k11_pattern", "k11c_absent", "k12a_wire_pack",
            "k13a_expression_walk", "k13b_frequent", "k13c_limiter_ring",
-           "k13d_table_insert", "k13e_last_match")
+           "k13d_table_insert", "k13e_last_match", "k13f_bucket_scatter")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,7 +49,9 @@ LAUNCHES = {"K1": 0, "K2b pack": 0, "K2b fetch": 0, "K2b append": 0,
             "K13c snapshot gather": 0, "K7 time-first": 0, "K7 order by": 0,
             "K1 order by": 0, "K5b ordinal": 0, "K5b limit": 0,
             "K13d dedup": 0, "K13d place": 0, "K13e": 0, "K1 table free": 0,
-            "K7 table index": 0, "K13b final per group": 0}
+            "K7 table index": 0, "K13b final per group": 0,
+            "K13f ingest": 0, "K13f evict": 0, "K13f restore": 0,
+            "K3 aggregation": 0, "K4 aggregation": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

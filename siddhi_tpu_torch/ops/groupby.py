@@ -98,7 +98,7 @@ def hash_columns_plain(cols: list) -> torch.Tensor:
     return h
 
 
-def hash_columns_cuda(cols: list) -> torch.Tensor:
+def hash_columns_cuda(cols: list, *, counter: str = "K3") -> torch.Tensor:
     words = _key_words(cols)
     kernels.require_cuda("hash_columns", words)
     k, n = words.shape
@@ -108,14 +108,15 @@ def hash_columns_cuda(cols: list) -> torch.Tensor:
                        ctypes.c_void_p, ctypes.c_void_p])
     rc = fn(words.data_ptr(), k, n, out.data_ptr(), kernels.stream())
     kernels.check("k3_hash", "hash_columns", rc)
-    kernels.LAUNCHES["K3"] += 1
+    kernels.LAUNCHES[counter] += 1
     return out
 
 
-def hash_columns(cols: list) -> torch.Tensor:
-    """Combine key columns into one int64 key (K3)."""
+def hash_columns(cols: list, *, counter: str = "K3") -> torch.Tensor:
+    """Combine key columns into one int64 key (K3); `counter` names the
+    call site's launch counter."""
     if cols[0].is_cuda:
-        return hash_columns_cuda(cols)
+        return hash_columns_cuda(cols, counter=counter)
     return hash_columns_plain(cols)
 
 
@@ -340,7 +341,7 @@ def key_lookup_or_insert_plain(table: KeyTable, keys: torch.Tensor,
 
 
 def key_lookup_or_insert_cuda(table: KeyTable, keys: torch.Tensor,
-                              valid: torch.Tensor):
+                              valid: torch.Tensor, *, counter: str = "K4"):
     """K4 on the card; updates `table`'s tensors in place."""
     if (keys.dtype != torch.int64 or valid.dtype != torch.bool
             or keys.dim() != 1 or valid.shape != keys.shape):
@@ -372,7 +373,7 @@ def key_lookup_or_insert_cuda(table: KeyTable, keys: torch.Tensor,
                wslot.data_ptr(), has_empty.data_ptr(), eslot.data_ptr(),
                kernels.stream())
     kernels.check("k4_keytable", "key_lookup_or_insert (probe/claim)", rc)
-    kernels.LAUNCHES["K4"] += 1 + 2 * waves
+    kernels.LAUNCHES[counter] += 1 + 2 * waves
     # dense ids for the batch's new entries: unique won slots ranked in slot
     # order
     ws = torch.where(won.bool(), slot_of, H)
@@ -393,17 +394,18 @@ def key_lookup_or_insert_cuda(table: KeyTable, keys: torch.Tensor,
                 table.misses.data_ptr(), n_new.data_ptr(),
                 out_ids.data_ptr(), resolved.data_ptr(), kernels.stream())
     kernels.check("k4_keytable", "key_lookup_or_insert (commit/resolve)", rc)
-    kernels.LAUNCHES["K4"] += 2
+    kernels.LAUNCHES[counter] += 2
     return table, out_ids, resolved
 
 
 def key_lookup_or_insert(table: KeyTable, keys: torch.Tensor,
-                         valid: torch.Tensor):
+                         valid: torch.Tensor, *, counter: str = "K4"):
     """Resolve each lane's key to a dense id, inserting unseen keys (K4).
     Returns (table, ids int32[L], resolved bool[L]); unresolved lanes
-    (id space or probe window exhausted) get id 0 and count in misses."""
+    (id space or probe window exhausted) get id 0 and count in misses.
+    `counter` names the call site's launch counter."""
     if keys.is_cuda:
-        return key_lookup_or_insert_cuda(table, keys, valid)
+        return key_lookup_or_insert_cuda(table, keys, valid, counter=counter)
     return key_lookup_or_insert_plain(table, keys, valid)
 
 

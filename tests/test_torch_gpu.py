@@ -1635,3 +1635,182 @@ def test_table_apps_on_card_match_cpu(cuda, name):
             np.testing.assert_allclose(a[1:], b[1:], rtol=1e-5, atol=1e-3)
         else:
             assert a == b
+
+
+# --------------------------------------------------------------------------- #
+# K13f and incremental aggregation
+# --------------------------------------------------------------------------- #
+
+_K13F_SPECIALS = np.array([0.0, -0.0, np.nan, np.inf, -np.inf, 1.5, -2.25],
+                          np.float32)
+
+
+def _k13f_case(rng, n, K, dtype, op, cuda):
+    w = rng.integers(0, K, n).astype(np.int32)
+    w[rng.random(n) < 0.1] = K  # dropped lanes
+    w[:3] = [-1, K + 5, K]
+    if np.dtype(dtype).kind == "f":
+        v = np.where(rng.random(n) < 0.4, rng.choice(_K13F_SPECIALS, n),
+                     rng.normal(0, 50, n)).astype(dtype)
+        base = np.zeros(K, dtype) if op == "add" else np.full(
+            K, np.inf if op == "min" else -np.inf, dtype)
+        base[:4] = np.array([0.0, -0.0, np.nan, 2.0]).astype(dtype)
+    else:
+        info = np.iinfo(dtype)
+        v = rng.integers(info.min, info.max, n, dtype=dtype)
+        base = np.zeros(K, dtype) if op == "add" else np.full(
+            K, info.max if op == "min" else info.min, dtype)
+    if op == "add" and np.dtype(dtype).kind == "f":
+        v = np.where(np.isfinite(v), v, 1.0).astype(dtype)
+    return (torch.from_numpy(w).to(cuda), torch.from_numpy(base).to(cuda),
+            torch.from_numpy(v).to(cuda))
+
+
+def _bits_equal(a, b):
+    if a.dtype.is_floating_point:
+        bits = {4: torch.int32, 8: torch.int64}[a.element_size()]
+        return torch.equal(a.view(bits), b.view(bits))
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("op", ["add", "min", "max"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.int32,
+                                   np.int64])
+def test_k13f_kernel_matches_plain(cuda, op, dtype):
+    """Each op and element type against the plain version: min/max and
+    integer sums (int64 wrapping) bit for bit, NaN winning as the
+    canonical NaN and -0.0 below +0.0; float sums within 1e-5 of the
+    slot's sum of magnitudes (atomics add in another order)."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import bucket_scatter as bs
+    rng = np.random.default_rng(71)
+    for n, K in ((5000, 64), (70001, 1 << 16)):
+        w, base, v = _k13f_case(rng, n, K, dtype, op, cuda)
+        got, want = base.clone(), base.clone()
+        before = kernels.LAUNCHES["K13f ingest"]
+        bs.bucket_scatter(w, [(got, v, op)])
+        assert kernels.LAUNCHES["K13f ingest"] == before + 1
+        bs.bucket_scatter_plain(w, [(want, v, op)])
+        torch.cuda.synchronize()
+        if op == "add" and v.dtype.is_floating_point:
+            keep = (w >= 0) & (w < K)
+            mag = torch.zeros(K, dtype=torch.float64, device=cuda)
+            mag.index_add_(0, w[keep].long(), v[keep].double().abs())
+            nan = torch.isnan(want)  # a NaN slot stays NaN in both
+            assert torch.equal(torch.isnan(got), nan)
+            err = (got.double() - want.double()).abs()[~nan]
+            assert bool((err <= 1e-5 * torch.clamp(mag[~nan],
+                                                   min=1.0)).all())
+        else:
+            assert _bits_equal(got, want)
+
+
+def test_k13f_set_columns_match_plain(cuda):
+    """One launch of every column kind: set int64/int32/float32/bool,
+    the alive flags, and a sum beside them."""
+    from siddhi_tpu_torch.ops import bucket_scatter as bs
+    rng = np.random.default_rng(72)
+    n, K = 40000, 1 << 15
+    w = torch.from_numpy(rng.integers(0, K + 1, n).astype(np.int32)).to(cuda)
+    slot = torch.from_numpy(rng.integers(-(2**40), 2**40, K + 1)).to(cuda)
+    src = [slot[w.long()], (slot[w.long()] % 1000).to(torch.int32),
+           (slot[w.long()] % 77).to(torch.float32) - 0.5,
+           (slot[w.long()] % 2 == 0)]
+    outs = []
+    for fn in (bs.bucket_scatter, bs.bucket_scatter_plain):
+        dst = [torch.zeros(K, dtype=s.dtype, device=cuda) for s in src]
+        alive = torch.zeros(K, dtype=torch.bool, device=cuda)
+        fn(w, [(d, s, "set") for d, s in zip(dst, src)]
+           + [(alive, None, "true")])
+        outs.append(dst + [alive])
+    for a, b in zip(*outs):
+        assert _bits_equal(a, b)
+    with pytest.raises(ValueError, match="set only"):
+        bs.bucket_scatter(w, [(outs[0][3], src[3], "add")])
+
+
+def test_bucket_start_on_card_matches_cpu(cuda):
+    from siddhi_tpu_torch.core import aggregation as agg
+    from siddhi_tpu_torch.query_api.definition import Duration
+    rng = np.random.default_rng(73)
+    ts = torch.from_numpy(np.concatenate([
+        rng.integers(-(2**42), 2**42, 100000),
+        np.array([0, -1, -1000, -86_400_001, 951_782_400_000,
+                  1_767_225_599_999, 1_767_225_600_000])]))
+    for d in Duration:
+        assert torch.equal(agg.bucket_start(d, ts.to(cuda)).cpu(),
+                           agg.bucket_start(d, ts))
+
+
+def test_aggregation_app_on_card_matches_cpu(cuda):
+    """`every sec ... year` with a join per 'hour', @purge retention on
+    the heartbeat, finds and a further group-by, card against CPU; the
+    K3, K4 and K13f sites launched, none of the ingest's plain paths."""
+    from siddhi_tpu_torch import SiddhiManager, kernels
+    app = """@app:playback
+    define stream TradeStream (symbol string, price double, volume long,
+                               ts long);
+    define stream QueryStream (symbol string);
+    @purge(enable='true', @retentionPeriod(sec='5 min'))
+    define aggregation TradeAgg from TradeStream
+    select symbol, sum(price) as total, avg(price) as ap, min(price) as lo,
+           max(price) as hi, count() as n, sum(volume) as vol
+    group by symbol aggregate by ts every sec ... year;
+    @info(name='j')
+    from QueryStream join TradeAgg on QueryStream.symbol == TradeAgg.symbol
+    per 'hour'
+    select QueryStream.symbol as symbol, TradeAgg.AGG_TIMESTAMP as b,
+           TradeAgg.n as n insert into JoinOut;
+    """
+    rng = np.random.default_rng(74)
+    n, bs = 4096 * 4, 4096
+    t0 = 1_767_224_400_000  # 2025-12-31 23:40:00 UTC
+    ts = t0 + np.arange(n) * 100
+    price = rng.integers(1, 4000, n) * 0.25
+    price[rng.random(n) < 0.001] = np.nan
+    cols = {"symbol": np.array([f"S{i}" for i in rng.integers(0, 300, n)],
+                               dtype=object),
+            "price": price, "volume": rng.integers(1, 99, n),
+            "ts": ts}
+    outs = []
+    for dev in ("cuda", "cpu"):
+        rt = SiddhiManager(device=dev).create_siddhi_app_runtime(
+            app, batch_size=bs, group_capacity=1 << 14)
+        got = []
+        rt.add_callback("JoinOut", lambda evs, g=got: g.extend(
+            e.data for e in evs))
+        kernels.reset_launch_counts()
+        seen = []
+        for s in range(0, n, bs):
+            rt.get_input_handler("TradeStream").send_columns(
+                {k: v[s:s + bs] for k, v in cols.items()},
+                timestamps=ts[s:s + bs])
+            rt.flush()
+            now = int(ts[s + bs - 1])
+            rt.heartbeat(now)
+            seen.append(sorted(e.data for e in rt.query(
+                f"from TradeAgg within {now - 300_000}, {now + 1} per 'sec' "
+                "select symbol, sum(total) as t, sum(n) as c "
+                "group by symbol")))
+            for d in ("min", "month", "year"):
+                seen.append(sorted(e.data for e in rt.query(
+                    f"from TradeAgg within 0, 4102444800000 per '{d}' "
+                    "select symbol, total, ap, lo, hi, n, vol, "
+                    "AGG_TIMESTAMP")))
+            rt.get_input_handler("QueryStream").send_columns(
+                {"symbol": cols["symbol"][s:s + 64]})
+            rt.flush()
+        if dev == "cuda":
+            for k in ("K3 aggregation", "K4 aggregation", "K13f ingest",
+                      "K13f evict"):
+                assert kernels.LAUNCHES[k] > 0, k
+        outs.append((sorted(got), seen))
+    (cj, cseen), (pj, pseen) = outs
+    assert cj == pj and len(cj) > 0
+    for a, b in zip(cseen, pseen):
+        assert len(a) == len(b) > 0
+        for ra, rb in zip(a, b):
+            assert ra[0] == rb[0] and ra[-1] == rb[-1]
+            np.testing.assert_allclose(np.array(ra[1:], float),
+                                       np.array(rb[1:], float), rtol=1e-5,
+                                       atol=1e-3)

@@ -19,6 +19,9 @@ def test_import_loads_no_jax_and_no_reference_package():
         import sys
         import siddhi_tpu_torch, chip_smoke
         import siddhi_tpu_torch.interop, siddhi_tpu_torch.kernels
+        import siddhi_tpu_torch.core.aggregation
+        import siddhi_tpu_torch.io.record_table
+        import siddhi_tpu_torch.ops.bucket_scatter
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "siddhi_tpu" or m.startswith("siddhi_tpu."))

@@ -24,7 +24,6 @@ from siddhi_tpu.ops import groupby as jg
 from siddhi_tpu.ops import join as jj
 from siddhi_tpu.ops.expr_compile import Scope as JScope
 from siddhi_tpu_torch import interop
-from siddhi_tpu_torch.errors import SiddhiAppCreationError
 from siddhi_tpu_torch.ops import groupby as tg
 from siddhi_tpu_torch.ops import join as tj
 from siddhi_tpu_torch.ops.expr_compile import Scope as TScope
@@ -536,16 +535,11 @@ def test_interop_continues_a_jax_join():
      "aggregate every sec, min;", " per 'sec'"),
 ], ids=["table", "named_window", "aggregation"])
 def test_unported_sides_are_refused(defs, tail):
-    """Aggregation sides stay refused; table and named-window sides run,
-    with the JAX package's output."""
+    """Table, named-window and aggregation sides run, with the JAX
+    package's output (the sides once refused here)."""
     app = KV + defs + ("\n@info(name='j') from L#window.length(5) as a "
                        f"join T as b on a.k == b.k{tail} select a.k as k, "
                        "b.w as w insert into OutStream;")
-    if "aggregation" in defs:
-        mgr = siddhi_tpu_torch.SiddhiManager(device="cpu")
-        with pytest.raises(SiddhiAppCreationError, match="not yet ported"):
-            mgr.create_siddhi_app_runtime(app)
-        return
     outs = []
     for pkg in (siddhi_tpu, siddhi_tpu_torch):
         rt = (pkg.SiddhiManager(device="cpu") if pkg is siddhi_tpu_torch
