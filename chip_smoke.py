@@ -252,7 +252,32 @@ Phases (any failure exits non-zero and prints no result line):
    datetime64, float64 sums by `np.add.at`), counts, volumes, min, max
    and buckets exact, sums within 1e-5 of the sum of magnitudes; the
    `sec` store holding only buckets at or after now - 5 min; no dropped
-   join pair; 0 host syncs in an ingest step.
+   join pair; 0 host syncs in an ingest step;
+28. K12b, the superstep pack, against its plain version on the card, bit
+   for bit (the header, the K counts and every region's kept entries), at
+   app AG's emitting slot (W = 141,087 lanes of int32 code, two float32
+   and the int64 ts) for K = 8 and 32 with one iteration empty and one
+   full; timed on the device alone beside the library calls
+   (`nonzero_static` of the flat valid at the kept count, so that no call
+   syncs with the host, an `index_select` a column, `valid.sum(1)`); the
+   bound counts ts and column reads only in sectors with a valid lane;
+29. app AG, bench.py's IngressBench (`@Async(buffer.size='131072',
+   workers='4')`, `TradeStream[price < 700.0]` into a `lengthBatch(10000)`
+   sum/avg by 10,000 symbols, group_capacity 2^17, async_callbacks and a
+   columnar callback): (a) one producer sends 64 chunks by send_columns
+   on fresh runtimes at K = 1, 8 and 32; K = 1 against app A's oracle,
+   K > 1 bit-identical to K = 1 with 64 / K supersteps, no decline and
+   one K12b launch a superstep; (b) four producers push the same 96
+   chunks with one drain, three rounds over K = 1, 8, 32 in turn:
+   events/s of each run (the median and the spread), p50/p99
+   send-to-callback latency, the pipeline's stage times, conservation
+   (sent, submitted and delivered rows; output rows from the passing
+   count) and the host syncs of one superstep (at most its one
+   readback);
+30. app AH, config 1's auto-flush path: `TradeStream[700.0 > price]` with
+   auto_flush_ms=10 and batch_size 256, 2,000 rows sent one at a time at
+   1,000 a second with no flush(); every passing row arrives, in order,
+   exact; p50/p99 send-to-callback latency.
 
 Every app's Event callback reads back through K12a (its launch counter
 must be non-zero in every app). Apps A, C, D, G, H and N also run the
@@ -578,10 +603,14 @@ KERNELS = {
                        "siddhi_tpu_torch/csrc/k3_hash.cu", f"{AGG}:647"),
     "K4 aggregation": ("key_lookup_or_insert into a duration store",
                        "siddhi_tpu_torch/csrc/k4_keytable.cu", f"{AGG}:648"),
+    "K12b": ("SuperstepRunner compaction (superstep_pack)",
+             "siddhi_tpu_torch/csrc/k12b_superstep_pack.cu",
+             "siddhi_tpu/core/superstep.py:417"),
 }
 #: rows of the kernel table beyond one a counter: row key -> the counter
 #: whose launches it reports (the same kernel at a second shape)
-EXTRA_ROWS = {"K13f ingest (10,000 slots)": "K13f ingest"}
+EXTRA_ROWS = {"K13f ingest (10,000 slots)": "K13f ingest",
+              "K12b (K = 32)": "K12b"}
 
 
 class Failure(Exception):
@@ -626,13 +655,14 @@ def time_ms(torch, fn, reset=None, iters=20, warmup=3) -> float:
 _SLEEP_CYCLES_PER_MS = []  # torch.cuda._sleep's rate, measured once
 
 
-def device_ms(torch, fn, iters=20, warmup=3) -> float:
+def device_ms(torch, fn, iters=20, warmup=3, reset=None) -> float:
     """Mean device time of fn() without its host enqueue: the calls queue
     behind a spin kernel (torch.cuda._sleep) that outlasts their enqueue,
     so the card runs them back to back, each between its own events
     after a 128 MiB fill that leaves L2 cold, as a step's other work
-    leaves it. A fn that reads the card on the host stalls there, and
-    its time includes the stall."""
+    leaves it, and after `reset()` (untimed; it restores any state fn
+    mutates). A fn that reads the card on the host stalls there, and its
+    time includes the stall."""
     if not _SLEEP_CYCLES_PER_MS:
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -644,12 +674,15 @@ def device_ms(torch, fn, iters=20, warmup=3) -> float:
     # larger than the H100's 50 MB L2; freed on return, so that no later
     # phase's peak memory counts it
     flush = torch.empty(2**25, dtype=torch.int32, device="cuda")
+    reset = reset if reset is not None else (lambda: None)
     for _ in range(warmup):
+        reset()
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(iters):
         flush.zero_()
+        reset()
         fn()
     enqueue_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
@@ -659,6 +692,7 @@ def device_ms(torch, fn, iters=20, warmup=3) -> float:
                           * min(2 * enqueue_ms + 1, 1000)))
     for e0, e1 in events:
         flush.zero_()
+        reset()
         e0.record()
         fn()
         e1.record()
@@ -738,11 +772,9 @@ def kernel_phase(torch, rng, chunk_width_a: int) -> dict:
         got = search.stable_partition_order(live)
         check_equal(f"K1 L={L}", got, search.stable_partition_order_plain(live))
         k1[L] = dict(
-            ms=time_ms(torch, lambda: search.stable_partition_order(live)),
-            plain_ms=time_ms(
-                torch, lambda: search.stable_partition_order_plain(live)),
-            library_ms=time_ms(torch, lambda: torch.sort(
-                (~live).to(torch.int32), stable=True)),
+            _timed(torch, lambda: search.stable_partition_order(live),
+                   lambda: search.stable_partition_order_plain(live),
+                   lambda: torch.sort((~live).to(torch.int32), stable=True)),
             bound_ms=bound_ms(L * 1 + L * 4))
         print(f"K1 stable_partition_order L={L}: {k1[L]}")
     res["K1"] = dict(k1[BATCH], max_abs_err=0, bound_by="bytes")
@@ -753,10 +785,9 @@ def kernel_phase(torch, rng, chunk_width_a: int) -> dict:
     check_equal("K3", groupby.hash_columns([keys]),
                 groupby.hash_columns_plain([keys]))
     res["K3"] = dict(
-        ms=time_ms(torch, lambda: groupby.hash_columns([keys])),
-        plain_ms=time_ms(torch, lambda: groupby.hash_columns_plain([keys])),
-        library_ms=None, bound_ms=bound_ms(BATCH * 8 * 2), max_abs_err=0,
-        bound_by="bytes")
+        _timed(torch, lambda: groupby.hash_columns([keys]),
+               lambda: groupby.hash_columns_plain([keys])),
+        bound_ms=bound_ms(BATCH * 8 * 2), max_abs_err=0, bound_by="bytes")
     print(f"K3 hash_columns n={BATCH}: {res['K3']}")
 
     # K4: H = 2^21 table (K = 2^20 ids) holding 2^19 keys, then a batch of
@@ -799,12 +830,11 @@ def kernel_phase(torch, rng, chunk_width_a: int) -> dict:
     # lane, one slot + id write per new key
     k4_bytes = BATCH * (8 + 1 + 4 + 1) + n_valid * 12 + n_new * 12
     res["K4"] = dict(
-        ms=time_ms(torch, lambda: groupby.key_lookup_or_insert(
-            table, batch_keys, valid), reset=restore),
-        plain_ms=time_ms(torch, lambda: groupby.key_lookup_or_insert_plain(
-            table, batch_keys, valid), reset=restore),
-        library_ms=None, bound_ms=bound_ms(k4_bytes), max_abs_err=0,
-        bound_by="bytes")
+        _timed(torch, lambda: groupby.key_lookup_or_insert(
+            table, batch_keys, valid),
+            lambda: groupby.key_lookup_or_insert_plain(
+                table, batch_keys, valid), reset=restore),
+        bound_ms=bound_ms(k4_bytes), max_abs_err=0, bound_by="bytes")
     print(f"K4 key_lookup_or_insert H={2 * GROUP_CAP} prefilled="
           f"{count0} new={n_new}: {res['K4']}")
 
@@ -875,10 +905,8 @@ def kernel_phase(torch, rng, chunk_width_a: int) -> dict:
     k5_bytes = (L * (4 + 1 + 1) + n_comp * L * 4 * 2
                 + touched * (n_comp * 8 + 8))
     res["K5"] = dict(
-        ms=time_ms(torch, run5, reset=restore5),
-        plain_ms=time_ms(torch, plain5, reset=restore5),
-        library_ms=None, bound_ms=bound_ms(k5_bytes), max_abs_err=err,
-        bound_by="bytes")
+        _timed(torch, run5, plain5, reset=restore5),
+        bound_ms=bound_ms(k5_bytes), max_abs_err=err, bound_by="bytes")
     print(f"K5 grouped_scan_fused L={L} comps={n_comp} K={GROUP_CAP}: "
           f"{res['K5']}")
     torch.cuda.synchronize()
@@ -901,19 +929,40 @@ def check_float_scan(name, a, b) -> float:
     return err
 
 
+#: library calls that read the card on the host (their device_ms holds
+#: the stall); printed before the kernel table, none expected
+LIBRARY_SYNCS: list = []
+
+
+def _library_ms(torch, library, reset=None):
+    """The library call's device time (device_ms), after one watched call
+    that records any host sync it makes in LIBRARY_SYNCS."""
+    if library is None:
+        return None
+    if reset is not None:
+        reset()
+    _, syncs = call_watching_syncs(torch, library)
+    if syncs:
+        LIBRARY_SYNCS.append(syncs)
+    return device_ms(torch, library, reset=reset)
+
+
 def _timed(torch, fn, plain, library=None, reset=None) -> dict:
-    return dict(ms=time_ms(torch, fn, reset=reset),
+    """The kernel's and the library call's times on the device alone
+    (device_ms), the plain version's with its host enqueue (time_ms: most
+    plain versions read the card on the host), and `call_ms`, one kernel
+    call with its host enqueue, as a step pays it."""
+    return dict(ms=device_ms(torch, fn, reset=reset),
                 plain_ms=time_ms(torch, plain, reset=reset),
-                library_ms=(time_ms(torch, library, reset=reset)
-                            if library is not None else None))
+                library_ms=_library_ms(torch, library, reset),
+                call_ms=time_ms(torch, fn, reset=reset))
 
 
 def _timed_device(torch, fn, plain, library=None) -> dict:
     """_timed's times by device_ms, and `call_ms`, one call's time with
     its host enqueue (time_ms), as a step pays it."""
     return dict(ms=device_ms(torch, fn), plain_ms=device_ms(torch, plain),
-                library_ms=(device_ms(torch, library)
-                            if library is not None else None),
+                library_ms=_library_ms(torch, library),
                 call_ms=time_ms(torch, fn))
 
 
@@ -1177,22 +1226,22 @@ def sliding_kernel_phase(torch, rng) -> tuple[dict, dict]:
     nv = torch.tensor(BATCH, dtype=torch.int32, device=dev)
     row = 4 + 4 + 8 + 8  # symbol, price, volume, ts
     routes["K2a _gather_rel"] = dict(
-        ms=time_ms(torch, lambda: w._gather_rel(
+        ms=device_ms(torch, lambda: w._gather_rel(
             ring_cols, ring_ts, cols, ts, app0, base, offs)),
         bound_ms=bound_ms(2 * (BATCH + N) * row), shape=f"L={BATCH + N}")
     routes["K2a _scatter_append"] = dict(
-        ms=time_ms(torch, lambda: w._scatter_append(
+        ms=device_ms(torch, lambda: w._scatter_append(
             ring_cols, ring_ts, cols, ts, app0, nv)),
         bound_ms=bound_ms(2 * BATCH * row), shape=f"B={BATCH} C={Ca}")
     # K6 at app C's shapes: the expiry trigger and the K5 sort
     sorted_ts = ts.contiguous()
     deadline = ts + 30_000
     routes["K6 searchsorted32"] = dict(
-        ms=time_ms(torch, lambda: search.searchsorted32(sorted_ts, deadline)),
+        ms=device_ms(torch, lambda: search.searchsorted32(sorted_ts, deadline)),
         bound_ms=bound_ms(BATCH * (8 + 8 + 4)), shape=f"{BATCH} into {BATCH}")
     sk = torch.where(valid, slots, K)
     routes["K6 stable_argsort_bounded"] = dict(
-        ms=time_ms(torch, lambda: search.stable_argsort_bounded(sk)),
+        ms=device_ms(torch, lambda: search.stable_argsort_bounded(sk)),
         bound_ms=bound_ms(L * (4 + 8)), shape=f"L={L}")
     # K7 merge of the sliding chunk: E expired + B current lanes
     pe = torch.arange(E, dtype=torch.int32, device=dev)
@@ -1200,7 +1249,7 @@ def sliding_kernel_phase(torch, rng) -> tuple[dict, dict]:
     keys = [(torch.clamp(pe * 2, 0, B) * 4, pe), (pb * 4 + 2, pb)]
     valids = [pe < E // 2 + 7000, pb < n_live]
     routes["K7 _merge_order"] = dict(
-        ms=time_ms(torch, lambda: w._merge_order(keys, valids)),
+        ms=device_ms(torch, lambda: w._merge_order(keys, valids)),
         bound_ms=bound_ms((E + B) * (4 + 4 + 1 + 4)), shape=f"E={E} B={B}")
     for k, r in routes.items():
         print(f"{k}: {r}")
@@ -1760,8 +1809,8 @@ def join_kernel_phase(torch, rng) -> dict:
             check_equal(f"K10 compact {nm} {part}", x, y)
     kept = min(int(sparse.sum()), PAIR_CAP_G)
 
-    def library():
-        idx = sparse.nonzero().squeeze(1)[:PAIR_CAP_G]
+    def library():  # nonzero_static at the known count: no host sync
+        idx = torch.nonzero_static(sparse, size=kept).squeeze(1)
         return lane.index_select(0, idx), row.index_select(0, idx)
 
     res["K10 compact"] = dict(
@@ -1792,14 +1841,14 @@ def join_kernel_phase(torch, rng) -> dict:
                                                      device=dev), pvalid)
     compositions = {
         "probe_equi": dict(
-            ms=time_ms(torch, lambda: join.probe_equi(
+            ms=device_ms(torch, lambda: join.probe_equi(
                 plan, pscope, pvalid, {"k": bkeys}, bts, bvalid, "b", K)),
             # probe and build keys and valid in; the [B, k_max] lanes, rows
             # and valid out
             bound_ms=bound_ms(B * (4 + 1) + C * (4 + 1) + P * (4 + 4 + 1)),
             bound_by="bytes", shape=f"B={B} into C={C}, k_max={K}"),
         "probe_cross": dict(
-            ms=time_ms(torch, lambda: join.probe_cross(pvalid, bvalid, K)),
+            ms=device_ms(torch, lambda: join.probe_cross(pvalid, bvalid, K)),
             bound_ms=bound_ms(B + C + P * (4 + 4 + 1)), bound_by="bytes",
             shape=f"B={B} against C={C}, k_max={K}")}
     print("join compositions: " + json.dumps(compositions))
@@ -3413,8 +3462,11 @@ def wire_kernel_phase(torch, rng, B: int = BATCH) -> dict:
     ts, valid, types, cols = _wire_batch(torch, rng, B, "A", "half")
     layout = wire.layout_of(ts, cols)
 
-    def library():  # nonzero, a gather per column and the minimum
-        idx = torch.nonzero(valid).squeeze(1)
+    n_valid = int(valid.sum())
+
+    def library():  # nonzero_static at the known count (no host sync),
+        # a gather per column and the minimum
+        idx = torch.nonzero_static(valid, size=n_valid).squeeze(1)
         return ([t.index_select(0, idx) for t in (ts, types, *cols.values())],
                 torch.min(ts.index_select(0, idx)))
 
@@ -4247,9 +4299,12 @@ def expression_kernel_phase(torch, rng, B: int = BATCH) -> dict:
     # the walk reads positions [0, final s] (pops) and [w0, w0 + B]
     visited = (w0 + B + 1 if pops >= w0 else pops + 1 + B + 1)
     res["K13a sliding"] = dict(
-        ms=time_ms(torch, lambda: eg.sliding_walk(win.cond, env, w0_d, nv_d,
-                                                  B, win.E),
-                   iters=5, warmup=1),
+        ms=device_ms(torch, lambda: eg.sliding_walk(win.cond, env, w0_d,
+                                                    nv_d, B, win.E),
+                     iters=5, warmup=1),
+        call_ms=time_ms(torch, lambda: eg.sliding_walk(win.cond, env, w0_d,
+                                                       nv_d, B, win.E),
+                        iters=2, warmup=0),
         plain_ms=time_ms(torch, lambda: eg.sliding_walk_plain(
             win.cond, env, w0_d, nv_d, B, win.E), iters=1, warmup=0),
         library_ms=None, bound_ms=bound_ms(_walk_bytes(win.cond, visited,
@@ -4273,9 +4328,12 @@ def expression_kernel_phase(torch, rng, B: int = BATCH) -> dict:
     bvisited = np.union1d(np.r_[0, starts],
                           np.arange(w0b, w0b + B + 1)).size
     res["K13a batch"] = dict(
-        ms=time_ms(torch, lambda: eg.batch_walk(bwin.cond, benv, w0b_d, nv_d,
-                                                B, True),
-                   iters=5, warmup=1),
+        ms=device_ms(torch, lambda: eg.batch_walk(bwin.cond, benv, w0b_d,
+                                                  nv_d, B, True),
+                     iters=5, warmup=1),
+        call_ms=time_ms(torch, lambda: eg.batch_walk(bwin.cond, benv, w0b_d,
+                                                     nv_d, B, True),
+                        iters=2, warmup=0),
         plain_ms=time_ms(torch, lambda: eg.batch_walk_plain(
             bwin.cond, benv, w0b_d, nv_d, B, True), iters=1, warmup=0),
         library_ms=None, bound_ms=bound_ms(_walk_bytes(bwin.cond, bvisited,
@@ -6610,6 +6668,420 @@ def aggregation_apps(torch, rng, card: str, rounds: int = ROUNDS,
         total[k] = total.get(k, 0) + v
     return total
 
+# --------------------------------------------------------------------------- #
+# phases 28-30: K12b, app AG (async ingestion + supersteps), app AH
+# --------------------------------------------------------------------------- #
+
+AG_BATCH = BATCH  # @Async(buffer.size='131072')
+AG_WORKERS = 4
+AG_SYMBOLS = 10_000
+AG_GCAP = 1 << 17
+AG_CHUNKS = 64  # phase 29 (a): chunks a K
+AG_KS = (1, 8, 32)
+AG_PRODUCERS = 4
+AG_RATE_CHUNKS = 96  # phase 29 (b): chunks a run, whole supersteps at 8, 32
+AG_RATE_ROUNDS = 3  # phase 29 (b): runs a K, taken in turn over the Ks
+APP_AG = """@app:name('IngressBench{k}')
+{ss}@Async(buffer.size='{bs}', workers='{workers}')
+define stream TradeStream (symbol string, price double, volume long);
+@info(name = 'filt')
+from TradeStream[price < 700.0]
+select symbol, price, volume
+insert into MidStream;
+@info(name = 'agg')
+from MidStream#window.lengthBatch(10000)
+select symbol, sum(price) as total, avg(price) as avgPrice
+group by symbol
+insert into SummaryStream;
+"""
+AH_EVENTS = 2_000  # one at a time, at ~1,000 a second
+AH_RATE_HZ = 1000.0
+APP_AH = """@app:name('AutoFlush')
+define stream TradeStream (symbol string, price double, volume long);
+@info(name = 'bench')
+from TradeStream[700.0 > price]
+select symbol, price
+insert into OutStream;
+"""
+
+
+def app_ag(k: int, bs: int = AG_BATCH, workers: int = AG_WORKERS) -> str:
+    ss = f"@app:superstep(k='{k}')\n" if k > 1 else ""
+    return APP_AG.format(k=k, ss=ss, bs=bs, workers=workers)
+
+
+def ag_slot_width(bs: int = AG_BATCH) -> int:
+    """The lanes of app AG's emitting slot: the lengthBatch query's output
+    over a full filter output of `bs` lanes."""
+    from siddhi_tpu_torch.ops.windows import LengthBatchWindow
+    return LengthBatchWindow({}, bs, WINDOW, expired_on=False).chunk_width
+
+
+def _pack_case(torch, rng, K: int, W: int, dens: float):
+    """App AG's slot stacks: int32 symbol codes, float32 total and avg,
+    int64 ts; iteration 0 with no valid lane, iteration 1 all valid."""
+    dev = torch.device("cuda")
+    ts = torch.from_numpy(1_700_000_000_000 + np.sort(
+        rng.integers(0, 1 << 31, (K, W)), axis=1)).to(dev)
+    valid = rng.random((K, W)) < dens
+    valid[0] = False
+    valid[1] = True
+    cols = {"symbol": torch.from_numpy(rng.integers(
+                1, AG_SYMBOLS + 1, (K, W)).astype(np.int32)).to(dev),
+            "total": torch.from_numpy(rng.uniform(
+                1, 5e4, (K, W)).astype(np.float32)).to(dev),
+            "avgPrice": torch.from_numpy(rng.uniform(
+                1, 700, (K, W)).astype(np.float32)).to(dev)}
+    return ts, torch.from_numpy(valid).to(dev), cols
+
+
+def _sector_bytes(torch, flat_valid, elem: int) -> int:
+    """Bytes of the 32-byte sectors of a column of `elem`-byte lanes that
+    hold at least one valid lane."""
+    per = 32 // elem
+    n = flat_valid.numel()
+    v = torch.nn.functional.pad(flat_valid, (0, -n % per))
+    return int(v.reshape(-1, per).any(1).sum()) * 32
+
+
+def superstep_kernel_phase(torch, rng, W: int = 0) -> dict:
+    """K12b against its plain version on the card, bit for bit (the header,
+    the counts and every region's kept entries), at app AG's emitting slot
+    for K = 8 and 32; with its times, the library calls
+    (`torch.nonzero_static` of the flattened valid at the kept count, an
+    `index_select` a column, `valid.sum(1)`) and the byte bound."""
+    from siddhi_tpu_torch.ops import superstep_pack as sp
+    W = W or ag_slot_width()
+    res = {}
+    for K in (8, 32):
+        ts, valid, cols = _pack_case(torch, rng, K, W, 0.64)
+        buf, layout = sp.superstep_pack(ts, valid, cols)
+        plain = sp.superstep_pack_plain(ts, valid, cols)
+        check_equal(f"K12b K={K}", sp.pack_payload(buf, layout),
+                    sp.pack_payload(plain, layout))
+        kept = int(valid.sum())
+        widths = 8 + sum(c.element_size() for c in cols.values())
+
+        def library():  # nonzero_static at the known count: no host sync
+            idx = torch.nonzero_static(valid.reshape(-1),
+                                       size=kept).squeeze(1)
+            return ([c.reshape(-1).index_select(0, idx)
+                     for c in (ts, *cols.values())], valid.sum(1))
+
+        # valid read whole; ts and each column only in the 32-byte sectors
+        # that hold a valid lane (the kernel reads no other lane); the kept
+        # rows and the K counts written
+        flat = valid.reshape(-1)
+        need = (K * W + _sector_bytes(torch, flat, 8)
+                + sum(_sector_bytes(torch, flat, c.element_size())
+                      for c in cols.values())
+                + kept * widths + 8 * K + sp.HEADER_BYTES)
+        r = dict(_timed(torch, lambda: sp.superstep_pack(ts, valid, cols),
+                        lambda: sp.superstep_pack_plain(ts, valid, cols),
+                        library),
+                 bound_ms=bound_ms(need), max_abs_err=0, bound_by="bytes")
+        print(f"K12b superstep_pack K={K} W={W} kept={kept}: {r}")
+        res["K12b" if K == 8 else "K12b (K = 32)"] = r
+    torch.cuda.synchronize()
+    return res
+
+
+def ag_events(rng, n: int):
+    """bench.py's IngressBench data: symbols uniform over 10,000 (the same
+    string objects, as a producer's dictionary would hold them), prices
+    and volumes uniform in [1, 1000)."""
+    pool = np.array([f"S{k}" for k in range(1, AG_SYMBOLS + 1)],
+                    dtype=object)
+    key = rng.integers(0, AG_SYMBOLS, n)
+    price = rng.uniform(1.0, 1000.0, n)
+    volume = rng.integers(1, 1000, n).astype(np.int64)
+    return key, pool[key], price, volume
+
+
+def run_ag(torch, k: int, chunks, bs: int, producers: int = 1,
+           record=None):
+    """One fresh runtime of app AG at superstep depth k: `producers`
+    threads each send their share of `chunks` ((ts, columns) of bs rows)
+    by send_columns, then one drain. Returns (blocks, arrival times, send
+    times by chunk, elapsed s, stats_snapshot, launches, the string
+    table)."""
+    from siddhi_tpu_torch import kernels
+    rt = make_runtime(app_ag(k, bs), bs, AG_GCAP, async_cb=True)
+    blocks, arrivals = [], []
+
+    def on_block(b):
+        arrivals.append(time.perf_counter())
+        blocks.append((b.timestamps, b.columns))
+
+    rt.add_callback("SummaryStream", on_block, columnar=True)
+    rt.start()
+    h = rt.get_input_handler("TradeStream")
+    sent = np.zeros(len(chunks))
+    errors = []
+
+    def producer(p):
+        try:
+            for c in range(p, len(chunks), producers):
+                ts, cols = chunks[c]
+                sent[c] = time.perf_counter()
+                h.send_columns(cols, timestamps=ts)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        if record is not None:
+            record(rt)
+        threads = [threading.Thread(target=producer, args=(p,))
+                   for p in range(producers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        rt.drain()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        snap = rt.junctions["TradeStream"]._pipeline.stats_snapshot()
+        strings = list(rt.ctx.global_strings._to_str)
+    finally:
+        rt.shutdown()
+    return blocks, np.array(arrivals), sent, elapsed, snap, launches, strings
+
+
+def _ag_chunks(rng, n_chunks: int, bs: int, t_base: int):
+    key, sym, price, volume = ag_events(rng, n_chunks * bs)
+    ts = t_base + np.arange(n_chunks * bs, dtype=np.int64)
+    chunks = [(ts[c * bs:(c + 1) * bs],
+               {"symbol": sym[c * bs:(c + 1) * bs],
+                "price": price[c * bs:(c + 1) * bs],
+                "volume": volume[c * bs:(c + 1) * bs]})
+              for c in range(n_chunks)]
+    return chunks, key, price, ts
+
+
+def _concat_blocks(blocks):
+    if not blocks:
+        return np.zeros(0, np.int64), {}, []
+    ts = np.concatenate([b[0] for b in blocks])
+    cols = {c: np.concatenate([b[1][c] for b in blocks])
+            for c in blocks[0][1]}
+    return ts, cols, [len(b[0]) for b in blocks]
+
+
+def check_ag(name: str, blocks, strings, key, price, ts) -> int:
+    """App AG's output against app A's lengthBatch oracle behind the
+    filter: every row's timestamp and symbol exact, sums and averages
+    within rtol 1e-5 of the float64 oracle."""
+    price32 = price.astype(np.float32)
+    passed = price32 < np.float32(700.0)
+    sel, total, avg, ots = oracle(key, price32, ts, passed)
+    g_ts, g_cols, _ = _concat_blocks(blocks)
+    if g_ts.shape[0] != sel.shape[0]:
+        raise Failure(f"app {name}: {g_ts.shape[0]} rows out, the oracle "
+                      f"expects {sel.shape[0]}")
+    if not np.array_equal(g_ts, ots):
+        raise Failure(f"app {name}: timestamps differ from the oracle")
+    lut = np.array([-1] + [int(s[1:]) - 1 for s in strings[1:]],
+                   dtype=np.int64)
+    if not np.array_equal(lut[g_cols["symbol"]], key[sel]):
+        raise Failure(f"app {name}: symbols differ from the oracle")
+    for c, want in (("total", total), ("avgPrice", avg)):
+        if not np.allclose(g_cols[c], want, rtol=RTOL, atol=0):
+            raise Failure(f"app {name}: {c} beyond rtol 1e-5 of the oracle")
+    return int(sel.shape[0])
+
+
+def _same_blocks(name: str, got, want) -> None:
+    g_ts, g_cols, g_n = _concat_blocks(got)
+    w_ts, w_cols, w_n = _concat_blocks(want)
+    if g_n != w_n or not np.array_equal(g_ts, w_ts):
+        raise Failure(f"{name}: blocks differ from K = 1")
+    for c in w_cols:
+        if g_cols[c].dtype != w_cols[c].dtype or not np.array_equal(
+                g_cols[c].view(np.uint8), w_cols[c].view(np.uint8)):
+            raise Failure(f"{name}: column {c} differs from K = 1")
+
+
+def ag_app(torch, rng, card: str, bs: int = AG_BATCH,
+           n_chunks: int = AG_CHUNKS, ks=AG_KS, producers: int = AG_PRODUCERS,
+           rate_chunks=None) -> tuple[dict, dict]:
+    """Phase 29: app AG, bench.py's IngressBench. (a) one producer, 64
+    chunks at each K on fresh runtimes: K = 1 against the oracle, each K >
+    1 bit-identical to K = 1 with 64 / K supersteps, no decline and one
+    K12b launch a superstep and emitting slot; (b) four producers, the
+    same 96 chunks a run with one drain, AG_RATE_ROUNDS runs a K taken in
+    turn over the Ks: events/s (median and every run), send-to-callback
+    latency, the pipeline's stage times, conservation, and the host syncs
+    of one superstep. Returns (launches of (a)'s runs, the rate lines)."""
+    chunks, key, price, ts = _ag_chunks(rng, n_chunks, bs, 1_700_000_000_000)
+    launches = {k: 0 for k in KERNELS}
+    ref = None
+    for k in ks:
+        blocks, _, _, elapsed, snap, la, strings = run_ag(torch, k, chunks,
+                                                          bs)
+        for name, v in la.items():
+            if name in launches:
+                launches[name] += v
+        if k == 1:
+            n_out = check_ag("AG (K = 1)", blocks, strings, key, price, ts)
+            ref = (blocks, strings)
+        else:
+            if strings != ref[1]:
+                raise Failure(f"app AG K={k}: string codes differ")
+            _same_blocks(f"app AG K={k}", blocks, ref[0])
+            if snap["superstep_decline"] is not None:
+                raise Failure(f"app AG K={k} declined: "
+                              f"{snap['superstep_decline']}")
+            if snap["supersteps_dispatched"] != n_chunks // k:
+                raise Failure(f"app AG K={k}: {snap['supersteps_dispatched']}"
+                              f" supersteps, expected {n_chunks // k}")
+            if la["K12b"] != snap["supersteps_dispatched"]:
+                raise Failure(f"app AG K={k}: {la['K12b']} K12b launches "
+                              f"for {snap['supersteps_dispatched']} "
+                              "supersteps of one emitting slot")
+        print(f"app AG K={k} exactness: {n_chunks * bs} events in, "
+              f"{sum(len(b[0]) for b in blocks)} out, "
+              + ("matches the oracle" if k == 1 else "bit-identical to K = 1")
+              + f"; supersteps {snap['supersteps_dispatched']}, decline "
+              f"{snap['superstep_decline']}, {n_chunks * bs / elapsed:.1f} "
+              f"events/s; launches "
+              f"{ {n: v for n, v in la.items() if v} } [{card}]")
+    n = rate_chunks or AG_RATE_CHUNKS
+    rchunks, rkey, rprice, rts = _ag_chunks(rng, n, bs, 1_800_000_000_000)
+    passed = int((rprice.astype(np.float32) < np.float32(700.0)).sum())
+    runs = {k: [] for k in ks}
+    for rnd in range(AG_RATE_ROUNDS):
+        for k in ks:
+            found = {}
+
+            def record(rt, k=k, found=found, rnd=rnd):
+                if k == 1 or rnd:
+                    return
+                pipe = rt.junctions["TradeStream"]._pipeline
+                orig = pipe._superstep_dispatch
+
+                def watched(block):
+                    if "syncs" in found:
+                        return orig(block)
+                    out, syncs = call_watching_syncs(torch,
+                                                     lambda: orig(block))
+                    found["syncs"] = syncs
+                    return out
+
+                pipe._superstep_dispatch = watched
+
+            blocks, arrivals, sent, elapsed, snap, la, _ = run_ag(
+                torch, k, rchunks, bs, producers, record=record)
+            n_out = sum(len(b[0]) for b in blocks)
+            if snap["rows_in"] != n * bs or snap["rows_delivered"] != n * bs:
+                raise Failure(f"app AG K={k} rate: {n * bs} sent, "
+                              f"{snap['rows_in']} in, "
+                              f"{snap['rows_delivered']} delivered to the "
+                              "filter")
+            if n_out != passed // WINDOW * WINDOW:
+                raise Failure(f"app AG K={k} rate: {n_out} rows out for "
+                              f"{passed} passing the filter")
+            if k > 1 and (snap["superstep_decline"] is not None
+                          or snap["supersteps_dispatched"] != n // k):
+                raise Failure(f"app AG K={k} rate: "
+                              f"{snap['supersteps_dispatched']} supersteps "
+                              f"({snap['superstep_decline']})")
+            src = (np.array([int(b[0].max()) for b in blocks])
+                   - rts[0]) // bs
+            lat = (arrivals - sent[src]) * 1e3
+            syncs = found.get("syncs", [])
+            if k > 1 and len(syncs) > 1:
+                raise Failure(f"app AG K={k}: {len(syncs)} host syncs in "
+                              f"one superstep ({syncs}); one readback "
+                              "expected")
+            run = {"events_per_sec": n * bs / elapsed,
+                   "latency_ms_p50": float(np.percentile(lat, 50)),
+                   "latency_ms_p99": float(np.percentile(lat, 99)),
+                   "superstep_scan_ms": snap["superstep_scan_ms"],
+                   "superstep_replay_ms": snap["superstep_replay_ms"],
+                   "stage_ms": snap["stage_ms"],
+                   "h2d_overlap_ratio": snap["h2d_overlap_ratio"],
+                   "worker_utilization": snap["worker_utilization"]}
+            if k > 1 and not rnd:
+                run["host_syncs_one_superstep"] = syncs
+            runs[k].append(run)
+            print(f"app AG K={k} rate, round {rnd + 1}: {json.dumps(run)} "
+                  f"[{card}]")
+    rates = {}
+    for k in ks:
+        eps = [r["events_per_sec"] for r in runs[k]]
+        rates[k] = {"events_per_sec": float(np.median(eps)),
+                    "events_per_sec_runs": eps,
+                    "latency_ms_p50": float(np.median(
+                        [r["latency_ms_p50"] for r in runs[k]])),
+                    "latency_ms_p99": float(np.median(
+                        [r["latency_ms_p99"] for r in runs[k]])),
+                    "chunks": n, "producers": producers,
+                    "supersteps": n // k if k > 1 else 0}
+        print(f"app AG K={k} rate over {AG_RATE_ROUNDS} runs (median, "
+              f"runs min..max {min(eps):.1f}..{max(eps):.1f} events/s): "
+              f"{json.dumps(rates[k])} [{card}]")
+    return launches, rates
+
+
+def ah_app(torch, rng, card: str, n: int = AH_EVENTS,
+           rate_hz: float = AH_RATE_HZ) -> dict:
+    """Phase 30: app AH, config 1's auto-flush path (bench.py:440): rows
+    sent one at a time at ~rate_hz with auto_flush_ms=10, batch_size=256
+    and no flush() call; every passing row must arrive, in order, exact;
+    p50/p99 send-to-callback latency."""
+    from siddhi_tpu_torch import SiddhiManager
+    rt = SiddhiManager().create_siddhi_app_runtime(
+        APP_AH, batch_size=256, auto_flush_ms=10)
+    got, arrive = [], []
+
+    def cb(evs):
+        t = time.perf_counter()
+        got.extend(evs)
+        arrive.extend([t] * len(evs))
+
+    rt.add_callback("OutStream", cb)
+    rt.start()
+    h = rt.get_input_handler("TradeStream")
+    sym = np.array([f"S{k}" for k in rng.integers(0, N_SYMBOLS, n)],
+                   dtype=object)
+    price = rng.uniform(0.0, N_PRICE_HI, n)
+    ts = 1_900_000_000_000 + np.arange(n, dtype=np.int64)
+    sent = np.zeros(n)
+    passed = np.nonzero(np.float32(700.0) > price.astype(np.float32))[0]
+    try:
+        for i in range(n):
+            sent[i] = time.perf_counter()
+            h.send((sym[i], float(price[i]), i), timestamp=int(ts[i]))
+            time.sleep(1.0 / rate_hz)
+        t_end = time.perf_counter() + 10.0
+        while len(got) < passed.shape[0] and time.perf_counter() < t_end:
+            time.sleep(0.005)
+    finally:
+        rt.shutdown()
+    if len(got) != passed.shape[0]:
+        raise Failure(f"app AH: {len(got)} of {passed.shape[0]} events "
+                      "arrived without a flush()")
+    g_ts = np.array([e.timestamp for e in got], dtype=np.int64)
+    if not np.array_equal(g_ts, ts[passed]) or \
+            [e.data[0] for e in got] != list(sym[passed]) or \
+            not np.array_equal(np.array([e.data[1] for e in got],
+                                        dtype=np.float32),
+                               price[passed].astype(np.float32)):
+        raise Failure("app AH: events differ from the oracle")
+    lat = (np.array(arrive) - sent[g_ts - ts[0]]) * 1e3
+    res = {"events": int(passed.shape[0]),
+           "latency_ms_p50": float(np.percentile(lat, 50)),
+           "latency_ms_p99": float(np.percentile(lat, 99))}
+    print(f"app AH (auto-flush 10 ms, batch 256, {n} rows one at a time at "
+          f"{rate_hz:.0f}/s): {json.dumps(res)} [{card}]")
+    return res
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -6742,6 +7214,13 @@ def main(argv=None) -> int:
         kres.update(aggregation_kernel_phase(torch, rng))
         for k, v in aggregation_apps(torch, rng, card).items():
             launches[k] += v
+
+        kres.update(superstep_kernel_phase(torch, rng))
+        ag_launches, ag_rates = ag_app(torch, rng, card)
+        for k, v in ag_launches.items():
+            launches[k] += v
+        summary["AG"] = ag_rates
+        summary["AH"] = ah_app(torch, rng, card)
         print(json.dumps({"columnar": summary}))
 
         table = []
@@ -6756,7 +7235,10 @@ def main(argv=None) -> int:
                           "plain_ms": r["plain_ms"],
                           "bound_ms": r["bound_ms"],
                           "bound_by": r["bound_by"],
-                          "library_ms": r["library_ms"]})
+                          "library_ms": r["library_ms"],
+                          "call_ms": r.get("call_ms")})
+        print("library calls that synced with the host: "
+              f"{LIBRARY_SYNCS or 'none'}")
         print(json.dumps({"kernels": table}))
         print(f"card: {card}")
     except Failure as e:

@@ -4,14 +4,18 @@ to streams, named windows, in-memory tables, incremental aggregations
 streams, tables, named windows and aggregations, patterns and sequences,
 table outputs (insert, delete, update, update or insert), on-demand
 queries, heartbeats, Event and columnar callbacks with optional
-asynchronous delivery, and the capacity-overflow sweep). Lint, admission
-control, sharding, supersteps, persistence, record tables (@store on a
-table), triggers, partitions and fault streams are not yet ported; an app
-that declares them is refused."""
+asynchronous delivery, the capacity-overflow sweep, @Async ingestion with
+device supersteps (@app:superstep) and the wall-clock auto-flush
+(@app:autoFlush / auto_flush_ms). Lint, sharding, persistence, record
+tables (@store on a table), triggers, partitions and fault streams are not
+yet ported; an app that declares them is refused."""
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import os
+import threading
 from typing import Optional
 
 import torch
@@ -55,7 +59,8 @@ class SiddhiAppRuntime:
     def __init__(self, app: SiddhiApp, registry: Registry,
                  device: torch.device, batch_size: int = 0,
                  group_capacity: int = 0,
-                 async_callbacks: bool = False) -> None:
+                 async_callbacks: bool = False,
+                 auto_flush_ms: Optional[float] = None) -> None:
         for what, defs in (("trigger", app.trigger_definitions),
                            ("function", app.function_definitions),
                            ("partition", app.partitions)):
@@ -78,7 +83,18 @@ class SiddhiAppRuntime:
                 playback=playback is not None,
                 playback_increment_ms=increment_ms),
             device=device, batch_size=batch_size,
-            group_capacity=group_capacity, async_callbacks=async_callbacks)
+            group_capacity=group_capacity, async_callbacks=async_callbacks,
+            superstep_k=_superstep_k(app))
+        # wall-clock auto-flush: staged rows deliver within ~auto_flush_ms
+        # with no flush() from the caller (kwarg, or
+        # @app:autoFlush('10 ms') / @app:autoFlush(interval='10 ms'))
+        af = app.annotation("app:autoFlush")
+        if auto_flush_ms is None and af is not None:
+            v = af.element("interval") or af.element()
+            auto_flush_ms = parse_annotation_time(v) if v else 10.0
+        self.auto_flush_ms = auto_flush_ms
+        self._flusher_stop: Optional[threading.Event] = None
+        self._flusher_thread: Optional[threading.Thread] = None
         self.junctions: dict[str, StreamJunction] = {}
         self.query_runtimes: dict[str, QueryRuntime] = {}
         self.input_handlers: dict[str, InputHandler] = {}
@@ -196,10 +212,50 @@ class SiddhiAppRuntime:
             qr.output_junction = target
 
     def start(self) -> None:
-        """Start the async callback decoder when the runtime was created
-        with async_callbacks=True (nothing else runs in the background)."""
+        """Start the background machinery: the async callback decoder
+        (async_callbacks=True), every @Async junction's staging ring or
+        ingress pipeline, and the auto-flusher (auto_flush_ms)."""
         if self.ctx.async_callbacks and self.ctx.decoder is None:
             self.ctx.decoder = AsyncDecoder()
+        for j in self.junctions.values():
+            j.start_async()
+        if self.auto_flush_ms and self._flusher_thread is None:
+            self._flusher_stop = threading.Event()
+            self._flusher_thread = threading.Thread(
+                target=self._flusher_loop, daemon=True,
+                name=f"siddhi-flusher-{self.app.name}")
+            self._flusher_thread.start()
+
+    def _flusher_loop(self) -> None:
+        """Daemon: bound staged-row latency to ~auto_flush_ms, and drive
+        heartbeats for time-semantic queries and windows while idle (not in
+        playback). A tick runs under the controller lock."""
+        interval = self.auto_flush_ms / 1000.0
+        needs_hb = any(qr.has_time_semantics
+                       for qr in self.query_runtimes.values()) or any(
+            w.has_time_semantics for w in self.windows.values())
+        while not self._flusher_stop.wait(interval / 2):
+            try:
+                with self.ctx.controller_lock:
+                    if any(j._staged_rows or j._tap_queue
+                           for j in self._all_junctions()):
+                        self.flush()
+                    elif needs_hb and \
+                            not self.ctx.timestamp_generator.playback:
+                        self.heartbeat()
+            except Exception:  # noqa: BLE001 — the flusher must not die
+                logging.getLogger("siddhi_tpu_torch").exception(
+                    "auto-flush tick failed")
+
+    def statistics_report(self) -> dict:
+        """Statistics.report() and each ingress pipeline's
+        stats_snapshot() under "ingress_pipeline"."""
+        rep = self.ctx.statistics.report()
+        rep["ingress_pipeline"] = {
+            sid: j._pipeline.stats_snapshot()
+            for sid, j in self.junctions.items()
+            if j._pipeline is not None}
+        return rep
 
     def get_input_handler(self, stream_id: str) -> InputHandler:
         if stream_id not in self.input_handlers:
@@ -305,9 +361,10 @@ class SiddhiAppRuntime:
                                    source_store=source)
 
     def drain(self) -> None:
-        """Flush staged rows and block until every async callback has
-        fired: the barrier of async_callbacks=True (with synchronous
-        callbacks the same as flush())."""
+        """Flush staged rows (a barrier over every ingress pipeline) and
+        block until every async callback has fired: the barrier of
+        async_callbacks=True (with synchronous callbacks the same as
+        flush())."""
         self.flush()
         if self.ctx.decoder is not None:
             self.ctx.decoder.drain()
@@ -408,15 +465,45 @@ class SiddhiAppRuntime:
             self.ctx.statistics.record_overflow(name, int(n))
 
     def shutdown(self, flush_durable: bool = True) -> None:
-        """Deliver what is still staged, stop the async decoder (after it
-        has delivered everything submitted), then write the aggregations'
-        durable duration tables through (`flush_durable`) and close
-        them."""
-        self.flush()
-        if self.ctx.decoder is not None:
-            self.ctx.decoder.stop()
-            self.ctx.decoder = None
+        """Stop the auto-flusher, deliver what is still staged, stop every
+        @Async junction's feeder and pipeline and the async decoder (after
+        they have delivered everything submitted), then write the
+        aggregations' durable duration tables through (`flush_durable`)
+        and close them."""
+        if self._flusher_stop is not None:
+            self._flusher_stop.set()
+            self._flusher_thread.join(timeout=5)
+            self._flusher_stop = self._flusher_thread = None
+        try:
+            self.flush()
+        finally:
+            for j in self.junctions.values():
+                j.stop_async()
+            if self.ctx.decoder is not None:
+                self.ctx.decoder.stop()
+                self.ctx.decoder = None
         for a in self.aggregations.values():
             if flush_durable:
                 a.flush_durable()
             a.close_durable()
+
+
+def _superstep_k(app: SiddhiApp) -> int:
+    """@app:superstep(k='8'): K async ingress chunks per device dispatch
+    (core/superstep.py); SIDDHI_SUPERSTEP_K overrides the annotation."""
+    k = 1
+    ann = app.annotation("app:superstep")
+    if ann is not None:
+        v = ann.element("k") or ann.element()
+        try:
+            k = int(v) if v else 1
+        except ValueError as e:
+            raise SiddhiAppCreationError(
+                f"@app:superstep k must be an integer, got {v!r}") from e
+    env = os.environ.get("SIDDHI_SUPERSTEP_K", "").strip()
+    if env:
+        try:
+            k = int(env)
+        except ValueError:
+            pass
+    return max(1, k)

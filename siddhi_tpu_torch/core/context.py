@@ -74,8 +74,9 @@ class TimestampGenerator:
 @dataclass
 class Statistics:
     """Per-query step latency (host clock around the step and its
-    distribution), per-stream batch counts and the capacity-overflow
-    counters."""
+    distribution), per-stream batch counts, the capacity-overflow counters
+    and the bounded-ingress counters (rows an @Async junction shed, its
+    deepest staging)."""
 
     batches: dict = field(default_factory=dict)  # stream -> batches
     query_latency_ns: dict = field(default_factory=dict)  # query -> (sum, n)
@@ -84,6 +85,18 @@ class Statistics:
     #: SiddhiAppRuntime.collect_overflow. Each counter warns once.
     overflow: dict = field(default_factory=dict)
     _overflow_warned: set = field(default_factory=set)
+    #: stream -> {policy: rows} shed by a bounded @Async junction, policy
+    #: one of drop.new | drop.old | block.timeout; exact by construction
+    ingress_dropped: dict = field(default_factory=dict)
+    queue_hwm: dict = field(default_factory=dict)  # stream -> max staged
+
+    def track_ingress_drop(self, stream_id: str, policy: str, n: int) -> None:
+        per = self.ingress_dropped.setdefault(stream_id, {})
+        per[policy] = per.get(policy, 0) + n
+
+    def track_queue_depth(self, stream_id: str, depth: int) -> None:
+        if depth > self.queue_hwm.get(stream_id, 0):
+            self.queue_hwm[stream_id] = depth
 
     def track_batch(self, stream_id: str) -> None:
         self.batches[stream_id] = self.batches.get(stream_id, 0) + 1
@@ -113,7 +126,10 @@ class Statistics:
         SiddhiAppRuntime.collect_overflow)."""
         return {"batches": dict(self.batches),
                 "query_latency_ns": dict(self.query_latency_ns),
-                "overflow": dict(self.overflow)}
+                "overflow": dict(self.overflow),
+                "ingress_dropped": {s: dict(d) for s, d
+                                    in self.ingress_dropped.items()},
+                "backpressure": {"queue_hwm": dict(self.queue_hwm)}}
 
 
 @dataclass
@@ -138,6 +154,9 @@ class SiddhiAppContext:
     #: runtime.drain() is the barrier.
     async_callbacks: bool = False
     decoder: object = None  # stream.AsyncDecoder while started
+    #: device-resident supersteps: K full ingress chunks per dispatch
+    #: (@app:superstep(k=) / SIDDHI_SUPERSTEP_K; core/superstep.py)
+    superstep_k: int = 1
 
     @property
     def effective_batch_size(self) -> int:

@@ -46,18 +46,21 @@ class SiddhiManager:
     def create_siddhi_app_runtime(self, app: Union[str, SiddhiApp], *,
                                   batch_size: int = 0,
                                   group_capacity: int = 0,
-                                  async_callbacks: bool = False
+                                  async_callbacks: bool = False,
+                                  auto_flush_ms: Optional[float] = None
                                   ) -> Optional[SiddhiAppRuntime]:
         """Build a runtime. `async_callbacks=True` decodes stream callbacks
         on worker threads once the runtime starts; runtime.drain() is then
-        the barrier."""
+        the barrier. `auto_flush_ms` flushes staged rows on a wall clock
+        once the runtime starts (also @app:autoFlush)."""
         if isinstance(app, str):
             app = compiler.parse(compiler.update_variables(app)
                                  if "${" in app else app)
         rt = SiddhiAppRuntime(app, self.registry, self.device,
                               batch_size=batch_size,
                               group_capacity=group_capacity,
-                              async_callbacks=async_callbacks)
+                              async_callbacks=async_callbacks,
+                              auto_flush_ms=auto_flush_ms)
         self.runtimes[app.name] = rt
         return rt
 

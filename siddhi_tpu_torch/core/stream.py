@@ -1,8 +1,10 @@
 """Stream junctions, input handlers, stream callbacks and the async
 decoder (counterpart of siddhi_tpu/core/stream.py; staging, flush,
 heartbeats, Event and columnar callbacks, synchronous or asynchronous
-delivery — parallel ingress, WAL, breakers and @OnError are not yet
-ported).
+delivery, and @Async: the micro-batch size, the MPSC staging ring and its
+feeder, bounded admission with drop policies, and the parallel ingress
+pipeline of core/ingress.py — WAL, breakers, @OnError, fault diversion and
+source pause/resume are not yet ported).
 
 `send` / `send_batch` stage host rows; a full batch or `flush()` encodes
 them into a fixed-capacity columnar batch on the app's device and delivers
@@ -11,6 +13,13 @@ A junction may carry send-order taps: a multi-stream sequence copies every
 row of its source streams, in the order they were sent, into its merged
 junction (`stage_row`); a tapped junction takes each row through its taps
 one by one, whichever way it was sent.
+
+`@Async(buffer.size=N)` sets the junction's micro-batch to N rows. Once the
+app starts, producers of an @Async stream hand rows to a native MPSC ring
+that a feeder thread drains (`workers` = 0), or to the parallel ingress
+pipeline (`workers` > 0, or SIDDHI_INGRESS_WORKERS); `overflow.policy`
+`drop.new` / `drop.old` with `max.staged` bounds the staged rows instead,
+every shed row counted in Statistics.
 
 A callback receives a step's output through one packed readback
 (ops/wire.py, K12a on the card): `_deliver` packs the batch and starts its
@@ -27,14 +36,17 @@ import logging
 import os
 import queue
 import threading
+import time
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from .. import native
+from ..errors import SiddhiAppCreationError
 from ..ops.wire import Readback, WireHost
 from ..query_api.definition import StreamDefinition
 from . import dtypes
-from .context import SiddhiAppContext
+from .context import SiddhiAppContext, parse_annotation_time
 from .event import (Event, EventBatch, EventType, StreamCodec,
                     events_from_columns, host_events)
 
@@ -261,10 +273,84 @@ class StreamJunction:
         #: queries tap their source junctions to build a merged arrival
         #: stream in true per-event send order
         self.taps: list[Callable] = []
-        #: rows staged by taps from any producer thread (`stage_row`),
-        #: drained into the staging buffers at the next flush
+        #: rows staged by taps from any producer thread (`stage_row`), and
+        #: a bounded junction's admitted rows, drained into the staging
+        #: buffers at the next flush
         self._tap_queue: list = []
         self._tap_lock = threading.Lock()
+        #: per-thread guard: the ring drain's nested flushes do not drain
+        self._reentry = threading.local()
+        self._ring = None
+        self._ring_cap = 0
+        self._feeder: Optional[threading.Thread] = None
+        self._feeder_stop: Optional[threading.Event] = None
+        self._feeder_wake: Optional[threading.Event] = None
+        self._pipeline = None  # core/ingress.IngressPipeline while started
+        self.ingress_workers = 0
+        self.capacity: Optional[int] = None
+        self.overflow_policy = "block"
+        self.block_timeout_s: Optional[float] = None
+        self.high_watermark = 0.8
+        self.low_watermark = 0.2
+        #: sources feeding this junction, the pause()/resume() targets of
+        #: the watermarks (sources are not yet ported: always empty)
+        self.attached_sources: list = []
+        ann = definition.annotation("async") if definition.annotations \
+            else None
+        self.is_async = ann is not None
+        if ann is not None:
+            self._parse_async(ann)
+
+    def _parse_async(self, ann) -> None:
+        """@Async(buffer.size=N, workers=W, overflow.policy=block|drop.new|
+        drop.old, max.staged=M, block.timeout='1 sec', high.watermark=0.8,
+        low.watermark=0.2): the micro-batch size, the staging ring's
+        capacity, the pipeline's workers and the admission bound."""
+        sid = self.definition.id
+        bs = ann.element("buffer.size")
+        if bs:
+            self.batch_size = int(bs)
+        self._ring_cap = max(4 * self.batch_size, 1024)
+        w = ann.element("workers")
+        if w:
+            self.ingress_workers = int(w)
+        if self.ingress_workers == 0:
+            self.ingress_workers = int(
+                os.environ.get("SIDDHI_INGRESS_WORKERS", "0") or 0)
+        pol = (ann.element("overflow.policy") or "block").lower()
+        if pol not in ("block", "drop.new", "drop.old", "fault"):
+            raise SiddhiAppCreationError(
+                f"@Async on {sid!r}: overflow.policy {pol!r} "
+                "must be block | drop.new | drop.old | fault")
+        if pol == "fault":
+            raise SiddhiAppCreationError(
+                f"@Async on {sid!r}: overflow.policy 'fault' is not yet "
+                "ported to siddhi_tpu_torch (it diverts to fault streams "
+                "and the error store, ROADMAP Queue 1 item 5)")
+        self.overflow_policy = pol
+        ms = ann.element("max.staged")
+        self.capacity = int(ms) if ms else self._ring_cap
+        if self.capacity < self.batch_size and pol != "block":
+            raise SiddhiAppCreationError(
+                f"@Async on {sid!r}: max.staged "
+                f"({self.capacity}) must be >= buffer.size "
+                f"({self.batch_size})")
+        bt = ann.element("block.timeout")
+        if bt:
+            self.block_timeout_s = parse_annotation_time(bt) / 1000.0
+        hw = ann.element("high.watermark")
+        lw = ann.element("low.watermark")
+        self.high_watermark = float(hw) if hw else 0.8
+        self.low_watermark = float(lw) if lw else 0.2
+        if not 0.0 <= self.low_watermark < self.high_watermark <= 1.0:
+            raise SiddhiAppCreationError(
+                f"@Async on {sid!r}: need "
+                "0 <= low.watermark < high.watermark <= 1")
+
+    def _pad_cap(self, m: int) -> int:
+        """Delivery capacity for `m` staged rows: the smallest power-of-two
+        lane bucket holding them."""
+        return dtypes.bucket_capacity(m, self.batch_size)
 
     def subscribe(self, receiver: Receiver) -> None:
         if isinstance(receiver, _HostReceiver):
@@ -281,8 +367,31 @@ class StreamJunction:
             for ts, row in zip(tss, rows):
                 for tap in self.taps:
                     tap(ts, row)
-                self._stage_rows((ts,), (row,))
+                self._admit((ts,), (row,))
             return
+        self._admit(tss, rows)
+
+    def _admit(self, tss: Sequence[int], rows: Sequence) -> None:
+        """Route rows into the bounded pre-staging, the parallel pipeline,
+        the MPSC ring or the synchronous staging. A thread that holds the
+        controller lock (a callback sending into an @Async stream) stages
+        synchronously: the ring's only drainer needs that lock."""
+        self.ctx.timestamp_generator.observe_event_time(int(max(tss)))
+        if not self._lock_owned():
+            if self._bounded_mode():
+                self._stage_bounded(zip(tss, rows))
+                return
+            if self._pipeline is not None:
+                done = self._pipeline.submit_rows(tss, rows)
+                if done >= len(rows):
+                    return
+                # pipeline stopping: the rest stages synchronously
+                tss, rows = tss[done:], rows[done:]
+            if self._ring is not None:
+                done = self._push_ring(tss, rows)
+                if done >= len(rows):
+                    return
+                tss, rows = tss[done:], rows[done:]
         self._stage_rows(tss, rows)
 
     def _stage_rows(self, tss: Sequence[int], rows: Sequence) -> None:
@@ -290,9 +399,31 @@ class StreamJunction:
             self._staged_ts.extend(tss)
             self._staged_rows.extend(rows)
             full = len(self._staged_rows) >= self.batch_size
-        self.ctx.timestamp_generator.observe_event_time(int(max(tss)))
         if full:
             self.flush()
+
+    def _push_ring(self, tss: Sequence[int], rows: Sequence) -> int:
+        """Push rows into the MPSC ring, waiting while it is full (the
+        Disruptor's blocking wait); `block.timeout` bounds the wait and
+        sheds the rest, counted. Returns the rows consumed: fewer when
+        shutdown detached the ring (the caller stages the rest)."""
+        push = native.load().ring_push
+        deadline = (None if self.block_timeout_s is None
+                    else time.monotonic() + self.block_timeout_s)
+        for i, (ts, row) in enumerate(zip(tss, rows)):
+            while True:
+                ring = self._ring
+                if ring is None:
+                    return i
+                if push(ring, ts, tuple(row)):
+                    break
+                if deadline is not None and time.monotonic() >= deadline:
+                    self.ctx.statistics.track_ingress_drop(
+                        self.definition.id, "block.timeout", len(rows) - i)
+                    return len(rows)
+                self._feeder_wake.set()
+                time.sleep(0.0002)
+        return len(rows)
 
     def stage_row(self, ts: int, data: Sequence) -> None:
         """Thread-safe staging from any producer thread (the sequence taps
@@ -333,7 +464,7 @@ class StreamJunction:
     def _batch(self, ts: np.ndarray, cols: dict, m: int) -> EventBatch:
         """Pad m rows to their lane bucket (timestamps padded with the last
         value, so they stay monotone) and move them to the device."""
-        pcap = dtypes.bucket_capacity(m, self.batch_size)
+        pcap = self._pad_cap(m)
         ts_p = np.empty(pcap, dtype=np.int64)
         ts_p[:m] = ts[:m]
         ts_p[m:] = ts[m - 1] if m else 0
@@ -358,7 +489,15 @@ class StreamJunction:
             self._deliver(batch, now)
 
     def flush(self, now: Optional[int] = None) -> None:
+        if self._pipeline is not None and not self._lock_owned():
+            # barrier: every row submitted to the pipeline before this
+            # flush is delivered when it returns (lock holders skip it:
+            # the feeder needs the controller lock to make progress)
+            self._pipeline.drain()
         with self.ctx.controller_lock:
+            if self._ring is not None and not getattr(self._reentry,
+                                                      "draining", False):
+                self._drain_ring()
             if self._tap_queue:
                 with self._tap_lock:
                     q, self._tap_queue = self._tap_queue, []
@@ -379,6 +518,154 @@ class StreamJunction:
                 self._deliver(self._batch(np.asarray(tss[start:start + m],
                                                      dtype=np.int64),
                                           cols, m), now)
+
+    # ------------------------------------------------------------ async mode
+
+    def _lock_owned(self) -> bool:
+        """True when THIS thread holds the controller lock (a callback
+        inside _deliver sending into an async stream)."""
+        return self.ctx.controller_lock._is_owned()
+
+    def _bounded_mode(self) -> bool:
+        """Producer-side admission control: a capacity with a drop policy.
+        Rows then enter the pre-staging queue only, and delivery is pulled
+        by the feeder, the auto-flusher or flush(), so the bound caps host
+        memory."""
+        return self.capacity is not None and self.overflow_policy != "block"
+
+    def _stage_bounded(self, items) -> None:
+        """Admission for drop.new / drop.old: each row enters the
+        pre-staging queue or is shed, every decision counted."""
+        stats = self.ctx.statistics
+        sid = self.definition.id
+        with self._tap_lock:
+            q = self._tap_queue
+            for ts, row in items:
+                if len(q) < self.capacity:
+                    q.append((ts, row))
+                elif self.overflow_policy == "drop.old":
+                    q.pop(0)
+                    q.append((ts, row))
+                    stats.track_ingress_drop(sid, "drop.old", 1)
+                else:
+                    stats.track_ingress_drop(sid, "drop.new", 1)
+            depth = len(q)
+        stats.track_queue_depth(sid, depth)
+        if self._feeder_wake is not None:
+            self._feeder_wake.set()
+
+    def start_async(self) -> None:
+        """App start: the parallel pipeline (workers > 0, block policy, no
+        taps), the bounded feeder (drop policies), or the MPSC ring and its
+        feeder; synchronous without the native extension."""
+        if not self.is_async or self._feeder is not None \
+                or self._pipeline is not None:
+            return
+        if (self.ingress_workers > 0 and self.overflow_policy == "block"
+                and not self.taps and not self.codec.object_attrs):
+            from .ingress import IngressPipeline
+            try:
+                self._pipeline = IngressPipeline(self, self.ingress_workers)
+                self._pipeline.start()
+                return
+            except Exception:  # noqa: BLE001 — logged, the ring runs
+                _log.exception(
+                    "@Async(workers=%d) on %r: ingress pipeline failed to "
+                    "start; falling back to the staging ring",
+                    self.ingress_workers, self.definition.id)
+                self._pipeline = None
+        sid = self.definition.id
+        self._feeder_stop = threading.Event()
+        self._feeder_wake = threading.Event()
+        if self._bounded_mode():
+            self._feeder = threading.Thread(
+                target=self._bounded_feed_loop, daemon=True,
+                name=f"siddhi-feeder-{sid}")
+            self._feeder.start()
+            return
+        nat = native.load()
+        if nat is None:
+            _log.info("@Async on %r: native ring unavailable; staying "
+                      "synchronous", sid)
+            self._feeder_stop = self._feeder_wake = None
+            return
+        self._ring = nat.ring_new(self._ring_cap)
+        self._feeder = threading.Thread(target=self._feed_loop, daemon=True,
+                                        name=f"siddhi-feeder-{sid}")
+        self._feeder.start()
+
+    def stop_async(self) -> None:
+        if self._pipeline is not None:
+            # detach first: producers mid-submit stage synchronously; stop()
+            # delivers everything already claimed
+            p, self._pipeline = self._pipeline, None
+            p.stop()
+        if self._feeder is None:
+            return
+        self._feeder_stop.set()
+        self._feeder_wake.set()
+        ring, self._ring = self._ring, None
+        self._feeder.join(timeout=120)
+        if self._feeder.is_alive():  # pragma: no cover — wedged step
+            _log.warning("async feeder for %r did not stop; leaving its "
+                         "ring attached", self.definition.id)
+            return
+        with self.ctx.controller_lock:
+            self._drain_ring(ring=ring)
+        self._feeder = None
+
+    def _feed_loop(self) -> None:
+        nat = native.load()
+        while not self._feeder_stop.is_set():
+            ring = self._ring
+            if ring is None:
+                break
+            if nat.ring_size(ring) == 0:
+                self._feeder_wake.wait(timeout=0.001)
+                self._feeder_wake.clear()
+                continue
+            try:
+                with self.ctx.controller_lock:
+                    self._drain_ring(max_batches=4, ring=ring)
+            except Exception:  # noqa: BLE001 — the feeder must not die
+                _log.exception("async feeder error on %r",
+                               self.definition.id)
+
+    def _bounded_feed_loop(self) -> None:
+        """Drainer of a bounded junction: flush whenever the pre-staging
+        queue holds rows."""
+        while not self._feeder_stop.is_set():
+            if not self._tap_queue:
+                self._feeder_wake.wait(timeout=0.001)
+                self._feeder_wake.clear()
+                continue
+            try:
+                self.flush()
+            except Exception:  # noqa: BLE001 — the feeder must not die
+                _log.exception("bounded feeder error on %r",
+                               self.definition.id)
+
+    def _drain_ring(self, max_batches: Optional[int] = None,
+                    ring=None) -> None:
+        """Pop ring rows into the staging buffers and flush them a batch at
+        a time. Single consumer: callers hold the controller lock."""
+        ring = ring if ring is not None else self._ring
+        if ring is None or getattr(self._reentry, "draining", False):
+            return
+        pop = native.load().ring_pop_batch
+        self._reentry.draining = True
+        try:
+            batches = 0
+            while max_batches is None or batches < max_batches:
+                tss, rows = pop(ring, self.batch_size)
+                if not rows:
+                    break
+                self._staged_ts.extend(tss)
+                self._staged_rows.extend(rows)
+                self.flush()
+                batches += 1
+        finally:
+            self._reentry.draining = False
 
     def heartbeat(self, now: int) -> None:
         """Advance time with no data: flush staged rows, then deliver an
@@ -463,6 +750,17 @@ class InputHandler:
             if ts_arr.shape[0] < n:
                 raise ValueError(
                     f"send_columns: {n} rows but {ts_arr.shape[0]} timestamps")
+        if j._pipeline is not None and not j.taps and not j._lock_owned():
+            # parallel ingress: claim ring runs here; the workers encode and
+            # intern, the feeder delivers
+            j.ctx.timestamp_generator.observe_event_time(
+                int(ts_arr[:n].max()))
+            done = j._pipeline.submit_columns(ts_arr, columns, n)
+            if done >= n:
+                return
+            ts_arr = ts_arr[done:]
+            columns = {k: np.asarray(v)[done:] for k, v in columns.items()}
+            n -= done
         with j.ctx.controller_lock:  # interning mutates the shared table
             cols = j.codec.encode_columns(columns, n)
             j.send_column_batch(ts_arr, cols, n)

@@ -1,7 +1,8 @@
 // Shared helpers for the siddhi_tpu_torch kernels: the plain C export macro,
 // the error-string export every library carries, block-wide scans built
-// from warp shuffles (one element per thread), and the sum/min/max ops with
-// their identities (K5b scans, K8 range extrema).
+// from warp shuffles (one element per thread), the one-lane copy of a 1-,
+// 2-, 4- or 8-byte column (K12a, K12b), and the sum/min/max ops with their
+// identities (K5b scans, K8 range extrema).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -54,6 +55,28 @@ __device__ __forceinline__ int block_exclusive_sum(int v, int* smem,
   *total = smem[NW - 1];
   __syncthreads();  // smem may be reused by the caller's next call
   return warp_prefix + x - v;
+}
+
+// Copy one lane of a column `width` bytes wide (1, 2, 4 or 8).
+__device__ __forceinline__ void siddhi_copy_lane(uint8_t* dst,
+                                                 const uint8_t* src,
+                                                 int width) {
+  switch (width) {
+    case 8:
+      *reinterpret_cast<unsigned long long*>(dst) =
+          *reinterpret_cast<const unsigned long long*>(src);
+      break;
+    case 4:
+      *reinterpret_cast<uint32_t*>(dst) =
+          *reinterpret_cast<const uint32_t*>(src);
+      break;
+    case 2:
+      *reinterpret_cast<uint16_t*>(dst) =
+          *reinterpret_cast<const uint16_t*>(src);
+      break;
+    default:
+      *dst = *src;
+  }
 }
 
 // Identities of min and max per element type.

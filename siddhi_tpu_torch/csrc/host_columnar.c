@@ -12,7 +12,11 @@
  *   idmemo_new,    vectorized interning of one string column, with a
  *   intern_column  pointer-identity memo for producers that pool strings;
  *   map_codes      int32 codes -> list of strings;
- *   build_events   decoded columns -> list of Event objects.
+ *   build_events   decoded columns -> list of Event objects;
+ *   ring_*         the MPSC row staging ring of an @Async junction;
+ *   colring_*      the lock-free columnar ring of the parallel ingress
+ *                  pipeline (claim a run, write it with the GIL released,
+ *                  one consumer pops contiguous published runs).
  *
  * Type codes (one byte per attribute):
  *   'b' bool -> int8 buffer      'i' int -> int32
@@ -481,6 +485,629 @@ done:
     return result;
 }
 
+/* ------------------------------------------------------------------------
+ * MPSC staging ring — the Disruptor's role (reference:
+ * core/stream/StreamJunction.java:279-316 ring buffer + worker consumers).
+ *
+ * Producers (source threads / user send) claim slots with a C11 atomic
+ * fetch-add and publish with a per-slot sequence stamp; one consumer (the
+ * junction's feeder thread) drains batches. Correct for true concurrent
+ * producers (the design does not lean on the GIL for the index protocol;
+ * the PyObject* payloads themselves are only touched under the GIL, which
+ * every Python-level producer and the feeder hold at the call boundary).
+ * ---------------------------------------------------------------------- */
+
+#include <stdatomic.h>
+
+#include <stddef.h>
+
+/* The columnar ring's claim/publish/consume protocol (the port's own
+ * copy of the JAX package's colring_core.h): Disruptor-style multi-
+ * producer, single consumer. Producers claim a contiguous run with ONE
+ * CAS on `head` (claim order IS delivery order); each slot is published
+ * by a release store of index + 1 into its cache-line-padded seq entry
+ * after the payload is written; the consumer counts the contiguous
+ * published prefix with acquire loads, copies out, then retires the
+ * run (relaxed seq resets, a release store of the tail). */
+
+
+/* Slot sequence entries are cache-line padded: adjacent slots are
+ * published by different producer threads, and false sharing on the seq
+ * array is the classic scalability cliff for exactly this structure. */
+typedef struct {
+    atomic_size_t v;
+    char pad[64 - sizeof(atomic_size_t)];
+} crc_seq;
+
+typedef struct {
+    size_t cap;               /* power of two */
+    size_t mask;
+    crc_seq *seq;             /* published when seq[i & mask].v == i + 1 */
+    atomic_size_t head;       /* next slot to claim (producers, CAS) */
+    char pad1[64 - sizeof(atomic_size_t)];
+    atomic_size_t tail;       /* next slot to read (single consumer) */
+    char pad2[64 - sizeof(atomic_size_t)];
+    atomic_size_t hwm;        /* claimed-depth high-water mark */
+} crc_ring;
+
+/* cap must be a power of two; seq must hold cap zero-initialised entries
+ * and stay alive as long as the ring. */
+static inline void
+crc_init(crc_ring *r, crc_seq *seq, size_t cap)
+{
+    r->cap = cap;
+    r->mask = cap - 1;
+    r->seq = seq;
+    atomic_init(&r->head, 0);
+    atomic_init(&r->tail, 0);
+    atomic_init(&r->hwm, 0);
+}
+
+/* Claim n contiguous slots; returns the start index, or -1 when the ring
+ * lacks n free slots (all-or-nothing; the caller spins/backpressures).
+ * The successful CAS is acq_rel: the acquire half orders the claim after
+ * the tail observation, the release half makes the claim visible before
+ * any payload store the producer issues next. */
+static inline ptrdiff_t
+crc_claim(crc_ring *r, size_t n)
+{
+    size_t h = atomic_load_explicit(&r->head, memory_order_relaxed);
+    for (;;) {
+        size_t t = atomic_load_explicit(&r->tail, memory_order_acquire);
+        if (h + n - t > r->cap)
+            return -1; /* insufficient free space */
+        if (atomic_compare_exchange_weak_explicit(
+                &r->head, &h, h + n,
+                memory_order_acq_rel, memory_order_relaxed)) {
+            size_t depth = h + n - t;
+            size_t hwm = atomic_load_explicit(&r->hwm, memory_order_relaxed);
+            while (depth > hwm &&
+                   !atomic_compare_exchange_weak_explicit(
+                       &r->hwm, &hwm, depth,
+                       memory_order_relaxed, memory_order_relaxed))
+                ;
+            return (ptrdiff_t)h;
+        }
+    }
+}
+
+/* Publish one claimed run. MUST run after the payload for [start,
+ * start + n) is fully written: the per-slot release stores are what make
+ * those plain payload writes visible to the consumer's acquire loads. */
+static inline void
+crc_publish(crc_ring *r, size_t start, size_t n)
+{
+    for (size_t i = 0; i < n; i++)
+        atomic_store_explicit(&r->seq[(start + i) & r->mask].v,
+                              start + i + 1, memory_order_release);
+}
+
+/* Single consumer: length of the contiguous published prefix at the
+ * current tail, capped at max_n. After this returns k, the payload of
+ * slots [tail, tail + k) is safe to read (acquire loads above). */
+static inline size_t
+crc_poll(crc_ring *r, size_t max_n)
+{
+    size_t t = atomic_load_explicit(&r->tail, memory_order_relaxed);
+    size_t n = 0;
+    while (n < max_n &&
+           atomic_load_explicit(&r->seq[(t + n) & r->mask].v,
+                                memory_order_acquire) == t + n + 1)
+        n++;
+    return n;
+}
+
+/* Single consumer: retire n slots previously returned by crc_poll. Seq
+ * resets can be relaxed — a producer only reuses a slot after observing
+ * the released tail bump, which orders the reset before the reuse. */
+static inline void
+crc_consume(crc_ring *r, size_t n)
+{
+    size_t t = atomic_load_explicit(&r->tail, memory_order_relaxed);
+    for (size_t i = 0; i < n; i++)
+        atomic_store_explicit(&r->seq[(t + i) & r->mask].v, 0,
+                              memory_order_relaxed);
+    atomic_store_explicit(&r->tail, t + n, memory_order_release);
+}
+
+/* Claimed, unconsumed depth (approximate under concurrent producers;
+ * includes claimed-but-unwritten runs). */
+static inline size_t
+crc_size(const crc_ring *r)
+{
+    return atomic_load_explicit(&((crc_ring *)r)->head,
+                                memory_order_relaxed) -
+           atomic_load_explicit(&((crc_ring *)r)->tail,
+                                memory_order_relaxed);
+}
+
+static inline size_t
+crc_hwm(const crc_ring *r)
+{
+    return atomic_load_explicit(&((crc_ring *)r)->hwm,
+                                memory_order_relaxed);
+}
+
+typedef struct {
+    Py_ssize_t cap;
+    atomic_size_t head;       /* next slot to claim (producers) */
+    size_t tail;              /* next slot to read (single consumer) */
+    atomic_size_t *seq;       /* published when seq[i % cap] == i + 1 */
+    PyObject **rows;          /* owned references */
+    int64_t *ts;
+} mpsc_ring;
+
+static void
+ring_capsule_destruct(PyObject *capsule)
+{
+    mpsc_ring *r = (mpsc_ring *)PyCapsule_GetPointer(capsule, "siddhi.ring");
+    if (r == NULL)
+        return;
+    for (size_t i = r->tail; i < atomic_load(&r->head); i++) {
+        size_t s = i % (size_t)r->cap;
+        if (atomic_load(&r->seq[s]) == i + 1)
+            Py_XDECREF(r->rows[s]);
+    }
+    PyMem_Free(r->seq);
+    PyMem_Free(r->rows);
+    PyMem_Free(r->ts);
+    PyMem_Free(r);
+}
+
+/* ring_new(capacity) -> capsule */
+static PyObject *
+ring_new(PyObject *self, PyObject *args)
+{
+    Py_ssize_t cap;
+    if (!PyArg_ParseTuple(args, "n", &cap))
+        return NULL;
+    if (cap < 1) {
+        PyErr_SetString(PyExc_ValueError, "ring capacity must be >= 1");
+        return NULL;
+    }
+    mpsc_ring *r = PyMem_Calloc(1, sizeof(mpsc_ring));
+    if (r == NULL)
+        return PyErr_NoMemory();
+    r->cap = cap;
+    atomic_init(&r->head, 0);
+    r->tail = 0;
+    r->seq = PyMem_Calloc((size_t)cap, sizeof(atomic_size_t));
+    r->rows = PyMem_Calloc((size_t)cap, sizeof(PyObject *));
+    r->ts = PyMem_Calloc((size_t)cap, sizeof(int64_t));
+    if (!r->seq || !r->rows || !r->ts) {
+        PyMem_Free(r->seq); PyMem_Free(r->rows); PyMem_Free(r->ts);
+        PyMem_Free(r);
+        return PyErr_NoMemory();
+    }
+    return PyCapsule_New(r, "siddhi.ring", ring_capsule_destruct);
+}
+
+static mpsc_ring *
+ring_of(PyObject *capsule)
+{
+    return (mpsc_ring *)PyCapsule_GetPointer(capsule, "siddhi.ring");
+}
+
+/* ring_push(ring, ts, row) -> bool (False = full, caller applies
+ * backpressure like the Disruptor's blocking wait) */
+static PyObject *
+ring_push(PyObject *self, PyObject *args)
+{
+    PyObject *capsule, *row;
+    long long ts;
+    if (!PyArg_ParseTuple(args, "OLO", &capsule, &ts, &row))
+        return NULL;
+    mpsc_ring *r = ring_of(capsule);
+    if (r == NULL)
+        return NULL;
+    size_t cap = (size_t)r->cap;
+    size_t claimed = atomic_load(&r->head);
+    for (;;) {
+        if (claimed - r->tail >= cap)
+            Py_RETURN_FALSE; /* full */
+        if (atomic_compare_exchange_weak(&r->head, &claimed, claimed + 1))
+            break;
+    }
+    size_t s = claimed % cap;
+    Py_INCREF(row);
+    r->rows[s] = row;
+    r->ts[s] = (int64_t)ts;
+    atomic_store(&r->seq[s], claimed + 1); /* publish */
+    Py_RETURN_TRUE;
+}
+
+/* ring_pop_batch(ring, max_n) -> (ts_list, row_list) — single consumer */
+static PyObject *
+ring_pop_batch(PyObject *self, PyObject *args)
+{
+    PyObject *capsule;
+    Py_ssize_t max_n;
+    if (!PyArg_ParseTuple(args, "On", &capsule, &max_n))
+        return NULL;
+    mpsc_ring *r = ring_of(capsule);
+    if (r == NULL)
+        return NULL;
+    PyObject *ts_list = PyList_New(0);
+    PyObject *row_list = PyList_New(0);
+    if (!ts_list || !row_list) {
+        Py_XDECREF(ts_list);
+        Py_XDECREF(row_list);
+        return NULL;
+    }
+    size_t cap = (size_t)r->cap;
+    for (Py_ssize_t n = 0; n < max_n; n++) {
+        size_t i = r->tail;
+        size_t s = i % cap;
+        if (atomic_load(&r->seq[s]) != i + 1)
+            break; /* not yet published (or empty) */
+        PyObject *ts_obj = PyLong_FromLongLong((long long)r->ts[s]);
+        if (ts_obj == NULL || PyList_Append(ts_list, ts_obj) < 0 ||
+            PyList_Append(row_list, r->rows[s]) < 0) {
+            Py_XDECREF(ts_obj);
+            Py_DECREF(ts_list);
+            Py_DECREF(row_list);
+            return NULL;
+        }
+        Py_DECREF(ts_obj);
+        Py_DECREF(r->rows[s]);
+        r->rows[s] = NULL;
+        atomic_store(&r->seq[s], 0);
+        r->tail = i + 1;
+    }
+    return Py_BuildValue("(NN)", ts_list, row_list);
+}
+
+/* ring_size(ring) -> int (published, unconsumed entries; approximate
+ * under concurrent producers) */
+static PyObject *
+ring_size(PyObject *self, PyObject *args)
+{
+    PyObject *capsule;
+    if (!PyArg_ParseTuple(args, "O", &capsule))
+        return NULL;
+    mpsc_ring *r = ring_of(capsule);
+    if (r == NULL)
+        return NULL;
+    return PyLong_FromSize_t(atomic_load(&r->head) - r->tail);
+}
+
+/* ------------------------------------------------------------------------
+ * Lock-free multi-producer COLUMNAR ring — the zero-copy ingress stage.
+ *
+ * Where the MPSC ring above stages PyObject* rows (decoded under the GIL by
+ * the feeder), this ring stages raw columnar bytes: fixed-width native
+ * buffers, one per attribute (string attrs as pre-interned int32 dictionary
+ * codes). Producers claim a contiguous run of slots with one CAS
+ * (claim-then-write, Disruptor-style, so parallel encode workers can fill
+ * their runs out of order while consumption stays in claim order), write
+ * with the GIL RELEASED (the payload is plain memory — memcpy needs no
+ * interpreter), and publish per-slot sequence stamps. One consumer copies
+ * contiguous published runs out into caller buffers, also without the GIL.
+ *
+ * The claim/publish/consume protocol is the crc_* functions above; these
+ * wrappers own arg parsing, Py_buffer handling, payload memcpy, and the
+ * GIL.
+ * ---------------------------------------------------------------------- */
+
+#define COLRING_MAX_COLS 64
+
+typedef struct {
+    crc_ring rc;              /* claim/publish protocol (crc_* above) */
+    int n_cols;
+    Py_ssize_t widths[COLRING_MAX_COLS];
+    char *cols[COLRING_MAX_COLS];   /* cap * width bytes each */
+    int64_t *ts;
+} colring;
+
+static void
+colring_capsule_destruct(PyObject *capsule)
+{
+    colring *r = (colring *)PyCapsule_GetPointer(capsule, "siddhi.colring");
+    if (r == NULL)
+        return;
+    for (int c = 0; c < r->n_cols; c++)
+        PyMem_Free(r->cols[c]);
+    PyMem_Free(r->ts);
+    PyMem_Free(r->rc.seq);
+    PyMem_Free(r);
+}
+
+static Py_ssize_t
+colring_width(char tc)
+{
+    switch (tc) {
+    case 'b': return 1;
+    case 'i': return 4;
+    case 'l': return 8;
+    case 'f': return 4;
+    case 'd': return 8;
+    case 's': return 4;  /* pre-interned int32 dictionary codes */
+    default:  return 0;
+    }
+}
+
+/* colring_new(capacity, typecodes: bytes) -> capsule */
+static PyObject *
+colring_new(PyObject *self, PyObject *args)
+{
+    Py_ssize_t cap_req;
+    PyObject *typecodes_obj;
+    if (!PyArg_ParseTuple(args, "nS", &cap_req, &typecodes_obj))
+        return NULL;
+    if (cap_req < 1) {
+        PyErr_SetString(PyExc_ValueError, "colring capacity must be >= 1");
+        return NULL;
+    }
+    Py_ssize_t n_cols = PyBytes_GET_SIZE(typecodes_obj);
+    if (n_cols > COLRING_MAX_COLS) {
+        PyErr_Format(PyExc_ValueError, "colring supports at most %d columns",
+                     COLRING_MAX_COLS);
+        return NULL;
+    }
+    size_t cap = 1;
+    while (cap < (size_t)cap_req)
+        cap <<= 1;
+    colring *r = PyMem_Calloc(1, sizeof(colring));
+    if (r == NULL)
+        return PyErr_NoMemory();
+    r->n_cols = (int)n_cols;
+    const char *tcs = PyBytes_AS_STRING(typecodes_obj);
+    r->ts = PyMem_Malloc(cap * sizeof(int64_t));
+    crc_init(&r->rc, PyMem_Calloc(cap, sizeof(crc_seq)), cap);
+    if (r->ts == NULL || r->rc.seq == NULL) {
+        PyErr_NoMemory();
+        goto fail;
+    }
+    for (Py_ssize_t c = 0; c < n_cols; c++) {
+        Py_ssize_t w = colring_width(tcs[c]);
+        if (w == 0) {
+            PyErr_Format(PyExc_ValueError, "bad type code %c", tcs[c]);
+            goto fail;
+        }
+        r->widths[c] = w;
+        r->cols[c] = PyMem_Malloc(cap * (size_t)w);
+        if (r->cols[c] == NULL) {
+            PyErr_NoMemory();
+            goto fail;
+        }
+    }
+    return PyCapsule_New(r, "siddhi.colring", colring_capsule_destruct);
+
+fail:
+    for (Py_ssize_t k = 0; k < n_cols; k++)
+        PyMem_Free(r->cols[k]);  /* calloc'd struct: unset slots are NULL */
+    PyMem_Free(r->ts);
+    PyMem_Free(r->rc.seq);
+    PyMem_Free(r);
+    return NULL;
+}
+
+static colring *
+colring_of(PyObject *capsule)
+{
+    return (colring *)PyCapsule_GetPointer(capsule, "siddhi.colring");
+}
+
+/* colring_claim(ring, n) -> start index, or -1 when the ring lacks n free
+ * slots (all-or-nothing; the caller spins/backpressures). One CAS claims
+ * the whole contiguous run — claim order IS delivery order, which is what
+ * makes parallel out-of-order encode workers deterministic downstream. */
+static PyObject *
+colring_claim(PyObject *self, PyObject *args)
+{
+    PyObject *capsule;
+    Py_ssize_t n;
+    if (!PyArg_ParseTuple(args, "On", &capsule, &n))
+        return NULL;
+    colring *r = colring_of(capsule);
+    if (r == NULL)
+        return NULL;
+    if (n < 1 || (size_t)n > r->rc.cap) {
+        PyErr_Format(PyExc_ValueError,
+                     "colring_claim: n=%zd out of range (cap %zu)",
+                     n, r->rc.cap);
+        return NULL;
+    }
+    ptrdiff_t start = crc_claim(&r->rc, (size_t)n);
+    if (start < 0)
+        return PyLong_FromLong(-1); /* insufficient free space */
+    return PyLong_FromUnsignedLongLong((unsigned long long)start);
+}
+
+/* colring_write(ring, start, n, ts_buf: int64[n], cols: tuple[buffer]) —
+ * copy one claimed run into the ring and publish it. The copies run with
+ * the GIL released; string columns arrive here already interned to int32
+ * codes (interning is the only stage that still batch-acquires the GIL,
+ * in the worker pool above this). */
+static PyObject *
+colring_write(PyObject *self, PyObject *args)
+{
+    PyObject *capsule, *ts_obj, *cols;
+    unsigned long long start;
+    Py_ssize_t n;
+    if (!PyArg_ParseTuple(args, "OKnOO!", &capsule, &start, &n, &ts_obj,
+                          &PyTuple_Type, &cols))
+        return NULL;
+    colring *r = colring_of(capsule);
+    if (r == NULL)
+        return NULL;
+    if (PyTuple_GET_SIZE(cols) != r->n_cols) {
+        PyErr_Format(PyExc_ValueError, "colring_write: expected %d columns",
+                     r->n_cols);
+        return NULL;
+    }
+    Py_buffer ts_buf;
+    Py_buffer bufs[COLRING_MAX_COLS];
+    if (PyObject_GetBuffer(ts_obj, &ts_buf, PyBUF_C_CONTIGUOUS) < 0)
+        return NULL;
+    if (ts_buf.len < n * (Py_ssize_t)sizeof(int64_t)) {
+        PyErr_SetString(PyExc_ValueError, "colring_write: ts buffer short");
+        PyBuffer_Release(&ts_buf);
+        return NULL;
+    }
+    int acquired = 0;
+    for (; acquired < r->n_cols; acquired++) {
+        if (PyObject_GetBuffer(PyTuple_GET_ITEM(cols, acquired),
+                               &bufs[acquired], PyBUF_C_CONTIGUOUS) < 0)
+            goto fail;
+        if (bufs[acquired].len < n * r->widths[acquired]) {
+            PyErr_Format(PyExc_ValueError,
+                         "colring_write: column %d buffer short", acquired);
+            acquired++;
+            goto fail;
+        }
+    }
+    Py_BEGIN_ALLOW_THREADS
+    {
+        size_t s0 = (size_t)start & r->rc.mask;
+        size_t first = r->rc.cap - s0;       /* slots before wrap */
+        if (first > (size_t)n)
+            first = (size_t)n;
+        size_t second = (size_t)n - first;
+        memcpy(r->ts + s0, ts_buf.buf, first * sizeof(int64_t));
+        if (second)
+            memcpy(r->ts, (const int64_t *)ts_buf.buf + first,
+                   second * sizeof(int64_t));
+        for (int c = 0; c < r->n_cols; c++) {
+            size_t w = (size_t)r->widths[c];
+            const char *src = (const char *)bufs[c].buf;
+            memcpy(r->cols[c] + s0 * w, src, first * w);
+            if (second)
+                memcpy(r->cols[c], src + first * w, second * w);
+        }
+        /* publish AFTER the data: crc_publish's release stores pair with
+         * the consumer's acquire loads, slot by slot */
+        crc_publish(&r->rc, (size_t)start, (size_t)n);
+    }
+    Py_END_ALLOW_THREADS
+    for (int i = 0; i < acquired; i++)
+        PyBuffer_Release(&bufs[i]);
+    PyBuffer_Release(&ts_buf);
+    Py_RETURN_NONE;
+
+fail:
+    for (int i = 0; i < acquired; i++)
+        PyBuffer_Release(&bufs[i]);
+    PyBuffer_Release(&ts_buf);
+    return NULL;
+}
+
+/* colring_pop(ring, max_n, ts_out: int64 buffer, cols_out: tuple[buffer])
+ * -> n copied (0 when nothing contiguous is published). Single consumer. */
+static PyObject *
+colring_pop(PyObject *self, PyObject *args)
+{
+    PyObject *capsule, *ts_obj, *cols;
+    Py_ssize_t max_n;
+    if (!PyArg_ParseTuple(args, "OnOO!", &capsule, &max_n, &ts_obj,
+                          &PyTuple_Type, &cols))
+        return NULL;
+    colring *r = colring_of(capsule);
+    if (r == NULL)
+        return NULL;
+    if (PyTuple_GET_SIZE(cols) != r->n_cols) {
+        PyErr_Format(PyExc_ValueError, "colring_pop: expected %d columns",
+                     r->n_cols);
+        return NULL;
+    }
+    Py_buffer ts_buf;
+    Py_buffer bufs[COLRING_MAX_COLS];
+    if (PyObject_GetBuffer(ts_obj, &ts_buf,
+                           PyBUF_WRITABLE | PyBUF_C_CONTIGUOUS) < 0)
+        return NULL;
+    int acquired = 0;
+    for (; acquired < r->n_cols; acquired++) {
+        if (PyObject_GetBuffer(PyTuple_GET_ITEM(cols, acquired),
+                               &bufs[acquired],
+                               PyBUF_WRITABLE | PyBUF_C_CONTIGUOUS) < 0)
+            goto fail;
+    }
+    /* bound max_n by the output buffers up front */
+    if (ts_buf.len / (Py_ssize_t)sizeof(int64_t) < max_n)
+        max_n = ts_buf.len / (Py_ssize_t)sizeof(int64_t);
+    for (int c = 0; c < r->n_cols; c++)
+        if (bufs[c].len / r->widths[c] < max_n)
+            max_n = bufs[c].len / r->widths[c];
+    if (max_n < 0)
+        max_n = 0;
+    size_t n = crc_poll(&r->rc, (size_t)max_n);
+    if (n > 0) {
+        Py_BEGIN_ALLOW_THREADS
+        {
+            size_t t = atomic_load_explicit(&r->rc.tail,
+                                            memory_order_relaxed);
+            size_t s0 = t & r->rc.mask;
+            size_t first = r->rc.cap - s0;
+            if (first > n)
+                first = n;
+            size_t second = n - first;
+            memcpy(ts_buf.buf, r->ts + s0, first * sizeof(int64_t));
+            if (second)
+                memcpy((int64_t *)ts_buf.buf + first, r->ts,
+                       second * sizeof(int64_t));
+            for (int c = 0; c < r->n_cols; c++) {
+                size_t w = (size_t)r->widths[c];
+                char *dst = (char *)bufs[c].buf;
+                memcpy(dst, r->cols[c] + s0 * w, first * w);
+                if (second)
+                    memcpy(dst + first * w, r->cols[c], second * w);
+            }
+            crc_consume(&r->rc, n);
+        }
+        Py_END_ALLOW_THREADS
+    }
+    for (int i = 0; i < acquired; i++)
+        PyBuffer_Release(&bufs[i]);
+    PyBuffer_Release(&ts_buf);
+    return PyLong_FromSize_t(n);
+
+fail:
+    for (int i = 0; i < acquired; i++)
+        PyBuffer_Release(&bufs[i]);
+    PyBuffer_Release(&ts_buf);
+    return NULL;
+}
+
+/* colring_size(ring) -> claimed, unconsumed depth (approximate under
+ * concurrent producers; includes claimed-but-unwritten runs) */
+static PyObject *
+colring_size(PyObject *self, PyObject *args)
+{
+    PyObject *capsule;
+    if (!PyArg_ParseTuple(args, "O", &capsule))
+        return NULL;
+    colring *r = colring_of(capsule);
+    if (r == NULL)
+        return NULL;
+    return PyLong_FromSize_t(crc_size(&r->rc));
+}
+
+/* colring_capacity(ring) -> rounded power-of-two slot count */
+static PyObject *
+colring_capacity(PyObject *self, PyObject *args)
+{
+    PyObject *capsule;
+    if (!PyArg_ParseTuple(args, "O", &capsule))
+        return NULL;
+    colring *r = colring_of(capsule);
+    if (r == NULL)
+        return NULL;
+    return PyLong_FromSize_t(r->rc.cap);
+}
+
+/* colring_hwm(ring) -> claimed-depth high-water mark over the ring's life */
+static PyObject *
+colring_hwm(PyObject *self, PyObject *args)
+{
+    PyObject *capsule;
+    if (!PyArg_ParseTuple(args, "O", &capsule))
+        return NULL;
+    colring *r = colring_of(capsule);
+    if (r == NULL)
+        return NULL;
+    return PyLong_FromSize_t(crc_hwm(&r->rc));
+}
+
 static PyMethodDef methods[] = {
     {"encode_rows", encode_rows, METH_VARARGS,
      "Encode row tuples into pre-allocated column buffers."},
@@ -492,6 +1119,28 @@ static PyMethodDef methods[] = {
      "Decode an int32 code buffer through a string table list."},
     {"build_events", build_events, METH_VARARGS,
      "Construct a list of Event objects from decoded columns."},
+    {"ring_new", ring_new, METH_VARARGS,
+     "ring_new(capacity) -> capsule: MPSC row staging ring"},
+    {"ring_push", ring_push, METH_VARARGS,
+     "ring_push(ring, ts, row) -> bool (False when full)"},
+    {"ring_pop_batch", ring_pop_batch, METH_VARARGS,
+     "ring_pop_batch(ring, max_n) -> (ts_list, row_list)"},
+    {"ring_size", ring_size, METH_VARARGS,
+     "ring_size(ring) -> published, unconsumed entries"},
+    {"colring_new", colring_new, METH_VARARGS,
+     "colring_new(capacity, typecodes) -> capsule: columnar ingress ring"},
+    {"colring_claim", colring_claim, METH_VARARGS,
+     "colring_claim(ring, n) -> start, or -1 when full"},
+    {"colring_write", colring_write, METH_VARARGS,
+     "colring_write(ring, start, n, ts, cols): copy a run and publish it"},
+    {"colring_pop", colring_pop, METH_VARARGS,
+     "colring_pop(ring, max_n, ts_out, cols_out) -> rows copied"},
+    {"colring_size", colring_size, METH_VARARGS,
+     "colring_size(ring) -> claimed, unconsumed depth"},
+    {"colring_capacity", colring_capacity, METH_VARARGS,
+     "colring_capacity(ring) -> power-of-two slot count"},
+    {"colring_hwm", colring_hwm, METH_VARARGS,
+     "colring_hwm(ring) -> claimed-depth high-water mark"},
     {NULL, NULL, 0, NULL},
 };
 

@@ -110,26 +110,6 @@ __global__ void k12a_header(long long* __restrict__ block_cnt,
   }
 }
 
-__device__ __forceinline__ void copy_lane(uint8_t* dst, const uint8_t* src,
-                                          int width) {
-  switch (width) {
-    case 8:
-      *reinterpret_cast<unsigned long long*>(dst) =
-          *reinterpret_cast<const unsigned long long*>(src);
-      break;
-    case 4:
-      *reinterpret_cast<uint32_t*>(dst) =
-          *reinterpret_cast<const uint32_t*>(src);
-      break;
-    case 2:
-      *reinterpret_cast<uint16_t*>(dst) =
-          *reinterpret_cast<const uint16_t*>(src);
-      break;
-    default:
-      *dst = *src;
-  }
-}
-
 __global__ void k12a_scatter(const long long* __restrict__ ts,
                              const uint8_t* __restrict__ valid,
                              const int8_t* __restrict__ types, int n,
@@ -160,8 +140,8 @@ __global__ void k12a_scatter(const long long* __restrict__ ts,
         (static_cast<uint8_t>(types[i]) << 1) | 1);
     for (int c = 0; c < cols.n; ++c) {
       const int w = cols.width[c];
-      copy_lane(buf + cols.off[c] + pos * w, cols.src[c] + (long long)i * w,
-                w);
+      siddhi_copy_lane(buf + cols.off[c] + pos * w,
+                       cols.src[c] + (long long)i * w, w);
     }
   }
   if (__syncthreads_or(out_of_range) && threadIdx.x == 0)

@@ -7,7 +7,8 @@ sources compile in parallel (one nvcc process each). A build is reused when
 its source, the shared header and the flags are unchanged (content hash).
 
 Nothing here falls back: a missing `nvcc`, a failed build or a failed launch
-raises. The plain PyTorch versions in `ops/` run only for CPU tensors.
+raises `KernelError`. The plain PyTorch versions in `ops/` run only for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ SOURCES = ("k1_partition", "k2b_packed_ring", "k3_hash", "k4_keytable",
            "k5_grouped_scan", "k7_radix_sort", "k8_extrema", "k9_hll", "k10_join",
            "k11_pattern", "k11c_absent", "k12a_wire_pack",
            "k13a_expression_walk", "k13b_frequent", "k13c_limiter_ring",
-           "k13d_table_insert", "k13e_last_match", "k13f_bucket_scatter")
+           "k13d_table_insert", "k13e_last_match", "k13f_bucket_scatter",
+           "k12b_superstep_pack")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,10 +53,16 @@ LAUNCHES = {"K1": 0, "K2b pack": 0, "K2b fetch": 0, "K2b append": 0,
             "K13d dedup": 0, "K13d place": 0, "K13e": 0, "K1 table free": 0,
             "K7 table index": 0, "K13b final per group": 0,
             "K13f ingest": 0, "K13f evict": 0, "K13f restore": 0,
-            "K3 aggregation": 0, "K4 aggregation": 0}
+            "K3 aggregation": 0, "K4 aggregation": 0, "K12b": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+
+
+class KernelError(RuntimeError):
+    """A kernel that did not build or did not launch. The async ingress
+    feeder lets it propagate instead of declining to the per-batch path:
+    that path launches the same kernels."""
 
 
 def reset_launch_counts() -> None:
@@ -68,7 +76,7 @@ def _nvcc() -> str:
                               "bin", "nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+    raise KernelError("nvcc not found: the CUDA kernels are built on a "
                        "machine with the CUDA toolkit (set CUDA_HOME)")
 
 
@@ -106,7 +114,7 @@ def build_all() -> dict[str, str]:
         os.replace(tmp, so)
         stamp.write_text(digest)
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise KernelError("CUDA kernel build failed:\n" + "\n".join(failed))
     return logs
 
 
@@ -137,7 +145,7 @@ def bind(name: str, fn: str, argtypes: list):
 def check(name: str, what: str, rc: int) -> None:
     if rc != 0:
         msg = library(name).siddhi_cuda_error_string(rc)
-        raise RuntimeError(f"{what}: CUDA launch failed with error {rc} "
+        raise KernelError(f"{what}: CUDA launch failed with error {rc} "
                            f"({msg.decode() if msg else '?'})")
 
 

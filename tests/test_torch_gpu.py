@@ -1814,3 +1814,87 @@ def test_aggregation_app_on_card_matches_cpu(cuda):
             np.testing.assert_allclose(np.array(ra[1:], float),
                                        np.array(rb[1:], float), rtol=1e-5,
                                        atol=1e-3)
+
+
+# ------------------------------------------------ K12b and the superstep
+
+
+@pytest.mark.parametrize("K,W", [(1, 1), (4, 1023), (8, 3000), (32, 1025)])
+def test_k12b_kernel_matches_plain(cuda, K, W):
+    from siddhi_tpu_torch.ops import superstep_pack as sp
+    rng = np.random.default_rng(K * 7 + W)
+    ts = torch.from_numpy(rng.integers(0, 2**50, (K, W))).to(cuda)
+    valid = rng.random((K, W)) < 0.45
+    valid[0] = False  # an iteration with no valid lane
+    valid[-1] = True  # and one with every lane valid
+    valid = torch.from_numpy(valid).to(cuda)
+    cols = {"s": torch.from_numpy(rng.integers(0, 9999, (K, W)).astype(
+                np.int32)).to(cuda),
+            "f": torch.from_numpy(rng.normal(size=(K, W)).astype(
+                np.float32)).to(cuda),
+            "l": torch.from_numpy(rng.integers(-2**62, 2**62, (K, W))).to(
+                cuda),
+            "h": torch.from_numpy(rng.integers(-99, 99, (K, W)).astype(
+                np.int16)).to(cuda),
+            "b": torch.from_numpy(rng.random((K, W)) < 0.5).to(cuda)}
+    buf, layout = sp.superstep_pack(ts, valid, cols)
+    plain = sp.superstep_pack_plain(ts, valid, cols)
+    assert torch.equal(sp.pack_payload(buf, layout),
+                       sp.pack_payload(plain, layout))
+
+
+def test_superstep_app_on_card_matches_k1():
+    """App AG's shape at a small size on the card: K = 4 against K = 1,
+    every block exact, the superstep engaged, one K12b a superstep."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from siddhi_tpu_torch import SiddhiManager, kernels
+    rng = np.random.default_rng(5)
+    n, bs = 64 * 256, 256
+    cols = {"symbol": np.array([f"S{k}" for k in rng.integers(0, 500, n)],
+                               dtype=object),
+            "price": rng.uniform(1.0, 1000.0, n),
+            "volume": rng.integers(1, 1000, n)}
+    ts = 1_700_000_000_000 + np.arange(n, dtype=np.int64)
+
+    def run(k):
+        ss = f"@app:superstep(k='{k}')\n" if k > 1 else ""
+        rt = SiddhiManager().create_siddhi_app_runtime(
+            f"@app:name('AGs{k}')\n{ss}"
+            f"@Async(buffer.size='{bs}', workers='2')\n"
+            "define stream TradeStream (symbol string, price double, "
+            "volume long);\n"
+            "from TradeStream[price < 700.0] select symbol, price, volume "
+            "insert into MidStream;\n"
+            "from MidStream#window.lengthBatch(1000) select symbol, "
+            "sum(price) as total, avg(price) as avgPrice group by symbol "
+            "insert into SummaryStream;", batch_size=bs,
+            group_capacity=1 << 12, async_callbacks=True)
+        blocks = []
+        rt.add_callback("SummaryStream", lambda b: blocks.append(
+            (b.timestamps.copy(), {c: v.copy()
+                                   for c, v in b.columns.items()})),
+            columnar=True)
+        rt.start()
+        kernels.reset_launch_counts()
+        try:
+            h = rt.get_input_handler("TradeStream")
+            for r in range(0, n, 4 * bs):
+                h.send_columns({c: v[r:r + 4 * bs] for c, v in cols.items()},
+                               timestamps=ts[r:r + 4 * bs])
+            rt.drain()
+            snap = rt.junctions["TradeStream"]._pipeline.stats_snapshot()
+        finally:
+            rt.shutdown()
+        return blocks, snap, kernels.LAUNCHES["K12b"]
+
+    want, s1, l1 = run(1)
+    got, s4, l4 = run(4)
+    assert s4["superstep_decline"] is None
+    assert s4["supersteps_dispatched"] == n // bs // 4
+    assert l1 == 0 and l4 == s4["supersteps_dispatched"]
+    assert len(got) == len(want) > 0
+    for (gt, gc), (wt, wc) in zip(got, want):
+        assert np.array_equal(gt, wt)
+        for c in wc:
+            assert np.array_equal(gc[c], wc[c]), c
