@@ -277,7 +277,20 @@ Phases (any failure exits non-zero and prints no result line):
 30. app AH, config 1's auto-flush path: `TradeStream[700.0 > price]` with
    auto_flush_ms=10 and batch_size 256, 2,000 rows sent one at a time at
    1,000 a second with no flush(); every passing row arrives, in order,
-   exact; p50/p99 send-to-callback latency.
+   exact; p50/p99 send-to-callback latency;
+31. (run right after phase 2) K5/K5b and K7 at their edge shapes against
+   their plain versions: n of 1, a tile - 1, a tile, a tile + 1 and 3
+   tiles + 5 (and K7's one-block limit and one past it); K5/K5b with
+   resets on tile edges, one segment across every tile, dead epochs, sum,
+   min and max over float32, float64, int64 and int32 (integers, min and
+   max bit for bit, float sums within rtol 1e-5 of the largest running
+   value), the running count; float32 and float64 sums run twice at L =
+   262,144 (K = 2^20 grouped, and ungrouped) with equal bits; K7 on
+   unsigned-bounded, signed int32 and int64 keys with their extremes,
+   keys constant in some digits, all keys equal (every pass skipped), the
+   whole order and width < n, and more tiles than the cooperative grid
+   holds at once, bit for bit; one launch a K5b component, a K5 plan of
+   up to four sum components and a K7 sort.
 
 Every app's Event callback reads back through K12a (its launch counter
 must be non-zero in every app). Apps A, C, D, G, H and N also run the
@@ -306,6 +319,7 @@ exits non-zero.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -966,6 +980,197 @@ def _timed_device(torch, fn, plain, library=None) -> dict:
                 call_ms=time_ms(torch, fn))
 
 
+def scan_sort_edge_phase(torch, rng) -> None:
+    """Phase 31: K5/K5b and K7 at their edge shapes against their plain
+    versions, float-sum determinism, launches a call (see the module
+    docstring)."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import groupby, search
+
+    dev = torch.device("cuda")
+    tile = kernels.library("k5_grouped_scan").k5_tile_lanes(0)
+    K = 50
+    dtypes = (torch.float32, torch.float64, torch.int64, torch.int32)
+
+    def values(dt, n):
+        if dt.is_floating_point:
+            return torch.from_numpy(rng.uniform(-100, 100, n)).to(dt)
+        return torch.from_numpy(rng.integers(-50, 50, n)).to(dt)
+
+    def same(name, a, b, dt, op):
+        if dt.is_floating_point and op == "sum":
+            check_float_scan(name, a.cpu(), b)
+        else:
+            check_equal(name, a.cpu(), b)
+
+    def launches(counter, want, name):
+        if kernels.LAUNCHES[counter] != want:
+            raise Failure(f"{name}: {kernels.LAUNCHES[counter]} launches, "
+                          f"the counter's formula says {want}")
+
+    sizes = (1, tile - 1, tile, tile + 1, 3 * tile + 5)
+    for n in sizes:
+        edges = np.zeros(n, bool)
+        edges[::tile] = True
+        for layout in ("random", "spanning"):
+            if layout == "random":
+                slots = torch.from_numpy(rng.integers(0, K, n)
+                                         .astype(np.int32))
+                resets = torch.from_numpy((rng.random(n) < 0.001) | edges)
+            else:  # one segment across every tile
+                slots = torch.full((n,), 7, dtype=torch.int32)
+                resets = torch.zeros(n, dtype=torch.bool)
+            valid = torch.from_numpy(rng.random(n) < 0.9)
+            cur = torch.tensor(3, dtype=torch.int32)
+            for dt in dtypes:
+                d = values(dt, n)
+                v0 = values(dt, K)
+                e0 = torch.from_numpy(rng.integers(2, 5, K).astype(np.int32))
+                for op in ("sum", "min", "max"):
+                    name = f"K5b edge n={n} {layout} {op} {dt}"
+                    args = (slots, d, valid, resets, cur)
+                    ps, po = groupby.grouped_scan_plain(
+                        groupby.GroupState(v0.clone(), e0.clone()), *args,
+                        op)
+                    kernels.reset_launch_counts()
+                    ks, ko = groupby.grouped_scan(
+                        groupby.GroupState(v0.to(dev), e0.to(dev)),
+                        *[a.to(dev) for a in args], op)
+                    launches("K5b grouped", 1, name)
+                    check_equal(f"{name} epoch", ks.epoch.cpu(), ps.epoch)
+                    same(f"{name} values", ks.values, ps.values, dt, op)
+                    same(f"{name} lanes", ko, po, dt, op)
+                    for live in (3, 2):  # a live and a dead cell epoch
+                        ec = torch.tensor([live], dtype=torch.int32)
+                        uargs = (d, valid, resets, cur)
+                        pu, puo = groupby.ungrouped_scan_plain(
+                            groupby.GroupState(v0[:1].clone(), ec.clone()),
+                            *uargs, op)
+                        kernels.reset_launch_counts()
+                        ku, kuo = groupby.ungrouped_scan(
+                            groupby.GroupState(v0[:1].to(dev), ec.to(dev)),
+                            *[a.to(dev) for a in uargs], op)
+                        launches("K5b ungrouped", 1, name)
+                        check_equal(f"{name} cell epoch", ku.epoch.cpu(),
+                                    pu.epoch)
+                        same(f"{name} cell", ku.values, pu.values, dt, op)
+                        same(f"{name} ungrouped lanes", kuo, puo, dt, op)
+            comps = [values(dt, n) for dt in (torch.float32, torch.int64,
+                                              torch.int32)]
+            v0 = [values(c.dtype, K) for c in comps]
+            e0 = torch.from_numpy(rng.integers(2, 5, K).astype(np.int32))
+            lanes = (valid, resets, cur)
+            for plain, card, cells, ep, pre, counter in (
+                    (groupby.grouped_scan_fused_plain,
+                     groupby.grouped_scan_fused, v0, e0, (slots,), "K5"),
+                    (groupby.ungrouped_scan_fused_plain,
+                     groupby.ungrouped_scan_fused, [v[:1] for v in v0],
+                     torch.tensor([3], dtype=torch.int32), (),
+                     "K5 ungrouped")):
+                name = f"{counter} edge n={n} {layout}"
+                pv, pe, po = plain([v.clone() for v in cells], ep.clone(),
+                                   *pre, comps, *lanes)
+                kernels.reset_launch_counts()
+                kv, ke, ko = card([v.to(dev) for v in cells], ep.to(dev),
+                                  *[a.to(dev) for a in pre],
+                                  [c.to(dev) for c in comps],
+                                  *[a.to(dev) for a in lanes])
+                launches(counter, 1, name)  # up to four sums a launch
+                check_equal(f"{name} epoch", ke.cpu(), pe)
+                for c, comp in enumerate(comps):
+                    same(f"{name} values {c}", kv[c], pv[c], comp.dtype,
+                         "sum")
+                    same(f"{name} lanes {c}", ko[c], po[c], comp.dtype,
+                         "sum")
+        mask = torch.from_numpy(rng.random(n) < 0.97)
+        for dt, base in ((torch.int32, None),
+                         (torch.int64, torch.tensor(2**40 + 3))):
+            pc, pt = groupby.running_count_plain(mask, base, dt)
+            kernels.reset_launch_counts()
+            kc, kt = groupby.running_count(
+                mask.to(dev), counter="K5b limit",
+                base=None if base is None else base.to(dev), dtype=dt)
+            launches("K5b limit", 1, f"running count n={n}")
+            check_equal(f"running count n={n} {dt}", kc.cpu(), pc)
+            check_equal(f"running count n={n} {dt} total",
+                        kt.reshape(1).cpu(), pt.reshape(1))
+    print(f"K5/K5b edge shapes n in {sizes}: integers, min, max bit for "
+          "bit; float sums within rtol 1e-5; one launch a component")
+
+    # float sums: the same inputs give the same bits
+    L, Kg = 2 * BATCH, GROUP_CAP
+    slots = torch.from_numpy(rng.integers(0, Kg, L).astype(np.int32)).to(dev)
+    valid = torch.from_numpy(rng.random(L) < 0.9).to(dev)
+    no_resets = torch.zeros(L, dtype=torch.bool, device=dev)
+    cur = torch.zeros((), dtype=torch.int32, device=dev)
+    for dt in (torch.float32, torch.float64):
+        d = torch.from_numpy(rng.normal(size=L) * 1e3).to(dt).to(dev)
+        runs = []
+        for _ in range(2):
+            st = groupby.init_group_state(Kg, dt, dev)
+            st, o = groupby.grouped_scan(st, slots, d, valid, no_resets, cur)
+            cell = groupby.init_group_state(1, dt, dev)
+            cell, u = groupby.ungrouped_scan(cell, d, valid, no_resets, cur)
+            fv, _, fo = groupby.grouped_scan_fused(
+                [torch.zeros(Kg, dtype=dt, device=dev)],
+                torch.zeros(Kg, dtype=torch.int32, device=dev), slots, [d],
+                valid, no_resets, cur)
+            runs.append((o, st.values, u, cell.values, fo[0], fv[0]))
+        for i, (a, b) in enumerate(zip(*runs)):
+            check_equal(f"K5 {dt} sum run twice ({i})", a, b)
+    print(f"K5/K5b float32 and float64 sums at L={L}: bit-identical across "
+          "two runs")
+
+    small = kernels.bind("k7_radix_sort", "k7_small_max", [])()
+    ktile = kernels.bind("k7_radix_sort", "k7_tile_keys", [])()
+
+    def k7_keys(kind, n):
+        if kind == "u32":
+            return rng.integers(0, 1 << 20, n).astype(np.int32), (1 << 20) - 1
+        if kind == "i32":
+            k = rng.integers(-2**31, 2**31, n).astype(np.int32)
+            k[rng.integers(0, n, max(1, n // 50))] = -2**31
+            k[rng.integers(0, n, max(1, n // 50))] = 2**31 - 1
+            return k, None
+        if kind == "i64":
+            k = rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64)
+            k[rng.integers(0, n, max(1, n // 50))] = -2**63
+            k[rng.integers(0, n, max(1, n // 50))] = 2**63 - 1
+            return k, None
+        if kind == "i64 some digits":  # bytes 1 and 4 vary
+            return ((rng.integers(0, 256, n, dtype=np.int64) << 8)
+                    | (rng.integers(0, 4, n, dtype=np.int64) << 32)
+                    | (-7 << 48)), None
+        if kind == "i64 equal":
+            return np.full(n, -123456789012, np.int64), None
+        if kind == "u32 equal":
+            return np.full(n, 77, np.int32), 1000
+        return np.full(n, -5, np.int32), None  # i32 equal
+
+    # past the grid: more tiles than the cooperative sweep holds at once,
+    # so a block walks several
+    cap = kernels.bind("k7_radix_sort", "k7_grid_capacity",
+                       [ctypes.c_int])(8)
+    k7_sizes = (1, ktile - 1, ktile, ktile + 1, 3 * ktile + 5, small,
+                small + 1, (cap + 1) * ktile + 7)
+    for n in k7_sizes:
+        for kind in ("u32", "i32", "i64", "i64 some digits", "i64 equal",
+                     "u32 equal", "i32 equal"):
+            keys, bound = k7_keys(kind, n)
+            k = torch.from_numpy(keys).to(dev)
+            for width in (n, n // 3):
+                kernels.reset_launch_counts()
+                got = search.stable_radix_argsort(k, bound, width,
+                                                  counter="K7 rank")
+                check_equal(f"K7 edge n={n} {kind} width={width}", got,
+                            search.stable_radix_argsort_plain(k, bound,
+                                                              width))
+                launches("K7 rank", 1, f"K7 edge n={n} {kind}")
+    print(f"K7 edge shapes n in {k7_sizes}: bit for bit, launches as "
+          "counted")
+    torch.cuda.synchronize()
+
+
 def sliding_kernel_phase(torch, rng) -> tuple[dict, dict]:
     """K2b and K5b against their plain versions at the sliding apps'
     shapes; then the torch routes K2a, K6 and the K7 merge timed at their
@@ -1206,6 +1411,7 @@ def sliding_kernel_phase(torch, rng) -> tuple[dict, dict]:
                                                     valid, no_resets, cur),
                lambda: groupby.ungrouped_scan_fused_plain(
                    u_vals, u_ep, comps, valid, no_resets, cur),
+               library=lambda: [torch.cumsum(c, 0) for c in comps],
                reset=restore_u),
         # valid and resets in; per component the deltas in, outputs out
         bound_ms=bound_ms(L * (1 + 1) + sum(2 * L * c.element_size()
@@ -7127,6 +7333,8 @@ def main(argv=None) -> int:
         width_a = LengthBatchWindow({}, BATCH, WINDOW,
                                     expired_on=False).chunk_width
         kres = kernel_phase(torch, rng, width_a)
+        # its own generator: the phases after it keep their inputs
+        scan_sort_edge_phase(torch, np.random.default_rng([args.seed, 31]))
 
         launches = {k: 0 for k in KERNELS}
         summary = {}  # the columnar async path, per app

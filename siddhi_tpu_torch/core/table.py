@@ -286,12 +286,16 @@ def last_match(mask: torch.Tensor, *, counter: str = "K13e"):
 
 
 def sorted_index(keys: torch.Tensor) -> torch.Tensor:
-    """`jnp.sort(keys)` through K7's stable argsort of int64 keys in the
-    same order (floats through `float64_sort_key`: NaN last, -0.0 equal to
-    0.0)."""
-    k64 = (float64_sort_key(keys) if keys.dtype.is_floating_point
-           else keys.to(torch.int64))
-    order = stable_radix_argsort(k64, counter="K7 table index")
+    """`jnp.sort(keys)` through K7's stable argsort: int32 keys as signed
+    int32 (4 passes), other integers as int64, floats through
+    `float64_sort_key` (NaN last, -0.0 equal to 0.0)."""
+    if keys.dtype.is_floating_point:
+        k = float64_sort_key(keys)
+    elif keys.dtype == torch.int32:
+        k = keys
+    else:
+        k = keys.to(torch.int64)
+    order = stable_radix_argsort(k, counter="K7 table index")
     return keys[order.long()]
 
 

@@ -9,6 +9,11 @@ its source, the shared header and the flags are unchanged (content hash).
 Nothing here falls back: a missing `nvcc`, a failed build or a failed launch
 raises `KernelError`. The plain PyTorch versions in `ops/` run only for CPU
 tensors.
+
+Kernels whose blocks wait for each other in one launch (K5's tile flags,
+K7's grid barrier) keep their counters and flags in a `workspace`: one
+zeroed buffer per library, device and stream, which every launch leaves
+zeroed again, so no launch is spent clearing it.
 """
 
 from __future__ import annotations
@@ -57,6 +62,8 @@ LAUNCHES = {"K1": 0, "K2b pack": 0, "K2b fetch": 0, "K2b append": 0,
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+#: (library, device index, stream) -> zeroed workspace tensor
+_workspaces: dict[tuple, torch.Tensor] = {}
 
 
 class KernelError(RuntimeError):
@@ -142,11 +149,40 @@ def bind(name: str, fn: str, argtypes: list):
     return f
 
 
-def check(name: str, what: str, rc: int) -> None:
+def check(name: str, what: str, rc: int, device=None) -> None:
+    """Raise KernelError for a failed launch; `device` names the device
+    whose workspace of library `name` the launch used (dropped, since a
+    launch that did not end may leave it dirty)."""
     if rc != 0:
+        if device is not None:
+            with _lock:
+                _workspaces.pop(_workspace_key(name, device), None)
         msg = library(name).siddhi_cuda_error_string(rc)
         raise KernelError(f"{what}: CUDA launch failed with error {rc} "
                            f"({msg.decode() if msg else '?'})")
+
+
+def _workspace_key(name: str, device) -> tuple:
+    device = torch.device(device)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return name, index, stream()
+
+
+def workspace(name: str, nbytes: int, device) -> torch.Tensor:
+    """Library `name`'s workspace on the current stream of `device`: at
+    least `nbytes`, zero when first allocated. Its kernels leave it zero
+    when they end (tile and barrier counters, flags), so no call clears
+    it; launches on one stream run in order, and each stream has its
+    own."""
+    key = _workspace_key(name, device)
+    with _lock:
+        ws = _workspaces.get(key)
+        if ws is None or ws.numel() < nbytes:
+            ws = torch.zeros(max(nbytes, 256), dtype=torch.uint8,
+                             device=device)
+            _workspaces[key] = ws
+    return ws
 
 
 def stream() -> int:

@@ -621,94 +621,126 @@ _K5_DTYPES = {torch.float32: 0, torch.float64: 1, torch.int64: 2,
 _K5_OPS = {"sum": 0, "min": 1, "max": 2}
 
 
-class _CudaPlan(NamedTuple):
-    order: Optional[torch.Tensor]  # int64[n]; None: lanes in order
-    s_slot: torch.Tensor
-    s_epoch: torch.Tensor
-    seg_start: torch.Tensor
-    write_slot: torch.Tensor
-    epoch_live: torch.Tensor
+_K5 = "k5_grouped_scan"
 
 
-def _plan_buffers(n: int, dev):
-    i32 = dict(dtype=torch.int32, device=dev)
-    u8 = dict(dtype=torch.uint8, device=dev)
-    return (torch.empty(n, **i32), torch.empty(n, **i32),
-            torch.empty(n, **u8), torch.empty(n, **i32), torch.empty(n, **u8))
+def _k5_workspace(n: int, dev, comps: int = 0) -> tuple:
+    """(flags, aggregates) of a launch over n lanes, one component
+    (comps 0) or `comps` fused ones: the per-stream workspace of counters
+    and one flag a tile, which every launch leaves zero, and a buffer of
+    the tile aggregates (k5_grouped_scan.cu)."""
+    lib = kernels.library(_K5)
+    tiles = -(-max(n, 1) // lib.k5_tile_lanes(1 if comps else 0))
+    return (kernels.workspace(_K5, 8 + 4 * tiles, dev).data_ptr(),
+            kernels.workspace(_K5 + " aggregates",
+                              tiles * (16 * max(comps, 1) + 8),
+                              dev).data_ptr())
 
 
-def _k5_plan_cuda(slots, valid, resets, current_epoch, epoch_table,
-                  family: str) -> _CudaPlan:
-    """torch.sort of the sentinel-masked slots, then the plan kernel."""
-    K = epoch_table.shape[0]
-    n = slots.shape[0]
+def _k5_fused_cuda(values_list, deltas_list, plan: tuple, epoch_out,
+                   family: str) -> list:
+    """Sum components over one plan, up to `k5_max_fused()` a launch (the
+    last launch writes the epochs): `plan` is ("grouped", valid, sort,
+    epoch_table) or ("ungrouped", valid, resets, current_epoch, cell).
+    Returns the per-lane outputs."""
+    n = deltas_list[0].shape[0]
+    dev = deltas_list[0].device
+    step = kernels.library(_K5).k5_max_fused()
+    P, I = ctypes.c_void_p, ctypes.c_int
+    outs = [torch.empty_like(d) for d in deltas_list]
+    for lo in range(0, len(deltas_list), step):
+        part = range(lo, min(lo + step, len(deltas_list)))
+        c = len(part)
+        arrays = ((I * c)(*[_K5_DTYPES[deltas_list[i].dtype] for i in part]),
+                  (P * c)(*[deltas_list[i].data_ptr() for i in part]))
+        values = (P * c)(*[values_list[i].data_ptr() for i in part])
+        out = (P * c)(*[outs[i].data_ptr() for i in part])
+        eo = (epoch_out.data_ptr() if epoch_out is not None
+              and part[-1] == len(deltas_list) - 1 else None)
+        ws = _k5_workspace(n, dev, c)
+        if plan[0] == "grouped":
+            _, valid, (slots_v, lane_epoch, order), table = plan
+            fn = kernels.bind(_K5, "k5_grouped_fused",
+                              [I] + [P] * 12 + [I, I, P])
+            rc = fn(c, *arrays, valid.data_ptr(), order.data_ptr(),
+                    slots_v.data_ptr(), lane_epoch.data_ptr(),
+                    table.data_ptr(), eo, values, out, *ws,
+                    values_list[0].shape[0], n, kernels.stream())
+        else:
+            _, valid, resets, current_epoch, cell = plan
+            rs, kind = _k5_resets(resets)
+            fn = kernels.bind(_K5, "k5_ungrouped_fused",
+                              [I, P, P, P, P, I] + [P] * 7 + [I, P])
+            rc = fn(c, *arrays, valid.data_ptr(), rs.data_ptr(), kind,
+                    current_epoch.to(torch.int32).data_ptr(),
+                    cell.data_ptr(), eo, values, out, *ws, n,
+                    kernels.stream())
+        kernels.check(_K5, f"{family} (scan)", rc, dev)
+        kernels.LAUNCHES[family] += 1
+    return outs
+
+
+def _k5_sort(slots, valid, resets, current_epoch, K):
+    """The grouped launch's inputs: sentinel-masked slots, lane epochs and
+    their stable torch.sort (int64 order)."""
     slots_v = torch.where(valid, slots, K).to(torch.int32)
     lane_epoch = _lane_epochs(resets, current_epoch).to(torch.int32)
     order = torch.sort(slots_v, stable=True).indices
-    bufs = _plan_buffers(n, slots.device)
-    P = ctypes.c_void_p
-    plan = kernels.bind("k5_grouped_scan", "k5_segment_plan",
-                        [P] * 4 + [ctypes.c_int, ctypes.c_int] + [P] * 6)
-    rc = plan(slots_v.data_ptr(), lane_epoch.data_ptr(), order.data_ptr(),
-              epoch_table.data_ptr(), K, n, *[b.data_ptr() for b in bufs],
-              kernels.stream())
-    kernels.check("k5_grouped_scan", f"{family} (plan)", rc)
-    kernels.LAUNCHES[family] += 1
-    return _CudaPlan(order, *bufs)
+    return slots_v, lane_epoch, order
 
 
-def _k5_ungrouped_plan_cuda(resets, current_epoch, epoch_cell,
-                            family: str) -> _CudaPlan:
-    n = resets.shape[0]
-    lane_epoch = _lane_epochs(resets, current_epoch).to(torch.int32)
-    bufs = _plan_buffers(n, resets.device)
-    P = ctypes.c_void_p
-    plan = kernels.bind("k5_grouped_scan", "k5_ungrouped_segment_plan",
-                        [P, P, ctypes.c_int] + [P] * 6)
-    rc = plan(lane_epoch.data_ptr(), epoch_cell.data_ptr(), n,
-              *[b.data_ptr() for b in bufs], kernels.stream())
-    kernels.check("k5_grouped_scan", f"{family} (plan)", rc)
-    kernels.LAUNCHES[family] += 1
-    return _CudaPlan(None, *bufs)
-
-
-def _k5_scan_cuda(plan: _CudaPlan, op: str, values, deltas, valid,
-                  epoch_table, family: str) -> torch.Tensor:
-    """One component over a plan: values (and epoch_table, unless None)
-    updated in place; returns the per-lane outputs in lane order."""
+def _k5_grouped_cuda(op: str, values, deltas, valid, sort, epoch_in,
+                     epoch_out, family: str) -> torch.Tensor:
+    """One grouped component in one launch: values (and epoch_out, unless
+    None) updated in place; returns the per-lane outputs in lane order."""
+    slots_v, lane_epoch, order = sort
     n = deltas.shape[0]
-    K = values.shape[0]
     out = torch.empty_like(deltas)
-    block = kernels.library("k5_grouped_scan").k5_block_size()
-    nb = -(-n // block)
-    scratch = torch.empty((2 * n + 2 * nb) * deltas.element_size()
-                          + 4 * nb + n, dtype=torch.uint8,
-                          device=deltas.device)
-    P = ctypes.c_void_p
-    scan = kernels.bind("k5_grouped_scan", "k5_scan_component",
-                        [ctypes.c_int, ctypes.c_int] + [P] * 12
-                        + [ctypes.c_int, ctypes.c_int, P])
-    rc = scan(_K5_OPS[op], _K5_DTYPES[deltas.dtype], deltas.data_ptr(),
-              valid.data_ptr(),
-              plan.order.data_ptr() if plan.order is not None else None,
-              plan.s_slot.data_ptr(), plan.seg_start.data_ptr(),
-              plan.epoch_live.data_ptr(), plan.write_slot.data_ptr(),
-              plan.s_epoch.data_ptr(), values.data_ptr(),
-              epoch_table.data_ptr() if epoch_table is not None else None,
-              out.data_ptr(), scratch.data_ptr(), K, n, kernels.stream())
-    kernels.check("k5_grouped_scan", f"{family} (scan)", rc)
-    kernels.LAUNCHES[family] += 3
+    ws = _k5_workspace(n, deltas.device)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = kernels.bind(_K5, "k5_grouped_component",
+                      [I, I] + [P] * 11 + [I, I, P])
+    rc = fn(_K5_OPS[op], _K5_DTYPES[deltas.dtype], deltas.data_ptr(),
+            valid.data_ptr(), order.data_ptr(), slots_v.data_ptr(),
+            lane_epoch.data_ptr(), epoch_in.data_ptr(),
+            epoch_out.data_ptr() if epoch_out is not None else None,
+            values.data_ptr(), out.data_ptr(), *ws, values.shape[0], n,
+            kernels.stream())
+    kernels.check(_K5, f"{family} (scan)", rc, deltas.device)
+    kernels.LAUNCHES[family] += 1
     return out
 
 
-def _scan_cuda(plan: _CudaPlan, op: str, values_list, epoch_table,
-               deltas_list, valid, family: str) -> list:
-    """Every component over one plan; the last one writes the epochs (the
-    plan read them before any write). Returns the lane-order outputs."""
-    last = len(values_list) - 1
-    return [_k5_scan_cuda(plan, op, v, d, valid,
-                          epoch_table if c == last else None, family)
-            for c, (v, d) in enumerate(zip(values_list, deltas_list))]
+def _k5_resets(resets: torch.Tensor):
+    """(tensor, kind) as the ungrouped launch reads resets: bytes (1) or
+    int32 (2)."""
+    if resets.dtype in (torch.bool, torch.uint8):
+        return resets, 1
+    return resets.to(torch.int32), 2
+
+
+def _k5_ungrouped_cuda(op: str, values, deltas, valid, resets,
+                       current_epoch, epoch_in, epoch_out,
+                       family: str) -> torch.Tensor:
+    """One ungrouped component in one launch (the plan folded in): the
+    state cell (and epoch_out, unless None) updated in place; returns the
+    per-lane outputs."""
+    n = deltas.shape[0]
+    out = torch.empty_like(deltas)
+    rs, kind = _k5_resets(resets)
+    cur = current_epoch.to(torch.int32)
+    ws = _k5_workspace(n, deltas.device)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = kernels.bind(_K5, "k5_ungrouped_component",
+                      [I, I, P, P, P, I] + [P] * 7 + [I, P])
+    rc = fn(_K5_OPS[op], _K5_DTYPES[deltas.dtype], deltas.data_ptr(),
+            valid.data_ptr(), rs.data_ptr(), kind, cur.data_ptr(),
+            epoch_in.data_ptr(),
+            epoch_out.data_ptr() if epoch_out is not None else None,
+            values.data_ptr(), out.data_ptr(), *ws, n, kernels.stream())
+    kernels.check(_K5, f"{family} (scan)", rc, deltas.device)
+    kernels.LAUNCHES[family] += 1
+    return out
 
 
 def _check_component(what, values, deltas, n):
@@ -743,9 +775,9 @@ def _check_state(what, values_list, epoch_table, deltas_list, n,
 
 def grouped_scan_fused_cuda(values_list, shared_epoch, slots, deltas_list,
                             valid, resets, current_epoch):
-    """K5 on the card: torch sort by slot, then the plan kernel and three
-    scan launches per component. Updates values and the epoch table in
-    place."""
+    """K5 on the card: torch sort by slot, then one launch for up to
+    four components (the last launch writes the epochs). Updates values
+    and the epoch table in place."""
     kernels.require_cuda("grouped_scan_fused", shared_epoch, slots, valid,
                          resets, current_epoch, *values_list, *deltas_list)
     n = slots.shape[0]
@@ -755,17 +787,18 @@ def grouped_scan_fused_cuda(values_list, shared_epoch, slots, deltas_list,
     if n == 0:
         return (list(values_list), shared_epoch,
                 [torch.empty_like(d) for d in deltas_list])
-    plan = _k5_plan_cuda(slots, valid, resets, current_epoch, shared_epoch,
-                         "K5")
-    outs = _scan_cuda(plan, "sum", values_list, shared_epoch, deltas_list,
-                      valid, "K5")
+    sort = _k5_sort(slots, valid, resets, current_epoch,
+                    shared_epoch.shape[0])
+    outs = _k5_fused_cuda(values_list, deltas_list,
+                          ("grouped", valid, sort, shared_epoch),
+                          shared_epoch, "K5")
     return list(values_list), shared_epoch, outs
 
 
 def ungrouped_scan_fused_cuda(values_list, shared_epoch, deltas_list, valid,
                               resets, current_epoch):
-    """K5 without GROUP BY on the card: the ungrouped plan over lanes in
-    order (no sort), then three scan launches per component. Updates the
+    """K5 without GROUP BY on the card: one launch for up to four
+    components over lanes in order (no sort, no plan launch). Updates the
     state cells in place."""
     kernels.require_cuda("ungrouped_scan_fused", shared_epoch, valid, resets,
                          current_epoch, *values_list, *deltas_list)
@@ -776,17 +809,16 @@ def ungrouped_scan_fused_cuda(values_list, shared_epoch, deltas_list, valid,
     if n == 0:
         return (list(values_list), shared_epoch,
                 [torch.empty_like(d) for d in deltas_list])
-    plan = _k5_ungrouped_plan_cuda(resets, current_epoch, shared_epoch,
-                                   "K5 ungrouped")
-    outs = _scan_cuda(plan, "sum", values_list, shared_epoch, deltas_list,
-                      valid, "K5 ungrouped")
+    outs = _k5_fused_cuda(values_list, deltas_list,
+                          ("ungrouped", valid, resets, current_epoch,
+                           shared_epoch), shared_epoch, "K5 ungrouped")
     return list(values_list), shared_epoch, outs
 
 
 def grouped_scan_cuda(state: GroupState, slots, deltas, valid, resets,
                       current_epoch, op: str = "sum"):
-    """K5b on the card: the K5 sort and plan against this component's own
-    epoch table, then one op-templated scan. Updates the state in place."""
+    """K5b on the card: the K5 sort, then one op-templated launch against
+    this component's own epoch table. Updates the state in place."""
     kernels.require_cuda("grouped_scan", state.values, state.epoch, slots,
                          deltas, valid, resets, current_epoch)
     n = slots.shape[0]
@@ -795,18 +827,18 @@ def grouped_scan_cuda(state: GroupState, slots, deltas, valid, resets,
                  cell=False)
     if n == 0:
         return state, torch.empty_like(deltas)
-    plan = _k5_plan_cuda(slots, valid, resets, current_epoch, state.epoch,
-                         "K5b grouped")
-    (out,) = _scan_cuda(plan, op, [state.values], state.epoch, [deltas],
-                        valid, "K5b grouped")
+    sort = _k5_sort(slots, valid, resets, current_epoch,
+                    state.values.shape[0])
+    out = _k5_grouped_cuda(op, state.values, deltas, valid, sort,
+                           state.epoch, state.epoch, "K5b grouped")
     return state, out
 
 
 def ungrouped_scan_cuda(state: GroupState, deltas, valid, resets,
                         current_epoch, op: str = "sum", *,
                         counter: str = "K5b ungrouped"):
-    """K5b without GROUP BY on the card: the ungrouped plan, then the
-    op-templated scan. Updates the state cell in place."""
+    """K5b without GROUP BY on the card: one op-templated launch with the
+    plan folded in. Updates the state cell in place."""
     kernels.require_cuda("ungrouped_scan", state.values, state.epoch, deltas,
                          valid, resets, current_epoch)
     n = deltas.shape[0]
@@ -815,10 +847,9 @@ def ungrouped_scan_cuda(state: GroupState, deltas, valid, resets,
                  cell=True)
     if n == 0:
         return state, torch.empty_like(deltas)
-    plan = _k5_ungrouped_plan_cuda(resets, current_epoch, state.epoch,
-                                   counter)
-    (out,) = _scan_cuda(plan, op, [state.values], state.epoch, [deltas],
-                        valid, counter)
+    out = _k5_ungrouped_cuda(op, state.values, deltas, valid, resets,
+                             current_epoch, state.epoch, state.epoch,
+                             counter)
     return state, out
 
 
@@ -869,18 +900,57 @@ def ungrouped_scan_fused(values_list, shared_epoch, deltas_list, valid,
                                       valid, resets, current_epoch)
 
 
-def running_count(mask: torch.Tensor, *, counter: str, base=None,
-                  dtype=torch.int32):
-    """Inclusive running count of the `mask` lanes in lane order, plus
-    `base` (a 0-d tensor, default 0): the JAX `base + jnp.cumsum(mask)` as
-    K5b's ungrouped sum scan, no host sync. Lanes outside the mask carry
-    the count so far. Returns (counts [L], the count after the last lane)
-    in `dtype`."""
+def running_count_plain(mask: torch.Tensor, base=None,
+                        dtype=torch.int32):
+    """Plain running count: the JAX `base + jnp.cumsum(mask)` as K5b's
+    plain ungrouped sum scan over one cell holding `base`."""
     dev = mask.device
     cell = (torch.zeros(1, dtype=dtype, device=dev) if base is None
             else base.reshape(1).to(dtype).clone())
     state = GroupState(cell, torch.zeros(1, dtype=torch.int32, device=dev))
-    new, counts = ungrouped_scan(
+    new, counts = ungrouped_scan_plain(
         state, mask.to(dtype), mask, torch.zeros_like(mask),
-        torch.zeros((), dtype=torch.int32, device=dev), counter=counter)
+        torch.zeros((), dtype=torch.int32, device=dev))
     return counts, new.values[0]
+
+
+def running_count_cuda(mask: torch.Tensor, *, counter: str, base=None,
+                       dtype=torch.int32):
+    """K5b's running count on the card: one launch reads the bool mask and
+    the 0-d base and writes the counts and the total."""
+    if mask.dtype != torch.bool or mask.dim() != 1:
+        raise ValueError("running_count: mask must be bool[L]")
+    if dtype not in (torch.int32, torch.int64):
+        raise ValueError("running_count: int32 or int64 counts")
+    kernels.require_cuda("running_count", mask)
+    n = mask.shape[0]
+    dev = mask.device
+    if base is not None and (base.dtype != dtype or base.device != dev):
+        base = base.to(dev, dtype)  # the sites pass the count type
+    counts = torch.empty(n, dtype=dtype, device=dev)
+    if n == 0:
+        return counts, (torch.zeros((), dtype=dtype, device=dev)
+                        if base is None else base.reshape(()).clone())
+    total = torch.empty((), dtype=dtype, device=dev)
+    ws = _k5_workspace(n, dev)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = kernels.bind(_K5, "k5_running_count", [P, P, I, P, P, P, P, I, P])
+    rc = fn(mask.data_ptr(), base.data_ptr() if base is not None else None,
+            _K5_DTYPES[dtype], counts.data_ptr(), total.data_ptr(), *ws, n,
+            kernels.stream())
+    kernels.check(_K5, "running_count", rc, dev)
+    kernels.LAUNCHES[counter] += 1
+    return counts, total
+
+
+def running_count(mask: torch.Tensor, *, counter: str, base=None,
+                  dtype=torch.int32):
+    """Inclusive running count of the `mask` lanes in lane order, plus
+    `base` (a 0-d tensor, default 0): the JAX `base + jnp.cumsum(mask)`,
+    K5b's running count on the card (one launch), no host sync. Lanes
+    outside the mask carry the count so far. Returns (counts [L], the count
+    after the last lane) in `dtype`."""
+    if mask.is_cuda:
+        return running_count_cuda(mask, counter=counter, base=base,
+                                  dtype=dtype)
+    return running_count_plain(mask, base, dtype)

@@ -4,8 +4,9 @@ siddhi_tpu/ops/search.py).
 `stable_partition_order` is kernel K1: on a CUDA tensor it launches
 `csrc/k1_partition.cu`; on a CPU tensor it runs the plain version below.
 `stable_radix_argsort` is kernel K7 (`csrc/k7_radix_sort.cu`), the stable
-argsort of bounded integer keys behind the session, sort and keyed-session
-windows, dispatched the same way. `stable_argsort_bounded` and
+argsort of bounded or signed integer keys behind the session, sort,
+keyed-session, expression and frequent windows, the time-first limiter,
+ORDER BY and the table index, dispatched the same way. `stable_argsort_bounded` and
 `searchsorted32` are single torch calls on every device.
 """
 
@@ -111,22 +112,21 @@ def stable_radix_argsort_plain(keys: torch.Tensor, bound=None,
     return order if width is None else order[:width]
 
 
-_K7_BLOCK = 1024
-_K7_MAX_TILES = 256
+_K7 = "k7_radix_sort"
 
 
 def stable_radix_argsort_cuda(keys: torch.Tensor, bound=None, width=None,
                               *, counter: str):
-    """K7 on the card. int32 keys in [0, bound] (a static bound; the pass
-    count follows its bit length) or int64 keys in signed order (bound
-    None, 8 passes). Returns the first `width` lanes of the stable order,
-    int32. Scratch is sized from the shapes alone: no host sync."""
+    """K7 on the card, one launch. int32 keys in [0, bound] (a static
+    bound; the pass count follows its bit length), int32 keys in signed
+    order (bound None, 4 passes) or int64 keys in signed order (bound None,
+    8 passes). Returns the first `width` lanes of the stable order, int32.
+    Scratch is sized from the shapes alone: no host sync."""
     if keys.dim() != 1 or keys.dtype not in (torch.int32, torch.int64):
         raise ValueError("stable_radix_argsort: keys must be int32[L] or "
                          "int64[L]")
-    if (keys.dtype == torch.int32) != (bound is not None):
-        raise ValueError("stable_radix_argsort: int32 keys take a static "
-                         "bound, int64 keys none")
+    if keys.dtype == torch.int64 and bound is not None:
+        raise ValueError("stable_radix_argsort: int64 keys take no bound")
     if bound is not None and not 0 <= bound < 2**31:
         raise ValueError("stable_radix_argsort: bound must be in [0, 2^31)")
     kernels.require_cuda("stable_radix_argsort", keys)
@@ -138,32 +138,32 @@ def stable_radix_argsort_cuda(keys: torch.Tensor, bound=None, width=None,
     out = torch.empty(width, dtype=torch.int32, device=dev)
     if n == 0:
         return out
-    lib = "k7_radix_sort"
-    radix = kernels.bind(lib, "k7_radix_bits", [])()
-    bits = 64 if bound is None else max(int(bound).bit_length(), 1)
+    radix = kernels.bind(_K7, "k7_radix_bits", [])()
+    bits = (max(int(bound).bit_length(), 1) if bound is not None
+            else 8 * keys.element_size())
     passes = -(-bits // radix)
-    tile = _K7_BLOCK * max(1, -(-n // (_K7_BLOCK * _K7_MAX_TILES)))
-    ntiles = -(-n // tile)
-    spare = 2 * n if passes > 1 else 1
-    key_scratch = torch.empty(spare, dtype=keys.dtype, device=dev)
-    idx_scratch = torch.empty(spare, dtype=torch.int32, device=dev)
-    # per (digit, tile) offsets, then the digits' totals
-    counts = torch.empty((1 << radix) * (ntiles + 1), dtype=torch.int32,
-                         device=dev)
+    if n > kernels.bind(_K7, "k7_small_max", [])():
+        # ping-pong keys and ids, the histogram, a look-back region a pass
+        tiles = -(-n // kernels.bind(_K7, "k7_tile_keys", [])())
+        nbytes = (-(-2 * n * keys.element_size() // 8) * 8 + 8 * n
+                  + 4 * (8 << radix) + 4 * passes * tiles * (1 << radix))
+    else:  # one block, all in shared memory
+        nbytes = 1
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    ws = kernels.workspace(
+        _K7, kernels.bind(_K7, "k7_workspace_bytes", [])(), dev)
     P, I = ctypes.c_void_p, ctypes.c_int
-    if bound is None:
-        fn = kernels.bind(lib, "k7_argsort_i64", [P, I, I, I, P, P, P, P, P])
-        rc = fn(keys.data_ptr(), n, width, tile, out.data_ptr(),
-                key_scratch.data_ptr(), idx_scratch.data_ptr(),
-                counts.data_ptr(), kernels.stream())
+    tail = (out.data_ptr(), scratch.data_ptr(), ws.data_ptr(),
+            kernels.stream())
+    if bound is not None:
+        fn = kernels.bind(_K7, "k7_argsort_u32", [P, I, I, I, P, P, P, P])
+        rc = fn(keys.data_ptr(), n, bits, width, *tail)
     else:
-        fn = kernels.bind(lib, "k7_argsort_u32",
-                          [P, I, I, I, I, P, P, P, P, P])
-        rc = fn(keys.data_ptr(), n, bits, width, tile, out.data_ptr(),
-                key_scratch.data_ptr(), idx_scratch.data_ptr(),
-                counts.data_ptr(), kernels.stream())
-    kernels.check(lib, "stable_radix_argsort", rc)
-    kernels.LAUNCHES[counter] += 3 * passes
+        entry = "k7_argsort_i64" if bits == 64 else "k7_argsort_i32"
+        fn = kernels.bind(_K7, entry, [P, I, I, P, P, P, P])
+        rc = fn(keys.data_ptr(), n, width, *tail)
+    kernels.check(_K7, "stable_radix_argsort", rc, dev)
+    kernels.LAUNCHES[counter] += 1  # one launch a sort, every pass in it
     return out
 
 

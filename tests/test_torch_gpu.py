@@ -6,6 +6,8 @@ machine with one (and no JAX):
 
 This file imports neither jax nor siddhi_tpu."""
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -996,8 +998,7 @@ def test_k7_kernel_matches_plain(cuda, site):
     want = search.stable_radix_argsort_plain(keys, bound, width)
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and torch.equal(got, want)
-    passes = -(-(64 if bound is None else bound.bit_length()) // 8)
-    assert kernels.LAUNCHES["K7 rank"] == 3 * passes
+    assert kernels.LAUNCHES["K7 rank"] == 1  # every pass in one launch
 
 
 def test_cuda_keys_never_reach_the_plain_sort(cuda, monkeypatch):
@@ -1898,3 +1899,295 @@ def test_superstep_app_on_card_matches_k1():
         assert np.array_equal(gt, wt)
         for c in wc:
             assert np.array_equal(gc[c], wc[c]), c
+
+
+# ------------------------------------------- K5/K5b scans, K7 onesweep sort
+
+K5_SIZES = ["one", "tile-1", "tile", "tile+1", "3tiles+5"]
+K5_DTYPES = [torch.float32, torch.float64, torch.int64, torch.int32]
+
+
+def _edge_n(name: str, tile: int) -> int:
+    return {"one": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+            "3tiles+5": 3 * tile + 5}[name]
+
+
+def _k5_values(rng, dt, n):
+    if dt.is_floating_point:
+        return torch.from_numpy(rng.uniform(-100, 100, n)).to(dt)
+    return torch.from_numpy(rng.integers(-50, 50, n)).to(dt)
+
+
+def _exact(fn, args, values):
+    """fn (a plain scan) in float64 on the deltas and on their magnitudes:
+    the exact sums and the sums of |x| that bound a float sum's rounding."""
+    def conv(a, f):
+        if isinstance(a, list):
+            return [conv(x, f) for x in a]
+        return f(a.double()) if a.dtype.is_floating_point else a
+
+    def run(f):
+        return fn([f(v.double()) for v in values],
+                  *[conv(a, f) for a in args])
+    return run(lambda t: t), run(torch.abs)
+
+
+def _assert_k5(a, b, dt, op, exact=None, mag=None):
+    """Bit for bit, except float sums: another association than the plain
+    version's, so both within 1e-5 of the sum of magnitudes (+ 1e-3) of
+    the exact float64 sum."""
+    a = a.cpu()
+    if dt.is_floating_point and op == "sum":
+        tol = 1e-5 * mag + 1e-3
+        assert bool(((a.double() - exact).abs() <= tol).all())
+        assert bool(((b.double() - exact).abs() <= tol).all())
+    else:
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("size", K5_SIZES)
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_k5_scans_at_tile_edges_match_plain(cuda, size, op):
+    """K5b grouped and ungrouped and K5 fused at n around the tile: resets
+    on tile edges, one segment spanning every tile (ungrouped, no resets;
+    grouped, one slot), dead epochs in the state, all four types."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import groupby
+    tile = kernels.library("k5_grouped_scan").k5_tile_lanes(0)
+    n = _edge_n(size, tile)
+    rng = np.random.default_rng(n)
+    K = 50
+    edges = np.zeros(n, bool)
+    edges[::tile] = True
+
+    def grouped(vals, slots, d, valid, resets, epoch, ep=None):
+        st, o = groupby.grouped_scan_plain(
+            groupby.GroupState(vals[0], ep), slots, d, valid, resets, epoch,
+            op)
+        return st.values, o
+
+    def ungrouped(vals, d, valid, resets, epoch, ep=None):
+        st, o = groupby.ungrouped_scan_plain(
+            groupby.GroupState(vals[0], ep), d, valid, resets, epoch, op)
+        return st.values, o
+
+    def fused(fn):
+        def run(vals, *a, ep=None):
+            v, _, o = fn(vals, ep, *a)
+            return v, o
+        return run
+
+    for layout in ("random", "spanning"):
+        if layout == "random":
+            slots = torch.from_numpy(rng.integers(0, K, n).astype(np.int32))
+            resets = torch.from_numpy((rng.random(n) < 0.001) | edges)
+        else:
+            slots = torch.full((n,), 7, dtype=torch.int32)
+            resets = torch.zeros(n, dtype=torch.bool)
+        valid = torch.from_numpy(rng.random(n) < 0.9)
+        epoch = torch.tensor(3, dtype=torch.int32)
+        for dt in K5_DTYPES:
+            d = _k5_values(rng, dt, n)
+            vals = _k5_values(rng, dt, K)
+            ep = torch.from_numpy(rng.integers(2, 5, K).astype(np.int32))
+            args = (slots, d, valid, resets, epoch)
+            ps, po = groupby.grouped_scan_plain(
+                groupby.GroupState(vals.clone(), ep.clone()), *args, op)
+            ks, ko = groupby.grouped_scan(
+                groupby.GroupState(vals.to(cuda), ep.to(cuda)),
+                *[a.to(cuda) for a in args], op)
+            assert torch.equal(ks.epoch.cpu(), ps.epoch)
+            ex, mag = _exact(lambda v, *a: grouped(v, *a, ep=ep), args,
+                             [vals])
+            _assert_k5(ks.values, ps.values, dt, op, ex[0], mag[0])
+            _assert_k5(ko, po, dt, op, ex[1], mag[1])
+            for live in (True, False):
+                cell = vals[:1].clone()
+                ecell = torch.tensor([3 if live else 2], dtype=torch.int32)
+                uargs = (d, valid, resets, epoch)
+                pu, puo = groupby.ungrouped_scan_plain(
+                    groupby.GroupState(cell.clone(), ecell.clone()), *uargs,
+                    op)
+                ku, kuo = groupby.ungrouped_scan(
+                    groupby.GroupState(cell.to(cuda), ecell.to(cuda)),
+                    *[a.to(cuda) for a in uargs], op)
+                assert torch.equal(ku.epoch.cpu(), pu.epoch)
+                ex, mag = _exact(lambda v, *a: ungrouped(v, *a, ep=ecell),
+                                 uargs, [cell])
+                _assert_k5(ku.values, pu.values, dt, op, ex[0], mag[0])
+                _assert_k5(kuo, puo, dt, op, ex[1], mag[1])
+        if op != "sum":
+            continue
+        comps = [_k5_values(rng, dt, n) for dt in
+                 (torch.float32, torch.int64, torch.int32)]
+        vals = [_k5_values(rng, c.dtype, K) for c in comps]
+        ep = torch.from_numpy(rng.integers(2, 5, K).astype(np.int32))
+        lanes = (valid, resets, epoch)
+        for plain, card, cells, e0, pre in (
+                (groupby.grouped_scan_fused_plain,
+                 groupby.grouped_scan_fused, vals, ep, (slots,)),
+                (groupby.ungrouped_scan_fused_plain,
+                 groupby.ungrouped_scan_fused, [v[:1] for v in vals],
+                 torch.tensor([3], dtype=torch.int32), ())):
+            pv, pe, po = plain([v.clone() for v in cells], e0.clone(), *pre,
+                               comps, *lanes)
+            kv, ke, ko = card([v.to(cuda) for v in cells], e0.to(cuda),
+                              *[a.to(cuda) for a in pre],
+                              [c.to(cuda) for c in comps],
+                              *[a.to(cuda) for a in lanes])
+            assert torch.equal(ke.cpu(), pe)
+            ex, mag = _exact(
+                lambda v, *a, e0=e0, plain=plain: fused(plain)(
+                    v, *a, ep=e0.clone()),
+                (*pre, [c.double() for c in comps], *lanes), cells)
+            for c in range(3):
+                _assert_k5(kv[c], pv[c], comps[c].dtype, op, ex[0][c],
+                           mag[0][c])
+                _assert_k5(ko[c], po[c], comps[c].dtype, op, ex[1][c],
+                           mag[1][c])
+
+
+@pytest.mark.parametrize("size", K5_SIZES + ["site"])
+def test_k5b_running_count_matches_plain(cuda, size):
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import groupby
+    tile = kernels.library("k5_grouped_scan").k5_tile_lanes(0)
+    n = 141_087 if size == "site" else _edge_n(size, tile)
+    rng = np.random.default_rng(n)
+    mask = torch.from_numpy(rng.random(n) < 0.97)
+    for dt, base in ((torch.int32, None),
+                     (torch.int64, torch.tensor(2**40 + 3))):
+        pc, pt = groupby.running_count_plain(mask, base, dt)
+        kernels.reset_launch_counts()
+        kc, kt = groupby.running_count(
+            mask.to(cuda), counter="K5b limit",
+            base=None if base is None else base.to(cuda), dtype=dt)
+        assert kernels.LAUNCHES["K5b limit"] == 1
+        assert kc.dtype == dt and torch.equal(kc.cpu(), pc)
+        assert kt.shape == () and int(kt) == int(pt)
+
+
+def test_k5_float_sums_are_bit_identical_across_runs(cuda):
+    """Float sums fold the tile aggregates in a fixed order: the same
+    inputs give the same bits, grouped (K = 2^20) and ungrouped, at the
+    sites' width."""
+    from siddhi_tpu_torch.ops import groupby
+    rng = np.random.default_rng(15)
+    L, K = 262_144, 1 << 20
+    slots = torch.from_numpy(rng.integers(0, K, L).astype(np.int32)).to(cuda)
+    valid = torch.from_numpy(rng.random(L) < 0.9).to(cuda)
+    resets = torch.zeros(L, dtype=torch.bool, device=cuda)
+    epoch = torch.zeros((), dtype=torch.int32, device=cuda)
+    for dt in (torch.float32, torch.float64):
+        d = torch.from_numpy(rng.normal(size=L) * 1e3).to(dt).to(cuda)
+        outs = []
+        for _ in range(2):
+            st = groupby.init_group_state(K, dt, cuda)
+            st, o = groupby.grouped_scan(st, slots, d, valid, resets, epoch)
+            cell = groupby.init_group_state(1, dt, cuda)
+            cell, u = groupby.ungrouped_scan(cell, d, valid, resets, epoch)
+            outs.append((o, st.values, u, cell.values))
+        for a, b in zip(*outs):
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def test_k5_launches_match_the_counters(cuda):
+    """One launch a K5b component, one a K5 plan of up to four sum
+    components (six take two, the second writing the epochs)."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import groupby
+    rng = np.random.default_rng(16)
+    L, K = 10_000, 64
+    slots = torch.from_numpy(rng.integers(0, K, L).astype(np.int32)).to(cuda)
+    valid = torch.from_numpy(rng.random(L) < 0.9).to(cuda)
+    resets = torch.from_numpy(rng.random(L) < 0.001).to(cuda)
+    epoch = torch.tensor(2, dtype=torch.int32, device=cuda)
+    comps = [torch.from_numpy(rng.integers(-9, 9, L)).to(dt).to(cuda)
+             for dt in (torch.int64, torch.int32, torch.float64,
+                        torch.int64, torch.int32, torch.int64)]
+    vals = [torch.from_numpy(rng.integers(-9, 9, K)).to(c.dtype).to(cuda)
+            for c in comps]
+    ep = torch.from_numpy(rng.integers(1, 4, K).astype(np.int32)).to(cuda)
+    kernels.reset_launch_counts()
+    kv, ke, ko = groupby.grouped_scan_fused(
+        [v.clone() for v in vals], ep.clone(), slots, comps, valid, resets,
+        epoch)
+    pv, pe, po = groupby.grouped_scan_fused_plain(
+        [v.cpu() for v in vals], ep.cpu(), slots.cpu(),
+        [c.cpu() for c in comps], valid.cpu(), resets.cpu(), epoch.cpu())
+    assert torch.equal(ke.cpu(), pe)
+    for a, b in zip(kv + ko, pv + po):  # integer-valued: exact
+        assert torch.equal(a.cpu(), b)
+    groupby.ungrouped_scan_fused(
+        [torch.zeros(1, dtype=torch.int64, device=cuda) for _ in range(2)],
+        torch.zeros(1, dtype=torch.int32, device=cuda), comps[:1] * 2,
+        valid, resets, epoch)
+    groupby.grouped_scan(groupby.init_group_state(K, torch.int64, cuda),
+                         slots, comps[0], valid, resets, epoch, "max")
+    groupby.ungrouped_scan(groupby.init_group_state(1, torch.int64, cuda),
+                           comps[0], valid, resets, epoch, "min")
+    assert kernels.LAUNCHES["K5"] == 2
+    assert kernels.LAUNCHES["K5 ungrouped"] == 1
+    assert kernels.LAUNCHES["K5b grouped"] == 1
+    assert kernels.LAUNCHES["K5b ungrouped"] == 1
+
+
+def _k7_keys(rng, kind: str, n: int):
+    """(keys, bound) of one K7 edge case."""
+    if kind == "u32":
+        return rng.integers(0, 1 << 20, n).astype(np.int32), (1 << 20) - 1
+    if kind == "i32":
+        k = rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+        k[rng.integers(0, n, max(1, n // 50))] = np.int32(-2**31)
+        k[rng.integers(0, n, max(1, n // 50))] = np.int32(2**31 - 1)
+        return k, None
+    if kind == "i64":
+        k = rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64)
+        k[rng.integers(0, n, max(1, n // 50))] = -2**63
+        k[rng.integers(0, n, max(1, n // 50))] = 2**63 - 1
+        k[rng.integers(0, n, max(1, n // 50))] = -1
+        return k, None
+    if kind == "i64_some_digits":  # bytes 1 and 4 vary, the rest constant
+        k = (rng.integers(0, 256, n, dtype=np.int64) << 8) | \
+            (rng.integers(0, 4, n, dtype=np.int64) << 32) | (-7 << 48)
+        return k, None
+    if kind == "i64_equal":
+        return np.full(n, -123456789012, np.int64), None
+    if kind == "u32_equal":
+        return np.full(n, 77, np.int32), 1000
+    return np.full(n, -5, np.int32), None  # i32_equal
+
+
+K7_SIZES = ["one", "tile-1", "tile", "tile+1", "3tiles+5", "small",
+            "small+1", "site", "past the grid"]
+K7_KINDS = ["u32", "i32", "i64", "i64_some_digits", "i64_equal",
+            "u32_equal", "i32_equal"]
+
+
+@pytest.mark.parametrize("size", K7_SIZES)
+@pytest.mark.parametrize("kind", K7_KINDS)
+def test_k7_onesweep_edge_shapes_match_plain(cuda, size, kind):
+    """Sizes around a pass tile and the one-block limit, and one more
+    tile than the cooperative grid holds at once (a block walks two
+    tiles); keys constant in every digit (every pass skipped), in some
+    digits only, signed int32 and int64 with their extremes; the full
+    order and width < n; one launch a sort."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import search
+    tile = kernels.bind("k7_radix_sort", "k7_tile_keys", [])()
+    small = kernels.bind("k7_radix_sort", "k7_small_max", [])()
+    cap = kernels.bind("k7_radix_sort", "k7_grid_capacity",
+                       [ctypes.c_int])(8)
+    n = {"small": small, "small+1": small + 1, "site": 393_216,
+         "past the grid": (cap + 1) * tile + 7}.get(size) \
+        or _edge_n(size, tile)
+    rng = np.random.default_rng(n + len(kind))
+    keys, bound = _k7_keys(rng, kind, n)
+    k = torch.from_numpy(keys).to(cuda)
+    for width in (n, max(0, n // 3)):
+        kernels.reset_launch_counts()
+        got = search.stable_radix_argsort(k, bound, width, counter="K7 rank")
+        want = search.stable_radix_argsort_plain(k, bound, width)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+        assert kernels.LAUNCHES["K7 rank"] == 1

@@ -6,11 +6,13 @@ restore, row encoding per type with nulls, and the decode helpers
 (map_codes, build_events). Codes, strings and values are exact.
 """
 
+import fcntl
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import textwrap
-import time
 
 import numpy as np
 import pytest
@@ -75,21 +77,51 @@ def test_disable_switches_select_the_python_encoder():
         assert out.stdout.strip() == "True"
 
 
+def _rebuild_reference() -> None:
+    """Build the JAX package's extension afresh (`--force`: a broken
+    library that a colliding build left is newer than its source, so an
+    ordinary build skips it) into a private directory, then move it into
+    the build directory by an atomic rename: a worker that has the old
+    file loaded keeps its mapping."""
+    with tempfile.TemporaryDirectory() as tmp:
+        subprocess.run(
+            [sys.executable, "setup.py", "build_ext", "--force",
+             "--build-lib", tmp, "--build-temp", os.path.join(tmp, "obj")],
+            cwd=jnative._SRC_DIR, check=True, capture_output=True,
+            timeout=300)
+        os.makedirs(jnative._BUILD_DIR, exist_ok=True)
+        for name in os.listdir(tmp):
+            if name.endswith(".so"):
+                part = os.path.join(jnative._BUILD_DIR, f".{name}.part")
+                shutil.copyfile(os.path.join(tmp, name), part)
+                os.replace(part, os.path.join(jnative._BUILD_DIR, name))
+
+
 def _reference_native():
     """The JAX package's native module. Its loader builds the extension
     in place when siddhi_tpu is first imported (`setup.py build_ext` into
-    one shared directory), so test workers importing it at once on a fresh
-    tree race: one whose build collides with another's keeps the Python
-    encoder (one process in 32, in runs of 8 at a time). Load it again
-    now, after those builds have ended; build it if no build landed."""
-    for _ in range(5):
-        if jnative.native is not None or jnative._DISABLED:
-            break
+    one shared directory, pruning the other hash directories), so test
+    workers importing it at once on a fresh tree race: a worker whose
+    build collides with another's keeps the Python encoder, and the
+    colliding builds can leave a broken library. Load it under an
+    exclusive lock on a file beside the build root, so no two callers
+    build at once; if it does not import, rebuild it and import it
+    after the build."""
+    if jnative.native is not None or jnative._DISABLED:
+        return jnative.native
+    lock = os.path.join(os.path.dirname(jnative._BUILD_ROOT),
+                        "_native_build.lock")
+    with open(lock, "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
         try:
-            jnative._try_import()
-        except ImportError:
-            if not jnative._build():
-                time.sleep(2)
+            for _ in range(3):
+                try:
+                    jnative._try_import()
+                    break
+                except ImportError:
+                    _rebuild_reference()
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
     return jnative.native
 
 
