@@ -57,7 +57,8 @@ Phases (any failure exits non-zero and prints no result line):
 10. the pattern kernels against their plain versions at app I's shapes
    (B = 32768 arrivals, a P = 131072-slot pending table 45% full in
    scattered slots), bit for bit: K11a first_match in pattern and in
-   sequence mode, each with and without a residual mask, and K11b
+   sequence mode, each with and without a residual mask, K7 on the
+   batch's equality column as K11a's index sorts it, and K11b
    pending_insert (the whole table and the drop count), once into free
    slots and once overflowing them; with the same timings;
 11. app H, BASELINE config 4 as bench.py writes it (`every a=StreamA ->
@@ -290,7 +291,20 @@ Phases (any failure exits non-zero and prints no result line):
    keys constant in some digits, all keys equal (every pass skipped), the
    whole order and width < n, and more tiles than the cooperative grid
    holds at once, bit for bit; one launch a K5b component, a K5 plan of
-   up to four sum components and a K7 sort.
+   up to four sum components and a K7 sort;
+32. (run right after phase 31) K11a and K13a at their edges against their
+   plain versions, bit for bit: first_match with no equality and with one
+   to four columns of bool, int32 and int64 (negative and extreme
+   values), runs far longer than a warp, every entry matching and none,
+   `within` failing on a lane with a later lane passing (unsorted ts),
+   timestamps near the int64 extremes, residual tiles, dead entries and a
+   live mask, sequence mode, P = 0, B = 1 and no valid lane, with K11a's
+   launches (the index, then one a residual tile); both K13a walks on
+   conditions true and false on every check, the E cap, the 2B + E + 8
+   cap (E below -2B), NaN means of empty windows, pop chains past a band,
+   frontiers moving 0, 1 and several rows an arrival, expressionBatch
+   flushes on an empty window with the trigger in and out and n_valid
+   inside a tile, at sizes around the tiles, one launch a call.
 
 Every app's Event callback reads back through K12a (its launch counter
 must be non-zero in every app). Apps A, C, D, G, H and N also run the
@@ -542,6 +556,8 @@ KERNELS = {
     "K10 probe": ("multimap_probe", K10_SRC, f"{JOIN}:275"),
     "K10 compact": ("compact_pairs", K10_SRC, f"{JOIN}:165"),
     "K11a": ("first_match", K11_SRC, f"{PATTERN}:1189"),
+    "K7 pattern index": ("first_match's index sort (per equality column)",
+                         K7_SRC, f"{PATTERN}:1189"),
     "K11b": ("pending_insert", K11_SRC, f"{PATTERN}:1460"),
     "K11c": ("absent_scan", K11C_SRC, f"{PATTERN}:871"),
     "K11d": ("match_count", K11C_SRC, f"{PATTERN}:1318"),
@@ -978,6 +994,249 @@ def _timed_device(torch, fn, plain, library=None) -> dict:
     return dict(ms=device_ms(torch, fn), plain_ms=device_ms(torch, plain),
                 library_ms=_library_ms(torch, library),
                 call_ms=time_ms(torch, fn))
+
+
+def _k11a_case(torch, rng, dev, B, P, kinds=("i32",), n_values=6,
+               p_valid=0.9, fill=0.6, within=300, ts_kind="sorted",
+               match="some", residual=False, seq0=70_000):
+    """(args, kw) of first_match: a batch of B arrivals, a P-slot table
+    `fill` full, equality columns of `kinds` (bool, i32, i64 with negative
+    and extreme values) over n_values values; ts sorted, unsorted (so that
+    `within` fails on a lane and passes on a later one) or wild (near the
+    int64 extremes, where differences wrap); entries whose captured values
+    are drawn from the batch's ("some"), all taken from matching lanes
+    ("all": every live entry matches) or absent from it ("none")."""
+    valid = rng.random(B) < p_valid
+    arr_seq = np.where(valid, seq0 + np.cumsum(valid) - 1, 2**62)
+    if ts_kind == "sorted":
+        ts = 10_000 + np.arange(B) // 4
+    elif ts_kind == "unsorted":
+        ts = 10_000 + rng.integers(0, 600, B)
+    else:
+        ts = rng.choice([-2**63, -2**62 - 5, 0, 2**62 - 7, 2**63 - 1], B)
+    lane_ok = valid & (rng.random(B) < 0.85)
+    pend_valid = rng.random(P) < fill
+    last_seq = np.where(rng.random(P) < 0.5,
+                        seq0 - 1 + rng.integers(-2, B + 2, P),
+                        seq0 - 1 - rng.integers(0, 99, P))
+    start_ts = 10_000 - rng.integers(-50, 400, P)
+    if ts_kind == "wild":
+        start_ts = rng.choice([-2**63, -3, 2**62, 2**63 - 1], P)
+    pick = rng.integers(0, B, P)  # the lane each entry copies its values of
+    eq = []
+    for k in kinds:
+        if k == "bool":
+            a = rng.random(B) < 0.5
+        elif k == "i32":
+            a = rng.integers(-n_values, n_values, B).astype(np.int32)
+        else:
+            a = np.array([-2**63, -2**40, -1, 0, 5, 2**40, 2**63 - 1],
+                         np.int64)[rng.integers(0, min(7, 2 * n_values), B)]
+        eq.append([a, a[pick]])
+    if match == "none":  # the first column's captured values miss the batch
+        a = eq[0][0]
+        if a.dtype == bool:
+            a[:] = True
+            eq[0][1] = np.zeros(P, bool)
+        else:  # above every i32 value drawn, outside the i64 set
+            eq[0][1] = np.full(P, 6 if a.dtype == np.int64 else n_values + 1,
+                               a.dtype)
+    if match == "all":  # every entry takes an ok lane's values, before it
+        ok = np.flatnonzero(lane_ok)
+        pick = ok[rng.integers(0, ok.size, P)]
+        for col in eq:
+            col[1] = col[0][pick]
+        last_seq = arr_seq[pick] - 1
+        start_ts = ts[pick] - rng.integers(0, within + 1, P)
+    T = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in (
+        ("arr_seq", arr_seq.astype(np.int64)), ("ts", ts.astype(np.int64)),
+        ("valid", valid), ("lane_ok", lane_ok), ("pend_valid", pend_valid),
+        ("last_seq", last_seq.astype(np.int64)),
+        ("start_ts", start_ts.astype(np.int64)))}
+    pairs = [(torch.from_numpy(np.ascontiguousarray(a)).to(dev),
+              torch.from_numpy(np.ascontiguousarray(e)).to(dev))
+             for a, e in eq]
+    res = None
+    if residual:
+        r = torch.from_numpy(rng.random((B, P)) < 0.7).to(dev)
+
+        def res(p0, p1):
+            return r[:, p0:p1]
+    args = (T["arr_seq"], T["ts"], T["valid"], T["lane_ok"], pairs,
+            T["pend_valid"], T["last_seq"], T["start_ts"], within, False)
+    kw = dict(seq0=torch.tensor(seq0, dtype=torch.int64, device=dev),
+              residual=res, tile=700)
+    return args, kw
+
+
+def k11a_edge_cases(torch, rng, dev):
+    """name -> (args, kw) of first_match at its edges: no equality and one
+    to four columns of bool, int32 and int64 (negative and extreme
+    values), runs far longer than a warp, every entry matching and none,
+    `within` failing on a lane with
+    a later lane passing, wild timestamps, residual tiles, dead entries,
+    sequence mode, P = 0, B = 1 and no valid lane."""
+    c = {}
+    c["no equality"] = _k11a_case(torch, rng, dev, 3000, 2000, kinds=())
+    c["bool"] = _k11a_case(torch, rng, dev, 3000, 2000, kinds=("bool",))
+    c["int32 x2"] = _k11a_case(torch, rng, dev, 3000, 2000,
+                               kinds=("i32", "i32"))
+    c["int64 negative"] = _k11a_case(torch, rng, dev, 3000, 2000,
+                                     kinds=("i64",), n_values=4)
+    c["four columns"] = _k11a_case(torch, rng, dev, 3000, 2000,
+                                   kinds=("bool", "i32", "i64", "i64"),
+                                   n_values=2)
+    c["long runs, unsorted ts"] = _k11a_case(
+        torch, rng, dev, 5000, 3000, kinds=("i32",), n_values=1,
+        within=40, ts_kind="unsorted")
+    c["within fails then passes"] = _k11a_case(
+        torch, rng, dev, 3000, 3000, kinds=("i32",), n_values=3,
+        within=100, ts_kind="unsorted")
+    c["every entry matches"] = _k11a_case(
+        torch, rng, dev, 3000, 2000, kinds=("i64", "bool"), match="all")
+    c["no entry matches"] = _k11a_case(torch, rng, dev, 3000, 2000,
+                                       kinds=("i32",), match="none")
+    c["wild ts"] = _k11a_case(torch, rng, dev, 2000, 1500, kinds=("i32",),
+                              n_values=2, ts_kind="wild")
+    c["residual tiles"] = _k11a_case(torch, rng, dev, 1500, 3000,
+                                     kinds=("i32", "bool"), residual=True)
+    c["dead entries"] = _k11a_case(torch, rng, dev, 3000, 3000,
+                                   kinds=("i32",), fill=0.05)
+    args, kw = _k11a_case(torch, rng, dev, 3000, 3000, kinds=("i32",))
+    live = args[5] & torch.from_numpy(rng.random(3000) < 0.5).to(dev)
+    c["live mask"] = (args[:5] + (live,) + args[6:], kw)
+    for res in (False, True):
+        args, kw = _k11a_case(torch, rng, dev, 1500, 3000, kinds=("i32",),
+                              n_values=2, residual=res)
+        nxt = (kw["seq0"] - 1 + torch.from_numpy(
+            rng.integers(-3, 1503, 3000)).to(dev))
+        c[f"sequence{' residual' if res else ''}"] = (
+            args[:6] + (nxt,) + args[7:9] + (True,), kw)
+    c["P = 0"] = _k11a_case(torch, rng, dev, 500, 0)
+    c["B = 1"] = _k11a_case(torch, rng, dev, 1, 700, n_values=1)
+    c["no valid lane"] = _k11a_case(torch, rng, dev, 900, 700, p_valid=0.0)
+    return c
+
+
+def _k13a_env(torch, cond, data: dict, dev):
+    """The metric arrays of a condition over value sequences `data`."""
+    env = {}
+    for kind, attr in cond.program.arrays:
+        seq = data[attr]
+        seq = {"seq": seq, "prefix": np.r_[0.0, np.cumsum(seq)],
+               "prefix_sq": np.r_[0.0, np.cumsum(seq * seq)]}[kind]
+        env[(kind, attr)] = torch.from_numpy(np.ascontiguousarray(
+            seq)).to(dev)
+    return env
+
+
+def k13a_edge_cases(torch, rng, dev):
+    """name -> (mode, cond, env, winlen0, n_valid, B, E or include_trigger)
+    of K13a at its edges: a condition true on every check (no pop) and one
+    false on every check (pops to the empty window, to the E cap), a walk
+    whose 2B + E + 8 cap bites (E below -2B), NaN means of an empty window,
+    pop chains longer than a band and a chain tile, frontiers that move
+    0, 1 and several rows an arrival across tile edges, expressionBatch
+    flushes on an empty window with the trigger in and out, and n_valid
+    inside a tile, at sizes around the tiles (60 arrivals, 512 checks).
+    With n_valid <= B the cap can bite only when E < -2B + n_valid: every
+    pop then stops at once, so it lands after an add-check or a pop."""
+    from siddhi_tpu_torch.ops import expression_general as eg
+    layout = {"price": torch.float64, "volume": torch.int64,
+              "spiky": torch.int64}
+    n = 4096
+    spikes = rng.integers(1, 9, n).astype(np.float64)
+    spikes[rng.choice(n, 12, replace=False)] = 400.0  # long pop chains
+    data = {"price": rng.integers(-400, 900, n) / 64.0,
+            "volume": rng.integers(1, 9, n).astype(np.float64),
+            "spiky": spikes}
+    out = {}
+
+    def add(name, text, B, w0, nv, modes=(0, 1), E=None, inc=(0, 1)):
+        win = eg.GeneralExpressionWindow(layout, B, text)
+        env = _k13a_env(torch, win.cond, data, dev)
+        a = (torch.tensor(w0, dtype=torch.int32, device=dev),
+             torch.tensor(nv, dtype=torch.int32, device=dev))
+        if 0 in modes:
+            out[f"sliding {name} B={B} w0={w0} nv={nv}"] = (
+                0, win.cond, env, *a, B, win.E if E is None else E)
+        if 1 in modes:
+            for i in inc:
+                out[f"batch {name} B={B} w0={w0} nv={nv} inc={i}"] = (
+                    1, win.cond, env, *a, B, bool(i))
+
+    for B in (1, 59, 60, 61, 121, 511, 512, 513, 1100):
+        add("true", "count() >= 1", B, 300, B)
+        add("false", "count() < 1", B, 0, B)
+        add("false", "count() < 1", B, 5, max(B - 9, 0))
+        add("sum", "sum(volume) <= 60", B, 200, B)
+    add("false, E cap", "count() < 1", 300, 900, 300, modes=(0,), E=37)
+    for k in (0, 3, 4, 9):  # max_iter = 8 + k checks: the cap bites
+        add(f"cap {8 + k}", "sum(volume) <= 60", 200, 150, 200, modes=(0,),
+            E=-400 + k)
+        add(f"cap {8 + k} current", "price > 3.0 and count() < 9", 200, 150,
+            200, modes=(0,), E=-400 + k)
+    add("nan", "avg(price) > 1000.0", 600, 40, 600)
+    add("stdDev nan", "stdDev(price) < 3.0 and count() < 40", 600, 40, 590)
+    add("one a row", "count() <= 40", 700, 40, 700)
+    add("signed sums", "sum(price) <= 100.0", 700, 100, 700)
+    add("long chains", "sum(spiky) <= 500", 1500, 1000, 1500)
+    add("chain tile", "sum(spiky) <= 30", 1500, 2500, 1500)
+    add("current", "price > 3.0 or count() < 5", 900, 300, 880)
+    add("first and last", "(last.price - first.price) % -7.5 < 3.0", 900,
+        300, 900)
+    add("empty flushes", "sum(price) < 2.0", 1100, 0, 1100, modes=(1,))
+    add("nv in a tile", "sum(volume) <= 60", 1100, 10, 700)
+    add("nv = 0", "sum(volume) <= 60", 300, 10, 0)
+    return out
+
+
+def run_k13a_case(eg, case, plain: bool):
+    mode, cond, env, w0, nv, B, x = case
+    if mode == 0:
+        walk = eg.sliding_walk_plain if plain else eg.sliding_walk
+        return walk(cond, env, w0, nv, B, x)
+    walk = eg.batch_walk_plain if plain else eg.batch_walk
+    return walk(cond, env, w0, nv, B, x)
+
+
+def pattern_walk_edge_phase(torch, rng) -> None:
+    """Phase 32: K11a and K13a at their edges against their plain versions,
+    bit for bit, and their launches a call (see the module docstring)."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import expression_general as eg
+    from siddhi_tpu_torch.ops import pattern
+
+    dev = torch.device("cuda")
+    n_match = 0
+    for name, (args, kw) in k11a_edge_cases(torch, rng, dev).items():
+        kernels.reset_launch_counts()
+        got = pattern.first_match(*args, **kw)
+        want = pattern.first_match_plain(*args, **kw)
+        for f, g, w in zip(("b_star", "matched", "killed"), got, want):
+            check_equal(f"K11a edge {name} {f}", g, w)
+        P = args[5].shape[0]
+        tiles = -(-P // kw["tile"]) if kw["residual"] else min(P, 1)
+        sequence = args[9]
+        want_launches = tiles + (0 if sequence or not P
+                                 or not args[0].shape[0] else 1)
+        if kernels.LAUNCHES["K11a"] != want_launches:
+            raise Failure(f"K11a edge {name}: {kernels.LAUNCHES['K11a']} "
+                          f"launches, the counter's formula says "
+                          f"{want_launches}")
+        n_match += int(got[1].sum())
+    print(f"K11a edges: every case bit for bit, {n_match} matches")
+    cases = k13a_edge_cases(torch, rng, dev)
+    for name, case in cases.items():
+        kernels.reset_launch_counts()
+        got = run_k13a_case(eg, case, plain=False)
+        counter = "K13a sliding" if case[0] == 0 else "K13a batch"
+        if kernels.LAUNCHES[counter] != 1:
+            raise Failure(f"K13a edge {name}: {kernels.LAUNCHES[counter]} "
+                          "launches, one a call expected")
+        for i, (g, w) in enumerate(zip(got, run_k13a_case(eg, case, True))):
+            check_equal(f"K13a edge {name} output {i}", g, w)
+    print(f"K13a edges: {len(cases)} cases bit for bit, one launch a call")
 
 
 def scan_sort_edge_phase(torch, rng) -> None:
@@ -2404,6 +2663,19 @@ def pattern_kernel_phase(torch, rng) -> dict:
         max_abs_err=0, bound_by="bytes")
     print(f"K11a first_match B={B} P={P} ({int(t['pend_valid'].sum())} live"
           f", {int(got[1].sum())} matched): {res['K11a']}")
+    # the K7 sort K11a's index runs on the batch's equality column
+    from siddhi_tpu_torch.ops import search
+    key = t["bval"]
+    check_equal("K7 pattern index", search.stable_radix_argsort(
+        key, counter="K7 pattern index"),
+        search.stable_radix_argsort_plain(key))
+    res["K7 pattern index"] = dict(
+        _timed(torch, lambda: search.stable_radix_argsort(
+            key, counter="K7 pattern index"),
+            lambda: search.stable_radix_argsort_plain(key),
+            library=lambda: torch.sort(key, stable=True)),
+        bound_ms=bound_ms(B * 4 + B * 4), max_abs_err=0, bound_by="bytes")
+    print(f"K7 pattern index, B={B} int32 values: {res['K7 pattern index']}")
 
     # K11b: app I's candidates (one A batch) into position 1's table
     def table(fill):
@@ -2587,7 +2859,7 @@ def pattern_apps(torch, rng, card: str, summary=None) -> dict:
         dropped = int(rt.query_runtimes["bench"].state.dropped)
         if dropped:
             raise Failure(f"app {name}: {dropped} partial matches dropped")
-        for k in ("K1", "K11a", "K11b", "K12a"):
+        for k in ("K1", "K11a", "K7 pattern index", "K11b", "K12a"):
             if launches[k] == 0:
                 raise Failure(f"app {name}: kernel {k} never launched")
         syncs, step_ms = measure_pattern_steps(torch, rt, data)
@@ -2966,8 +3238,8 @@ def absent_every_apps(torch, rng, card: str) -> dict:
     check_no_tie(data, ROUNDS_P, BATCH_P)
     end = int(data["B"][1].max()) + WAIT_O + 1
     for name, text, on_path in (("O", APP_O, ("K11b", "K11c", "K12a")),
-                                ("P", APP_P, ("K11a", "K11b", "K11d",
-                                              "K12a"))):
+                                ("P", APP_P, ("K11a", "K7 pattern index",
+                                              "K11b", "K11d", "K12a"))):
         if name == "O":
             want = oracle_absent(data, ROUNDS_P, BATCH_P, PENDING_P, end=end)
         else:
@@ -7335,6 +7607,8 @@ def main(argv=None) -> int:
         kres = kernel_phase(torch, rng, width_a)
         # its own generator: the phases after it keep their inputs
         scan_sort_edge_phase(torch, np.random.default_rng([args.seed, 31]))
+        pattern_walk_edge_phase(torch,
+                                np.random.default_rng([args.seed, 32]))
 
         launches = {k: 0 for k in KERNELS}
         summary = {}  # the columnar async path, per app

@@ -5,24 +5,36 @@
 //         (:1189-1226 over _leg_cond :706): for each pending entry, the
 //         first qualifying arrival of the batch — `argmin` over B of
 //         where(q, arr_seq, BIGSEQ) — whether there is one, and for
-//         sequences the strict kill; as k11_first_match.
+//         sequences the strict kill; as k11_match_index (pattern mode's
+//         index of the batch) and k11_first_match.
 //   K11b  _insert_entries (:1460, through _advance :1403): candidate
 //         entries into the free slots of a pending table, the k-th valid
 //         candidate into the k-th free slot; as k11_insert_prepare (two
 //         launches) and k11_insert_scatter.
 // Both are bit for bit with the JAX functions.
 //
-// first_match, pattern mode: one thread per pending entry, 256 a block.
-// Valid lanes carry strictly increasing arrival seqs (state.seq + rank),
-// so the argmin is the first qualifying lane in lane order. The block
-// stages the batch's arr_seq, ts, lane_ok and the equality columns in
-// shared-memory tiles of 512 lanes and every live thread walks them in
-// order, stopping at its first hit; a dead entry does no work, and the
-// block stops loading tiles once every thread is done (__syncthreads_or).
-// A qualifying lane is lane_ok (valid and the conjuncts over the arrival
-// alone), arr_seq > last_seq, every equality arrival == captured, ts -
-// start_ts <= within, and, where the caller has conjuncts left, its [B, T]
-// mask tile (the wrapper launches once per tile of T entries then).
+// first_match, pattern mode: an exact index of the batch, built once a
+// call, then one probe a pending entry.
+//   index  the batch's lanes ordered by (lane_ok first, the equality
+//          arrival columns, lane): the wrapper sorts them with K7 (one
+//          stable sort a column, least significant first, on keys whose
+//          order is the column's value order) and K1 (lane_ok first),
+//          then k11_match_index gathers, at each sorted position, the
+//          lane, lane_ok, arr_seq, ts and the columns as int64. A run of
+//          equal tuples holds its
+//          lanes in lane order, so their arr_seq increases along it (valid
+//          lanes carry strictly increasing seqs, state.seq + rank).
+//   probe  one thread an entry, 256 a block: a binary search for the first
+//          position whose (tuple, arr_seq) is not below (captured tuple,
+//          last_seq), i.e. the entry's run past last_seq, then a walk
+//          along the run that tests `within` and the residual and stops
+//          at the first lane that passes. ts is not sorted along a run, so
+//          a lane that fails `within` does not end the walk. A dead entry
+//          does no work. With no equality the run is every lane_ok lane.
+// The first qualifying lane in lane order is the argmin over B of
+// where(q, arr_seq, BIGSEQ). The residual, where the caller has conjuncts
+// left, is a [B, T] mask tile (one probe launch a tile of T entries, on
+// the same index).
 //
 // first_match, sequence mode: only the arrival with seq last_seq + 1 can
 // qualify. Its lane is order[last_seq + 1 - seq0] in K1's valid-first
@@ -44,12 +56,11 @@
 // up to 32 a launch: captured columns, frame validity and timestamps,
 // start_ts, last_seq, armed_ts, leg_done (cleared), origin and valid.
 //
-// Bound on the H100: bytes, both. first_match reads 25 bytes a lane plus
-// 4-8 per equality, 17 bytes an entry plus its captured columns, and
-// writes 10 bytes an entry; its work is the lanes each live entry walks
-// to its first hit (all B for an entry that finds none), which at config
-// 4's width (B = 32768, P = 131072) is far above that byte bound — a
-// hash of the batch's equality keys would cut the walk, in a later PR.
+// Bound on the H100: bytes, both. first_match reads, for the index, 25
+// bytes a lane plus 4-8 per equality (and the sorts' keys), 17 bytes an
+// entry plus its captured columns, and writes 10 bytes an entry; a probe
+// reads O(log B + run) positions of the index, so at config 4's width
+// (B = 32768, values unique per lane) its work is close to those bytes.
 // The insert reads the candidates' and free slots' flags and writes each
 // fitting candidate's columns once.
 
@@ -59,7 +70,6 @@ namespace {
 
 constexpr int MAX_EQ = 4;
 constexpr int BLOCK = 256;
-constexpr int LTILE = 512;
 constexpr int IBLOCK = 1024;
 constexpr int MAX_JOBS = 32;
 
@@ -89,68 +99,116 @@ __device__ __forceinline__ long long load_as_i64(const void* p, int size,
   return static_cast<const uint8_t*>(p)[i];
 }
 
+// The index of the batch (see the file's comment), struct of arrays in
+// one buffer of k11_index_bytes(B, n).
+struct Index {
+  int64_t* seq;      // [B] arr_seq at each sorted position
+  int64_t* ts;       // [B]
+  int64_t* key;      // [n][B] equality arrival columns as int64
+  int32_t* lane;     // [B] the lane at each sorted position
+  uint8_t* ok;       // [B] lane_ok
+};
+
+__host__ __device__ inline long long index_bytes(long long B, int n) {
+  return B * (16 + 8LL * n) + 4 * B + B;
+}
+
+__host__ __device__ inline Index index_at(void* buf, int B, int n) {
+  Index x;
+  int64_t* w = static_cast<int64_t*>(buf);
+  x.seq = w;
+  x.ts = w + B;
+  x.key = w + 2LL * B;
+  x.lane = reinterpret_cast<int32_t*>(w + (2LL + n) * B);
+  x.ok = reinterpret_cast<uint8_t*>(x.lane + B);
+  return x;
+}
+
+// ts - start_ts as the JAX step computes it: int64, wrapping
+__device__ __forceinline__ long long wrap_sub(long long a, long long b) {
+  return static_cast<long long>(static_cast<unsigned long long>(a) -
+                                static_cast<unsigned long long>(b));
+}
+
+// One thread a sorted position m: gather lane order[m]'s columns.
+__global__ void match_index(const int32_t* __restrict__ order,
+                            const int64_t* __restrict__ arr_seq,
+                            const int64_t* __restrict__ ts,
+                            const uint8_t* __restrict__ lane_ok, int B,
+                            EqCols eq, Index x) {
+  const long long m = static_cast<long long>(blockIdx.x) * BLOCK +
+                      threadIdx.x;
+  if (m >= B) return;
+  const int l = order[m];
+  x.lane[m] = l;
+  x.ok[m] = lane_ok[l];
+  x.seq[m] = arr_seq[l];
+  x.ts[m] = ts[l];
+  for (int k = 0; k < eq.n; ++k)
+    x.key[k * static_cast<long long>(B) + m] =
+        load_as_i64(eq.arr[k], eq.size[k], l);
+}
+
+// One thread an entry of [p0, p0 + np): the first lane of its run past
+// last_seq that passes `within` and the residual (see the file's comment).
 __global__ void first_match_pattern(
-    const int64_t* __restrict__ arr_seq, const int64_t* __restrict__ ts,
-    const uint8_t* __restrict__ lane_ok, int B, EqCols eq,
-    const uint8_t* __restrict__ pend_valid,
+    Index x, int B, EqCols eq, const uint8_t* __restrict__ pend_valid,
     const int64_t* __restrict__ last_seq,
     const int64_t* __restrict__ start_ts, int p0, int np, int has_within,
     long long within, const uint8_t* __restrict__ resid,
     int64_t* __restrict__ b_star, uint8_t* __restrict__ matched,
     uint8_t* __restrict__ killed) {
-  __shared__ long long s_seq[LTILE];
-  __shared__ long long s_ts[LTILE];
-  __shared__ long long s_eq[MAX_EQ][LTILE];
-  __shared__ uint8_t s_ok[LTILE];
   const int j = blockIdx.x * BLOCK + threadIdx.x;
+  if (j >= np) return;
   const long long p = static_cast<long long>(p0) + j;
-  const bool live = j < np && pend_valid[p];
-  long long ls = 0, st = 0;
-  long long ev[MAX_EQ];
-#pragma unroll
-  for (int k = 0; k < MAX_EQ; ++k) ev[k] = 0;
-  if (live) {
-    ls = last_seq[p];
-    st = start_ts[p];
-    for (int k = 0; k < eq.n; ++k) ev[k] = load_as_i64(eq.ent[k], eq.size[k], p);
-  }
-  bool done = !live;
   bool found = false;
   int hit = 0;
-  for (int base = 0; base < B; base += LTILE) {
-    // also the barrier between reading one tile and loading the next
-    if (!__syncthreads_or(!done)) break;
-    const int n = min(LTILE, B - base);
-    for (int t = threadIdx.x; t < n; t += BLOCK) {
-      const int b = base + t;
-      s_seq[t] = arr_seq[b];
-      s_ts[t] = ts[b];
-      s_ok[t] = lane_ok[b];
-      for (int k = 0; k < eq.n; ++k)
-        s_eq[k][t] = load_as_i64(eq.arr[k], eq.size[k], b);
+  if (pend_valid[p]) {
+    const long long ls = last_seq[p];
+    const long long st = start_ts[p];
+    long long ev[MAX_EQ];
+    for (int k = 0; k < eq.n; ++k)
+      ev[k] = load_as_i64(eq.ent[k], eq.size[k], p);
+    // the first position not below (captured tuple, last_seq); positions
+    // that are not lane_ok lie above every tuple
+    int lo = 0, hi = B;
+    while (lo < hi) {
+      const int m = (lo + hi) >> 1;
+      bool below = x.ok[m] != 0;
+      if (below) {
+        int k = 0;
+        for (; k < eq.n; ++k) {
+          const long long kv = x.key[k * static_cast<long long>(B) + m];
+          if (kv != ev[k]) {
+            below = kv < ev[k];
+            break;
+          }
+        }
+        if (k == eq.n) below = x.seq[m] <= ls;
+      }
+      if (below)
+        lo = m + 1;
+      else
+        hi = m;
     }
-    __syncthreads();
-    if (done) continue;
-    for (int t = 0; t < n; ++t) {
-      if (!s_ok[t] || s_seq[t] <= ls) continue;
-      bool ok = true;
-      for (int k = 0; k < eq.n; ++k) ok = ok && s_eq[k][t] == ev[k];
-      if (!ok) continue;
-      if (has_within && s_ts[t] - st > within) continue;
-      if (resid != nullptr &&
-          !resid[static_cast<long long>(base + t) * np + j])
+    for (int m = lo; m < B; ++m) {
+      if (!x.ok[m]) break;
+      bool same = true;
+      for (int k = 0; k < eq.n; ++k)
+        same = same && x.key[k * static_cast<long long>(B) + m] == ev[k];
+      if (!same) break;  // past the run
+      if (has_within && wrap_sub(x.ts[m], st) > within) continue;
+      const int l = x.lane[m];
+      if (resid != nullptr && !resid[static_cast<long long>(l) * np + j])
         continue;
-      hit = base + t;
+      hit = l;
       found = true;
-      done = true;
       break;
     }
   }
-  if (j < np) {
-    b_star[p] = found ? hit : 0;
-    matched[p] = found;
-    killed[p] = 0;
-  }
+  b_star[p] = found ? hit : 0;
+  matched[p] = found;
+  killed[p] = 0;
 }
 
 __global__ void first_match_sequence(
@@ -277,16 +335,48 @@ __global__ void insert_scatter(const uint8_t* __restrict__ cand_valid, int W,
 
 SIDDHI_ERROR_STRING_EXPORT
 
-// Batch [B]: arr_seq, ts int64; valid, lane_ok bool; sequence mode also
-// order int32[B] (K1 over valid) and seq0 int64[1]; n_eq <= 4 equalities
-// as host arrays (arrival column [B], captured column [P], element size
-// 1, 4 or 8). Entries [P]:
+// Bytes of the pattern-mode index for a batch of B lanes and n_eq
+// equality columns.
+SIDDHI_API long long k11_index_bytes(int B, int n_eq) {
+  return index_bytes(B, n_eq);
+}
+
+// The pattern-mode index (see the file's comment): order int32[B], the
+// batch's lanes by (lane_ok first, the equality columns, lane); arr_seq,
+// ts int64 and lane_ok bool [B]; n_eq <= 4 arrival columns as host arrays
+// (device pointer, element size 1, 4 or 8). index: k11_index_bytes(B,
+// n_eq) bytes, fully written.
+SIDDHI_API int k11_match_index(const int32_t* order, const int64_t* arr_seq,
+                               const int64_t* ts, const uint8_t* lane_ok,
+                               int B, const void* const* eq_arr,
+                               const int* eq_size, int n_eq, void* index,
+                               cudaStream_t stream) {
+  if (n_eq < 0 || n_eq > MAX_EQ)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0) return 0;
+  EqCols eq;
+  eq.n = n_eq;
+  for (int k = 0; k < MAX_EQ; ++k) {
+    eq.arr[k] = k < n_eq ? eq_arr[k] : nullptr;
+    eq.ent[k] = nullptr;
+    eq.size[k] = k < n_eq ? eq_size[k] : 0;
+  }
+  match_index<<<siddhi_blocks(B, BLOCK), BLOCK, 0, stream>>>(
+      order, arr_seq, ts, lane_ok, B, eq, index_at(index, B, n_eq));
+  return siddhi_launch_status();
+}
+
+// Batch [B]: ts int64; valid, lane_ok bool; pattern mode reads the index
+// k11_match_index built for this batch and these columns; sequence mode
+// reads order int32[B] (K1 over valid), seq0 int64[1] and the columns.
+// n_eq <= 4 equalities as host arrays (arrival column [B], captured
+// column [P], element size 1, 4 or 8). Entries [P]:
 // pend_valid bool, last_seq, start_ts int64; this launch covers entries
 // [p0, p0 + np) and, where resid is not null, reads its bool [B, np] mask
 // tile. Outputs b_star int64, matched, killed bool [P] for that range.
-SIDDHI_API int k11_first_match(const int64_t* arr_seq, const int64_t* ts,
-                               const uint8_t* valid, const uint8_t* lane_ok,
-                               const int32_t* order, const int64_t* seq0,
+SIDDHI_API int k11_first_match(const int64_t* ts, const uint8_t* valid,
+                               const uint8_t* lane_ok, const int32_t* order,
+                               const int64_t* seq0, const void* index,
                                int B, const void* const* eq_arr,
                                const void* const* eq_ent,
                                const int* eq_size, int n_eq,
@@ -297,7 +387,7 @@ SIDDHI_API int k11_first_match(const int64_t* arr_seq, const int64_t* ts,
                                long long within, const uint8_t* resid,
                                int64_t* b_star, uint8_t* matched,
                                uint8_t* killed, cudaStream_t stream) {
-  if (n_eq < 0 || n_eq > MAX_EQ)
+  if (n_eq < 0 || n_eq > MAX_EQ || (!sequence && index == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (np <= 0) return 0;
   EqCols eq;
@@ -315,8 +405,9 @@ SIDDHI_API int k11_first_match(const int64_t* arr_seq, const int64_t* ts,
         killed);
   } else {
     first_match_pattern<<<grid, BLOCK, 0, stream>>>(
-        arr_seq, ts, lane_ok, B, eq, pend_valid, last_seq, start_ts, p0,
-        np, has_within, within, resid, b_star, matched, killed);
+        index_at(const_cast<void*>(index), B, n_eq), B, eq, pend_valid,
+        last_seq, start_ts, p0, np, has_within, within, resid, b_star,
+        matched, killed);
   }
   return siddhi_launch_status();
 }

@@ -19,7 +19,10 @@ metric arrays (`_metric_env`, float64). The checks are sequential: the
 sliding window walks its add-then-pop loop (at most 2B + E + 8 checks a
 step), expressionBatch checks each arrival once. On the card both walks are
 kernel K13a (csrc/k13a_expression_walk.cu), which interprets the condition
-as a postfix program built once per query (`PostfixProgram`). On the CPU
+as a postfix program built once per query (`PostfixProgram`) in one block:
+expressionBatch checks a tile of arrivals at once and takes the first that
+flushes; the sliding walk evaluates bands of candidate frontiers for
+several arrivals at once and replays the loop over them exactly. On the CPU
 the plain walk runs the reference loop in Python over the same metric
 arrays, evaluating the condition as a tree of closures over float64 values
 (`_compile_condition`), the JAX module's own form.
@@ -478,7 +481,6 @@ def _k13a_cuda(cond: Condition, env: dict, winlen0, n_valid32, B: int,
     dev = winlen0.device
     s_vec = torch.empty(B, dtype=torch.int32, device=dev)
     s_out = torch.empty((), dtype=torch.int32, device=dev)
-    tail = torch.empty(2, dtype=torch.int32, device=dev)
     flush = torch.empty(B, dtype=torch.bool, device=dev)
     end_j = torch.empty(B, dtype=torch.int32, device=dev)
     empty = torch.empty(B, dtype=torch.bool, device=dev)
@@ -489,7 +491,7 @@ def _k13a_cuda(cond: Condition, env: dict, winlen0, n_valid32, B: int,
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = kernels.bind("k13a_expression_walk", "k13a_expression_walk",
                       [P, P, P, I, P, I, P, P, I, I, I, I, I]
-                      + [P] * 9)
+                      + [P] * 8)
     rc = fn(ints(prog.ops), ints(prog.a), ints(prog.b), len(prog.ops),
             (ctypes.c_double * max(len(prog.consts), 1))(*prog.consts),
             len(prog.consts),
@@ -497,14 +499,10 @@ def _k13a_cuda(cond: Condition, env: dict, winlen0, n_valid32, B: int,
                 *[a.data_ptr() for a in arrays]),
             ints([a.shape[0] for a in arrays]), len(arrays), mode, B, E,
             int(include_trigger), winlen0.data_ptr(), n_valid32.data_ptr(),
-            s_vec.data_ptr(), s_out.data_ptr(), tail.data_ptr(),
-            flush.data_ptr(), end_j.data_ptr(), empty.data_ptr(),
-            kernels.stream())
+            s_vec.data_ptr(), s_out.data_ptr(), flush.data_ptr(),
+            end_j.data_ptr(), empty.data_ptr(), kernels.stream())
     kernels.check("k13a_expression_walk", "expression_walk", rc)
-    if mode == 0:
-        kernels.LAUNCHES["K13a sliding"] += 2
-    else:
-        kernels.LAUNCHES["K13a batch"] += 1
+    kernels.LAUNCHES["K13a sliding" if mode == 0 else "K13a batch"] += 1
     if mode == 0:
         return s_vec, s_out
     return flush, end_j, empty, s_out

@@ -14,7 +14,9 @@ in five primitives:
   condition comes split: equalities between an arrival column and a
   captured column of the same integral, string-code or bool type are
   evaluated in the kernel; conjuncts over the arrival alone arrive as a
-  lane mask; the rest as a [B, T] mask tile per range of T entries.
+  lane mask; the rest as a [B, T] mask tile per range of T entries. On
+  the card, pattern mode sorts the batch once a call into an index
+  (K7 an equality column, K1, a gather) and probes it per entry.
 - `pending_insert` (K11b): candidate entries into the free slots of a
   table (`_insert_entries`, `pattern_runtime.py:1460`): the k-th valid
   candidate takes the k-th free slot in ascending slot order; candidates
@@ -52,7 +54,8 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import torch
 
 from .. import kernels
-from .search import stable_partition_order, stable_partition_order_plain
+from .search import (stable_partition_order, stable_partition_order_plain,
+                     stable_radix_argsort)
 
 #: arrival sequence of an invalid lane (never the first match)
 BIGSEQ = 2**62
@@ -186,6 +189,51 @@ def _residual_tiles(what, residual, B, P, tile, dev):
         yield p0, p1, mask
 
 
+def _index_key(col: torch.Tensor):
+    """(K7 key, bound) whose order is the column's value order: bool as 0/1
+    under bound 1, int32 and int64 in signed order."""
+    if col.dtype == torch.bool:
+        return col.to(torch.int32), 1
+    return col, None
+
+
+def _match_index(arr_seq, ts, lane_ok, eq_pairs, eq) -> torch.Tensor:
+    """Pattern mode's index of the batch (csrc/k11_pattern.cu): its lanes
+    by (lane_ok first, the equality arrival columns, lane), from one
+    stable K7 sort a column, least significant first, and K1; then
+    k11_match_index gathers the sorted columns into a buffer of this
+    call's, from the stream-ordered caching allocator, so concurrent
+    calls on one stream never share an index. Sized from the shapes
+    alone: no host sync."""
+    B = arr_seq.shape[0]
+    order = None
+    for arr, _ in reversed(eq_pairs):
+        key, bound = _index_key(arr if order is None
+                                else torch.index_select(arr, 0, order))
+        perm = stable_radix_argsort(key, bound, counter="K7 pattern index")
+        order = perm if order is None else torch.index_select(order, 0, perm)
+    ok = lane_ok if order is None else torch.index_select(lane_ok, 0, order)
+    perm = stable_partition_order(ok)  # K1: lane_ok lanes first
+    order = perm if order is None else torch.index_select(order, 0, perm)
+    n = eq[3]
+    nbytes = kernels.bind("k11_pattern", "k11_index_bytes",
+                          [ctypes.c_int, ctypes.c_int])
+    nbytes.restype = ctypes.c_longlong
+    index = torch.empty(nbytes(B, n), dtype=torch.uint8,
+                        device=arr_seq.device)
+    Pt = ctypes.c_void_p
+    fn = kernels.bind("k11_pattern", "k11_match_index",
+                      [Pt] * 4 + [ctypes.c_int, Pt, Pt, ctypes.c_int, Pt,
+                                  Pt])
+    rc = fn(order.data_ptr(), arr_seq.data_ptr(), ts.data_ptr(),
+            lane_ok.data_ptr(), B, eq[0], eq[2], n, index.data_ptr(),
+            kernels.stream())
+    kernels.check("k11_pattern", "first_match index", rc)
+    if B:
+        kernels.LAUNCHES["K11a"] += 1
+    return index
+
+
 def first_match_cuda(arr_seq: torch.Tensor, ts: torch.Tensor,
                      valid: torch.Tensor, lane_ok: torch.Tensor,
                      eq_pairs: Sequence, pend_valid: torch.Tensor,
@@ -218,13 +266,15 @@ def first_match_cuda(arr_seq: torch.Tensor, ts: torch.Tensor,
     killed = torch.empty(P, dtype=torch.bool, device=dev)
     if P == 0:
         return b_star, matched, killed
-    order = None
+    order = index = None
     if sequence:
         if seq0 is None or seq0.dtype != torch.int64 or seq0.numel() != 1:
             raise ValueError("first_match: sequence mode needs seq0, the "
                              "int64 arrival seq of the batch's first lane")
         kernels.require_cuda("first_match", seq0)
         order = stable_partition_order(valid)  # K1: valid lanes first
+    else:  # built once a call, probed by every residual tile's launch
+        index = _match_index(arr_seq, ts, lane_ok, eq_pairs, eq)
     Pt = ctypes.c_void_p
     fn = kernels.bind("k11_pattern", "k11_first_match",
                       [Pt] * 6 + [ctypes.c_int, Pt, Pt, Pt, ctypes.c_int]
@@ -232,10 +282,10 @@ def first_match_cuda(arr_seq: torch.Tensor, ts: torch.Tensor,
                       + [Pt] * 5)
     for p0, p1, mask in _residual_tiles("first_match", residual, B, P, tile,
                                         dev):
-        rc = fn(arr_seq.data_ptr(), ts.data_ptr(), valid.data_ptr(),
-                lane_ok.data_ptr(),
+        rc = fn(ts.data_ptr(), valid.data_ptr(), lane_ok.data_ptr(),
                 order.data_ptr() if order is not None else None,
-                seq0.data_ptr() if sequence else None, B, *eq,
+                seq0.data_ptr() if sequence else None,
+                index.data_ptr() if index is not None else None, B, *eq,
                 pend_valid.data_ptr(), last_seq.data_ptr(),
                 start_ts.data_ptr(), p0, p1 - p0, int(sequence),
                 int(within is not None),

@@ -244,6 +244,9 @@ def _run_blocks(pkg, app, feeds, async_cb, **mgr_kw):
         rt.get_input_handler(stream).send_columns(cols, timestamps=ts)
         rt.flush()
     rt.drain()
+    # shutdown joins the decoder's delivery thread: drain can return while
+    # the last batch's callback is still running on it
+    rt.shutdown()
     out = []
     for b in blocks:
         strs = {a.name: b.strings(a.name)
@@ -255,7 +258,6 @@ def _run_blocks(pkg, app, feeds, async_cb, **mgr_kw):
                      for e in b.to_events()]))
     evs = [[(e.timestamp, tuple(e.data), e.is_expired) for e in batch]
            for batch in events]
-    rt.shutdown()
     return out, evs, q_events
 
 

@@ -2191,3 +2191,101 @@ def test_k7_onesweep_edge_shapes_match_plain(cuda, size, kind):
         torch.cuda.synchronize()
         assert got.dtype == torch.int32 and torch.equal(got, want)
         assert kernels.LAUNCHES["K7 rank"] == 1
+
+
+# ------------------------------------------------ K11a and K13a at their edges
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+K11A_EDGES = ["no equality", "bool", "int32 x2", "int64 negative",
+              "four columns", "long runs, unsorted ts",
+              "within fails then passes", "every entry matches",
+              "no entry matches", "wild ts", "residual tiles",
+              "dead entries", "live mask", "sequence", "sequence residual",
+              "P = 0", "B = 1", "no valid lane"]
+
+
+@pytest.mark.parametrize("name", K11A_EDGES)
+def test_k11a_edges_match_plain(cuda, name):
+    """chip_smoke.py's phase-32 cases of first_match, bit for bit, with
+    K11a's launches: the index, then one probe a residual tile."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import pattern
+    cases = _chip_smoke().k11a_edge_cases(
+        torch, np.random.default_rng(32), cuda)
+    assert sorted(cases) == sorted(K11A_EDGES)
+    args, kw = cases[name]
+    kernels.reset_launch_counts()
+    got = pattern.first_match(*args, **kw)
+    want = pattern.first_match_plain(*args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    B, P, sequence = args[0].shape[0], args[5].shape[0], args[9]
+    tiles = -(-P // kw["tile"]) if kw["residual"] else min(P, 1)
+    index = 0 if sequence or not P or not B else 1
+    assert kernels.LAUNCHES["K11a"] == tiles + index
+    if name == "every entry matches":
+        assert torch.equal(got[1], args[5])
+    if name in ("no entry matches", "no valid lane"):
+        assert not bool(got[1].any())
+
+
+def test_k11a_interleaved_calls_keep_their_own_index(cuda, monkeypatch):
+    """Two first_match calls on one stream, the second enqueued whole
+    between the first's index and its probes (as two sending threads or
+    @Async feeders of two pattern apps can do): each call probes its own
+    batch's index, so both match first_match_plain bit for bit."""
+    from siddhi_tpu_torch.ops import pattern
+    cs = _chip_smoke()
+    one, two = (cs._k11a_case(torch, np.random.default_rng(seed), cuda,
+                              1500, 3000, kinds=("i32", "i32"),
+                              residual=True) for seed in (16, 17))
+    tiles, inner = pattern._residual_tiles, []
+
+    def interleaved(*a, **k):
+        it = tiles(*a, **k)
+        if not inner:  # the outer call: its index is already enqueued
+            inner.append(None)
+            inner[0] = pattern.first_match(*two[0], **two[1])
+        yield from it
+
+    monkeypatch.setattr(pattern, "_residual_tiles", interleaved)
+    got_one = pattern.first_match(*one[0], **one[1])
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    for got, (args, kw) in ((got_one, one), (inner[0], two)):
+        for g, w in zip(got, pattern.first_match_plain(*args, **kw)):
+            assert torch.equal(g, w)
+    assert not torch.equal(got_one[0], inner[0][0])
+
+
+@pytest.mark.parametrize("mode", [0, 1], ids=["sliding", "batch"])
+def test_k13a_edges_match_plain(cuda, mode):
+    """chip_smoke.py's phase-32 cases of both walks, bit for bit, one
+    launch a call; among them the 2B + E + 8 cap biting (E below -2B)."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import expression_general as eg
+    cs = _chip_smoke()
+    cases = cs.k13a_edge_cases(torch, np.random.default_rng(32), cuda)
+    counter = "K13a sliding" if mode == 0 else "K13a batch"
+    n = 0
+    for name, case in cases.items():
+        if case[0] != mode:
+            continue
+        kernels.reset_launch_counts()
+        got = cs.run_k13a_case(eg, case, plain=False)
+        assert kernels.LAUNCHES[counter] == 1, name
+        for g, w in zip(got, cs.run_k13a_case(eg, case, plain=True)):
+            assert torch.equal(g, w), name
+        n += 1
+    assert n >= 20
