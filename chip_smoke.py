@@ -304,7 +304,17 @@ Phases (any failure exits non-zero and prints no result line):
    cap (E below -2B), NaN means of empty windows, pop chains past a band,
    frontiers moving 0, 1 and several rows an arrival, expressionBatch
    flushes on an empty window with the trigger in and out and n_valid
-   inside a tile, at sizes around the tiles, one launch a call.
+   inside a tile, at sizes around the tiles, one launch a call;
+33. (run right after phase 32) K11c and K11d at their edges against their
+   plain versions, bit for bit: absent_scan with deadlines on both sides
+   of each run and untimed, match_count with and without `within`, on
+   batches with no equality and one to four columns of bool, int32 and
+   int64, long runs (past a warp's walk) with unsorted ts, `within`
+   failing mid-run then passing, every entry matching and none, ts -
+   start_ts wrapping int64, residual tiles with p0 > 0, dead entries, P =
+   0, B = 1 and no valid lane; each with its own index (one probe a
+   residual tile, the gather, K7 an equality column) and again on an
+   index built beforehand (the probes alone).
 
 Every app's Event callback reads back through K12a (its launch counter
 must be non-zero in every app). Apps A, C, D, G, H and N also run the
@@ -556,7 +566,7 @@ KERNELS = {
     "K10 probe": ("multimap_probe", K10_SRC, f"{JOIN}:275"),
     "K10 compact": ("compact_pairs", K10_SRC, f"{JOIN}:165"),
     "K11a": ("first_match", K11_SRC, f"{PATTERN}:1189"),
-    "K7 pattern index": ("first_match's index sort (per equality column)",
+    "K7 pattern index": ("match_index's sort (per equality column)",
                          K7_SRC, f"{PATTERN}:1189"),
     "K11b": ("pending_insert", K11_SRC, f"{PATTERN}:1460"),
     "K11c": ("absent_scan", K11C_SRC, f"{PATTERN}:871"),
@@ -1118,6 +1128,88 @@ def k11a_edge_cases(torch, rng, dev):
     return c
 
 
+#: the batches of phase 33's K11c and K11d cases (_k11a_case's arguments)
+K11CD_BASES = {
+    "no equality": dict(B=3000, P=2000, kinds=()),
+    "bool": dict(B=3000, P=2000, kinds=("bool",)),
+    "int32 x2": dict(B=3000, P=2000, kinds=("i32", "i32")),
+    "int64 negative": dict(B=3000, P=2000, kinds=("i64",), n_values=4),
+    "four columns": dict(B=3000, P=2000, kinds=("bool", "i32", "i64", "i64"),
+                         n_values=2),
+    "long runs, unsorted ts": dict(B=5000, P=3000, kinds=("i32",),
+                                   n_values=1, within=40,
+                                   ts_kind="unsorted"),
+    "no equality, unsorted ts": dict(B=5000, P=3000, kinds=(), within=40,
+                                     ts_kind="unsorted"),
+    "within fails then passes": dict(B=3000, P=3000, kinds=("i32",),
+                                     n_values=3, within=100,
+                                     ts_kind="unsorted"),
+    "every entry matches": dict(B=3000, P=2000, kinds=("i64", "bool"),
+                                match="all"),
+    "no entry matches": dict(B=3000, P=2000, kinds=("i32",), match="none"),
+    "wild ts": dict(B=2000, P=1500, kinds=("i32",), n_values=2,
+                    ts_kind="wild"),
+    "residual tiles": dict(B=1500, P=3000, kinds=("i32", "bool"),
+                           residual=True),
+    "long runs, residual tiles": dict(B=3000, P=3000, kinds=("i32",),
+                                      n_values=1, within=40,
+                                      ts_kind="unsorted", residual=True),
+    "dead entries": dict(B=3000, P=3000, kinds=("i32",), fill=0.05),
+    "P = 0": dict(B=500, P=0),
+    "B = 1": dict(B=1, P=700, n_values=1),
+    "no valid lane": dict(B=900, P=700, p_valid=0.0),
+}
+
+
+def k11cd_edge_cases(torch, rng, dev):
+    """name -> (kernel, args, kw) of absent_scan ("K11c") and match_count
+    ("K11d") at their edges, on _k11a_case's batches (K11CD_BASES): no
+    equality and one to four columns of bool, int32 and int64 (negative
+    and extreme values), long runs (two values, or no equality: every
+    lane_ok lane) with unsorted ts, `within` failing mid-run then passing,
+    every entry matching and none, timestamps near the int64 extremes
+    (ts - start_ts wraps), residual tiles of 700 entries (p0 > 0), dead
+    entries, P = 0, B = 1 and no valid lane. Each batch gives K11c with
+    deadlines drawn from its own timestamps (both sides of each run) and
+    untimed, and K11d with and without `within`."""
+    c = {}
+    for name, base in K11CD_BASES.items():
+        args, kw = _k11a_case(torch, rng, dev, **base)
+        arr_seq, ts, _, lane_ok, pairs, pend_valid, last_seq, start_ts, \
+            within, _ = args
+        P = pend_valid.shape[0]
+        ts_np = ts.cpu().numpy()
+        deadline = torch.from_numpy(
+            rng.choice(ts_np, P) + rng.integers(-1, 2, P)).to(dev)
+        kw = dict(residual=kw["residual"], tile=kw["tile"])
+        batch = (arr_seq, ts, lane_ok, pairs, pend_valid, last_seq)
+        c[f"K11c {name}, deadline"] = ("K11c", batch + (deadline,), kw)
+        c[f"K11c {name}, untimed"] = ("K11c", batch + (None,), kw)
+        c[f"K11d {name}, within"] = ("K11d", batch + (start_ts, within), kw)
+        c[f"K11d {name}, no within"] = ("K11d", batch + (start_ts, None), kw)
+    return c
+
+
+def k11cd_launches(args, kw) -> tuple:
+    """(probe launches, index launches) of one K11c or K11d call that
+    builds its own index: one probe a residual tile (one without), and the
+    index's gather wherever there is an entry and a lane."""
+    B, P = args[0].shape[0], args[4].shape[0]
+    probes = -(-P // kw["tile"]) if kw["residual"] else min(P, 1)
+    return probes, int(bool(P and B))
+
+
+def run_k11cd_case(pattern, case, plain: bool, index=None):
+    kernel, args, kw = case
+    if kernel == "K11c":
+        if plain:
+            return pattern.absent_scan_plain(*args, **kw)
+        return pattern.absent_scan(*args, **kw, index=index)
+    if plain:
+        return (pattern.match_count_plain(*args, **kw),)
+    return (pattern.match_count(*args, **kw, index=index),)
+
+
 def _k13a_env(torch, cond, data: dict, dev):
     """The metric arrays of a condition over value sequences `data`."""
     env = {}
@@ -1237,6 +1329,49 @@ def pattern_walk_edge_phase(torch, rng) -> None:
         for i, (g, w) in enumerate(zip(got, run_k13a_case(eg, case, True))):
             check_equal(f"K13a edge {name} output {i}", g, w)
     print(f"K13a edges: {len(cases)} cases bit for bit, one launch a call")
+
+
+def pattern_probe_edge_phase(torch, rng) -> None:
+    """Phase 33: K11c and K11d at their edges against their plain
+    versions, bit for bit, with their launches a call, each case once with
+    its own index and once probing an index built beforehand (no index
+    launch then; see the module docstring)."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import pattern
+
+    dev = torch.device("cuda")
+    seen = {}
+    for name, case in k11cd_edge_cases(torch, rng, dev).items():
+        kernel, args, kw = case
+        want = run_k11cd_case(pattern, case, plain=True)
+        probes, index = k11cd_launches(args, kw)
+        n_eq = len(args[3])
+        shared = pattern.match_index(args[0], args[1], args[2],
+                                     [a for a, _ in args[3]])
+        for idx in (None, shared):
+            kernels.reset_launch_counts()
+            got = run_k11cd_case(pattern, case, plain=False, index=idx)
+            for i, (g, w) in enumerate(zip(got, want)):
+                check_equal(f"{name} output {i}", g, w)
+            built = index if idx is None else 0
+            counts = (kernels.LAUNCHES[kernel],
+                      kernels.LAUNCHES["K7 pattern index"])
+            if counts != (probes + built, n_eq * built):
+                raise Failure(f"{name}: (probe + index, K7) launches "
+                              f"{counts}, the counters' formula says "
+                              f"{(probes + built, n_eq * built)}")
+        seen[name] = (tuple(int((x < 2**62).sum()) if x.dtype == torch.int64
+                            else int(x.sum()) for x in got)
+                      if kernel == "K11c" else int(got[0]))
+    print(f"K11c (found, before, after) and K11d counts at their edges, "
+          f"bit for bit: {seen}")
+    for name in ("K11c long runs, unsorted ts, deadline",
+                 "K11c no equality, unsorted ts, deadline",
+                 "K11c within fails then passes, deadline"):
+        if not (seen[name][1] and seen[name][2]):
+            raise Failure(f"{name}: no hit on one side of the deadlines")
+    if not seen["K11d within fails then passes, within"]:
+        raise Failure("K11d: `within` passes on no pair")
 
 
 def scan_sort_edge_phase(torch, rng) -> None:
@@ -3237,9 +3372,11 @@ def absent_every_apps(torch, rng, card: str) -> dict:
     data = pattern_events(rng, "I", ROUNDS_P, BATCH_P)
     check_no_tie(data, ROUNDS_P, BATCH_P)
     end = int(data["B"][1].max()) + WAIT_O + 1
-    for name, text, on_path in (("O", APP_O, ("K11b", "K11c", "K12a")),
-                                ("P", APP_P, ("K11a", "K7 pattern index",
-                                              "K11b", "K11d", "K12a"))):
+    for name, text, on_path in (("O", APP_O, ("K1", "K7 pattern index",
+                                              "K11b", "K11c", "K12a")),
+                                ("P", APP_P, ("K1", "K11a",
+                                              "K7 pattern index", "K11b",
+                                              "K11d", "K12a"))):
         if name == "O":
             want = oracle_absent(data, ROUNDS_P, BATCH_P, PENDING_P, end=end)
         else:
@@ -3262,6 +3399,12 @@ def absent_every_apps(torch, rng, card: str) -> dict:
         for k in on_path:
             if launches[k] == 0:
                 raise Failure(f"app {name}: kernel {k} never launched")
+        # one index a B step (one equality column), shared by P's four
+        # sticky K11a passes and its K11d count
+        if launches["K7 pattern index"] != ROUNDS_P:
+            raise Failure(f"app {name}: {launches['K7 pattern index']} "
+                          f"index sorts in {ROUNDS_P} B steps, one a step "
+                          "expected")
         syncs, step_ms = measure_pattern_steps(torch, rt, data, ROUNDS_P,
                                                BATCH_P)
         report_app(name, 2 * BATCH_P * ROUNDS_P, n, elapsed, step_ms, peak,
@@ -7609,6 +7752,8 @@ def main(argv=None) -> int:
         scan_sort_edge_phase(torch, np.random.default_rng([args.seed, 31]))
         pattern_walk_edge_phase(torch,
                                 np.random.default_rng([args.seed, 32]))
+        pattern_probe_edge_phase(torch,
+                                 np.random.default_rng([args.seed, 33]))
 
         launches = {k: 0 for k in KERNELS}
         summary = {}  # the columnar async path, per app

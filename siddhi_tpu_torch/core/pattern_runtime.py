@@ -51,7 +51,8 @@ from ..extension.registry import Registry
 from ..ops.expr_compile import Scope, TypeResolver, compile_expression
 from ..ops.join import split_conjuncts
 from ..ops.pattern import (BIGSEQ, MAX_EQ, PendingTable, absent_scan,
-                           first_match, match_count, pending_insert,
+                           first_match, match_count, match_index,
+                           pending_insert,
                            release_origin)
 from ..ops.selector import CompiledSelector
 from ..query_api.definition import Attribute, AttributeType, StreamDefinition
@@ -771,34 +772,63 @@ class PatternQueryRuntime:
                 return m
         return eq_pairs, self._lane_cond(leg, leg_b, leg.lane), residual
 
+    @staticmethod
+    def _leg_index(indexes: Optional[dict], leg: _Leg, batch: EventBatch,
+                   arr_seq: torch.Tensor, lane_ok: torch.Tensor, eq_pairs,
+                   counter: str):
+        """The leg's index of the batch (`match_index`), which depends on
+        the batch side alone: built by the step's first call on the leg
+        (its gather counts under that call's `counter`) and kept in the
+        step's own `indexes`, keyed by the leg's ref, for the others. None
+        without `indexes`: the call builds its own."""
+        if indexes is None:
+            return None
+        if leg.ref not in indexes:
+            indexes[leg.ref] = match_index(
+                arr_seq, batch.ts, lane_ok, [a for a, _ in eq_pairs],
+                counter)
+        return indexes[leg.ref]
+
     def _match(self, leg: _Leg, batch: EventBatch, pend: PendingTable,
                arr_seq: torch.Tensor, last_seq: torch.Tensor, seq0,
                sequence: bool, within: Optional[int],
-               live: Optional[torch.Tensor] = None):
+               live: Optional[torch.Tensor] = None,
+               indexes: Optional[dict] = None):
         """K11a over one leg and one pending table (`live` narrows the
         entries, default `pend.valid`): (b_star, matched, killed), as the
-        JAX step's mask (`_leg_cond` + `:1197-1226`)."""
+        JAX step's mask (`_leg_cond` + `:1197-1226`). Pattern mode probes
+        the leg's index of the step's `indexes`."""
         eq_pairs, lane_ok, residual = self._leg_inputs(leg, batch, pend)
+        index = None if sequence else self._leg_index(
+            indexes, leg, batch, arr_seq, lane_ok, eq_pairs, "K11a")
         return first_match(
             arr_seq, batch.ts, batch.valid, lane_ok, eq_pairs,
             pend.valid if live is None else live, last_seq, pend.start_ts,
-            within, sequence, seq0=seq0, residual=residual)
+            within, sequence, seq0=seq0, residual=residual, index=index)
 
     def _absent(self, leg: _Leg, batch: EventBatch, pend: PendingTable,
-                arr_seq: torch.Tensor, deadline: Optional[torch.Tensor]):
+                arr_seq: torch.Tensor, deadline: Optional[torch.Tensor],
+                indexes: Optional[dict] = None):
         """K11c over an absent leg: (first kill seq, any before the
         deadline, any at or after it) per entry."""
         eq_pairs, lane_ok, residual = self._leg_inputs(leg, batch, pend)
         return absent_scan(arr_seq, batch.ts, lane_ok, eq_pairs, pend.valid,
-                           pend.last_seq, deadline, residual=residual)
+                           pend.last_seq, deadline, residual=residual,
+                           index=self._leg_index(indexes, leg, batch,
+                                                 arr_seq, lane_ok, eq_pairs,
+                                                 "K11c"))
 
     def _count(self, leg: _Leg, batch: EventBatch, pend: PendingTable,
-               arr_seq: torch.Tensor, within: Optional[int]) -> torch.Tensor:
+               arr_seq: torch.Tensor, within: Optional[int],
+               indexes: Optional[dict] = None) -> torch.Tensor:
         """K11d: the (lane, entry) pairs that still qualify, int64 0-d."""
         eq_pairs, lane_ok, residual = self._leg_inputs(leg, batch, pend)
         return match_count(arr_seq, batch.ts, lane_ok, eq_pairs, pend.valid,
                            pend.last_seq, pend.start_ts, within,
-                           residual=residual)
+                           residual=residual,
+                           index=self._leg_index(indexes, leg, batch,
+                                                 arr_seq, lane_ok, eq_pairs,
+                                                 "K11d"))
 
     def _make_step(self, junction_sid: Optional[str]):
         plan = self.plan
@@ -847,6 +877,9 @@ class PatternQueryRuntime:
 
             out_blocks = []  # (frames, fvalid, fts, ts, valid)
             drop_acc = [state.dropped]
+            #: each leg's index of this batch, built once for the step's
+            #: K11a, K11c and K11d calls on the leg; dropped with the step
+            indexes = {}
 
             def with_frame(pend: PendingTable, ref: str, frame):
                 """pend's captured frames with `ref` set to frame
@@ -951,7 +984,7 @@ class PatternQueryRuntime:
                 late = None
                 if fed(leg):
                     _, killed, late = self._absent(leg, batch, pend, arr_seq,
-                                                   deadline)
+                                                   deadline, indexes)
                     pend = pend._replace(valid=pend.valid & ~killed)
                     due = due & ~killed
                 advance(pi + 1, *with_frame(pend, leg.ref,
@@ -981,13 +1014,14 @@ class PatternQueryRuntime:
                 deadline = pend.armed_ts + pos.wait_ms
                 if fed(a_leg):
                     _, killed, _ = self._absent(a_leg, batch, pend, arr_seq,
-                                                deadline)
+                                                deadline, indexes)
                     pend = pend._replace(valid=pend.valid & ~killed)
                 if fed(p_leg):
                     b_star, matched, _ = self._match(
                         p_leg, batch, pend, arr_seq, pend.last_seq,
                         state.seq, False, within,
-                        live=pend.valid & ~pend.leg_done[:, 1])
+                        live=pend.valid & ~pend.leg_done[:, 1],
+                        indexes=indexes)
                     leg_b = self._leg_batch(batch, p_leg)
                     frames, fvalid, fts = with_frame(pend, p_leg.ref, (
                         {n: torch.where(matched, v[b_star],
@@ -1066,14 +1100,14 @@ class PatternQueryRuntime:
                                   device=dev)
                 if fed(a_leg):
                     kseq, _, _ = self._absent(a_leg, batch, pend, arr_seq,
-                                              None)
+                                              None, indexes)
                 if not fed(p_leg):
                     killed = pend.valid & (kseq < BIGSEQ)
                     pending[pi - 1] = pend._replace(valid=pend.valid & ~killed)
                     return
                 b_star, matched, _ = self._match(
                     p_leg, batch, pend, arr_seq, pend.last_seq, state.seq,
-                    False, within)
+                    False, within, indexes=indexes)
                 leg_b = self._leg_batch(batch, p_leg)
                 pseq = torch.where(matched, arr_seq[b_star], BIGSEQ)
                 advanced = pend.valid & (pseq < kseq)
@@ -1126,7 +1160,7 @@ class PatternQueryRuntime:
                             if mid_g is not None else None)
                     b_star, matched, killed = self._match(
                         leg, batch, pend, arr_seq, ref_seq, state.seq,
-                        is_seq, within, live)
+                        is_seq, within, live, indexes)
                     leg_b = self._leg_batch(batch, leg)
                     if is_seq and not logical:
                         # strict: the next arrival not matching kills
@@ -1203,7 +1237,8 @@ class PatternQueryRuntime:
                     # qualifying arrivals past the per-batch pass bound:
                     # counted as dropped (K11d)
                     drop_acc[0] = drop_acc[0] + self._count(
-                        pos.legs[0], batch, pending[pi - 1], arr_seq, within)
+                        pos.legs[0], batch, pending[pi - 1], arr_seq, within,
+                        indexes)
 
             def process_position(pi: int):
                 pos = plan.positions[pi]
@@ -1259,7 +1294,7 @@ class PatternQueryRuntime:
                     else:
                         drop_acc[0] = drop_acc[0] + self._count(
                             leg0, batch, pending[g.head - 1], arr_seq,
-                            within)
+                            within, indexes)
                 pi = g.end + 1
 
             new_sel, out = self._emit(state.sel_state, out_blocks, dev)

@@ -13,8 +13,10 @@
 //         launches) and k11_insert_scatter.
 // Both are bit for bit with the JAX functions.
 //
-// first_match, pattern mode: an exact index of the batch, built once a
-// call, then one probe a pending entry.
+// first_match, pattern mode: an exact index of the batch (k11_index.cuh),
+// built once a call or, by the pattern step, once a leg and batch and
+// shared with K11c and K11d (k11c_absent.cu), then one probe a pending
+// entry.
 //   index  the batch's lanes ordered by (lane_ok first, the equality
 //          arrival columns, lane): the wrapper sorts them with K7 (one
 //          stable sort a column, least significant first, on keys whose
@@ -64,21 +66,13 @@
 // The insert reads the candidates' and free slots' flags and writes each
 // fitting candidate's columns once.
 
-#include "common.cuh"
+#include "k11_index.cuh"
 
 namespace {
 
-constexpr int MAX_EQ = 4;
 constexpr int BLOCK = 256;
 constexpr int IBLOCK = 1024;
 constexpr int MAX_JOBS = 32;
-
-struct EqCols {
-  const void* arr[MAX_EQ];  // arrival columns [B]
-  const void* ent[MAX_EQ];  // captured columns [P]
-  int size[MAX_EQ];         // element size: 1 (bool), 4 or 8
-  int n;
-};
 
 struct Job {
   void* dst;        // table column [P] (leg_done: [P, 2] as 2 bytes a row)
@@ -91,44 +85,6 @@ struct Jobs {
   Job job[MAX_JOBS];
   int n;
 };
-
-__device__ __forceinline__ long long load_as_i64(const void* p, int size,
-                                                 long long i) {
-  if (size == 8) return static_cast<const long long*>(p)[i];
-  if (size == 4) return static_cast<const int*>(p)[i];
-  return static_cast<const uint8_t*>(p)[i];
-}
-
-// The index of the batch (see the file's comment), struct of arrays in
-// one buffer of k11_index_bytes(B, n).
-struct Index {
-  int64_t* seq;      // [B] arr_seq at each sorted position
-  int64_t* ts;       // [B]
-  int64_t* key;      // [n][B] equality arrival columns as int64
-  int32_t* lane;     // [B] the lane at each sorted position
-  uint8_t* ok;       // [B] lane_ok
-};
-
-__host__ __device__ inline long long index_bytes(long long B, int n) {
-  return B * (16 + 8LL * n) + 4 * B + B;
-}
-
-__host__ __device__ inline Index index_at(void* buf, int B, int n) {
-  Index x;
-  int64_t* w = static_cast<int64_t*>(buf);
-  x.seq = w;
-  x.ts = w + B;
-  x.key = w + 2LL * B;
-  x.lane = reinterpret_cast<int32_t*>(w + (2LL + n) * B);
-  x.ok = reinterpret_cast<uint8_t*>(x.lane + B);
-  return x;
-}
-
-// ts - start_ts as the JAX step computes it: int64, wrapping
-__device__ __forceinline__ long long wrap_sub(long long a, long long b) {
-  return static_cast<long long>(static_cast<unsigned long long>(a) -
-                                static_cast<unsigned long long>(b));
-}
 
 // One thread a sorted position m: gather lane order[m]'s columns.
 __global__ void match_index(const int32_t* __restrict__ order,
@@ -167,36 +123,9 @@ __global__ void first_match_pattern(
     const long long ls = last_seq[p];
     const long long st = start_ts[p];
     long long ev[MAX_EQ];
-    for (int k = 0; k < eq.n; ++k)
-      ev[k] = load_as_i64(eq.ent[k], eq.size[k], p);
-    // the first position not below (captured tuple, last_seq); positions
-    // that are not lane_ok lie above every tuple
-    int lo = 0, hi = B;
-    while (lo < hi) {
-      const int m = (lo + hi) >> 1;
-      bool below = x.ok[m] != 0;
-      if (below) {
-        int k = 0;
-        for (; k < eq.n; ++k) {
-          const long long kv = x.key[k * static_cast<long long>(B) + m];
-          if (kv != ev[k]) {
-            below = kv < ev[k];
-            break;
-          }
-        }
-        if (k == eq.n) below = x.seq[m] <= ls;
-      }
-      if (below)
-        lo = m + 1;
-      else
-        hi = m;
-    }
-    for (int m = lo; m < B; ++m) {
-      if (!x.ok[m]) break;
-      bool same = true;
-      for (int k = 0; k < eq.n; ++k)
-        same = same && x.key[k * static_cast<long long>(B) + m] == ev[k];
-      if (!same) break;  // past the run
+    load_entry(eq, p, ev);
+    for (int m = first_not_below(x, B, eq.n, ev, ls, 0, B); m < B; ++m) {
+      if (!in_run(x, B, eq.n, ev, m)) break;  // past the run
       if (has_within && wrap_sub(x.ts[m], st) > within) continue;
       const int l = x.lane[m];
       if (resid != nullptr && !resid[static_cast<long long>(l) * np + j])

@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` is compiled by `nvcc` for sm_90a into its own shared
 library with a plain C interface (`_kernel_build/lib<name>.so`) and loaded
 through ctypes. Builds happen at first use, never at import, and all stale
 sources compile in parallel (one nvcc process each). A build is reused when
-its source, the shared header and the flags are unchanged (content hash).
+its source, the shared headers and the flags are unchanged (content
+hash).
 
 Nothing here falls back: a missing `nvcc`, a failed build or a failed launch
 raises `KernelError`. The plain PyTorch versions in `ops/` run only for CPU
@@ -91,7 +92,8 @@ def _nvcc() -> str:
 def _digest(name: str) -> str:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
-    h.update((CSRC / "common.cuh").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()
 

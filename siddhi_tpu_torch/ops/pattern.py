@@ -15,8 +15,7 @@ in five primitives:
   captured column of the same integral, string-code or bool type are
   evaluated in the kernel; conjuncts over the arrival alone arrive as a
   lane mask; the rest as a [B, T] mask tile per range of T entries. On
-  the card, pattern mode sorts the batch once a call into an index
-  (K7 an equality column, K1, a gather) and probes it per entry.
+  the card, pattern mode probes an index of the batch per entry.
 - `pending_insert` (K11b): candidate entries into the free slots of a
   table (`_insert_entries`, `pattern_runtime.py:1460`): the k-th valid
   candidate takes the k-th free slot in ascending slot order; candidates
@@ -31,6 +30,11 @@ in five primitives:
 - `release_origin` (K11e): a mid-pattern every-group's completions clear
   their origin entries' busy latch and scatter-max their seq into them
   (`_advance` `:1440-1446`).
+
+On the card K11a's pattern mode, K11c and K11d probe one index of the
+batch (`match_index`: K7 an equality column, K1, a gather), which depends
+on the batch side alone: each call builds its own, or a pattern step
+builds it once a leg and hands it to every call on that leg (`index=`).
 
 Each has a `_plain` and a `_cuda` version behind one name: a CUDA tensor
 launches csrc/k11_pattern.cu (K11a, K11b) or csrc/k11c_absent.cu (K11c,
@@ -197,17 +201,42 @@ def _index_key(col: torch.Tensor):
     return col, None
 
 
-def _match_index(arr_seq, ts, lane_ok, eq_pairs, eq) -> torch.Tensor:
-    """Pattern mode's index of the batch (csrc/k11_pattern.cu): its lanes
-    by (lane_ok first, the equality arrival columns, lane), from one
-    stable K7 sort a column, least significant first, and K1; then
-    k11_match_index gathers the sorted columns into a buffer of this
-    call's, from the stream-ordered caching allocator, so concurrent
-    calls on one stream never share an index. Sized from the shapes
-    alone: no host sync."""
+def _index_bytes(B: int, n_eq: int) -> int:
+    fn = kernels.bind("k11_pattern", "k11_index_bytes",
+                      [ctypes.c_int, ctypes.c_int])
+    fn.restype = ctypes.c_longlong
+    return fn(B, n_eq)
+
+
+def match_index(arr_seq: torch.Tensor, ts: torch.Tensor,
+                lane_ok: torch.Tensor, arrivals: Sequence[torch.Tensor],
+                counter: str = "K11a") -> Optional[torch.Tensor]:
+    """The index of a batch that K11a's pattern mode, K11c and K11d probe
+    (csrc/k11_index.cuh): its lanes by (lane_ok first, the equality
+    arrival columns `arrivals`, lane), from one stable K7 sort a column,
+    least significant first, and K1; then k11_match_index gathers the
+    sorted columns into a buffer of this call's, from the stream-ordered
+    caching allocator, so concurrent calls on one stream never share an
+    index. It depends on the batch side alone, so a pattern step builds it
+    once a leg and hands it to each call on that leg as `index=`. The
+    gather counts under `counter`, the call that builds it. Sized from the
+    shapes alone: no host sync. None for a batch on the CPU, where the
+    plain versions take no index."""
+    if not arr_seq.is_cuda:
+        return None
     B = arr_seq.shape[0]
+    arrivals = [a.contiguous() for a in arrivals]
+    kernels.require_cuda("match_index", arr_seq, ts, lane_ok, *arrivals)
+    if (len(arrivals) > MAX_EQ or arr_seq.dtype != torch.int64
+            or ts.dtype != torch.int64 or lane_ok.dtype != torch.bool
+            or ts.shape != (B,) or lane_ok.shape != (B,)
+            or any(a.dtype not in _ESIZE or a.shape != (B,)
+                   for a in arrivals)):
+        raise ValueError(f"match_index: int64 arr_seq/ts, bool lane_ok and "
+                         f"at most {MAX_EQ} bool/int32/int64 arrival "
+                         "columns, all [B]")
     order = None
-    for arr, _ in reversed(eq_pairs):
+    for arr in reversed(arrivals):
         key, bound = _index_key(arr if order is None
                                 else torch.index_select(arr, 0, order))
         perm = stable_radix_argsort(key, bound, counter="K7 pattern index")
@@ -215,22 +244,36 @@ def _match_index(arr_seq, ts, lane_ok, eq_pairs, eq) -> torch.Tensor:
     ok = lane_ok if order is None else torch.index_select(lane_ok, 0, order)
     perm = stable_partition_order(ok)  # K1: lane_ok lanes first
     order = perm if order is None else torch.index_select(order, 0, perm)
-    n = eq[3]
-    nbytes = kernels.bind("k11_pattern", "k11_index_bytes",
-                          [ctypes.c_int, ctypes.c_int])
-    nbytes.restype = ctypes.c_longlong
-    index = torch.empty(nbytes(B, n), dtype=torch.uint8,
+    n = len(arrivals)
+    index = torch.empty(_index_bytes(B, n), dtype=torch.uint8,
                         device=arr_seq.device)
     Pt = ctypes.c_void_p
     fn = kernels.bind("k11_pattern", "k11_match_index",
                       [Pt] * 4 + [ctypes.c_int, Pt, Pt, ctypes.c_int, Pt,
                                   Pt])
     rc = fn(order.data_ptr(), arr_seq.data_ptr(), ts.data_ptr(),
-            lane_ok.data_ptr(), B, eq[0], eq[2], n, index.data_ptr(),
-            kernels.stream())
-    kernels.check("k11_pattern", "first_match index", rc)
+            lane_ok.data_ptr(), B,
+            (Pt * MAX_EQ)(*[a.data_ptr() for a in arrivals]),
+            (ctypes.c_int * MAX_EQ)(*[_ESIZE[a.dtype] for a in arrivals]),
+            n, index.data_ptr(), kernels.stream())
+    kernels.check("k11_pattern", "match_index", rc)
     if B:
-        kernels.LAUNCHES["K11a"] += 1
+        kernels.LAUNCHES[counter] += 1
+    return index
+
+
+def _probe_index(what, index, arr_seq, ts, lane_ok, eq_pairs,
+                 counter) -> torch.Tensor:
+    """`index` (match_index's for this batch and these equalities' arrival
+    columns), checked against the shapes, or one built for this call."""
+    if index is None:
+        return match_index(arr_seq, ts, lane_ok, [a for a, _ in eq_pairs],
+                           counter)
+    if (index.dtype != torch.uint8 or index.device != arr_seq.device
+            or index.shape != (_index_bytes(arr_seq.shape[0],
+                                            len(eq_pairs)),)):
+        raise ValueError(f"{what}: `index` is match_index's buffer for "
+                         "this batch and these equalities")
     return index
 
 
@@ -241,7 +284,8 @@ def first_match_cuda(arr_seq: torch.Tensor, ts: torch.Tensor,
                      within: Optional[int], sequence: bool,
                      seq0: Optional[torch.Tensor] = None,
                      residual: Residual = None,
-                     tile: Optional[int] = None):
+                     tile: Optional[int] = None,
+                     index: Optional[torch.Tensor] = None):
     B = arr_seq.shape[0]
     P = pend_valid.shape[0]
     eq_pairs = [(a.contiguous(), e.contiguous()) for a, e in eq_pairs]
@@ -266,7 +310,7 @@ def first_match_cuda(arr_seq: torch.Tensor, ts: torch.Tensor,
     killed = torch.empty(P, dtype=torch.bool, device=dev)
     if P == 0:
         return b_star, matched, killed
-    order = index = None
+    order = None
     if sequence:
         if seq0 is None or seq0.dtype != torch.int64 or seq0.numel() != 1:
             raise ValueError("first_match: sequence mode needs seq0, the "
@@ -274,7 +318,8 @@ def first_match_cuda(arr_seq: torch.Tensor, ts: torch.Tensor,
         kernels.require_cuda("first_match", seq0)
         order = stable_partition_order(valid)  # K1: valid lanes first
     else:  # built once a call, probed by every residual tile's launch
-        index = _match_index(arr_seq, ts, lane_ok, eq_pairs, eq)
+        index = _probe_index("first_match", index, arr_seq, ts, lane_ok,
+                             eq_pairs, "K11a")
     Pt = ctypes.c_void_p
     fn = kernels.bind("k11_pattern", "k11_first_match",
                       [Pt] * 6 + [ctypes.c_int, Pt, Pt, Pt, ctypes.c_int]
@@ -303,7 +348,8 @@ def first_match(arr_seq: torch.Tensor, ts: torch.Tensor, valid: torch.Tensor,
                 pend_valid: torch.Tensor, last_seq: torch.Tensor,
                 start_ts: torch.Tensor, within: Optional[int],
                 sequence: bool, seq0: Optional[torch.Tensor] = None,
-                residual: Residual = None, tile: Optional[int] = None):
+                residual: Residual = None, tile: Optional[int] = None,
+                index: Optional[torch.Tensor] = None):
     """The first qualifying arrival of every pending entry (K11a).
 
     Batch side, [B]: `arr_seq` int64 (seq0 + rank on valid lanes, BIGSEQ
@@ -319,13 +365,17 @@ def first_match(arr_seq: torch.Tensor, ts: torch.Tensor, valid: torch.Tensor,
     can qualify, and if it is valid and fails, the entry is killed; the
     kernel finds it through K1's valid-lane order and `seq0` (int64 0-d).
 
+    `index`: `match_index`'s index of this batch side for pattern mode
+    (default: one built for this call); sequence mode and the plain
+    version take none.
+
     Returns b_star int64[P] (0 where nothing qualifies, as `argmin` over
     an all-BIGSEQ column gives), matched bool[P], killed bool[P] (valid
     entries killed by a strict sequence; all False for patterns)."""
     if arr_seq.is_cuda:
         return first_match_cuda(arr_seq, ts, valid, lane_ok, eq_pairs,
                                 pend_valid, last_seq, start_ts, within,
-                                sequence, seq0, residual, tile)
+                                sequence, seq0, residual, tile, index)
     return first_match_plain(arr_seq, ts, valid, lane_ok, eq_pairs,
                              pend_valid, last_seq, start_ts, within,
                              sequence, seq0, residual, tile)
@@ -545,7 +595,8 @@ def absent_scan_cuda(arr_seq: torch.Tensor, ts: torch.Tensor,
                      pend_valid: torch.Tensor, last_seq: torch.Tensor,
                      deadline: Optional[torch.Tensor],
                      residual: Residual = None,
-                     tile: Optional[int] = None):
+                     tile: Optional[int] = None,
+                     index: Optional[torch.Tensor] = None):
     B = arr_seq.shape[0]
     P = pend_valid.shape[0]
     eq_pairs = [(a.contiguous(), e.contiguous()) for a, e in eq_pairs]
@@ -560,14 +611,19 @@ def absent_scan_cuda(arr_seq: torch.Tensor, ts: torch.Tensor,
     first = torch.empty(P, dtype=torch.int64, device=dev)
     before = torch.empty(P, dtype=torch.bool, device=dev)
     after = torch.empty(P, dtype=torch.bool, device=dev)
+    if P == 0:
+        return first, before, after
+    # built once a call (or handed in), probed by every residual tile
+    index = _probe_index("absent_scan", index, arr_seq, ts, lane_ok,
+                         eq_pairs, "K11c")
     Pt = ctypes.c_void_p
     fn = kernels.bind("k11c_absent", "k11c_absent_scan",
-                      [Pt] * 3 + [ctypes.c_int, Pt, Pt, Pt, ctypes.c_int]
-                      + [Pt] * 3 + [ctypes.c_int] * 2 + [Pt] * 5)
+                      [Pt, ctypes.c_int, Pt, Pt, ctypes.c_int] + [Pt] * 3
+                      + [ctypes.c_int] * 2 + [Pt] * 5)
     for p0, p1, mask in _residual_tiles("absent_scan", residual, B, P, tile,
                                         dev):
-        rc = fn(arr_seq.data_ptr(), ts.data_ptr(), lane_ok.data_ptr(), B,
-                *eq, pend_valid.data_ptr(), last_seq.data_ptr(),
+        rc = fn(index.data_ptr(), B, eq[1], eq[2], eq[3],
+                pend_valid.data_ptr(), last_seq.data_ptr(),
                 deadline.data_ptr() if deadline is not None else None,
                 p0, p1 - p0, mask.data_ptr() if mask is not None else None,
                 first.data_ptr(), before.data_ptr(), after.data_ptr(),
@@ -581,7 +637,8 @@ def absent_scan(arr_seq: torch.Tensor, ts: torch.Tensor,
                 lane_ok: torch.Tensor, eq_pairs: Sequence,
                 pend_valid: torch.Tensor, last_seq: torch.Tensor,
                 deadline: Optional[torch.Tensor], residual: Residual = None,
-                tile: Optional[int] = None):
+                tile: Optional[int] = None,
+                index: Optional[torch.Tensor] = None):
     """Per pending entry, the arrivals of an absent leg that reach it
     (K11c).
 
@@ -591,13 +648,15 @@ def absent_scan(arr_seq: torch.Tensor, ts: torch.Tensor,
     p when p is live, every equality holds, the residual holds and
     arr_seq > last_seq[p]. `deadline`: int64 [P] (armed_ts + wait) or
     None (an absence with no timer: every arrival counts as before it).
+    `index`: `match_index`'s index of this batch side (default: one built
+    for this call); the plain version takes none.
 
     Returns first int64[P] (the first qualifying arrival seq, BIGSEQ if
     none), before bool[P] (one qualifies with ts < deadline) and after
     bool[P] (one qualifies with ts >= deadline)."""
     if arr_seq.is_cuda:
         return absent_scan_cuda(arr_seq, ts, lane_ok, eq_pairs, pend_valid,
-                                last_seq, deadline, residual, tile)
+                                last_seq, deadline, residual, tile, index)
     return absent_scan_plain(arr_seq, ts, lane_ok, eq_pairs, pend_valid,
                              last_seq, deadline, residual, tile)
 
@@ -632,7 +691,8 @@ def match_count_cuda(arr_seq: torch.Tensor, ts: torch.Tensor,
                      pend_valid: torch.Tensor, last_seq: torch.Tensor,
                      start_ts: torch.Tensor, within: Optional[int],
                      residual: Residual = None,
-                     tile: Optional[int] = None) -> torch.Tensor:
+                     tile: Optional[int] = None,
+                     index: Optional[torch.Tensor] = None) -> torch.Tensor:
     B = arr_seq.shape[0]
     P = pend_valid.shape[0]
     eq_pairs = [(a.contiguous(), e.contiguous()) for a, e in eq_pairs]
@@ -644,15 +704,20 @@ def match_count_cuda(arr_seq: torch.Tensor, ts: torch.Tensor,
     eq = _eq_args(eq_pairs, B, P)
     dev = arr_seq.device
     total = torch.zeros((), dtype=torch.int64, device=dev)
+    if P == 0:
+        return total
+    # built once a call (or handed in), probed by every residual tile
+    index = _probe_index("match_count", index, arr_seq, ts, lane_ok,
+                         eq_pairs, "K11d")
     Pt = ctypes.c_void_p
     fn = kernels.bind("k11c_absent", "k11d_match_count",
-                      [Pt] * 3 + [ctypes.c_int, Pt, Pt, Pt, ctypes.c_int]
-                      + [Pt] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong]
+                      [Pt, ctypes.c_int, Pt, Pt, ctypes.c_int] + [Pt] * 3
+                      + [ctypes.c_int] * 3 + [ctypes.c_longlong]
                       + [Pt] * 3)
     for p0, p1, mask in _residual_tiles("match_count", residual, B, P, tile,
                                         dev):
-        rc = fn(arr_seq.data_ptr(), ts.data_ptr(), lane_ok.data_ptr(), B,
-                *eq, pend_valid.data_ptr(), last_seq.data_ptr(),
+        rc = fn(index.data_ptr(), B, eq[1], eq[2], eq[3],
+                pend_valid.data_ptr(), last_seq.data_ptr(),
                 start_ts.data_ptr(), p0, p1 - p0, int(within is not None),
                 int(within) if within is not None else 0,
                 mask.data_ptr() if mask is not None else None,
@@ -667,15 +732,18 @@ def match_count(arr_seq: torch.Tensor, ts: torch.Tensor,
                 pend_valid: torch.Tensor, last_seq: torch.Tensor,
                 start_ts: torch.Tensor, within: Optional[int],
                 residual: Residual = None,
-                tile: Optional[int] = None) -> torch.Tensor:
+                tile: Optional[int] = None,
+                index: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The number of qualifying (lane, entry) pairs (K11d), int64 0-d on
     the batch's device: K11a's pattern-mode mask (the lane mask, live
     entries, the equalities, the residual, arr_seq > last_seq and ts -
     start_ts <= within) summed over [B, P] instead of reduced to a first
-    lane per entry."""
+    lane per entry. `index`: `match_index`'s index of this batch side
+    (default: one built for this call); the plain version takes none."""
     if arr_seq.is_cuda:
         return match_count_cuda(arr_seq, ts, lane_ok, eq_pairs, pend_valid,
-                                last_seq, start_ts, within, residual, tile)
+                                last_seq, start_ts, within, residual, tile,
+                                index)
     return match_count_plain(arr_seq, ts, lane_ok, eq_pairs, pend_valid,
                              last_seq, start_ts, within, residual, tile)
 

@@ -901,9 +901,10 @@ def test_k11e_kernel_matches_plain(cuda):
 
 ABSENT_EVERY_ON_CARD = {
     "O_absent": ("from every a=A -> not B[val == a.val] for 20 millisec "
-                 "select a.val as av", ("K11b", "K11c")),
+                 "select a.val as av", ("K11b", "K11c", "K7 pattern index")),
     "P_sticky": ("from every a=A -> every b=B[b.val == a.val] within 1 sec "
-                 "select a.val as av, b.val as bv", ("K11a", "K11d")),
+                 "select a.val as av, b.val as bv",
+                 ("K11a", "K11d", "K7 pattern index")),
     "Q_sequence": ("from every a=A, b=B[b.val == a.val] "
                    "select a.val as av, b.val as bv", ("K11a", "K11b")),
     "R_mid_group": ("from e0=B[val == 7] -> every (e1=A[val > 4] -> "
@@ -2267,6 +2268,110 @@ def test_k11a_interleaved_calls_keep_their_own_index(cuda, monkeypatch):
         for g, w in zip(got, pattern.first_match_plain(*args, **kw)):
             assert torch.equal(g, w)
     assert not torch.equal(got_one[0], inner[0][0])
+
+
+K11CD_BASES = ["no equality", "bool", "int32 x2", "int64 negative",
+               "four columns", "long runs, unsorted ts",
+               "no equality, unsorted ts", "within fails then passes",
+               "every entry matches", "no entry matches", "wild ts",
+               "residual tiles", "long runs, residual tiles",
+               "dead entries", "P = 0", "B = 1", "no valid lane"]
+
+
+@pytest.mark.parametrize("base", K11CD_BASES)
+def test_k11c_k11d_edges_match_plain(cuda, base):
+    """chip_smoke.py's phase-33 cases of absent_scan (a deadline each
+    side, untimed) and match_count (with and without `within`) on one
+    batch, bit for bit, with their launches: with their own index (the
+    gather, K7 an equality column, one probe a residual tile), then on an
+    index built beforehand (the probes alone)."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import pattern
+    cs = _chip_smoke()
+    assert sorted(cs.K11CD_BASES) == sorted(K11CD_BASES)
+    cases = cs.k11cd_edge_cases(torch, np.random.default_rng(33), cuda)
+    mine = {n: c for n, c in cases.items()
+            if n.split(" ", 1)[1].rsplit(", ", 1)[0] == base}
+    assert len(mine) == 4
+    for name, case in mine.items():
+        kernel, args, kw = case
+        want = cs.run_k11cd_case(pattern, case, plain=True)
+        probes, index = cs.k11cd_launches(args, kw)
+        shared = pattern.match_index(args[0], args[1], args[2],
+                                     [a for a, _ in args[3]])
+        for idx, built in ((None, index), (shared, 0)):
+            kernels.reset_launch_counts()
+            got = cs.run_k11cd_case(pattern, case, plain=False, index=idx)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), name
+            assert kernels.LAUNCHES[kernel] == probes + built, name
+            assert (kernels.LAUNCHES["K7 pattern index"]
+                    == len(args[3]) * built), name
+
+
+@pytest.mark.parametrize("kernel", ["K11c", "K11d"])
+def test_k11c_k11d_interleaved_calls_keep_their_own_index(cuda, monkeypatch,
+                                                          kernel):
+    """Two absent_scan (match_count) calls on one stream, the second
+    enqueued whole between the first's index and its probes: each call
+    probes its own batch's index, so both match their plain versions bit
+    for bit."""
+    from siddhi_tpu_torch.ops import pattern
+    cs = _chip_smoke()
+    name = f"{kernel} residual tiles, " + (
+        "deadline" if kernel == "K11c" else "within")
+    one, two = (cs.k11cd_edge_cases(torch, np.random.default_rng(seed),
+                                    cuda)[name] for seed in (16, 17))
+    tiles, inner = pattern._residual_tiles, []
+
+    def interleaved(*a, **k):
+        it = tiles(*a, **k)
+        if not inner:  # the outer call: its index is already enqueued
+            inner.append(None)
+            inner[0] = cs.run_k11cd_case(pattern, two, plain=False)
+        yield from it
+
+    monkeypatch.setattr(pattern, "_residual_tiles", interleaved)
+    got_one = cs.run_k11cd_case(pattern, one, plain=False)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    for got, case in ((got_one, one), (inner[0], two)):
+        for g, w in zip(got, cs.run_k11cd_case(pattern, case, plain=True)):
+            assert torch.equal(g, w)
+    assert not torch.equal(got_one[0], inner[0][0])
+
+
+def test_sticky_step_builds_one_index(cuda):
+    """A B step of `every a -> every b[b.val == a.val] within`: its four
+    sticky K11a passes and its K11d count probe one index of the batch
+    (one K7 sort, one gather under K11a's counter)."""
+    from siddhi_tpu_torch import SiddhiManager, kernels
+    from siddhi_tpu_torch.core import dtypes
+    app = """
+    @app:playback
+    define stream A (val int);
+    define stream B (val int);
+    @info(name = 'bench')
+    from every a=A -> every b=B[b.val == a.val] within 1 sec
+    select a.val as av, b.val as bv
+    insert into OutStream;
+    """
+    rt = SiddhiManager(device="cuda").create_siddhi_app_runtime(
+        app, batch_size=256)
+    rng = np.random.default_rng(5)
+    rt.get_input_handler("A").send_columns(
+        {"val": rng.integers(0, 8, 200).astype(np.int32)},
+        timestamps=1000 + np.arange(200))
+    rt.flush()
+    kernels.reset_launch_counts()
+    rt.get_input_handler("B").send_columns(
+        {"val": rng.integers(0, 8, 200).astype(np.int32)},
+        timestamps=1300 + np.arange(200))
+    rt.flush()
+    passes = dtypes.config.pattern_sticky_passes
+    assert kernels.LAUNCHES["K7 pattern index"] == 1
+    assert kernels.LAUNCHES["K11a"] == 1 + passes
+    assert kernels.LAUNCHES["K11d"] == 1
 
 
 @pytest.mark.parametrize("mode", [0, 1], ids=["sliding", "batch"])

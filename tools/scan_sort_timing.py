@@ -275,6 +275,7 @@ def summarize(path: str) -> None:
                         for k in ("ms", "library_ms", "sort_ms")}
             line[lb]["runs_ms"] = [r["ms"] for r in rs]
             line[lb]["launches"] = rs[0]["launches"] if rs else None
+            line[lb]["digests"] = sorted({r.get("digest") or "" for r in rs})
         line["bound_ms"] = next(iter(per.values()))[0]["bound_ms"]
         print(json.dumps(line))
 
