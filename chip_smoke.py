@@ -12,7 +12,10 @@ Phases (any failure exits non-zero and prints no result line):
    table state; K5 within rtol 1e-5), with its time (CUDA events), the
    plain version's time, a single PyTorch library call where one computes
    the same function, and the least time the card could take (bytes over
-   3.35 TB/s, counted from this run's inputs);
+   3.35 TB/s, counted from this run's inputs); K1 also at its edges (n
+   = 1, 31, its one-block limit and one each side, 393,216 and 2^20 + 1,
+   every lane live or dead, flags at an odd address, small calls right
+   after the largest), bit for bit, one launch a call;
 3. app A, BASELINE config 2 as written: lengthBatch(10000) sum/avg grouped
    by a string symbol over 1,000,000 symbols, group_capacity 2^20,
    batch_size 131072, 8 rounds of send_columns + flush (1,048,576 events);
@@ -209,7 +212,17 @@ Phases (any failure exits non-zero and prints no result line):
    timings (the library calls: the [B, C] and [B, B] equality masks with
    `any` for the dedup, `index_put_` of the rows with the slots given
    for the placement, `any` / `argmax` over the flipped mask / `any` for
-   K13e, `torch.sort`, `scatter_reduce_(amax)`);
+   K13e, `torch.sort`, `scatter_reduce_(amax)`); then (its own generator)
+   K13d's edges, bit for bit, one launch a call: the dedup on NaN, ±0.0
+   and ±inf in float32 and float64 keys, alone and beside an integer
+   column, swapped int64 pairs, bool beside int64, int64 keys differing
+   only above bit 32, every lane one key (live in the table and not),
+   repeats behind invalid lanes, B = 0, C = 0, B = 1 and 2,048 lanes
+   against 2^20 rows, the sizes alternating on one stream; the placement
+   of 1 lane, of none, of lanes that fit the free rows exactly, of one
+   lane too many (nothing written) and of 131,072 lanes into 2^18 rows;
+   and the dedup timed at app AD's shape (8,192 unmatched ids against
+   50,000 live rows);
 25. apps AC (reference-data enrichment: 50,000 symbols fed into an
    @PrimaryKey / @Index table in 4 batches of 16,384 lanes, 15,536 of
    them repeats, then 8 rounds of 131,072 trades over 60,000 symbols
@@ -224,7 +237,8 @@ Phases (any failure exits non-zero and prints no result line):
    once), strings, longs and stored float32 values exact, on-demand sums
    within 1e-5 of the sum of magnitudes; each app's kernels launched;
    one host read a table insert (its overflow and dropped counts) and
-   none elsewhere in a step;
+   none elsewhere in a step; one launch each of the dedup, K1 on the free
+   rows and the placement an insert;
 26. K13f, the aggregation's bucket scatter, against its plain version on
    the card: app AE's ten columns (the bucket and symbol set, the alive
    flags, float32 sums, min and max with NaN and ±inf, int64 sums) in one
@@ -951,6 +965,50 @@ def kernel_phase(torch, rng, chunk_width_a: int) -> dict:
           f"{res['K5']}")
     torch.cuda.synchronize()
     return res
+
+
+#: K1's one-block limit (csrc/k1_partition.cu TILE)
+K1_TILE = 4096
+
+
+def k1_edge_cases(torch, rng, dev) -> list:
+    """(name, live flags) of K1's edges, in the order they run: n = 1, 31,
+    the one-block limit and one each side, a batch, a sliding chunk (3B),
+    2^20 + 1; every lane live, every lane dead; flags at an odd address
+    (byte loads); then a small call right after the largest one (its
+    workspace must be left clean)."""
+    cases = []
+    for n in (1, 31, K1_TILE - 1, K1_TILE, K1_TILE + 1, BATCH, 3 * BATCH,
+              (1 << 20) + 1):
+        cases.append((f"n={n}", torch.from_numpy(rng.random(n) < 0.6)
+                      .to(dev)))
+    for n in (K1_TILE + 1, 3 * BATCH):
+        cases.append((f"all live n={n}",
+                      torch.ones(n, dtype=torch.bool, device=dev)))
+        cases.append((f"all dead n={n}",
+                      torch.zeros(n, dtype=torch.bool, device=dev)))
+    odd = torch.from_numpy(rng.random(BATCH + 1) < 0.5).to(dev)
+    cases.append(("odd address n=131072", odd[1:]))
+    cases.append(("n=2^20+1 again", cases[7][1]))
+    cases.append(("n=31 after 2^20+1", cases[1][1]))
+    cases.append(("n=4097 after it", cases[4][1]))
+    return cases
+
+
+def k1_edge_phase(torch, rng) -> None:
+    """Phase 2's K1 edges against its plain version, bit for bit, one
+    launch a call."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import search
+    for name, live in k1_edge_cases(torch, rng, torch.device("cuda")):
+        kernels.reset_launch_counts()
+        got = search.stable_partition_order(live)
+        if kernels.LAUNCHES["K1"] != 1:
+            raise Failure(f"K1 edge {name}: {kernels.LAUNCHES['K1']} "
+                          "launches, one a call expected")
+        check_equal(f"K1 edge {name}", got,
+                    search.stable_partition_order_plain(live))
+    print("K1 edges: every case bit for bit, one launch a call")
 
 
 def _err(a, b) -> float:
@@ -5936,6 +5994,201 @@ AD_QUERIES = ("from Account select kind, sum(balance) as total, count() as n "
               f"delete Account on Account.balance < {AD_FLOOR}")
 
 
+def k13d_edge_cases(torch, rng, dev, B: int = AC_FEED_BATCH,
+                    C: int = TABLE_C, C_big: int = 1 << 20,
+                    B_big: int = 2048) -> dict:
+    """K13d dedup cases, name -> (lane keys, row keys, lane valid, row
+    valid), B lanes against C rows (60% live, 90% of the lanes valid)
+    unless named: NaN, ±0.0 and ±inf in float32 and float64 keys, alone
+    and beside an integer column; two int64 columns whose pairs swap; bool
+    beside int64; int64 keys that differ only above bit 32; every lane one
+    key, live in the table and not; repeats behind invalid lanes; B = 0,
+    C = 0, B = 1; B_big lanes against C_big rows."""
+    special = np.array([0.0, -0.0, np.nan, np.inf, -np.inf])
+
+    def draw(pool, n, p_special=0.0):
+        out = pool[rng.integers(0, pool.size, n)]
+        pick = rng.random(n) < p_special
+        out[pick] = special[rng.integers(0, special.size, int(pick.sum()))]
+        return out
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def case(lanes, rows, p_valid=0.9, p_live=0.6):
+        nb, nc = lanes[0].shape[0], rows[0].shape[0]
+        return ([t(a) for a in lanes], [t(r) for r in rows],
+                t(rng.random(nb) < p_valid), t(rng.random(nc) < p_live))
+
+    cases = {}
+    fpool = rng.integers(-C, C, C // 2).astype(np.float64)
+    for dt in (np.float32, np.float64):
+        name = "float32" if dt == np.float32 else "float64"
+        cases[f"{name} NaN ±0 ±inf"] = case(
+            [draw(fpool, B, 0.2).astype(dt)], [draw(fpool, C, 0.2).astype(dt)])
+    small = np.arange(8, dtype=np.float64)
+    cases["float32 NaN ±0 beside int64"] = case(
+        [draw(fpool, B, 0.3).astype(np.float32),
+         draw(small, B).astype(np.int64)],
+        [draw(fpool, C, 0.3).astype(np.float32),
+         draw(small, C).astype(np.int64)])
+    cases["float64 NaN ±0 beside int32"] = case(
+        [draw(small, B, 0.4), draw(small, B).astype(np.int32)],
+        [draw(small, C, 0.4), draw(small, C).astype(np.int32)])
+    a, b = rng.integers(0, 300, (2, C))
+    swap = rng.random(B) < 0.5
+    pick = rng.integers(0, C, B)
+    la = np.where(swap, b[pick], a[pick]) + rng.integers(0, 2, B) * 300
+    lb = np.where(swap, a[pick], b[pick])
+    cases["int64 pairs swapped"] = case([la, lb], [a, b])
+    cases["bool beside int64"] = case(
+        [rng.random(B) < 0.5, rng.integers(0, C // 4, B)],
+        [rng.random(C) < 0.5, rng.integers(0, C // 4, C)])
+    high = np.int64(0x5A5A5A5A)
+    cases["int64 differing above bit 32"] = case(
+        [high + (rng.integers(-C, C, B) << 32)],
+        [high + (rng.integers(-C, C, C) << 32)])
+    one = np.full(B, 77, np.int64)
+    rows = rng.integers(1000, 10**9, C)
+    rows[C // 3] = 77
+    lk, rk, lv, rv = case([one], [rows])
+    rv[C // 3] = True
+    cases["every lane one key, live in the table"] = (lk, rk, lv, rv)
+    rv = rv.clone()
+    rv[C // 3] = False
+    cases["every lane one key, not in the table"] = (lk, rk, lv, rv)
+    keys = np.repeat(rng.integers(0, 10**12, -(-B // 3)), 3)[:B]
+    lk, rk, lv, rv = case([keys], [rng.integers(10**12, 2 * 10**12, C)])
+    lv[0::3] = t(rng.random(lv[0::3].shape[0]) < 0.5)  # first of each
+    cases["repeats behind invalid lanes"] = (lk, rk, lv, rv)
+    ipool = rng.integers(0, 4 * C, C)
+    cases["B = 0"] = case([ipool[:0].astype(np.int32)],
+                          [ipool.astype(np.int32)])
+    cases["C = 0"] = case([draw(ipool, B).astype(np.int32)],
+                          [ipool[:0].astype(np.int32)])
+    cases["B = 1"] = case([ipool[:1].astype(np.int32)],
+                          [ipool.astype(np.int32)], p_valid=1.0)
+    bpool = rng.integers(0, 4 * C_big, C_big)
+    cases[f"large C: B = {B_big} against C = {C_big}"] = case(
+        [draw(bpool, B_big).astype(np.int32)], [bpool.astype(np.int32)])
+    return cases
+
+
+def place_edge_cases(torch, rng, dev) -> dict:
+    """K13d place cases, name -> (state, batch columns, ts, valid, drop):
+    B lanes (a tenth dropped) into C rows with a given number free, the
+    staying lanes fitting exactly, overflowing by one, or into plenty of
+    room across many blocks."""
+    from siddhi_tpu_torch.core.table import TableState
+
+    def build(B, C, n_free, fit):
+        valid = rng.random(B) < 0.9
+        drop = valid & (rng.random(B) < 0.1)
+        n_stay = int((valid & ~drop).sum())
+        if fit is not None:
+            n_free = n_stay + fit
+        free = np.zeros(C, bool)
+        free[rng.choice(C, min(n_free, C), replace=False)] = True
+        state = TableState(
+            {"s": torch.from_numpy(rng.integers(0, 9, C).astype(np.int32))
+             .to(dev),
+             "p": torch.from_numpy(rng.random(C)).to(dev),
+             "f": torch.from_numpy(rng.random(C) < 0.5).to(dev)},
+            torch.arange(C, dtype=torch.int64, device=dev),
+            torch.from_numpy(~free).to(dev))
+        cols = {"s": torch.from_numpy(rng.integers(0, 9, B).astype(np.int32))
+                .to(dev),
+                "p": torch.from_numpy(rng.random(B)).to(dev),
+                "f": torch.from_numpy(rng.random(B) < 0.5).to(dev)}
+        ts = 10**12 + torch.arange(B, dtype=torch.int64, device=dev)
+        return (state, cols, ts, torch.from_numpy(valid).to(dev),
+                torch.from_numpy(drop).to(dev))
+
+    return {"B = 1 into C = 64": build(1, 64, 10, None),
+            "B = 0": build(0, 64, 10, None),
+            "exact fit": build(AC_FEED_BATCH, TABLE_C, 0, 0),
+            "one too many": build(AC_FEED_BATCH, TABLE_C, 0, -1),
+            "B = 131072 into 2^18": build(BATCH, 1 << 18, 150_000, None)}
+
+
+def check_place(name, tb, state, cols, ts, valid, drop) -> None:
+    """place_rows on a copy of `state` against place_rows_plain: both
+    counts, and the new state (the old one where it overflowed)."""
+    from siddhi_tpu_torch.core.table import TableState
+    from siddhi_tpu_torch.ops import search
+    free = search.stable_partition_order_plain(~state.valid)
+    want, wcounts = tb.place_rows_plain(state, cols, ts, valid, drop, free)
+    copy = TableState({k: v.clone() for k, v in state.cols.items()},
+                      state.ts.clone(), state.valid.clone())
+    got, gcounts = tb.place_rows(copy, cols, ts, valid, drop, free)
+    check_equal(f"{name} counts", gcounts, wcounts)
+    expect = state if int(wcounts[0]) else want
+    for k in state.cols:
+        check_equal(f"{name} {k}", got.cols[k], expect.cols[k])
+    check_equal(f"{name} ts", got.ts, expect.ts)
+    check_equal(f"{name} valid", got.valid, expect.valid)
+
+
+def table_edge_phase(torch, rng) -> None:
+    """Phase 24's edges: K13d dedup at k13d_edge_cases against its plain
+    version, bit for bit, one launch a call (none at B = 0), also with two
+    tables of different C called alternately on one stream; K13d place at
+    place_edge_cases against its plain version (state and counts)."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.core import table as tb
+    dev = torch.device("cuda")
+    cases = k13d_edge_cases(torch, rng, dev)
+    big = [n for n in cases if n.startswith("large C")][0]
+    order = list(cases) + [big, "float32 NaN ±0 ±inf", big, "B = 1"]
+    seen = {}
+    for name in order:
+        lane, row, lv, rv = cases[name]
+        kernels.reset_launch_counts()
+        got = tb.pk_duplicates(lane, row, lv, rv)
+        want_launches = 1 if lv.shape[0] else 0
+        if kernels.LAUNCHES["K13d dedup"] != want_launches:
+            raise Failure(f"K13d dedup edge {name}: "
+                          f"{kernels.LAUNCHES['K13d dedup']} launches, "
+                          f"{want_launches} expected")
+        check_equal(f"K13d dedup edge {name}", got,
+                    tb.pk_duplicates_plain(lane, row, lv, rv))
+        seen[name] = int(got.sum())
+    print(f"K13d dedup edges, lanes dropped (bit for bit; sizes "
+          f"alternating on one stream): {seen}")
+    for name in ("every lane one key, live in the table",
+                 "every lane one key, not in the table",
+                 "repeats behind invalid lanes"):
+        if not seen[name]:
+            raise Failure(f"K13d dedup edge {name}: no lane dropped")
+    for name, case in place_edge_cases(torch, rng, dev).items():
+        kernels.reset_launch_counts()
+        check_place(f"K13d place edge {name}", tb, *case)
+        if kernels.LAUNCHES["K13d place"] != 1:
+            raise Failure(f"K13d place edge {name}: "
+                          f"{kernels.LAUNCHES['K13d place']} launches, one "
+                          "expected")
+    print("K13d place edges: state and counts bit for bit, one launch a "
+          "call")
+    # the dedup at app AD's shape: an update-or-insert batch's unmatched
+    # ids (B = 8,192 over 60,000 ids) against 50,000 live accounts
+    ids = rng.permutation(AD_IDS)[:min(50_000, TABLE_C - TABLE_C // 8)] \
+        .astype(np.int64)
+    rows = np.concatenate([ids, rng.integers(0, AD_IDS, TABLE_C - ids.size)])
+    live = np.arange(TABLE_C) < ids.size
+    lanes = rng.integers(0, AD_IDS, AD_BATCH)
+    lane = [torch.from_numpy(lanes).to(dev)]
+    row = [torch.from_numpy(rows).to(dev)]
+    lv = torch.from_numpy(~np.isin(lanes, ids)).to(dev)
+    rv = torch.from_numpy(live).to(dev)
+    check_equal("K13d dedup at AD's shape", tb.pk_duplicates(lane, row, lv, rv),
+                tb.pk_duplicates_plain(lane, row, lv, rv))
+    t = _timed(torch, lambda: tb.pk_duplicates(lane, row, lv, rv),
+               lambda: tb.pk_duplicates_plain(lane, row, lv, rv))
+    t["bound_ms"] = bound_ms(9 * AD_BATCH + 9 * TABLE_C + AD_BATCH)
+    print(f"K13d dedup at app AD's shape, B={AD_BATCH} ({int(lv.sum())} "
+          f"valid) against C={TABLE_C} ({ids.size} live): {t}")
+
+
 def table_kernel_phase(torch, rng, B: int = AC_FEED_BATCH, C: int = TABLE_C,
                        B_mask: int = AD_BATCH) -> dict:
     """K13d, K13e and the table sites of K1, K7 and K13b against their
@@ -6211,6 +6464,21 @@ def timed_steps(torch, fn, items, expect_syncs: int, what: str):
     return (time.perf_counter() - t0) / len(items) * 1e3, syncs
 
 
+#: launches of one table insert: the dedup, the free rows, the placement
+INSERT_LAUNCHES = {"K13d dedup": 1, "K1 table free": 1, "K13d place": 1}
+
+
+def insert_launches(fn, what: str) -> None:
+    """fn() makes one table insert: its launches must be INSERT_LAUNCHES."""
+    from siddhi_tpu_torch import kernels
+    kernels.reset_launch_counts()
+    fn()
+    got = {k: kernels.LAUNCHES[k] for k in INSERT_LAUNCHES}
+    if got != INSERT_LAUNCHES:
+        raise Failure(f"{what}: launches an insert {got}, "
+                      f"{INSERT_LAUNCHES} expected")
+
+
 def check_ac(rt, got, names, feed_cols, trade_cols) -> int:
     feed, sector, weight, _ = feed_cols
     sym, price, volume, ts = trade_cols
@@ -6305,6 +6573,7 @@ def run_ac(torch, rng, card: str, rounds: int = ROUNDS,
     step, reads = {}, {}
     step["insert"], reads["insert"] = timed_steps(
         torch, lambda b: tbl.insert_batch(b[0]), fbat, 1, "app AC insert")
+    insert_launches(lambda: tbl.insert_batch(fbat[0][0]), "app AC insert")
     tbat = _batches(rt, "TradeStream", trade_columns, ts, batch)
     known, jr = rt.query_runtimes["known"], rt.query_runtimes["enrich"]
 
@@ -6322,7 +6591,8 @@ def run_ac(torch, rng, card: str, rounds: int = ROUNDS,
     report_app("AC", n_in, n_out, elapsed, sum(step.values()), peak,
                launches, reads["insert"], card, rounds=rounds, batch=batch)
     print(f"app AC: steps alone, ms a batch: {step}; host reads a step: "
-          "insert 1 (overflow and dropped, one copy), known 0, enrich 0")
+          "insert 1 (overflow and dropped, one copy), known 0, enrich 0; "
+          f"launches an insert: {INSERT_LAUNCHES}")
     return launches
 
 
@@ -6480,6 +6750,7 @@ def run_ad(torch, rng, card: str, rounds: int = ROUNDS,
     step = {}
     step["update or insert"], reads = timed_steps(
         torch, lambda b: txn.on_batch(*b), tb, 1, "app AD txn")
+    insert_launches(lambda: txn.on_batch(*tb[0]), "app AD txn")
     step["delete"], _ = timed_steps(torch, lambda b: cls.on_batch(*b), cb, 0,
                                     "app AD close")
     q0 = time.perf_counter()
@@ -6493,7 +6764,8 @@ def run_ad(torch, rng, card: str, rounds: int = ROUNDS,
                rounds=rounds, batch=per_round)
     print(f"app AD: steps alone, ms a batch: {step}; host reads a step: "
           "update or insert 1 (its insert's overflow and dropped, one "
-          f"copy), delete 0; {len(rows)} rows at the end")
+          f"copy), delete 0; {len(rows)} rows at the end; launches an "
+          f"insert: {INSERT_LAUNCHES}")
     return launches
 
 
@@ -7749,6 +8021,8 @@ def main(argv=None) -> int:
                                     expired_on=False).chunk_width
         kres = kernel_phase(torch, rng, width_a)
         # its own generator: the phases after it keep their inputs
+        k1_edge_phase(torch, np.random.default_rng([args.seed, 2]))
+        # its own generator: the phases after it keep their inputs
         scan_sort_edge_phase(torch, np.random.default_rng([args.seed, 31]))
         pattern_walk_edge_phase(torch,
                                 np.random.default_rng([args.seed, 32]))
@@ -7835,6 +8109,7 @@ def main(argv=None) -> int:
             launches[k] += v
 
         kres.update(table_kernel_phase(torch, rng))
+        table_edge_phase(torch, np.random.default_rng([args.seed, 24]))
         for k, v in table_apps(torch, rng, card).items():
             launches[k] += v
 

@@ -8,10 +8,10 @@ into broadcastable column functions: stream frames enter the scope as
 evaluates to a [B, C] cross mask.
 
 - insert: a primary-key dedup against the live rows and the earlier lanes
-  (K13d dedup), the free rows in row order (K1), and one launch that
-  places every staying lane there (K13d place) unless they overflow; the
-  overflow and the dropped count come back in one host read, the only one
-  a table write makes;
+  (K13d dedup, one launch through a hash of the keys), the free rows in
+  row order (K1), and one launch that places every staying lane there
+  (K13d place) unless they overflow; the overflow and the dropped count
+  come back in one host read, the only one a table write makes;
 - delete, update, update or insert: the mask's per-row any, last matching
   event and per-event any in one pass (K13e); SET expressions evaluate on
   the [C] frame of (the row's last matching event, the row);
@@ -115,10 +115,25 @@ def pk_duplicates_plain(lane_keys: Sequence[torch.Tensor],
     return (dup | dup_in_batch) & lane_valid
 
 
+_K13D = "k13d_table_insert"
+
+
+def _k13d_workspace(B: int, C: int, device) -> torch.Tensor:
+    """The library's workspace for B lanes against C rows (the dedup's
+    hash table, or the placement's block counts), zero between launches."""
+    nbytes = kernels.bind(_K13D, "k13d_workspace_bytes",
+                          [ctypes.c_int, ctypes.c_int],
+                          restype=ctypes.c_longlong)(B, C)
+    if nbytes <= 0:
+        raise kernels.KernelError("K13d: the card has no cooperative "
+                                  "launches")
+    return kernels.workspace(_K13D, nbytes, device)
+
+
 def pk_duplicates_cuda(lane_keys, row_keys, lane_valid, row_valid, *,
                        counter: str = "K13d dedup") -> torch.Tensor:
-    """K13d dedup on the card: the table pass and the in-batch pass."""
-    lib = "k13d_table_insert"
+    """K13d dedup on the card: one launch that hashes the live rows' and
+    valid lanes' keys into the workspace and probes it."""
     if not 1 <= len(lane_keys) == len(row_keys) <= 4:
         raise ValueError("pk_duplicates: 1 to 4 key columns")
     lanes, rows, types = [], [], []
@@ -132,21 +147,24 @@ def pk_duplicates_cuda(lane_keys, row_keys, lane_valid, row_valid, *,
     kernels.require_cuda("pk_duplicates", lane_valid, row_valid, *lanes,
                          *rows)
     B, C = lane_valid.shape[0], row_valid.shape[0]
-    drop = torch.zeros(B, dtype=torch.bool, device=lane_valid.device)
+    dev = lane_valid.device
+    drop = torch.empty(B, dtype=torch.bool, device=dev)
     if B == 0:
         return drop
+    ws = _k13d_workspace(B, C, dev)
     P, I = ctypes.c_void_p, ctypes.c_int
     n = len(lanes)
 
     def ptrs(ts):
         return (ctypes.c_void_p * n)(*[t.data_ptr() for t in ts])
 
-    rc = kernels.bind(lib, "k13d_dedup", [P, P, P, I, P, P, I, I, P, P])(
+    rc = kernels.bind(_K13D, "k13d_dedup",
+                      [P, P, P, I, P, P, I, I, P, P, P])(
         ptrs(lanes), ptrs(rows), (ctypes.c_int * n)(*types), n,
         lane_valid.data_ptr(), row_valid.data_ptr(), B, C, drop.data_ptr(),
-        kernels.stream())
-    kernels.check(lib, "pk_duplicates", rc)
-    kernels.LAUNCHES[counter] += 2 if C else 1
+        ws.data_ptr(), kernels.stream())
+    kernels.check(_K13D, "pk_duplicates", rc, dev)
+    kernels.LAUNCHES[counter] += 1
     return drop
 
 
@@ -188,9 +206,8 @@ def place_rows_cuda(tstate: TableState, cols: dict, ts: torch.Tensor,
                     valid: torch.Tensor, drop: Optional[torch.Tensor],
                     free_order: torch.Tensor, *,
                     counter: str = "K13d place"):
-    """K13d place on the card: one launch, in place; writes nothing when
-    the staying lanes overflow the free rows."""
-    lib = "k13d_table_insert"
+    """K13d place on the card: one launch over the whole card, in place;
+    writes nothing when the staying lanes overflow the free rows."""
     names = list(tstate.cols)
     dsts = [tstate.cols[k] for k in names] + [tstate.ts]
     srcs = [cols[k].to(tstate.cols[k].dtype).contiguous() for k in names]
@@ -200,11 +217,13 @@ def place_rows_cuda(tstate: TableState, cols: dict, ts: torch.Tensor,
     kernels.require_cuda("place_rows", valid, tstate.valid, free_order,
                          *srcs, *dsts, *extra)
     B, C = valid.shape[0], tstate.ts.shape[0]
-    if len(srcs) > kernels.library(lib).k13d_max_cols():
+    if len(srcs) > kernels.bind(_K13D, "k13d_max_cols", [])():
         raise ValueError("place_rows: too many table columns for one launch")
     if any(s.shape != (B,) for s in srcs) or free_order.shape != (C,):
         raise ValueError("place_rows: batch columns [B], free_order [C]")
-    counts = torch.empty(2, dtype=torch.int32, device=valid.device)
+    dev = valid.device
+    counts = torch.empty(2, dtype=torch.int32, device=dev)
+    ws = _k13d_workspace(B, C, dev)
     P, I = ctypes.c_void_p, ctypes.c_int
     n = len(srcs)
 
@@ -212,13 +231,13 @@ def place_rows_cuda(tstate: TableState, cols: dict, ts: torch.Tensor,
         return (ctypes.c_void_p * n)(*[t.data_ptr() for t in ts_])
 
     sizes = [d.element_size() for d in dsts]
-    rc = kernels.bind(lib, "k13d_place_rows",
-                      [P, P, I, P, I, P, P, P, P, I, P, P])(
+    rc = kernels.bind(_K13D, "k13d_place_rows",
+                      [P, P, I, P, I, P, P, P, P, I, P, P, P])(
         valid.data_ptr(), drop.data_ptr() if drop is not None else None, B,
         tstate.valid.data_ptr(), C, free_order.data_ptr(), ptrs(srcs),
         ptrs(dsts), (ctypes.c_int * n)(*sizes), n, counts.data_ptr(),
-        kernels.stream())
-    kernels.check(lib, "place_rows", rc)
+        ws.data_ptr(), kernels.stream())
+    kernels.check(_K13D, "place_rows", rc, dev)
     kernels.LAUNCHES[counter] += 1
     return tstate, counts
 

@@ -1,7 +1,8 @@
 // Shared helpers for the siddhi_tpu_torch kernels: the plain C export macro,
 // the error-string export every library carries, block-wide scans built
-// from warp shuffles (one element per thread), the one-lane copy of a 1-,
-// 2-, 4- or 8-byte column (K12a, K12b), and the sum/min/max ops with their
+// from warp shuffles (one element per thread), the grid barrier of a
+// cooperative launch (K7, K13d), the one-lane copy of a 1-, 2-, 4- or
+// 8-byte column (K12a, K12b), and the sum/min/max ops with their
 // identities (K5b scans, K8 range extrema).
 #pragma once
 
@@ -55,6 +56,62 @@ __device__ __forceinline__ int block_exclusive_sum(int v, int* smem,
   *total = smem[NW - 1];
   __syncthreads();  // smem may be reused by the caller's next call
   return warp_prefix + x - v;
+}
+
+// Cooperative launches (K7, K13d): no more blocks than the card holds
+// at once, so blocks may wait for each other. The barrier's counter and the
+// done counter live in the library's workspace, zero on entry; the block
+// that finishes last zeroes them again.
+
+// All blocks of the grid arrive before any leaves; `phase` counts this
+// block's barriers, so the counter only grows in a launch.
+__device__ __forceinline__ void siddhi_grid_sync(unsigned* bar,
+                                                 unsigned& phase) {
+  __syncthreads();
+  ++phase;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(bar, 1u);
+    const unsigned target = phase * gridDim.x;
+    while (*(volatile unsigned*)bar < target) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// Called by every thread at the end of the launch: true (block-wide) in
+// the block that finishes last, when every other block is done with the
+// workspace; that block zeroes the barrier and the done counter.
+__device__ __forceinline__ bool siddhi_grid_last(unsigned* bar,
+                                                 unsigned* done) {
+  __syncthreads();
+  int last = 0;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(done, 1u) == gridDim.x - 1;
+    if (last) {
+      *bar = 0u;
+      *done = 0u;
+    }
+  }
+  return __syncthreads_or(last);
+}
+
+// Blocks of `kernel` (`block` threads, no dynamic shared memory) that the
+// card holds at once; 0 where it has no cooperative launches.
+template <typename Kernel>
+static inline int siddhi_coop_capacity(Kernel kernel, int block) {
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block,
+                                                    0) != cudaSuccess)
+    return 0;
+  return coop ? sms * per_sm : 0;
 }
 
 // Copy one lane of a column `width` bytes wide (1, 2, 4 or 8).

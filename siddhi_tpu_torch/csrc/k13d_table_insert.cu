@@ -12,46 +12,78 @@
 //     valid = True are scattered there; overflow = n_ins - n_fit and
 //     dropped = n_valid - n_ins are returned.
 //
-// k13d_dedup: one thread a lane, the rows walked through shared-memory
-// tiles, without the [B, C] and [B, B] masks. A 2-D grid splits the rows
-// too (ROWS_PER_BLOCK a block), so B = 16,384 lanes against C = 65,536
-// rows run as 4,096 blocks; a lane that finds an equal row stores 1 into
-// its drop byte (every writer stores the same value). The second launch is
-// the batch against itself, rows before the lane only. Equality is JAX's
-// `==`: floats compare as floats (NaN never equal, -0.0 == 0.0), integers,
-// bools and string codes bitwise, up to MAX_KEYS columns.
+// Equality is JAX's `==` in each column's promoted type, ANDed over up to
+// MAX_KEYS columns: integers, bools and string codes bitwise, floats as
+// floats (NaN equal to nothing, -0.0 == 0.0). A key with a NaN column
+// equals no key, so such a lane or row takes no part. On the other keys
+// `==` is an equivalence whose classes are the canonical values (-0.0 read
+// as +0.0, every other value by its bits).
 //
-// k13d_place: one block. It first counts the free rows, the valid lanes
-// and the lanes that stay; if they do not fit it writes nothing (the
-// table stays as it was: an overflowing insert is all or nothing) and
-// leaves only the two counts. Otherwise it ranks the lanes chunk by chunk
-// with block scans and writes each column of every staying lane into its
-// free row in place. Free rows are distinct, so the scatter has no
-// conflict. The counts stay on the device; the caller reads both in one
-// copy.
+// k13d_dedup: O(B + C) through one open-addressing hash of the keys, in
+// one cooperative launch (at most the co-resident blocks, each walking the
+// elements grid-stride):
+//   build  every live row and valid lane with no NaN key hashes its
+//          canonical columns (splitmix64 mixing, column order kept) and
+//          claims an empty slot with atomicCAS, or walks to the slot whose
+//          representative (a row or lane index) has equal columns, read
+//          from the real key columns, so a collision costs a probe and
+//          never a wrong answer. Its slot's mark takes the atomicMax of
+//          0xffffffff for a row and 0x7fffffff - b for lane b: a row, else
+//          the first lane of the class (the warp's lowest element of a slot
+//          issues the one atomic for the warp). The table has at least
+//          2 (C + B) slots, so a probe always ends at an empty slot;
+//   grid barrier;
+//   probe  lane b is dropped when its slot's mark is a row's or names a
+//          lane before b. Only the lane's valid flag matters for the
+//          in-batch rule, not whether that lane stayed, as in the JAX mask;
+//          atomics decide no order the output depends on, so the result is
+//          deterministic. Every lane's drop flag is written (no clear);
+//   grid barrier, then the table and the lanes' slots are zeroed, so the
+//          next call (of any size) finds its region zero.
 //
-// Bound on the H100: dedup is operations — B x C x keys compares (1.1e9
-// at app AC's B = 16,384, C = 65,536, one key), served from shared memory;
-// its bytes are only the keys (~0.3 MB). Placement is bytes (each staying
-// lane's row read and written once, the valid flags) but runs as a single
-// block, so latency bounds it at these sizes.
+// k13d_place: one cooperative launch. Each block counts the valid and
+// staying lanes of its contiguous share of the lanes and, grid-stride, the
+// free rows; a grid barrier; every block sums the counts (all blocks, and
+// its predecessors' staying lanes). If the staying lanes overflow the free
+// rows, nothing is written (an overflowing insert is all or nothing) and
+// only the two counts are left. Otherwise each block ranks its staying
+// lanes with block scans from its offset and writes each column of each
+// into its free row, in place, reading the batch's columns coalesced; free
+// rows are distinct, so the scatter has no conflict. The counts stay on
+// the device; the caller reads both in one copy.
+//
+// Workspace (the library's, per stream; zero when first allocated and
+// zero after every launch): the barrier and done counters, then either
+// the placement's per-block counts or the dedup's table (a reference and
+// a mark a slot) and the lanes' slots. The block that finishes last zeroes
+// the counters and the placement's counts.
+//
+// Bound on the H100: bytes. The dedup reads the keys and valid flags once
+// and writes the drop flags (~0.4 MB at app AC's B = 16,384 against C =
+// 65,536); the design also writes and reads the 2^18-slot table (2 MB, in
+// L2). The placement reads the flags and writes each staying lane's row.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int LANES = 128;            // lanes a dedup block, one a thread
-constexpr int TILE = LANES;           // rows staged a time, one a thread
-constexpr int ROWS_PER_BLOCK = 2048;  // rows a dedup block walks
+constexpr int BLOCK = 256;
 constexpr int MAX_KEYS = 4;
-constexpr int PLACE_BLOCK = 1024;
 constexpr int MAX_COLS = 64;
+constexpr int PLACE_LANES = 512;  // lanes a placement block ranks, at least
+constexpr int MIN_SLOTS = 256;
+// workspace words: the barrier, the done counter, then the scratch region
+constexpr int WS_BAR = 0;
+constexpr int WS_DONE = 1;
+constexpr int WS_HEAD = 4;
+constexpr unsigned ROW_MARK = 0xffffffffu;
+constexpr unsigned FIRST_LANE = 0x7fffffffu;  // lane b marks FIRST_LANE - b
 
 enum KeyType { K_I8 = 0, K_I32 = 1, K_I64 = 2, K_F32 = 3, K_F64 = 4 };
 
 struct Keys {
   const void* lane[MAX_KEYS];  // the batch's key columns [B]
-  const void* row[MAX_KEYS];   // the rows' key columns [R]
+  const void* row[MAX_KEYS];   // the rows' key columns [C]
   int type[MAX_KEYS];
   int n;
 };
@@ -63,76 +95,129 @@ struct Cols {
   int n;
 };
 
-__device__ __forceinline__ long long load_key(const void* p, int type,
-                                              long long i) {
+// Column value i as its canonical 64 bits; false for NaN.
+__device__ __forceinline__ bool canonical(const void* p, int type, int i,
+                                          unsigned long long* v) {
   switch (type) {
     case K_I8:
-      return static_cast<const signed char*>(p)[i];
+      *v = static_cast<long long>(static_cast<const signed char*>(p)[i]);
+      return true;
     case K_I32:
-      return static_cast<const int*>(p)[i];
-    case K_F32:
-      return __float_as_int(static_cast<const float*>(p)[i]);
-    default:  // K_I64, K_F64
-      return static_cast<const long long*>(p)[i];
+      *v = static_cast<long long>(static_cast<const int*>(p)[i]);
+      return true;
+    case K_I64:
+      *v = static_cast<const unsigned long long*>(p)[i];
+      return true;
+    case K_F32: {
+      const float f = static_cast<const float*>(p)[i];
+      *v = f == 0.0f ? 0ull : __float_as_uint(f);
+      return f == f;
+    }
+    default: {
+      const double d = static_cast<const double*>(p)[i];
+      *v = d == 0.0 ? 0ull
+                    : static_cast<unsigned long long>(__double_as_longlong(d));
+      return d == d;
+    }
   }
 }
 
-__device__ __forceinline__ bool key_eq(long long a, long long b, int type) {
-  if (type == K_F32)
-    return __int_as_float(static_cast<int>(a)) ==
-           __int_as_float(static_cast<int>(b));
-  if (type == K_F64) return __longlong_as_double(a) == __longlong_as_double(b);
-  return a == b;
-}
-
-__global__ void k13d_dup(Keys keys, const bool* __restrict__ lane_valid,
-                         const bool* __restrict__ row_valid, int B, int R,
-                         int in_batch, bool* __restrict__ drop) {
-  __shared__ long long tile_key[MAX_KEYS][TILE];
-  __shared__ bool tile_ok[TILE];
-  const int b = blockIdx.x * LANES + threadIdx.x;
-  const bool active = b < B && lane_valid[b];
-  long long mine[MAX_KEYS];
+// Element e's key: row e below C, lane e - C above. False if a column is
+// NaN.
+__device__ __forceinline__ bool element_key(const Keys& keys, int e, int C,
+                                            unsigned long long* v) {
+  const bool row = e < C;
+  const int i = row ? e : e - C;
+  bool ok = true;
 #pragma unroll
   for (int k = 0; k < MAX_KEYS; ++k)
-    mine[k] = (active && k < keys.n) ? load_key(keys.lane[k], keys.type[k], b)
-                                     : 0;
-  const int r0 = blockIdx.y * ROWS_PER_BLOCK;
-  int r1 = min(R, r0 + ROWS_PER_BLOCK);
-  if (in_batch) {
-    // only rows before the block's last lane can precede one of its lanes
-    r1 = min(r1, min(B, (int)(blockIdx.x + 1) * LANES) - 1);
-  }
-  bool found = false;
-  for (int t0 = r0; t0 < r1; t0 += TILE) {  // the same trip count block-wide
-    const int n = min(TILE, r1 - t0);
-    if (threadIdx.x < n) {
-      const int r = t0 + threadIdx.x;
-      tile_ok[threadIdx.x] = row_valid[r];
+    if (k < keys.n)
+      ok &= canonical(row ? keys.row[k] : keys.lane[k], keys.type[k], i,
+                      &v[k]);
+  return ok;
+}
+
+__device__ __forceinline__ unsigned long long mix64(unsigned long long z) {
+  z += 0x9e3779b97f4a7c15ull;
+  z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ull;
+  z = (z ^ (z >> 27)) * 0x94d049bb133111ebull;
+  return z ^ (z >> 31);
+}
+
+__device__ __forceinline__ unsigned lanemask_lt() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
+
+// Scratch layout of the dedup: ref[S], mark[S], lane_slot[B] (slot + 1).
+__global__ void __launch_bounds__(BLOCK)
+    k13d_dup(Keys keys, const bool* __restrict__ lane_valid,
+             const bool* __restrict__ row_valid, int B, int C, unsigned mask,
+             unsigned* ws, bool* __restrict__ drop) {
+  const int total = C + B;
+  const int stride = gridDim.x * BLOCK;
+  unsigned* ref = ws + WS_HEAD;
+  unsigned* mark = ref + mask + 1;
+  unsigned* lane_slot = mark + mask + 1;
+  // build: the trip count is the same across the block, so warps stay
+  // whole for the mark's match
+  for (int e0 = blockIdx.x * BLOCK; e0 < total; e0 += stride) {
+    const int e = e0 + threadIdx.x;
+    unsigned long long v[MAX_KEYS];
+    bool ins = false;
+    if (e < total)
+      ins = (e < C ? row_valid[e] : lane_valid[e - C]) &&
+            element_key(keys, e, C, v);
+    unsigned s = 0xffffffffu;
+    if (ins) {
+      unsigned long long h = 0;
 #pragma unroll
       for (int k = 0; k < MAX_KEYS; ++k)
-        if (k < keys.n)
-          tile_key[k][threadIdx.x] = load_key(keys.row[k], keys.type[k], r);
-    }
-    __syncthreads();
-    if (active && !found) {
-      const int jmax = in_batch ? min(n, b - t0) : n;
-      for (int j = 0; j < jmax; ++j) {
-        if (!tile_ok[j]) continue;
+        if (k < keys.n) h = mix64(h ^ v[k]);
+      s = static_cast<unsigned>(h) & mask;
+      for (;;) {
+        // a claimed slot keeps its reference for the launch: read it first,
+        // so a class's repeats spend no atomic
+        unsigned r = *reinterpret_cast<volatile unsigned*>(ref + s);
+        if (r == 0u) {
+          r = atomicCAS(ref + s, 0u, static_cast<unsigned>(e) + 1u);
+          if (r == 0u) break;  // claimed
+        }
+        unsigned long long w[MAX_KEYS];
+        element_key(keys, static_cast<int>(r) - 1, C, w);
         bool eq = true;
 #pragma unroll
         for (int k = 0; k < MAX_KEYS; ++k)
-          if (k < keys.n) eq = eq && key_eq(mine[k], tile_key[k][j],
-                                            keys.type[k]);
-        if (eq) {
-          found = true;
-          break;
-        }
+          if (k < keys.n) eq &= w[k] == v[k];
+        if (eq) break;  // the class's slot
+        s = (s + 1u) & mask;
       }
+      if (e >= C) lane_slot[e - C] = s + 1u;
     }
-    __syncthreads();
+    // elements ascend with the warp's lanes, and rows precede lanes: the
+    // lowest element of a slot holds the warp's largest mark for it
+    const unsigned peers = __match_any_sync(0xffffffffu, s);
+    if (ins && (peers & lanemask_lt()) == 0u)
+      atomicMax(mark + s, e < C ? ROW_MARK
+                                : FIRST_LANE - static_cast<unsigned>(e - C));
   }
-  if (found) drop[b] = true;
+  unsigned phase = 0;
+  siddhi_grid_sync(ws + WS_BAR, phase);
+  for (int b = blockIdx.x * BLOCK + threadIdx.x; b < B; b += stride) {
+    const unsigned ls = __ldcg(lane_slot + b);
+    bool d = false;
+    if (ls != 0u) {
+      const unsigned m = __ldcg(mark + ls - 1u);
+      d = m == ROW_MARK || FIRST_LANE - m < static_cast<unsigned>(b);
+    }
+    drop[b] = d;
+  }
+  siddhi_grid_sync(ws + WS_BAR, phase);
+  const long long words = 2ll * (mask + 1ull) + B;
+  for (long long j = blockIdx.x * BLOCK + threadIdx.x; j < words; j += stride)
+    ref[j] = 0u;
+  siddhi_grid_last(ws + WS_BAR, ws + WS_DONE);
 }
 
 template <typename T>
@@ -141,57 +226,126 @@ __device__ __forceinline__ void move_one(const void* src, void* dst, int b,
   static_cast<T*>(dst)[slot] = static_cast<const T*>(src)[b];
 }
 
-__global__ void k13d_place(const bool* __restrict__ valid,
-                           const bool* __restrict__ drop, int B,
-                           bool* __restrict__ row_valid, int C,
-                           const int* __restrict__ free_order, Cols cols,
-                           int* __restrict__ counts) {
-  __shared__ int smem[PLACE_BLOCK / 32];
+__device__ __forceinline__ bool stays(const bool* valid, const bool* drop,
+                                      int b) {
+  return valid[b] && !(drop != nullptr && drop[b]);
+}
+
+// Scratch layout of the placement: a block's (staying, valid, free) counts.
+__global__ void __launch_bounds__(BLOCK)
+    k13d_place(const bool* __restrict__ valid, const bool* __restrict__ drop,
+               int B, bool* __restrict__ row_valid, int C,
+               const int* __restrict__ free_order, Cols cols,
+               int* __restrict__ counts, unsigned* ws, int per_block) {
+  __shared__ int smem[BLOCK / 32];
+  const int G = gridDim.x;
+  const int g = blockIdx.x;
   const int tid = threadIdx.x;
-  int n_free = 0, n_valid = 0, n_ins = 0;
+  unsigned* cnt = ws + WS_HEAD;
+  const int b0 = min(B, g * per_block);
+  const int b1 = min(B, b0 + per_block);
   {
-    int f = 0, v = 0, s = 0;
-    for (int c = tid; c < C; c += PLACE_BLOCK) f += !row_valid[c];
-    for (int b = tid; b < B; b += PLACE_BLOCK) {
-      const bool vb = valid[b];
-      v += vb;
-      s += vb && !(drop != nullptr && drop[b]);
+    int s = 0, v = 0, f = 0;
+    for (int b = b0 + tid; b < b1; b += BLOCK) {
+      v += valid[b];
+      s += stays(valid, drop, b);
     }
-    block_exclusive_sum<PLACE_BLOCK>(f, smem, &n_free);
-    block_exclusive_sum<PLACE_BLOCK>(v, smem, &n_valid);
-    block_exclusive_sum<PLACE_BLOCK>(s, smem, &n_ins);
+    for (int c = g * BLOCK + tid; c < C; c += G * BLOCK) f += !row_valid[c];
+    int ts, tv, tf;
+    block_exclusive_sum<BLOCK>(s, smem, &ts);
+    block_exclusive_sum<BLOCK>(v, smem, &tv);
+    block_exclusive_sum<BLOCK>(f, smem, &tf);
+    if (tid == 0) {
+      cnt[3 * g] = static_cast<unsigned>(ts);
+      cnt[3 * g + 1] = static_cast<unsigned>(tv);
+      cnt[3 * g + 2] = static_cast<unsigned>(tf);
+    }
+  }
+  unsigned phase = 0;
+  siddhi_grid_sync(ws + WS_BAR, phase);
+  int before, n_ins, n_valid, n_free;
+  {
+    int p = 0, s = 0, v = 0, f = 0;
+    for (int j = tid; j < G; j += BLOCK) {
+      const int sj = static_cast<int>(__ldcg(cnt + 3 * j));
+      s += sj;
+      if (j < g) p += sj;
+      v += static_cast<int>(__ldcg(cnt + 3 * j + 1));
+      f += static_cast<int>(__ldcg(cnt + 3 * j + 2));
+    }
+    block_exclusive_sum<BLOCK>(p, smem, &before);
+    block_exclusive_sum<BLOCK>(s, smem, &n_ins);
+    block_exclusive_sum<BLOCK>(v, smem, &n_valid);
+    block_exclusive_sum<BLOCK>(f, smem, &n_free);
   }
   const int overflow = n_ins > n_free ? n_ins - n_free : 0;
-  if (tid == 0) {
+  if (g == 0 && tid == 0) {
     counts[0] = overflow;
     counts[1] = n_valid - n_ins;
   }
-  if (overflow) return;  // all or nothing: leave the table as it was
-  int base = 0;
-  for (int b0 = 0; b0 < B; b0 += PLACE_BLOCK) {
-    const int b = b0 + tid;
-    const int stay =
-        b < B && valid[b] && !(drop != nullptr && drop[b]) ? 1 : 0;
-    int total;
-    const int r = base + block_exclusive_sum<PLACE_BLOCK>(stay, smem, &total);
-    if (stay) {
-      const int slot = free_order[r];
-      for (int c = 0; c < cols.n; ++c) {
-        switch (cols.size[c]) {
-          case 1:
-            move_one<uint8_t>(cols.src[c], cols.dst[c], b, slot);
-            break;
-          case 4:
-            move_one<uint32_t>(cols.src[c], cols.dst[c], b, slot);
-            break;
-          default:
-            move_one<unsigned long long>(cols.src[c], cols.dst[c], b, slot);
+  if (!overflow) {  // else leave the table as it was
+    int base = before;
+    for (int x0 = b0; x0 < b1; x0 += BLOCK) {  // the same trip count
+      const int b = x0 + tid;
+      const int stay = b < b1 && stays(valid, drop, b) ? 1 : 0;
+      int n;
+      const int r = base + block_exclusive_sum<BLOCK>(stay, smem, &n);
+      if (stay) {
+        const int slot = free_order[r];
+        for (int c = 0; c < cols.n; ++c) {
+          switch (cols.size[c]) {
+            case 1:
+              move_one<uint8_t>(cols.src[c], cols.dst[c], b, slot);
+              break;
+            case 4:
+              move_one<uint32_t>(cols.src[c], cols.dst[c], b, slot);
+              break;
+            default:
+              move_one<unsigned long long>(cols.src[c], cols.dst[c], b,
+                                           slot);
+          }
         }
+        row_valid[slot] = true;
       }
-      row_valid[slot] = true;
+      base += n;
     }
-    base += total;
   }
+  if (siddhi_grid_last(ws + WS_BAR, ws + WS_DONE))
+    for (int j = tid; j < 3 * G; j += BLOCK) cnt[j] = 0u;
+}
+
+template <typename Kernel>
+int capacity_of(Kernel kernel, int* cache) {
+  if (*cache < 0) {
+    const int c = siddhi_coop_capacity(kernel, BLOCK);
+    if (c <= 0) return 0;
+    *cache = c;
+  }
+  return *cache;
+}
+
+int dup_capacity() {
+  static int cap = -1;
+  return capacity_of(k13d_dup, &cap);
+}
+
+int place_capacity() {
+  static int cap = -1;
+  return capacity_of(k13d_place, &cap);
+}
+
+// Slots of the dedup's table for B lanes and C rows: a power of two, at
+// least 2 (B + C).
+long long table_slots(int B, int C) {
+  long long s = MIN_SLOTS;
+  while (s < 2ll * (static_cast<long long>(B) + C)) s <<= 1;
+  return s;
+}
+
+int place_grid(int B) {
+  const int want = B > PLACE_LANES ? (B + PLACE_LANES - 1) / PLACE_LANES : 1;
+  const int cap = place_capacity();
+  return want < cap ? want : cap;
 }
 
 }  // namespace
@@ -200,39 +354,48 @@ SIDDHI_ERROR_STRING_EXPORT
 
 SIDDHI_API int k13d_max_cols() { return MAX_COLS; }
 
+// Bytes of the workspace a call of B lanes against C rows needs (both
+// entry points); 0 where the card has no cooperative launches.
+SIDDHI_API long long k13d_workspace_bytes(int B, int C) {
+  if (dup_capacity() <= 0 || place_capacity() <= 0) return 0;
+  const long long dup = 2 * table_slots(B, C) + B;
+  const long long place = 3ll * place_grid(B);
+  return 4 * (WS_HEAD + (dup > place ? dup : place));
+}
+
 // k13d_dedup: drop[b] = 1 where valid lane b's key equals a live row's or
-// an earlier valid lane's. lane_keys/row_keys/types: n_keys host entries
-// (device pointers; types K_I8..K_F64, both sides of one type);
-// lane_valid bool[B], row_valid bool[C], drop bool[B] zeroed by the caller.
+// an earlier valid lane's, else 0. lane_keys/row_keys/types: n_keys host
+// entries (device pointers; types K_I8..K_F64, both sides of one type);
+// lane_valid bool[B], row_valid bool[C], drop bool[B] out; ws: the
+// workspace (k13d_workspace_bytes).
 SIDDHI_API int k13d_dedup(const void* const* lane_keys,
                           const void* const* row_keys, const int* types,
                           int n_keys, const bool* lane_valid,
                           const bool* row_valid, int B, int C, bool* drop,
-                          cudaStream_t stream) {
-  if (n_keys < 1 || n_keys > MAX_KEYS || B < 0 || C < 0)
+                          unsigned* ws, cudaStream_t stream) {
+  if (n_keys < 1 || n_keys > MAX_KEYS || B < 0 || C < 0 ||
+      static_cast<long long>(B) + C >= (1ll << 30))
     return static_cast<int>(cudaErrorInvalidValue);
-  Keys table, batch;
-  table.n = batch.n = n_keys;
+  Keys keys;
+  keys.n = n_keys;
   for (int k = 0; k < n_keys; ++k) {
     if (types[k] < K_I8 || types[k] > K_F64)
       return static_cast<int>(cudaErrorInvalidValue);
-    table.lane[k] = batch.lane[k] = batch.row[k] = lane_keys[k];
-    table.row[k] = row_keys[k];
-    table.type[k] = batch.type[k] = types[k];
+    keys.lane[k] = lane_keys[k];
+    keys.row[k] = row_keys[k];
+    keys.type[k] = types[k];
   }
   if (B == 0) return 0;
-  const unsigned lane_blocks = siddhi_blocks(B, LANES);
-  if (C > 0) {
-    dim3 grid(lane_blocks, siddhi_blocks(C, ROWS_PER_BLOCK));
-    k13d_dup<<<grid, LANES, 0, stream>>>(table, lane_valid, row_valid, B, C,
-                                         0, drop);
-    const int rc = siddhi_launch_status();
-    if (rc) return rc;
-  }
-  dim3 grid(lane_blocks, siddhi_blocks(B, ROWS_PER_BLOCK));
-  k13d_dup<<<grid, LANES, 0, stream>>>(batch, lane_valid, lane_valid, B, B, 1,
-                                       drop);
-  return siddhi_launch_status();
+  const int cap = dup_capacity();
+  if (cap <= 0) return static_cast<int>(cudaErrorNotSupported);
+  const int want = static_cast<int>(siddhi_blocks(B + C, BLOCK));
+  const int grid = want < cap ? want : cap;
+  unsigned mask = static_cast<unsigned>(table_slots(B, C) - 1);
+  void* args[] = {&keys, &lane_valid, &row_valid, &B, &C, &mask, &ws, &drop};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(k13d_dup), dim3(grid), dim3(BLOCK), args,
+      0, stream);
+  return e != cudaSuccess ? static_cast<int>(e) : siddhi_launch_status();
 }
 
 // k13d_place_rows: the staying lanes (valid and not drop; drop may be
@@ -242,7 +405,7 @@ SIDDHI_API int k13d_place_rows(const bool* valid, const bool* drop, int B,
                                bool* row_valid, int C, const int* free_order,
                                const void* const* src, void* const* dst,
                                const int* sizes, int n_cols, int* counts,
-                               cudaStream_t stream) {
+                               unsigned* ws, cudaStream_t stream) {
   if (n_cols < 0 || n_cols > MAX_COLS || B < 0 || C < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Cols cols;
@@ -254,7 +417,13 @@ SIDDHI_API int k13d_place_rows(const bool* valid, const bool* drop, int B,
     cols.dst[c] = dst[c];
     cols.size[c] = sizes[c];
   }
-  k13d_place<<<1, PLACE_BLOCK, 0, stream>>>(valid, drop, B, row_valid, C,
-                                            free_order, cols, counts);
-  return siddhi_launch_status();
+  int grid = place_grid(B);
+  if (grid <= 0) return static_cast<int>(cudaErrorNotSupported);
+  int per_block = B > 0 ? (B + grid - 1) / grid : 0;
+  void* args[] = {&valid, &drop,  &B,      &row_valid, &C,
+                  &free_order, &cols, &counts, &ws,        &per_block};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(k13d_place), dim3(grid), dim3(BLOCK),
+      args, 0, stream);
+  return e != cudaSuccess ? static_cast<int>(e) : siddhi_launch_status();
 }

@@ -124,22 +124,6 @@ __device__ __forceinline__ unsigned warp_rank(unsigned* wrow, unsigned d,
   return before + __popc(below);
 }
 
-// All blocks of the (cooperative) grid arrive before any leaves; `phase`
-// counts this block's barriers, so the counter only grows in a launch.
-__device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& phase) {
-  __syncthreads();
-  ++phase;
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(bar, 1u);
-    const unsigned target = phase * gridDim.x;
-    while (*(volatile unsigned*)bar < target) {
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
 // Tile t of one pass: rank its keys in lane order, place the tile by
 // look-back in `lb` (this pass's [T][R] rows), scatter keys and ids to the
 // next buffers, or the order (first `width` lanes) on the last pass.
@@ -240,7 +224,6 @@ __global__ void __launch_bounds__(BLOCK, 4)
   __shared__ unsigned base[R];
   __shared__ unsigned start[R];
   __shared__ int scan_smem[BLOCK / 32];
-  __shared__ int s_last;
   const int tid = threadIdx.x;
   const int G = gridDim.x;
   unsigned phase = 0;
@@ -254,7 +237,7 @@ __global__ void __launch_bounds__(BLOCK, 4)
     tot[j] = 0u;
     if (blockIdx.x == 0) hist[j] = 0u;
   }
-  grid_sync(ws + WS_BAR, phase);
+  siddhi_grid_sync(ws + WS_BAR, phase);
   for (int t = blockIdx.x; t < ntiles; t += G)
     for (int r = 0; r < ITEMS; ++r) {
       const long long e = static_cast<long long>(t) * TILE + r * BLOCK + tid;
@@ -266,7 +249,7 @@ __global__ void __launch_bounds__(BLOCK, 4)
   __syncthreads();
   for (int j = tid; j < passes * R; j += BLOCK)
     if (tot[j] != 0u) atomicAdd(&hist[j], tot[j]);
-  grid_sync(ws + WS_BAR, phase);
+  siddhi_grid_sync(ws + WS_BAR, phase);
   for (int j = tid; j < passes * R; j += BLOCK) tot[j] = __ldcg(hist + j);
   __syncthreads();
   // the passes that run: those whose digit is not the same for every key
@@ -293,7 +276,7 @@ __global__ void __launch_bounds__(BLOCK, 4)
                    lookback + static_cast<size_t>(p) * ntiles * R, kout, iout,
                    order, width, p == lastp, wcnt, start);
     if (p == lastp) break;
-    grid_sync(ws + WS_BAR, phase);
+    siddhi_grid_sync(ws + WS_BAR, phase);
     kin = kout;
     iin = iout;
     dst ^= 1;
@@ -303,16 +286,7 @@ __global__ void __launch_bounds__(BLOCK, 4)
          e < width; e += static_cast<long long>(G) * BLOCK)
       order[e] = static_cast<int32_t>(e);
   // the last block to finish leaves the workspace zeroed
-  __syncthreads();
-  if (tid == 0) {
-    __threadfence();
-    s_last = atomicAdd(ws + WS_DONE, 1u) == static_cast<unsigned>(G - 1);
-  }
-  __syncthreads();
-  if (s_last && tid == 0) {
-    ws[WS_BAR] = 0u;
-    ws[WS_DONE] = 0u;
-  }
+  siddhi_grid_last(ws + WS_BAR, ws + WS_DONE);
 }
 
 // Every pass in one block: keys and ids in registers between passes and in
@@ -421,17 +395,9 @@ template <typename U>
 int sweep_capacity() {
   static int cap = -1;
   if (cap < 0) {
-    int dev = 0, sms = 0, coop = 0, per_sm = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess ||
-        cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev) !=
-            cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k7_sweep<U>,
-                                                      BLOCK, 0) !=
-            cudaSuccess)
-      return 0;
-    cap = coop ? sms * per_sm : 0;
+    const int c = siddhi_coop_capacity(k7_sweep<U>, BLOCK);
+    if (c <= 0) return 0;
+    cap = c;
   }
   return cap;
 }

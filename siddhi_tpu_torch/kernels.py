@@ -11,10 +11,11 @@ Nothing here falls back: a missing `nvcc`, a failed build or a failed launch
 raises `KernelError`. The plain PyTorch versions in `ops/` run only for CPU
 tensors.
 
-Kernels whose blocks wait for each other in one launch (K5's tile flags,
-K7's grid barrier) keep their counters and flags in a `workspace`: one
-zeroed buffer per library, device and stream, which every launch leaves
-zeroed again, so no launch is spent clearing it.
+Kernels whose blocks wait for each other in one launch (the look-back
+flags of K1 and K5, the grid barriers of K7 and K13d) keep their counters
+and flags in a `workspace`: one zeroed buffer per library, device and
+stream, which every launch leaves zeroed again, so no launch is spent
+clearing it.
 """
 
 from __future__ import annotations
@@ -66,6 +67,8 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 #: (library, device index, stream) -> zeroed workspace tensor
 _workspaces: dict[tuple, torch.Tensor] = {}
+#: (library, function, argtypes, restype) -> the bound ctypes function
+_bound: dict[tuple, object] = {}
 
 
 class KernelError(RuntimeError):
@@ -143,12 +146,17 @@ def library(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-def bind(name: str, fn: str, argtypes: list):
+def bind(name: str, fn: str, argtypes: list, restype=ctypes.c_int):
     """ctypes function `fn` of library `name` with its argtypes set (every
-    pointer and the stream as c_void_p, so none is cut to 32 bits)."""
-    f = getattr(library(name), fn)
-    f.argtypes = argtypes
-    f.restype = ctypes.c_int
+    pointer and the stream as c_void_p, so none is cut to 32 bits), bound
+    once: later calls return the same function."""
+    key = (name, fn, tuple(argtypes), restype)
+    f = _bound.get(key)
+    if f is None:
+        f = library(name)[fn]  # a function object of its own
+        f.argtypes = argtypes
+        f.restype = restype
+        _bound[key] = f
     return f
 
 
@@ -189,7 +197,9 @@ def workspace(name: str, nbytes: int, device) -> torch.Tensor:
 
 
 def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current device's current CUDA stream as its raw handle (without
+    building a torch Stream object, which costs a few us of host time)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def require_cuda(what: str, *tensors: torch.Tensor) -> None:

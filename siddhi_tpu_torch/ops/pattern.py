@@ -202,10 +202,9 @@ def _index_key(col: torch.Tensor):
 
 
 def _index_bytes(B: int, n_eq: int) -> int:
-    fn = kernels.bind("k11_pattern", "k11_index_bytes",
-                      [ctypes.c_int, ctypes.c_int])
-    fn.restype = ctypes.c_longlong
-    return fn(B, n_eq)
+    return kernels.bind("k11_pattern", "k11_index_bytes",
+                        [ctypes.c_int, ctypes.c_int],
+                        restype=ctypes.c_longlong)(B, n_eq)
 
 
 def match_index(arr_seq: torch.Tensor, ts: torch.Tensor,

@@ -33,26 +33,30 @@ def stable_partition_order_plain(live: torch.Tensor) -> torch.Tensor:
     return out
 
 
-_K1_BLOCK = 1024
+_K1 = "k1_partition"
 
 
 def stable_partition_order_cuda(live: torch.Tensor, *,
                                 counter: str = "K1") -> torch.Tensor:
+    """K1 on the card: one launch; above one tile of `k1_tile_lanes` lanes
+    its look-back flags live in the library's workspace."""
     if live.dtype != torch.bool or live.dim() != 1:
         raise ValueError("stable_partition_order: live must be bool[L]")
     kernels.require_cuda("stable_partition_order", live)
     n = live.shape[0]
-    out = torch.empty(n, dtype=torch.int32, device=live.device)
+    dev = live.device
+    out = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return out
-    nblocks = -(-n // _K1_BLOCK)
-    scratch = torch.empty(nblocks + 1, dtype=torch.int32, device=live.device)
-    fn = kernels.bind("k1_partition", "k1_stable_partition_order",
-                      [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
-    rc = fn(live.data_ptr(), out.data_ptr(), scratch.data_ptr(), n,
-            kernels.stream())
-    kernels.check("k1_partition", "stable_partition_order", rc)
-    kernels.LAUNCHES[counter] += 3
+    tiles = -(-n // kernels.bind(_K1, "k1_tile_lanes", [])())
+    ws = (kernels.workspace(_K1, 4 * (2 + 2 * tiles), dev).data_ptr()
+          if tiles > 1 else None)
+    P = ctypes.c_void_p
+    fn = kernels.bind(_K1, "k1_stable_partition_order",
+                      [P, P, P, ctypes.c_int, P])
+    rc = fn(live.data_ptr(), out.data_ptr(), ws, n, kernels.stream())
+    kernels.check(_K1, "stable_partition_order", rc, dev)
+    kernels.LAUNCHES[counter] += 1
     return out
 
 

@@ -2394,3 +2394,117 @@ def test_k13a_edges_match_plain(cuda, mode):
             assert torch.equal(g, w), name
         n += 1
     assert n >= 20
+
+
+# ------------------------------------------ K13d and K1 at their edges
+
+
+K13D_EDGES = ["float32 NaN ±0 ±inf", "float64 NaN ±0 ±inf",
+              "float32 NaN ±0 beside int64", "float64 NaN ±0 beside int32",
+              "int64 pairs swapped", "bool beside int64",
+              "int64 differing above bit 32",
+              "every lane one key, live in the table",
+              "every lane one key, not in the table",
+              "repeats behind invalid lanes", "B = 0", "C = 0", "B = 1",
+              "large C: B = 1024 against C = 1048576"]
+
+
+def _k13d_edges(cs, cuda):
+    return cs.k13d_edge_cases(torch, np.random.default_rng(24), cuda,
+                              B=2048, C=8192, C_big=1 << 20, B_big=1024)
+
+
+@pytest.mark.parametrize("name", K13D_EDGES)
+def test_k13d_dedup_edges_match_plain(cuda, name):
+    """chip_smoke.py's phase-24 dedup cases, bit for bit against the [B, C]
+    and [B, B] masks, one launch a call (none at B = 0)."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.core import table as tb
+    cases = _k13d_edges(_chip_smoke(), cuda)
+    assert sorted(cases) == sorted(K13D_EDGES)
+    lane, row, lv, rv = cases[name]
+    kernels.reset_launch_counts()
+    got = tb.pk_duplicates(lane, row, lv, rv)
+    assert torch.equal(got, tb.pk_duplicates_plain(lane, row, lv, rv))
+    assert kernels.LAUNCHES["K13d dedup"] == (1 if lv.shape[0] else 0)
+    if name.startswith(("every lane", "repeats")):
+        assert int(got.sum()) > 0
+
+
+def test_k13d_dedup_tables_of_two_sizes_alternate_on_one_stream(cuda):
+    """A table of 2^20 rows and one of 8,192 (and none) take turns on one
+    stream: each call finds the workspace its predecessor left zero."""
+    from siddhi_tpu_torch.core import table as tb
+    cases = _k13d_edges(_chip_smoke(), cuda)
+    for name in 3 * [K13D_EDGES[-1], "int64 pairs swapped", "C = 0"]:
+        lane, row, lv, rv = cases[name]
+        assert torch.equal(tb.pk_duplicates(lane, row, lv, rv),
+                           tb.pk_duplicates_plain(lane, row, lv, rv)), name
+
+
+K13D_PLACE_EDGES = ["B = 1 into C = 64", "B = 0", "exact fit",
+                    "one too many", "B = 131072 into 2^18"]
+
+
+@pytest.mark.parametrize("name", K13D_PLACE_EDGES)
+def test_k13d_place_edges_match_plain(cuda, name):
+    """chip_smoke.py's phase-24 placements: the state and both counts
+    against place_rows_plain; one lane too many writes nothing."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.core import table as tb
+    cs = _chip_smoke()
+    cases = cs.place_edge_cases(torch, np.random.default_rng(25), cuda)
+    assert sorted(cases) == sorted(K13D_PLACE_EDGES)
+    kernels.reset_launch_counts()
+    cs.check_place(name, tb, *cases[name])
+    assert kernels.LAUNCHES["K13d place"] == 1
+
+
+def test_table_insert_launches_one_dedup_one_k1_one_place(cuda):
+    """table_insert on the card: the dedup, K1 on the free rows and the
+    placement, one launch each, against the plain versions."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.core import table as tb
+    from siddhi_tpu_torch.core.event import EventBatch
+    from siddhi_tpu_torch.ops import search
+    rng = np.random.default_rng(26)
+    state, bcols, bts, bvalid = _table_case(cuda, rng, 3000, 8192, 5000,
+                                            ("long", "int"))
+    batch = EventBatch(ts=bts, cols=bcols, valid=bvalid,
+                       types=torch.zeros(3000, dtype=torch.int8,
+                                         device=cuda))
+    names = ("k0", "k1")
+    drop = tb.pk_duplicates_plain([bcols[k] for k in names],
+                                  [state.cols[k] for k in names], bvalid,
+                                  state.valid)
+    want, wcounts = tb.place_rows_plain(
+        state, bcols, bts, bvalid, drop,
+        search.stable_partition_order_plain(~state.valid))
+    kernels.reset_launch_counts()
+    got, counts = tb.table_insert(tb.TableState(
+        {k: v.clone() for k, v in state.cols.items()}, state.ts.clone(),
+        state.valid.clone()), batch, names)
+    assert {k: kernels.LAUNCHES[k] for k in ("K13d dedup", "K1 table free",
+                                             "K13d place")} == \
+        {"K13d dedup": 1, "K1 table free": 1, "K13d place": 1}
+    assert torch.equal(counts, wcounts) and int(counts[0]) == 0
+    for k in state.cols:
+        assert torch.equal(got.cols[k].view(torch.uint8),
+                           want.cols[k].view(torch.uint8)), k
+    assert torch.equal(got.valid, want.valid)
+
+
+def test_k1_edges_match_plain(cuda):
+    """chip_smoke.py's phase-2 K1 edges in their order (small calls right
+    after the largest), bit for bit, one launch a call."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import search
+    cases = _chip_smoke().k1_edge_cases(torch, np.random.default_rng(2),
+                                        cuda)
+    assert len(cases) >= 16
+    for name, live in cases:
+        kernels.reset_launch_counts()
+        got = search.stable_partition_order(live)
+        assert kernels.LAUNCHES["K1"] == 1, name
+        assert torch.equal(got, search.stable_partition_order_plain(live)), \
+            name

@@ -458,24 +458,72 @@ def _insert_pair(kinds, capacity):
             _build(siddhi_tpu_torch, text).tables["T"], names)
 
 
-@pytest.mark.parametrize("kinds,capacity,n_live", [
-    (("int", "string"), 64, 30), (("double",), 64, 10),
-    (("float", "bool"), 32, 0),
-    (("long",), 40, 38),  # overflows: all or nothing
+def _pinned_keys(pinned, rng, capacity, B):
+    """The key columns of a pinned case (rows, then the batch) and the
+    batch's valid flags, the contract a hash of the keys must meet:
+    "nan_zero_swapped", a (double, long) key whose first lanes are (0.0,
+    1), (-0.0, 1) (equal), two (NaN, 1) (equal to nothing), (1.0, 2),
+    (2.0, 1) (a swapped pair: not equal), repeats of both, then draws from
+    those values; "high_bits", long keys that differ only above bit 32, in
+    runs of one key whose first lanes are invalid (only an earlier valid
+    lane drops a repeat)."""
+    if pinned == "nan_zero_swapped":
+        dbl = np.array([0.0, -0.0, np.nan, 1.0, 2.0], np.float32)
+        lng = np.array([1, 2, 0], np.int64)
+        rows = [dbl[rng.integers(0, 5, capacity)],
+                lng[rng.integers(0, 3, capacity)]]
+        head = [(0.0, 1), (-0.0, 1), (np.nan, 1), (np.nan, 1), (1.0, 2),
+                (2.0, 1), (2.0, 1), (1.0, 2)]
+        tail = B - len(head)
+        keys = [np.concatenate([np.array([d for d, _ in head], np.float32),
+                                dbl[rng.integers(0, 5, tail)]]),
+                np.concatenate([np.array([n for _, n in head], np.int64),
+                                lng[rng.integers(0, 3, tail)]])]
+        valid = np.concatenate([np.ones(len(head), bool),
+                                rng.random(tail) < 0.85])
+        return rows, keys, valid
+    base = np.int64(0x12345678)
+    rows = [base + (rng.integers(-4, 5, capacity) << 32)]
+    runs = base + (np.repeat(rng.permutation(np.arange(-4, 5))[:6], 3)
+                   .astype(np.int64)[:B] << 32)
+    keys = [np.concatenate([runs, base + (rng.integers(-4, 5, B - runs.size)
+                                          << 32)])]
+    valid = rng.random(B) < 0.7
+    valid[0:3] = (False, True, True)  # lane 1 stays, lane 2 repeats it
+    valid[3:6] = (False, False, True)  # lane 5 stays
+    return rows, keys, valid
+
+
+@pytest.mark.parametrize("kinds,capacity,n_live,pinned", [
+    pytest.param(("int", "string"), 64, 30, None, id="kinds0-64-30"),
+    pytest.param(("double",), 64, 10, None, id="kinds1-64-10"),
+    pytest.param(("float", "bool"), 32, 0, None, id="kinds2-32-0"),
+    # overflows: all or nothing
+    pytest.param(("long",), 40, 38, None, id="kinds3-40-38"),
+    pytest.param(("double", "long"), 64, 24, "nan_zero_swapped",
+                 id="double_long-nan-zero-swapped"),
+    pytest.param(("long",), 48, 20, "high_bits", id="long-high-bits"),
 ])
-def test_k13d_plain_matches_the_jax_insert(kinds, capacity, n_live):
+def test_k13d_plain_matches_the_jax_insert(kinds, capacity, n_live, pinned):
     rng = np.random.default_rng(len(kinds) * 100 + capacity + n_live)
     jt, tt, names = _insert_pair(kinds, capacity)
     live = np.zeros(capacity, bool)
     live[rng.choice(capacity, n_live, replace=False)] = True
-    cols = {n: _key_values(rng, k, capacity) for n, k in zip(names, kinds)}
+    B = 16
+    if pinned is None:
+        cols = {n: _key_values(rng, k, capacity)
+                for n, k in zip(names, kinds)}
+    else:
+        rows, keys, bvalid = _pinned_keys(pinned, rng, capacity, B)
+        cols = dict(zip(names, rows))
     cols["v"] = rng.random(capacity).astype(np.float32)
     ts = np.arange(capacity, dtype=np.int64)
-    B = 16
-    bcols = {n: _key_values(rng, k, B) for n, k in zip(names, kinds)}
+    bcols = ({n: _key_values(rng, k, B) for n, k in zip(names, kinds)}
+             if pinned is None else dict(zip(names, keys)))
     bcols["v"] = rng.random(B).astype(np.float32)
     bts = 1000 + np.arange(B, dtype=np.int64)
-    bvalid = rng.random(B) < 0.85
+    if pinned is None:
+        bvalid = rng.random(B) < 0.85
 
     from siddhi_tpu.core.table import TableState as JState
     jstate = JState({k: jnp.asarray(v) for k, v in cols.items()},
