@@ -357,6 +357,7 @@ exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import subprocess
@@ -813,7 +814,40 @@ def check_equal(name, a, b) -> None:
 # --------------------------------------------------------------------------- #
 
 
+def keytable_steady_state(torch, groupby, kernels, table, restore, valid,
+                          counter) -> None:
+    """K4 on a batch of keys the table holds (a steady-state step: no claim
+    wave runs; lane i takes the (7919 i)-th held key) against the plain
+    version, timed, with the launches of one call; prints one line."""
+    restore()
+    count0 = int(table.count)
+    held = table.keys[table.keys != (1 << 63) - 1]
+    n = valid.shape[0]
+    keys = held[(torch.arange(n, device=held.device) * 7919) % held.numel()]
+    want = groupby.key_lookup_or_insert_plain(
+        groupby.KeyTable(*[t.clone() for t in table]), keys, valid)
+    kernels.reset_launch_counts()
+    got = groupby.key_lookup_or_insert(table, keys, valid, counter=counter)
+    launches = kernels.LAUNCHES[counter]
+    for nm, a, b in zip(K4_FIELDS, (*got[0], *got[1:]),
+                        (*want[0], *want[1:])):
+        check_equal(f"{counter} steady state {nm}", a, b)
+    if int(got[0].count) != count0 or not bool(got[2][valid].all()):
+        raise Failure(f"{counter} steady state: a present key unresolved")
+    row = dict(
+        _timed(torch, lambda: groupby.key_lookup_or_insert(
+                   table, keys, valid, counter=counter),
+               lambda: groupby.key_lookup_or_insert_plain(
+                   table, keys, valid), reset=restore),
+        # lane I/O and one slot and id read per valid lane
+        bound_ms=bound_ms(n * (8 + 1 + 4 + 1) + int(valid.sum()) * 12),
+        launches_a_call=launches)
+    print(f"{counter} key_lookup_or_insert steady state (L={n}, every key "
+          f"present, H={table.keys.shape[0]}): {json.dumps(row)}")
+
+
 def kernel_phase(torch, rng, chunk_width_a: int) -> dict:
+    from siddhi_tpu_torch import kernels
     from siddhi_tpu_torch.ops import groupby, search
 
     dev = torch.device("cuda")
@@ -889,8 +923,14 @@ def kernel_phase(torch, rng, chunk_width_a: int) -> dict:
             lambda: groupby.key_lookup_or_insert_plain(
                 table, batch_keys, valid), reset=restore),
         bound_ms=bound_ms(k4_bytes), max_abs_err=0, bound_by="bytes")
+    restore()
+    kernels.reset_launch_counts()
+    groupby.key_lookup_or_insert(table, batch_keys, valid)
     print(f"K4 key_lookup_or_insert H={2 * GROUP_CAP} prefilled="
-          f"{count0} new={n_new}: {res['K4']}")
+          f"{count0} new={n_new}: {res['K4']}; "
+          f"{kernels.LAUNCHES['K4']} launch a call")
+    keytable_steady_state(torch, groupby, kernels, table, restore, valid,
+                          "K4")
 
     # K5: one lengthBatch(10000) chunk of app A: 13 flushes of [RESET,
     # 10000 CURRENT], the rest invalid; three float32 components
@@ -1009,6 +1049,102 @@ def k1_edge_phase(torch, rng) -> None:
         check_equal(f"K1 edge {name}", got,
                     search.stable_partition_order_plain(live))
     print("K1 edges: every case bit for bit, one launch a call")
+
+
+def k4_edge_cases(torch, rng, dev, K: int = GROUP_CAP, L: int = BATCH,
+                  L_huge: int = 1 << 20) -> dict:
+    """name -> (table, keys, valid) of K4's edges: a steady-state batch
+    (every key present) into a 2K-slot table holding K/2 keys, every lane
+    new, every lane one new key, the pad key beside INT64_MAX - 1, one
+    lane, L_huge lanes (half of them new: the id space runs out); a
+    contended 128-slot table where lanes still need a slot after the fifth
+    wave; a 2,048-slot table 24 ids short of its limit, given 100 new
+    keys (the rest revert). 95% of the lanes valid but where named."""
+    from siddhi_tpu_torch.ops import groupby
+    PAD = (1 << 63) - 1
+
+    def table_with(k, pre):
+        t = groupby.init_key_table(k, dev)
+        if pre.shape[0]:
+            t, _, _ = groupby.key_lookup_or_insert_plain(
+                t, pre, torch.ones(pre.shape[0], dtype=torch.bool,
+                                   device=dev))
+        return t
+
+    def keys_of(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.int64)).to(dev)
+
+    def valid(n, p=0.95):
+        return torch.from_numpy(rng.random(n) < p).to(dev)
+
+    pre = rng.integers(0, 2**62, K // 2, dtype=np.int64)
+    big = table_with(K, keys_of(pre))
+
+    def fresh(n):
+        return rng.integers(2**62, PAD - 1, n, dtype=np.int64)
+
+    pad = pre[rng.integers(0, pre.size, L)]
+    pad[rng.random(L) < 0.5] = PAD
+    pad[rng.random(L) < 0.2] = PAD - 1
+    huge = np.where(rng.random(L_huge) < 0.5, pre[rng.integers(
+        0, pre.size, L_huge)], fresh(L_huge))
+    few = rng.integers(0, 2**40, 300)
+    near = rng.integers(0, 2**40, 1000)
+    return {
+        "steady state": (big, keys_of(pre[rng.integers(0, pre.size, L)]),
+                         valid(L)),
+        "every lane new": (big, keys_of(fresh(L)), valid(L)),
+        "every lane one new key": (big, keys_of(np.full(L, fresh(1)[0])),
+                                   valid(L)),
+        "the pad key": (big, keys_of(pad), valid(L)),
+        "L = 1": (big, keys_of(fresh(1)), valid(1, 1.0)),
+        "L = 2^20": (big, keys_of(huge), valid(L_huge)),
+        "contended small table": (table_with(64, keys_of([])),
+                                  keys_of(few[rng.integers(0, 300, 400)]),
+                                  valid(400, 0.9)),
+        "id-limit revert": (table_with(1024, keys_of(near)),
+                            keys_of(np.concatenate(
+                                [fresh(100), near[:50]])[
+                                rng.permutation(150)]), valid(150, 1.0)),
+    }
+
+
+def run_k4_case(groupby, case, plain: bool, counter: str = "K4"):
+    """(table fields..., ids, resolved) after the case's call on a copy of
+    its table, by the kernel or by the plain version."""
+    table, keys, valid = case
+    t = groupby.KeyTable(*[x.clone() for x in table])
+    if plain:
+        t, ids, res = groupby.key_lookup_or_insert_plain(t, keys, valid)
+    else:
+        t, ids, res = groupby.key_lookup_or_insert(t, keys, valid,
+                                                   counter=counter)
+    return (*t, ids, res)
+
+
+K4_FIELDS = ("keys", "ids", "count", "misses", "lane ids", "resolved")
+
+
+def keytable_edge_phase(torch, rng) -> None:
+    """Phase 2's K4 edges against the plain version, the table state, lane
+    ids, resolved, count and misses bit for bit, one launch a call; a
+    small table right after a large one on one stream."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import groupby
+    cases = k4_edge_cases(torch, rng, torch.device("cuda"))
+    order = list(cases) + ["L = 2^20", "contended small table", "L = 2^20",
+                           "L = 1"]
+    for name in order:
+        kernels.reset_launch_counts()
+        got = run_k4_case(groupby, cases[name], plain=False)
+        if kernels.LAUNCHES["K4"] != 1:
+            raise Failure(f"K4 edge {name}: {kernels.LAUNCHES['K4']} "
+                          "launches, one a call expected")
+        for f, a, b in zip(K4_FIELDS, got,
+                           run_k4_case(groupby, cases[name], plain=True)):
+            check_equal(f"K4 edge {name} {f}", a, b)
+    print(f"K4 edges: {len(cases)} cases bit for bit, one launch a call "
+          "(small tables right after large ones)")
 
 
 def _err(a, b) -> float:
@@ -1959,6 +2095,48 @@ def oracle(key, price32, ts, passed):
     return sel, total, total / cnt, ts[sel]
 
 
+K4_SITES = (("siddhi_tpu_torch.ops.selector", "key_lookup_or_insert"),
+            ("siddhi_tpu_torch.ops.aggregators", "key_lookup_or_insert"),
+            ("siddhi_tpu_torch.core.aggregation", "key_lookup_or_insert"))
+K10_SITES = (("siddhi_tpu_torch.core.join_runtime", "multimap_append"),)
+
+
+@contextlib.contextmanager
+def counting_calls(sites):
+    """Counts the calls with lanes (a non-empty second argument) of the
+    wrappers bound at `sites` ((module, name) pairs) while the block runs;
+    yields a dict of the count under "calls"."""
+    import importlib
+    count = {"calls": 0}
+    saved = []
+    for mod_name, name in sites:
+        mod = importlib.import_module(mod_name)
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def wrapped(*a, _fn=fn, **kw):
+            if a[1].shape[0]:
+                count["calls"] += 1
+            return _fn(*a, **kw)
+
+        setattr(mod, name, wrapped)
+    try:
+        yield count
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def check_one_launch_a_call(app, launches, counter, calls) -> None:
+    """The app's launches of `counter` against its wrapper's calls with
+    lanes: one a call."""
+    if launches[counter] != calls:
+        raise Failure(f"app {app}: {launches[counter]} {counter} launches "
+                      f"for {calls} calls, one a call expected")
+    print(f"app {app}: {counter} {calls} calls, {launches[counter]} "
+          "launches (one a call)")
+
+
 def run_app(torch, text: str, columns: dict, ts,
             out_stream: str = "SummaryStream", rounds: int = ROUNDS,
             batch: int = BATCH, after_round=None):
@@ -2266,8 +2444,11 @@ def sliding_apps(torch, rng, card: str, summary=None) -> dict:
         sym, price, volume, ts = sliding_events(rng, n_sym)
         pool = symbols(n_sym)
         columns = {"symbol": pool[sym], "price": price, "volume": volume}
-        rt, got, launches, elapsed, peak = run_app(torch, text, columns, ts,
-                                                   out_stream="OutStream")
+        with counting_calls(K4_SITES) as k4:
+            rt, got, launches, elapsed, peak = run_app(
+                torch, text, columns, ts, out_stream="OutStream")
+        if name == "E":
+            check_one_launch_a_call("E", launches, "K4", k4["calls"])
         if name == "C":
             expect = [("distinctSymbols", oracle_c(sym), False)]
         elif name == "D":
@@ -2364,6 +2545,7 @@ def _probe_walk(torch, mm, hashes, valid, appended, wlen, k_max):
 def join_kernel_phase(torch, rng) -> dict:
     """K3b and the three K10 kernels against their plain versions at app
     G's shapes, bit for bit, with their timings."""
+    from siddhi_tpu_torch import kernels
     from siddhi_tpu_torch.ops import groupby, join
 
     dev = torch.device("cuda")
@@ -2411,8 +2593,12 @@ def join_kernel_phase(torch, rng) -> dict:
         # read and one head written per bucket run
         bound_ms=bound_ms(B * (4 + 1) + n_live * 12 + runs * 8),
         max_abs_err=0, bound_by="bytes")
+    restore()
+    kernels.reset_launch_counts()
+    join.multimap_append(mm, h, live, a0)
     print(f"K10 multimap_append B={B} C={C} H={H} (ring wrapped "
-          f"{appended // C} times): {res['K10 append']}")
+          f"{appended // C} times): {res['K10 append']}; "
+          f"{kernels.LAUNCHES['K10 append']} launch a call")
 
     # K10 probe: app G's probe batch against the full window; then against
     # a state whose tags cross 2^32 (the u32 ages wrap)
@@ -2512,6 +2698,124 @@ def join_kernel_phase(torch, rng) -> dict:
     print("join compositions: " + json.dumps(compositions))
     torch.cuda.synchronize()
     return res
+
+
+def k10_edge_cases(torch, rng, dev, B: int = BATCH_G, C: int = LENGTH_G,
+                   B_big: int = 131_072, C_big: int = 262_144) -> dict:
+    """name -> (state, hashes, live, appended0) of K10 append's edges: a
+    multimap over a C-slot ring that two earlier all-live batches filled
+    (by the plain append), and the batch appended to it. App G's shape,
+    every live lane in one bucket, 16 keys, every lane dead, B = 1, B = C,
+    a batch across the ring's end, tags across 2^32, one lane past the
+    kernel's 8,192-lane tile, and B_big lanes into C_big (uniform keys and
+    one bucket: the cooperative grid)."""
+    from siddhi_tpu_torch.ops import groupby, join
+
+    def case(b, c, keys, p_live, end_at):
+        H = join.multimap_buckets(c)
+        mm = join.multimap_init(c, H, dev)
+        nb = min(b, c)
+        a = end_at - 2 * nb
+        for _ in range(2):
+            pk = torch.from_numpy(rng.integers(1, c + 1, nb).astype(
+                np.int32)).to(dev)
+            mm = join.multimap_append_plain(
+                mm, groupby.hash_columns32_plain([pk], remap=True),
+                torch.ones(nb, dtype=torch.bool, device=dev),
+                torch.tensor(a, device=dev))
+            a += nb
+        kt = torch.from_numpy(np.asarray(keys, dtype=np.int32)).to(dev)
+        live = torch.from_numpy(rng.random(b) < p_live).to(dev)
+        return (mm, groupby.hash_columns32_plain([kt], remap=True), live,
+                torch.tensor(end_at, device=dev))
+
+    def uniform(b, c):
+        return rng.integers(1, c + 1, b)
+
+    return {
+        "app G's shape": case(B, C, uniform(B, C), 0.97, 5 * C + 12_345),
+        "every live lane one bucket": case(B, C, np.full(B, 7), 0.97,
+                                           3 * C + 100),
+        "16 keys": case(B, C, rng.integers(1, 17, B), 0.97, 4 * C),
+        "every lane dead": case(B, C, uniform(B, C), 0.0, 2 * C + 5),
+        "B = 1": case(1, C, [42], 1.0, C + 3),
+        "B = C": case(C, C, uniform(C, C), 0.97, 6 * C + 777),
+        "across the ring's end": case(B, C, uniform(B, C), 0.97,
+                                      7 * C - B // 2),
+        "tags across 2^32": case(B, C, uniform(B, C), 0.97, 2**32 - B // 3),
+        "one lane past a tile": case(K10_TILE + 1, C,
+                                     uniform(K10_TILE + 1, C), 0.97, 3 * C),
+        "B = 131072 into C = 262144": case(B_big, C_big,
+                                           uniform(B_big, C_big), 0.97,
+                                           5 * C_big + 99),
+        "131072 lanes, one bucket": case(B_big, C_big, np.full(B_big, 5),
+                                         0.97, 2 * C_big + 1),
+    }
+
+
+#: K10 append's one-block limit (csrc/k10_join.cu ATILE)
+K10_TILE = 8192
+
+
+def run_k10_case(join, case, plain: bool):
+    """The state after appending the case's batch to a copy of its
+    multimap, by the kernel or by the plain version."""
+    mm, hashes, live, a0 = case
+    state = join.MultimapState(*[t.clone() for t in mm])
+    fn = join.multimap_append_plain if plain else join.multimap_append
+    return fn(state, hashes, live, a0)
+
+
+def append_bytes(torch, case) -> int:
+    """K10 append's bound: hashes and live in; three words out per live
+    row; one old head read and one head written per bucket."""
+    mm, hashes, live, _ = case
+    H = mm.heads.shape[0]
+    runs = int(torch.unique(hashes[live] & (H - 1)).numel())
+    return hashes.shape[0] * (4 + 1) + int(live.sum()) * 12 + runs * 8
+
+
+def multimap_edge_phase(torch, rng) -> None:
+    """Phase 8's K10 append edges against the plain version, the whole
+    state bit for bit, one launch a call; a large and a small multimap
+    alternate on one stream; the skewed and the many-block appends timed
+    at full size."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import join
+    cases = k10_edge_cases(torch, rng, torch.device("cuda"))
+    big, small = "B = 131072 into C = 262144", "app G's shape"
+    for name in list(cases) + [big, small, big, small]:
+        kernels.reset_launch_counts()
+        got = run_k10_case(join, cases[name], plain=False)
+        want = 0 if cases[name][1].shape[0] == 0 else 1
+        if kernels.LAUNCHES["K10 append"] != want:
+            raise Failure(f"K10 append edge {name}: "
+                          f"{kernels.LAUNCHES['K10 append']} launches, one "
+                          "a call expected")
+        _check_state(f"K10 append edge {name}", got,
+                     run_k10_case(join, cases[name], plain=True))
+    print(f"K10 append edges: {len(cases)} cases bit for bit, one launch a "
+          "call (small and large multimaps alternating)")
+    for name in ("every live lane one bucket", big,
+                 "131072 lanes, one bucket"):
+        mm, h, live, a0 = case = cases[name]
+        state = [t.clone() for t in mm]
+        work = join.MultimapState(*state)
+
+        def restore():
+            for t, t0 in zip(state, mm):
+                t.copy_(t0)
+
+        kernels.reset_launch_counts()
+        join.multimap_append(work, h, live, a0)
+        row = dict(launches_a_call=kernels.LAUNCHES["K10 append"],
+                   ms=device_ms(torch, lambda: join.multimap_append(
+                       work, h, live, a0), reset=restore),
+                   call_ms=time_ms(torch, lambda: join.multimap_append(
+                       work, h, live, a0), reset=restore),
+                   bound_ms=bound_ms(append_bytes(torch, case)))
+        print(f"K10 multimap_append {name} (B={h.shape[0]}, "
+              f"C={mm.nexts.shape[0]}): {json.dumps(row)}")
 
 
 def join_events(rng):
@@ -2651,7 +2955,9 @@ def join_app(torch, rng, card: str, summary=None) -> dict:
     want_k, want_lv, want_rv, want_ts, most = oracle_g(k, v, ts)
     if most > K_MAX:
         raise Failure(f"app G: a probe has {most} matches, past k_max")
-    rt, got, launches, elapsed, peak = run_join_app(torch, k, v, ts)
+    with counting_calls(K10_SITES) as k10:
+        rt, got, launches, elapsed, peak = run_join_app(torch, k, v, ts)
+    check_one_launch_a_call("G", launches, "K10 append", k10["calls"])
     want = (want_k, want_lv, want_rv, want_ts)
     n = check_join("G", got, want)
     del got
@@ -6936,6 +7242,7 @@ def aggregation_kernel_phase(torch, rng, B: int = BATCH,
     """K13f (ingest at low and high contention, evict, restore) and the
     aggregation sites of K3 and K4 against their plain versions on the
     card at apps AE's and AF's shapes; K13f timed by device_ms."""
+    from siddhi_tpu_torch import kernels
     from siddhi_tpu_torch.ops import bucket_scatter as bs
     from siddhi_tpu_torch.ops import groupby
 
@@ -7122,8 +7429,15 @@ def aggregation_kernel_phase(torch, rng, B: int = BATCH,
                reset=restore4),
         bound_ms=bound_ms(B * (8 + 1 + 4 + 1) + n_valid * 12 + n_new * 12),
         max_abs_err=0, bound_by="bytes")
+    restore4()
+    kernels.reset_launch_counts()
+    groupby.key_lookup_or_insert(table, keys, valid,
+                                 counter="K4 aggregation")
     print(f"K4 aggregation H={2 * K} prefilled={count0} new={n_new}: "
-          f"{res['K4 aggregation']}")
+          f"{res['K4 aggregation']}; "
+          f"{kernels.LAUNCHES['K4 aggregation']} launch a call")
+    keytable_steady_state(torch, groupby, kernels, table, restore4, valid,
+                          "K4 aggregation")
     torch.cuda.synchronize()
     return res
 
@@ -7305,35 +7619,37 @@ def run_ae(torch, rng, card: str, rounds: int = ROUNDS, batch: int = BATCH,
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     busy = 0.0
-    for r in range(rounds):
-        t0 = time.perf_counter()
-        s = slice(r * batch, (r + 1) * batch)
-        ht.send_columns({k: v[s] for k, v in columns.items()},
-                        timestamps=ts[s])
-        rt.flush()
-        now = int(ts[s][-1])
-        rt.heartbeat(now)
-        finds = {"sec": [tuple(e.data) for e in rt.query(
-            AE_SEC_FIND.format(lo=now - AE_RETENTION, hi=now + 1))]}
-        m0 = now - now % 60_000
-        for d, q in AE_FINDS.items():
-            finds[d] = [tuple(e.data) for e in rt.query(
-                q.format(lo=m0 - 60_000, hi=m0 + 60_000))]
-        rollups.append([])
-        qs = qsym[r * n_queries:(r + 1) * n_queries]
-        hq.send_columns({"symbol": names[qs]},
-                        timestamps=np.full(n_queries, now, np.int64))
-        rt.flush()
-        torch.cuda.synchronize()
-        busy += time.perf_counter() - t0
-        # the sec store after retention: only buckets at or after the
-        # cutoff (one host read, outside the timed span)
-        st = agg.state[0]
-        live_b = st.bucket_ts[st.alive].cpu().numpy()
-        seen.append((now, finds, int(live_b.size),
-                     int(live_b.min()) if live_b.size else None))
+    with counting_calls(K4_SITES[2:]) as k4:
+        for r in range(rounds):
+            t0 = time.perf_counter()
+            s = slice(r * batch, (r + 1) * batch)
+            ht.send_columns({k: v[s] for k, v in columns.items()},
+                            timestamps=ts[s])
+            rt.flush()
+            now = int(ts[s][-1])
+            rt.heartbeat(now)
+            finds = {"sec": [tuple(e.data) for e in rt.query(
+                AE_SEC_FIND.format(lo=now - AE_RETENTION, hi=now + 1))]}
+            m0 = now - now % 60_000
+            for d, q in AE_FINDS.items():
+                finds[d] = [tuple(e.data) for e in rt.query(
+                    q.format(lo=m0 - 60_000, hi=m0 + 60_000))]
+            rollups.append([])
+            qs = qsym[r * n_queries:(r + 1) * n_queries]
+            hq.send_columns({"symbol": names[qs]},
+                            timestamps=np.full(n_queries, now, np.int64))
+            rt.flush()
+            torch.cuda.synchronize()
+            busy += time.perf_counter() - t0
+            # the sec store after retention: only buckets at or after the
+            # cutoff (one host read, outside the timed span)
+            st = agg.state[0]
+            live_b = st.bucket_ts[st.alive].cpu().numpy()
+            seen.append((now, finds, int(live_b.size),
+                         int(live_b.min()) if live_b.size else None))
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    check_one_launch_a_call("AE", launches, "K4 aggregation", k4["calls"])
     for k in ("K3 aggregation", "K4 aggregation", "K13f ingest",
               "K13f evict", "K13b final per group", "K12a"):
         if launches[k] == 0:
@@ -7388,6 +7704,10 @@ def run_ae(torch, rng, card: str, rounds: int = ROUNDS, batch: int = BATCH,
     if syncs:
         raise Failure(f"app AE: {len(syncs)} host syncs in an ingest step: "
                       f"{syncs}")
+    if per_step.get("K4 aggregation") != len(agg.durations):
+        raise Failure(f"app AE: {per_step.get('K4 aggregation')} K4 "
+                      f"launches in an ingest step of {len(agg.durations)} "
+                      "durations, one a duration expected")
     agg.state = tuple(agg._init_store() for _ in agg.durations)
     step_s = 0.0
     for it in items:
@@ -8023,6 +8343,8 @@ def main(argv=None) -> int:
         # its own generator: the phases after it keep their inputs
         k1_edge_phase(torch, np.random.default_rng([args.seed, 2]))
         # its own generator: the phases after it keep their inputs
+        keytable_edge_phase(torch, np.random.default_rng([args.seed, 4]))
+        # its own generator: the phases after it keep their inputs
         scan_sort_edge_phase(torch, np.random.default_rng([args.seed, 31]))
         pattern_walk_edge_phase(torch,
                                 np.random.default_rng([args.seed, 32]))
@@ -8039,8 +8361,12 @@ def main(argv=None) -> int:
                 [f"S{k}" for k in key], dtype=object)
             columns = {("account" if long_key else "symbol"): key_col,
                        "price": price, "volume": volume}
-            rt, got, app_launches, elapsed, peak = run_app(
-                torch, text, columns, ts)
+            with counting_calls(K4_SITES) as k4:
+                rt, got, app_launches, elapsed, peak = run_app(
+                    torch, text, columns, ts)
+            if name == "B":
+                check_one_launch_a_call("B", app_launches, "K4",
+                                        k4["calls"])
             passed = (price.astype(np.float32) > np.float32(20.0)
                       if long_key else np.ones(key.shape[0], bool))
             n_out = check_app(name, got, key_col, key, price, ts, passed,
@@ -8077,6 +8403,8 @@ def main(argv=None) -> int:
             launches[k] += v
 
         kres.update(join_kernel_phase(torch, rng))
+        # its own generator: app G keeps its feed
+        multimap_edge_phase(torch, np.random.default_rng([args.seed, 8]))
         for k, v in join_app(torch, rng, card, summary).items():
             launches[k] += v
 

@@ -44,6 +44,7 @@ _KEY_PAD = (1 << 63) - 1  # INT64_MAX marks an empty slot
 #: Queue 3).
 _PROBE_DEPTH = 32
 _INSERT_ROUNDS = 6
+_K4 = "k4_keytable"
 _MASK32 = 0xFFFFFFFF
 
 
@@ -342,7 +343,7 @@ def key_lookup_or_insert_plain(table: KeyTable, keys: torch.Tensor,
 
 def key_lookup_or_insert_cuda(table: KeyTable, keys: torch.Tensor,
                               valid: torch.Tensor, *, counter: str = "K4"):
-    """K4 on the card; updates `table`'s tensors in place."""
+    """K4 on the card, one launch; updates `table`'s tensors in place."""
     if (keys.dtype != torch.int64 or valid.dtype != torch.bool
             or keys.dim() != 1 or valid.shape != keys.shape):
         raise ValueError("key_lookup_or_insert: keys int64[L], valid bool[L]")
@@ -352,49 +353,27 @@ def key_lookup_or_insert_cuda(table: KeyTable, keys: torch.Tensor,
                          table.count, table.misses, keys, valid)
     L = keys.shape[0]
     H = table.keys.shape[0]
-    K = H // 2
     dev = keys.device
-    if L == 0:
-        return (table, torch.zeros(0, dtype=torch.int32, device=dev),
-                torch.zeros(0, dtype=torch.bool, device=dev))
-    need = valid.to(torch.uint8)
-    slot_of = torch.zeros(L, dtype=torch.int32, device=dev)
-    won = torch.zeros(L, dtype=torch.uint8, device=dev)
-    wslot = torch.empty(L, dtype=torch.int32, device=dev)
-    has_empty = torch.zeros(L, dtype=torch.uint8, device=dev)
-    eslot = torch.zeros(L, dtype=torch.int32, device=dev)
-    P = ctypes.c_void_p
-    probe = kernels.bind("k4_keytable", "k4_probe_and_claim",
-                         [P, P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                          P, P, P, P, P, P, P])
-    waves = _INSERT_ROUNDS - 1
-    rc = probe(table.keys.data_ptr(), keys.data_ptr(), H, L, waves,
-               need.data_ptr(), slot_of.data_ptr(), won.data_ptr(),
-               wslot.data_ptr(), has_empty.data_ptr(), eslot.data_ptr(),
-               kernels.stream())
-    kernels.check("k4_keytable", "key_lookup_or_insert (probe/claim)", rc)
-    kernels.LAUNCHES[counter] += 1 + 2 * waves
-    # dense ids for the batch's new entries: unique won slots ranked in slot
-    # order
-    ws = torch.where(won.bool(), slot_of, H)
-    sw = torch.sort(ws).values
-    uniq = torch.empty(L, dtype=torch.bool, device=dev)
-    uniq[:1] = sw[:1] < H
-    uniq[1:] = (sw[1:] != sw[:-1]) & (sw[1:] < H)
-    rank = torch.cumsum(uniq, 0, dtype=torch.int32) - 1
-    n_new = torch.zeros(1, dtype=torch.int32, device=dev)
     out_ids = torch.empty(L, dtype=torch.int32, device=dev)
     resolved = torch.empty(L, dtype=torch.bool, device=dev)
-    commit = kernels.bind("k4_keytable", "k4_commit_and_resolve",
-                          [P] * 9 + [ctypes.c_int, ctypes.c_int] + [P] * 6)
-    rc = commit(table.keys.data_ptr(), table.ids.data_ptr(),
-                sw.data_ptr(), uniq.data_ptr(), rank.data_ptr(),
-                keys.data_ptr(), valid.data_ptr(), need.data_ptr(),
-                slot_of.data_ptr(), L, K, table.count.data_ptr(),
-                table.misses.data_ptr(), n_new.data_ptr(),
-                out_ids.data_ptr(), resolved.data_ptr(), kernels.stream())
-    kernels.check("k4_keytable", "key_lookup_or_insert (commit/resolve)", rc)
-    kernels.LAUNCHES[counter] += 2
+    if L == 0:
+        return table, out_ids, resolved
+    nbytes = kernels.bind(_K4, "k4_workspace_bytes", [ctypes.c_int],
+                          restype=ctypes.c_longlong)
+    sbytes = kernels.bind(_K4, "k4_scratch_bytes",
+                          [ctypes.c_int, ctypes.c_int],
+                          restype=ctypes.c_longlong)
+    ws = kernels.workspace(_K4, nbytes(H), dev)
+    scratch = kernels.workspace(_K4 + " scratch", sbytes(H, L), dev)
+    P = ctypes.c_void_p
+    fn = kernels.bind(_K4, "k4_lookup_or_insert",
+                      [P] * 6 + [ctypes.c_int] * 2 + [P] * 5)
+    rc = fn(table.keys.data_ptr(), table.ids.data_ptr(),
+            table.count.data_ptr(), table.misses.data_ptr(), keys.data_ptr(),
+            valid.data_ptr(), L, H, out_ids.data_ptr(), resolved.data_ptr(),
+            ws.data_ptr(), scratch.data_ptr(), kernels.stream())
+    kernels.check(_K4, "key_lookup_or_insert", rc, dev)
+    kernels.LAUNCHES[counter] += 1
     return table, out_ids, resolved
 
 

@@ -273,7 +273,7 @@ def multimap_buckets(ring_capacity: int) -> int:
 
 
 def _bucket_order(hashes: torch.Tensor, live: torch.Tensor, H: int):
-    """Stages 1-2 of the append: K1's live-first order (the window's
+    """Stages 1-2 of the plain append: K1's live-first order (the window's
     compaction order), then a stable sort by bucket (dead lanes keyed H,
     last). Returns (hashes in live-first order, sorted bucket keys int32,
     their live-first positions int64)."""
@@ -326,14 +326,14 @@ def multimap_append_plain(mm: MultimapState, hashes: torch.Tensor,
                          slot_seq=scatter(mm.slot_seq, seq_s, dest))
 
 
-_K10_BLOCK = 256
+_K10 = "k10_join"
 
 
 def multimap_append_cuda(mm: MultimapState, hashes: torch.Tensor,
                          live: torch.Tensor,
                          appended0: torch.Tensor) -> MultimapState:
-    """K10 append on the card: K1 and a stable torch.sort give the bucket
-    runs, then two launches write the chained scatters in place."""
+    """K10 append on the card: one launch groups the live lanes by bucket
+    and writes the chained scatters in place."""
     C = mm.nexts.shape[0]
     H = mm.heads.shape[0]
     B = hashes.shape[0]
@@ -343,16 +343,27 @@ def multimap_append_cuda(mm: MultimapState, hashes: torch.Tensor,
             or any(t.dtype != torch.int32 for t in mm)):
         raise ValueError("multimap_append: int32 hashes and bool live [B <= "
                          "C], int64 appended0, int32 state")
-    h_o, b_s, run = _bucket_order(hashes, live, H)
-    h_o, b_s, run = h_o.contiguous(), b_s.contiguous(), run.contiguous()
+    if B == 0:
+        return mm
+    dev = hashes.device
+    nbytes = kernels.bind(_K10, "k10_append_workspace_bytes",
+                          [ctypes.c_int] * 2, restype=ctypes.c_longlong)(B, H)
+    ws = scratch = None
+    if nbytes:  # past one tile: the cooperative grid's masks and lists
+        ws = kernels.workspace(_K10, nbytes, dev).data_ptr()
+        sbytes = kernels.bind(_K10, "k10_append_scratch_bytes",
+                              [ctypes.c_int], restype=ctypes.c_longlong)(B)
+        scratch = kernels.workspace(_K10 + " scratch", sbytes,
+                                    dev).data_ptr()
     P = ctypes.c_void_p
-    fn = kernels.bind("k10_join", "k10_multimap_append",
-                      [P, P, P] + [ctypes.c_int] * 3 + [P] * 6)
-    rc = fn(b_s.data_ptr(), run.data_ptr(), h_o.data_ptr(), B, H, C,
+    fn = kernels.bind(_K10, "k10_multimap_append",
+                      [P, P] + [ctypes.c_int] * 3 + [P] * 8)
+    rc = fn(hashes.data_ptr(), live.data_ptr(), B, H, C,
             appended0.data_ptr(), mm.heads.data_ptr(), mm.nexts.data_ptr(),
-            mm.slot_hash.data_ptr(), mm.slot_seq.data_ptr(), kernels.stream())
-    kernels.check("k10_join", "multimap_append", rc)
-    kernels.LAUNCHES["K10 append"] += 2
+            mm.slot_hash.data_ptr(), mm.slot_seq.data_ptr(), ws, scratch,
+            kernels.stream())
+    kernels.check(_K10, "multimap_append", rc, dev if nbytes else None)
+    kernels.LAUNCHES["K10 append"] += 1
     return mm
 
 

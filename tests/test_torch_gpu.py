@@ -2508,3 +2508,123 @@ def test_k1_edges_match_plain(cuda):
         assert kernels.LAUNCHES["K1"] == 1, name
         assert torch.equal(got, search.stable_partition_order_plain(live)), \
             name
+
+
+# ------------------------------------ K10 append and K4 in one launch
+
+K10_EDGES = ["app G's shape", "every live lane one bucket", "16 keys",
+             "every lane dead", "B = 1", "B = C", "across the ring's end",
+             "tags across 2^32", "one lane past a tile",
+             "B = 131072 into C = 262144", "131072 lanes, one bucket"]
+_EDGE_CACHE = {}
+
+
+def _edges(kind, cuda):
+    """chip_smoke.py's K10 append or K4 cases, built once a module."""
+    if kind not in _EDGE_CACHE:
+        cs = _chip_smoke()
+        build = cs.k10_edge_cases if kind == "k10" else cs.k4_edge_cases
+        _EDGE_CACHE[kind] = (cs, build(torch, np.random.default_rng(
+            8 if kind == "k10" else 4), cuda))
+    return _EDGE_CACHE[kind]
+
+
+@pytest.mark.parametrize("name", K10_EDGES)
+def test_k10_append_edges_match_plain(cuda, name):
+    """chip_smoke.py's phase-8 K10 append cases: the whole multimap state
+    bit for bit against multimap_append_plain, one launch a call."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import join
+    cs, cases = _edges("k10", cuda)
+    assert sorted(cases) == sorted(K10_EDGES)
+    kernels.reset_launch_counts()
+    got = cs.run_k10_case(join, cases[name], plain=False)
+    assert kernels.LAUNCHES["K10 append"] == 1
+    for a, b in zip(got, cs.run_k10_case(join, cases[name], plain=True)):
+        assert torch.equal(a, b)
+
+
+def test_k10_append_multimaps_of_two_sizes_alternate_on_one_stream(cuda):
+    """A 262,144-slot and a 100,000-slot multimap take turns on one
+    stream, one-block and cooperative calls mixed: each call finds the
+    workspace its predecessor left zero."""
+    from siddhi_tpu_torch.ops import join
+    cs, cases = _edges("k10", cuda)
+    names = 3 * ["B = 131072 into C = 262144", "app G's shape",
+                 "131072 lanes, one bucket", "B = C", "B = 1"]
+    got = [cs.run_k10_case(join, cases[n], plain=False) for n in names]
+    for n, g in zip(names, got):
+        for a, b in zip(g, cs.run_k10_case(join, cases[n], plain=True)):
+            assert torch.equal(a, b), n
+
+
+K4_EDGES = ["steady state", "every lane new", "every lane one new key",
+            "the pad key", "L = 1", "L = 2^20", "contended small table",
+            "id-limit revert"]
+
+
+@pytest.mark.parametrize("name", K4_EDGES)
+def test_k4_edges_match_plain(cuda, name):
+    """chip_smoke.py's phase-2 K4 cases: table state, lane ids, resolved,
+    count and misses bit for bit against key_lookup_or_insert_plain, one
+    launch a call."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import groupby
+    cs, cases = _edges("k4", cuda)
+    assert sorted(cases) == sorted(K4_EDGES)
+    kernels.reset_launch_counts()
+    got = cs.run_k4_case(groupby, cases[name], plain=False)
+    assert kernels.LAUNCHES["K4"] == 1
+    want = cs.run_k4_case(groupby, cases[name], plain=True)
+    for f, a, b in zip(cs.K4_FIELDS, got, want):
+        assert torch.equal(a, b), f
+    table, keys, valid = cases[name]
+    if name in ("contended small table", "id-limit revert"):
+        # lanes left without a slot or an id: unresolved, counted as misses
+        assert int(got[3]) > int(table.misses)
+        assert int(got[2]) == table.keys.shape[0] // 2
+    if name == "steady state":
+        assert bool(got[5][valid].all()) and int(got[2]) == int(table.count)
+
+
+def test_k4_small_table_right_after_a_large_one(cuda):
+    """Tables of 2^21 and 128 slots take turns on one stream: each call
+    finds the bitmap and flags its predecessor left zero."""
+    from siddhi_tpu_torch.ops import groupby
+    cs, cases = _edges("k4", cuda)
+    names = 3 * ["L = 2^20", "contended small table", "every lane new",
+                 "id-limit revert", "L = 1"]
+    got = [cs.run_k4_case(groupby, cases[n], plain=False) for n in names]
+    for n, g in zip(names, got):
+        for f, a, b in zip(cs.K4_FIELDS, g,
+                           cs.run_k4_case(groupby, cases[n], plain=True)):
+            assert torch.equal(a, b), (n, f)
+
+
+def test_k4_and_k10_append_wrappers_sort_nothing(cuda, monkeypatch):
+    """The two wrappers launch their one kernel and nothing else that
+    ranks: no torch.sort, no cumsum, no K1."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import groupby, join, search
+
+    def refuse(*a, **kw):
+        raise AssertionError("a sort or scan outside the kernel")
+
+    cs, k10 = _edges("k10", cuda)
+    _, k4 = _edges("k4", cuda)
+    want10 = cs.run_k10_case(join, k10["app G's shape"], plain=True)
+    want4 = cs.run_k4_case(groupby, k4["every lane new"], plain=True)
+    for mod, name in ((torch, "sort"), (torch, "argsort"),
+                      (torch, "cumsum"), (search, "stable_partition_order"),
+                      (join, "stable_partition_order")):
+        monkeypatch.setattr(mod, name, refuse)
+    kernels.reset_launch_counts()
+    got10 = cs.run_k10_case(join, k10["app G's shape"], plain=False)
+    got4 = cs.run_k4_case(groupby, k4["every lane new"], plain=False)
+    monkeypatch.undo()
+    assert kernels.LAUNCHES["K10 append"] == 1 and kernels.LAUNCHES["K4"] == 1
+    assert kernels.LAUNCHES["K1"] == 0
+    for a, b in zip(got10, want10):
+        assert torch.equal(a, b)
+    for a, b in zip(got4, want4):
+        assert torch.equal(a, b)

@@ -139,6 +139,7 @@ def _append_sequence(C, H, B, n_batches, n_keys, p_live, start, seed):
     (64, 128, 16, 12, 40, 0.7, 0),  # dead lanes, the ring wraps thrice
     (40, 4, 16, 6, 1000, 0.9, 5),  # 4 buckets: every chain shared
     (32, 64, 32, 5, 8, 1.0, 2**32 - 70),  # full batches, tags wrap 2^32
+    (48, 128, 48, 4, 1, 0.9, 7),  # every live lane one key, B = C
 ])
 def test_multimap_append_state_bit_exact(C, H, B, n_batches, n_keys, p_live,
                                          start):

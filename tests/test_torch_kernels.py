@@ -144,6 +144,18 @@ def test_k4_contended_small_table():
     _k4_both(24, batches)
 
 
+def test_k4_every_lane_one_new_key_behind_invalid_lanes():
+    # one unseen key on every lane, the first lanes invalid: the valid
+    # lanes claim one slot together and all win it
+    rng = np.random.default_rng(15)
+    pool, _ = _keys(rng, 1, 30)
+    keys = np.full(80, rng.integers(-(2**62), 2**62, dtype=np.int64))
+    valid = rng.random(80) < 0.9
+    valid[:20] = False
+    tt = _k4_both(32, [(pool, np.ones(30, bool)), (keys, valid)])
+    assert int(tt.count) == 31 and int(tt.misses) == 0
+
+
 # --------------------------------------------------------------------- K5
 
 
