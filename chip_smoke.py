@@ -92,7 +92,10 @@ Phases (any failure exits non-zero and prints no result line):
 14. the wire pack K12a against its plain version on the card, the header
    and every region's valid entries bit for bit, at B = 131072 lanes for three output schemas (apps A, G and N) with no,
    every and half the lanes valid, EXPIRED and RESET lanes, and a 2^32 ms
-   span; with its timings, and the copy of the packed buffer into pinned
+   span; then (its own generator) one launch a call at B = 0, 1, 256,
+   1,025, 131,072 and 2^20, every lane invalid, an `over` batch, a span
+   of 2^32 - 1 and strided columns, the sizes alternating on one stream;
+   with its timings, and the copy of the packed buffer into pinned
    memory against the per-column readback it replaces;
 15. app N, BASELINE config 1 as bench.py writes it (`from
    TradeStream[700.0 > price] select symbol, price`, 1,000 symbols, price
@@ -205,8 +208,12 @@ Phases (any failure exits non-zero and prints no result line):
    (in-batch repeats) against C = 65,536 rows, 40,000 live, and its
    placement of the staying lanes into the free rows (the table state
    and both counts; once more overflowing, which must write nothing);
-   K13e's per-row any, last matching event and per-event any of an
-   [8,192 x 65,536] mask (app AD's shape); and the new sites of the
+   K13e's per-row any, last matching event and per-event any: the mask
+   route over an [8,192 x 65,536] condition (app AD's shape) with both
+   valid vectors and over a table-only [C] condition, the equality route
+   at app AD's shape (8,192 ids against 65,536 rows, the [B, C] mask path
+   it replaces timed beside it; their inputs from their own generator);
+   and the new sites of the
    ported kernels: K1 on the table's free rows, K7 on its index keys,
    K13b's last lane per group of an on-demand aggregate; with the same
    timings (the library calls: the [B, C] and [B, B] equality masks with
@@ -221,8 +228,16 @@ Phases (any failure exits non-zero and prints no result line):
    against 2^20 rows, the sizes alternating on one stream; the placement
    of 1 lane, of none, of lanes that fit the free rows exactly, of one
    lane too many (nothing written) and of 131,072 lanes into 2^18 rows;
-   and the dedup timed at app AD's shape (8,192 unmatched ids against
-   50,000 live rows);
+   the dedup timed at app AD's shape (8,192 unmatched ids against
+   50,000 live rows); and K13e's two routes, one launch a call, the
+   routes and sizes alternating on one stream: the equality route on NaN,
+   ±0.0 and ±inf in float32 and float64 keys, int64 keys differing only
+   above bit 32, string codes, two- and four-column keys, bool beside
+   int32, repeated keys, invalid lanes, dead rows, B = 1, no live row, no
+   valid lane, every row one key and AD's shape; the mask route on [B, C]
+   conditions (sparse, dense, C = 1,000, a transposed view, a view one
+   column in), [B, 1], [C], a host and a card scalar, no lane valid
+   vector, every lane invalid, no live row, B = 1 and C = 1;
 25. apps AC (reference-data enrichment: 50,000 symbols fed into an
    @PrimaryKey / @Index table in 4 batches of 16,384 lanes, 15,536 of
    them repeats, then 8 rounds of 131,072 trades over 60,000 symbols
@@ -238,7 +253,9 @@ Phases (any failure exits non-zero and prints no result line):
    within 1e-5 of the sum of magnitudes; each app's kernels launched;
    one host read a table insert (its overflow and dropped counts) and
    none elsewhere in a step; one launch each of the dedup, K1 on the free
-   rows and the placement an insert;
+   rows and the placement an insert; AD's `on Account.id == id` one
+   launch of K13e's equality route a step (none of the mask route), and
+   the peak device memory of its update-or-insert steps;
 26. K13f, the aggregation's bucket scatter, against its plain version on
    the card: app AE's ten columns (the bucket and symbol set, the alive
    flags, float32 sums, min and max with NaN and ±inf, int64 sums) in one
@@ -552,6 +569,7 @@ RATELIMIT = "siddhi_tpu/ops/ratelimit.py"
 SELECTOR = "siddhi_tpu/ops/selector.py"
 TABLE = "siddhi_tpu/core/table.py"
 K13D_SRC = "siddhi_tpu_torch/csrc/k13d_table_insert.cu"
+K13E_SRC = "siddhi_tpu_torch/csrc/k13e_last_match.cu"
 AGG = "siddhi_tpu/core/aggregation.py"
 K13F_SRC = "siddhi_tpu_torch/csrc/k13f_bucket_scatter.cu"
 #: window parameter of apps J-M: ms for the time windows, events for L
@@ -639,8 +657,11 @@ KERNELS = {
                    K13D_SRC, f"{TABLE}:177"),
     "K13d place": ("InMemoryTable._make_insert placement", K13D_SRC,
                    f"{TABLE}:191"),
-    "K13e": ("TableOutputExecutor._make last match (and contains_probe)",
-             "siddhi_tpu_torch/csrc/k13e_last_match.cu", f"{TABLE}:361"),
+    "K13e": ("TableOutputExecutor._make last match, the mask route (and "
+             "contains_probe)", K13E_SRC, f"{TABLE}:361"),
+    "K13e eq": ("TableOutputExecutor._make last match, the equality route "
+                "(an ON condition of == compares)", K13E_SRC,
+                f"{TABLE}:361"),
     "K1 table free": ("_make_insert free-row order",
                       "siddhi_tpu_torch/csrc/k1_partition.cu",
                       f"{TABLE}:193"),
@@ -665,7 +686,8 @@ KERNELS = {
 #: rows of the kernel table beyond one a counter: row key -> the counter
 #: whose launches it reports (the same kernel at a second shape)
 EXTRA_ROWS = {"K13f ingest (10,000 slots)": "K13f ingest",
-              "K12b (K = 32)": "K12b"}
+              "K12b (K = 32)": "K12b",
+              "K13e (a table-only condition)": "K13e"}
 
 
 class Failure(Exception):
@@ -4407,6 +4429,69 @@ def _wire_batch(torch, rng, B: int, schema: str, case: str):
             torch.from_numpy(types).to(dev), cols)
 
 
+def k12a_edge_cases(torch, rng, dev, big: int = 1 << 20) -> dict:
+    """K12a cases, name -> (ts, valid, types, columns) of app A's schema
+    plus an int64, an int16 and a bool column: B = 0, 1, 256, 1,025,
+    131,072 and `big` lanes half valid, every lane invalid, an `over`
+    batch (the last valid lane 2^32 ms after the first), a span of 2^32 -
+    1 (no `over`), and strided columns (views of a ring, ts and the valid
+    flags every other lane)."""
+
+    def batch(B, p_valid=0.5, span=None, strided=False):
+        ts = 1_700_000_000_000 + np.cumsum(rng.integers(0, 3, B))
+        valid = rng.random(B) < p_valid
+        if span is not None and valid.any():
+            v = np.nonzero(valid)[0]
+            ts[v[-1]] = ts[v[0]] + span
+        cols = {"symbol": rng.integers(0, 10**6, B).astype(np.int32),
+                "total": rng.normal(size=B).astype(np.float32),
+                "n": rng.integers(-2**40, 2**40, B),
+                "q": rng.integers(-300, 300, B).astype(np.int16),
+                "avgPrice": rng.normal(size=B).astype(np.float32),
+                "f": rng.random(B) < 0.5}
+        types = rng.choice(np.array([0, 1, 3], np.int8), B)
+        if not strided:
+            return (torch.from_numpy(ts).to(dev),
+                    torch.from_numpy(valid).to(dev),
+                    torch.from_numpy(types).to(dev),
+                    {k: torch.from_numpy(v).to(dev)
+                     for k, v in cols.items()})
+
+        def every_other(a):
+            two = np.repeat(a[:, None], 2, axis=1)
+            return torch.from_numpy(two).to(dev)[:, 0]
+
+        ring = {k: torch.from_numpy(np.stack([v, v, v], 1)).to(dev)[:, 1]
+                for k, v in cols.items()}
+        return (every_other(ts), every_other(valid),
+                torch.from_numpy(types).to(dev), ring)
+
+    return {"B = 0": batch(0), "B = 1": batch(1, 1.0),
+            "B = 256": batch(256), "B = 1,025": batch(1025),
+            "B = 131,072": batch(BATCH), f"B = {big}": batch(big),
+            "every lane invalid": batch(4097, 0.0),
+            "over": batch(70_001, 0.3, span=1 << 32),
+            "span 2^32 - 1": batch(70_001, 0.3, span=(1 << 32) - 1),
+            "strided columns": batch(50_000, strided=True)}
+
+
+def check_k12a(wire, name, ts, valid, types, cols) -> None:
+    """K12a against wire_pack_plain: the payload bit for bit; the
+    unpacked count, over flag and timestamps exact."""
+    layout = wire.layout_of(ts, cols)
+    got = wire.wire_pack_cuda(ts, valid, types, cols, layout)
+    want = wire.wire_pack_plain(ts, valid, types, cols, layout)
+    check_equal(f"K12a {name}", wire.wire_payload(got, layout),
+                wire.wire_payload(want, layout))
+    host = wire.wire_unpack(got.cpu().numpy(), layout)
+    idx = valid.nonzero().squeeze(1)
+    span = (int(ts[idx].max() - ts[idx].min()) if idx.numel() else 0)
+    if (host.count != idx.numel() or host.over != (span > 0xFFFFFFFF)
+            or not np.array_equal(host.ts, ts[idx].cpu().numpy())):
+        raise Failure(f"K12a {name}: the unpacked count, over flag or "
+                      "timestamps are wrong")
+
+
 def host_ms(torch, fn, iters: int = 20) -> float:
     """Mean host-clock ms of fn() from an idle card to an idle card."""
     fn()
@@ -4418,11 +4503,14 @@ def host_ms(torch, fn, iters: int = 20) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def wire_kernel_phase(torch, rng, B: int = BATCH) -> dict:
+def wire_kernel_phase(torch, rng, B: int = BATCH, edge_rng=None) -> dict:
     """K12a against wire_pack_plain on the card, bit for bit, for three
     output schemas and four lane mixes; the unpacked timestamps exact
-    (also past 32 bits); with its timings, and the copy of the packed
-    buffer against the per-column readback it replaces."""
+    (also past 32 bits); at k12a_edge_cases (from `edge_rng`), one launch
+    a call, the sizes alternating on one stream; with its timings, and
+    the copy of the packed buffer against the per-column readback it
+    replaces."""
+    from siddhi_tpu_torch import kernels
     from siddhi_tpu_torch.ops import wire
 
     for schema in WIRE_SCHEMAS:
@@ -4443,6 +4531,21 @@ def wire_kernel_phase(torch, rng, B: int = BATCH) -> dict:
     print(f"K12a wire_pack B={B}: bit for bit against wire_pack_plain for "
           f"schemas {sorted(WIRE_SCHEMAS)} x none/all/half valid/2^32 span, "
           "EXPIRED and RESET lanes; timestamps exact")
+    edge_rng = edge_rng if edge_rng is not None else \
+        np.random.default_rng(14)
+    cases = k12a_edge_cases(torch, edge_rng, torch.device("cuda"))
+    big = max(cases, key=lambda n: cases[n][0].shape[0])
+    order = list(cases) + [big, "B = 256", "over", big, "B = 0",
+                           "strided columns"]
+    for name in order:
+        kernels.reset_launch_counts()
+        check_k12a(wire, name, *cases[name])
+        if kernels.LAUNCHES["K12a"] != 1:
+            raise Failure(f"K12a edge {name}: {kernels.LAUNCHES['K12a']} "
+                          "launches, one expected")
+    print(f"K12a edges {list(cases)}: bit for bit, one launch a call, "
+          "sizes alternating on one stream")
+    del cases
 
     ts, valid, types, cols = _wire_batch(torch, rng, B, "A", "half")
     layout = wire.layout_of(ts, cols)
@@ -6435,11 +6538,119 @@ def check_place(name, tb, state, cols, ts, valid, drop) -> None:
     check_equal(f"{name} valid", got.valid, expect.valid)
 
 
+def k13e_eq_edge_cases(torch, rng, dev, B: int = 2048, C: int = 8192,
+                       ad: bool = True) -> dict:
+    """K13e equality-route cases, name -> (lane keys, row keys, lane valid,
+    row valid), B lanes against C rows (70% live, 85% of the lanes valid)
+    unless named: NaN, ±0.0 and ±inf in float32 and float64 keys; int64
+    keys that differ only above bit 32; string codes (0 the null code); a
+    two-column and a four-column key; bool beside int32; repeated keys in
+    the batch (the last lane wins); invalid lanes; dead rows; B = 1; no
+    live row; no lane valid; every row one key; with `ad`, app AD's shape
+    (8,192 ids over 60,000 against 65,536 rows, 50,000 live)."""
+    special = np.array([0.0, -0.0, np.nan, np.inf, -np.inf, 1.5, -2.25])
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def case(lanes, rows, p_valid=0.85, p_live=0.7):
+        nb, nc = lanes[0].shape[0], rows[0].shape[0]
+        return ([t(a) for a in lanes], [t(r) for r in rows],
+                t(rng.random(nb) < p_valid), t(rng.random(nc) < p_live))
+
+    def pool(n, k):
+        return rng.integers(0, k, n)
+
+    cases = {}
+    for dt in (np.float32, np.float64):
+        name = "float32" if dt == np.float32 else "float64"
+        vals = np.concatenate([special, np.arange(32.0)]).astype(dt)
+        cases[f"{name} NaN ±0 ±inf"] = case(
+            [vals[pool(B, vals.size)]], [vals[pool(C, vals.size)]])
+    high = np.int64(0x12345678)
+    cases["int64 differing above bit 32"] = case(
+        [high + (rng.integers(-64, 64, B) << 32)],
+        [high + (rng.integers(-64, 64, C) << 32)])
+    cases["string codes"] = case([pool(B, 40).astype(np.int32)],
+                                 [pool(C, 40).astype(np.int32)])
+    cases["two columns"] = case(
+        [pool(B, 30), special[pool(B, 5)].astype(np.float32)],
+        [pool(C, 30), special[pool(C, 5)].astype(np.float32)])
+    cases["four columns"] = case(
+        [pool(B, 4), pool(B, 3).astype(np.int32), pool(B, 2) == 1,
+         pool(B, 3).astype(np.float64)],
+        [pool(C, 4), pool(C, 3).astype(np.int32), pool(C, 2) == 1,
+         pool(C, 3).astype(np.float64)])
+    cases["bool beside int32"] = case(
+        [pool(B, 2) == 1, pool(B, 50).astype(np.int32)],
+        [pool(C, 2) == 1, pool(C, 50).astype(np.int32)])
+    cases["repeats in the batch"] = case([pool(B, 16)], [pool(C, 64)],
+                                         p_valid=1.0)
+    cases["invalid lanes"] = case([pool(B, C)], [rng.permutation(C)],
+                                  p_valid=0.2)
+    cases["dead rows"] = case([pool(B, C)], [rng.permutation(C)],
+                              p_live=0.05)
+    cases["B = 1"] = case([pool(1, 8)], [pool(C, 8)], p_valid=1.0)
+    cases["no live row"] = case([pool(B, 8)], [pool(C, 8)], p_live=0.0)
+    cases["no lane valid"] = case([pool(B, 8)], [pool(C, 8)], p_valid=0.0)
+    cases["every row one key"] = case([pool(B, 4)], [np.full(C, 2)])
+    if ad:
+        ids = rng.permutation(AD_IDS)[:50_000].astype(np.int64)
+        rows = np.concatenate([ids, rng.integers(0, AD_IDS,
+                                                 TABLE_C - ids.size)])
+        live = np.arange(TABLE_C) < ids.size
+        cases["app AD's shape"] = (
+            [t(rng.integers(0, AD_IDS, AD_BATCH))], [t(rows)],
+            t(rng.random(AD_BATCH) < 0.98), t(live))
+    return cases
+
+
+def k13e_mask_edge_cases(torch, rng, dev, B: int = 2048,
+                         C: int = 8192) -> dict:
+    """K13e mask-route cases, name -> (condition, lane valid, row valid):
+    a [B, C] condition (sparse, dense, C not a multiple of 16, a
+    transposed view, a view one column in), [B, 1], [C] (table-only), a
+    host scalar and a card scalar, no lane valid vector (`in T`), every
+    lane invalid, no live row, B = 1, C = 1."""
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def valids(nb, nc, p_valid=0.85, p_live=0.7):
+        return t(rng.random(nb) < p_valid), t(rng.random(nc) < p_live)
+
+    cases = {}
+    cases["[B, C] sparse"] = (t(rng.random((B, C)) < 0.0005),
+                              *valids(B, C))
+    cases["[B, C] dense"] = (t(rng.random((B, C)) < 0.5), *valids(B, C))
+    cases["[B, C], C = 1000"] = (t(rng.random((B, 1000)) < 0.01),
+                                 *valids(B, 1000))
+    cases["[B, C] transposed view"] = (
+        t(rng.random((C, B)) < 0.01).t(), *valids(B, C))
+    wide = t(rng.random((B, C + 1)) < 0.01)
+    cases["[B, C] one column in"] = (wide[:, 1:], *valids(B, C))
+    cases["[B, 1]"] = (t(rng.random((B, 1)) < 0.3), *valids(B, C))
+    cases["[C] table-only"] = (t(rng.random(C) < 0.3), *valids(B, C))
+    cases["host scalar true"] = (torch.tensor(True), *valids(B, C))
+    cases["card scalar false"] = (torch.tensor(False, device=dev),
+                                  *valids(B, C))
+    cases["no lane valid vector"] = (t(rng.random((B, C)) < 0.001), None,
+                                     valids(B, C)[1])
+    cases["every lane invalid"] = (t(rng.random((B, C)) < 0.01),
+                                   *valids(B, C, p_valid=0.0))
+    cases["no live row"] = (t(rng.random((B, C)) < 0.01),
+                            *valids(B, C, p_live=0.0))
+    cases["B = 1"] = (t(rng.random((1, C)) < 0.01), *valids(1, C))
+    cases["C = 1"] = (t(rng.random((B, 1)) < 0.5), *valids(B, 1, p_live=1))
+    return cases
+
+
 def table_edge_phase(torch, rng) -> None:
     """Phase 24's edges: K13d dedup at k13d_edge_cases against its plain
     version, bit for bit, one launch a call (none at B = 0), also with two
     tables of different C called alternately on one stream; K13d place at
-    place_edge_cases against its plain version (state and counts)."""
+    place_edge_cases against its plain version (state and counts); K13e's
+    two routes at k13e_eq_edge_cases and k13e_mask_edge_cases."""
     from siddhi_tpu_torch import kernels
     from siddhi_tpu_torch.core import table as tb
     dev = torch.device("cuda")
@@ -6493,13 +6704,46 @@ def table_edge_phase(torch, rng) -> None:
     t["bound_ms"] = bound_ms(9 * AD_BATCH + 9 * TABLE_C + AD_BATCH)
     print(f"K13d dedup at app AD's shape, B={AD_BATCH} ({int(lv.sum())} "
           f"valid) against C={TABLE_C} ({ids.size} live): {t}")
+    # K13e: both routes' cases, one launch a call, the routes and their
+    # sizes alternating on one stream (one workspace)
+    eq = k13e_eq_edge_cases(torch, rng, dev)
+    mk = k13e_mask_edge_cases(torch, rng, dev)
+    order = ([("eq", n) for n in eq] + [("mask", n) for n in mk]
+             + [("eq", "app AD's shape"), ("mask", "[B, C] dense"),
+                ("eq", "B = 1"), ("mask", "C = 1"), ("eq", "app AD's shape")])
+    matched = {}
+    for route, name in order:
+        kernels.reset_launch_counts()
+        if route == "eq":
+            lane, row, lv, rv = eq[name]
+            got = tb.last_match_eq(lane, row, lv, rv)
+            want = tb.last_match_eq_plain(lane, row, lv, rv)
+            counter = "K13e eq"
+        else:
+            cond, lv, rv = mk[name]
+            got = tb.last_match(cond, lv, rv)
+            want = tb.last_match_mask_plain(cond, lv, rv)
+            counter = "K13e"
+        if kernels.LAUNCHES[counter] != 1:
+            raise Failure(f"K13e {route} edge {name}: "
+                          f"{kernels.LAUNCHES[counter]} launches, one "
+                          "expected")
+        for part, g, w in zip(("has", "b_star", "ev_matched"), got, want):
+            check_equal(f"K13e {route} edge {name} {part}", g, w)
+        matched[f"{route}: {name}"] = int(got[0].sum())
+    print("K13e edges, rows matched (bit for bit, one launch a call, "
+          f"routes and sizes alternating on one stream): {matched}")
 
 
 def table_kernel_phase(torch, rng, B: int = AC_FEED_BATCH, C: int = TABLE_C,
-                       B_mask: int = AD_BATCH) -> dict:
+                       B_mask: int = AD_BATCH, rng13e=None) -> dict:
     """K13d, K13e and the table sites of K1, K7 and K13b against their
     plain versions on the card, bit for bit, at apps AC's and AD's
-    shapes, with the same timings."""
+    shapes, with the same timings. K13e's valid vectors, table-only
+    condition and equality keys draw from `rng13e`, so `rng` leaves this
+    phase as it did before they were added (the apps after it keep their
+    feeds)."""
+    rng13e = rng13e if rng13e is not None else np.random.default_rng(13)
     from siddhi_tpu_torch.core import table as tb
     from siddhi_tpu_torch.core.table import TableState
     from siddhi_tpu_torch.ops import search
@@ -6628,28 +6872,75 @@ def table_kernel_phase(torch, rng, B: int = AC_FEED_BATCH, C: int = TABLE_C,
         bound_ms=bound_ms(C + 4 * C), max_abs_err=0, bound_by="bytes")
     print(f"K1 table free C={C}: {res['K1 table free']}")
 
-    # (c) K13e at app AD's [B, C]: each event matches at most one row
+    # (c) K13e's mask route at app AD's [B, C] (each event equal to at
+    # most one row) with both valid vectors, then a table-only condition,
+    # then the equality route at AD's shape (ids over AD_IDS)
     ids = rng.permutation(C).astype(np.int64)
     ev = torch.from_numpy(rng.integers(0, C + C // 2, B_mask)).to(dev)
     rows = torch.from_numpy(ids).to(dev)
-    mask = (ev[:, None] == rows[None, :]) & state.valid[None, :]
-    got = tb.last_match(mask)
+    lv = torch.from_numpy(rng13e.random(B_mask) < 0.98).to(dev)
+    rv = state.valid
+    mask = ev[:, None] == rows[None, :]
+    got = tb.last_match(mask, lv, rv)
     for name, g, w in zip(("has", "b_star", "ev_matched"), got,
-                          tb.last_match_plain(mask)):
+                          tb.last_match_mask_plain(mask, lv, rv)):
         check_equal(f"K13e {name}", g, w)
+    masked = mask & lv[:, None] & rv[None, :]
 
     def library13e():
-        return (mask.any(0), torch.argmax(mask.flip(0).to(torch.uint8), 0),
-                mask.any(1))
+        return (masked.any(0),
+                torch.argmax(masked.flip(0).to(torch.uint8), 0),
+                masked.any(1))
 
+    out_bytes = 5 * C + B_mask
+    # the condition's bytes the function needs: a valid lane's at a live
+    # row (the whole mask: bound_ms(B_mask * C + ...))
+    pairs = int(lv.sum()) * n_live
     res["K13e"] = dict(
-        _timed(torch, lambda: tb.last_match(mask),
-               lambda: tb.last_match_plain(mask), library=library13e),
-        bound_ms=bound_ms(B_mask * C + 5 * C + B_mask), max_abs_err=0,
+        _timed(torch, lambda: tb.last_match(mask, lv, rv),
+               lambda: tb.last_match_mask_plain(mask, lv, rv),
+               library=library13e),
+        bound_ms=bound_ms(pairs + B_mask + C + out_bytes), max_abs_err=0,
         bound_by="bytes")
-    print(f"K13e [{B_mask} x {C}] ({int(got[0].sum())} rows matched): "
-          f"{res['K13e']}")
-    del mask
+    res["K13e"]["whole_mask_bound_ms"] = bound_ms(B_mask * C + B_mask + C
+                                                  + out_bytes)
+    print(f"K13e mask route [{B_mask} x {C}] with valid vectors "
+          f"({int(got[0].sum())} rows matched): {res['K13e']}")
+    del mask, masked
+    cond = torch.from_numpy(rng13e.uniform(-9000, 9000, C)
+                            .astype(np.float32)).to(dev) < AD_FLOOR
+    got = tb.last_match(cond, lv, rv)
+    for name, g, w in zip(("has", "b_star", "ev_matched"), got,
+                          tb.last_match_mask_plain(cond, lv, rv)):
+        check_equal(f"K13e table-only {name}", g, w)
+    res["K13e (a table-only condition)"] = dict(
+        _timed(torch, lambda: tb.last_match(cond, lv, rv),
+               lambda: tb.last_match_mask_plain(cond, lv, rv)),
+        bound_ms=bound_ms(C + B_mask + C + out_bytes), max_abs_err=0,
+        bound_by="bytes")
+    print(f"K13e mask route, a table-only [C] condition read as [1, {C}] "
+          f"for B={B_mask} ({int(got[0].sum())} rows): "
+          f"{res['K13e (a table-only condition)']}")
+    lane, row, elv, erv = k13e_eq_edge_cases(
+        torch, rng13e, dev, B=2, C=2)["app AD's shape"]
+    got = tb.last_match_eq(lane, row, elv, erv)
+    for name, g, w in zip(("has", "b_star", "ev_matched"), got,
+                          tb.last_match_eq_plain(lane, row, elv, erv)):
+        check_equal(f"K13e eq {name}", g, w)
+
+    def mask_path():  # the route the equality replaces: the [B, C] mask
+        return tb.last_match((lane[0][:, None] == row[0][None, :])
+                             & elv[:, None] & erv[None, :])
+
+    res["K13e eq"] = dict(
+        _timed(torch, lambda: tb.last_match_eq(lane, row, elv, erv),
+               lambda: tb.last_match_eq_plain(lane, row, elv, erv)),
+        bound_ms=bound_ms(9 * AD_BATCH + 9 * C + 5 * C + AD_BATCH),
+        max_abs_err=0, bound_by="bytes")
+    res["K13e eq"]["mask_path_ms"] = device_ms(torch, mask_path)
+    print(f"K13e equality route at app AD's shape, B={AD_BATCH} ids "
+          f"({int(elv.sum())} valid) against C={C} ({int(erv.sum())} live, "
+          f"{int(got[0].sum())} rows matched): {res['K13e eq']}")
 
     # (d) K7 on the index keys: the sector column, invalid rows at max
     sector = torch.where(state.valid, state.cols["sector"],
@@ -7038,8 +7329,8 @@ def run_ad(torch, rng, card: str, rounds: int = ROUNDS,
                 raise Failure(f"app AD round {r}: found {(ts, d)}, "
                               f"expected {(wts, k, total, n)}")
         n_out += len(found)
-    for k in ("K13e", "K13d dedup", "K13d place", "K1 table free",
-              "K13b final per group", "K12a"):
+    for k in ("K13e eq", "K13e", "K13d dedup", "K13d place",
+              "K1 table free", "K13b final per group", "K12a"):
         if launches[k] == 0:
             raise Failure(f"app AD: kernel {k} never launched")
     # each step alone on a cleared table: an update-or-insert batch (one
@@ -7054,9 +7345,17 @@ def run_ad(torch, rng, card: str, rounds: int = ROUNDS,
                   t0_ms + n_txn + np.arange(close.shape[0], dtype=np.int64),
                   n_close)
     step = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     step["update or insert"], reads = timed_steps(
         torch, lambda b: txn.on_batch(*b), tb, 1, "app AD txn")
+    uoi_peak = torch.cuda.max_memory_allocated()
     insert_launches(lambda: txn.on_batch(*tb[0]), "app AD txn")
+    # the ON condition `Account.id == id` takes K13e's equality route
+    if (kernels.LAUNCHES["K13e eq"], kernels.LAUNCHES["K13e"]) != (1, 0):
+        raise Failure("app AD txn: K13e launches a step (equality, mask) "
+                      f"{kernels.LAUNCHES['K13e eq']}, "
+                      f"{kernels.LAUNCHES['K13e']}; 1, 0 expected")
     step["delete"], _ = timed_steps(torch, lambda b: cls.on_batch(*b), cb, 0,
                                     "app AD close")
     q0 = time.perf_counter()
@@ -7071,7 +7370,9 @@ def run_ad(torch, rng, card: str, rounds: int = ROUNDS,
     print(f"app AD: steps alone, ms a batch: {step}; host reads a step: "
           "update or insert 1 (its insert's overflow and dropped, one "
           f"copy), delete 0; {len(rows)} rows at the end; launches an "
-          f"insert: {INSERT_LAUNCHES}")
+          f"insert: {INSERT_LAUNCHES}; K13e a txn step: one equality "
+          "launch; peak device memory of the update-or-insert steps "
+          f"{uoi_peak / 2**20:.1f} MiB")
     return launches
 
 
@@ -8416,7 +8717,8 @@ def main(argv=None) -> int:
         for k, v in aggregator_apps(torch, rng, card).items():
             launches[k] += v
 
-        kres.update(wire_kernel_phase(torch, rng))
+        kres.update(wire_kernel_phase(
+            torch, rng, edge_rng=np.random.default_rng([args.seed, 14])))
         for k, v in config1_app(torch, rng, card, summary).items():
             launches[k] += v
 
@@ -8436,7 +8738,8 @@ def main(argv=None) -> int:
         for k, v in limiter_apps(torch, rng, card).items():
             launches[k] += v
 
-        kres.update(table_kernel_phase(torch, rng))
+        kres.update(table_kernel_phase(
+            torch, rng, rng13e=np.random.default_rng([args.seed, 13])))
         table_edge_phase(torch, np.random.default_rng([args.seed, 24]))
         for k, v in table_apps(torch, rng, card).items():
             launches[k] += v

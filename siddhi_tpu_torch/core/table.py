@@ -13,11 +13,15 @@ evaluates to a [B, C] cross mask.
   (K13d place) unless they overflow; the overflow and the dropped count
   come back in one host read, the only one a table write makes;
 - delete, update, update or insert: the mask's per-row any, last matching
-  event and per-event any in one pass (K13e); SET expressions evaluate on
-  the [C] frame of (the row's last matching event, the row);
+  event and per-event any in one launch (K13e). An ON condition of `==`
+  compares between table and output sides hashes its keys instead (the
+  equality route: no [B, C] mask); any other condition is read as
+  evaluated, through its strides, with the valid vectors folded in (the
+  mask route). SET expressions evaluate on the [C] frame of (the row's
+  last matching event, the row);
 - `expr in T`: the sorted index of an @Index or sole primary-key attribute
   (K7 sort, rebuilt lazily after a mutation; `torch.searchsorted`), or the
-  per-event any of the [B, C] mask (K13e).
+  per-event any of the condition (K13e's mask route).
 
 The JAX package's documented divergences hold: an update applies the last
 matching event per row with SET evaluated against the row as it was
@@ -32,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -39,7 +44,8 @@ import torch
 
 from .. import kernels
 from ..errors import CapacityExceededError, SiddhiAppCreationError
-from ..ops.expr_compile import Scope, TypeResolver, compile_expression
+from ..ops.expr_compile import (Scope, TypeResolver, compile_expression,
+                                equality_key_plan)
 from ..ops.groupby import _scatter_drop
 from ..ops.search import (float64_sort_key, searchsorted32,
                           stable_partition_order, stable_radix_argsort)
@@ -88,7 +94,7 @@ def _broadcast_scope(scope: Scope, table_id: str, tstate: TableState):
 # K13d: primary-key dedup and placement
 # --------------------------------------------------------------------------- #
 
-#: the kernel's key types (csrc/k13d_table_insert.cu KeyType)
+#: the kernels' key types (csrc/k13_keys.cuh KeyType)
 _KEY_TYPE = {torch.bool: 0, torch.int8: 0, torch.int32: 1, torch.int64: 2,
              torch.float32: 3, torch.float64: 4}
 
@@ -276,32 +282,187 @@ def last_match_plain(mask: torch.Tensor):
     return has, b_star.to(torch.int32), mask.any(dim=1)
 
 
-def last_match_cuda(mask: torch.Tensor, *, counter: str = "K13e"):
-    lib = "k13e_last_match"
-    if mask.dtype != torch.bool or mask.dim() != 2:
-        raise ValueError("last_match: mask must be bool[B, C]")
-    mask = mask.contiguous()
-    kernels.require_cuda("last_match", mask)
-    B, C = mask.shape
-    dev = mask.device
-    last = torch.full((C,), -1, dtype=torch.int32, device=dev)
-    has = torch.empty(C, dtype=torch.bool, device=dev)
-    b_star = torch.empty(C, dtype=torch.int32, device=dev)
-    ev = torch.zeros(B, dtype=torch.bool, device=dev)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    rc = kernels.bind(lib, "k13e_last_match",
-                      [P, I, ctypes.c_longlong, P, P, P, P, P])(
-        mask.data_ptr(), B, C, last.data_ptr(), has.data_ptr(),
-        b_star.data_ptr(), ev.data_ptr(), kernels.stream())
-    kernels.check(lib, "last_match", rc)
-    kernels.LAUNCHES[counter] += 2 if C else 0
+def _shape(cond, lane_valid, row_valid) -> tuple:
+    B = lane_valid.shape[0] if lane_valid is not None else cond.shape[0]
+    C = row_valid.shape[0] if row_valid is not None else cond.shape[-1]
+    return B, C
+
+
+def last_match_mask_plain(cond, lane_valid: Optional[torch.Tensor] = None,
+                          row_valid: Optional[torch.Tensor] = None):
+    """Plain K13e mask route: the [B, C] mask cond & lane_valid[:, None] &
+    row_valid[None, :] built and reduced by last_match_plain. The CPU path
+    and the kernel's oracle."""
+    B, C = _shape(cond, lane_valid, row_valid)
+    dev = next(v.device for v in (lane_valid, row_valid, cond)
+               if isinstance(v, torch.Tensor))
+    mask = broadcast_to(cond, (B, C), dev)
+    if lane_valid is not None:
+        mask = mask & lane_valid[:, None]
+    if row_valid is not None:
+        mask = mask & row_valid[None, :]
+    return last_match_plain(mask)
+
+
+_K13E = "k13e_last_match"
+
+
+@functools.lru_cache(maxsize=256)
+def _k13e_workspace_bytes(B: int, C: int) -> int:
+    nbytes = kernels.bind(_K13E, "k13e_workspace_bytes",
+                          [ctypes.c_int, ctypes.c_int],
+                          restype=ctypes.c_longlong)(B, C)
+    if nbytes <= 0:
+        raise kernels.KernelError("K13e: the card has no cooperative "
+                                  "launches")
+    return nbytes
+
+
+def _k13e_workspace(B: int, C: int, device, stream: int) -> torch.Tensor:
+    """The library's workspace for B lanes against C rows (the dense
+    route's folds, or the equality route's hash of the lanes' keys), zero
+    between launches."""
+    return kernels.workspace(_K13E, _k13e_workspace_bytes(B, C), device,
+                             stream)
+
+
+def _k13e_outputs(B: int, C: int, dev):
+    return (torch.empty(C, dtype=torch.bool, device=dev),
+            torch.empty(C, dtype=torch.int32, device=dev),
+            torch.empty(B, dtype=torch.bool, device=dev))
+
+
+def _k13e_empty(B: int, C: int, dev):
+    """The reductions of a [B, 0] mask (no launch)."""
+    has, b_star, _ = _k13e_outputs(B, C, dev)
+    return has, b_star, torch.zeros(B, dtype=torch.bool, device=dev)
+
+
+def last_match_cuda(cond, lane_valid: Optional[torch.Tensor] = None,
+                    row_valid: Optional[torch.Tensor] = None, *,
+                    counter: str = "K13e"):
+    """K13e's mask route on the card: one launch over the condition as
+    evaluated (a [B, C], [B, 1] or [C] bool tensor, or a 0-d one, on the
+    host for a constant), read through its strides, with the two valid
+    vectors folded in; the [B, C] mask is never built."""
+    if not isinstance(cond, torch.Tensor):
+        cond = torch.tensor(bool(cond))
+    if cond.dtype != torch.bool or cond.dim() > 2:
+        raise ValueError("last_match: the condition must be bool, at most "
+                         "[B, C]")
+    B, C = _shape(cond, lane_valid, row_valid)
+    valids = [v for v in (lane_valid, row_valid) if v is not None]
+    dev = (valids[0] if valids else cond).device
+    if dev.type != "cuda":
+        raise ValueError(f"last_match: a CUDA tensor expected, got {dev}")
+    if valids:
+        kernels.require_cuda("last_match", *valids)
+    if B < 1:
+        raise ValueError("last_match: at least one lane")
+    if C == 0:
+        return _k13e_empty(B, C, dev)
+    cval = 0
+    if cond.dim() == 0 and not cond.is_cuda:
+        cval, ptr, sb, sc = int(cond.item()), None, 0, 0  # no device read
+    else:
+        if cond.device != dev:
+            raise ValueError("last_match: the condition is on another "
+                             "device")
+        view = torch.broadcast_to(cond, (B, C))
+        ptr, (sb, sc) = view.data_ptr(), view.stride()
+    has, b_star, ev = _k13e_outputs(B, C, dev)
+    stream = kernels.stream()
+    ws = _k13e_workspace(B, C, dev, stream)
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    rc = kernels.bind(_K13E, "k13e_last_match",
+                      [P, L, L, I, P, P, I, I, P, P, P, P, P])(
+        ptr, sb, sc, cval,
+        lane_valid.data_ptr() if lane_valid is not None else None,
+        row_valid.data_ptr() if row_valid is not None else None, B, C,
+        ws.data_ptr(), has.data_ptr(), b_star.data_ptr(), ev.data_ptr(),
+        stream)
+    kernels.check(_K13E, "last_match", rc, dev)
+    kernels.LAUNCHES[counter] += 1
     return has, b_star, ev
 
 
-def last_match(mask: torch.Tensor, *, counter: str = "K13e"):
-    if mask.is_cuda:
-        return last_match_cuda(mask, counter=counter)
-    return last_match_plain(mask)
+def last_match(cond, lane_valid: Optional[torch.Tensor] = None,
+               row_valid: Optional[torch.Tensor] = None, *,
+               counter: str = "K13e"):
+    """K13e's (has, b_star, ev_matched) of the mask cond & lane_valid[:,
+    None] & row_valid[None, :], where `cond` broadcasts to [B, C] (B, C
+    from the valid vectors where given, else from cond)."""
+    dev = next((v.device for v in (lane_valid, row_valid, cond)
+                if isinstance(v, torch.Tensor)), torch.device("cpu"))
+    if dev.type == "cuda":
+        return last_match_cuda(cond, lane_valid, row_valid, counter=counter)
+    return last_match_mask_plain(cond, lane_valid, row_valid)
+
+
+def last_match_eq_plain(lane_keys: Sequence[torch.Tensor],
+                        row_keys: Sequence[torch.Tensor],
+                        lane_valid: torch.Tensor, row_valid: torch.Tensor):
+    """Plain K13e equality route: the [B, C] mask AND_k lane_keys[k][:,
+    None] == row_keys[k][None, :] & lane_valid[:, None] & row_valid[None,
+    :] through last_match_plain. The CPU path and the kernel's oracle."""
+    eq = lane_valid[:, None] & row_valid[None, :]
+    for a, r in zip(lane_keys, row_keys):
+        eq = eq & (a[:, None] == r[None, :])
+    return last_match_plain(eq)
+
+
+def last_match_eq_cuda(lane_keys, row_keys, lane_valid, row_valid, *,
+                       counter: str = "K13e eq"):
+    """K13e's equality route on the card: one launch that hashes the valid
+    lanes' keys into the workspace (a slot keeps its class's last lane),
+    probes it with every live row and reads the rows' marks back for the
+    lanes; no [B, C] tensor."""
+    if not 1 <= len(lane_keys) == len(row_keys) <= 4:
+        raise ValueError("last_match_eq: 1 to 4 key columns")
+    lanes, rows, types = [], [], []
+    for a, r in zip(lane_keys, row_keys):
+        dt = torch.promote_types(a.dtype, r.dtype)  # as `==` compares
+        if dt not in _KEY_TYPE:
+            raise ValueError(f"last_match_eq: key dtype {dt}")
+        lanes.append(a.to(dt).contiguous())
+        rows.append(r.to(dt).contiguous())
+        types.append(_KEY_TYPE[dt])
+    kernels.require_cuda("last_match_eq", lane_valid, row_valid, *lanes,
+                         *rows)
+    B, C = lane_valid.shape[0], row_valid.shape[0]
+    dev = row_valid.device
+    if any(t.shape != (B,) for t in lanes) or any(
+            t.shape != (C,) for t in rows):
+        raise ValueError("last_match_eq: lane keys [B], row keys [C]")
+    if B < 1:
+        raise ValueError("last_match_eq: at least one lane")
+    if C == 0:
+        return _k13e_empty(B, C, dev)
+    has, b_star, ev = _k13e_outputs(B, C, dev)
+    stream = kernels.stream()
+    ws = _k13e_workspace(B, C, dev, stream)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    n = len(lanes)
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * n)(*[t.data_ptr() for t in ts])
+
+    rc = kernels.bind(_K13E, "k13e_last_match_eq",
+                      [P, P, P, I, P, P, I, I, P, P, P, P, P])(
+        ptrs(lanes), ptrs(rows), (ctypes.c_int * n)(*types), n,
+        lane_valid.data_ptr(), row_valid.data_ptr(), B, C, ws.data_ptr(),
+        has.data_ptr(), b_star.data_ptr(), ev.data_ptr(), stream)
+    kernels.check(_K13E, "last_match_eq", rc, dev)
+    kernels.LAUNCHES[counter] += 1
+    return has, b_star, ev
+
+
+def last_match_eq(lane_keys, row_keys, lane_valid, row_valid, *,
+                  counter: str = "K13e eq"):
+    if row_valid.is_cuda:
+        return last_match_eq_cuda(lane_keys, row_keys, lane_valid,
+                                  row_valid, counter=counter)
+    return last_match_eq_plain(lane_keys, row_keys, lane_valid, row_valid)
 
 
 def sorted_index(keys: torch.Tensor) -> torch.Tensor:
@@ -450,10 +611,10 @@ class InMemoryTable:
         s2 = _broadcast_scope(scope, tid, tstate)
         if inner is None:
             raise SiddhiAppCreationError("`in Table` requires a condition")
-        m = inner(s2) & tstate.valid
-        if m.dim() == 2:
-            return last_match(m)[2]
-        return m.any(dim=-1)
+        cond = inner(s2)
+        if cond.dim() == 2:  # read where it lies, with the rows' valid
+            return last_match(cond, row_valid=tstate.valid)[2]
+        return (cond & tstate.valid).any(dim=-1)
 
     def indexable_eq_attrs(self) -> set:
         """Attributes whose equality probes can use a sorted index."""
@@ -471,6 +632,12 @@ class InMemoryTable:
 
     def __len__(self) -> int:
         return int(self.state.valid.sum())
+
+
+def _key_column(ce, scope: Scope, n: int, dev) -> torch.Tensor:
+    """A side of an equality key evaluated on `scope`'s [n] frame, in its
+    type's device dtype (the compiled `==` of one type casts so)."""
+    return broadcast_to(ce(scope), (n,), dev).to(dtypes.device_dtype(ce.type))
 
 
 class TableOutputExecutor:
@@ -502,6 +669,12 @@ class TableOutputExecutor:
         self.cond = compile_expression(cond, resolver, registry)
         if self.cond.type != AttributeType.BOOL:
             raise SiddhiAppCreationError("table ON condition must be boolean")
+        # a conjunction of `==` compares between table and output sides:
+        # K13e's equality route, whose keys hash on the card (no [B, C]
+        # mask)
+        self.eq_plan = equality_key_plan(
+            cond, tid, ("__out__",) + self.out_frame_aliases, resolver,
+            registry)
 
         # SET clause; by default every table attribute from the output
         # attribute of the same name
@@ -534,11 +707,20 @@ class TableOutputExecutor:
         tid = self.table.definition.id
         B, C = out.ts.shape[0], tstate.ts.shape[0]
         dev = tstate.ts.device
-        s2 = _broadcast_scope(self._scope(out.cols, out.ts, out.valid), tid,
-                              tstate)
-        mask = (broadcast_to(self.cond(s2), (B, C), dev)
-                & out.valid[:, None] & tstate.valid[None, :])
-        has, b_star, ev_matched = last_match(mask)
+        out_scope = self._scope(out.cols, out.ts, out.valid)
+        if self.eq_plan is not None:
+            # each side as the compiled `==` evaluates it: the output sides
+            # on the [B] frame, the table sides on the [C] frame
+            t_scope = Scope()
+            t_scope.add_frame(tid, tstate.cols, tstate.ts, tstate.valid)
+            has, b_star, ev_matched = last_match_eq(
+                [_key_column(o, out_scope, B, dev) for _, o in self.eq_plan],
+                [_key_column(t, t_scope, C, dev) for t, _ in self.eq_plan],
+                out.valid, tstate.valid)
+        else:
+            s2 = _broadcast_scope(out_scope, tid, tstate)
+            has, b_star, ev_matched = last_match(self.cond(s2), out.valid,
+                                                 tstate.valid)
         if self.action == OutputAction.DELETE:
             return TableState(tstate.cols, tstate.ts,
                               tstate.valid & ~has), None

@@ -13,11 +13,10 @@
 //     dropped = n_valid - n_ins are returned.
 //
 // Equality is JAX's `==` in each column's promoted type, ANDed over up to
-// MAX_KEYS columns: integers, bools and string codes bitwise, floats as
-// floats (NaN equal to nothing, -0.0 == 0.0). A key with a NaN column
-// equals no key, so such a lane or row takes no part. On the other keys
-// `==` is an equivalence whose classes are the canonical values (-0.0 read
-// as +0.0, every other value by its bits).
+// MAX_KEYS columns, through the canonical keys and hash of k13_keys.cuh
+// (shared with K13e's equality route): integers, bools and string codes
+// bitwise, floats as floats (NaN equal to nothing, -0.0 == 0.0). A key
+// with a NaN column equals no key, so such a lane or row takes no part.
 //
 // k13d_dedup: O(B + C) through one open-addressing hash of the keys, in
 // one cooperative launch (at most the co-resident blocks, each walking the
@@ -63,12 +62,11 @@
 // 65,536); the design also writes and reads the 2^18-slot table (2 MB, in
 // L2). The placement reads the flags and writes each staying lane's row.
 
-#include "common.cuh"
+#include "k13_keys.cuh"
 
 namespace {
 
 constexpr int BLOCK = 256;
-constexpr int MAX_KEYS = 4;
 constexpr int MAX_COLS = 64;
 constexpr int PLACE_LANES = 512;  // lanes a placement block ranks, at least
 constexpr int MIN_SLOTS = 256;
@@ -79,15 +77,6 @@ constexpr int WS_HEAD = 4;
 constexpr unsigned ROW_MARK = 0xffffffffu;
 constexpr unsigned FIRST_LANE = 0x7fffffffu;  // lane b marks FIRST_LANE - b
 
-enum KeyType { K_I8 = 0, K_I32 = 1, K_I64 = 2, K_F32 = 3, K_F64 = 4 };
-
-struct Keys {
-  const void* lane[MAX_KEYS];  // the batch's key columns [B]
-  const void* row[MAX_KEYS];   // the rows' key columns [C]
-  int type[MAX_KEYS];
-  int n;
-};
-
 struct Cols {
   const void* src[MAX_COLS];  // the batch's columns [B], ts last
   void* dst[MAX_COLS];        // the table's columns [C], ts last
@@ -95,64 +84,18 @@ struct Cols {
   int n;
 };
 
-// Column value i as its canonical 64 bits; false for NaN.
-__device__ __forceinline__ bool canonical(const void* p, int type, int i,
-                                          unsigned long long* v) {
-  switch (type) {
-    case K_I8:
-      *v = static_cast<long long>(static_cast<const signed char*>(p)[i]);
-      return true;
-    case K_I32:
-      *v = static_cast<long long>(static_cast<const int*>(p)[i]);
-      return true;
-    case K_I64:
-      *v = static_cast<const unsigned long long*>(p)[i];
-      return true;
-    case K_F32: {
-      const float f = static_cast<const float*>(p)[i];
-      *v = f == 0.0f ? 0ull : __float_as_uint(f);
-      return f == f;
-    }
-    default: {
-      const double d = static_cast<const double*>(p)[i];
-      *v = d == 0.0 ? 0ull
-                    : static_cast<unsigned long long>(__double_as_longlong(d));
-      return d == d;
-    }
-  }
-}
-
 // Element e's key: row e below C, lane e - C above. False if a column is
 // NaN.
-__device__ __forceinline__ bool element_key(const Keys& keys, int e, int C,
-                                            unsigned long long* v) {
-  const bool row = e < C;
-  const int i = row ? e : e - C;
-  bool ok = true;
-#pragma unroll
-  for (int k = 0; k < MAX_KEYS; ++k)
-    if (k < keys.n)
-      ok &= canonical(row ? keys.row[k] : keys.lane[k], keys.type[k], i,
-                      &v[k]);
-  return ok;
-}
-
-__device__ __forceinline__ unsigned long long mix64(unsigned long long z) {
-  z += 0x9e3779b97f4a7c15ull;
-  z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ull;
-  z = (z ^ (z >> 27)) * 0x94d049bb133111ebull;
-  return z ^ (z >> 31);
-}
-
-__device__ __forceinline__ unsigned lanemask_lt() {
-  unsigned m;
-  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
-  return m;
+__device__ __forceinline__ bool element_key(const KeyCols& lanes,
+                                            const KeyCols& rows, int e,
+                                            int C, unsigned long long* v) {
+  return e < C ? read_key(rows, e, v) : read_key(lanes, e - C, v);
 }
 
 // Scratch layout of the dedup: ref[S], mark[S], lane_slot[B] (slot + 1).
 __global__ void __launch_bounds__(BLOCK)
-    k13d_dup(Keys keys, const bool* __restrict__ lane_valid,
+    k13d_dup(KeyCols lanes, KeyCols rows,
+             const bool* __restrict__ lane_valid,
              const bool* __restrict__ row_valid, int B, int C, unsigned mask,
              unsigned* ws, bool* __restrict__ drop) {
   const int total = C + B;
@@ -168,14 +111,10 @@ __global__ void __launch_bounds__(BLOCK)
     bool ins = false;
     if (e < total)
       ins = (e < C ? row_valid[e] : lane_valid[e - C]) &&
-            element_key(keys, e, C, v);
+            element_key(lanes, rows, e, C, v);
     unsigned s = 0xffffffffu;
     if (ins) {
-      unsigned long long h = 0;
-#pragma unroll
-      for (int k = 0; k < MAX_KEYS; ++k)
-        if (k < keys.n) h = mix64(h ^ v[k]);
-      s = static_cast<unsigned>(h) & mask;
+      s = static_cast<unsigned>(key_hash(v, lanes.n)) & mask;
       for (;;) {
         // a claimed slot keeps its reference for the launch: read it first,
         // so a class's repeats spend no atomic
@@ -185,12 +124,8 @@ __global__ void __launch_bounds__(BLOCK)
           if (r == 0u) break;  // claimed
         }
         unsigned long long w[MAX_KEYS];
-        element_key(keys, static_cast<int>(r) - 1, C, w);
-        bool eq = true;
-#pragma unroll
-        for (int k = 0; k < MAX_KEYS; ++k)
-          if (k < keys.n) eq &= w[k] == v[k];
-        if (eq) break;  // the class's slot
+        element_key(lanes, rows, static_cast<int>(r) - 1, C, w);
+        if (key_equal(w, v, lanes.n)) break;  // the class's slot
         s = (s + 1u) & mask;
       }
       if (e >= C) lane_slot[e - C] = s + 1u;
@@ -376,14 +311,14 @@ SIDDHI_API int k13d_dedup(const void* const* lane_keys,
   if (n_keys < 1 || n_keys > MAX_KEYS || B < 0 || C < 0 ||
       static_cast<long long>(B) + C >= (1ll << 30))
     return static_cast<int>(cudaErrorInvalidValue);
-  Keys keys;
-  keys.n = n_keys;
+  KeyCols lanes, rows;
+  lanes.n = rows.n = n_keys;
   for (int k = 0; k < n_keys; ++k) {
     if (types[k] < K_I8 || types[k] > K_F64)
       return static_cast<int>(cudaErrorInvalidValue);
-    keys.lane[k] = lane_keys[k];
-    keys.row[k] = row_keys[k];
-    keys.type[k] = types[k];
+    lanes.col[k] = lane_keys[k];
+    rows.col[k] = row_keys[k];
+    lanes.type[k] = rows.type[k] = types[k];
   }
   if (B == 0) return 0;
   const int cap = dup_capacity();
@@ -391,7 +326,8 @@ SIDDHI_API int k13d_dedup(const void* const* lane_keys,
   const int want = static_cast<int>(siddhi_blocks(B + C, BLOCK));
   const int grid = want < cap ? want : cap;
   unsigned mask = static_cast<unsigned>(table_slots(B, C) - 1);
-  void* args[] = {&keys, &lane_valid, &row_valid, &B, &C, &mask, &ws, &drop};
+  void* args[] = {&lanes, &rows, &lane_valid, &row_valid, &B,
+                  &C,     &mask, &ws,         &drop};
   const cudaError_t e = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(k13d_dup), dim3(grid), dim3(BLOCK), args,
       0, stream);

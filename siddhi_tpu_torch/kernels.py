@@ -12,10 +12,10 @@ raises `KernelError`. The plain PyTorch versions in `ops/` run only for CPU
 tensors.
 
 Kernels whose blocks wait for each other in one launch (the look-back
-flags of K1 and K5, the grid barriers of K7 and K13d) keep their counters
-and flags in a `workspace`: one zeroed buffer per library, device and
-stream, which every launch leaves zeroed again, so no launch is spent
-clearing it.
+flags of K1 and K5, the grid barriers of K4, K7, K10, K12a, K13d and
+K13e) keep their counters and flags in a `workspace`: one zeroed buffer
+per library, device and stream, which every launch leaves zeroed again,
+so no launch is spent clearing it.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -58,8 +59,9 @@ LAUNCHES = {"K1": 0, "K2b pack": 0, "K2b fetch": 0, "K2b append": 0,
             "K13c gather": 0, "K13c snapshot append": 0,
             "K13c snapshot gather": 0, "K7 time-first": 0, "K7 order by": 0,
             "K1 order by": 0, "K5b ordinal": 0, "K5b limit": 0,
-            "K13d dedup": 0, "K13d place": 0, "K13e": 0, "K1 table free": 0,
-            "K7 table index": 0, "K13b final per group": 0,
+            "K13d dedup": 0, "K13d place": 0, "K13e": 0, "K13e eq": 0,
+            "K1 table free": 0, "K7 table index": 0,
+            "K13b final per group": 0,
             "K13f ingest": 0, "K13f evict": 0, "K13f restore": 0,
             "K3 aggregation": 0, "K4 aggregation": 0, "K12b": 0}
 
@@ -173,20 +175,21 @@ def check(name: str, what: str, rc: int, device=None) -> None:
                            f"({msg.decode() if msg else '?'})")
 
 
-def _workspace_key(name: str, device) -> tuple:
+def _workspace_key(name: str, device, stream_handle=None) -> tuple:
     device = torch.device(device)
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
-    return name, index, stream()
+    return name, index, stream_handle or stream()
 
 
-def workspace(name: str, nbytes: int, device) -> torch.Tensor:
-    """Library `name`'s workspace on the current stream of `device`: at
-    least `nbytes`, zero when first allocated. Its kernels leave it zero
-    when they end (tile and barrier counters, flags), so no call clears
-    it; launches on one stream run in order, and each stream has its
-    own."""
-    key = _workspace_key(name, device)
+def workspace(name: str, nbytes: int, device,
+              stream_handle: Optional[int] = None) -> torch.Tensor:
+    """Library `name`'s workspace on the current stream of `device` (its
+    raw handle, `stream()`, where the caller has it): at least `nbytes`,
+    zero when first allocated. Its kernels leave it zero when they end
+    (tile and barrier counters, flags), so no call clears it; launches on
+    one stream run in order, and each stream has its own."""
+    key = _workspace_key(name, device, stream_handle)
     with _lock:
         ws = _workspaces.get(key)
         if ws is None or ws.numel() < nbytes:

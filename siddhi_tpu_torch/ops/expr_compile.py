@@ -374,6 +374,80 @@ def _compile_in(expr: In, resolver: TypeResolver,
     return CompiledExpr(fn, AttributeType.BOOL)
 
 
+#: key columns one equality launch compares (csrc/k13_keys.cuh MAX_KEYS)
+MAX_EQUALITY_KEYS = 4
+#: planner built-ins that read the default frame's context, not columns
+_CONTEXT_FUNCTIONS = ("eventTimestamp", "currentTimeMillis")
+
+
+def _frames_read(e: Expression, resolver: TypeResolver) -> Optional[set]:
+    """The frames an elementwise expression of variables, constants,
+    arithmetic and functions of arguments reads (an unqualified variable
+    counts for the frame it resolves to); None for any other node."""
+    if isinstance(e, Constant):
+        return set()
+    if isinstance(e, Variable):
+        try:
+            ref, _, _ = resolver.resolve(e)
+        except SiddhiAppCreationError:
+            return None
+        return {ref or resolver.default_frame}
+    if isinstance(e, MathExpression):
+        parts = (e.left, e.right)
+    elif (isinstance(e, AttributeFunction) and e.parameters
+          and (e.namespace or e.name not in _CONTEXT_FUNCTIONS)):
+        parts = e.parameters
+    else:
+        return None
+    out: set = set()
+    for p_ in parts:
+        f = _frames_read(p_, resolver)
+        if f is None:
+            return None
+        out |= f
+    return out
+
+
+def equality_key_plan(cond: Expression, table_ref: str, out_refs,
+                      resolver: TypeResolver, registry: Registry):
+    """The key columns of an ON condition that is a conjunction of at most
+    MAX_EQUALITY_KEYS `==` compares, each between a side that reads only
+    the table frame and a side that reads none of it and at least one
+    output frame (`out_refs`), both of one type: [(table side, output
+    side)] as CompiledExprs, or None for any other condition. As the `in`
+    index plan, a mixed-type compare declines (the compiled `==` promotes
+    it)."""
+    conj, stack = [], [cond]
+    while stack:
+        e = stack.pop()
+        if isinstance(e, And):
+            stack += [e.right, e.left]
+        else:
+            conj.append(e)
+    if len(conj) > MAX_EQUALITY_KEYS:
+        return None
+    plan = []
+    for e in conj:
+        if not (isinstance(e, Compare) and e.op == CompareOp.EQUAL):
+            return None
+        for tside, oside in ((e.left, e.right), (e.right, e.left)):
+            ft = _frames_read(tside, resolver)
+            fo = _frames_read(oside, resolver)
+            if ft == {table_ref} and fo and fo <= set(out_refs):
+                break
+        else:
+            return None
+        try:
+            tc = compile_expression(tside, resolver, registry)
+            oc = compile_expression(oside, resolver, registry)
+        except SiddhiAppCreationError:
+            return None
+        if tc.type != oc.type:
+            return None
+        plan.append((tc, oc))
+    return plan
+
+
 def _references_frame(e: Expression, frame: str,
                       resolver: TypeResolver) -> bool:
     if isinstance(e, Variable):

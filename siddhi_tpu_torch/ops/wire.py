@@ -116,7 +116,8 @@ def wire_pack_plain(ts: torch.Tensor, valid: torch.Tensor,
     buf = torch.empty(layout.nbytes, dtype=torch.uint8, device=ts.device)
     idx = torch.nonzero(valid).squeeze(1)
     count = idx.numel()
-    m = torch.where(valid, ts, torch.full_like(ts, _BIG)).min()
+    m = (torch.where(valid, ts, torch.full_like(ts, _BIG)).min() if B
+         else torch.tensor(_BIG, device=ts.device))
     ts0 = torch.where(m == _BIG, torch.zeros_like(m), m)
     d = ts[idx] - ts0  # wraps like the int64 subtraction of _wire_pack
     over = ((d > 0xFFFFFFFF) | (d < 0)).any()
@@ -136,42 +137,69 @@ def wire_pack_plain(ts: torch.Tensor, valid: torch.Tensor,
     return buf
 
 
-_K12A_BLOCK = 1024
+_K12A = "k12a_wire_pack"
+
+
+class _PackPlan(NamedTuple):
+    """What a K12a launch of one layout needs besides its tensors."""
+
+    ws_bytes: int  # 0: one block, no workspace
+    head: tuple  # n, the column count and the three region offsets
+    col_static: tuple  # (dtype, byte width, region offset) a column
+    args: type  # the ctypes int64 array type of the launch's arguments
+    fn: object  # the bound k12a_wire_pack
+
+
+@functools.lru_cache(maxsize=512)
+def _pack_plan(layout: WireLayout) -> _PackPlan:
+    ws = kernels.bind(_K12A, "k12a_workspace_bytes", [ctypes.c_int],
+                      restype=ctypes.c_longlong)(layout.capacity)
+    if ws < 0:
+        raise kernels.KernelError("K12a: the card has no cooperative "
+                                  "launches")
+    n = len(layout.names)
+    widths = [torch.empty((), dtype=d).element_size() for d in layout.dtypes]
+    return _PackPlan(
+        ws, (layout.capacity, n, layout.dts_offset, layout.hi_offset,
+             layout.flags_offset),
+        tuple(zip(layout.dtypes, widths, layout.col_offsets)),
+        ctypes.c_longlong * (13 + 4 * n),
+        kernels.bind(_K12A, "k12a_wire_pack",
+                     [ctypes.c_void_p, ctypes.c_void_p]))
 
 
 def wire_pack_cuda(ts: torch.Tensor, valid: torch.Tensor,
                    types: torch.Tensor, cols: dict,
                    layout: WireLayout) -> torch.Tensor:
-    """K12a on the card: three launches, no host sync. Strided columns
-    (views of a packed window ring) are made contiguous first."""
+    """K12a on the card: one launch, no host sync. Every column is read
+    through its stride (views of a packed window ring are not copied);
+    the launch's arguments go in one int64 array."""
     B = layout.capacity
-    ts, valid, types = ts.contiguous(), valid.contiguous(), types.contiguous()
-    cols = {k: c.contiguous() for k, c in cols.items()}
-    tensors = [ts, valid, types, *cols.values()]
-    kernels.require_cuda("wire_pack", *tensors)
-    if (ts.dtype != torch.int64 or valid.dtype != torch.bool
-            or types.dtype != torch.int8
-            or any(t.dim() != 1 or t.shape[0] != B for t in tensors)):
+    dev = ts.device
+    if (not ts.is_cuda or ts.dtype != torch.int64
+            or valid.dtype != torch.bool or types.dtype != torch.int8
+            or len(cols) != len(layout.names)
+            or any(t.device != dev or t.shape != (B,)
+                   for t in (ts, valid, types, *cols.values()))):
         raise ValueError("wire_pack: int64 ts, bool valid, int8 types and "
-                         f"columns, each of {B} lanes")
-    buf = torch.empty(layout.nbytes, dtype=torch.uint8, device=ts.device)
-    nblocks = -(-B // _K12A_BLOCK)
-    scratch = torch.empty(2 * nblocks, dtype=torch.int64, device=ts.device)
-    n = len(cols)
-    fn = kernels.bind("k12a_wire_pack", "k12a_wire_pack",
-                      [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int]
-                      + [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3
-                      + [ctypes.c_void_p] * 3)
-    rc = fn(ts.data_ptr(), valid.data_ptr(), types.data_ptr(), B, n,
-            (ctypes.c_void_p * max(n, 1))(*[c.data_ptr()
-                                            for c in cols.values()]),
-            (ctypes.c_int * max(n, 1))(*[c.element_size()
-                                         for c in cols.values()]),
-            (ctypes.c_longlong * max(n, 1))(*layout.col_offsets),
-            layout.dts_offset, layout.hi_offset, layout.flags_offset,
-            buf.data_ptr(), scratch.data_ptr(), kernels.stream())
-    kernels.check("k12a_wire_pack", "wire_pack", rc)
-    kernels.LAUNCHES["K12a"] += 3
+                         f"the layout's columns, each of {B} lanes on one "
+                         "CUDA device")
+    plan = _pack_plan(layout)
+    buf = torch.empty(layout.nbytes, dtype=torch.uint8, device=dev)
+    stream = kernels.stream()
+    ws = (kernels.workspace(_K12A, plan.ws_bytes, dev, stream).data_ptr()
+          if plan.ws_bytes else 0)
+    args = [ts.data_ptr(), ts.stride(0), valid.data_ptr(), valid.stride(0),
+            types.data_ptr(), types.stride(0), *plan.head, buf.data_ptr(),
+            ws]
+    for c, (dt, width, off) in zip(cols.values(), plan.col_static):
+        if c.dtype != dt:
+            raise ValueError(f"wire_pack: a {c.dtype} column where the "
+                             f"layout holds {dt}")
+        args += (c.data_ptr(), c.stride(0), width, off)
+    rc = plan.fn(plan.args(*args), stream)
+    kernels.check(_K12A, "wire_pack", rc, dev if plan.ws_bytes else None)
+    kernels.LAUNCHES["K12a"] += 1
     return buf
 
 

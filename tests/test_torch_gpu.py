@@ -764,7 +764,7 @@ def test_k12a_kernel_matches_plain(cuda, B, p_valid, span):
     layout = wire.layout_of(ts, cols)
     kernels.reset_launch_counts()
     got = wire.wire_pack_cuda(ts, valid, types, cols, layout)
-    assert kernels.LAUNCHES["K12a"] == 3
+    assert kernels.LAUNCHES["K12a"] == 1
     want = wire.wire_pack_plain(ts, valid, types, cols, layout)
     torch.cuda.synchronize()
     assert torch.equal(wire.wire_payload(got, layout),
@@ -784,7 +784,7 @@ def test_cuda_batch_reaches_k12a_not_the_plain_pack(cuda, monkeypatch):
     ts, valid, types, cols = _wire_case(cuda, 512, 3, 0.5)
     kernels.reset_launch_counts()
     host = wire.start_readback(ts, valid, types, cols).result()
-    assert kernels.LAUNCHES["K12a"] == 3
+    assert kernels.LAUNCHES["K12a"] == 1
     assert host.count == int(valid.sum())
 
 
@@ -2628,3 +2628,172 @@ def test_k4_and_k10_append_wrappers_sort_nothing(cuda, monkeypatch):
         assert torch.equal(a, b)
     for a, b in zip(got4, want4):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------- K13e's two routes, K12a's one launch
+
+K13E_EQ_EDGES = ["float32 NaN ±0 ±inf", "float64 NaN ±0 ±inf",
+                 "int64 differing above bit 32", "string codes",
+                 "two columns", "four columns", "bool beside int32",
+                 "repeats in the batch", "invalid lanes", "dead rows",
+                 "B = 1", "no live row", "no lane valid",
+                 "every row one key", "app AD's shape"]
+
+
+def _k13e_eq_edges(cuda):
+    return _chip_smoke().k13e_eq_edge_cases(
+        torch, np.random.default_rng(20), cuda)
+
+
+@pytest.mark.parametrize("name", K13E_EQ_EDGES)
+def test_k13e_eq_edges_match_plain(cuda, name):
+    """chip_smoke.py's phase-24 equality cases: has, b_star and ev_matched
+    bit for bit with last_match_plain of the full mask, one launch."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.core import table as tb
+    cases = _k13e_eq_edges(cuda)
+    assert sorted(cases) == sorted(K13E_EQ_EDGES)
+    lane, row, lv, rv = cases[name]
+    kernels.reset_launch_counts()
+    got = tb.last_match_eq(lane, row, lv, rv)
+    assert kernels.LAUNCHES["K13e eq"] == 1
+    for g, w in zip(got, tb.last_match_eq_plain(lane, row, lv, rv)):
+        assert torch.equal(g, w)
+    if name in ("repeats in the batch", "app AD's shape"):
+        assert bool(got[0].any()) and bool(got[2].any())
+
+
+K13E_MASK_EDGES = ["[B, C] sparse", "[B, C] dense", "[B, C], C = 1000",
+                   "[B, C] transposed view", "[B, C] one column in",
+                   "[B, 1]", "[C] table-only", "host scalar true",
+                   "card scalar false", "no lane valid vector",
+                   "every lane invalid", "no live row", "B = 1", "C = 1"]
+
+
+@pytest.mark.parametrize("name", K13E_MASK_EDGES)
+def test_k13e_mask_edges_match_plain(cuda, name):
+    """chip_smoke.py's phase-24 mask cases: the condition read where it
+    lies with the valid vectors folded in, bit for bit with the mask
+    built and reduced by last_match_plain, one launch."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.core import table as tb
+    cs = _chip_smoke()
+    cases = cs.k13e_mask_edge_cases(torch, np.random.default_rng(21), cuda)
+    assert sorted(cases) == sorted(K13E_MASK_EDGES)
+    cond, lv, rv = cases[name]
+    kernels.reset_launch_counts()
+    got = tb.last_match(cond, lv, rv)
+    assert kernels.LAUNCHES["K13e"] == 1
+    for g, w in zip(got, tb.last_match_mask_plain(cond, lv, rv)):
+        assert torch.equal(g, w)
+
+
+def test_k13e_routes_and_sizes_alternate_on_one_stream(cuda):
+    """Both routes at several sizes take turns on one stream: each call
+    finds the shared workspace its predecessor left zero."""
+    from siddhi_tpu_torch.core import table as tb
+    cs = _chip_smoke()
+    eq = _k13e_eq_edges(cuda)
+    mask = cs.k13e_mask_edge_cases(torch, np.random.default_rng(22), cuda)
+    for _ in range(3):
+        for name in ("app AD's shape", "B = 1", "repeats in the batch"):
+            lane, row, lv, rv = eq[name]
+            for g, w in zip(tb.last_match_eq(lane, row, lv, rv),
+                            tb.last_match_eq_plain(lane, row, lv, rv)):
+                assert torch.equal(g, w), name
+        for name in ("[B, C] dense", "[C] table-only", "C = 1"):
+            cond, lv, rv = mask[name]
+            for g, w in zip(tb.last_match(cond, lv, rv),
+                            tb.last_match_mask_plain(cond, lv, rv)):
+                assert torch.equal(g, w), name
+
+
+def test_table_output_equality_route_builds_no_cross_mask(cuda):
+    """App AD's update or insert on the card: the executor takes the
+    equality route (one K13e eq launch, no K13e mask launch), its peak
+    memory stays far below one [B, C] bool tensor, and its table and
+    insert batch equal the mask route's bit for bit."""
+    from siddhi_tpu_torch import SiddhiManager, kernels
+    from siddhi_tpu_torch.core.event import EventBatch
+    cs = _chip_smoke()
+    rng = np.random.default_rng(23)
+    rt = SiddhiManager().create_siddhi_app_runtime(
+        cs.APP_AD, batch_size=cs.AD_BATCH)
+    ex = rt.query_runtimes["txn"].table_executor
+    assert ex.eq_plan is not None
+    ids, amount, kind, _ = cs.ad_events(rng, rounds=1)
+    items = cs._batches(rt, "Txn", {"id": ids, "amount": amount,
+                                    "kind": kind},
+                        1_000 + np.arange(ids.shape[0], dtype=np.int64),
+                        cs.AD_BATCH)
+    tbl = rt.tables["Account"]
+
+    def selected(b):  # the query's output: select id, amount as balance
+        return EventBatch(ts=b.ts, cols={"id": b.cols["id"],
+                                         "balance": b.cols["amount"],
+                                         "kind": b.cols["kind"]},
+                          valid=b.valid, types=b.types)
+
+    for b, _ in items[:4]:
+        tbl.insert_batch(selected(b))  # these ids live in the table
+    state = tbl.state
+    out = selected(items[4][0])
+    B, C = out.ts.shape[0], state.ts.shape[0]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    got, gins = ex.run(state, out)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["K13e eq"] == 1 and kernels.LAUNCHES["K13e"] == 0
+    assert torch.cuda.max_memory_allocated() - base < B * C // 8
+    plan, ex.eq_plan = ex.eq_plan, None
+    try:
+        want, wins = ex.run(state, out)
+    finally:
+        ex.eq_plan = plan
+    assert kernels.LAUNCHES["K13e"] == 1
+    for k in want.cols:
+        assert torch.equal(got.cols[k], want.cols[k]), k
+    assert torch.equal(got.valid, want.valid)
+    assert torch.equal(gins.valid, wins.valid)
+    assert bool((~gins.valid & out.valid).any())  # some events matched
+
+
+K12A_EDGES = ["B = 0", "B = 1", "B = 256", "B = 1,025", "B = 131,072",
+              "B = 1048576", "every lane invalid", "over", "span 2^32 - 1",
+              "strided columns"]
+
+
+def _k12a_edges(cuda):
+    return _chip_smoke().k12a_edge_cases(
+        torch, np.random.default_rng(14), cuda)
+
+
+@pytest.mark.parametrize("name", K12A_EDGES)
+def test_k12a_edges_match_plain(cuda, name):
+    """chip_smoke.py's phase-14 pack cases, bit for bit with
+    wire_pack_plain, one launch a call."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import wire
+    cs = _chip_smoke()
+    cases = _k12a_edges(cuda)
+    assert sorted(cases) == sorted(K12A_EDGES)
+    kernels.reset_launch_counts()
+    cs.check_k12a(wire, name, *cases[name])
+    assert kernels.LAUNCHES["K12a"] == 1
+
+
+def test_k12a_sizes_alternate_on_one_stream(cuda):
+    """Packs of one block, of many blocks and of none take turns on one
+    stream (the workspace shared), each bit for bit."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import wire
+    cs = _chip_smoke()
+    cases = _k12a_edges(cuda)
+    order = 3 * ["B = 1048576", "B = 256", "over", "B = 0",
+                 "strided columns", "B = 131,072"]
+    kernels.reset_launch_counts()
+    for name in order:
+        cs.check_k12a(wire, name, *cases[name])
+    assert kernels.LAUNCHES["K12a"] == len(order)

@@ -131,6 +131,13 @@ INDEX_APP = ("define stream S (symbol string, price double);\n"
              "@info(name='chk') from C[C.symbol == T.symbol in T]\n"
              "select symbol insert into Hits;\n")
 
+COMPOSITE = ("define stream Seed (sym string, ex int, price double);\n"
+             "define stream U (sym string, ex int, price double);\n"
+             "define table T (sym string, ex int, price double);\n"
+             "from Seed insert into T;\n")
+COMPOSITE_SEED = [("send", "Seed", [("a", 1, 1.0), ("a", 2, 2.0),
+                                    ("b", 1, 3.0)], 1), ("flush",)]
+
 #: name -> (app, script, batch_size, query callbacks)
 SHAPES = {
     # tests/test_tables.py
@@ -315,6 +322,32 @@ SHAPES = {
         [("send", "In", [(1, 1.0)], 1), ("flush",),
          ("send", "In", [(2, 5.0), (1, 9.0), (2, 7.0), (3, 1.5)], 5),
          ("flush",), ("rows", "T"), ("dropped", "T")], 8, ()),
+    # an equality ON condition through the stream's name, on a composite
+    # key (K13e's equality route on the card)
+    "update_composite_key_through_the_stream_name": (
+        COMPOSITE + "from U update T set T.price = U.price "
+        "on T.sym == U.sym and U.ex == T.ex;",
+        COMPOSITE_SEED + [("send", "U", [("a", 2, 9.0), ("b", 2, 7.0),
+                                         ("a", 2, 11.0), ("b", 1, 4.0)], 5),
+                          ("flush",), ("rows", "T")], 8, ()),
+    "update_or_insert_composite_key_through_the_stream_name": (
+        COMPOSITE + "from U update or insert into T set T.price = U.price "
+        "on T.sym == U.sym and T.ex == U.ex;",
+        COMPOSITE_SEED + [("send", "U", [("a", 2, 9.0), ("c", 1, 7.0),
+                                         ("c", 1, 8.0), ("a", 3, 1.0)], 5),
+                          ("flush",), ("rows", "T")], 8, ()),
+    "delete_composite_key_through_the_stream_name": (
+        COMPOSITE + "from U delete T on U.sym == T.sym and T.ex == U.ex;",
+        COMPOSITE_SEED + [("send", "U", [("a", 1, 0.0), ("b", 2, 0.0)], 5),
+                          ("flush",), ("rows", "T")], 8, ()),
+    "update_or_insert_on_a_double_key_with_nan_and_signed_zero": (
+        "define stream U (x double, v int);\n"
+        "define table T (x double, v int);\n"
+        "from U update or insert into T set T.v = U.v on T.x == U.x;",
+        [("send", "U", [(0.0, 1), (float("nan"), 2), (1.5, 3)], 1),
+         ("flush",),
+         ("send", "U", [(-0.0, 4), (float("nan"), 5), (1.5, 6), (2.0, 7)],
+          5), ("flush",), ("rows", "T")], 8, ()),
     "in_without_index": (
         "define stream S (symbol string, price double);\n"
         "define table T (symbol string, price double);\n"
