@@ -345,7 +345,29 @@ Phases (any failure exits non-zero and prints no result line):
    start_ts wrapping int64, residual tiles with p0 > 0, dead entries, P =
    0, B = 1 and no valid lane; each with its own index (one probe a
    residual tile, the gather, K7 an equality column) and again on an
-   index built beforehand (the probes alone).
+   index built beforehand (the probes alone);
+34. (run after phase 30, its own generator) K4b, the dense key table of a
+   partition's key-slot path, against its plain version bit for bit (ids,
+   sorted_keys, sorted_ids, count), one launch a call: app AJ's first
+   batch and steady state (L = 8,192 lanes, K = 1,024, 1,000 keys),
+   131,072 lanes into K = 64 and K = 4,096 (more new keys than K), L = 1,
+   no valid lane, every key new, every key found, keys equal to INT64_MAX
+   and INT64_MIN, heavy repeats, count + n_new > K, a full table
+   receiving smaller keys (eviction) and 8,192 new keys into K = 1,024,
+   the sizes alternating on one stream; K4b timed at three of them, and
+   K3 on app AJ's key column ("K3 partition");
+35. apps AI and AJ: `partition with (symbol of TradeStream)` around
+   `[700.0 > price]#window.length(100)` sum, avg and count, 1,000
+   symbols, 8 rounds of 8,192 trades 1 ms apart and a heartbeat; AI on
+   the per-key host loop, AJ on the key-slot path (`mesh=[card]`,
+   partition_capacity 1,024); each against a numpy oracle of per-symbol
+   `length(100)` sums, means and counts (strings, counts and timestamps
+   exact, sums rtol 1e-5; AI ordered by key code within a batch, AJ by
+   slot), the two equal as per-key sequences, K4b and "K3 partition" one
+   launch a batch on AJ and none on AI, the route's host reads and
+   deliveries of one batch (AJ: the count read and one delivery; AI: the
+   valid and key reads and one delivery a key present), events/s, ms a
+   round and peak device memory.
 
 Every app's Event callback reads back through K12a (its launch counter
 must be non-zero in every app). Apps A, C, D, G, H and N also run the
@@ -682,12 +704,19 @@ KERNELS = {
     "K12b": ("SuperstepRunner compaction (superstep_pack)",
              "siddhi_tpu_torch/csrc/k12b_superstep_pack.cu",
              "siddhi_tpu/core/superstep.py:417"),
+    "K4b": ("dense_key_lookup_or_insert",
+            "siddhi_tpu_torch/csrc/k4b_dense_keys.cu", f"{GROUPBY}:500"),
+    "K3 partition": ("hash_columns of the partition key",
+                     "siddhi_tpu_torch/csrc/k3_hash.cu",
+                     "siddhi_tpu/core/partition.py:244"),
 }
 #: rows of the kernel table beyond one a counter: row key -> the counter
 #: whose launches it reports (the same kernel at a second shape)
 EXTRA_ROWS = {"K13f ingest (10,000 slots)": "K13f ingest",
               "K12b (K = 32)": "K12b",
-              "K13e (a table-only condition)": "K13e"}
+              "K13e (a table-only condition)": "K13e",
+              "K4b (app AJ's first batch)": "K4b",
+              "K4b (L = 131072, K = 4096)": "K4b"}
 
 
 class Failure(Exception):
@@ -8597,6 +8626,362 @@ def ah_app(torch, rng, card: str, n: int = AH_EVENTS,
     return res
 
 
+# --------------------------------------------------------------------------- #
+# phases 34-35: K4b, the dense key table, and the partitioned apps AI, AJ
+# --------------------------------------------------------------------------- #
+
+PART_SYMBOLS = 1_000
+PART_BATCH = 8_192
+PART_SLOTS = 1_024  # app AJ's partition_capacity
+PART_LENGTH = 100
+PART_BIG = 131_072  # K4b's largest batch
+APP_PART = """
+define stream TradeStream (symbol string, price double, volume long);
+partition with (symbol of TradeStream) begin
+  @info(name = 'q') from TradeStream[700.0 > price]#window.length(100)
+  select symbol, sum(price) as total, avg(price) as ap, count() as n
+  insert into OutStream;
+end;
+"""
+K4B_FIELDS = ("sorted_keys", "sorted_ids", "count", "ids")
+
+
+def k4b_edge_cases(torch, rng, dev, L: int = PART_BATCH, K: int = PART_SLOTS,
+                   n_keys: int = PART_SYMBOLS, L_big: int = PART_BIG) -> dict:
+    """name -> (table, keys, valid) of K4b's edges: app AJ's first batch
+    (1,000 new keys into K = 1,024) and its steady state (every key
+    found); L_big lanes into K = 64 and K = 4,096 (more new keys than K:
+    the selection); L = 1; no valid lane; every key new (4,000 into K =
+    4,096: the one-block sort at its largest); every key found (L_big
+    lanes); keys equal to INT64_MAX and INT64_MIN; heavy repeats; count +
+    n_new > K; a full table receiving smaller keys (eviction); 8,192
+    distinct keys into K = 1,024. Tables are filled by the plain version."""
+    from siddhi_tpu_torch.ops import groupby
+    PAD = (1 << 63) - 1
+    MIN = -(1 << 63)
+
+    def keys_of(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.int64)).to(dev)
+
+    def valid(n, p=0.95):
+        return torch.from_numpy(rng.random(n) < p).to(dev)
+
+    def table_with(k, pre):
+        t = groupby.init_dense_key_table(k, dev)
+        if len(pre):
+            t, _ = groupby.dense_key_lookup_or_insert_plain(
+                t, keys_of(pre), torch.ones(len(pre), dtype=torch.bool,
+                                            device=dev))
+        return t
+
+    def distinct(n, lo=MIN, hi=PAD):
+        return rng.choice(np.arange(n * 4, dtype=np.int64), n,
+                          replace=False) * ((hi // (n * 4)) // 2) + lo // 2
+
+    sym = rng.integers(MIN, PAD, n_keys, dtype=np.int64)  # K3 hashes' stand-in
+    k4096 = distinct(4096)
+    fresh = distinct(4000, lo=0)
+    ext = np.array([PAD, PAD - 1, MIN, MIN + 1, 0, -1, 1, 1 << 62])
+    evict = np.arange(1_000_000, 1_000_064)
+    return {
+        "app AJ's first batch": (table_with(K, []),
+                                 keys_of(sym[rng.integers(0, n_keys, L)]),
+                                 valid(L, 1.0)),
+        "app AJ's steady state": (table_with(K, sym),
+                                  keys_of(sym[rng.integers(0, n_keys, L)]),
+                                  valid(L, 1.0)),
+        "L = 131072, K = 64": (table_with(64, []), keys_of(rng.integers(
+            MIN, PAD, 10_000, dtype=np.int64)[rng.integers(0, 10_000,
+                                                            L_big)]),
+            valid(L_big)),
+        "L = 131072, K = 4096": (table_with(4096, k4096[:1000]), keys_of(
+            np.concatenate([k4096[:1000], rng.integers(
+                MIN, PAD, 49_000, dtype=np.int64)])[rng.integers(
+                    0, 50_000, L_big)]), valid(L_big)),
+        "L = 1": (table_with(K, sym[:10]), keys_of(fresh[:1]), valid(1, 1.0)),
+        "no valid lane": (table_with(K, sym[:100]),
+                          keys_of(sym[rng.integers(0, n_keys, L)]),
+                          valid(L, 0.0)),
+        "every key new": (table_with(4096, k4096[:96]),
+                          keys_of(rng.permutation(fresh)), valid(4000, 1.0)),
+        "every key found": (table_with(4096, k4096),
+                            keys_of(k4096[rng.integers(0, 4096, L_big)]),
+                            valid(L_big)),
+        "INT64_MAX and INT64_MIN": (table_with(64, [MIN, -1, 0, PAD - 1]),
+                                    keys_of(ext[rng.integers(0, 8, 4096)]),
+                                    valid(4096)),
+        "heavy repeats": (table_with(64, []), keys_of(rng.choice(
+            [7, -7, 1 << 40], L_big)), valid(L_big)),
+        "count + n_new > K": (table_with(64, fresh[:60]), keys_of(
+            fresh[40:80][rng.integers(0, 40, 1000)]), valid(1000, 1.0)),
+        "eviction": (table_with(64, evict), keys_of(np.concatenate(
+            [rng.integers(-10**6, 10**6, 30), evict])[rng.integers(
+                0, 94, 512)]), valid(512, 1.0)),
+        "n_new past K": (table_with(K, []), keys_of(rng.permutation(
+            distinct(L))), valid(L, 1.0)),
+    }
+
+
+def run_k4b_case(groupby, case, plain: bool, counter: str = "K4b"):
+    """(sorted_keys, sorted_ids, count, ids) after the case's call, by the
+    kernel or by the plain version (neither modifies its inputs)."""
+    table, keys, valid = case
+    fn = (groupby.dense_key_lookup_or_insert_plain if plain else
+          lambda t, k, v: groupby.dense_key_lookup_or_insert(
+              t, k, v, counter=counter))
+    t, ids = fn(table, keys, valid)
+    return (*t, ids)
+
+
+def k4b_bytes(case) -> int:
+    """What K4b must move: each lane's key (8 B) and valid flag (1 B)
+    read and id (4 B) written, the table (12 B an entry) read and
+    written."""
+    table, keys, _ = case
+    return keys.shape[0] * 13 + table.sorted_keys.shape[0] * 24
+
+
+def dense_key_phase(torch, rng) -> dict:
+    """Phase 34: K4b against its plain version at its edges, bit for bit
+    (ids, sorted_keys, sorted_ids, count), one launch a call, the sizes
+    alternating on one stream; timed at app AJ's shapes and the two
+    selections; and K3 on app AJ's key column ("K3 partition")."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import groupby
+    dev = torch.device("cuda")
+    cases = k4b_edge_cases(torch, rng, dev)
+    order = list(cases) + ["L = 131072, K = 4096", "L = 1", "n_new past K",
+                           "no valid lane", "L = 131072, K = 64",
+                           "INT64_MAX and INT64_MIN", "app AJ's first batch"]
+    for name in order:
+        kernels.reset_launch_counts()
+        got = run_k4b_case(groupby, cases[name], plain=False)
+        if kernels.LAUNCHES["K4b"] != 1:
+            raise Failure(f"K4b edge {name}: {kernels.LAUNCHES['K4b']} "
+                          "launches, one a call expected")
+        for f, a, b in zip(K4B_FIELDS, got,
+                           run_k4b_case(groupby, cases[name], plain=True)):
+            check_equal(f"K4b edge {name} {f}", a, b)
+    print(f"K4b edges: {len(cases)} cases bit for bit (ids, sorted_keys, "
+          "sorted_ids, count), one launch a call, sizes alternating on one "
+          "stream")
+    res = {}
+    for row, name in (("K4b", "app AJ's steady state"),
+                      ("K4b (app AJ's first batch)", "app AJ's first batch"),
+                      ("K4b (L = 131072, K = 4096)", "L = 131072, K = 4096")):
+        case = cases[name]
+        kernels.reset_launch_counts()
+        groupby.dense_key_lookup_or_insert(*case)
+        launches = kernels.LAUNCHES["K4b"]
+        res[row] = dict(
+            _timed(torch, lambda c=case: groupby.dense_key_lookup_or_insert(
+                       *c), lambda c=case:
+                   groupby.dense_key_lookup_or_insert_plain(*c)),
+            bound_ms=bound_ms(k4b_bytes(case)), max_abs_err=0,
+            bound_by="bytes", launches_a_call=launches)
+        print(f"{row} dense_key_lookup_or_insert {name} (L="
+              f"{case[1].shape[0]}, K={case[0].sorted_keys.shape[0]}): "
+              f"{json.dumps(res[row])}")
+    codes = torch.from_numpy(rng.integers(1, PART_SYMBOLS + 1, PART_BATCH)
+                             .astype(np.int32)).to(dev)
+    check_equal("K3 partition",
+                groupby.hash_columns([codes], counter="K3 partition"),
+                groupby.hash_columns_plain([codes]))
+    res["K3 partition"] = dict(
+        _timed(torch, lambda: groupby.hash_columns([codes],
+                                                   counter="K3 partition"),
+               lambda: groupby.hash_columns_plain([codes])),
+        bound_ms=bound_ms(PART_BATCH * (4 + 8)), max_abs_err=0,
+        bound_by="bytes")
+    print(f"K3 partition n={PART_BATCH} (int32 symbol codes): "
+          f"{json.dumps(res['K3 partition'])}")
+    torch.cuda.synchronize()
+    return res
+
+
+def part_events(rng, rounds: int = ROUNDS, batch: int = PART_BATCH,
+                n_symbols: int = PART_SYMBOLS):
+    """Apps AI and AJ's feed: 1,000 symbols, price uniform on [0, 1000),
+    trades 1 ms apart."""
+    n = rounds * batch
+    sym = rng.integers(0, n_symbols, n)
+    price = rng.uniform(0.0, N_PRICE_HI, n)
+    volume = rng.integers(1, 1000, n).astype(np.int64)
+    ts = 1_700_000_000_000 + np.arange(n, dtype=np.int64)
+    return sym, price, volume, ts
+
+
+def oracle_part(sym, price32, rounds: int = ROUNDS, batch: int = PART_BATCH,
+                length: int = PART_LENGTH):
+    """Apps AI and AJ: every passing event (700.0 > price, float32) emits
+    its symbol's length(100) sum (float64), mean and count; each round's
+    events ordered by the symbol's first appearance in the feed (its
+    string code and its slot), then by arrival. Returns (indices, total,
+    mean, count) in emission order."""
+    n = sym.shape[0]
+    keep = np.float32(700.0) > price32
+    idx = np.nonzero(keep)[0]
+    s, v = sym[idx], price32[idx].astype(np.float64)
+    order = np.argsort(s, kind="stable")
+    ss, vs = s[order], v[order]
+    start = np.r_[True, ss[1:] != ss[:-1]]
+    pos = np.arange(ss.shape[0])
+    rank = pos - pos[start][np.cumsum(start) - 1]  # events of the symbol
+    cs = np.cumsum(vs)
+    back = np.where(rank >= length, pos - length, -1)
+    base = np.where(rank >= length, cs[np.maximum(back, 0)],
+                    (cs - vs)[start][np.cumsum(start) - 1])
+    total = np.empty(idx.shape[0])
+    count = np.empty(idx.shape[0], np.int64)
+    total[order] = cs - base
+    count[order] = np.minimum(rank + 1, length)
+    first = np.full(sym.max() + 1, n)
+    np.minimum.at(first, sym, np.arange(n))
+    emit = np.lexsort((idx, first[s], idx // batch))
+    return idx[emit], total[emit], total[emit] / count[emit], count[emit]
+
+
+def check_part(name: str, got, want, pool, sym, ts) -> int:
+    idx, total, mean, count = want
+    if len(got) != idx.shape[0]:
+        raise Failure(f"app {name}: {len(got)} events out, the oracle "
+                      f"expects {idx.shape[0]}")
+    g_ts = np.fromiter((e.timestamp for e in got), np.int64, len(got))
+    if not np.array_equal(g_ts, ts[idx]):
+        raise Failure(f"app {name}: timestamps or order differ from the "
+                      "oracle")
+    if [e.data[0] for e in got] != pool[sym[idx]].tolist():
+        raise Failure(f"app {name}: symbols differ from the oracle")
+    if not np.array_equal(np.fromiter((e.data[3] for e in got), np.int64,
+                                      len(got)), count):
+        raise Failure(f"app {name}: counts differ from the oracle")
+    for what, col, o in (("total", 1, total), ("ap", 2, mean)):
+        g = np.fromiter((e.data[col] for e in got), np.float64, len(got))
+        if not np.allclose(g, o, rtol=RTOL, atol=0):
+            bad = np.max(np.abs(g - o) / np.abs(o))
+            raise Failure(f"app {name}: {what} off by rel {bad:.3g}")
+    return len(got)
+
+
+def run_part_app(torch, name: str, columns: dict, ts, mesh: bool,
+                 rounds: int = ROUNDS, batch: int = PART_BATCH):
+    """App AI (the per-key host loop) or AJ (the key-slot path on the card,
+    partition_capacity 1,024): `rounds` sends of `batch` trades, a flush
+    each, then one heartbeat. Returns (runtime, events, launches, elapsed
+    s, peak bytes)."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch import kernels
+    rt = SiddhiManager().create_siddhi_app_runtime(
+        APP_PART, batch_size=batch,
+        mesh=[torch.device("cuda")] if mesh else None,
+        partition_capacity=PART_SLOTS)
+    pr = rt.partitions["partition1"]
+    if (pr._mesh_step is not None) != mesh:
+        raise Failure(f"app {name}: the partition took the wrong path")
+    got = []
+    rt.add_callback("OutStream", got.extend)
+    h = rt.get_input_handler("TradeStream")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in range(rounds):
+        s = slice(r * batch, (r + 1) * batch)
+        h.send_columns({k: v[s] for k, v in columns.items()},
+                       timestamps=ts[s])
+        rt.flush()
+    rt.heartbeat(int(ts[-1]) + 1)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    return (rt, got, dict(kernels.LAUNCHES), elapsed,
+            torch.cuda.max_memory_allocated())
+
+
+def part_reads(torch, rt, columns: dict, ts, batch: int = PART_BATCH):
+    """One more round's route: (the host syncs in the partition's own code,
+    the deliveries (K12a packs, each one wait for its copy), the sync
+    sites)."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.core.event import EventBatch
+    j = rt.junctions["TradeStream"]
+    s = slice(0, batch)
+    cols = j.codec.encode_columns({k: v[s] for k, v in columns.items()},
+                                  batch)
+    b = EventBatch.from_numpy(ts[s], cols, batch, j.ctx.device)
+    pr = rt.partitions["partition1"]
+    kernels.reset_launch_counts()
+    syncs = syncs_in(torch, lambda: pr.route("TradeStream", b,
+                                             int(ts[-1]) + 2))
+    own = sum(" from partition.py:" in x for x in syncs)
+    if own != len(syncs):
+        raise Failure(f"host syncs outside the partition's routing: {syncs}")
+    return own, kernels.LAUNCHES["K12a"], sorted(set(syncs))
+
+
+def partition_apps(torch, rng, card: str, rounds: int = ROUNDS) -> dict:
+    """Phase 35: apps AI and AJ on one feed against the numpy oracle and
+    each other as per-key sequences; K4b and "K3 partition" one launch a
+    batch on AJ and none on AI; events/s, ms a round, host reads a batch,
+    peak device memory. Returns the two apps' launches."""
+    sym, price, volume, ts = part_events(rng, rounds)
+    pool = symbols(PART_SYMBOLS)
+    columns = {"symbol": pool[sym], "price": price, "volume": volume}
+    want = oracle_part(sym, price.astype(np.float32), rounds)
+    total = {}
+    per_key = {}
+    for name, mesh in (("AI", False), ("AJ", True)):
+        rt, got, launches, elapsed, peak = run_part_app(
+            torch, name, columns, ts, mesh, rounds)
+        n_out = check_part(name, got, want, pool, sym, ts)
+        seqs = {}
+        for e in got:
+            seqs.setdefault(e.data[0], []).append((e.timestamp, *e.data))
+        per_key[name] = seqs
+        del got
+        expect = rounds if mesh else 0
+        for k in ("K4b", "K3 partition"):
+            if launches[k] != expect:
+                raise Failure(f"app {name}: {launches[k]} {k} launches, "
+                              f"{expect} expected (one a batch on the "
+                              "key-slot path)")
+        for k in ("K2b append", "K12a"):
+            if launches[k] == 0:
+                raise Failure(f"app {name}: kernel {k} never launched")
+        own, delivery, sites = part_reads(torch, rt, columns, ts)
+        # the count read, or the valid and key reads; one delivery, or
+        # one a key present
+        want_reads = ((1, 1) if mesh else
+                      (2, np.unique(sym[:PART_BATCH]).shape[0]))
+        if (own, delivery) != want_reads:
+            raise Failure(f"app {name}: {own} host reads in the "
+                          f"partition's routing and {delivery} deliveries, "
+                          f"{want_reads} expected: {sites}")
+        n = rounds * PART_BATCH
+        path = ("key-slot path, 1,024 slots" if mesh
+                else "per-key host loop")
+        print(f"app {name} ({path}): "
+              f"{n} events in, {n_out} out, matches the oracle; "
+              f"{n / elapsed:.1f} events/s; {elapsed * 1e3 / rounds:.3f} ms "
+              f"per {PART_BATCH}-event round; host reads a batch: {own} "
+              f"in the routing ({sites}) + {delivery} deliveries; peak "
+              f"device memory {peak / 2**20:.1f} MiB; kernel launches "
+              f"{ {k: v for k, v in launches.items() if v} } [{card}]")
+        total.update({k: total.get(k, 0) + v for k, v in launches.items()})
+        del rt
+    if per_key["AI"].keys() != per_key["AJ"].keys():
+        raise Failure("apps AI and AJ: different keys emitted")
+    for k, a in per_key["AI"].items():
+        b = per_key["AJ"][k]
+        if len(a) != len(b) or any(
+                x[:2] != y[:2] or x[4] != y[4]
+                or not np.allclose(x[2:4], y[2:4], rtol=RTOL, atol=0)
+                for x, y in zip(a, b)):
+            raise Failure(f"apps AI and AJ: key {k}'s events differ")
+    print(f"apps AI and AJ: equal as per-key sequences over "
+          f"{len(per_key['AI'])} keys")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8755,6 +9140,12 @@ def main(argv=None) -> int:
         summary["AG"] = ag_rates
         summary["AH"] = ah_app(torch, rng, card)
         print(json.dumps({"columnar": summary}))
+
+        # its own generator: the phases after it keep their inputs
+        kres.update(dense_key_phase(torch,
+                                    np.random.default_rng([args.seed, 34])))
+        for k, v in partition_apps(torch, rng, card).items():
+            launches[k] += v
 
         table = []
         rows = [(k, k) for k in KERNELS] + list(EXTRA_ROWS.items())

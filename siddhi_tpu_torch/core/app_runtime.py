@@ -6,9 +6,11 @@ table outputs (insert, delete, update, update or insert), on-demand
 queries, heartbeats, Event and columnar callbacks with optional
 asynchronous delivery, the capacity-overflow sweep, @Async ingestion with
 device supersteps (@app:superstep) and the wall-clock auto-flush
-(@app:autoFlush / auto_flush_ms). Lint, sharding, persistence, record
-tables (@store on a table), triggers, partitions and fault streams are not
-yet ported; an app that declares them is refused."""
+(@app:autoFlush / auto_flush_ms) and partitions (core/partition.py: the
+per-key host loop, or the key-slot path on a one-device `mesh`). Lint,
+sharding across devices, persistence, record tables (@store on a table),
+triggers, functions and fault streams are not yet ported; an app that
+declares them is refused."""
 
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from .context import (
     parse_annotation_time,
 )
 from .join_runtime import JoinQueryRuntime, _JoinSideReceiver
+from .partition import PartitionRuntime, partition_mesh
 from .pattern_runtime import (MERGED_SID, PatternQueryRuntime,
                               PatternState, _PatternSideReceiver)
 from .query_runtime import FunctionQueryCallback, QueryCallback, QueryRuntime
@@ -60,10 +63,10 @@ class SiddhiAppRuntime:
                  device: torch.device, batch_size: int = 0,
                  group_capacity: int = 0,
                  async_callbacks: bool = False,
-                 auto_flush_ms: Optional[float] = None) -> None:
+                 auto_flush_ms: Optional[float] = None,
+                 mesh=None, partition_capacity: int = 0) -> None:
         for what, defs in (("trigger", app.trigger_definitions),
-                           ("function", app.function_definitions),
-                           ("partition", app.partitions)):
+                           ("function", app.function_definitions)):
             if defs:
                 raise SiddhiAppCreationError(
                     f"{what} definitions are not yet ported to "
@@ -84,7 +87,8 @@ class SiddhiAppRuntime:
                 playback_increment_ms=increment_ms),
             device=device, batch_size=batch_size,
             group_capacity=group_capacity, async_callbacks=async_callbacks,
-            superstep_k=_superstep_k(app))
+            superstep_k=_superstep_k(app), mesh=partition_mesh(mesh, device),
+            partition_capacity=partition_capacity)
         # wall-clock auto-flush: staged rows deliver within ~auto_flush_ms
         # with no flush() from the caller (kwarg, or
         # @app:autoFlush('10 ms') / @app:autoFlush(interval='10 ms'))
@@ -123,6 +127,10 @@ class SiddhiAppRuntime:
         self._ondemand_cache: dict = {}
         for i, query in enumerate(app.queries):
             self._add_query(query, f"query{i + 1}")
+        self.partitions: dict[str, PartitionRuntime] = {}
+        for i, p in enumerate(app.partitions):
+            pr = PartitionRuntime(p, self, i + 1)
+            self.partitions[pr.name] = pr
 
     def _add_query(self, query: Query, default_name: str) -> None:
         name = query.name or default_name
@@ -387,9 +395,14 @@ class SiddhiAppRuntime:
                 w.heartbeat(t)
         for a in self.aggregations.values():
             a._maybe_evict(t)  # retention purge rides the heartbeat clock
+        for pr in self.partitions.values():
+            if pr.has_time_semantics or pr._purge_idle_ms is not None:
+                pr.heartbeat(t)
         seen: set[int] = set()
         for qr in self.query_runtimes.values():
-            if not qr.has_time_semantics:
+            # a partition's inner queries run under its own heartbeat
+            if not qr.has_time_semantics or getattr(qr, "_partitioned",
+                                                    False):
                 continue
             if isinstance(qr, PatternQueryRuntime):
                 qr.heartbeat(t)  # pattern runtimes drive themselves

@@ -157,6 +157,11 @@ class SiddhiAppContext:
     #: device-resident supersteps: K full ingress chunks per dispatch
     #: (@app:superstep(k=) / SIDDHI_SUPERSTEP_K; core/superstep.py)
     superstep_k: int = 1
+    #: the devices of a partition's key-slot path along one axis (a tuple
+    #: holding the runtime's device; None: the per-key host loop)
+    mesh: Optional[tuple] = None
+    #: key slots of the key-slot path; 0 = default_partition_capacity
+    partition_capacity: int = 0
 
     @property
     def effective_batch_size(self) -> int:
@@ -165,3 +170,8 @@ class SiddhiAppContext:
     @property
     def effective_group_capacity(self) -> int:
         return self.group_capacity or dtypes.config.default_group_capacity
+
+    @property
+    def effective_partition_capacity(self) -> int:
+        return (self.partition_capacity
+                or dtypes.config.default_partition_capacity)

@@ -62,6 +62,10 @@ class _Config:
     session_key_capacity = 4096
     #: rows of an in-memory table without @capacity
     default_table_capacity = 1 << 16
+    #: key slots of a partition's key-slot path (core/partition.py); each
+    #: slot holds its own copy of the inner query's state, so this is
+    #: deliberately small; raise it per app (partition_capacity=)
+    default_partition_capacity = 64
 
 
 config = _Config()

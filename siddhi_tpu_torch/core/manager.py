@@ -47,12 +47,17 @@ class SiddhiManager:
                                   batch_size: int = 0,
                                   group_capacity: int = 0,
                                   async_callbacks: bool = False,
-                                  auto_flush_ms: Optional[float] = None
+                                  auto_flush_ms: Optional[float] = None,
+                                  mesh=None, partition_capacity: int = 0
                                   ) -> Optional[SiddhiAppRuntime]:
         """Build a runtime. `async_callbacks=True` decodes stream callbacks
         on worker threads once the runtime starts; runtime.drain() is then
         the barrier. `auto_flush_ms` flushes staged rows on a wall clock
-        once the runtime starts (also @app:autoFlush)."""
+        once the runtime starts (also @app:autoFlush). `mesh`, a sequence
+        of devices along one axis (one device: the runtime's own), runs an
+        eligible partition on its key-slot path with `partition_capacity`
+        slots (0: config.default_partition_capacity); without it every
+        partition runs the per-key host loop."""
         if isinstance(app, str):
             app = compiler.parse(compiler.update_variables(app)
                                  if "${" in app else app)
@@ -60,7 +65,8 @@ class SiddhiManager:
                               batch_size=batch_size,
                               group_capacity=group_capacity,
                               async_callbacks=async_callbacks,
-                              auto_flush_ms=auto_flush_ms)
+                              auto_flush_ms=auto_flush_ms, mesh=mesh,
+                              partition_capacity=partition_capacity)
         self.runtimes[app.name] = rt
         return rt
 

@@ -105,9 +105,12 @@ def _host_slots(qr) -> bool:
 
 
 def _query_decline(qr) -> Optional[str]:
-    """Why this QueryRuntime cannot run in a superstep (None: it can).
-    Partitions and circuit breakers are not ported yet: their checks
-    (DECLINE_PARTITION, DECLINE_BREAKER) come with them."""
+    """Why this QueryRuntime cannot run in a superstep (None: it can). A
+    partition's inner query runs under its partition's routing. Circuit
+    breakers are not ported yet: their check (DECLINE_BREAKER) comes with
+    them."""
+    if getattr(qr, "_partitioned", False):
+        return DECLINE_PARTITION
     if qr.query.input_stream.is_fault:
         return DECLINE_FAULT
     if any(a.type == AttributeType.OBJECT

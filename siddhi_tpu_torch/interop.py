@@ -26,10 +26,12 @@ package.
                    table_states={tid: jax_rt.tables[tid].state})
 
 `jax_strings` is the JAX runtime's `ctx.global_strings.snapshot()` (or
-the plain list of its strings)."""
+the plain list of its strings). A partition's per-key instances, or its
+key-slot states and dense key table, load with `load_partition`."""
 
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Mapping
 from typing import Optional
 
@@ -44,7 +46,7 @@ from .core.pattern_runtime import PatternQueryRuntime, PatternState
 from .core.query_runtime import QueryRuntime
 from .core.table import TableState
 from .ops.aggregators import HLLState
-from .ops.groupby import GroupState, KeyTable
+from .ops.groupby import DenseKeyTable, GroupState, KeyTable
 from .ops.join import MultimapState
 from .ops.pattern import PendingTable
 from .ops.ratelimit import (BufferState, ContentsSnapshotState, CounterState,
@@ -188,12 +190,17 @@ def limiter_state(r_np, like):
         for f in like._fields})
 
 
+def query_state(state, like) -> tuple:
+    """One query's (window, selector, limiter) state."""
+    w_np, s_np, r_np = state
+    w_like, s_like, r_like = like
+    return (window_state(w_np, w_like), selector_state(s_np, s_like),
+            limiter_state(r_np, r_like))
+
+
 def load_query_state(qr: QueryRuntime, state) -> None:
     """Load one query's (window, selector, limiter) state."""
-    w_np, s_np, r_np = state
-    w_like, s_like, r_like = qr.state
-    qr.state = (window_state(w_np, w_like), selector_state(s_np, s_like),
-                limiter_state(r_np, r_like))
+    qr.state = query_state(state, qr.state)
 
 
 def multimap_state(mm_np, like):
@@ -207,14 +214,19 @@ def multimap_state(mm_np, like):
         for f in MultimapState._fields})
 
 
-def load_join_state(jr: JoinQueryRuntime, state) -> None:
-    """Load one join query's (left window, right window, left multimap,
-    right multimap, selector) state."""
+def join_state(state, like) -> tuple:
+    """One join query's (left window, right window, left multimap, right
+    multimap, selector) state."""
     wl, wr, mml, mmr, sel = state
-    lwl, lwr, lmml, lmmr, lsel = jr.state
-    jr.state = (window_state(wl, lwl), window_state(wr, lwr),
-                multimap_state(mml, lmml), multimap_state(mmr, lmmr),
-                selector_state(sel, lsel))
+    lwl, lwr, lmml, lmmr, lsel = like
+    return (window_state(wl, lwl), window_state(wr, lwr),
+            multimap_state(mml, lmml), multimap_state(mmr, lmmr),
+            selector_state(sel, lsel))
+
+
+def load_join_state(jr: JoinQueryRuntime, state) -> None:
+    """Load one join query's state."""
+    jr.state = join_state(state, jr.state)
 
 
 def pending_table(tbl_np, like: PendingTable) -> PendingTable:
@@ -307,6 +319,79 @@ def load_aggregation(rt: SiddhiAppRuntime, agg_id: str, state_np) -> None:
                          f"the port's aggregation has {len(agg.state)}")
     agg.state = tuple(duration_store(s, like)
                       for s, like in zip(state_np, agg.state))
+
+
+def dense_key_table(table_np, device) -> DenseKeyTable:
+    """A JAX DenseKeyTable (sorted_keys, sorted_ids, count) as the port's."""
+    return DenseKeyTable(
+        sorted_keys=torch.from_numpy(np.array(
+            _field(table_np, "sorted_keys"), dtype=np.int64)).to(device),
+        sorted_ids=torch.from_numpy(np.array(
+            _field(table_np, "sorted_ids"), dtype=np.int32)).to(device),
+        count=torch.tensor(int(np.asarray(_field(table_np, "count"))),
+                           dtype=torch.int32, device=device))
+
+
+def _state_of(qr, state, like):
+    """`state` converted by the converter of qr's kind, shaped as `like`."""
+    if isinstance(qr, JoinQueryRuntime):
+        return join_state(state, like)
+    if isinstance(qr, PatternQueryRuntime):
+        return pattern_state(state, like)
+    return query_state(state, like)
+
+
+def _slot(tree, j: int):
+    """Slot j of a JAX state stacked on a leading slot axis, every array
+    indexed at j; NamedTuples and dataclasses become dicts of their
+    fields, which the converters read by name."""
+    if isinstance(tree, np.ndarray):
+        return tree[j]
+    if isinstance(tree, Mapping):
+        return {k: _slot(v, j) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return {f: _slot(getattr(tree, f), j) for f in tree._fields}
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return {f.name: _slot(getattr(tree, f.name), j)
+                for f in dataclasses.fields(tree)}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_slot(v, j) for v in tree)
+    return tree
+
+
+def load_partition(rt: SiddhiAppRuntime, name: str, instances=None,
+                   last_seen=None, slot_states=None, key_table=None) -> None:
+    """Load partition `name`'s state from the JAX runtime's partition of the
+    same app. The host loop: `instances` ({key: {query: state}}, the JAX
+    partition's `instances` after `jax.device_get`) and `last_seen` ({key:
+    ts}, for @purge; keys not in it are last seen now). The key-slot path:
+    `slot_states` (the JAX `_mesh_states`, stacked on the slot axis) and
+    `key_table` (its `_mesh_keys`)."""
+    pr = rt.partitions[name]
+    if pr._mesh_step is not None:
+        if slot_states is None or key_table is None or instances:
+            raise ValueError(f"partition {name!r} runs the key-slot path: "
+                             "pass slot_states and key_table")
+        (qr,) = pr.runtimes.values()
+        pr._mesh_states = [
+            _state_of(qr, _slot(slot_states, j), like)
+            for j, like in enumerate(pr._mesh_states)]
+        pr._mesh_keys = dense_key_table(key_table, rt.ctx.device)
+        return
+    if slot_states is not None or key_table is not None:
+        raise ValueError(f"partition {name!r} runs the host loop: pass "
+                         "instances")
+    now = rt.ctx.timestamp_generator.current_time()
+    pr.instances = {}
+    pr.last_seen = {}
+    for key, states in (instances or {}).items():
+        if set(states) != set(pr.runtimes):
+            raise ValueError(f"key {key!r}: queries {sorted(states)} in the "
+                             f"state, the partition has {sorted(pr.runtimes)}")
+        pr.instances[key] = {
+            n: _state_of(pr.runtimes[n], s, pr.template_states[n])
+            for n, s in states.items()}
+        pr.last_seen[key] = (last_seen or {}).get(key, now)
 
 
 def load_strings(rt: SiddhiAppRuntime, strings) -> None:

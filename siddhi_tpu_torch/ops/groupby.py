@@ -1,6 +1,6 @@
 """Group-by on device (counterpart of siddhi_tpu/ops/groupby.py).
 
-Five kernels live here, each beside its plain PyTorch version:
+Six kernels live here, each beside its plain PyTorch version:
 
 - K3 `hash_columns`: 64-bit mix of the key columns (csrc/k3_hash.cu);
 - K3b `hash_columns32`: 32-bit mix of the key columns for join probes,
@@ -8,6 +8,9 @@ Five kernels live here, each beside its plain PyTorch version:
   (csrc/k3_hash.cu);
 - K4 `key_lookup_or_insert`: open-addressing key table, keys -> dense ids
   (csrc/k4_keytable.cu);
+- K4b `dense_key_lookup_or_insert`: sorted key table, keys -> dense ids in
+  first-appearance order (a partition's key slots;
+  csrc/k4b_dense_keys.cu);
 - K5 `grouped_scan_fused` / `ungrouped_scan_fused`: N sum components over
   one plan (sort by slot, or lanes in order without GROUP BY), segmented
   scan with carry-in, state scatter (csrc/k5_grouped_scan.cu);
@@ -386,6 +389,143 @@ def key_lookup_or_insert(table: KeyTable, keys: torch.Tensor,
     if keys.is_cuda:
         return key_lookup_or_insert_cuda(table, keys, valid, counter=counter)
     return key_lookup_or_insert_plain(table, keys, valid)
+
+
+# --------------------------------------------------------------------------- #
+# K4b: the dense key table (a partition's key slots)
+# --------------------------------------------------------------------------- #
+
+
+class DenseKeyTable(NamedTuple):
+    """Sorted key table assigning dense ids in first-appearance order (see
+    the JAX DenseKeyTable): only for small capacities, where per-id state
+    is packed (a partition's key-slot path)."""
+
+    sorted_keys: torch.Tensor  # int64[K], padded with INT64_MAX
+    sorted_ids: torch.Tensor  # int32[K]
+    count: torch.Tensor  # int32 scalar: live keys
+
+
+def init_dense_key_table(capacity: int, device) -> DenseKeyTable:
+    return DenseKeyTable(
+        sorted_keys=torch.full((capacity,), _KEY_PAD, dtype=torch.int64,
+                               device=device),
+        sorted_ids=torch.zeros(capacity, dtype=torch.int32, device=device),
+        count=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def dense_key_lookup_or_insert_plain(table: DenseKeyTable,
+                                     keys: torch.Tensor,
+                                     valid: torch.Tensor):
+    """Plain PyTorch K4b, the JAX function step for step. Returns
+    (new_table, ids int32[L])."""
+    L = keys.shape[0]
+    K = table.sorted_keys.shape[0]
+    dev = keys.device
+    keys = keys.to(torch.int64)
+    keys = torch.where(keys == _KEY_PAD, _KEY_PAD - 1, keys)
+    pos = torch.searchsorted(table.sorted_keys, keys)
+    pos_c = torch.clamp(pos, 0, K - 1)
+    found = table.sorted_keys[pos_c] == keys
+    existing_ids = table.sorted_ids[pos_c]
+    # the first lane of each new key, in lane order
+    is_new = valid & ~found
+    nk = torch.where(is_new, keys, _KEY_PAD)
+    snk, order = torch.sort(nk, stable=True)
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                       snk[1:] != snk[:-1]]) & (snk != _KEY_PAD)
+    first_lane = torch.where(first, order, L)
+    lane_rank = invert_permutation(torch.sort(first_lane, stable=True)[1])
+    new_id_sorted = table.count + lane_rank.to(torch.int32)
+    # each sorted position takes its run's first id: a run starts at a
+    # key's first position and at every pad
+    seg_start = first | (snk == _KEY_PAD)
+    start_idx = torch.cummax(torch.where(
+        seg_start, torch.arange(L, device=dev), 0), 0).values
+    run_id = torch.where(first, new_id_sorted, 0)[start_idx]
+    lane_new_ids = torch.zeros(L, dtype=torch.int32, device=dev)
+    lane_new_ids[order] = torch.where(snk != _KEY_PAD, run_id,
+                                      0).to(torch.int32)
+    ids = torch.where(found, existing_ids, lane_new_ids)
+    ids = torch.where(valid, ids, 0).to(torch.int32)
+    # merge the new keys into the sorted table; keep the K smallest
+    n_new = first.sum(dtype=torch.int32)
+    merged_keys = torch.cat([table.sorted_keys,
+                             torch.where(first, snk, _KEY_PAD)])
+    merged_ids = torch.cat([table.sorted_ids,
+                            torch.where(first, new_id_sorted,
+                                        0).to(torch.int32)])
+    morder = torch.sort(merged_keys, stable=True)[1][:K]
+    new_table = DenseKeyTable(
+        sorted_keys=merged_keys[morder], sorted_ids=merged_ids[morder],
+        count=torch.clamp(table.count + n_new, max=K).to(torch.int32))
+    return new_table, ids
+
+
+_K4B = "k4b_dense_keys"
+
+
+def dense_key_lookup_or_insert_cuda(table: DenseKeyTable, keys: torch.Tensor,
+                                    valid: torch.Tensor, *,
+                                    counter: str = "K4b"):
+    """K4b on the card, one launch; the new table in new tensors."""
+    keys = keys.to(torch.int64)
+    if keys.dim() != 1 or valid.dtype != torch.bool \
+            or valid.shape != keys.shape:
+        raise ValueError("dense_key_lookup_or_insert: keys [L], valid "
+                         "bool[L]")
+    K = table.sorted_keys.shape[0]
+    if (table.sorted_keys.dtype != torch.int64
+            or table.sorted_ids.dtype != torch.int32
+            or table.sorted_ids.shape != (K,)
+            or table.count.dtype != torch.int32 or table.count.numel() != 1):
+        raise ValueError("dense_key_lookup_or_insert: malformed table")
+    max_k = kernels.bind(_K4B, "k4b_max_k", [])()
+    if not 1 <= K <= max_k:
+        raise ValueError(f"dense_key_lookup_or_insert: capacity {K} outside "
+                         f"1..{max_k} on the card")
+    kernels.require_cuda("dense_key_lookup_or_insert", table.sorted_keys,
+                         table.sorted_ids, table.count, keys, valid)
+    L = keys.shape[0]
+    dev = keys.device
+    out = DenseKeyTable(
+        sorted_keys=torch.empty(K, dtype=torch.int64, device=dev),
+        sorted_ids=torch.empty(K, dtype=torch.int32, device=dev),
+        count=torch.empty((), dtype=torch.int32, device=dev))
+    ids = torch.empty(L, dtype=torch.int32, device=dev)
+    I, P = ctypes.c_int, ctypes.c_void_p
+    nbytes = kernels.bind(_K4B, "k4b_workspace_bytes", [I, I],
+                          restype=ctypes.c_longlong)(L, K)
+    if nbytes <= 0:
+        raise kernels.KernelError("K4b: the card has no cooperative launches")
+    ws = kernels.workspace(_K4B, nbytes, dev)
+    scratch = kernels.workspace(
+        _K4B + " scratch", kernels.bind(_K4B, "k4b_scratch_bytes", [I, I],
+                                        restype=ctypes.c_longlong)(L, K),
+        dev)
+    rc = kernels.bind(_K4B, "k4b_dense_lookup_or_insert",
+                      [P] * 5 + [I, I] + [P] * 7)(
+        table.sorted_keys.data_ptr(), table.sorted_ids.data_ptr(),
+        table.count.data_ptr(), keys.data_ptr(), valid.data_ptr(), L, K,
+        ids.data_ptr(), out.sorted_keys.data_ptr(),
+        out.sorted_ids.data_ptr(), out.count.data_ptr(), scratch.data_ptr(),
+        ws.data_ptr(), kernels.stream())
+    kernels.check(_K4B, "dense_key_lookup_or_insert", rc, dev)
+    kernels.LAUNCHES[counter] += 1
+    return out, ids
+
+
+def dense_key_lookup_or_insert(table: DenseKeyTable, keys: torch.Tensor,
+                               valid: torch.Tensor, *, counter: str = "K4b"):
+    """Resolve each lane's key to a dense id in first-appearance order,
+    inserting unseen keys (K4b). Returns (new_table, ids int32[L]); invalid
+    lanes get 0, and ids at or past the capacity K (keys that did not fit)
+    match no slot. The table keeps its K smallest keys, so a later smaller
+    key evicts a live one, as in the JAX package."""
+    if keys.is_cuda:
+        return dense_key_lookup_or_insert_cuda(table, keys, valid,
+                                               counter=counter)
+    return dense_key_lookup_or_insert_plain(table, keys, valid)
 
 
 # --------------------------------------------------------------------------- #

@@ -2797,3 +2797,124 @@ def test_k12a_sizes_alternate_on_one_stream(cuda):
     for name in order:
         cs.check_k12a(wire, name, *cases[name])
     assert kernels.LAUNCHES["K12a"] == len(order)
+
+
+# ------------------------------------------ K4b and partitions (phase 34)
+
+K4B_EDGES = ["app AJ's first batch", "app AJ's steady state",
+             "L = 131072, K = 64", "L = 131072, K = 4096", "L = 1",
+             "no valid lane", "every key new", "every key found",
+             "INT64_MAX and INT64_MIN", "heavy repeats", "count + n_new > K",
+             "eviction", "n_new past K"]
+
+
+def _k4b_edges(cuda):
+    if "k4b" not in _EDGE_CACHE:
+        cs = _chip_smoke()
+        _EDGE_CACHE["k4b"] = (cs, cs.k4b_edge_cases(
+            torch, np.random.default_rng([0, 34]), cuda))
+    return _EDGE_CACHE["k4b"]
+
+
+@pytest.mark.parametrize("name", K4B_EDGES)
+def test_k4b_edges_match_plain(cuda, name):
+    """chip_smoke.py's phase-34 cases: ids, sorted_keys, sorted_ids and
+    count bit for bit against dense_key_lookup_or_insert_plain, one launch
+    a call."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import groupby
+    cs, cases = _k4b_edges(cuda)
+    assert sorted(cases) == sorted(K4B_EDGES)
+    kernels.reset_launch_counts()
+    got = cs.run_k4b_case(groupby, cases[name], plain=False)
+    assert kernels.LAUNCHES["K4b"] == 1
+    for f, a, b in zip(cs.K4B_FIELDS, got,
+                       cs.run_k4b_case(groupby, cases[name], plain=True)):
+        assert torch.equal(a, b), f
+
+
+def test_k4b_sizes_alternate_on_one_stream(cuda):
+    """Selections, one-block sorts and single lanes take turns on one
+    stream: each call finds the workspace its predecessor left zero."""
+    from siddhi_tpu_torch.ops import groupby
+    cs, cases = _k4b_edges(cuda)
+    names = 3 * ["L = 131072, K = 4096", "L = 1", "every key new",
+                 "no valid lane", "n_new past K", "heavy repeats"]
+    got = [cs.run_k4b_case(groupby, cases[n], plain=False) for n in names]
+    for n, g in zip(names, got):
+        for f, a, b in zip(cs.K4B_FIELDS, g,
+                           cs.run_k4b_case(groupby, cases[n], plain=True)):
+            assert torch.equal(a, b), (n, f)
+
+
+PARTITION_APPS = {
+    "range": ("define stream S (symbol string, price float, volume long);\n"
+              "partition with (price < 30.0 as 'low' or price >= 30.0 and "
+              "price < 80.0 as 'mid' of S) begin\n"
+              "@info(name='q') from S#window.length(5) select symbol, "
+              "sum(volume) as v, count() as n insert into Out;\nend;", None),
+    "#inner": ("define stream S (symbol string, price float, volume long);\n"
+               "partition with (symbol of S) begin\n"
+               "from S select symbol, price, count() as n insert into #Acc;\n"
+               "@info(name='q') from #Acc[n % 3 == 0]#window.lengthBatch(2) "
+               "select symbol, sum(price) as total insert into Out;\nend;",
+               None),
+    "@purge": ("@app:playback\n"
+               "define stream S (symbol string, price float, volume long);\n"
+               "@purge(idle.period='50 milliseconds')\n"
+               "partition with (symbol of S) begin\n"
+               "@info(name='q') from S#window.time(100 milliseconds) "
+               "select symbol, sum(volume) as v, count() as n "
+               "insert into Out;\nend;", 60),
+    "key slots": ("define stream S (symbol string, price float, "
+                  "volume long);\n"
+                  "partition with (symbol of S) begin\n"
+                  "@info(name='q') from S[70.0 > price]#window.length(10) "
+                  "select symbol, sum(price) as total, count() as n "
+                  "insert into Out;\nend;", None),
+}
+
+
+@pytest.mark.parametrize("name", list(PARTITION_APPS))
+def test_partition_app_on_card_matches_cpu(cuda, name):
+    """A range partition, an `#inner` stream, `@purge` with time windows
+    and the key-slot path (mesh=[device], K4b) on the card against the
+    same app on the CPU, event for event; the key-slot path launches K4b
+    and K3 once a batch."""
+    from siddhi_tpu_torch import SiddhiManager, kernels
+    app, hb_every = PARTITION_APPS[name]
+    rng = np.random.default_rng(35)
+    n, rounds = 400, 4
+    rows = [(f"S{int(k)}", float(p), int(v)) for k, p, v in zip(
+        rng.integers(0, 40, n * rounds),
+        rng.integers(0, 100, n * rounds).astype(np.float32),
+        rng.integers(1, 9, n * rounds))]
+    outs = []
+    for dev in ("cuda", "cpu"):
+        rt = SiddhiManager(device=dev).create_siddhi_app_runtime(
+            app, batch_size=128,
+            mesh=[dev] if name == "key slots" else None,
+            partition_capacity=64)
+        got = []
+        rt.add_callback("Out", lambda evs, g=got: g.extend(
+            (e.timestamp, e.data, e.is_expired) for e in evs))
+        h = rt.get_input_handler("S")
+        kernels.reset_launch_counts()
+        for r in range(rounds):
+            for i in range(n):
+                h.send(rows[r * n + i], timestamp=1_000 + r * n + i)
+            rt.flush()
+            if hb_every:
+                rt.heartbeat(1_000 + (r + 1) * n + hb_every)
+        if dev == "cuda" and name == "key slots":
+            # 400 rows a round in batches of 128: 4 batches a round
+            assert kernels.LAUNCHES["K4b"] == 4 * rounds
+            assert kernels.LAUNCHES["K3 partition"] == 4 * rounds
+        outs.append(got)
+    assert len(outs[0]) == len(outs[1]) > 0
+    for (t0, d0, x0), (t1, d1, x1) in zip(*outs):
+        assert (t0, x0, len(d0)) == (t1, x1, len(d1))
+        for a, b in zip(d0, d1):
+            # float32 sums in another order: rtol 1e-5
+            assert (a == pytest.approx(b, rel=1e-5) if isinstance(b, float)
+                    else a == b), (d0, d1)

@@ -24,6 +24,8 @@ def test_import_loads_no_jax_and_no_reference_package():
         import siddhi_tpu_torch.ops.bucket_scatter
         import siddhi_tpu_torch.core.ingress, siddhi_tpu_torch.core.superstep
         import siddhi_tpu_torch.ops.superstep_pack
+        import siddhi_tpu_torch.core.partition
+        import siddhi_tpu_torch.parallel.sharded
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "siddhi_tpu" or m.startswith("siddhi_tpu."))
