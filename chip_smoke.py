@@ -26,7 +26,8 @@ Phases (any failure exits non-zero and prints no result line):
    rounds (device batches prepared beforehand) and the places where one
    step syncs with the host;
 6. the sliding-window kernels: each K2b entry point of the packed ring
-   (pack-compact, fetch, append across the ring's end, gather), each K5b
+   (pack-compact, fetch, append across the ring's end, gather; the gather
+   timed on a random order and on app D's merge order), each K5b
    scan (grouped sum/min/max and ungrouped with and without resets, int64
    and float32) and the K5 scan without GROUP BY (three components)
    against its plain version at the sliding apps' shapes (B = E = C =
@@ -47,15 +48,24 @@ Phases (any failure exits non-zero and prints no result line):
    the validity mask), K10 append (the whole multimap state after a
    sequence of batches that wraps a C = 100000 ring more than twice, H =
    2^18 buckets), K10 probe (k_max = 16; once more on a state whose
-   arrival tags cross 2^32, so the u32 ages wrap) and K10 compact (P =
-   131072 candidates into pair_cap = 32768, at app G's density and with
-   more valid lanes than pair_cap); with the same timings;
+   arrival tags cross 2^32, so the u32 ages wrap), as the step runs it
+   (probe and compaction in one launch: lanes, rows, pv, the pairs past
+   pair_cap and the truncated lanes against multimap_probe_plain and
+   compact_pairs_plain) and alone, and K10 compact (P = 131072 candidates
+   into pair_cap = 32768, at app G's density and with more valid lanes
+   than pair_cap); with the same timings; then (its own generator) K10
+   append's edges and the fused probe's (pair_cap overflow, every lane
+   invalid, one hot key past k_max, tags across 2^32, k_max = 1, B = 1,
+   a partial tile), one launch a call, the workspace left zero;
 9. app G, BASELINE config 5 as bench.py writes it: a stream-stream equi
    join over two length(100000) windows, 64 rounds of 8192 events on each
    side (1,048,576 events), keys uniform over 1..100000; every output
    event against an independent numpy oracle (keys, timestamps and the
    stored float32 values exact), no dropped pair, the same per-app
-   numbers; and the two join probes that are compositions (the sort-merge
+   numbers, every probe step one fused probe launch; the same app once
+   more at a pair cap factor of 16 (no step compacts: the probe alone,
+   its [B, k_max] block as is) against the same oracle; and the two join
+   probes that are compositions (the sort-merge
    `probe_equi` and `probe_cross`) timed at app G's probe batch;
 10. the pattern kernels against their plain versions at app I's shapes
    (B = 32768 arrivals, a P = 131072-slot pending table 45% full in
@@ -63,7 +73,11 @@ Phases (any failure exits non-zero and prints no result line):
    sequence mode, each with and without a residual mask, K7 on the
    batch's equality column as K11a's index sorts it, and K11b
    pending_insert (the whole table and the drop count), once into free
-   slots and once overflowing them; with the same timings;
+   slots and once overflowing them; with the same timings; then (its own
+   generator) K11b's edges (no free slot, more candidates than free
+   slots, W = 0, P not a multiple of the block, more than 32 column jobs,
+   an empty table, one block), ceil(jobs / 32) launches a call, tables of
+   three sizes alternating on one stream with the workspace left zero;
 11. app H, BASELINE config 4 as bench.py writes it (`every a=StreamA ->
    b=StreamB[b.val == a.val] within 5 sec`, batch_size 32768, pending
    capacity 131072, @app:playback), and app I, the same query on uniform
@@ -619,6 +633,9 @@ KERNELS = {
             "siddhi_tpu_torch/csrc/k3_hash.cu", f"{GROUPBY}:555"),
     "K10 append": ("multimap_append", K10_SRC, f"{JOIN}:227"),
     "K10 probe": ("multimap_probe", K10_SRC, f"{JOIN}:275"),
+    "K10 probe compact": ("multimap_probe + compact_pairs in one launch "
+                          "(where the join step compacts)", K10_SRC,
+                          f"{JOIN}:275"),
     "K10 compact": ("compact_pairs", K10_SRC, f"{JOIN}:165"),
     "K11a": ("first_match", K11_SRC, f"{PATTERN}:1189"),
     "K7 pattern index": ("match_index's sort (per equality column)",
@@ -712,7 +729,8 @@ KERNELS = {
 }
 #: rows of the kernel table beyond one a counter: row key -> the counter
 #: whose launches it reports (the same kernel at a second shape)
-EXTRA_ROWS = {"K13f ingest (10,000 slots)": "K13f ingest",
+EXTRA_ROWS = {"K2b gather (app D's merge order)": "K2b gather",
+              "K13f ingest (10,000 slots)": "K13f ingest",
               "K12b (K = 32)": "K12b",
               "K13e (a table-only condition)": "K13e",
               "K4b (app AJ's first batch)": "K4b",
@@ -1913,7 +1931,31 @@ def sliding_kernel_phase(torch, rng) -> tuple[dict, dict]:
         bound_ms=bound_ms(L * (4 + (W - 2) * 4 + 8 + 1 + 1)
                           + L * (4 + 4 + 8 + 8 + 1 + 1)),
         max_abs_err=0, bound_by="bytes")
-    for k in ("K2b pack", "K2b fetch", "K2b append", "K2b gather"):
+    # the same gather on the order a sliding step gives it: app D's
+    # steady state, where every arrival expires one row, so _merge_order
+    # interleaves the E expired candidates (pe order) and the B arrivals
+    lane = torch.arange(B, dtype=torch.int32, device=dev)
+    every = torch.ones(B, dtype=torch.bool, device=dev)
+    merge = w._merge_order([(lane * 4 + w.KIND_EXPIRED, lane),
+                            (lane * 4 + w.KIND_CURRENT, lane)],
+                           [every, every])
+    margs = (merge, payload, emit, valid, types, layout)
+    kb = w._gather_chunk_packed(*margs)
+    pb = w._gather_chunk_packed_plain(*margs)
+    for nm in ("ts", "valid", "types"):
+        check_equal(f"K2b gather merge order {nm}", getattr(kb, nm),
+                    getattr(pb, nm))
+    for k in layout:
+        check_equal(f"K2b gather merge order {k}", kb.cols[k], pb.cols[k])
+    merge64 = merge.long()
+    res["K2b gather (app D's merge order)"] = dict(
+        _timed(torch, lambda: w._gather_chunk_packed(*margs),
+               lambda: w._gather_chunk_packed_plain(*margs),
+               library=lambda: torch.index_select(payload, 1, merge64)),
+        bound_ms=res["K2b gather"]["bound_ms"], max_abs_err=0,
+        bound_by="bytes")
+    for k in ("K2b pack", "K2b fetch", "K2b append", "K2b gather",
+              "K2b gather (app D's merge order)"):
         print(f"{k} B=E=C={B} W={W}: {res[k]}")
 
     # K5b at the chunk width of the sliding apps, K = 2^20
@@ -2593,6 +2635,16 @@ def _probe_walk(torch, mm, hashes, valid, appended, wlen, k_max):
     return visited
 
 
+#: the fused K10 probe's outputs
+PROBE_COMPACT_PARTS = ("lane", "row", "pv", "over", "truncated")
+
+
+def probe_launches(kernels) -> tuple:
+    """(fused probe, probe alone, compact_pairs) launches counted."""
+    return tuple(kernels.LAUNCHES[k] for k in
+                 ("K10 probe compact", "K10 probe", "K10 compact"))
+
+
 def join_kernel_phase(torch, rng) -> dict:
     """K3b and the three K10 kernels against their plain versions at app
     G's shapes, bit for bit, with their timings."""
@@ -2673,20 +2725,43 @@ def join_kernel_phase(torch, rng) -> dict:
             for nm, x, y in zip(("cand_pos", "cand_ok", "truncated"), got,
                                 want):
                 check_equal(f"K10 probe {what} {nm}", x, y)
+            # as the step runs it: the walks write the compacted pairs
+            got = join.multimap_probe_compact(m, ph, pvalid, a, wl, K,
+                                              PAIR_CAP_G)
+            want = join.multimap_probe_compact_plain(m, ph, pvalid, a, wl,
+                                                     K, PAIR_CAP_G)
+            for nm, x, y in zip(PROBE_COMPACT_PARTS, got, want):
+                check_equal(f"K10 probe+compact {what} {nm}", x, y)
     n_cand = int(join.multimap_probe(kmm, ph, pvalid, app_t, wlen,
                                      K)[1].sum())
     visited = _probe_walk(torch, kmm, ph, pvalid, app_t, C, K)
+    kernels.reset_launch_counts()
+    join.multimap_probe_compact(kmm, ph, pvalid, app_t, wlen, K, PAIR_CAP_G)
+    if probe_launches(kernels) != (1, 0, 0):
+        raise Failure("K10 probe+compact: not one launch a call")
+    res["K10 probe compact"] = dict(
+        _timed(torch, lambda: join.multimap_probe_compact(
+            kmm, ph, pvalid, app_t, wlen, K, PAIR_CAP_G),
+            lambda: join.multimap_probe_compact_plain(
+                kmm, ph, pvalid, app_t, wlen, K, PAIR_CAP_G)),
+        # hash, valid and a head per lane; 12 bytes per chain entry the
+        # walks visit; pair_cap lanes, rows and pv and three counts out
+        bound_ms=bound_ms(B * (4 + 1 + 4) + visited * 12
+                          + PAIR_CAP_G * (4 + 4 + 1) + 12),
+        max_abs_err=0, bound_by="bytes")
     res["K10 probe"] = dict(
         _timed(torch, lambda: join.multimap_probe(kmm, ph, pvalid, app_t,
                                                   wlen, K),
                lambda: join.multimap_probe_plain(kmm, ph, pvalid, app_t,
                                                  wlen, K)),
-        # hash, valid and a head per lane; 12 bytes per chain entry the
-        # walks visit; the [B, K] candidates out
+        # the [B, K] candidates out
         bound_ms=bound_ms(B * (4 + 1 + 4) + visited * 12 + P * (4 + 1)),
         max_abs_err=0, bound_by="bytes")
-    print(f"K10 multimap_probe B={B} k_max={K}: {n_cand} candidates, "
-          f"{visited} chain entries read: {res['K10 probe']}")
+    print(f"K10 multimap_probe + compact_pairs B={B} k_max={K} pair_cap="
+          f"{PAIR_CAP_G} (one launch): {n_cand} candidates, {visited} chain "
+          f"entries read: {res['K10 probe compact']}")
+    print(f"K10 multimap_probe alone (the [B, k_max] block, where the step "
+          f"does not compact): {res['K10 probe']}")
 
     # K10 compact: P candidates into pair_cap, at app G's density (~1
     # match a probe) and past pair_cap
@@ -2817,6 +2892,77 @@ def run_k10_case(join, case, plain: bool):
     return fn(state, hashes, live, a0)
 
 
+#: probe lanes past what the card holds at once (132 SMs x 2,048 threads)
+BIG_PROBE = 300_000
+
+
+def k10_probe_edge_cases(torch, rng, dev, B: int = BATCH_G,
+                         C: int = LENGTH_G, K: int = K_MAX,
+                         cap: int = PAIR_CAP_G) -> dict:
+    """name -> (state, hashes, valid, appended, window_len, k_max,
+    pair_cap) of the fused K10 probe's edges: a multimap over a C-slot
+    ring filled by `n` batches of B lanes (97% live, by the plain append)
+    and a probe batch. App G's shape (the window full), pair_cap overflow
+    (16 keys), every lane invalid, one hot key walking past k_max (a tenth
+    of the window one key, half the probe lanes that key), tags across
+    2^32, k_max = 1, B = 1, a partial tile (B = 1000) and more tiles than
+    the card holds at once (B = 300,000: a block walks its tiles again
+    after the barrier)."""
+    from siddhi_tpu_torch.ops import groupby, join
+    fill = -(-C // B)  # batches that fill the window
+
+    def case(keys_of, n, start, probe, valid_p=0.99, k=K, pcap=cap,
+             window=C):
+        H = join.multimap_buckets(C)
+        mm = join.multimap_init(C, H, dev)
+        a = start
+        for _ in range(n):
+            kt = torch.from_numpy(keys_of(B).astype(np.int32)).to(dev)
+            live = torch.from_numpy(rng.random(B) < 0.97).to(dev)
+            mm = join.multimap_append_plain(
+                mm, groupby.hash_columns32_plain([kt], remap=True), live,
+                torch.tensor(a, device=dev))
+            a += int(live.sum())
+        pk = torch.from_numpy(np.asarray(probe, dtype=np.int32)).to(dev)
+        valid = torch.from_numpy(rng.random(pk.shape[0]) < valid_p).to(dev)
+        return (mm, groupby.hash_columns32_plain([pk], remap=True), valid,
+                torch.tensor(a, device=dev), torch.tensor(window,
+                                                          device=dev),
+                k, pcap)
+
+    def uniform(b):
+        return rng.integers(1, C + 1, b)
+
+    def hot(b):
+        return np.where(rng.random(b) < 0.1, 7, rng.integers(1, C + 1, b))
+
+    return {
+        "app G's shape": case(uniform, fill, 3 * C, uniform(B)),
+        "pair_cap overflow": case(lambda b: rng.integers(1, 17, b), 2, 0,
+                                  rng.integers(1, 17, B)),
+        "every lane invalid": case(uniform, 2, 5, uniform(B), valid_p=0.0),
+        "one hot key past k_max": case(
+            hot, fill, C, np.where(rng.random(B) < 0.5, 7, uniform(B))),
+        "tags across 2^32": case(uniform, fill, 2**32 - C // 2, uniform(B)),
+        "k_max = 1": case(lambda b: rng.integers(1, 2001, b), 2, 11,
+                          rng.integers(1, 2001, B), k=1, pcap=B // 8),
+        "B = 1": case(uniform, 2, 0, [42], pcap=8),
+        "B = 1000, a partial tile": case(uniform, 2, 0, uniform(1000),
+                                         pcap=4000),
+        "B = 300000, tiles past the card": case(
+            uniform, 2, 7, uniform(BIG_PROBE), pcap=4 * BIG_PROBE),
+    }
+
+
+
+def run_k10_probe_case(join, case, plain: bool):
+    """The fused probe's five outputs, by the kernel or by the plain
+    version."""
+    fn = (join.multimap_probe_compact_plain if plain
+          else join.multimap_probe_compact)
+    return fn(*case)
+
+
 def append_bytes(torch, case) -> int:
     """K10 append's bound: hashes and live in; three words out per live
     row; one old head read and one head written per bucket."""
@@ -2847,6 +2993,38 @@ def multimap_edge_phase(torch, rng) -> None:
                      run_k10_case(join, cases[name], plain=True))
     print(f"K10 append edges: {len(cases)} cases bit for bit, one launch a "
           "call (small and large multimaps alternating)")
+    probes = k10_probe_edge_cases(torch, rng, torch.device("cuda"))
+    seen = {}
+    for name, case in probes.items():
+        kernels.reset_launch_counts()
+        got = run_k10_probe_case(join, case, plain=False)
+        launched = probe_launches(kernels)
+        if launched != (1, 0, 0):
+            raise Failure(f"K10 probe+compact edge {name}: launches (fused, "
+                          f"probe, compact) {launched}, (1, 0, 0) expected")
+        for nm, x, y in zip(PROBE_COMPACT_PARTS, got,
+                            run_k10_probe_case(join, case, plain=True)):
+            check_equal(f"K10 probe+compact edge {name} {nm}", x, y)
+        ws = kernels.workspace("k10_join", 0, torch.device("cuda"))
+        if int(ws.count_nonzero()):
+            raise Failure(f"K10 probe+compact edge {name}: the workspace "
+                          "is not zero after the call")
+        seen[name] = (int(got[2].sum()), int(got[3]), int(got[4]))
+    if (seen["pair_cap overflow"][1] == 0
+            or seen["one hot key past k_max"][2] == 0
+            or seen["every lane invalid"] != (0, 0, 0)):
+        raise Failure(f"K10 probe+compact edges: (pairs, over, truncated) "
+                      f"{seen}")
+    print(f"K10 probe+compact edges: {len(probes)} cases bit for bit, one "
+          f"launch a call, (pairs, over, truncated) {seen}")
+    for name in ("pair_cap overflow", "one hot key past k_max"):
+        case = probes[name]
+        row = dict(ms=device_ms(torch, lambda: run_k10_probe_case(
+                       join, case, plain=False)),
+                   call_ms=time_ms(torch, lambda: run_k10_probe_case(
+                       join, case, plain=False)))
+        print(f"K10 multimap_probe + compact_pairs {name}: "
+              f"{json.dumps(row)}")
     for name in ("every live lane one bucket", big,
                  "131072 lanes, one bucket"):
         mm, h, live, a0 = case = cases[name]
@@ -3016,9 +3194,15 @@ def join_app(torch, rng, card: str, summary=None) -> dict:
     if dropped is not None and int(dropped) != 0:
         raise Failure(f"app G: {int(dropped)} pairs dropped")
     for kname in ("K1", "K2b pack", "K2b fetch", "K2b append", "K2b gather",
-                  "K3b", "K10 append", "K10 probe", "K10 compact", "K12a"):
+                  "K3b", "K10 append", "K10 probe compact", "K12a"):
         if launches[kname] == 0:
             raise Failure(f"app G: kernel {kname} never launched")
+    # each probe step compacts in its one probe launch
+    g_probes = tuple(launches[kk] for kk in
+                     ("K10 probe compact", "K10 probe", "K10 compact"))
+    if g_probes != (2 * ROUNDS_G, 0, 0):
+        raise Failure(f"app G: (fused probe, probe, compact) launches "
+                      f"{g_probes}, ({2 * ROUNDS_G}, 0, 0) expected")
     syncs, step_ms = measure_join_steps(torch, rt, k, v, ts)
     report_app("G", 2 * BATCH_G * ROUNDS_G, n, elapsed, step_ms, peak,
                launches, syncs, card, rounds=ROUNDS_G,
@@ -3026,6 +3210,27 @@ def join_app(torch, rng, card: str, summary=None) -> dict:
     if syncs:
         raise Failure(f"app G: the join step syncs with the host: {syncs}")
     del rt
+    # the same app with pair_cap = B * k_max (a pair cap factor of k_max):
+    # no step compacts, so the probe writes its [B, k_max] block alone
+    from siddhi_tpu_torch.core import dtypes
+    factor = dtypes.config.join_pair_cap_factor
+    dtypes.config.join_pair_cap_factor = K_MAX
+    try:
+        rt, got, full, elapsed_full, _ = run_join_app(torch, k, v, ts)
+    finally:
+        dtypes.config.join_pair_cap_factor = factor
+    check_join("G (pair cap factor 16)", got, want)
+    del got, rt
+    g_probes = tuple(full[kk] for kk in
+                     ("K10 probe compact", "K10 probe", "K10 compact"))
+    if g_probes != (0, 2 * ROUNDS_G, 0):
+        raise Failure(f"app G at pair cap factor {K_MAX}: (fused probe, "
+                      f"probe, compact) launches {g_probes}, (0, "
+                      f"{2 * ROUNDS_G}, 0) expected")
+    print(f"app G at pair cap factor {K_MAX} (no step compacts): matches "
+          f"the oracle in {elapsed_full:.3f} s, (fused probe, probe, "
+          f"compact) launches {g_probes}")
+    launches = {kk: launches[kk] + full[kk] for kk in launches}
     if summary is not None:
         sends = []
         for r in range(ROUNDS_G):
@@ -3296,6 +3501,146 @@ def pattern_kernel_phase(torch, rng) -> dict:
     return res
 
 
+def _pending(torch, rng, dev, P: int, refs, fill: float, attrs=("val",)):
+    """A pending table (or a candidate block) of P slots, `fill` of them
+    valid in scattered slots, with an int32 column a ref for each attr."""
+    from siddhi_tpu_torch.ops import pattern
+
+    live = torch.from_numpy(rng.random(P) < fill).to(dev)
+
+    def col(dt, hi=2**40):
+        return torch.from_numpy(rng.integers(0, hi, P)).to(dev).to(dt)
+
+    return pattern.PendingTable(
+        frames={r: {a: col(torch.int32, VALUES_I) for a in attrs}
+                for r in refs},
+        frame_valid={r: col(torch.bool, 2) for r in refs},
+        frame_ts={r: col(torch.int64) for r in refs},
+        start_ts=col(torch.int64), last_seq=col(torch.int64),
+        armed_ts=col(torch.int64), valid=live,
+        leg_done=torch.from_numpy(rng.random((P, 2)) < 0.1).to(dev),
+        origin=col(torch.int32, 1000))
+
+
+def _pending_clone(t):
+    from siddhi_tpu_torch.ops import pattern
+    return pattern.PendingTable(
+        {r: {n: c.clone() for n, c in cs.items()}
+         for r, cs in t.frames.items()},
+        {r: v.clone() for r, v in t.frame_valid.items()},
+        {r: v.clone() for r, v in t.frame_ts.items()},
+        *[x.clone() for x in t[3:]])
+
+
+def _pending_tensors(t) -> list:
+    """(name, tensor) of every column of a pending table."""
+    out = [(f"{r}.{n}", c) for r, cs in t.frames.items()
+           for n, c in cs.items()]
+    out += [(f"frame_valid {r}", v) for r, v in t.frame_valid.items()]
+    out += [(f"frame_ts {r}", v) for r, v in t.frame_ts.items()]
+    return out + [(f, getattr(t, f)) for f in t._fields[3:]]
+
+
+def k11b_edge_cases(torch, rng, dev, W: int = BATCH_P,
+                    P: int = PENDING_P) -> dict:
+    """name -> (table, candidate args) of K11b's edges: app I's shape (W
+    candidates into P slots, 45% full), no free slot, more candidates than
+    free slots, W = 0, P not a multiple of the block (5,001 slots, 3,001
+    candidates), more than 32 column jobs (7 of 9 refs of 4 columns: 48
+    jobs), an empty table, one block (300 candidates into 1,000 slots: a
+    plain launch)."""
+    def case(w, p, fill, refs=("a",), cand_refs=("a",),
+             attrs=("val",)):
+        dst = _pending(torch, rng, dev, p, refs, fill, attrs)
+        c = _pending(torch, rng, dev, w, cand_refs, 0.97, attrs)
+        return dst, (c.frames, c.frame_valid, c.frame_ts, c.start_ts,
+                     c.last_seq, c.armed_ts, c.valid, c.origin)
+
+    wide = tuple(f"e{k}" for k in range(9))
+    return {
+        "app I's shape": case(W, P, 0.45),
+        "no free slot": case(W, P, 1.0),
+        "more candidates than free slots": case(W, P, 0.9),
+        "W = 0": case(0, P, 0.45),
+        "P not a multiple of the block": case(3001, 5001, 0.5),
+        "more than 32 column jobs": case(W, P, 0.6, wide, wide[:7],
+                                         ("i", "j", "k", "l")),
+        "an empty table": case(W, P, 0.0),
+        "one block": case(300, 1000, 0.6),
+    }
+
+
+def k11b_jobs(case) -> int:
+    """Column jobs of a case's insert (chip_smoke's K11b launch formula is
+    ceil(jobs / 32) a call, none at W = 0)."""
+    dst, (frames, *_rest) = case
+    return sum(len(cs) + 2 for r, cs in frames.items()
+               if r in dst.frames) + 6
+
+
+def run_k11b_case(pattern, case, plain: bool):
+    """(table, n_drop) after inserting the case's candidates into a copy
+    of its table, by the kernel or by the plain version."""
+    dst, args = case
+    fn = pattern.pending_insert_plain if plain else pattern.pending_insert
+    return fn(_pending_clone(dst), *args)
+
+
+def insert_edge_phase(torch, rng) -> None:
+    """K11b's edges against the plain version, the whole table and n_drop
+    bit for bit, ceil(jobs / 32) launches a call, the workspace zero after
+    every call, app I's shape and two smaller tables alternating."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import pattern
+    dev = torch.device("cuda")
+    cases = k11b_edge_cases(torch, rng, dev)
+    drops = {}
+    order = list(cases) + 2 * ["app I's shape", "one block",
+                               "P not a multiple of the block"]
+    for name in order:
+        case = cases[name]
+        kernels.reset_launch_counts()
+        got, gdrop = run_k11b_case(pattern, case, plain=False)
+        W = case[1][-2].shape[0]
+        want_launches = -(-k11b_jobs(case) // 32) if W else 0
+        if kernels.LAUNCHES["K11b"] != want_launches or \
+                kernels.LAUNCHES["K1"]:
+            raise Failure(f"K11b edge {name}: {kernels.LAUNCHES['K11b']} "
+                          f"launches and {kernels.LAUNCHES['K1']} of K1, "
+                          f"{want_launches} and 0 expected")
+        want, wdrop = run_k11b_case(pattern, case, plain=True)
+        check_equal(f"K11b edge {name} n_drop", gdrop, wdrop)
+        for (nm, x), (_, y) in zip(_pending_tensors(got),
+                                   _pending_tensors(want)):
+            check_equal(f"K11b edge {name} {nm}", x, y)
+        ws = kernels.workspace("k11_pattern", 0, dev)
+        if int(ws.count_nonzero()):
+            raise Failure(f"K11b edge {name}: the workspace is not zero "
+                          "after the call")
+        drops[name] = int(gdrop)
+    if (drops["no free slot"] == 0 or drops["more candidates than free "
+                                           "slots"] == 0
+            or drops["app I's shape"] or drops["an empty table"]):
+        raise Failure(f"K11b edges: drop counts {drops}")
+    print(f"K11b edges: {len(cases)} cases bit for bit (tables of three "
+          f"sizes alternating after them), ceil(jobs / 32) launches a call, "
+          f"the workspace zero; drops {drops}")
+    for name in ("more than 32 column jobs", "no free slot"):
+        case = cases[name]
+        dst = _pending_clone(case[0])
+        saved = [x.clone() for _, x in _pending_tensors(dst)]
+
+        def restore(dst=dst, saved=saved):
+            for (_, x), x0 in zip(_pending_tensors(dst), saved):
+                x.copy_(x0)
+
+        row = dict(ms=device_ms(torch, lambda: pattern.pending_insert(
+                       dst, *case[1]), reset=restore),
+                   call_ms=time_ms(torch, lambda: pattern.pending_insert(
+                       dst, *case[1]), reset=restore))
+        print(f"K11b pending_insert {name}: {json.dumps(row)}")
+
+
 def run_pattern_app(torch, text: str, data, rounds: int = ROUNDS_P,
                     batch: int = BATCH_P, pending: int = PENDING_P,
                     end=None):
@@ -3412,6 +3757,9 @@ def pattern_apps(torch, rng, card: str, summary=None) -> dict:
         for k in ("K1", "K11a", "K7 pattern index", "K11b", "K12a"):
             if launches[k] == 0:
                 raise Failure(f"app {name}: kernel {k} never launched")
+        if launches["K11b"] != ROUNDS_P:  # one launch an A step's insert
+            raise Failure(f"app {name}: {launches['K11b']} K11b launches, "
+                          f"{ROUNDS_P} expected")
         syncs, step_ms = measure_pattern_steps(torch, rt, data)
         report_app(name, 2 * BATCH_P * ROUNDS_P, n, elapsed, step_ms, peak,
                    launches, syncs, card, rounds=ROUNDS_P,
@@ -9095,6 +9443,8 @@ def main(argv=None) -> int:
             launches[k] += v
 
         kres.update(pattern_kernel_phase(torch, rng))
+        # its own generator: apps H and I keep their feeds
+        insert_edge_phase(torch, np.random.default_rng([args.seed, 10]))
         for k, v in pattern_apps(torch, rng, card, summary).items():
             launches[k] += v
 

@@ -35,9 +35,9 @@ import torch
 from ..errors import DefinitionNotExistError, SiddhiAppCreationError
 from ..extension.registry import ExtensionKind, Registry
 from ..ops.expr_compile import Scope, TypeResolver, compile_expression
-from ..ops.join import (_hash_exprs, compact_pairs, multimap_append,
-                        multimap_buckets, multimap_init, plan_join,
-                        probe_cross, probe_equi, probe_equi_mm)
+from ..ops.join import (PROBE_COMPACT_MAX_K, _hash_exprs, compact_pairs,
+                        multimap_append, multimap_buckets, multimap_init,
+                        plan_join, probe_cross, probe_equi, probe_equi_mm)
 from ..ops.selector import CompiledSelector
 from ..ops.window_factories import WindowFactory
 from ..ops.windows import (PassThroughWindow, SlidingWindow, WindowOp,
@@ -311,15 +311,30 @@ class JoinQueryRuntime:
                                                appended0)
 
             # --- candidate pairs ---
-            truncated = None
+            # the sparse [B*k_max] block is compacted before any per-pair
+            # work; small blocks keep their width, big ones cap at
+            # factor*B with the overflow counted
+            B = batch.ts.shape[0]
+            P = B * k_max
+            pair_cap = min(P, max(dtypes.config.join_pair_cap_factor * B,
+                                  32768))
+            truncated = over = None
             if use_mm:
                 # the multimap path never materialises the ring: candidates
                 # gather packed rows below
                 window_len = w_build.appended - torch.maximum(
                     w_build.expired, w_build.appended - bw.C)
-                lane, brow, pv, truncated = probe_equi_mm(
-                    plan, pscope, mask, mm_build, w_build.appended,
-                    window_len, k_max)
+                if (pair_cap < P and bw.time_ms is None
+                        and k_max <= PROBE_COMPACT_MAX_K):
+                    # the walks write the compacted pairs (one launch)
+                    lane, brow, pv, over, truncated = probe_equi_mm(
+                        plan, pscope, mask, mm_build, w_build.appended,
+                        window_len, k_max, pair_cap)
+                    P = pair_cap
+                else:
+                    lane, brow, pv, truncated = probe_equi_mm(
+                        plan, pscope, mask, mm_build, w_build.appended,
+                        window_len, k_max)
                 if bw.time_ms is not None:
                     # probe-time expiry before compaction, as contents()
                     # applies it: a time window whose own side went idle
@@ -358,20 +373,14 @@ class JoinQueryRuntime:
                 else:
                     lane, brow, pv = probe_cross(mask, b_valid, k_max)
 
-            # compact the sparse [B*k_max] block before any per-pair work;
-            # small blocks keep their width, big ones cap at factor*B with
-            # the overflow counted
-            B = batch.ts.shape[0]
-            P = lane.shape[0]
-            pair_cap = min(P, max(dtypes.config.join_pair_cap_factor * B,
-                                  32768))
-            dropped = truncated
             if pair_cap < P:
                 over = torch.clamp(pv.sum(dtype=torch.int32) - pair_cap,
                                    min=0)
-                dropped = over if dropped is None else over + dropped
                 lane, brow, pv = compact_pairs(lane, brow, pv, pair_cap)
                 P = pair_cap
+            dropped = truncated
+            if over is not None:
+                dropped = over if dropped is None else over + dropped
 
             # --- pair frames ---
             lane_l = lane.long()

@@ -1,7 +1,7 @@
 // Shared helpers for the siddhi_tpu_torch kernels: the plain C export macro,
 // the error-string export every library carries, block-wide scans built
 // from warp shuffles (one element per thread), the grid barrier of a
-// cooperative launch (K4, K7, K10, K13d), the one-lane copy of a 1-, 2-,
+// cooperative launch (K4, K7, K10, K11b, K13d), the one-lane copy of a 1-, 2-,
 // 4- or 8-byte column (K12a, K12b), and the sum/min/max ops with their
 // identities (K5b scans, K8 range extrema).
 #pragma once
@@ -58,10 +58,10 @@ __device__ __forceinline__ int block_exclusive_sum(int v, int* smem,
   return warp_prefix + x - v;
 }
 
-// Cooperative launches (K4, K7, K10, K13d): no more blocks than the card
-// holds at once, so blocks may wait for each other. The barrier's counter
-// and the done counter live in the library's workspace, zero on entry; the
-// block that finishes last zeroes them again.
+// Cooperative launches (K4, K7, K10, K11b, K13d): no more blocks than the
+// card holds at once, so blocks may wait for each other. The barrier's
+// counter and the done counter live in the library's workspace, zero on
+// entry; the block that finishes last zeroes them again.
 
 // All blocks of the grid arrive before any leaves; `phase` counts this
 // block's barriers, so the counter only grows in a launch.

@@ -4,7 +4,11 @@
 //   multimap_append  (stage 3: the duplicate-free chained scatters) as
 //                    k10_multimap_append — one launch;
 //   multimap_probe   as k10_multimap_probe — one thread per probe lane;
-//   compact_pairs    as k10_compact_pairs — K1's three-launch compaction.
+//                    where the join compacts its pairs, with
+//                    compact_pairs as k10_multimap_probe_compact — one
+//                    launch;
+//   compact_pairs    as k10_compact_pairs — K1's three-launch compaction
+//                    (the sort-merge and cross probes' blocks).
 // The multimap indexes a window ring by ring position: heads i32[H] (the
 // newest entry per bucket), nexts i32[C] (the next-older entry), slot_hash
 // and slot_seq u32[C] (the row's key hash and arrival index mod 2^32).
@@ -63,6 +67,31 @@
 // writes position 0. Candidates come out reversed, oldest first.
 // `truncated` counts lanes whose (k_max+1)-th entry is live (atomicAdd).
 //
+// multimap_probe_compact: the probe and compact_pairs of its [B, K] block
+// in one cooperative launch (one block: a plain launch, which the card
+// starts sooner), one thread a lane, tiles of PB = 128 lanes (64 and 256
+// timed level with it at app G's shape), at most the co-resident blocks,
+// block g taking tiles g, g + G, ...:
+//   1. a lane walks its chain once, issuing the three loads of a step
+//      (slot_seq, slot_hash, nexts) together and stopping at the chain's
+//      end, keeps its up to K matches in registers (K <= KM, a template
+//      bound of 4, 16 or 64) and runs the truncation probe; a block scan
+//      counts the tile's matches into the workspace, and each block adds
+//      its truncated lanes to a workspace word; each block zeroes its
+//      share of the pair block (lanes, rows, pv);
+//   grid barrier;
+//   2. each block sums the tile counts before each of its tiles and in
+//      all, and its lanes write their matches oldest first at the tile's
+//      offset plus the block scan's (lane, ring position, pv = 1) while
+//      below pair_cap; the zeros written in 1 stay past min(total,
+//      pair_cap), as compact_pairs leaves them. A block of one tile (the
+//      tiles fit the card at once, as at app G) keeps its matches in
+//      registers across the barrier; past that a block walks its tiles
+//      again (from L2).
+// Block 0 writes counts[0..2] = total, max(0, total - pair_cap) and the
+// truncated lanes; the block that finishes last zeroes the workspace. Bit
+// for bit with multimap_probe followed by compact_pairs.
+//
 // compact_pairs: order-preserving compaction of P candidate lanes into
 // pair_cap: per-block counts, one block scans the block totals (and keeps
 // the total on the device), then a stable scatter with warp-shuffle ranks
@@ -76,7 +105,10 @@
 // reads one head and up to k_max + 1 chain entries (12 bytes each) a lane,
 // with no locality between steps (a dependent load chain: latency, not
 // bandwidth, sets its pace), and writes 5 bytes per candidate; compact
-// reads 9 bytes a lane twice and writes 9 bytes per kept lane.
+// reads 9 bytes a lane twice and writes 9 bytes per kept lane. The fused
+// probe writes 9 bytes a pair slot and none of the [B, K] block: at app
+// G's shape its time is the launch, the chain of dependent loads of the
+// longest walk (a head, then a step a live entry) and one grid barrier.
 
 #include "common.cuh"
 
@@ -84,6 +116,12 @@ namespace {
 
 constexpr int BLOCK = 256;
 constexpr int CBLOCK = 1024;
+// the fused probe's workspace words: the barrier, the done counter, the
+// truncated lanes, then one count a tile
+constexpr int WP_TRUNC = 2;
+constexpr int WP_TILES = 4;
+constexpr int PROBE_MAX_K = 64;
+constexpr int PB = 128;  // the fused probe's tile: lanes a block
 // multimap_append: a tile of ATILE lanes a block
 constexpr int ABLOCK = 1024;
 constexpr int ANW = ABLOCK / 32;
@@ -636,6 +674,164 @@ __global__ void probe(const uint32_t* __restrict__ probe_hash,
   }
 }
 
+// Zero p[from, to) of 4-byte elements, 16 bytes a store where aligned
+// (p itself 16-byte aligned), by the whole block.
+__device__ __forceinline__ void zero_words(int32_t* p, int from, int to) {
+  const int a = min(to, (from + 3) & ~3);
+  const int b = max(a, to & ~3);
+  for (int j = from + threadIdx.x; j < a; j += blockDim.x) p[j] = 0;
+  for (int j = a / 4 + threadIdx.x; j < b / 4; j += blockDim.x)
+    reinterpret_cast<int4*>(p)[j] = make_int4(0, 0, 0, 0);
+  for (int j = b + threadIdx.x; j < to; j += blockDim.x) p[j] = 0;
+}
+
+// The same for bytes, 16 a store.
+__device__ __forceinline__ void zero_bytes(uint8_t* p, int from, int to) {
+  const int a = min(to, (from + 15) & ~15);
+  const int b = max(a, to & ~15);
+  for (int j = from + threadIdx.x; j < a; j += blockDim.x) p[j] = 0;
+  for (int j = a / 16 + threadIdx.x; j < b / 16; j += blockDim.x)
+    reinterpret_cast<uint4*>(p)[j] = make_uint4(0u, 0u, 0u, 0u);
+  for (int j = b + threadIdx.x; j < to; j += blockDim.x) p[j] = 0;
+}
+
+// Lane i's walk (i < B): its matches' ring positions by step in m (-1
+// where the step matched nothing), their count, and whether its chain
+// still had a live entry after K steps.
+template <int KM>
+__device__ __forceinline__ void walk(
+    int i, const uint32_t* __restrict__ probe_hash,
+    const uint8_t* __restrict__ probe_valid, int B, int K, int H,
+    const int32_t* __restrict__ heads, const int32_t* __restrict__ nexts,
+    const uint32_t* __restrict__ slot_hash,
+    const uint32_t* __restrict__ slot_seq, uint32_t app, uint32_t wlen,
+    int (&m)[KM], int& cnt, int& trunc) {
+#pragma unroll
+  for (int s = 0; s < KM; ++s) m[s] = -1;
+  cnt = 0;
+  trunc = 0;
+  if (i >= B || !probe_valid[i]) return;
+  const uint32_t ph = probe_hash[i];
+  int pos = heads[ph & static_cast<uint32_t>(H - 1)];
+  uint32_t prev_age = 0;
+  bool walking = true;
+#pragma unroll
+  for (int s = 0; s < KM; ++s) {
+    if (s >= K) break;
+    if (pos < 0) {
+      walking = false;
+      break;
+    }
+    const uint32_t seq = slot_seq[pos];
+    const uint32_t h = slot_hash[pos];
+    const int nx = nexts[pos];
+    const uint32_t age = app - seq;
+    if (!(age > prev_age && age <= wlen)) {
+      walking = false;
+      break;
+    }
+    if (h == ph) {
+      m[s] = pos;
+      ++cnt;
+    }
+    prev_age = age;
+    pos = nx;
+  }
+  if (walking && pos >= 0) {
+    const uint32_t age = app - slot_seq[pos];
+    trunc = age > prev_age && age <= wlen;
+  }
+}
+
+// The sum of `cnt[j]` over j in [j0, j1), by the whole block.
+__device__ __forceinline__ int block_sum(const unsigned* cnt, int j0, int j1,
+                                         int* smem) {
+  int s = 0;
+  for (int j = j0 + threadIdx.x; j < j1; j += PB)
+    s += static_cast<int>(__ldcg(cnt + j));
+  int total;
+  block_exclusive_sum<PB>(s, smem, &total);
+  return total;
+}
+
+template <int KM>
+__global__ void __launch_bounds__(PB)
+    probe_compact(const uint32_t* __restrict__ probe_hash,
+                  const uint8_t* __restrict__ probe_valid, int B, int K,
+                  int H, const int32_t* __restrict__ heads,
+                  const int32_t* __restrict__ nexts,
+                  const uint32_t* __restrict__ slot_hash,
+                  const uint32_t* __restrict__ slot_seq,
+                  const int64_t* __restrict__ appended,
+                  const int64_t* __restrict__ window_len, int cap,
+                  int32_t* __restrict__ lane_out,
+                  int32_t* __restrict__ row_out,
+                  uint8_t* __restrict__ pv_out, int* __restrict__ counts,
+                  unsigned* ws) {
+  __shared__ int smem[PB / 32];
+  const int G = gridDim.x;
+  const int g = blockIdx.x;
+  const int T = (B + PB - 1) / PB;
+  const uint32_t app = static_cast<uint32_t>(appended[0]);
+  const uint32_t wlen = static_cast<uint32_t>(window_len[0]);
+  unsigned* tiles = ws + WP_TILES;
+  int m[KM];
+  int cnt, trunc, n_trunc = 0;
+  for (int t = g; t < T; t += G) {
+    walk<KM>(t * PB + threadIdx.x, probe_hash, probe_valid, B, K, H, heads,
+             nexts, slot_hash, slot_seq, app, wlen, m, cnt, trunc);
+    int n_tile, t_tile;
+    block_exclusive_sum<PB>(cnt, smem, &n_tile);
+    block_exclusive_sum<PB>(trunc, smem, &t_tile);
+    if (threadIdx.x == 0) tiles[t] = static_cast<unsigned>(n_tile);
+    n_trunc += t_tile;
+  }
+  if (threadIdx.x == 0 && n_trunc)
+    atomicAdd(ws + WP_TRUNC, static_cast<unsigned>(n_trunc));
+  {  // this block's share of the pair block, zeroed
+    const int z0 = static_cast<int>(static_cast<long long>(cap) * g / G);
+    const int z1 = static_cast<int>(static_cast<long long>(cap) * (g + 1) / G);
+    zero_words(lane_out, z0, z1);
+    zero_words(row_out, z0, z1);
+    zero_bytes(pv_out, z0, z1);
+  }
+  unsigned phase = 0;
+  siddhi_grid_sync(ws + WS_BAR, phase);
+  const int total = block_sum(tiles, 0, T, smem);
+  int before = block_sum(tiles, 0, g < T ? g : T, smem);
+  const bool kept = g + G >= T;  // one tile: its walk is in registers
+  for (int t = g; t < T; t += G) {
+    if (t != g) before += block_sum(tiles, t - G, t, smem);
+    if (!kept)  // more tiles than blocks: walk this one again
+      walk<KM>(t * PB + threadIdx.x, probe_hash, probe_valid, B, K, H,
+               heads, nexts, slot_hash, slot_seq, app, wlen, m, cnt, trunc);
+    int n_tile;
+    int w = before + block_exclusive_sum<PB>(cnt, smem, &n_tile);
+    const int i = t * PB + threadIdx.x;
+    // oldest first: the walk found them newest first
+#pragma unroll
+    for (int s = KM - 1; s >= 0; --s) {
+      if (m[s] >= 0) {
+        if (w < cap) {
+          lane_out[w] = i;
+          row_out[w] = m[s];
+          pv_out[w] = 1;
+        }
+        ++w;
+      }
+    }
+  }
+  if (g == 0 && threadIdx.x == 0) {
+    counts[0] = total;
+    counts[1] = total > cap ? total - cap : 0;
+    counts[2] = static_cast<int>(__ldcg(ws + WP_TRUNC));
+  }
+  if (siddhi_grid_last(ws + WS_BAR, ws + WS_DONE)) {
+    for (int j = threadIdx.x; j < T; j += PB) tiles[j] = 0u;
+    if (threadIdx.x == 0) ws[WP_TRUNC] = 0u;
+  }
+}
+
 __global__ void compact_count(const uint8_t* __restrict__ pv, int n,
                               int* __restrict__ block_cnt) {
   __shared__ int smem[CBLOCK / 32];
@@ -799,6 +995,61 @@ SIDDHI_API int k10_multimap_probe(const uint32_t* probe_hash,
       probe_hash, probe_valid, B, K, H, heads, nexts, slot_hash, slot_seq,
       appended, window_len, cand_pos, cand_ok, truncated);
   return siddhi_launch_status();
+}
+
+// Bytes of the fused probe's workspace for B lanes (zero when first
+// allocated and after every launch).
+SIDDHI_API long long k10_probe_compact_workspace_bytes(int B) {
+  return 4ll * (WP_TILES + siddhi_blocks(B, PB));
+}
+
+namespace {
+
+template <int KM>
+int launch_probe_compact(const void* const* args, int T, cudaStream_t stream) {
+  static int cap = -1;
+  if (cap < 0) cap = siddhi_coop_capacity(probe_compact<KM>, PB);
+  if (cap <= 0) return static_cast<int>(cudaErrorNotSupported);
+  const int grid = T < cap ? T : cap;
+  // one block waits for no other: a plain launch (cheaper on the card)
+  const cudaError_t e =
+      grid == 1
+          ? cudaLaunchKernel(reinterpret_cast<const void*>(probe_compact<KM>),
+                             dim3(1), dim3(PB), const_cast<void**>(args), 0,
+                             stream)
+          : cudaLaunchCooperativeKernel(
+                reinterpret_cast<const void*>(probe_compact<KM>), dim3(grid),
+                dim3(PB), const_cast<void**>(args), 0, stream);
+  return e != cudaSuccess ? static_cast<int>(e) : siddhi_launch_status();
+}
+
+}  // namespace
+
+// multimap_probe then compact_pairs of its [B, K] block into cap pairs,
+// as one launch in tiles of PB lanes. Inputs as k10_multimap_probe;
+// 0 < cap <= B * K < 2^31, K <= PROBE_MAX_K. lane_out, row_out
+// int32[cap], pv_out bool[cap]; counts int32[3]: the candidates, those
+// past cap, the truncated lanes; ws the workspace
+// (k10_probe_compact_workspace_bytes).
+SIDDHI_API int k10_multimap_probe_compact(
+    const uint32_t* probe_hash, const uint8_t* probe_valid, int B, int K,
+    int H, const int32_t* heads, const int32_t* nexts,
+    const uint32_t* slot_hash, const uint32_t* slot_seq,
+    const int64_t* appended, const int64_t* window_len, int cap,
+    int32_t* lane_out, int32_t* row_out, uint8_t* pv_out, int* counts,
+    unsigned* ws, cudaStream_t stream) {
+  if (B <= 0 || K < 1 || K > PROBE_MAX_K || cap <= 0 ||
+      static_cast<long long>(B) * K > 0x7fffffffll || cap > B * K)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* args[] = {&probe_hash, &probe_valid, &B,        &K,
+                        &H,          &heads,       &nexts,    &slot_hash,
+                        &slot_seq,   &appended,    &window_len, &cap,
+                        &lane_out,   &row_out,     &pv_out,   &counts,
+                        &ws};
+  const int T = static_cast<int>(siddhi_blocks(B, PB));
+  if (K <= 4) return launch_probe_compact<4>(args, T, stream);
+  if (K <= 16) return launch_probe_compact<16>(args, T, stream);
+  return launch_probe_compact<64>(args, T, stream);
 }
 
 // lane, brow: int32[P]; pv: bool[P]; cap <= P; scratch: int32[nblocks + 1]

@@ -9,8 +9,8 @@
 //         index of the batch) and k11_first_match.
 //   K11b  _insert_entries (:1460, through _advance :1403): candidate
 //         entries into the free slots of a pending table, the k-th valid
-//         candidate into the k-th free slot; as k11_insert_prepare (two
-//         launches) and k11_insert_scatter.
+//         candidate into the k-th free slot; as k11_pending_insert (one
+//         cooperative launch).
 // Both are bit for bit with the JAX functions.
 //
 // first_match, pattern mode: an exact index of the batch (k11_index.cuh),
@@ -46,18 +46,36 @@
 // b_star is 0 wherever nothing qualifies, as jnp.argmin gives for an
 // all-BIGSEQ column.
 //
-// insert: K1's three-launch structure. prepare: per-block counts of the
-// valid candidates and of the table's free slots, then one block scans
-// the candidate counts into block offsets and sums the free slots, which
-// leaves n_free and n_drop = max(0, candidates - n_free) on the device.
-// scatter: each valid candidate re-derives its rank with a warp-shuffle
-// block scan; rank < n_free fits into slot free_order[rank] (free_order is
-// K1 over ~valid, free slots first, ascending). Slots are distinct, so no
-// two threads write one word. The columns to write come as jobs in the
-// parameter block (destination, source or a fill value, element size),
-// up to 32 a launch: captured columns, frame validity and timestamps,
-// start_ts, last_seq, armed_ts, leg_done (cleared), origin and valid.
-//
+// insert: one cooperative launch (at most the co-resident blocks, one a
+// 1,024 slots or candidates; one block is a plain launch, which the card
+// starts sooner; block g takes a contiguous share of the candidates and
+// one of the table's slots):
+//   1. each block counts its valid candidates and its free slots;
+//   grid barrier;
+//   2. each block sums the counts of the blocks before it and of all, so
+//      it knows the rank of its first candidate and of its first free
+//      slot, the candidates and n_free; block 0 writes n_drop = max(0,
+//      candidates - n_free) on the device;
+//   3. each free slot of free rank f below the candidate count writes its
+//      slot number to map[f], a rank->slot map in the library's workspace
+//      (a block whose first free rank is past the candidates stops);
+//   grid barrier;
+//   4. each valid candidate of rank r below n_free reads slot = map[r],
+//      zeroes map[r] (each entry written in 3 is read by exactly one
+//      candidate, so the map is zero again when the launch ends) and
+//      writes every column job there, all the jobs' loads issued before
+//      the first store. Slots are distinct, so no two threads write one
+//      word. The table's valid flags are read in 1 and 3 only, before any
+//      column (valid included) is written in 4.
+// The columns come as jobs in the parameter block (destination, source or
+// a fill value, element size), up to 32: captured columns, frame validity
+// and timestamps, start_ts, last_seq, armed_ts, leg_done (cleared), origin
+// and valid. A table of more than 32 jobs also has each candidate's slot
+// (-1 where it does not fit) written to dest[W], and the rest of its jobs
+// run as plain launches of 32 jobs that read dest: ceil(jobs / 32)
+// launches a call in all. The block that finishes last zeroes the block
+// counts and the barrier counters.
+
 // Bound on the H100: bytes, both. first_match reads, for the index, 25
 // bytes a lane plus 4-8 per equality (and the sorts' keys), 17 bytes an
 // entry plus its captured columns, and writes 10 bytes an entry; a probe
@@ -71,8 +89,13 @@
 namespace {
 
 constexpr int BLOCK = 256;
-constexpr int IBLOCK = 1024;
 constexpr int MAX_JOBS = 32;
+// the insert: slots a block counts, at least; workspace words (the
+// barrier, the done counter, then two counts a block and the map)
+constexpr int INSERT_SLOTS = 1024;
+constexpr int WS_BAR = 0;
+constexpr int WS_DONE = 1;
+constexpr int WS_HEAD = 4;
 
 struct Job {
   void* dst;        // table column [P] (leg_done: [P, 2] as 2 bytes a row)
@@ -178,86 +201,172 @@ __global__ void first_match_sequence(
   killed[p] = kill;
 }
 
-// Per block: the valid candidates among lanes [0, W) and the free table
-// slots among [0, P) (the grid covers max(W, P)).
-__global__ void insert_count(const uint8_t* __restrict__ cand_valid, int W,
-                             const uint8_t* __restrict__ table_valid, int P,
-                             int* __restrict__ cand_cnt,
-                             int* __restrict__ free_cnt) {
-  __shared__ int smem[IBLOCK / 32];
-  const int i = blockIdx.x * IBLOCK + threadIdx.x;
-  int total;
-  block_exclusive_sum<IBLOCK>((i < W && cand_valid[i]) ? 1 : 0, smem, &total);
-  if (threadIdx.x == 0) cand_cnt[blockIdx.x] = total;
-  block_exclusive_sum<IBLOCK>((i < P && !table_valid[i]) ? 1 : 0, smem,
-                              &total);
-  if (threadIdx.x == 0) free_cnt[blockIdx.x] = total;
-}
-
-// One block: cand_cnt[b] becomes the valid candidates before block b;
-// totals[0] the candidates, totals[1] = n_free; n_drop receives
-// max(0, candidates - n_free).
-__global__ void insert_scan(int* __restrict__ cand_cnt,
-                            const int* __restrict__ free_cnt, int nblocks,
-                            int* __restrict__ totals,
-                            int64_t* __restrict__ n_drop) {
-  __shared__ int smem[IBLOCK / 32];
-  int carry = 0, n_free = 0;
-  for (int base = 0; base < nblocks; base += IBLOCK) {
-    const int j = base + threadIdx.x;
-    const int v = j < nblocks ? cand_cnt[j] : 0;
-    int total;
-    const int ex = block_exclusive_sum<IBLOCK>(v, smem, &total);
-    if (j < nblocks) cand_cnt[j] = carry + ex;
-    carry += total;
-    block_exclusive_sum<IBLOCK>(j < nblocks ? free_cnt[j] : 0, smem, &total);
-    n_free += total;
-  }
-  if (threadIdx.x == 0) {
-    totals[0] = carry;
-    totals[1] = n_free;
-    n_drop[0] = carry > n_free ? carry - n_free : 0;
-  }
-}
-
-__device__ __forceinline__ void copy_elem(const Job& jb, long long dst_i,
-                                          long long src_i) {
+// Candidate i's value of a job, as bits (its fill where it has no source).
+__device__ __forceinline__ unsigned long long load_elem(const Job& jb,
+                                                        long long i) {
+  if (jb.src == nullptr) return static_cast<unsigned long long>(jb.fill);
   switch (jb.size) {
     case 8:
-      static_cast<long long*>(jb.dst)[dst_i] =
-          jb.src ? static_cast<const long long*>(jb.src)[src_i] : jb.fill;
-      break;
+      return static_cast<const unsigned long long*>(jb.src)[i];
     case 4:
-      static_cast<int*>(jb.dst)[dst_i] =
-          jb.src ? static_cast<const int*>(jb.src)[src_i]
-                 : static_cast<int>(jb.fill);
-      break;
+      return static_cast<const uint32_t*>(jb.src)[i];
     case 2:
-      static_cast<uint16_t*>(jb.dst)[dst_i] =
-          jb.src ? static_cast<const uint16_t*>(jb.src)[src_i]
-                 : static_cast<uint16_t>(jb.fill);
-      break;
+      return static_cast<const uint16_t*>(jb.src)[i];
     default:
-      static_cast<uint8_t*>(jb.dst)[dst_i] =
-          jb.src ? static_cast<const uint8_t*>(jb.src)[src_i]
-                 : static_cast<uint8_t>(jb.fill);
+      return static_cast<const uint8_t*>(jb.src)[i];
   }
 }
 
-__global__ void insert_scatter(const uint8_t* __restrict__ cand_valid, int W,
-                               const int32_t* __restrict__ free_order,
-                               const int* __restrict__ block_off,
-                               const int* __restrict__ totals, Jobs jobs) {
-  __shared__ int smem[IBLOCK / 32];
-  const int i = blockIdx.x * IBLOCK + threadIdx.x;
-  const int v = (i < W && cand_valid[i]) ? 1 : 0;
-  int total;
-  const int ex = block_exclusive_sum<IBLOCK>(v, smem, &total);
-  if (!v) return;
-  const int rank = block_off[blockIdx.x] + ex;
-  if (rank >= totals[1]) return;  // past the free slots: dropped
-  const long long slot = free_order[rank];
-  for (int k = 0; k < jobs.n; ++k) copy_elem(jobs.job[k], slot, i);
+__device__ __forceinline__ void store_elem(const Job& jb, long long slot,
+                                           unsigned long long v) {
+  switch (jb.size) {
+    case 8:
+      static_cast<unsigned long long*>(jb.dst)[slot] = v;
+      break;
+    case 4:
+      static_cast<uint32_t*>(jb.dst)[slot] = static_cast<uint32_t>(v);
+      break;
+    case 2:
+      static_cast<uint16_t*>(jb.dst)[slot] = static_cast<uint16_t>(v);
+      break;
+    default:
+      static_cast<uint8_t*>(jb.dst)[slot] = static_cast<uint8_t>(v);
+  }
+}
+
+// Every job of candidate i into `slot`: all the loads issued before the
+// first store, so a candidate waits for one memory round trip, not one a
+// job (the compiler may not move a load past a store that could alias
+// it).
+__device__ __forceinline__ void copy_jobs(const Jobs& jobs, int slot,
+                                          int i) {
+  unsigned long long v[MAX_JOBS];
+#pragma unroll
+  for (int k = 0; k < MAX_JOBS; ++k)
+    if (k < jobs.n) v[k] = load_elem(jobs.job[k], i);
+#pragma unroll
+  for (int k = 0; k < MAX_JOBS; ++k)
+    if (k < jobs.n) store_elem(jobs.job[k], slot, v[k]);
+}
+
+// Block g: candidates [c0, c1) and slots [s0, s1) (shares cw and cp).
+// table_valid is also the destination of the valid job: it is read only
+// before the second barrier, and written only after it.
+__global__ void __launch_bounds__(BLOCK)
+    k11_insert(const uint8_t* __restrict__ cand_valid, int W,
+               const uint8_t* table_valid, int P, Jobs jobs,
+               int32_t* __restrict__ dest, int64_t* __restrict__ n_drop,
+               unsigned* ws, int cw, int cp) {
+  __shared__ int smem[BLOCK / 32];
+  const int G = gridDim.x;
+  const int g = blockIdx.x;
+  const int tid = threadIdx.x;
+  unsigned* cnt = ws + WS_HEAD;
+  int* map = reinterpret_cast<int*>(cnt + 2 * G);
+  const int c0 = min(W, g * cw), c1 = min(W, c0 + cw);
+  const int s0 = min(P, g * cp), s1 = min(P, s0 + cp);
+  {
+    int nc = 0, nf = 0;
+    for (int i = c0 + tid; i < c1; i += BLOCK) nc += cand_valid[i] != 0;
+    for (int c = s0 + tid; c < s1; c += BLOCK) nf += table_valid[c] == 0;
+    int tc, tf;
+    block_exclusive_sum<BLOCK>(nc, smem, &tc);
+    block_exclusive_sum<BLOCK>(nf, smem, &tf);
+    if (tid == 0) {
+      cnt[2 * g] = static_cast<unsigned>(tc);
+      cnt[2 * g + 1] = static_cast<unsigned>(tf);
+    }
+  }
+  unsigned phase = 0;
+  siddhi_grid_sync(ws + WS_BAR, phase);
+  int cand_before, n_cand, free_before, n_free;
+  {
+    int pc = 0, ac = 0, pf = 0, af = 0;
+    for (int j = tid; j < G; j += BLOCK) {
+      const int c = static_cast<int>(__ldcg(cnt + 2 * j));
+      const int f = static_cast<int>(__ldcg(cnt + 2 * j + 1));
+      ac += c;
+      af += f;
+      if (j < g) {
+        pc += c;
+        pf += f;
+      }
+    }
+    block_exclusive_sum<BLOCK>(pc, smem, &cand_before);
+    block_exclusive_sum<BLOCK>(ac, smem, &n_cand);
+    block_exclusive_sum<BLOCK>(pf, smem, &free_before);
+    block_exclusive_sum<BLOCK>(af, smem, &n_free);
+  }
+  if (g == 0 && tid == 0) n_drop[0] = n_cand > n_free ? n_cand - n_free : 0;
+  // the free slots of rank below the candidate count, into the map
+  int base = free_before;
+  for (int x0 = s0; x0 < s1 && base < n_cand; x0 += BLOCK) {
+    const int c = x0 + tid;
+    const int f = c < s1 && table_valid[c] == 0 ? 1 : 0;
+    int n;
+    const int r = base + block_exclusive_sum<BLOCK>(f, smem, &n);
+    if (f && r < n_cand) map[r] = c;
+    base += n;
+  }
+  siddhi_grid_sync(ws + WS_BAR, phase);
+  // the fitting candidates, into their slots
+  base = cand_before;
+  for (int x0 = c0; x0 < c1 && (base < n_free || dest != nullptr);
+       x0 += BLOCK) {
+    const int i = x0 + tid;
+    const int v = i < c1 && cand_valid[i] ? 1 : 0;
+    int n;
+    const int r = base + block_exclusive_sum<BLOCK>(v, smem, &n);
+    int slot = -1;
+    if (v && r < n_free) {
+      slot = __ldcg(map + r);
+      map[r] = 0;
+      copy_jobs(jobs, slot, i);
+    }
+    if (dest != nullptr && i < c1) dest[i] = slot;
+    base += n;
+  }
+  if (siddhi_grid_last(ws + WS_BAR, ws + WS_DONE))
+    for (int j = tid; j < 2 * G; j += BLOCK) cnt[j] = 0u;
+}
+
+// The jobs past the first 32 of a table: candidate i into slot dest[i].
+__global__ void insert_more(const int32_t* __restrict__ dest, int W,
+                            Jobs jobs) {
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= W) return;
+  const int slot = dest[i];
+  if (slot < 0) return;
+  copy_jobs(jobs, slot, i);
+}
+
+int insert_capacity() {
+  static int cap = -1;
+  if (cap < 0) cap = siddhi_coop_capacity(k11_insert, BLOCK);
+  return cap;
+}
+
+// Blocks of an insert of W candidates into P slots: one a INSERT_SLOTS
+// slots or candidates, at most the co-resident blocks.
+int insert_grid(int W, int P) {
+  const int n = W > P ? W : P;
+  const int want = n > INSERT_SLOTS ? (n + INSERT_SLOTS - 1) / INSERT_SLOTS
+                                    : 1;
+  const int cap = insert_capacity();
+  return want < cap ? want : cap;
+}
+
+Jobs jobs_of(void* const* dst, const void* const* src, const long long* fill,
+             const int* size, int n) {
+  Jobs jobs;
+  jobs.n = n;
+  for (int k = 0; k < n; ++k) {
+    jobs.job[k].dst = dst[k];
+    jobs.job[k].src = src[k];
+    jobs.job[k].fill = fill[k];
+    jobs.job[k].size = size[k];
+  }
+  return jobs;
 }
 
 }  // namespace
@@ -341,47 +450,57 @@ SIDDHI_API int k11_first_match(const int64_t* ts, const uint8_t* valid,
   return siddhi_launch_status();
 }
 
-// cand_valid bool[W], table_valid bool[P]; scratch int32[2 * nb + 2] with
-// nb = ceil(max(W, P) / 1024): candidate block offsets, free-slot block
-// counts, then (candidates, n_free); n_drop int64[1].
-SIDDHI_API int k11_insert_prepare(const uint8_t* cand_valid,
-                                  const uint8_t* table_valid, int W, int P,
-                                  int* scratch, int64_t* n_drop,
-                                  cudaStream_t stream) {
-  if (W <= 0) return 0;
-  const int nb = static_cast<int>(siddhi_blocks(W > P ? W : P, IBLOCK));
-  insert_count<<<nb, IBLOCK, 0, stream>>>(cand_valid, W, table_valid, P,
-                                          scratch, scratch + nb);
-  const int rc = siddhi_launch_status();
-  if (rc) return rc;
-  insert_scan<<<1, IBLOCK, 0, stream>>>(scratch, scratch + nb, nb,
-                                        scratch + 2 * nb, n_drop);
-  return siddhi_launch_status();
+// Bytes of the insert's workspace for W candidates into P slots (zero
+// when first allocated and after every launch); 0 where the card has no
+// cooperative launches.
+SIDDHI_API long long k11_insert_workspace_bytes(int W, int P) {
+  const int G = insert_grid(W, P);
+  if (G <= 0) return 0;
+  const int m = W < P ? W : P;
+  return 4ll * (WS_HEAD + 2ll * G + m);
 }
 
-// After k11_insert_prepare on the same scratch: writes the jobs' columns
-// of every fitting candidate into slot free_order[rank]. Jobs, n_jobs <=
-// 32 host arrays: dst[k] the table column, src[k] the candidate column or
-// null (write fill[k]), size[k] the bytes an element (1, 2, 4 or 8).
-SIDDHI_API int k11_insert_scatter(const uint8_t* cand_valid,
-                                  const int32_t* free_order, int W, int P,
-                                  const int* scratch, void* const* dst,
-                                  const void* const* src,
+// The whole insert: cand_valid bool[W] and the table's valid bool[P]
+// (also the destination of one job); jobs as host arrays: dst[k] the
+// table column, src[k] the candidate column or null (write fill[k]),
+// size[k] the bytes an element (1, 2, 4 or 8). n_drop int64[1] out; ws
+// the workspace (k11_insert_workspace_bytes); dest int32[W], needed (and
+// written) only past 32 jobs.
+SIDDHI_API int k11_pending_insert(const uint8_t* cand_valid, int W,
+                                  const uint8_t* table_valid, int P,
+                                  void* const* dst, const void* const* src,
                                   const long long* fill, const int* size,
-                                  int n_jobs, cudaStream_t stream) {
-  if (n_jobs < 0 || n_jobs > MAX_JOBS)
+                                  int n_jobs, int32_t* dest, int64_t* n_drop,
+                                  unsigned* ws, cudaStream_t stream) {
+  if (W < 0 || P < 0 || n_jobs < 0 || (n_jobs > MAX_JOBS && dest == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (W <= 0 || n_jobs == 0) return 0;
-  Jobs jobs;
-  jobs.n = n_jobs;
-  for (int k = 0; k < n_jobs; ++k) {
-    jobs.job[k].dst = dst[k];
-    jobs.job[k].src = src[k];
-    jobs.job[k].fill = fill[k];
-    jobs.job[k].size = size[k];
+  for (int k = 0; k < n_jobs; ++k)
+    if (size[k] != 1 && size[k] != 2 && size[k] != 4 && size[k] != 8)
+      return static_cast<int>(cudaErrorInvalidValue);
+  if (W == 0) return 0;
+  int grid = insert_grid(W, P);
+  if (grid <= 0) return static_cast<int>(cudaErrorNotSupported);
+  int cw = (W + grid - 1) / grid;
+  int cp = P > 0 ? (P + grid - 1) / grid : 0;
+  Jobs jobs = jobs_of(dst, src, fill, size,
+                      n_jobs < MAX_JOBS ? n_jobs : MAX_JOBS);
+  int32_t* d = n_jobs > MAX_JOBS ? dest : nullptr;
+  void* args[] = {&cand_valid, &W,  &table_valid, &P,  &jobs,
+                  &d,          &n_drop, &ws,      &cw, &cp};
+  // one block waits for no other: a plain launch (cheaper on the card)
+  const cudaError_t e =
+      grid == 1 ? cudaLaunchKernel(reinterpret_cast<const void*>(k11_insert),
+                                   dim3(1), dim3(BLOCK), args, 0, stream)
+                : cudaLaunchCooperativeKernel(
+                      reinterpret_cast<const void*>(k11_insert), dim3(grid),
+                      dim3(BLOCK), args, 0, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int rc = siddhi_launch_status();
+  for (int k0 = MAX_JOBS; rc == 0 && k0 < n_jobs; k0 += MAX_JOBS) {
+    const int n = n_jobs - k0 < MAX_JOBS ? n_jobs - k0 : MAX_JOBS;
+    insert_more<<<siddhi_blocks(W, BLOCK), BLOCK, 0, stream>>>(
+        dest, W, jobs_of(dst + k0, src + k0, fill + k0, size + k0, n));
+    rc = siddhi_launch_status();
   }
-  const int nb = static_cast<int>(siddhi_blocks(W > P ? W : P, IBLOCK));
-  insert_scatter<<<siddhi_blocks(W, IBLOCK), IBLOCK, 0, stream>>>(
-      cand_valid, W, free_order, scratch, scratch + 2 * nb, jobs);
-  return siddhi_launch_status();
+  return rc;
 }

@@ -47,7 +47,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"K1": 0, "K2b pack": 0, "K2b fetch": 0, "K2b append": 0,
             "K2b gather": 0, "K3": 0, "K4": 0, "K5": 0, "K5 ungrouped": 0,
             "K5b grouped": 0, "K5b ungrouped": 0, "K3b": 0, "K10 append": 0,
-            "K10 probe": 0, "K10 compact": 0, "K11a": 0,
+            "K10 probe": 0, "K10 probe compact": 0, "K10 compact": 0,
+            "K11a": 0,
             "K7 pattern index": 0, "K11b": 0,
             "K11c": 0, "K11d": 0, "K11e": 0,
             "K8": 0, "K8 grouped": 0, "K9 HLL": 0, "K9 HLL estimate": 0,

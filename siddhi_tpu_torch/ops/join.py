@@ -14,8 +14,10 @@ whole micro-batch:
   k_max valid build rows for every probe lane — a composition over K1.
 
 All three give a [B * k_max] candidate block, which `compact_pairs` (K10)
-shrinks to the pair block the selector sees. Hashes only generate
-candidates: the exact ON condition re-verifies every pair.
+shrinks to the pair block the selector sees; where the multimap path
+compacts, `multimap_probe_compact` (K10) walks the chains and writes the
+compacted pairs in one launch, with no [B * k_max] block. Hashes only
+generate candidates: the exact ON condition re-verifies every pair.
 
 u32 values (hashes, arrival tags) are stored as int32 bit patterns, as
 the packed ring stores its words; the plain versions do u32 arithmetic in
@@ -461,15 +463,105 @@ def multimap_probe(mm: MultimapState, probe_hash: torch.Tensor,
                                 window_len, k_max)
 
 
+#: largest k_max of the fused probe (csrc/k10_join.cu PROBE_MAX_K)
+PROBE_COMPACT_MAX_K = 64
+
+
+def multimap_probe_compact_plain(mm: MultimapState, probe_hash: torch.Tensor,
+                                 probe_valid: torch.Tensor,
+                                 appended: torch.Tensor,
+                                 window_len: torch.Tensor, k_max: int,
+                                 pair_cap: int):
+    """Plain fused K10: `multimap_probe_plain`, then `compact_pairs_plain`
+    of its [B * k_max] block, and the pairs past pair_cap counted."""
+    B = probe_hash.shape[0]
+    cand_pos, cand_ok, truncated = multimap_probe_plain(
+        mm, probe_hash, probe_valid, appended, window_len, k_max)
+    pv = cand_ok.reshape(-1)
+    over = torch.clamp(pv.sum(dtype=torch.int32) - pair_cap, min=0)
+    lane, row, pv = compact_pairs_plain(
+        _lanes(B, k_max, probe_hash.device), cand_pos.reshape(-1), pv,
+        pair_cap)
+    return lane, row, pv, over, truncated
+
+
+def multimap_probe_compact_cuda(mm: MultimapState, probe_hash: torch.Tensor,
+                                probe_valid: torch.Tensor,
+                                appended: torch.Tensor,
+                                window_len: torch.Tensor, k_max: int,
+                                pair_cap: int):
+    """The fused K10 probe on the card: one cooperative launch (the tile
+    counts and the barrier in the library's workspace)."""
+    probe_hash = probe_hash.contiguous()
+    probe_valid = probe_valid.contiguous()
+    kernels.require_cuda("multimap_probe_compact", probe_hash, probe_valid,
+                         appended, window_len, *mm)
+    B = probe_hash.shape[0]
+    H = mm.heads.shape[0]
+    if (probe_hash.dtype != torch.int32 or probe_valid.dtype != torch.bool
+            or probe_valid.shape != (B,) or appended.dtype != torch.int64
+            or window_len.dtype != torch.int64 or H & (H - 1)
+            or not 1 <= k_max <= PROBE_COMPACT_MAX_K
+            or not 0 < pair_cap <= B * k_max):
+        raise ValueError("multimap_probe_compact: int32 hashes and bool "
+                         "valid [B], int64 appended and window_len, 2^k "
+                         f"buckets, 1 <= k_max <= {PROBE_COMPACT_MAX_K}, "
+                         "0 < pair_cap <= B * k_max")
+    dev = probe_hash.device
+    lane = torch.empty(pair_cap, dtype=torch.int32, device=dev)
+    row = torch.empty(pair_cap, dtype=torch.int32, device=dev)
+    pv = torch.empty(pair_cap, dtype=torch.bool, device=dev)
+    counts = torch.empty(3, dtype=torch.int32, device=dev)
+    P = ctypes.c_void_p
+    nbytes = kernels.bind(_K10, "k10_probe_compact_workspace_bytes",
+                          [ctypes.c_int], restype=ctypes.c_longlong)
+    fn = kernels.bind(_K10, "k10_multimap_probe_compact",
+                      [P, P] + [ctypes.c_int] * 3 + [P] * 6
+                      + [ctypes.c_int] + [P] * 6)
+    ws = kernels.workspace(_K10, nbytes(B), dev)
+    rc = fn(probe_hash.data_ptr(), probe_valid.data_ptr(), B, k_max, H,
+            mm.heads.data_ptr(), mm.nexts.data_ptr(), mm.slot_hash.data_ptr(),
+            mm.slot_seq.data_ptr(), appended.data_ptr(),
+            window_len.data_ptr(), pair_cap, lane.data_ptr(), row.data_ptr(),
+            pv.data_ptr(), counts.data_ptr(), ws.data_ptr(),
+            kernels.stream())
+    kernels.check(_K10, "multimap_probe_compact", rc, dev)
+    kernels.LAUNCHES["K10 probe compact"] += 1
+    return lane, row, pv, counts[1], counts[2]
+
+
+def multimap_probe_compact(mm: MultimapState, probe_hash: torch.Tensor,
+                           probe_valid: torch.Tensor, appended: torch.Tensor,
+                           window_len: torch.Tensor, k_max: int,
+                           pair_cap: int):
+    """`multimap_probe` and `compact_pairs` of its [B * k_max] block into
+    pair_cap pairs (K10, one launch on the card): (lane int32, row int32
+    ring positions, pv bool, each [pair_cap]; over int32, the pairs past
+    pair_cap; truncated int32, as `multimap_probe` counts it). Needs
+    1 <= k_max <= PROBE_COMPACT_MAX_K and 0 < pair_cap <= B * k_max."""
+    if probe_hash.is_cuda:
+        return multimap_probe_compact_cuda(mm, probe_hash, probe_valid,
+                                           appended, window_len, k_max,
+                                           pair_cap)
+    return multimap_probe_compact_plain(mm, probe_hash, probe_valid,
+                                        appended, window_len, k_max,
+                                        pair_cap)
+
+
 def probe_equi_mm(plan: JoinPlan, probe_scope: Scope,
                   probe_valid: torch.Tensor, mm: MultimapState,
                   appended: torch.Tensor, window_len: torch.Tensor,
-                  k_max: int):
+                  k_max: int, pair_cap: Optional[int] = None):
     """`probe_equi` against the multimap: K3b on the probe keys, then the
     chain walks. Returns (probe_lane[P], build_row[P] int32 ring positions,
-    pair_valid[P], truncated) with P = B*k_max."""
+    pair_valid[P], truncated) with P = B*k_max; given `pair_cap`, the
+    walks write the compacted pairs instead (`multimap_probe_compact`):
+    (lane, row, pv [pair_cap], over, truncated)."""
     B = probe_valid.shape[0]
     pkeys = _hash_exprs(plan.probe_keys, probe_scope)
+    if pair_cap is not None:
+        return multimap_probe_compact(mm, pkeys, probe_valid, appended,
+                                      window_len, k_max, pair_cap)
     cand_pos, cand_ok, truncated = multimap_probe(
         mm, pkeys, probe_valid, appended, window_len, k_max)
     return (_lanes(B, k_max, probe_valid.device), cand_pos.reshape(-1),

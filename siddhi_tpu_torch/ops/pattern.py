@@ -451,8 +451,13 @@ def pending_insert_plain(dst: PendingTable, frames: dict, fvalid: dict,
         leg_done=new(dst.leg_done), origin=new(dst.origin)), n_drop
 
 
-_K11B_BLOCK = 1024
-_MAX_JOBS = 32
+_K11 = "k11_pattern"
+_MAX_JOBS = 32  # column jobs of the cooperative launch (and of each more)
+#: the destination half of the job arrays, built once a table: (its
+#: columns' pointers, the jobs' (fill, bytes an element)) -> the ctypes
+#: arrays of pointers, fills and sizes
+_insert_plans: dict = {}
+_MAX_PLANS = 64
 
 
 def pending_insert_cuda(dst: PendingTable, frames: dict, fvalid: dict,
@@ -460,62 +465,66 @@ def pending_insert_cuda(dst: PendingTable, frames: dict, fvalid: dict,
                         last_seq: torch.Tensor, armed_ts: torch.Tensor,
                         valid: torch.Tensor,
                         origin: Optional[torch.Tensor] = None):
-    """K11b on the card: K1 over the free slots, then three launches
-    (candidate and free-slot block counts, a one-block scan that leaves
-    n_free and n_drop on the device, the scatter of every column, one
-    launch per 32 columns). Updates `dst` in place."""
+    """K11b on the card: one cooperative launch ranks the candidates and
+    the free slots and writes up to 32 column jobs (n_drop stays on the
+    device); a table of more jobs adds one plain launch a further 32.
+    Updates `dst` in place."""
     P = dst.valid.shape[0]
     W = valid.shape[0]
-    cols = _candidate_columns(dst, frames, fvalid, fts, start_ts, last_seq,
-                              armed_ts, valid, origin)
-    jobs = []
-    for d, s, fill in cols:
-        size = d.element_size() * (d.shape[1] if d.dim() == 2 else 1)
-        if d.shape[0] != P or not d.is_contiguous():
-            raise ValueError("pending_insert: table columns are contiguous "
-                             "[P] (leg_done [P, 2])")
-        if s is not None:
-            s = s.contiguous()
-            if s.dtype != d.dtype or s.shape != (W,):
-                raise ValueError("pending_insert: a candidate column is "
-                                 "[W] of its table column's type")
-        jobs.append((d, s, fill, size))
     valid = valid.contiguous()
-    kernels.require_cuda("pending_insert", valid, dst.valid,
-                         *[j[0] for j in jobs],
-                         *[j[1] for j in jobs if j[1] is not None])
-    if valid.dtype != torch.bool or dst.valid.dtype != torch.bool:
-        raise ValueError("pending_insert: bool valid")
+    if (not valid.is_cuda or valid.dtype != torch.bool
+            or dst.valid.dtype != torch.bool):
+        raise ValueError("pending_insert: bool valid on a CUDA device")
+    card = valid.get_device()
+    dptr, sptr, meta = [], [], []
+    for d, s, fill in _candidate_columns(dst, frames, fvalid, fts, start_ts,
+                                         last_seq, armed_ts, valid, origin):
+        if (d.shape[0] != P or not d.is_contiguous()
+                or d.get_device() != card):
+            raise ValueError("pending_insert: table columns are contiguous "
+                             "[P] (leg_done [P, 2]) on the candidates' "
+                             "device")
+        dptr.append(d.data_ptr())
+        if s is None:
+            sptr.append(None)
+        else:
+            s = s.contiguous()
+            if (s.dtype != d.dtype or s.shape != (W,)
+                    or s.get_device() != card):
+                raise ValueError("pending_insert: a candidate column is "
+                                 "[W] of its table column's type and "
+                                 "device")
+            sptr.append(s.data_ptr())
+        meta.append((fill, d.element_size() * (d.shape[1] if d.dim() == 2
+                                               else 1)))
     dev = valid.device
-    n_drop = torch.zeros((), dtype=torch.int64, device=dev)
     if W == 0:
-        return dst, n_drop
-    free_order = stable_partition_order(~dst.valid)  # K1: free slots first
-    nb = -(-max(W, P) // _K11B_BLOCK)
-    scratch = torch.empty(2 * nb + 2, dtype=torch.int32, device=dev)
+        return dst, torch.zeros((), dtype=torch.int64, device=dev)
     Pt = ctypes.c_void_p
-    prep = kernels.bind("k11_pattern", "k11_insert_prepare",
-                        [Pt, Pt, ctypes.c_int, ctypes.c_int, Pt, Pt, Pt])
-    rc = prep(valid.data_ptr(), dst.valid.data_ptr(), W, P,
-              scratch.data_ptr(), n_drop.data_ptr(), kernels.stream())
-    kernels.check("k11_pattern", "pending_insert", rc)
-    kernels.LAUNCHES["K11b"] += 2
-    scatter = kernels.bind("k11_pattern", "k11_insert_scatter",
-                           [Pt, Pt, ctypes.c_int, ctypes.c_int] + [Pt] * 5
-                           + [ctypes.c_int, Pt])
-    for c0 in range(0, len(jobs), _MAX_JOBS):
-        chunk = jobs[c0:c0 + _MAX_JOBS]
-        n = len(chunk)
-        rc = scatter(valid.data_ptr(), free_order.data_ptr(), W, P,
-                     scratch.data_ptr(),
-                     (Pt * n)(*[d.data_ptr() for d, _, _, _ in chunk]),
-                     (Pt * n)(*[s.data_ptr() if s is not None else None
-                                for _, s, _, _ in chunk]),
-                     (ctypes.c_longlong * n)(*[f for _, _, f, _ in chunk]),
-                     (ctypes.c_int * n)(*[z for _, _, _, z in chunk]), n,
-                     kernels.stream())
-        kernels.check("k11_pattern", "pending_insert", rc)
-        kernels.LAUNCHES["K11b"] += 1
+    nbytes = kernels.bind(_K11, "k11_insert_workspace_bytes",
+                          [ctypes.c_int] * 2, restype=ctypes.c_longlong)
+    fn = kernels.bind(_K11, "k11_pending_insert",
+                      [Pt, ctypes.c_int, Pt, ctypes.c_int] + [Pt] * 4
+                      + [ctypes.c_int] + [Pt] * 4)
+    n = len(meta)
+    key = (tuple(dptr), tuple(meta))
+    plan = _insert_plans.get(key)
+    if plan is None:
+        if len(_insert_plans) >= _MAX_PLANS:
+            _insert_plans.clear()
+        plan = _insert_plans[key] = (
+            (Pt * n)(*dptr), (ctypes.c_longlong * n)(*[f for f, _ in meta]),
+            (ctypes.c_int * n)(*[z for _, z in meta]))
+    n_drop = torch.empty((), dtype=torch.int64, device=dev)
+    dest = (torch.empty(W, dtype=torch.int32, device=dev)
+            if n > _MAX_JOBS else None)
+    ws = kernels.workspace(_K11, nbytes(W, P), dev)
+    rc = fn(valid.data_ptr(), W, dst.valid.data_ptr(), P, plan[0],
+            (Pt * n)(*sptr), plan[1], plan[2], n,
+            dest.data_ptr() if dest is not None else None,
+            n_drop.data_ptr(), ws.data_ptr(), kernels.stream())
+    kernels.check(_K11, "pending_insert", rc, dev)
+    kernels.LAUNCHES["K11b"] += -(-n // _MAX_JOBS)
     return dst, n_drop
 
 

@@ -2918,3 +2918,129 @@ def test_partition_app_on_card_matches_cpu(cuda, name):
             # float32 sums in another order: rtol 1e-5
             assert (a == pytest.approx(b, rel=1e-5) if isinstance(b, float)
                     else a == b), (d0, d1)
+
+
+# --------------------- K11b's insert and K10's fused probe in one launch
+
+K11B_EDGES = ["app I's shape", "no free slot",
+              "more candidates than free slots", "W = 0",
+              "P not a multiple of the block", "more than 32 column jobs",
+              "an empty table", "one block"]
+K10_PROBE_EDGES = ["app G's shape", "pair_cap overflow",
+                   "every lane invalid", "one hot key past k_max",
+                   "tags across 2^32", "k_max = 1", "B = 1",
+                   "B = 1000, a partial tile",
+                   "B = 300000, tiles past the card"]
+_ONE_LAUNCH_CACHE = {}
+
+
+def _one_launch_edges(kind, cuda):
+    """chip_smoke.py's K11b or fused K10 probe cases at smaller sizes,
+    built once a module."""
+    if kind not in _ONE_LAUNCH_CACHE:
+        cs = _chip_smoke()
+        if kind == "k11b":
+            cases = cs.k11b_edge_cases(torch, np.random.default_rng(10),
+                                       cuda, W=4096, P=16_384)
+        else:
+            cases = cs.k10_probe_edge_cases(torch, np.random.default_rng(8),
+                                            cuda, B=2048, C=20_000,
+                                            cap=8192)
+        _ONE_LAUNCH_CACHE[kind] = (cs, cases)
+    return _ONE_LAUNCH_CACHE[kind]
+
+
+def _assert_k11b_case(cs, case, name):
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import pattern
+    kernels.reset_launch_counts()
+    got, gdrop = cs.run_k11b_case(pattern, case, plain=False)
+    W = case[1][-2].shape[0]
+    assert kernels.LAUNCHES["K11b"] == (
+        -(-cs.k11b_jobs(case) // 32) if W else 0), name
+    assert kernels.LAUNCHES["K1"] == 0, name
+    want, wdrop = cs.run_k11b_case(pattern, case, plain=True)
+    assert torch.equal(gdrop, wdrop), name
+    for (n, a), (_, b) in zip(cs._pending_tensors(got),
+                              cs._pending_tensors(want)):
+        assert torch.equal(a, b), (name, n)
+    ws = kernels.workspace("k11_pattern", 0, a.device)
+    assert int(ws.count_nonzero()) == 0, name
+
+
+@pytest.mark.parametrize("name", K11B_EDGES)
+def test_k11b_edges_match_plain(cuda, name):
+    """chip_smoke.py's K11b edges: the whole table and n_drop bit for bit,
+    ceil(jobs / 32) launches a call and no K1, the workspace left zero."""
+    cs, cases = _one_launch_edges("k11b", cuda)
+    assert sorted(cases) == sorted(K11B_EDGES)
+    _assert_k11b_case(cs, cases[name], name)
+
+
+def test_k11b_tables_of_two_sizes_alternate_on_one_stream(cuda):
+    """Tables of 16,384, 5,001 and 1,000 slots take turns on one stream:
+    each call finds the workspace its predecessor left zero."""
+    cs, cases = _one_launch_edges("k11b", cuda)
+    for name in 3 * ["app I's shape", "P not a multiple of the block",
+                     "more than 32 column jobs", "one block",
+                     "no free slot"]:
+        _assert_k11b_case(cs, cases[name], name)
+
+
+@pytest.mark.parametrize("name", K10_PROBE_EDGES)
+def test_k10_probe_compact_edges_match_plain(cuda, name):
+    """chip_smoke.py's fused K10 probe edges: lanes, rows, pv, the pairs
+    past pair_cap and the truncated lanes bit for bit against
+    multimap_probe_plain and compact_pairs_plain, one launch a call."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import join
+    cs, cases = _one_launch_edges("k10", cuda)
+    assert sorted(cases) == sorted(K10_PROBE_EDGES)
+    for _ in range(2):  # the second call finds the workspace zero
+        kernels.reset_launch_counts()
+        got = cs.run_k10_probe_case(join, cases[name], plain=False)
+        assert cs.probe_launches(kernels) == (1, 0, 0)
+        for part, a, b in zip(cs.PROBE_COMPACT_PARTS, got,
+                              cs.run_k10_probe_case(join, cases[name],
+                                                    plain=True)):
+            assert torch.equal(a, b), (name, part)
+    ws = kernels.workspace("k10_join", 0, cuda)
+    assert int(ws.count_nonzero()) == 0
+
+
+def test_join_step_compacts_in_its_probe_launch(cuda):
+    """A multimap join whose step compacts (batch 4,096, k_max 16: pair_cap
+    32,768 < 65,536) runs the fused probe and no compact_pairs, and
+    matches the CPU run."""
+    from siddhi_tpu_torch import SiddhiManager, kernels
+    app = """
+    define stream L (k int, v double);
+    define stream R (k int, v double);
+    @info(name = 'bench')
+    from L#window.length(20000) as a join R#window.length(20000) as b
+    on a.k == b.k
+    select a.k as k, a.v as lv, b.v as rv
+    insert into OutStream;
+    """
+    rng = np.random.default_rng(22)
+    feeds = [(sid, {"k": rng.integers(0, 3000, 4096).astype(np.int32),
+                    "v": rng.uniform(1, 100, 4096)})
+             for _ in range(4) for sid in ("L", "R")]
+    outs, launches = [], []
+    for dev in ("cuda", "cpu"):
+        kernels.reset_launch_counts()
+        rt = SiddhiManager(device=dev).create_siddhi_app_runtime(
+            app, batch_size=4096)
+        got = []
+        rt.add_callback("OutStream", lambda evs, g=got: g.extend(
+            (e.timestamp, e.data) for e in evs))
+        for i, (sid, cols) in enumerate(feeds):
+            rt.get_input_handler(sid).send_columns(
+                cols, timestamps=np.arange(4096) + 4096 * i)
+            rt.flush()
+        outs.append(got)
+        launches.append(dict(kernels.LAUNCHES))
+    assert outs[0] == outs[1] and len(outs[0]) > 4096
+    assert launches[0]["K10 probe compact"] == 8
+    assert launches[0]["K10 probe"] == 0
+    assert launches[0]["K10 compact"] == 0

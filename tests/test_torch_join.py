@@ -174,6 +174,63 @@ def test_multimap_probe_bit_exact(C, H, B, n_batches, n_keys, start, k_max):
         assert truncs[0] > 0
 
 
+def _jax_probe_compact(mm, hashes, valid, appended, window_len, k_max,
+                       pair_cap):
+    """The JAX join's multimap path where it compacts: multimap_probe, the
+    pairs past pair_cap counted, compact_pairs of the [B * k_max] block."""
+    pos, ok, truncated = jj.multimap_probe(mm, hashes, valid, appended,
+                                           window_len, k_max)
+    B = hashes.shape[0]
+    lane = jnp.broadcast_to(jnp.arange(B)[:, None], (B, k_max)).reshape(-1)
+    pv = ok.reshape(-1)
+    over = jnp.maximum(jnp.sum(pv, dtype=jnp.int32) - pair_cap, 0)
+    return (*jj.compact_pairs(lane, pos.reshape(-1), pv, pair_cap), over,
+            truncated)
+
+
+_jax_probe_compact_jit = jax.jit(_jax_probe_compact, static_argnums=(5, 6))
+
+
+@pytest.mark.parametrize("C,H,n_keys,start,k_max,pair_cap,p_valid", [
+    (128, 256, 40, 2**32 - 200, 4, 48, 0.9),  # tags wrap 2^32; overflow
+    (96, 64, 2, 0, 4, 200, 0.9),  # a hot key walks past k_max
+    (64, 128, 12, 5, 4, 100, 0.0),  # every lane invalid
+    (256, 512, 8, 2**32 - 300, 1, 16, 1.0),  # k_max = 1, overflow
+])
+def test_multimap_probe_compact_plain_matches_jax(C, H, n_keys, start, k_max,
+                                                  pair_cap, p_valid):
+    """The fused probe's plain version (multimap_probe_plain, then
+    compact_pairs_plain) against the JAX functions, exact: lanes, rows,
+    pv, the pairs past pair_cap and the truncated lanes."""
+    B = 64
+    jmm, tmm, appended = _append_sequence(C, H, B, 6, n_keys, 0.85, start,
+                                          seed=C + k_max)
+    rng = np.random.default_rng(pair_cap)
+    keys = rng.integers(0, n_keys + 2, B).astype(np.int32)
+    hashes = np.asarray(jg.hash_columns32([jnp.asarray(keys)]))
+    valid = rng.random(B) < p_valid
+    got_over = []
+    for window_len in (C, C // 3):
+        want = _jax_probe_compact_jit(
+            jmm, jnp.asarray(hashes), jnp.asarray(valid),
+            jnp.int64(appended), jnp.int64(window_len), k_max, pair_cap)
+        got = tj.multimap_probe_compact(
+            tmm, _t(hashes.view(np.int32)), _t(valid),
+            torch.tensor(appended), torch.tensor(window_len), k_max,
+            pair_cap)
+        for name, a, b in zip(("lane", "row", "pv", "over", "truncated"),
+                              got, want):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                          err_msg=name)
+        got_over.append((int(got[3]), int(got[4])))
+    if p_valid == 0.0:
+        assert got_over == [(0, 0), (0, 0)]
+    elif n_keys == 2:
+        assert got_over[0][1] > 0  # truncated walks
+    else:
+        assert got_over[0][0] > 0  # pairs past pair_cap
+
+
 @pytest.mark.parametrize("P,cap,p_valid", [(64, 32, 0.3), (64, 32, 0.9),
                                            (48, 48, 0.5), (100, 8, 0.0)])
 def test_compact_pairs_bit_exact(P, cap, p_valid):
