@@ -726,6 +726,14 @@ KERNELS = {
     "K3 partition": ("hash_columns of the partition key",
                      "siddhi_tpu_torch/csrc/k3_hash.cu",
                      "siddhi_tpu/core/partition.py:244"),
+    "K6": ("searchsorted32", "siddhi_tpu_torch/csrc/k6_search.cu",
+           "siddhi_tpu/ops/search.py:127"),
+    "K7 merge": ("_merge_order", "siddhi_tpu_torch/csrc/k7_merge.cu",
+                 f"{WINDOWS}:160"),
+    "K7 K5 sort": ("stable_argsort_bounded (K5's slot sort)", K7_SRC,
+                   "siddhi_tpu/ops/search.py:86"),
+    "K7 K5b sort": ("stable_argsort_bounded (K5b's slot sort)", K7_SRC,
+                    "siddhi_tpu/ops/search.py:86"),
 }
 #: rows of the kernel table beyond one a counter: row key -> the counter
 #: whose launches it reports (the same kernel at a second shape)
@@ -734,7 +742,11 @@ EXTRA_ROWS = {"K2b gather (app D's merge order)": "K2b gather",
               "K12b (K = 32)": "K12b",
               "K13e (a table-only condition)": "K13e",
               "K4b (app AJ's first batch)": "K4b",
-              "K4b (L = 131072, K = 4096)": "K4b"}
+              "K4b (L = 131072, K = 4096)": "K4b",
+              "K7 merge (app C's shape)": "K7 merge",
+              "K7 merge (app A's shape)": "K7 merge",
+              "K7 merge (app A's shape, expired output)": "K7 merge",
+              "K6 (app M's bucket trigger)": "K6"}
 
 
 class Failure(Exception):
@@ -1828,10 +1840,366 @@ def scan_sort_edge_phase(torch, rng) -> None:
     torch.cuda.synchronize()
 
 
-def sliding_kernel_phase(torch, rng) -> tuple[dict, dict]:
+# --------------------------------------------------------------------------- #
+# phases 6 and 36: the windows' merge and searches (K7 merge, K6, K7's
+# bounded argsort at K5's and K5b's slot sorts)
+# --------------------------------------------------------------------------- #
+
+BIG_KEY = 2**62  # ops/windows.py BIG: the merge's pad, the trigger's pad
+INT32_MAX = 2**31 - 1
+#: the K7 merge's edge cases (their names; `merge_edge_cases` builds them)
+MERGE_EDGES = ("ties across three groups", "every lane invalid",
+               "every lane valid, one key", "first group empty",
+               "a middle group empty", "lengths 1", "one valid lane a group",
+               "the one-block limit", "one past the one-block limit",
+               "four groups", "int64 hi, negative lo",
+               "int64 lo above 32 bits", "more tiles than the grid",
+               *(f"lengths 1-300 #{i}" for i in range(6)))
+#: K6's edge cases, each at both sides
+SEARCH_EDGES = ("N = 0", "N = 1", "empty v", "v of two dimensions",
+                "every key equal", "float32 NaN, -0.0, inf",
+                "float64 NaN, -0.0, inf", "int64 extremes", "bool",
+                "unsorted a", "int32 a, int64 v", "N = 2^20 + 1")
+#: K7's bounded argsort (stable_argsort_bounded) at its edges
+BOUNDED_EDGES = ("L = 1", "the one-block limit", "one past it",
+                 "every lane invalid", "bound 0", "keys at 0 and the bound",
+                 "app D's chunk")
+
+
+def _packed_np(hi, lo):
+    """The merge's int64 keys: hi << 32 | lo's low word (numpy wraps)."""
+    return (hi.astype(np.int64) << 32) | (lo.astype(np.int64) & 0xFFFFFFFF)
+
+
+def _sorted_pairs(rng, n: int, hi=(0, 50), lo=(0, 4), hi_dt=np.int32,
+                  lo_dt=np.int32):
+    """(hi, lo) numpy words of n lanes drawn from [low, high) ranges and
+    put in the order of their packed keys, so the keys are nondecreasing,
+    as a window's groups hold them."""
+    h = rng.integers(hi[0], hi[1], n).astype(hi_dt)
+    lw = rng.integers(lo[0], lo[1], n).astype(lo_dt)
+    order = np.argsort(_packed_np(h, lw), kind="stable")
+    return h[order], lw[order]
+
+
+def _merge_case(torch, dev, groups):
+    """(hi, lo, valid) numpy triples -> the merge's (keys, valids)."""
+    keys = [(torch.from_numpy(np.ascontiguousarray(h)).to(dev),
+             torch.from_numpy(np.ascontiguousarray(lw)).to(dev))
+            for h, lw, _ in groups]
+    return keys, [torch.from_numpy(v).to(dev) for _, _, v in groups]
+
+
+def merge_shapes(torch, rng, dev, B: int = BATCH, N: int = WINDOW) -> dict:
+    """The K7 merge's inputs as the main path gives them: app D's sliding
+    step (every arrival expires one row), app C's (a time window's
+    triggers, half the candidates expiring), app A's lengthBatch(N) step
+    after a partial flush (currents and RESETs) and the same with expired
+    output (three groups)."""
+    lane = np.arange(B, dtype=np.int32)
+    every = np.ones(B, bool)
+    trig = np.sort(rng.integers(0, B + 1, B)).astype(np.int32)
+    r0, mf = N // 3, B // N + 2
+    nf = (r0 + B) // N
+    p = np.arange(B + N, dtype=np.int32)
+    f = np.arange(mf, dtype=np.int32)
+    exp_rel = p // N - 1
+    cur = (np.clip((p // N + 1) * N - 1 - r0, -1, B).astype(np.int32) * 4
+           + 2, p % N, p < nf * N)
+    reset = (np.clip((f + 1) * N - 1 - r0, -1, B).astype(np.int32) * 4 + 1,
+             np.zeros(mf, np.int32), f < nf)
+    exp = (np.clip((exp_rel + 2) * N - 1 - r0, -1, B).astype(np.int32) * 4,
+           p % N, exp_rel + 1 < nf)
+    cases = {"app D's shape": [(lane * 4, lane, every),
+                               (lane * 4 + 2, lane, every)],
+             "app C's shape": [(trig * 4, lane, lane < B // 2 + 7000),
+                               (lane * 4 + 2, lane, lane < int(0.9 * B))],
+             "app A's shape": [cur, reset],
+             "app A's shape, expired output": [cur, reset, exp]}
+    return {k: _merge_case(torch, dev, g) for k, g in cases.items()}
+
+
+def merge_edge_cases(torch, rng, dev) -> dict:
+    """MERGE_EDGES: ties across groups, no valid lane, empty groups, the
+    one-block limit and one past it, four groups, int64 words, a negative
+    and a wide lo, more tiles than the cooperative grid holds, lengths
+    1-300. Every group's valid keys are nondecreasing and below BIG, as
+    `_merge_order` requires (outside that its order is undefined, in the
+    JAX function as here)."""
+    from siddhi_tpu_torch import kernels
+    tile = kernels.bind("k7_merge", "k7_merge_tile_lanes", [])()
+    cap = kernels.bind("k7_merge", "k7_merge_grid_capacity", [])()
+    small = 4 * tile  # one block up to here
+
+    def grp(n, p=0.6, **kw):
+        h, lw = _sorted_pairs(rng, n, **kw)
+        return h, lw, rng.random(n) < p
+
+    one = dict(hi=(7, 8), lo=(3, 4))
+    tie = dict(hi=(0, 5), lo=(0, 3))
+    # int64 hi words: every packed key stays below BIG (the premise)
+    wide = dict(hi=(-2**30, 2**30), lo=(-2**31, 2**31))
+    big = dict(hi=(0, 1 << 20), lo=(0, 1 << 20))
+    cases = {
+        "ties across three groups": [grp(300, **tie), grp(257, **tie),
+                                     grp(1, 1.0, **tie)],
+        "every lane invalid": [grp(1000, 0.0), grp(3000, 0.0)],
+        "every lane valid, one key": [grp(700, 1.0, **one),
+                                      grp(900, 1.0, **one)],
+        "first group empty": [grp(0), grp(500)],
+        "a middle group empty": [grp(500), grp(0), grp(20, 1.0)],
+        "lengths 1": [grp(1, 1.0), grp(1, 1.0)],
+        "one valid lane a group": [grp(2000, 1 / 2000), grp(3000, 1 / 3000)],
+        "the one-block limit": [grp(small // 2), grp(small - small // 2)],
+        "one past the one-block limit": [grp(small // 2),
+                                         grp(small // 2 + 1)],
+        "four groups": [grp(100), grp(3000), grp(5), grp(7000)],
+        "int64 hi, negative lo": [grp(3000, hi_dt=np.int64, **wide),
+                                  grp(5000, **wide)],
+        "int64 lo above 32 bits": [grp(2000, lo=(-2**40, 2**40),
+                                       lo_dt=np.int64), grp(2000)],
+        "more tiles than the grid": [grp((cap // 2 + 3) * tile, **big),
+                                     grp((cap // 2 + 1) * tile + 9, 0.95,
+                                         **big)],
+    }
+    for i in range(6):
+        lens = rng.integers(1, 301, 2 + i % 2)
+        cases[f"lengths 1-300 #{i}"] = [grp(int(n), rng.random(), **tie)
+                                        for n in lens]
+    return {k: _merge_case(torch, dev, g) for k, g in cases.items()}
+
+
+def search_shapes(torch, rng, dev, B: int = BATCH) -> dict:
+    """K6 as the main path calls it: app C's expiry trigger (each
+    candidate's deadline into the batch's timestamps, invalid lanes at
+    BIG) and app M's bucket trigger (timeBatch(1 sec), int32 buckets, the
+    tail at INT32_MAX); name -> (a, v, side)."""
+    lane = np.arange(B)
+    n_valid = int(0.9 * B)
+    ts = 1_700_000_000_000 + lane
+    a = np.where(lane < n_valid, ts, BIG_KEY)
+    cand = ts[0] - TIME_WINDOW_MS + np.sort(rng.integers(
+        0, TIME_WINDOW_MS + B, B))
+    buckets = np.where(lane < n_valid, lane // 1000, INT32_MAX)
+    pending = (lane - 500) // 1000 + 1
+    return {"app C's trigger": (torch.from_numpy(a).to(dev),
+                                torch.from_numpy(cand + TIME_WINDOW_MS)
+                                .to(dev), "left"),
+            "app M's bucket trigger": (
+                torch.from_numpy(buckets.astype(np.int32)).to(dev),
+                torch.from_numpy(pending.astype(np.int32)).to(dev), "left")}
+
+
+def search_edge_cases(torch, rng, dev) -> dict:
+    """SEARCH_EDGES at both sides: name -> (a, v, side)."""
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def floats(dt):
+        x = rng.normal(0, 10, 300).astype(dt)
+        x[:8] = [np.nan, -0.0, 0.0, np.inf, -np.inf, np.nan, -0.0, 1.0]
+        q = np.concatenate([x[:8], rng.normal(0, 10, 40).astype(dt)])
+        return np.sort(x, kind="stable"), q  # NaN last
+
+    i64 = np.iinfo(np.int64)
+    ext = np.sort(np.concatenate([rng.integers(-2**62, 2**62, 500),
+                                  [i64.min, i64.min, i64.max, i64.max]]))
+    deep = np.sort(rng.integers(0, 1 << 40, (1 << 20) + 1))
+    f32, q32 = floats(np.float32)
+    f64, q64 = floats(np.float64)
+    base = {
+        "N = 0": (np.zeros(0, np.int64), rng.integers(-5, 5, 100)),
+        "N = 1": (np.array([3], np.int64), np.arange(-1, 6)),
+        "empty v": (np.arange(10, dtype=np.int32), np.zeros(0, np.int32)),
+        "v of two dimensions": (np.sort(rng.integers(0, 100, 200))
+                                .astype(np.int32),
+                                rng.integers(-5, 105, (37, 5))
+                                .astype(np.int32)),
+        "every key equal": (np.full(5000, 9, np.int64),
+                            np.array([8, 9, 10] * 100)),
+        "float32 NaN, -0.0, inf": (f32, q32),
+        "float64 NaN, -0.0, inf": (f64, q64),
+        "int64 extremes": (ext, np.concatenate([ext[::7], [i64.min,
+                                                           i64.max]])),
+        "bool": (np.array([False] * 40 + [True] * 60),
+                 np.array([False, True] * 9)),
+        "unsorted a": (rng.integers(0, 1000, 777), rng.integers(0, 1000,
+                                                                 300)),
+        "int32 a, int64 v": (np.sort(rng.integers(-50, 50, 1000))
+                             .astype(np.int32),
+                             rng.integers(-2**40, 2**40, 300)),
+        "N = 2^20 + 1": (deep, rng.integers(0, 1 << 40, 1 << 16)),
+    }
+    return {f"{k}, {side}": (t(a), t(v), side)
+            for k, (a, v) in base.items() for side in ("left", "right")}
+
+
+def bounded_sort_cases(torch, rng, dev, K: int = GROUP_CAP) -> dict:
+    """BOUNDED_EDGES: slot keys in [0, K] with their bound, as K5's and
+    K5b's sorts hand them to K7; name -> (keys int32, bound)."""
+    from siddhi_tpu_torch import kernels
+    small = kernels.bind("k7_radix_sort", "k7_small_max", [])()
+
+    def slots(n, p=0.9):
+        s = rng.integers(0, K, n)
+        return np.where(rng.random(n) < p, s, K).astype(np.int32)
+
+    cases = {"L = 1": (slots(1), K), "the one-block limit": (slots(small), K),
+             "one past it": (slots(small + 1), K),
+             "every lane invalid": (np.full(5000, K, np.int32), K),
+             "bound 0": (np.zeros(3000, np.int32), 0),
+             "keys at 0 and the bound": (rng.choice([0, K], 9000)
+                                         .astype(np.int32), K),
+             "app D's chunk": (slots(2 * BATCH), K)}
+    return {k: (torch.from_numpy(v).to(dev), b)
+            for k, (v, b) in cases.items()}
+
+
+def merge_search_rows(torch, rng, width_a: int) -> dict:
+    """Phase 6's rows of the K7 merge (apps D, C and A), K6 (apps C and M)
+    and K7's bounded argsort at K5's slot sort (app A's chunk) and K5b's
+    (app C's): each bit for bit against its plain version, timed beside
+    its library call (the merge's: a stable `torch.sort` of the packed
+    keys with invalid lanes at BIG, made beforehand)."""
+    from siddhi_tpu_torch.ops import search
+    from siddhi_tpu_torch.ops import windows as w
+    dev = torch.device("cuda")
+    res = {}
+    for name, (keys, valids) in merge_shapes(torch, rng, dev).items():
+        def fn(keys=keys, valids=valids):
+            return w._merge_order(keys, valids)
+
+        def plain(keys=keys, valids=valids):
+            return w._merge_order_plain(keys, valids)
+
+        check_equal(f"K7 merge {name}", fn(), plain())
+        packed = torch.where(torch.cat(valids), torch.cat(
+            [(h.long() << 32) | (lw.long() & 0xFFFFFFFF) for h, lw in keys]),
+            BIG_KEY)
+        lanes = packed.numel()
+        row = "K7 merge" if name == "app D's shape" else f"K7 merge ({name})"
+        res[row] = dict(
+            _timed(torch, fn, plain,
+                   library=lambda p=packed: torch.sort(p, stable=True)),
+            # hi, lo and valid read, the order written
+            bound_ms=bound_ms(lanes * (4 + 4 + 1 + 4)), max_abs_err=0,
+            bound_by="bytes")
+        print(f"{row}: {lanes} lanes in {len(keys)} groups: {res[row]}")
+    for name, (a, v, side) in search_shapes(torch, rng, dev).items():
+        def fn(a=a, v=v, side=side):
+            return search.searchsorted32(a, v, side)
+
+        def plain(a=a, v=v, side=side):
+            return search.searchsorted32_plain(a, v, side)
+
+        check_equal(f"K6 {name}", fn(), plain())
+        row = "K6" if name == "app C's trigger" else f"K6 ({name})"
+        res[row] = dict(
+            _timed(torch, fn, plain, library=lambda a=a, v=v:
+                   torch.searchsorted(a, v, out_int32=True)),
+            bound_ms=bound_ms(a.numel() * a.element_size()
+                              + v.numel() * (v.element_size() + 4)),
+            max_abs_err=0, bound_by="bytes")
+        print(f"{row}: {v.numel()} into {a.numel()} {a.dtype}: {res[row]}")
+    for row, L in (("K7 K5 sort", width_a), ("K7 K5b sort", 2 * BATCH)):
+        s = rng.integers(0, GROUP_CAP, L)
+        k = torch.from_numpy(np.where(rng.random(L) < 0.9, s, GROUP_CAP)
+                             .astype(np.int32)).to(dev)
+
+        def fn(k=k, row=row):
+            return search.stable_argsort_bounded(k, GROUP_CAP, counter=row)
+
+        def plain(k=k):
+            return search.stable_radix_argsort_plain(k, GROUP_CAP)
+
+        check_equal(row, fn(), plain())
+        res[row] = dict(
+            _timed(torch, fn, plain,
+                   library=lambda k=k: torch.sort(k, stable=True)),
+            bound_ms=bound_ms(L * (4 + 4)), max_abs_err=0, bound_by="bytes")
+        print(f"{row}: L={L} keys in [0, {GROUP_CAP}]: {res[row]}")
+    torch.cuda.synchronize()
+    return res
+
+
+def merge_search_edge_phase(torch, rng) -> None:
+    """Phase 36: the K7 merge, K6 and K7's bounded argsort at their edges
+    (MERGE_EDGES, SEARCH_EDGES, BOUNDED_EDGES), bit for bit, one launch a
+    call (none without a lane or a query), merges of several sizes
+    alternating on one stream with the workspace left zero, and K5's and
+    K5b's grouped calls each one K7 sort."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import groupby, search
+    from siddhi_tpu_torch.ops import windows as w
+    dev = torch.device("cuda")
+
+    def launches(counter, want, name):
+        if kernels.LAUNCHES[counter] != want:
+            raise Failure(f"{name}: {kernels.LAUNCHES[counter]} launches of "
+                          f"{counter}, {want} expected")
+
+    mcases = merge_edge_cases(torch, rng, dev)
+    order = list(MERGE_EDGES) + 3 * ["more tiles than the grid", "lengths 1",
+                                     "one past the one-block limit",
+                                     "every lane invalid", "four groups"]
+    for name in order:
+        keys, valids = mcases[name]
+        total = sum(int(k[0].numel()) for k in keys)
+        kernels.reset_launch_counts()
+        got = w._merge_order(keys, valids)
+        launches("K7 merge", 1 if total else 0, f"K7 merge edge {name}")
+        check_equal(f"K7 merge edge {name}", got,
+                    w._merge_order_plain(keys, valids))
+    torch.cuda.synchronize()
+    if int(kernels.workspace("k7_merge", 0, dev).count_nonzero()):
+        raise Failure("K7 merge: the workspace is not zero after the edges")
+    scases = search_edge_cases(torch, rng, dev)
+    for name, (a, v, side) in scases.items():
+        kernels.reset_launch_counts()
+        got = search.searchsorted32(a, v, side)
+        launches("K6", 1 if v.numel() else 0, f"K6 edge {name}")
+        check_equal(f"K6 edge {name}", got,
+                    search.searchsorted32_plain(a, v, side))
+    bcases = bounded_sort_cases(torch, rng, dev)
+    for name, (k, bound) in bcases.items():
+        kernels.reset_launch_counts()
+        got = search.stable_argsort_bounded(k, bound)
+        launches("K7 bounded", 1, f"K7 bounded edge {name}")
+        check_equal(f"K7 bounded edge {name}", got,
+                    search.stable_radix_argsort_plain(k, bound))
+    # K5's and K5b's grouped calls: one K7 sort each, no torch.sort
+    k, _ = bcases["app D's chunk"]
+    L = k.numel()
+    slots = torch.where(k < GROUP_CAP, k, 0)
+    valid = k < GROUP_CAP
+    no_resets = torch.zeros(L, dtype=torch.bool, device=dev)
+    cur = torch.zeros((), dtype=torch.int32, device=dev)
+    d = torch.ones(L, dtype=torch.int64, device=dev)
+    kernels.reset_launch_counts()
+    groupby.grouped_scan_fused(
+        [torch.zeros(GROUP_CAP, dtype=torch.int64, device=dev)],
+        torch.zeros(GROUP_CAP, dtype=torch.int32, device=dev), slots, [d],
+        valid, no_resets, cur)
+    launches("K7 K5 sort", 1, "K5 grouped")
+    launches("K5", 1, "K5 grouped")
+    groupby.grouped_scan(groupby.init_group_state(GROUP_CAP, torch.int64,
+                                                  dev),
+                         slots, d, valid, no_resets, cur)
+    launches("K7 K5b sort", 1, "K5b grouped")
+    launches("K5b grouped", 1, "K5b grouped")
+    torch.cuda.synchronize()
+    print(f"K7 merge edges ({len(mcases)}), K6 edges ({len(scases)}), K7 "
+          f"bounded edges ({len(bcases)}): bit for bit, one launch a call; "
+          "K5 and K5b one K7 sort a call")
+
+
+def sliding_kernel_phase(torch, rng, mrng, width_a: int
+                         ) -> tuple[dict, dict]:
     """K2b and K5b against their plain versions at the sliding apps'
-    shapes; then the torch routes K2a, K6 and the K7 merge timed at their
-    shapes. Returns (kernel results, torch-route results)."""
+    shapes; the K7 merge, K6 and K7's bounded argsort at theirs (inputs
+    from `mrng`, so that `rng` leaves the later phases as before); then
+    the torch route K2a timed at its shapes. Returns (kernel results,
+    torch-route results)."""
     from siddhi_tpu_torch.core.event import EventBatch
     from siddhi_tpu_torch.ops import groupby, search
     from siddhi_tpu_torch.ops import windows as w
@@ -2120,27 +2488,10 @@ def sliding_kernel_phase(torch, rng) -> tuple[dict, dict]:
         ms=device_ms(torch, lambda: w._scatter_append(
             ring_cols, ring_ts, cols, ts, app0, nv)),
         bound_ms=bound_ms(2 * BATCH * row), shape=f"B={BATCH} C={Ca}")
-    # K6 at app C's shapes: the expiry trigger and the K5 sort
-    sorted_ts = ts.contiguous()
-    deadline = ts + 30_000
-    routes["K6 searchsorted32"] = dict(
-        ms=device_ms(torch, lambda: search.searchsorted32(sorted_ts, deadline)),
-        bound_ms=bound_ms(BATCH * (8 + 8 + 4)), shape=f"{BATCH} into {BATCH}")
-    sk = torch.where(valid, slots, K)
-    routes["K6 stable_argsort_bounded"] = dict(
-        ms=device_ms(torch, lambda: search.stable_argsort_bounded(sk)),
-        bound_ms=bound_ms(L * (4 + 8)), shape=f"L={L}")
-    # K7 merge of the sliding chunk: E expired + B current lanes
-    pe = torch.arange(E, dtype=torch.int32, device=dev)
-    pb = torch.arange(B, dtype=torch.int32, device=dev)
-    keys = [(torch.clamp(pe * 2, 0, B) * 4, pe), (pb * 4 + 2, pb)]
-    valids = [pe < E // 2 + 7000, pb < n_live]
-    routes["K7 _merge_order"] = dict(
-        ms=device_ms(torch, lambda: w._merge_order(keys, valids)),
-        bound_ms=bound_ms((E + B) * (4 + 4 + 1 + 4)), shape=f"E={E} B={B}")
     for k, r in routes.items():
         print(f"{k}: {r}")
     torch.cuda.synchronize()
+    res.update(merge_search_rows(torch, mrng, width_a))
     return res, routes
 
 
@@ -2525,10 +2876,12 @@ def sliding_apps(torch, rng, card: str, summary=None) -> dict:
     columnar async path when `summary` is given; returns their
     launches."""
     k2b = ("K2b pack", "K2b fetch", "K2b append", "K2b gather")
-    on_path = {"C": ("K1", *k2b, "K5b grouped", "K5b ungrouped"),
-               "D": ("K1", *k2b, "K5"),
-               "E": ("K1", *k2b, "K3", "K4", "K5b grouped"),
-               "F": ("K1", *k2b, "K5 ungrouped")}
+    on_path = {"C": ("K1", *k2b, "K5b grouped", "K5b ungrouped", "K6",
+                     "K7 merge", "K7 K5b sort"),
+               "D": ("K1", *k2b, "K5", "K7 merge", "K7 K5 sort"),
+               "E": ("K1", *k2b, "K3", "K4", "K5b grouped", "K6",
+                     "K7 merge", "K7 K5b sort"),
+               "F": ("K1", *k2b, "K5 ungrouped", "K7 merge")}
     total = {}
     for name, text, n_sym in (("C", APP_C, C_SYMBOLS),
                               ("D", APP_D, N_KEYS),
@@ -3194,7 +3547,8 @@ def join_app(torch, rng, card: str, summary=None) -> dict:
     if dropped is not None and int(dropped) != 0:
         raise Failure(f"app G: {int(dropped)} pairs dropped")
     for kname in ("K1", "K2b pack", "K2b fetch", "K2b append", "K2b gather",
-                  "K3b", "K10 append", "K10 probe compact", "K12a"):
+                  "K3b", "K10 append", "K10 probe compact", "K12a",
+                  "K7 merge"):
         if launches[kname] == 0:
             raise Failure(f"app G: kernel {kname} never launched")
     # each probe step compacts in its one probe launch
@@ -4711,13 +5065,15 @@ def agg_apps_plan(sizes: dict) -> dict:
     k2b = ("K2b pack", "K2b fetch", "K2b append", "K2b gather")
     return {
         "J": (APP_J.format(_time_text(sizes["J"])), C_SYMBOLS,
-              ("K1", *k2b, "K3", "K9 HLL", "K9 HLL estimate")),
+              ("K1", *k2b, "K3", "K9 HLL", "K9 HLL estimate", "K6",
+               "K7 merge")),
         "K": (APP_K.format(_time_text(sizes["K"])), E_SYMBOLS,
-              ("K1", *k2b, "K3", "K8 grouped")),
+              ("K1", *k2b, "K3", "K8 grouped", "K6", "K7 merge")),
         "L": (APP_L.format(sizes["L"]), E_SYMBOLS,
-              ("K1", *k2b, "K8", "K5b ungrouped")),
+              ("K1", *k2b, "K8", "K5b ungrouped", "K7 merge")),
         "M": (APP_M.format(_time_text(sizes["M"])), M_SYMBOLS,
-              ("K1", "K5", "K5b grouped")),
+              ("K1", "K5", "K5b grouped", "K6", "K7 merge", "K7 K5 sort",
+               "K7 K5b sort")),
     }
 
 
@@ -9384,11 +9740,16 @@ def main(argv=None) -> int:
                                 np.random.default_rng([args.seed, 32]))
         pattern_probe_edge_phase(torch,
                                  np.random.default_rng([args.seed, 33]))
+        merge_search_edge_phase(torch,
+                                np.random.default_rng([args.seed, 36]))
 
-        launches = {k: 0 for k in KERNELS}
+        # every counter: the bounded argsort's default and bucket-order
+        # sites run off the main path and have no row of their own
+        launches = dict.fromkeys([*KERNELS, *kernels.LAUNCHES], 0)
         summary = {}  # the columnar async path, per app
-        on_path = {"A": ("K1", "K5", "K12a"),
-                   "B": ("K1", "K3", "K4", "K5", "K12a")}
+        on_path = {"A": ("K1", "K5", "K12a", "K7 merge", "K7 K5 sort"),
+                   "B": ("K1", "K3", "K4", "K5", "K12a", "K7 merge",
+                         "K7 K5 sort")}
         for name, text, long_key in (("A", APP_A, False), ("B", APP_B, True)):
             key, price, volume, ts = make_events(rng, long_key)
             key_col = key if long_key else np.array(
@@ -9430,7 +9791,10 @@ def main(argv=None) -> int:
                                         passed, long_key),
                     elapsed, card, summary)
 
-        sres, routes = sliding_kernel_phase(torch, rng)
+        # its own generator for the merge and search rows: the phases
+        # after it keep their inputs
+        sres, routes = sliding_kernel_phase(
+            torch, rng, np.random.default_rng([args.seed, 6]), width_a)
         kres.update(sres)
         print("torch routes: " + json.dumps(routes))
         for k, v in sliding_apps(torch, rng, card, summary).items():

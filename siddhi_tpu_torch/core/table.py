@@ -20,7 +20,7 @@ evaluates to a [B, C] cross mask.
   mask route). SET expressions evaluate on the [C] frame of (the row's
   last matching event, the row);
 - `expr in T`: the sorted index of an @Index or sole primary-key attribute
-  (K7 sort, rebuilt lazily after a mutation; `torch.searchsorted`), or the
+  (K7 sort, rebuilt lazily after a mutation; K6's search), or the
   per-event any of the condition (K13e's mask route).
 
 The JAX package's documented divergences hold: an update applies the last

@@ -13,8 +13,8 @@
 // up to four sum components of any of the four types at once (256 x 4
 // lanes; the plan is read once for all of them). Lanes are thread-blocked
 // (a thread scans its lanes in series):
-//   grouped    the wrapper's stable torch.sort of the sentinel-masked slots
-//              gives `order`; each lane reads its slot and epoch (the
+//   grouped    the wrapper's stable sort of the sentinel-masked slots (K7,
+//              int32) gives `order`; each lane reads its slot and epoch (the
 //              thread's neighbours across its ends once): a segment starts
 //              on a (slot, epoch) change, a slot run's last lane writes the
 //              state, a segment start under a live epoch carries the stored
@@ -259,7 +259,7 @@ struct Args {
   int n, K;
   const uint8_t* valid;  // null: every lane valid
   // grouped: the sort permutation and each lane's slot and epoch
-  const int64_t* order;
+  const int32_t* order;
   const int32_t* slots_v;
   const int32_t* lane_epoch;
   // ungrouped: resets (kind 0 none, 1 bytes, 2 int32), current epoch
@@ -556,14 +556,14 @@ SIDDHI_API int k5_tile_lanes(int fused_launch) {
 SIDDHI_API int k5_max_fused() { return MAX_FUSED; }
 
 // One grouped component (K5b grouped). op: 0 = sum, 1 = min, 2 = max.
-// dtype: 0 = float32, 1 = float64, 2 = int64, 3 = int32. order: int64[n],
+// dtype: 0 = float32, 1 = float64, 2 = int64, 3 = int32. order: int32[n],
 // the stable sort of slots_v (int32[n], invalid lanes at K); lane_epoch
 // int32[n]; epoch_in int32[K]; epoch_out: the same table, or null to leave
 // it; values [K] read and written in place; out [n] in lane order. ws: the
 // zeroed workspace; agg: the aggregates buffer.
 SIDDHI_API int k5_grouped_component(int op, int dtype, const void* deltas,
                                     const uint8_t* valid,
-                                    const int64_t* order,
+                                    const int32_t* order,
                                     const int32_t* slots_v,
                                     const int32_t* lane_epoch,
                                     const int32_t* epoch_in,
@@ -630,7 +630,7 @@ SIDDHI_API int k5_ungrouped_component(int op, int dtype, const void* deltas,
 // plan arguments are those of k5_grouped_component.
 SIDDHI_API int k5_grouped_fused(int count, const int* dtypes,
                                 const void* const* deltas,
-                                const uint8_t* valid, const int64_t* order,
+                                const uint8_t* valid, const int32_t* order,
                                 const int32_t* slots_v,
                                 const int32_t* lane_epoch,
                                 const int32_t* epoch_in, int32_t* epoch_out,

@@ -12,8 +12,8 @@ raises `KernelError`. The plain PyTorch versions in `ops/` run only for CPU
 tensors.
 
 Kernels whose blocks wait for each other in one launch (the look-back
-flags of K1 and K5, the grid barriers of K4, K4b, K7, K10, K12a, K13d
-and K13e) keep their counters and flags in a `workspace`: one zeroed buffer
+flags of K1 and K5, the grid barriers of K4, K4b, K7, K7's merge, K10,
+K12a, K13d and K13e) keep their counters and flags in a `workspace`: one zeroed buffer
 per library, device and stream, which every launch leaves zeroed again,
 so no launch is spent clearing it.
 """
@@ -34,7 +34,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_kernel_build"
 SOURCES = ("k1_partition", "k2b_packed_ring", "k3_hash", "k4_keytable",
-           "k4b_dense_keys", "k5_grouped_scan", "k7_radix_sort", "k8_extrema", "k9_hll", "k10_join",
+           "k4b_dense_keys", "k5_grouped_scan", "k6_search", "k7_radix_sort",
+           "k7_merge", "k8_extrema", "k9_hll", "k10_join",
            "k11_pattern", "k11c_absent", "k12a_wire_pack",
            "k13a_expression_walk", "k13b_frequent", "k13c_limiter_ring",
            "k13d_table_insert", "k13e_last_match", "k13f_bucket_scatter",
@@ -65,7 +66,9 @@ LAUNCHES = {"K1": 0, "K2b pack": 0, "K2b fetch": 0, "K2b append": 0,
             "K13b final per group": 0,
             "K13f ingest": 0, "K13f evict": 0, "K13f restore": 0,
             "K3 aggregation": 0, "K4 aggregation": 0, "K12b": 0,
-            "K3 partition": 0, "K4b": 0}
+            "K3 partition": 0, "K4b": 0, "K6": 0, "K7 merge": 0,
+            "K7 K5 sort": 0, "K7 K5b sort": 0, "K7 bucket order": 0,
+            "K7 bounded": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

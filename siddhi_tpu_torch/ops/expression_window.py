@@ -15,7 +15,7 @@ REL is < or <=. Anything else (sum() and attribute spans are monotone only
 by the data) is refused at plan time; the window factory then takes the
 exact sequential walk (ops/expression_general.py).
 
-The searches are torch.searchsorted (K6's torch route), the running max of
+The searches are K6 (`searchsorted32`), the running max of
 the frontiers K5b's ungrouped max scan, the emission-order sort K7 on the
 packed chunk (`_sort_chunk_packed`), and the ring passes K2b.
 """

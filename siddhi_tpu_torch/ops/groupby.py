@@ -12,8 +12,9 @@ Six kernels live here, each beside its plain PyTorch version:
   first-appearance order (a partition's key slots;
   csrc/k4b_dense_keys.cu);
 - K5 `grouped_scan_fused` / `ungrouped_scan_fused`: N sum components over
-  one plan (sort by slot, or lanes in order without GROUP BY), segmented
-  scan with carry-in, state scatter (csrc/k5_grouped_scan.cu);
+  one plan (sort by slot, K7's bounded argsort on the card, or lanes in
+  order without GROUP BY), segmented scan with carry-in, state scatter
+  (csrc/k5_grouped_scan.cu);
 - K5b `grouped_scan` / `ungrouped_scan`: one component under sum, min or
   max with its own epoch table, on the K5 plan and scan entry points
   (csrc/k5_grouped_scan.cu).
@@ -35,7 +36,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import kernels
-from .search import stable_argsort_bounded
+from .search import stable_argsort_bounded, stable_radix_argsort_plain
 
 _KEY_PAD = (1 << 63) - 1  # INT64_MAX marks an empty slot
 #: probe window per key. The JAX key table probes 16 slots with short odd
@@ -624,7 +625,7 @@ class _SegmentPlan(NamedTuple):
 def _segment_plan(slots, valid, resets, current_epoch, K) -> _SegmentPlan:
     slots_v = torch.where(valid, slots, K).to(torch.int32)
     lane_epoch = _lane_epochs(resets, current_epoch)
-    order = stable_argsort_bounded(slots_v)
+    order = stable_radix_argsort_plain(slots_v, K)
     s_slots = slots_v[order]
     s_epochs = lane_epoch[order]
     seg_start = ((s_slots != _shift(s_slots, -1, True))
@@ -799,12 +800,13 @@ def _k5_fused_cuda(values_list, deltas_list, plan: tuple, epoch_out,
     return outs
 
 
-def _k5_sort(slots, valid, resets, current_epoch, K):
+def _k5_sort(slots, valid, resets, current_epoch, K, counter: str):
     """The grouped launch's inputs: sentinel-masked slots, lane epochs and
-    their stable torch.sort (int64 order)."""
+    their stable order (int32), K7 on the slots bounded by K (`counter`
+    names the site)."""
     slots_v = torch.where(valid, slots, K).to(torch.int32)
     lane_epoch = _lane_epochs(resets, current_epoch).to(torch.int32)
-    order = torch.sort(slots_v, stable=True).indices
+    order = stable_argsort_bounded(slots_v, K, counter=counter)
     return slots_v, lane_epoch, order
 
 
@@ -894,7 +896,7 @@ def _check_state(what, values_list, epoch_table, deltas_list, n,
 
 def grouped_scan_fused_cuda(values_list, shared_epoch, slots, deltas_list,
                             valid, resets, current_epoch):
-    """K5 on the card: torch sort by slot, then one launch for up to
+    """K5 on the card: K7's sort by slot, then one launch for up to
     four components (the last launch writes the epochs). Updates values
     and the epoch table in place."""
     kernels.require_cuda("grouped_scan_fused", shared_epoch, slots, valid,
@@ -907,7 +909,7 @@ def grouped_scan_fused_cuda(values_list, shared_epoch, slots, deltas_list,
         return (list(values_list), shared_epoch,
                 [torch.empty_like(d) for d in deltas_list])
     sort = _k5_sort(slots, valid, resets, current_epoch,
-                    shared_epoch.shape[0])
+                    shared_epoch.shape[0], "K7 K5 sort")
     outs = _k5_fused_cuda(values_list, deltas_list,
                           ("grouped", valid, sort, shared_epoch),
                           shared_epoch, "K5")
@@ -947,7 +949,7 @@ def grouped_scan_cuda(state: GroupState, slots, deltas, valid, resets,
     if n == 0:
         return state, torch.empty_like(deltas)
     sort = _k5_sort(slots, valid, resets, current_epoch,
-                    state.values.shape[0])
+                    state.values.shape[0], "K7 K5b sort")
     out = _k5_grouped_cuda(op, state.values, deltas, valid, sort,
                            state.epoch, state.epoch, "K5b grouped")
     return state, out

@@ -8,8 +8,8 @@ whole micro-batch:
   as rows append (`multimap_append`, K10) and walked per probe lane
   (`multimap_probe`, K10);
 - **sort-merge** (`probe_equi`; other build sides with equality keys): a
-  sort of the build hashes and a binary search per probe lane — a
-  composition over K3b and the K6 torch routes;
+  sort of the build hashes (a torch sort still to port) and K6's binary
+  search per probe lane — a composition over K3b;
 - **cross** (`probe_cross`; ON conditions without an equality): the first
   k_max valid build rows for every probe lane — a composition over K1.
 
@@ -41,7 +41,8 @@ from ..query_api.definition import AttributeType
 from ..query_api.expression import And, Compare, CompareOp, Expression, Variable
 from .expr_compile import CompiledExpr, Scope, TypeResolver, compile_expression
 from .groupby import hash_columns32, to_u32_bits
-from .search import stable_partition_order
+from .search import (searchsorted32, stable_argsort_bounded,
+                     stable_partition_order)
 
 _MASK32 = 0xFFFFFFFF
 
@@ -146,7 +147,7 @@ def _lanes(B: int, k_max: int, device) -> torch.Tensor:
 def probe_equi(plan: JoinPlan, probe_scope: Scope, probe_valid: torch.Tensor,
                build_cols: dict, build_ts: torch.Tensor,
                build_valid: torch.Tensor, build_frame: str, k_max: int):
-    """Candidate pairs via sort-merge on key hashes (K3b + K6 torch routes):
+    """Candidate pairs via sort-merge on key hashes (K3b, a torch sort, K6):
     the build hashes sort as u32 (invalid rows, 0xFFFFFFFF, last).
 
     Returns (probe_lane[P], build_row[P], pair_valid[P]) with P = B*k_max.
@@ -160,7 +161,7 @@ def probe_equi(plan: JoinPlan, probe_scope: Scope, probe_valid: torch.Tensor,
     bkeys = _u64(_hash_exprs(plan.build_keys, bscope, valid=build_valid))
     pkeys = _u64(_hash_exprs(plan.probe_keys, probe_scope))
     sorted_keys, order = torch.sort(bkeys, stable=True)
-    start = torch.searchsorted(sorted_keys, pkeys, out_int32=True)
+    start = searchsorted32(sorted_keys, pkeys)
     pos = start[:, None] + torch.arange(k_max, dtype=torch.int32,
                                         device=dev)[None, :]
     pos_c = torch.clamp(pos, 0, C - 1).long()
@@ -277,13 +278,14 @@ def multimap_buckets(ring_capacity: int) -> int:
 def _bucket_order(hashes: torch.Tensor, live: torch.Tensor, H: int):
     """Stages 1-2 of the plain append: K1's live-first order (the window's
     compaction order), then a stable sort by bucket (dead lanes keyed H,
-    last). Returns (hashes in live-first order, sorted bucket keys int32,
-    their live-first positions int64)."""
+    last; K7 on the card, bounded by H). Returns (hashes in live-first
+    order, sorted bucket keys int32, their live-first positions int64)."""
     order = stable_partition_order(live).long()
     h_o = hashes[order]
     sortkey = torch.where(live[order], h_o & (H - 1), H).to(torch.int32)
-    b_s, run = torch.sort(sortkey, stable=True)
-    return h_o, b_s, run
+    run = stable_argsort_bounded(sortkey, H,
+                                 counter="K7 bucket order").long()
+    return h_o, sortkey[run], run
 
 
 def _ring_pos(appended0: torch.Tensor, C: int, j: torch.Tensor):

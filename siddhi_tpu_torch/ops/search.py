@@ -6,8 +6,11 @@ siddhi_tpu/ops/search.py).
 `stable_radix_argsort` is kernel K7 (`csrc/k7_radix_sort.cu`), the stable
 argsort of bounded or signed integer keys behind the session, sort,
 keyed-session, expression and frequent windows, the time-first limiter,
-ORDER BY and the table index, dispatched the same way. `stable_argsort_bounded` and
-`searchsorted32` are single torch calls on every device.
+ORDER BY and the table index, dispatched the same way;
+`stable_argsort_bounded` runs on it on the card (K5's and K5b's slot sort,
+the plain multimap append's bucket sort). `searchsorted32` is kernel K6
+(`csrc/k6_search.cu`), the JAX function's binary walk, one launch a call on
+a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -69,16 +72,102 @@ def stable_partition_order(live: torch.Tensor, *,
     return stable_partition_order_plain(live)
 
 
-def stable_argsort_bounded(x: torch.Tensor) -> torch.Tensor:
-    """Stable argsort of non-negative int32 keys, as int64 positions."""
-    return torch.sort(x, stable=True).indices
+def stable_argsort_bounded(x: torch.Tensor, bound=None, *,
+                           counter: str = "K7 bounded") -> torch.Tensor:
+    """Stable argsort of non-negative int32 keys, as int32 positions (the
+    JAX function's). `bound`: the keys' static upper bound, where the
+    caller knows one (K7's passes follow its bit length; None: 4 passes).
+    On the card K7 (`counter` names the site), else the plain sort."""
+    if x.is_cuda:
+        return stable_radix_argsort(x, bound, counter=counter)
+    return stable_radix_argsort_plain(x, bound)
+
+
+_COUNT_TYPES = (torch.int32, torch.int64, torch.float32, torch.float64)
+
+
+def _walk_is_a_count(a: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether the walk's compare is monotone over `a`: `a` nondecreasing,
+    no NaN in `a` or `v`, one element type. Then the walk ends on the count
+    of elements below `v` (at or below, side right), which
+    torch.searchsorted gives in one call."""
+    if a.dtype != v.dtype or a.dtype not in _COUNT_TYPES:
+        return False
+    if a.dtype.is_floating_point and bool(torch.isnan(a).any()
+                                          | torch.isnan(v).any()):
+        return False
+    return bool((a[1:] >= a[:-1]).all())
+
+
+def searchsorted32_plain(a: torch.Tensor, v: torch.Tensor,
+                         side: str = "left") -> torch.Tensor:
+    """Plain K6: the JAX function's walk over the bits of N, compare for
+    compare (a NaN query lands at 0, where torch.searchsorted puts it at
+    N). int32 positions shaped like `v`. Where the walk only counts
+    (`_walk_is_a_count`), torch.searchsorted gives the same positions in
+    one call."""
+    if side not in ("left", "right"):
+        raise ValueError(f"searchsorted32: side must be left or right, "
+                         f"got {side!r}")
+    if _walk_is_a_count(a, v):
+        return torch.searchsorted(a.contiguous(), v.contiguous(),
+                                  right=side == "right", out_int32=True)
+    N = a.shape[0]
+    pos = torch.zeros(v.shape, dtype=torch.int32, device=v.device)
+    for shift in range(N.bit_length() - 1, -1, -1):
+        cand = pos + (1 << shift)
+        probe = a[torch.clamp(cand - 1, 0, N - 1).long()]
+        ok = probe < v if side == "left" else probe <= v
+        pos = torch.where((cand <= N) & ok, cand, pos)
+    return pos
+
+
+_K6 = "k6_search"
+#: element type -> the kernel's type code (bool as its bytes)
+_K6_DTYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
+              torch.float64: 3, torch.bool: 4}
+
+
+def searchsorted32_cuda(a: torch.Tensor, v: torch.Tensor,
+                        side: str = "left", *,
+                        counter: str = "K6") -> torch.Tensor:
+    """K6 on the card: one launch (none for an empty `v`). `a` and `v` of
+    two types meet in their promoted type, as the plain compares do."""
+    if side not in ("left", "right"):
+        raise ValueError(f"searchsorted32: side must be left or right, "
+                         f"got {side!r}")
+    if a.dim() != 1:
+        raise ValueError("searchsorted32: a must be one-dimensional")
+    if a.dtype != v.dtype:
+        t = torch.promote_types(a.dtype, v.dtype)
+        a, v = a.to(t), v.to(t)
+    if a.dtype not in _K6_DTYPES:
+        raise ValueError(f"searchsorted32: no kernel for {a.dtype}")
+    a, vf = a.contiguous(), v.contiguous().reshape(-1)
+    kernels.require_cuda("searchsorted32", a, vf)
+    out = torch.empty(v.shape, dtype=torch.int32, device=a.device)
+    if vf.numel() == 0:
+        return out
+    P = ctypes.c_void_p
+    fn = kernels.bind(_K6, "k6_searchsorted",
+                      [ctypes.c_int, ctypes.c_int, P, ctypes.c_int, P,
+                       ctypes.c_longlong, P, P])
+    rc = fn(_K6_DTYPES[a.dtype], int(side == "right"), a.data_ptr(),
+            a.shape[0], vf.data_ptr(), vf.numel(), out.data_ptr(),
+            kernels.stream())
+    kernels.check(_K6, "searchsorted32", rc)
+    kernels.LAUNCHES[counter] += 1
+    return out
 
 
 def searchsorted32(a: torch.Tensor, v: torch.Tensor,
                    side: str = "left") -> torch.Tensor:
     """Positions where `v` would insert into sorted `a`, as int32 (same
-    sides as jnp.searchsorted)."""
-    return torch.searchsorted(a, v, right=(side == "right"), out_int32=True)
+    sides as jnp.searchsorted, the JAX function's walk): K6 on the card,
+    else the plain walk."""
+    if a.is_cuda or v.is_cuda:
+        return searchsorted32_cuda(a, v, side)
+    return searchsorted32_plain(a, v, side)
 
 
 # --------------------------------------------------------------------------- #

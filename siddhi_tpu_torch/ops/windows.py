@@ -24,7 +24,10 @@ lacks most indexing and `where` ops on the CPU and on CUDA.
 The session and sort windows build one chunk and order it with a stable
 argsort of its emission keys (`_sort_chunk`), and the sort window ranks its
 buffer with successive stable argsorts: both are kernel K7
-(csrc/k7_radix_sort.cu).
+(csrc/k7_radix_sort.cu). The sliding and batch windows merge their
+pre-sorted lane groups into one chunk order with the K7 merge
+(csrc/k7_merge.cu, `_merge_order`), and find their trigger positions with
+K6 (csrc/k6_search.cu, `searchsorted32`).
 """
 
 from __future__ import annotations
@@ -39,7 +42,8 @@ from ..core import dtypes
 from ..core.event import EventBatch, EventType
 from ..errors import SiddhiAppCreationError
 from .search import (float64_sort_key, searchsorted32,
-                     stable_partition_order, stable_radix_argsort)
+                     searchsorted32_plain, stable_partition_order,
+                     stable_partition_order_plain, stable_radix_argsort)
 
 # emission-key kinds: expired lanes sort before reset before current at the
 # same trigger position
@@ -100,12 +104,13 @@ def _emit_key(comp_pos, kind, within, B):
     return hi, within.to(torch.int32)
 
 
-def _merge_order(keys, valids):
-    """Global emission permutation for lane groups whose valid lanes carry
-    nondecreasing (hi, lo) keys: per-group stable partition (K1) plus
-    cross-group searchsorted rank sums, reproducing the stable
-    concatenation order on ties. Valid lanes first, in key order; invalid
-    lanes after, in concatenation order."""
+def _merge_order_plain(keys, valids):
+    """Plain K7 merge, the JAX `_merge_order`: global emission permutation
+    for lane groups whose valid lanes carry nondecreasing (hi, lo) keys:
+    per-group stable partition (plain K1) plus cross-group searchsorted
+    rank sums (plain K6), reproducing the stable concatenation order on
+    ties. Valid lanes first, in key order; invalid lanes after, in
+    concatenation order."""
     G = len(keys)
     lens = [k[0].shape[0] for k in keys]
     total = sum(lens)
@@ -114,7 +119,7 @@ def _merge_order(keys, valids):
 
     ck, orders, nvs = [], [], []
     for (hi, lo), v in zip(keys, valids):
-        og = stable_partition_order(v.contiguous()).long()
+        og = stable_partition_order_plain(v.contiguous()).long()
         nv = v.sum(dtype=torch.int32)
         k = (hi.to(torch.int64) << 32) | (lo.to(torch.int64) & 0xFFFFFFFF)
         k = k[og]
@@ -133,12 +138,74 @@ def _merge_order(keys, valids):
             if h == g:
                 continue
             side = "right" if h < g else "left"
-            rank = rank + searchsorted32(ck[h], ck[g], side=side)
+            rank = rank + searchsorted32_plain(ck[h], ck[g], side=side)
         is_val = iota < nvs[g]
         rank = torch.where(is_val, rank, inv_base + (iota - nvs[g]))
         inv_base = inv_base + (lens[g] - nvs[g])
         order_all[rank.long()] = (offsets[g] + orders[g]).to(torch.int32)
     return order_all
+
+
+_K7M = "k7_merge"
+#: the packed key words the kernel reads (anything else is cast to int32)
+_K7M_WORDS = (torch.int32, torch.int64)
+
+
+def _merge_order_cuda(keys, valids):
+    """K7 merge on the card: one launch (none for no lanes), no host sync;
+    hi and lo read as int32 or int64 words, valid as bytes. Scratch (tile
+    counts, the compacted keys and lane ids) sized from the shapes."""
+    G = len(keys)
+    if not 1 <= G <= kernels.bind(_K7M, "k7_merge_max_groups", [])():
+        raise ValueError(f"_merge_order: 1 to 4 lane groups, got {G}")
+    parts = []
+    for (hi, lo), v in zip(keys, valids):
+        hi = hi if hi.dtype in _K7M_WORDS else hi.to(torch.int32)
+        lo = lo if lo.dtype in _K7M_WORDS else lo.to(torch.int32)
+        hi, lo, v = hi.contiguous(), lo.contiguous(), v.contiguous()
+        if v.dtype != torch.bool or not (hi.dim() == lo.dim() == v.dim() == 1
+                                         and hi.shape == lo.shape == v.shape):
+            raise ValueError("_merge_order: each group's hi, lo and bool "
+                             "valid of one length")
+        parts.append((hi, lo, v))
+    kernels.require_cuda("_merge_order", *(t for p in parts for t in p))
+    dev = parts[0][0].device
+    lens = [p[0].shape[0] for p in parts]
+    total = sum(lens)
+    order = torch.empty(total, dtype=torch.int32, device=dev)
+    if total == 0:
+        return order
+    tile = kernels.bind(_K7M, "k7_merge_tile_lanes", [])()
+    tiles = sum(-(-n // tile) for n in lens)
+    nbytes = kernels.bind(_K7M, "k7_merge_scratch_bytes",
+                          [ctypes.c_int, ctypes.c_int],
+                          restype=ctypes.c_longlong)(tiles, total)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    ws = kernels.workspace(
+        _K7M, kernels.bind(_K7M, "k7_merge_workspace_bytes", [])(), dev)
+    spec = [G, total]
+    for hi, lo, v in parts:
+        spec += [hi.data_ptr(), lo.data_ptr(), v.data_ptr(),
+                 hi.element_size() * 16 + lo.element_size(), v.shape[0]]
+    P = ctypes.c_void_p
+    fn = kernels.bind(_K7M, "k7_merge_order", [P, P, P, P, P])
+    rc = fn((ctypes.c_longlong * len(spec))(*spec), order.data_ptr(),
+            scratch.data_ptr(), ws.data_ptr(), kernels.stream())
+    kernels.check(_K7M, "_merge_order", rc, dev)
+    kernels.LAUNCHES["K7 merge"] += 1
+    return order
+
+
+def _merge_order(keys, valids):
+    """Global emission permutation of lane groups (the JAX `_merge_order`):
+    K7 merge on the card, else its plain version. `keys` holds a (hi, lo)
+    pair a group, `valids` a bool mask a group; int32 over the
+    concatenated lanes. Each group's valid packed keys must be
+    nondecreasing and below BIG (as every window's are); otherwise ranks
+    collide and the order is undefined, in the JAX function as here."""
+    if keys[0][0].is_cuda:
+        return _merge_order_cuda(keys, valids)
+    return _merge_order_plain(keys, valids)
 
 
 def _merge_sorted_chunks(keys, colss, tss, valids, types, width):

@@ -3044,3 +3044,220 @@ def test_join_step_compacts_in_its_probe_launch(cuda):
     assert launches[0]["K10 probe compact"] == 8
     assert launches[0]["K10 probe"] == 0
     assert launches[0]["K10 compact"] == 0
+
+
+# ------------------------- the K7 merge, K6 and K7's bounded argsort
+
+MERGE_SHAPES = ["app D's shape", "app C's shape", "app A's shape",
+                "app A's shape, expired output"]
+MERGE_EDGES = ["ties across three groups", "every lane invalid",
+               "every lane valid, one key", "first group empty",
+               "a middle group empty", "lengths 1", "one valid lane a group",
+               "the one-block limit", "one past the one-block limit",
+               "four groups", "int64 hi, negative lo",
+               "int64 lo above 32 bits", "more tiles than the grid",
+               *(f"lengths 1-300 #{i}" for i in range(6))]
+SEARCH_EDGES = [f"{k}, {side}" for k in (
+    "N = 0", "N = 1", "empty v", "v of two dimensions", "every key equal",
+    "float32 NaN, -0.0, inf", "float64 NaN, -0.0, inf", "int64 extremes",
+    "bool", "unsorted a", "int32 a, int64 v", "N = 2^20 + 1")
+    for side in ("left", "right")]
+BOUNDED_EDGES = ["L = 1", "the one-block limit", "one past it",
+                 "every lane invalid", "bound 0", "keys at 0 and the bound",
+                 "app D's chunk"]
+_MERGE_SEARCH_CACHE = {}
+
+
+def _merge_search_cases(kind, cuda):
+    """chip_smoke.py's phase-6 and phase-36 cases of one kind, built once
+    a module."""
+    if kind not in _MERGE_SEARCH_CACHE:
+        cs = _chip_smoke()
+        build = {"shapes": cs.merge_shapes, "merge": cs.merge_edge_cases,
+                 "search": cs.search_edge_cases,
+                 "search shapes": cs.search_shapes,
+                 "bounded": cs.bounded_sort_cases}[kind]
+        _MERGE_SEARCH_CACHE[kind] = build(torch, np.random.default_rng(36),
+                                          cuda)
+    return _MERGE_SEARCH_CACHE[kind]
+
+
+def _assert_merge_case(keys, valids, name):
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import windows as w
+    total = sum(int(k[0].numel()) for k in keys)
+    kernels.reset_launch_counts()
+    got = w._merge_order(keys, valids)
+    assert kernels.LAUNCHES["K7 merge"] == (1 if total else 0), name
+    assert kernels.LAUNCHES["K1"] == 0, name
+    want = w._merge_order_plain(keys, valids)
+    assert got.dtype == want.dtype == torch.int32, name
+    assert torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("name", MERGE_SHAPES)
+def test_k7_merge_main_path_shapes_match_plain(cuda, name):
+    """The K7 merge at apps D's, C's and A's steps: the order bit for bit
+    against _merge_order_plain (plain K1 and K6), one launch, no K1."""
+    cases = _merge_search_cases("shapes", cuda)
+    assert sorted(cases) == sorted(MERGE_SHAPES)
+    _assert_merge_case(*cases[name], name)
+
+
+@pytest.mark.parametrize("name", MERGE_EDGES)
+def test_k7_merge_edges_match_plain(cuda, name):
+    """chip_smoke.py's phase-36 merge edges: bit for bit, one launch a
+    call (none without a lane), the workspace left zero."""
+    from siddhi_tpu_torch import kernels
+    cases = _merge_search_cases("merge", cuda)
+    assert sorted(cases) == sorted(MERGE_EDGES)
+    _assert_merge_case(*cases[name], name)
+    ws = kernels.workspace("k7_merge", 0, cuda)
+    assert int(ws.count_nonzero()) == 0
+
+
+def test_k7_merge_sizes_alternate_on_one_stream(cuda):
+    """Cooperative and one-block merges of several sizes take turns on one
+    stream: each call finds the workspace its predecessor left zero."""
+    cases = _merge_search_cases("merge", cuda)
+    for name in 3 * ["more tiles than the grid", "lengths 1",
+                     "one past the one-block limit", "four groups",
+                     "every lane invalid"]:
+        _assert_merge_case(*cases[name], name)
+
+
+@pytest.mark.parametrize("name", SEARCH_EDGES)
+def test_k6_edges_match_plain(cuda, name):
+    """chip_smoke.py's phase-36 K6 edges at both sides: bit for bit
+    against searchsorted32_plain (the JAX walk), one launch a call (none
+    for an empty v), shaped like v."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import search
+    cases = _merge_search_cases("search", cuda)
+    assert sorted(cases) == sorted(SEARCH_EDGES)
+    a, v, side = cases[name]
+    kernels.reset_launch_counts()
+    got = search.searchsorted32(a, v, side)
+    assert kernels.LAUNCHES["K6"] == (1 if v.numel() else 0)
+    want = search.searchsorted32_plain(a, v, side)
+    assert got.shape == v.shape and got.dtype == torch.int32
+    assert torch.equal(got, want)
+
+
+def test_k6_main_path_shapes_match_plain(cuda):
+    """K6 at app C's expiry trigger and app M's bucket trigger."""
+    from siddhi_tpu_torch.ops import search
+    for name, (a, v, side) in _merge_search_cases("search shapes",
+                                                 cuda).items():
+        assert torch.equal(search.searchsorted32(a, v, side),
+                           search.searchsorted32_plain(a, v, side)), name
+
+
+@pytest.mark.parametrize("name", BOUNDED_EDGES)
+def test_stable_argsort_bounded_edges_match_plain(cuda, name):
+    """stable_argsort_bounded on the card is K7 (one launch, int32) and
+    equals the plain stable sort."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import search
+    cases = _merge_search_cases("bounded", cuda)
+    assert sorted(cases) == sorted(BOUNDED_EDGES)
+    k, bound = cases[name]
+    kernels.reset_launch_counts()
+    got = search.stable_argsort_bounded(k, bound)
+    assert kernels.LAUNCHES["K7 bounded"] == 1
+    assert torch.equal(got, search.stable_radix_argsort_plain(k, bound))
+
+
+def test_k5_and_k5b_sort_on_k7_not_torch(cuda, monkeypatch):
+    """The grouped K5 and K5b calls sort their slots with one K7 launch
+    each (no torch.sort) and still match their plain versions."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.ops import groupby
+    rng = np.random.default_rng(23)
+    L, K = 20_000, 4096
+    slots = torch.from_numpy(rng.integers(0, K, L).astype(np.int32)).to(cuda)
+    valid = torch.from_numpy(rng.random(L) < 0.9).to(cuda)
+    resets = torch.zeros(L, dtype=torch.bool, device=cuda)
+    cur = torch.zeros((), dtype=torch.int32, device=cuda)
+    d = torch.from_numpy(rng.integers(-9, 9, L)).to(cuda)
+    pv, pe, po = groupby.grouped_scan_fused_plain(
+        [torch.zeros(K, dtype=torch.int64, device=cuda)],
+        torch.zeros(K, dtype=torch.int32, device=cuda), slots, [d], valid,
+        resets, cur)
+    ps, pso = groupby.grouped_scan_plain(
+        groupby.init_group_state(K, torch.int64, cuda), slots, d, valid,
+        resets, cur, "max")
+
+    def refuse(*a, **kw):
+        raise AssertionError("torch.sort on the card's K5 path")
+
+    monkeypatch.setattr(torch, "sort", refuse)
+    kernels.reset_launch_counts()
+    kv, ke, ko = groupby.grouped_scan_fused(
+        [torch.zeros(K, dtype=torch.int64, device=cuda)],
+        torch.zeros(K, dtype=torch.int32, device=cuda), slots, [d], valid,
+        resets, cur)
+    ks, kso = groupby.grouped_scan(
+        groupby.init_group_state(K, torch.int64, cuda), slots, d, valid,
+        resets, cur, "max")
+    assert {c: kernels.LAUNCHES[c] for c in ("K7 K5 sort", "K5",
+                                              "K7 K5b sort", "K5b grouped")
+            } == {"K7 K5 sort": 1, "K5": 1, "K7 K5b sort": 1,
+                  "K5b grouped": 1}
+    assert torch.equal(kv[0], pv[0]) and torch.equal(ko[0], po[0])
+    assert torch.equal(ke, pe)
+    assert torch.equal(ks.values, ps.values) and torch.equal(kso, pso)
+
+
+STEP_APPS = {
+    "sliding time": ("""
+        @app:playback
+        define stream S (sym string, price double);
+        @info(name = 'q')
+        from S#window.time(1 sec)
+        select sym, sum(price) as total
+        group by sym
+        insert all events into OutStream;
+        """, {"K7 merge": 1, "K6": 1, "K7 K5 sort": 1}),
+    "batch": ("""
+        define stream S (sym string, price double);
+        @info(name = 'q')
+        from S#window.lengthBatch(700)
+        select sym, sum(price) as total
+        group by sym
+        insert into OutStream;
+        """, {"K7 merge": 1, "K6": 0, "K7 K5 sort": 1}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(STEP_APPS))
+def test_window_steps_launch_the_merge_and_search(cuda, name):
+    """A sliding time window's step and a lengthBatch step each launch the
+    K7 merge once (no K1 inside it), the time window K6 once, the grouped
+    sum one K7 sort; outputs equal the CPU run's."""
+    from siddhi_tpu_torch import SiddhiManager, kernels
+    text, per_step = STEP_APPS[name]
+    rng = np.random.default_rng(5)
+    feeds = [({"sym": np.array([f"S{i}" for i in rng.integers(0, 40, 2048)],
+                               dtype=object),
+               "price": rng.uniform(1, 100, 2048)},
+              np.arange(2048) + 2048 * r) for r in range(4)]
+    outs, counts = [], []
+    for dev in ("cuda", "cpu"):
+        rt = SiddhiManager(device=dev).create_siddhi_app_runtime(
+            text, batch_size=2048)
+        got = []
+        rt.add_callback("OutStream", lambda evs, g=got: g.extend(
+            (e.timestamp, e.data, e.is_expired) for e in evs))
+        kernels.reset_launch_counts()
+        for cols, ts in feeds:
+            rt.get_input_handler("S").send_columns(cols, timestamps=ts)
+            rt.flush()
+        counts.append({k: kernels.LAUNCHES[k] for k in per_step})
+        outs.append(got)
+        rt.shutdown()
+    assert counts[0] == {k: v * len(feeds) for k, v in per_step.items()}
+    assert len(outs[0]) == len(outs[1]) and len(outs[0]) > 0
+    for (ta, da, ea), (tb, db, eb) in zip(*outs):
+        assert (ta, da[0], ea) == (tb, db[0], eb)
+        assert da[1] == pytest.approx(db[1], rel=1e-5)

@@ -17,6 +17,7 @@ import torch
 
 from siddhi_tpu.ops import groupby as jgb
 from siddhi_tpu.ops import search as jsearch
+from siddhi_tpu.ops import windows as jwin
 from siddhi_tpu_torch.ops import groupby as tgb
 from siddhi_tpu_torch.ops import search as tsearch
 
@@ -26,6 +27,8 @@ FLOAT_RTOL = 1e-5
 _j_lookup = jax.jit(jgb.key_lookup_or_insert)
 _j_grouped = jax.jit(jgb.grouped_scan_fused)
 _j_ungrouped = jax.jit(jgb.ungrouped_scan_fused)
+_j_merge_order = jax.jit(jwin._merge_order)
+_j_search = jax.jit(jsearch.searchsorted32, static_argnames="side")
 
 
 def _np(x):
@@ -45,19 +48,133 @@ def test_k1_stable_partition_order_matches_jax(n, p):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_search_helpers_match_jax():
-    rng = np.random.default_rng(3)
-    x = rng.integers(0, 50, 300).astype(np.int32)
-    np.testing.assert_array_equal(
-        tsearch.stable_argsort_bounded(torch.from_numpy(x)).numpy(),
-        _np(jsearch.stable_argsort_bounded(jnp.asarray(x))))
-    a = np.sort(rng.integers(0, 100, 200)).astype(np.int64)
-    v = rng.integers(-5, 105, 77).astype(np.int64)
-    for side in ("left", "right"):
+def _search_case(case, rng):
+    """(a, v) numpy inputs of one searchsorted32 case."""
+    if case == "int32 keys":
+        return (np.sort(rng.integers(-50, 50, 200)).astype(np.int32),
+                rng.integers(-55, 55, 77).astype(np.int32))
+    if case == "int64 keys":
+        return (np.sort(rng.integers(-2**40, 2**40, 300)),
+                rng.integers(-2**40, 2**40, 100))
+    if case in ("float32 column", "float64 column"):
+        dt = np.float32 if case == "float32 column" else np.float64
+        a = rng.normal(0, 10, 250).astype(dt)
+        a[:6] = [np.nan, -0.0, 0.0, np.inf, -np.inf, -0.0]
+        v = np.concatenate([a[:6], rng.normal(0, 10, 40).astype(dt)])
+        return np.sort(a, kind="stable"), v  # NaN last, as the index
+    if case == "N = 0":
+        return np.zeros(0, np.int64), rng.integers(-3, 3, 9)
+    if case == "duplicates":
+        return (np.repeat(np.arange(0, 20, 2), 30).astype(np.int64),
+                rng.integers(-1, 21, 60))
+    if case == "unsorted a":  # the walk's answer, not a count
+        return (rng.integers(-20, 20, 150), rng.integers(-25, 25, 60))
+    if case == "v of two dimensions":
+        return (np.sort(rng.integers(0, 100, 200)).astype(np.int32),
+                rng.integers(-5, 105, (7, 11)).astype(np.int32))
+    raise AssertionError(case)
+
+
+SEARCH_CASES = ["int32 keys", "int64 keys", "float32 column",
+                "float64 column", "N = 0", "duplicates",
+                "v of two dimensions", "unsorted a"]
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("case", SEARCH_CASES + ["bounded argsort",
+                                                 "bounded argsort, wide"])
+def test_search_helpers_match_jax(case, side):
+    """The plain K6 walk and the bounded argsort against the JAX functions:
+    int32 and int64 keys, float columns with NaN, +-0.0 and +-inf, N = 0,
+    duplicates, a two-dimensional v, an unsorted a, both sides; the
+    argsort with and
+    without its bound, narrow and past the JAX package's packed-sort
+    width."""
+    rng = np.random.default_rng(SEARCH_CASES.index(case)
+                                if case in SEARCH_CASES else 3)
+    if case.startswith("bounded argsort"):
+        n = 9000 if case.endswith("wide") else 300
+        x = rng.integers(0, 50, n).astype(np.int32)
+        got = tsearch.stable_argsort_bounded(
+            torch.from_numpy(x), 49 if side == "left" else None)
+        assert got.dtype == torch.int32
         np.testing.assert_array_equal(
-            tsearch.searchsorted32(torch.from_numpy(a), torch.from_numpy(v),
-                                   side).numpy(),
-            _np(jsearch.searchsorted32(jnp.asarray(a), jnp.asarray(v), side)))
+            got.numpy(), _np(jsearch.stable_argsort_bounded(jnp.asarray(x))))
+        return
+    a, v = _search_case(case, rng)
+    got = tsearch.searchsorted32(torch.from_numpy(a), torch.from_numpy(v),
+                                 side)
+    want = _np(_j_search(jnp.asarray(a), jnp.asarray(v), side=side))
+    assert got.dtype == torch.int32 and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_searchsorted32_follows_jax_where_torch_differs():
+    """A NaN query and a NaN inside `a` take the JAX walk's answer (every
+    compare with NaN false), not torch.searchsorted's (NaN as largest)."""
+    a = np.array([1.0, np.nan])
+    v = np.array([np.nan, -0.0, 1.0, 5.0])
+    for side in ("left", "right"):
+        got = tsearch.searchsorted32(torch.from_numpy(a), torch.from_numpy(v),
+                                     side).numpy()
+        want = _np(_j_search(jnp.asarray(a), jnp.asarray(v), side=side))
+        np.testing.assert_array_equal(got, want)
+        torch_pos = torch.searchsorted(torch.from_numpy(a),
+                                       torch.from_numpy(v),
+                                       right=side == "right").numpy()
+        assert (got != torch_pos).any()
+    assert got[0] == 0  # the NaN query lands at 0
+
+
+# ------------------------------------------------------------ K7 merge
+
+
+def _merge_group(rng, n, p, hi=(0, 6), lo=(0, 3), hi_dt=np.int32):
+    """(hi, lo, valid) of one lane group, its packed keys nondecreasing as
+    a window's groups hold them (lo's low word zero-extended)."""
+    h = rng.integers(hi[0], hi[1], n).astype(hi_dt)
+    lw = rng.integers(lo[0], lo[1], n).astype(np.int32)
+    packed = (h.astype(np.int64) << 32) | (lw.astype(np.int64) & 0xFFFFFFFF)
+    order = np.argsort(packed, kind="stable")
+    return h[order], lw[order], rng.random(n) < p
+
+
+MERGE_CASES = {
+    "three groups, ties across them": [(120, 0.7), (77, 0.9), (5, 1.0)],
+    "every lane invalid": [(50, 0.0), (80, 0.0)],
+    "one group empty": [(0, 0.5), (200, 0.6)],
+    "a middle group empty": [(150, 0.5), (0, 0.5), (40, 1.0)],
+    "lengths 1": [(1, 1.0), (1, 1.0)],
+    "lengths 1-300": "random",
+    "int64 hi, negative lo": "wide",
+}
+
+
+@pytest.mark.parametrize("case", list(MERGE_CASES))
+def test_merge_order_plain_matches_jax(case):
+    """_merge_order_plain (plain K1 and K6) against the JAX _merge_order:
+    the same int32 permutation, ties across groups in concatenation
+    order, invalid lanes after every valid one."""
+    from siddhi_tpu_torch.ops import windows as twin
+    rng = np.random.default_rng(list(MERGE_CASES).index(case))
+    spec = MERGE_CASES[case]
+    if spec == "random":
+        groups = [_merge_group(rng, int(n), rng.random())
+                  for n in rng.integers(1, 301, 2)]
+    elif spec == "wide":
+        wide = dict(hi=(-2**30, 2**30), lo=(-2**31, 2**31))
+        groups = [_merge_group(rng, 400, 0.6, hi_dt=np.int64, **wide),
+                  _merge_group(rng, 300, 0.7, **wide)]
+    else:
+        groups = [_merge_group(rng, n, p) for n, p in spec]
+    got = twin._merge_order_plain(
+        [(torch.from_numpy(h), torch.from_numpy(lw)) for h, lw, _ in groups],
+        [torch.from_numpy(v) for _, _, v in groups])
+    want = _np(_j_merge_order(
+        [(jnp.asarray(h), jnp.asarray(lw)) for h, lw, _ in groups],
+        [jnp.asarray(v) for _, _, v in groups]))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 # --------------------------------------------------------------------- K3
